@@ -1,0 +1,199 @@
+"""Multi-head attention on one device (port of the reference's
+core/attention.py, unsharded route).
+
+Prefill (`attn_full`) is the reference's `tp == 1` route `_attn_seq_sp` with
+no sequence shards: Q/K/V projections (norm prologue fused), rotary
+positions, flash attention with the static offset 0, out-projection with the
+residual fused into its epilogue.  Decode (`attn_decode_paged`) writes the
+new token's K/V into its pool block and attends the slot's paged blocks.
+
+Paged pools are [NB + 1, BS, KV, hd]: the trailing block is a write sink
+that absorbs the writes the reference drops (`mode="drop"`) — absent table
+entries — so the in-place scatter needs no host round trip.  The block
+allocator never hands it out.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.nn import act_dtype, fused_pdot, pdot
+from repro_torch.core.precision import Policy
+from repro_torch.core.rope import apply_rope
+from repro_torch.kernels import ops
+from repro_torch.kernels.epilogue import Epilogue
+
+CACHE_DTYPE = torch.bfloat16
+SPLIT_TOKENS = 256      # decode: KV positions per split-KV partial
+
+
+def attention_param_shapes(cfg) -> dict:
+    E, H, hd, KV = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
+    return {"wq": (E, H * hd), "wk": (E, KV * hd),
+            "wv": (E, KV * hd), "wo": (H * hd, E)}
+
+
+def merge_partials(o, m, l, dim=None):
+    """Finish online-softmax partials.  o: [..., D] unnormalized; m, l: [...]
+    fp32.  `dim`: the split dimension to merge over (the reference's T4
+    rule, with the cross-device psum/pmax as a sum/max over that dim);
+    None: a single partial, which only needs its normalization."""
+    if dim is None:
+        return o / torch.clamp(l, min=1e-30)[..., None]
+    m_all = m.amax(dim=dim, keepdim=True)
+    corr = torch.exp(m - m_all)
+    l_all = (l * corr).sum(dim=dim)
+    o_all = (o * corr[..., None]).sum(dim=dim)
+    return o_all / torch.clamp(l_all, min=1e-30)[..., None]
+
+
+def build_cache(k_full, v_full, *, cache_len: int):
+    """-> {"k", "v"} [B, cache_len, KV, hd] in the cache dtype (padded with
+    zeros past the sequence)."""
+    S = k_full.shape[1]
+    if S < cache_len:
+        pad = (0, 0, 0, 0, 0, cache_len - S)
+        k_full = torch.nn.functional.pad(k_full, pad)
+        v_full = torch.nn.functional.pad(v_full, pad)
+    return {"k": k_full.to(CACHE_DTYPE), "v": v_full.to(CACHE_DTYPE)}
+
+
+def attn_full(p, x, *, cfg, policy: Policy, causal: bool, window: int = 0,
+              with_cache: bool = False, cache_len: int = 0, norm=None,
+              residual=None):
+    """x: [B, S, E] -> (y [B, S, E], cache | None).  `norm`: fused pre-norm
+    prologue on the Q/K/V GEMMs (x arrives un-normalized); `residual`:
+    folded into the out-projection epilogue, and y is then the updated
+    residual stream."""
+    B, S, E = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ad = act_dtype(policy)
+    positions = torch.arange(S, device=x.device)
+
+    q = fused_pdot(x, p["wq"], policy, prologue=norm).reshape(B, S, H, hd)
+    q = apply_rope(q, positions, theta=cfg.rope_theta,
+                   fraction=cfg.rope_fraction)
+    k = fused_pdot(x, p["wk"], policy, prologue=norm).reshape(B, S, KV, hd)
+    v = fused_pdot(x, p["wv"], policy, prologue=norm).reshape(B, S, KV, hd)
+    k = apply_rope(k, positions, theta=cfg.rope_theta,
+                   fraction=cfg.rope_fraction)
+
+    out = ops.flash_attention(q.to(ad), k.to(ad), v.to(ad), causal=causal,
+                              window=window, q_offset=0)
+    o = out.reshape(B, S, H * hd)
+    if residual is not None:
+        y = fused_pdot(o, p["wo"], policy,
+                       epilogue=Epilogue(residual=residual, out_dtype=ad))
+    else:
+        y = pdot(o, p["wo"], policy)
+    cache = build_cache(k, v, cache_len=cache_len) if with_cache else None
+    return y, cache
+
+
+def _decode_q(p, x, pos, *, cfg, policy: Policy, norm=None):
+    """Projected + rotated query for one decode step: [B, H, hd]."""
+    B = x.shape[0]
+    q = fused_pdot(x, p["wq"], policy, prologue=norm).reshape(
+        B, cfg.n_heads, cfg.head_dim)
+    return apply_rope(q[:, None], pos[:, None], theta=cfg.rope_theta,
+                      fraction=cfg.rope_fraction)[:, 0]
+
+
+def _decode_kv_new(p, x, pos, *, cfg, policy: Policy, norm=None):
+    """This step's K/V rows ([B, KV, hd] each; K rotated)."""
+    B = x.shape[0]
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    k = fused_pdot(x, p["wk"], policy, prologue=norm).reshape(B, KV, hd)
+    v = fused_pdot(x, p["wv"], policy, prologue=norm).reshape(B, KV, hd)
+    k = apply_rope(k[:, None], pos[:, None], theta=cfg.rope_theta,
+                   fraction=cfg.rope_fraction)[:, 0]
+    return k, v
+
+
+def _decode_out_proj(p, merged, *, policy: Policy, residual=None):
+    """[B, H*hd] head tensor @ wo -> [B, E] at the activation dtype; with
+    `residual` the result is the updated residual stream."""
+    ad = act_dtype(policy)
+    o = merged.to(ad)
+    if residual is not None:
+        return fused_pdot(o, p["wo"], policy,
+                          epilogue=Epilogue(residual=residual, out_dtype=ad),
+                          out_dtype=torch.float32)
+    return pdot(o, p["wo"], policy, out_dtype=torch.float32).to(ad)
+
+
+def decode_splits(max_len: int, max_blocks: int, block_size: int) -> int:
+    """Split-KV count for a decode step whose longest slot holds `max_len`
+    positions: one split per SPLIT_TOKENS, so long contexts spread over more
+    blocks of the card; 1 keeps the single normalized pass."""
+    per = max(1, SPLIT_TOKENS // block_size)
+    need = -(-max(max_len, 1) // (per * block_size))
+    return max(1, min(need, -(-max_blocks // per)))
+
+
+def _paged_attention(q, k_pool, v_pool, tables, length, kv_splits: int):
+    """One decode step's attention over the paged pools -> [B, H, hd].
+
+    kv_splits == 1: the normalized paged kernel.  kv_splits > 1: the table
+    is cut into `kv_splits` contiguous entry ranges (entries outside a
+    range read as absent), each range runs through the partials kernel as
+    its own batch row, and the partials merge with the online-softmax rule
+    — the reference's cross-shard merge, applied across splits of one
+    card's pool."""
+    if kv_splits <= 1:
+        return ops.paged_decode_attention(q, k_pool, v_pool, tables, length)
+    B, MB = tables.shape
+    per = -(-MB // kv_splits)
+    entry = torch.arange(MB, device=tables.device)
+    split = torch.arange(kv_splits, device=tables.device)
+    inside = (entry[None, :] // per) == split[:, None]          # [S, MB]
+    tabs = torch.where(inside[:, None, :], tables[None],
+                       torch.full_like(tables[None], -1))       # [S, B, MB]
+    S = kv_splits
+    o, m, l = ops.paged_decode_partials(
+        q.repeat(S, 1, 1), k_pool, v_pool, tabs.reshape(S * B, MB),
+        length.repeat(S))
+    H, D = q.shape[1], q.shape[2]
+    return merge_partials(o.reshape(S, B, H, D), m.reshape(S, B, H),
+                          l.reshape(S, B, H), dim=0)
+
+
+def attn_decode_paged(p, x, pos, cache, block_tables, *, cfg,
+                      policy: Policy, norm=None, residual=None,
+                      kv_splits: int = 1):
+    """One decode step against the block-paged KV pools.
+
+    x: [B, E]; pos: [B] position of the token being written; cache:
+    {"k", "v"} pools [NB + 1, BS, KV, hd] (trailing sink block); block_tables:
+    [B, MB] pool indices (< 0 unallocated).  The new token's K/V is written
+    IN PLACE into block table[pos // BS] at offset pos % BS (absent blocks
+    go to the sink), then attention runs over length pos + 1.  Returns
+    (y [B, E], cache)."""
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.head_dim
+    ad = act_dtype(policy)
+    k_pool, v_pool = cache["k"], cache["v"]
+    sink = k_pool.shape[0] - 1
+    BS, KV = k_pool.shape[1], k_pool.shape[2]
+    MB = block_tables.shape[1]
+
+    q = _decode_q(p, x, pos, cfg=cfg, policy=policy, norm=norm)
+    k_new, v_new = _decode_kv_new(p, x, pos, cfg=cfg, policy=policy,
+                                  norm=norm)
+
+    pos = pos.to(torch.int64)
+    entry = torch.clamp(pos // BS, max=MB - 1)
+    gb = block_tables.to(torch.int64).gather(1, entry[:, None])[:, 0]
+    owned = (gb >= 0) & (gb < sink) & (pos // BS < MB)
+    flat = torch.where(owned, gb * BS + pos % BS,
+                       torch.full_like(gb, sink * BS))
+    k_pool.view(-1, KV, hd)[flat] = k_new.to(k_pool.dtype)
+    v_pool.view(-1, KV, hd)[flat] = v_new.to(v_pool.dtype)
+
+    length = (pos + 1).to(torch.int32)
+    tab = torch.where((block_tables >= 0) & (block_tables < sink),
+                      block_tables, torch.full_like(block_tables, -1))
+    out = _paged_attention(q.to(ad), k_pool, v_pool, tab.to(torch.int32),
+                           length, kv_splits)
+    merged = out.reshape(B, H * hd)
+    return _decode_out_proj(p, merged, policy=policy,
+                            residual=residual), cache

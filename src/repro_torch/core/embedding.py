@@ -1,0 +1,110 @@
+"""Embedding, logits head and token choice on one device (port of the
+reference's core/embedding.py).
+
+The logits head is the step's largest GEMM: [B, E] @ [E, padded_vocab] in
+fp32 with the final LayerNorm fused as its prologue; padded vocabulary
+columns are masked to -1e30.  Sampling is Gumbel-max — argmax(z / T + g) —
+with the reference's top-k threshold rule.  The reference draws g with
+threefry keyed by (seed, step); until a bit-exact threefry port lands, the
+port draws it from a `torch.Generator` seeded by (seed, step), per row, on
+the device, so one (seed, position) pair always gives one draw whatever the
+batch slot.  `_lane_scores(noise=)` takes the noise from the caller instead
+(tests feed the reference's own draw through it).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.nn import act_dtype, fused_pdot
+
+NEG_INF = -1e30
+TOP_K_CAP = 64
+
+
+def embedding_param_shapes(cfg) -> dict:
+    Vp, E = cfg.padded_vocab, cfg.d_model
+    return {"embed": (Vp, E), "unemb": (E, Vp)}
+
+
+def init_embedding(generator, cfg, dtype, device):
+    shapes = embedding_param_shapes(cfg)
+    return {n: (torch.randn(s, generator=generator, device=device) * 0.02
+                ).to(dtype) for n, s in shapes.items()}
+
+
+def embed_sequence(emb, ids, *, policy):
+    """ids: [B, S] -> [B, S, E] at the activation dtype."""
+    return emb[ids.long()].to(act_dtype(policy))
+
+
+def embed_token(emb, ids, *, policy):
+    """ids: [B] -> [B, E] at the activation dtype."""
+    return emb[ids.long()].to(torch.float32).to(act_dtype(policy))
+
+
+def logits_local(x, unemb, *, cfg, policy, norm=None):
+    """x: [B, E] -> z [B, Vp] fp32 with padded columns masked.  `norm`: the
+    final norm fused into the logits GEMM as its prologue."""
+    z = fused_pdot(x, unemb, policy, prologue=norm, out_dtype=torch.float32)
+    real = torch.arange(z.shape[-1], device=z.device)[None, :] < cfg.vocab
+    return torch.where(real, z, torch.tensor(NEG_INF, device=z.device))
+
+
+def greedy_token(x, unemb, *, cfg, policy, norm=None):
+    """x: [B, E] -> [B] int32 argmax (ties to the lowest id)."""
+    z = logits_local(x, unemb, cfg=cfg, policy=policy, norm=norm)
+    return torch.argmax(z, dim=-1).to(torch.int32)
+
+
+def sample_token(x, unemb, lane, *, cfg, policy, norm=None):
+    """x: [B, E] -> [B] int32 sampled per row (greedy rows: argmax).  `lane`
+    as in `_lane_scores`."""
+    z = logits_local(x, unemb, cfg=cfg, policy=policy, norm=norm)
+    return torch.argmax(_lane_scores(z, lane), dim=-1).to(torch.int32)
+
+
+def _noise_seed(seed: int, step: int) -> int:
+    """One 64-bit generator seed per (request seed, position)."""
+    return ((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
+
+
+def gumbel_noise(lane, n_cols: int, device) -> torch.Tensor:
+    """[B, n_cols] fp32 Gumbel(0, 1) noise, one generator per sampled row
+    seeded by (seed, step); greedy rows get zeros (their score ignores it)."""
+    temp = np.asarray(lane["temperature"], np.float32)
+    seeds = np.asarray(lane["seed"])
+    steps = np.asarray(lane["step"])
+    g = torch.zeros((len(temp), n_cols), dtype=torch.float32, device=device)
+    tiny = torch.finfo(torch.float32).tiny
+    for b in np.flatnonzero(temp > 0):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(_noise_seed(seeds[b], steps[b]))
+        u = torch.rand((n_cols,), generator=gen, device=device)
+        g[b] = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+    return g
+
+
+def _lane_scores(z, lane, *, noise=None):
+    """Per-row scores whose argmax IS the chosen token: greedy rows
+    (temperature <= 0) keep the raw logits, sampled rows get top-k-masked,
+    temperature-scaled, Gumbel-perturbed logits.
+
+    z: [B, V] fp32.  lane: host-side per-row arrays "temperature", "top_k",
+    "seed", "step" ([B] each).  `noise` [B, V] replaces the drawn Gumbel
+    noise."""
+    B, V = z.shape
+    dev = z.device
+    t = torch.tensor(np.asarray(lane["temperature"], np.float32), device=dev)
+    k = torch.tensor(np.asarray(lane["top_k"], np.int64), device=dev)
+    sampled = t > 0.0
+    kcap = min(TOP_K_CAP, V)
+    top = torch.topk(z, kcap, dim=-1).values                    # [B, kcap]
+    kth = torch.clamp(k, 1, kcap) - 1
+    thresh = top.gather(1, kth[:, None])
+    keep = (k[:, None] <= 0) | (z >= thresh)
+    g = noise if noise is not None else gumbel_noise(lane, V, dev)
+    t_safe = torch.where(sampled, torch.clamp(t, min=1e-6),
+                         torch.ones_like(t))
+    masked = torch.where(keep, z, torch.tensor(NEG_INF, device=dev))
+    return torch.where(sampled[:, None], masked / t_safe[:, None] + g, z)

@@ -1,0 +1,58 @@
+"""Dense GELU MLP on one device (port of the reference's core/mlp.py dense
+path): the pre-norm fuses into the first GEMM as a prologue, the activation
+(i-GELU by default, paper T5) into its epilogue, and the residual add into
+the second GEMM's epilogue."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.activations import get_activation
+from repro_torch.core.nn import act_dtype, fused_pdot, pdot
+from repro_torch.kernels.epilogue import Epilogue
+
+GELU_IMPL = "i_gelu"    # the reference plan's default (sharding/plan.py)
+
+
+def mlp_param_shapes(cfg) -> dict:
+    if cfg.mlp_act != "gelu":
+        raise NotImplementedError(
+            f"mlp_act={cfg.mlp_act!r}: only the dense GELU MLP is ported")
+    return {"w1": (cfg.d_model, cfg.d_ff), "w2": (cfg.d_ff, cfg.d_model)}
+
+
+def _first_gemm(xt, p, cfg, policy, *, norm=None):
+    """xt [T, E] -> h [T, F] at the activation dtype."""
+    ad = act_dtype(policy)
+    if norm is None:
+        h = pdot(xt, p["w1"], policy)
+        return get_activation(GELU_IMPL)(h).to(ad)
+    return fused_pdot(xt, p["w1"], policy, prologue=norm,
+                      epilogue=Epilogue(activation=GELU_IMPL, out_dtype=ad))
+
+
+def _ffn_local(xt, p, cfg, policy, *, norm=None, residual=None):
+    """xt: [T, E] -> [T, E]; `residual` [T, E] folds into the second GEMM's
+    epilogue (the result is then the updated stream)."""
+    h = _first_gemm(xt, p, cfg, policy, norm=norm)
+    if residual is not None:
+        return fused_pdot(h, p["w2"], policy,
+                          epilogue=Epilogue(residual=residual,
+                                            out_dtype=act_dtype(policy)))
+    return pdot(h, p["w2"], policy)
+
+
+def mlp_full(p, x, *, cfg, policy, norm=None, residual=None):
+    """x: [B, S, E] -> [B, S, E] (with `residual`: the updated stream)."""
+    B, S, E = x.shape
+    res = residual.reshape(B * S, E) if residual is not None else None
+    y = _ffn_local(x.reshape(B * S, E), p, cfg, policy, norm=norm,
+                   residual=res)
+    return y.reshape(B, S, E)
+
+
+def mlp_decode(p, x, *, cfg, policy, norm=None, residual=None):
+    """x: [B, E] -> [B, E] (with `residual`: the updated stream)."""
+    if residual is not None:
+        return _ffn_local(x, p, cfg, policy, norm=norm, residual=residual)
+    part = _ffn_local(x, p, cfg, policy, norm=norm)
+    return part.to(torch.float32).to(act_dtype(policy))

@@ -1,0 +1,33 @@
+"""GEMM helpers with the paper's precision rules (T6): operands in the policy
+compute dtype, fp32 accumulation, activations carried in the compute dtype.
+"""
+from __future__ import annotations
+
+from repro_torch.core.precision import Policy
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import _dot
+
+
+def act_dtype(policy: Policy):
+    return policy.compute_dtype
+
+
+def pdot(x, w, policy: Policy, *, out_dtype=None):
+    """x: [..., K] @ w: [K, N] in the policy compute dtype, fp32 accumulation,
+    emitted as `out_dtype` (default: the activation dtype).  The reference
+    leaves this unfused product to XLA outside Pallas; the port leaves it to
+    PyTorch."""
+    w, _ = ops.split_quantized(w)
+    cd = policy.compute_dtype
+    return _dot(x.to(cd), w.to(cd), out_dtype or act_dtype(policy))
+
+
+def fused_pdot(x, w, policy: Policy, *, prologue=None, epilogue=None,
+               out_dtype=None):
+    """`pdot` with an optional fused norm prologue / bias-activation-residual
+    epilogue: those go through the fused GEMM (`ops.fused_matmul`)."""
+    if prologue is None and epilogue is None:
+        return pdot(x, w, policy, out_dtype=out_dtype)
+    od = out_dtype or act_dtype(policy)
+    return ops.fused_matmul(x, w, prologue=prologue, epilogue=epilogue,
+                            compute_dtype=policy.compute_dtype, dot_dtype=od)

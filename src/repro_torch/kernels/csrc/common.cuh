@@ -1,0 +1,70 @@
+// Shared device helpers for the port's hand-written Hopper kernels.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// element-type codes passed from the Python wrappers
+enum DTypeCode { DT_F32 = 0, DT_BF16 = 1 };
+
+#define NEG_INF_F (-1e30f)
+
+__device__ __forceinline__ float ld_elem(const void* p, int64_t i, int dt) {
+  return dt == DT_BF16
+             ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
+             : reinterpret_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void st_elem(void* p, int64_t i, int dt, float v) {
+  if (dt == DT_BF16)
+    reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+  else
+    reinterpret_cast<float*>(p)[i] = v;
+}
+
+// Four consecutive elements starting at index i (i % 4 == 0 and the base
+// 16-byte aligned when `vec` is set: one 8-byte or 16-byte load).
+__device__ __forceinline__ float4 ld4_aligned(const void* p, int64_t i, int dt) {
+  if (dt == DT_BF16) {
+    const uint2 u = *reinterpret_cast<const uint2*>(
+        reinterpret_cast<const __nv_bfloat16*>(p) + i);
+    __nv_bfloat162 lo, hi;
+    *reinterpret_cast<uint32_t*>(&lo) = u.x;
+    *reinterpret_cast<uint32_t*>(&hi) = u.y;
+    const float2 a = __bfloat1622float2(lo);
+    const float2 b = __bfloat1622float2(hi);
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+  return *reinterpret_cast<const float4*>(reinterpret_cast<const float*>(p) + i);
+}
+
+// Elements [c, c+4) of row `r` of a row-major [rows, cols] matrix; zeros
+// outside it.
+__device__ __forceinline__ float4 ld4_row(const void* p, int r, int c, int rows,
+                                          int cols, int dt, bool vec) {
+  if (r >= rows) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const int64_t base = (int64_t)r * cols;
+  if (vec && c + 3 < cols) return ld4_aligned(p, base + c, dt);
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = (c + j < cols) ? ld_elem(p, base + c + j, dt) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Round through bf16 (the P tile is cast to V's dtype before P.V).
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}

@@ -1,0 +1,192 @@
+"""Kernel dispatch: hand-written CUDA kernels <-> plain PyTorch.
+
+Every model-facing op of the port goes through this module.  Modes:
+
+  ``auto``  (default) by the tensor's device: a CUDA tensor launches the
+            hand-written kernel (or raises), a CPU tensor takes the kernel's
+            plain PyTorch version.  No `try` falls back from one to the other.
+  ``cuda``  the kernel, always; a CPU tensor raises.
+  ``ref``   the line-for-line port of the reference's kernels/ref.py.
+
+Set with `set_mode` / `kernel_mode(...)`, or the environment variable
+`REPRO_TORCH_KERNEL_MODE` (validated when read: an unknown mode raises).
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.epilogue import (LN_EPS, RMS_EPS, Epilogue, Prologue,
+                                          norm_prologue)
+
+__all__ = [
+    "Epilogue", "Prologue", "norm_prologue", "get_mode", "set_mode",
+    "kernel_mode", "flash_attention", "paged_decode_attention",
+    "paged_decode_partials", "split_quantized", "matmul", "fused_matmul",
+    "rmsnorm", "layernorm", "norm",
+]
+
+_STATE = threading.local()
+_VALID = ("auto", "cuda", "ref")
+
+
+def _default_mode() -> str:
+    mode = os.environ.get("REPRO_TORCH_KERNEL_MODE", "auto")
+    if mode not in _VALID:
+        raise ValueError(
+            f"REPRO_TORCH_KERNEL_MODE={mode!r} is not a valid kernel mode; "
+            f"expected one of {_VALID}")
+    return mode
+
+
+def get_mode() -> str:
+    return getattr(_STATE, "mode", None) or _default_mode()
+
+
+def set_mode(mode: str) -> None:
+    if mode not in _VALID:
+        raise ValueError(f"kernel mode {mode!r} not in {_VALID}")
+    _STATE.mode = mode
+
+
+@contextlib.contextmanager
+def kernel_mode(mode: str):
+    prev = getattr(_STATE, "mode", None)
+    set_mode(mode)
+    try:
+        yield
+    finally:
+        _STATE.mode = prev
+
+
+def _use_kernel(x) -> bool:
+    """True: call the kernel wrapper (which launches for CUDA tensors and
+    takes the plain version for CPU tensors); False: the ref.py port."""
+    mode = get_mode()
+    if mode == "ref":
+        return False
+    if mode == "cuda" and x.device.type != "cuda":
+        raise ValueError(f"kernel mode 'cuda' needs CUDA tensors, got a "
+                         f"tensor on {x.device}")
+    return True
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+    """q: [B, Sq, H, D]; k, v: [B, Skv, KV, D] -> [B, Sq, H, D].  The port
+    passes a static int `q_offset`, so the kernel always applies."""
+    if _use_kernel(q):
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset, block_kv=512)
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
+    """Block-paged decode, normalized.  q: [B, H, D]; k/v_pool:
+    [NB, BS, KV, D]; block_tables: [B, MB] (< 0 absent); lengths: [B]."""
+    if _use_kernel(q):
+        return _fd.paged_decode_attention(q, k_pool, v_pool, block_tables,
+                                          lengths)
+    return _ref.paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
+                                           lengths)
+
+
+def paged_decode_partials(q, k_pool, v_pool, block_tables, lengths):
+    """Block-paged decode partials -> (o unnormalized fp32 [B, H, D],
+    m [B, H], l [B, H]) for the online-softmax merge."""
+    if _use_kernel(q):
+        return _fd.paged_decode_partials(q, k_pool, v_pool, block_tables,
+                                         lengths)
+    return _ref.paged_decode_partials_ref(q, k_pool, v_pool, block_tables,
+                                          lengths)
+
+
+# --------------------------------------------------------------------------
+# GEMM + fused prologue / epilogue
+# --------------------------------------------------------------------------
+
+def split_quantized(w):
+    """{"q", "scale"} weight-only-int8 dict -> (q, scale); a plain tensor
+    passes through as (w, None).  The port serves bf16 weights only, so a
+    quantized dict is refused here."""
+    if isinstance(w, dict):
+        raise NotImplementedError(
+            "weight-only int8 serving is not ported yet")
+    return w, None
+
+
+def matmul(a, b, *, activation="none", out_dtype=None):
+    """C = act(A @ B); A: [..., K], B: [K, N]."""
+    b, _ = split_quantized(b)
+    if _use_kernel(a):
+        lead = a.shape[:-1]
+        y = _mm.fused_matmul(a.reshape(-1, a.shape[-1]), b,
+                             activation=activation, out_dtype=out_dtype)
+        return y.reshape(*lead, b.shape[-1])
+    return _ref.matmul_ref(a, b, activation=activation, out_dtype=out_dtype)
+
+
+def _prologue_fields(prologue):
+    if prologue is None:
+        return dict(norm="none", gamma=None, nbeta=None, eps=RMS_EPS)
+    return dict(norm=prologue.kind, gamma=prologue.scale, nbeta=prologue.bias,
+                eps=prologue.eps)
+
+
+def fused_matmul(x, w, *, prologue=None, epilogue=None, compute_dtype=None,
+                 dot_dtype=None):
+    """y = epilogue(norm(x) @ w);  x: [..., K], w: [K, N] -> [..., N].
+
+    `compute_dtype`: operand dtype of the contraction; `dot_dtype`: what
+    the unfused `pdot` would emit (the output dtype when the epilogue names
+    none).  The kernel keeps a normalized operand in fp32, as the TPU
+    kernel does; only an un-normalized x is cast to the compute dtype."""
+    w, _ = split_quantized(w)
+    ep = epilogue or Epilogue()
+    out_dtype = ep.out_dtype or dot_dtype or x.dtype
+    pf = _prologue_fields(prologue)
+    if _use_kernel(x):
+        lead = x.shape[:-1]
+        K, N = x.shape[-1], w.shape[-1]
+        cd = compute_dtype or x.dtype
+        x2 = x.reshape(-1, K)
+        if prologue is None:
+            x2 = x2.to(cd)
+        res2 = (ep.residual.reshape(-1, N) if ep.residual is not None
+                else None)
+        out = _mm.fused_matmul(x2, w.to(cd), bias=ep.bias, residual=res2,
+                               activation=ep.activation, out_dtype=out_dtype,
+                               **pf)
+        return out.reshape(*lead, N)
+    return _ref.fused_matmul_ref(
+        x, w, bias=ep.bias, residual=ep.residual, activation=ep.activation,
+        compute_dtype=compute_dtype, dot_dtype=dot_dtype, out_dtype=out_dtype,
+        **pf)
+
+
+# --------------------------------------------------------------------------
+# normalization (the unfused chain; no kernel on the fused main path)
+# --------------------------------------------------------------------------
+
+def rmsnorm(x, gamma, *, eps=RMS_EPS):
+    return _ref.rmsnorm_ref(x, gamma, eps=eps)
+
+
+def layernorm(x, gamma, beta, *, eps=LN_EPS):
+    return _ref.layernorm_ref(x, gamma, beta, eps=eps)
+
+
+def norm(x, params, kind: str):
+    """Dispatch on the config's norm kind; params: {"scale"[, "bias"]}."""
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["scale"])
+    return layernorm(x, params["scale"], params["bias"])

@@ -1,0 +1,209 @@
+"""Decoder-only language model over the segment schedule (port of the
+reference's models/lm.py serving path).
+
+Parameters keep the reference's tree: `embedding/{embed, unemb}`,
+`final_norm/{scale, bias}`, and one dict per schedule segment whose leaves
+carry the layer dim first (`segments[i]/{ln1, ln2, attn/{wq, wk, wv, wo},
+mlp/{w1, w2}}`).  The reference scans each segment with `lax.scan`; the
+port runs a Python loop over its layers, eagerly.
+
+Modes: `forward_prefill` (NAR prompt pass, optional right-padding to a
+length bucket, compact KV for paged admission) and `forward_decode` (one AR
+step against the paged pools, which it updates in place).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import blocks
+from repro_torch.core.embedding import (embed_sequence, embed_token,
+                                        embedding_param_shapes, greedy_token,
+                                        init_embedding, sample_token)
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+
+
+# --------------------------------------------------------------------------
+# parameters
+# --------------------------------------------------------------------------
+
+def lm_param_shapes(cfg) -> dict:
+    """The parameter tree's leaf shapes (segment leaves with the layer dim
+    leading)."""
+    def stack(tree, count):
+        return {k: (stack(v, count) if isinstance(v, dict)
+                    else (count,) + tuple(v)) for k, v in tree.items()}
+    return {
+        "embedding": embedding_param_shapes(cfg),
+        "final_norm": blocks._norm_shapes(cfg),
+        "segments": tuple(stack(blocks.block_param_shapes(kind, cfg), count)
+                          for kind, count in cfg.schedule),
+    }
+
+
+def init_lm(cfg, *, dtype=torch.bfloat16, device=None, seed: int = 0):
+    """Random N(0, 0.02) weights (unit / zero norms) from a seeded
+    `torch.Generator`, made on the device (the GPU unless device="cpu")."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    segs = tuple(blocks.init_block(gen, kind, cfg, dtype, dev, count)
+                 for kind, count in cfg.schedule)
+    return {"embedding": init_embedding(gen, cfg, dtype, dev),
+            "final_norm": blocks._init_norm(cfg, dtype, dev),
+            "segments": segs}
+
+
+def params_from_numpy(tree, cfg, *, dtype=torch.float32, device=None):
+    """The reference's parameter tree (leaves as numpy arrays, e.g.
+    `jax.tree.map(np.asarray, lm.init_lm(...))`) -> the port's parameters.
+    bf16 leaves pass through float32, which is exact.  Raises on a missing
+    leaf or a shape that does not match `cfg`."""
+    dev = resolve_device(device)
+    shapes = lm_param_shapes(cfg)
+
+    def conv(node, shape_node, path):
+        if isinstance(shape_node, dict):
+            if not isinstance(node, dict) or set(node) != set(shape_node):
+                raise ValueError(f"params_from_numpy: {path or 'root'} has "
+                                 f"keys {sorted(node)}, expected "
+                                 f"{sorted(shape_node)}")
+            return {k: conv(node[k], shape_node[k], f"{path}/{k}")
+                    for k in shape_node}
+        if isinstance(shape_node, tuple) and shape_node and isinstance(
+                shape_node[0], dict):
+            if len(node) != len(shape_node):
+                raise ValueError(f"params_from_numpy: {path} has "
+                                 f"{len(node)} segments, expected "
+                                 f"{len(shape_node)}")
+            return tuple(conv(n, s, f"{path}[{i}]")
+                         for i, (n, s) in enumerate(zip(node, shape_node)))
+        arr = np.asarray(node, np.float32)
+        if arr.shape != tuple(shape_node):
+            raise ValueError(f"params_from_numpy: {path} has shape "
+                             f"{arr.shape}, expected {tuple(shape_node)}")
+        return torch.tensor(arr, device=dev).to(dtype)
+
+    return conv(tree, shapes, "")
+
+
+def _layer(p_seg, i):
+    """Layer `i`'s parameter (or cache) views from a stacked segment."""
+    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in p_seg.items()}
+
+
+# --------------------------------------------------------------------------
+# segment runners
+# --------------------------------------------------------------------------
+
+def _embed_sequence(params, tokens, *, policy):
+    return embed_sequence(params["embedding"]["embed"], tokens,
+                          policy=policy)
+
+
+def _run_segments_prefill(params, x, *, cfg, policy, max_seq, fused=True,
+                          compact_kv=False):
+    """-> (x [B, S, E], caches): one dict per segment of stacked
+    [count, B, S_cache, KV, hd] k/v leaves."""
+    caches = []
+    for (kind, count), p_seg in zip(cfg.schedule, params["segments"]):
+        ks, vs = [], []
+        for i in range(count):
+            x, kv = blocks.block_full(kind, _layer(p_seg, i), x, cfg=cfg,
+                                      policy=policy, fused=fused,
+                                      with_cache=True, max_seq=max_seq,
+                                      compact_kv=compact_kv)
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+        caches.append({"k": torch.stack(ks), "v": torch.stack(vs)})
+    return x, tuple(caches)
+
+
+def _run_segments_decode(params, x, pos, caches, *, cfg, policy,
+                         block_tables, fused=True, kv_splits=1):
+    """Every layer's decode step; pool leaves are updated in place."""
+    for (kind, count), p_seg, c_seg in zip(cfg.schedule, params["segments"],
+                                           caches):
+        for i in range(count):
+            x, _ = blocks.block_decode(kind, _layer(p_seg, i), x, pos,
+                                       _layer(c_seg, i), cfg=cfg,
+                                       policy=policy,
+                                       block_tables=block_tables,
+                                       fused=fused, kv_splits=kv_splits)
+    return x, caches
+
+
+def _head_norm(params, cfg, fused: bool):
+    """Final-norm prologue for the fused logits head (None: the unfused
+    chain applies ops.norm first)."""
+    if not fused:
+        return None
+    return ops.norm_prologue(params["final_norm"], cfg.norm)
+
+
+def _residual_at(x, idx):
+    """x: [B, S, E]; idx: [B] positions -> [B, E]."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    return x[rows, idx.long()]
+
+
+def _choose(x, params, lane, step, *, cfg, policy, norm):
+    unemb = params["embedding"]["unemb"]
+    if lane is None:
+        return greedy_token(x, unemb, cfg=cfg, policy=policy, norm=norm)
+    return sample_token(x, unemb, dict(lane, step=step), cfg=cfg,
+                        policy=policy, norm=norm)
+
+
+# --------------------------------------------------------------------------
+# entry points
+# --------------------------------------------------------------------------
+
+def forward_prefill(params, tokens, *, cfg, policy, max_seq: int,
+                    prompt_len=None, lane=None, compact_kv: bool = False,
+                    fused: bool = True):
+    """NAR prompt pass.  tokens: [B, S] -> (next_token [B], caches, pos [B]).
+
+    `prompt_len` (host int array [B], optional): true lengths of rows
+    right-padded to a length bucket; the next token is read at each row's
+    last true position.  `lane` (host per-row sampling arrays, see
+    core.embedding._lane_scores, without "step"): greedy when None."""
+    x = _embed_sequence(params, tokens, policy=policy)
+    x, caches = _run_segments_prefill(params, x, cfg=cfg, policy=policy,
+                                      max_seq=max_seq, fused=fused,
+                                      compact_kv=compact_kv)
+    head_norm = _head_norm(params, cfg, fused)
+    if head_norm is None:
+        x = ops.norm(x, params["final_norm"], cfg.norm)
+    B, S = tokens.shape
+    if prompt_len is None:
+        pos_host = np.full((B,), S, np.int64)
+    else:
+        pos_host = np.asarray(prompt_len, np.int64)
+    pos = torch.tensor(pos_host, device=tokens.device)
+    x_last = _residual_at(x, pos - 1)
+    tok = _choose(x_last, params, lane, pos_host, cfg=cfg, policy=policy,
+                  norm=head_norm)
+    return tok, caches, pos.to(torch.int32)
+
+
+def forward_decode(params, token, pos, caches, *, cfg, policy,
+                   block_tables, lane=None, fused: bool = True,
+                   kv_splits: int = 1):
+    """One AR step.  token, pos: [B] device tensors; block_tables [B, MB]
+    -> (next_token [B], caches).  `lane` (host arrays, with "step" = the
+    position each sampled token will occupy): greedy when None.
+    `kv_splits`: split-KV count for the paged attention (host int)."""
+    x = embed_token(params["embedding"]["embed"], token, policy=policy)
+    x, caches = _run_segments_decode(params, x, pos, caches, cfg=cfg,
+                                     policy=policy, block_tables=block_tables,
+                                     fused=fused, kv_splits=kv_splits)
+    head_norm = _head_norm(params, cfg, fused)
+    if head_norm is None:
+        x = ops.norm(x, params["final_norm"], cfg.norm)
+    step = None if lane is None else lane["step"]
+    tok = _choose(x, params, lane, step, cfg=cfg, policy=policy,
+                  norm=head_norm)
+    return tok, caches

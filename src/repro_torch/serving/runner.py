@@ -1,0 +1,276 @@
+"""ModelRunner: policy-free model execution for the serving engine (port of
+the reference's serving/runner.py, synchronous whole-prompt path).
+
+Owns the device state — parameters, the paged KV pools, the block allocator
+and block tables, the sampling lanes and the per-slot token/pos mirrors — and
+exposes two execution verbs: `prefill(group)` (one batched NAR pass
+admitting a group into free slots) and `decode()` (one AR step over every
+decoding slot).  Scheduling decisions live in the engine's policy.
+
+Host mirrors (`tokens`, `pos`, `block_tables`, lanes) are numpy arrays that
+the runner mutates; every transfer to the device goes through
+`torch.tensor(...)`, which copies, so a later mutation can never reach a
+tensor a step is still reading.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.attention import decode_splits
+from repro_torch.core.precision import BF16
+from repro_torch.device import resolve_device
+from repro_torch.launch.steps import cache_layout, make_paged_layout
+from repro_torch.models import lm
+from repro_torch.serving.kv_cache import BlockAllocator, prefill_scatter
+from repro_torch.serving.sampling import set_lane, stack_lanes, zero_lane
+from repro_torch.serving.stats import EngineStats
+from repro_torch.serving.tasks import GenerateTask, Task
+
+
+class ModelRunner:
+    """Parameters + paged caches + pool for one serving engine."""
+
+    def __init__(self, cfg, params, *, batch_size: int = 4,
+                 max_seq: int = 256, policy=None, min_bucket: int = 8,
+                 block_size: int = 16, kv_pool_blocks: Optional[int] = None,
+                 fuse_epilogues: bool = True, device=None):
+        if min_bucket < 1:
+            raise ValueError(f"min_bucket must be >= 1: {min_bucket}")
+        self.device = resolve_device(device)
+        first = params["embedding"]["embed"]
+        if first.device.type != self.device.type:
+            raise ValueError(f"params live on {first.device}, the engine "
+                             f"runs on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.B = batch_size
+        self.max_seq = max_seq
+        self.min_bucket = min_bucket
+        self.policy = policy or BF16
+        self.fuse_epilogues = fuse_epilogues
+        default_blocks = batch_size * (-(-max_seq // block_size))
+        self.layout = make_paged_layout(cfg, max_seq,
+                                        kv_pool_blocks or default_blocks,
+                                        block_size)
+        self.caches = cache_layout(cfg, self.layout, device=self.device)
+        self.allocator = BlockAllocator(self.layout.num_blocks, block_size)
+        self.block_tables = np.full((batch_size, self.layout.max_blocks), -1,
+                                    np.int32)
+        self._tables_dev = None            # device copy, rebuilt when dirty
+        self._slot_blocks: List[List[int]] = [[] for _ in range(batch_size)]
+        self._admit_seq = 0
+        self.tokens = np.zeros((batch_size,), np.int32)
+        self.pos = np.zeros((batch_size,), np.int32)
+        self.lane = zero_lane(batch_size)
+        self.slots: List[Optional[GenerateTask]] = [None] * batch_size
+
+    # -- capacity / bucket geometry ------------------------------------
+    @property
+    def prompt_cap(self) -> int:
+        """Longest admissible prompt (one decode position reserved)."""
+        return self.max_seq - 1
+
+    def bucket_for(self, prompt_len: int) -> int:
+        """Smallest rung of {m, 1.5m} x 2^k >= max(min_bucket, len), capped
+        at max_seq (8, 12, 16, 24, 32, ... for min_bucket 8)."""
+        cap = self.max_seq
+        base = self.min_bucket
+        while True:
+            for cand in (base, base + base // 2):
+                if cand >= prompt_len or cand >= cap:
+                    return min(cand, cap)
+            base *= 2
+
+    # -- slot / pool bookkeeping ---------------------------------------
+    def free_slots(self) -> List[int]:
+        return [b for b in range(self.B) if self.slots[b] is None]
+
+    def running(self) -> List[GenerateTask]:
+        return [t for t in self.slots if t is not None]
+
+    def has_running(self) -> bool:
+        return any(s is not None for s in self.slots)
+
+    def decoding_slots(self) -> List[int]:
+        return [b for b in range(self.B) if self.slots[b] is not None]
+
+    def full_prompt(self, task: GenerateTask) -> np.ndarray:
+        """What a (re-)prefill encodes: the prompt plus any tokens generated
+        before a preemption."""
+        if not task.output:
+            return np.asarray(task.prompt, np.int32)
+        return np.concatenate([np.asarray(task.prompt, np.int32),
+                               np.asarray(task.output, np.int32)])
+
+    def full_len(self, task: GenerateTask) -> int:
+        return task.prompt_len + len(task.output)
+
+    def blocks_needed(self, task: GenerateTask) -> int:
+        return self.allocator.blocks_for(self.full_len(task))
+
+    def alloc_for(self, task: GenerateTask) -> Optional[List[int]]:
+        """All-or-nothing block allocation for (re-)admitting `task`."""
+        return self.allocator.alloc(self.blocks_needed(task))
+
+    def release_slot(self, b: int):
+        if self._slot_blocks[b]:
+            self.allocator.free(self._slot_blocks[b])
+        self._slot_blocks[b] = []
+        self.block_tables[b, :] = -1
+        self._tables_dev = None
+        self.slots[b] = None
+
+    def evict(self, b: int) -> GenerateTask:
+        """Pull the task out of slot `b`, releasing its blocks (recompute
+        preemption: the engine re-queues it)."""
+        task = self.slots[b]
+        self.release_slot(b)
+        task.prefilled = 0
+        return task
+
+    def _tables(self):
+        if self._tables_dev is None:
+            self._tables_dev = torch.tensor(self.block_tables,
+                                            device=self.device)
+        return self._tables_dev
+
+    def ensure_decode_blocks(
+            self, select_victim: Callable[[Sequence[Task]], Task],
+            stats: EngineStats) -> List[GenerateTask]:
+        """Before a decode step every decoding slot must own the block its
+        next token lands in (pos // block_size).  Allocation failure evicts
+        `select_victim(running)` until it succeeds; returns the evicted
+        tasks (the engine re-queues them)."""
+        evicted: List[GenerateTask] = []
+        bs = self.layout.block_size
+        for b in range(self.B):
+            if self.slots[b] is None:
+                continue
+            need = int(self.pos[b]) // bs + 1
+            if need > self.allocator.num_blocks:
+                raise RuntimeError(
+                    f"KV pool too small: request {self.slots[b].uid} needs "
+                    f"{need} blocks, pool capacity is "
+                    f"{self.allocator.num_blocks}")
+            while (self.slots[b] is not None
+                   and len(self._slot_blocks[b]) < need):
+                got = self.allocator.alloc(1)
+                if got is not None:
+                    self.block_tables[b, len(self._slot_blocks[b])] = got[0]
+                    self._slot_blocks[b].extend(got)
+                    self._tables_dev = None
+                    continue
+                cand = self.running()
+                if not cand:
+                    raise RuntimeError("KV pool exhausted with no running "
+                                       "request to preempt")
+                victim = select_victim(cand)
+                evicted.append(self.evict(self.slots.index(victim)))
+                stats.preemptions += 1
+        return evicted
+
+    def _seat(self, task: GenerateTask, b: int, blk: List[int]):
+        task._seq = self._admit_seq
+        self._admit_seq += 1
+        self.lane = set_lane(self.lane, b, task.sampling)
+        self.slots[b] = task
+        self._slot_blocks[b] = list(blk)
+
+    # -- execution -----------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, group: List[Tuple[GenerateTask, List[int]]],
+                free_slots: List[int], stats: EngineStats,
+                ) -> List[Tuple[GenerateTask, int]]:
+        """One batched NAR pass for an admission group (all in one length
+        bucket), scattering its KV into the assigned blocks.  Returns
+        (task, output index) pairs for the freshly sampled first tokens."""
+        tasks = [t for t, _ in group]
+        fulls = [self.full_prompt(t) for t in tasks]
+        bucket = self.bucket_for(len(fulls[0]))
+        n = len(tasks)
+        t0 = time.perf_counter()
+        padded = np.zeros((n, bucket), np.int32)
+        for j, seq in enumerate(fulls):
+            padded[j, :len(seq)] = seq
+        lane = stack_lanes([t.sampling for t in tasks])
+        tok, caches_g, pos_g = lm.forward_prefill(
+            self.params, torch.tensor(padded, device=self.device),
+            cfg=self.cfg, policy=self.policy, max_seq=self.max_seq,
+            prompt_len=np.asarray([len(f) for f in fulls]), lane=lane,
+            compact_kv=True, fused=self.fuse_epilogues)
+        slots = free_slots[:n]
+        tables = np.full((n, self.layout.max_blocks), -1, np.int32)
+        for j, (_, blk) in enumerate(group):
+            tables[j, :len(blk)] = blk
+        prefill_scatter(self.caches, caches_g,
+                        torch.tensor(tables, device=self.device),
+                        block_size=self.layout.block_size)
+        tok_np = tok.cpu().numpy()                 # waits: honest timing
+        self.tokens[slots] = tok_np
+        self.pos[slots] = pos_g.cpu().numpy()
+        now = time.perf_counter()
+        dt_ms = (now - t0) * 1e3
+
+        fresh: List[Tuple[GenerateTask, int]] = []
+        n_first = 0
+        for j, (task, blk) in enumerate(group):
+            b = slots[j]
+            first_admit = not task.output
+            task.bucket = bucket
+            task.prefill_ms += dt_ms / n
+            task.prefilled = len(fulls[j])
+            task.output.append(int(tok_np[j]))
+            self._seat(task, b, blk)
+            self.block_tables[b] = tables[j]
+            self._tables_dev = None
+            fresh.append((task, len(task.output) - 1))
+            stats.bucket_hits[bucket] = stats.bucket_hits.get(bucket, 0) + 1
+            if first_admit:
+                n_first += 1
+                task.ttft_ms = (now - task._t_submit) * 1e3
+                stats.nar_tokens += task.prompt_len
+                stats.padded_nar_tokens += bucket
+                stats.add_ttft_ms(task.ttft_ms)
+            else:
+                stats.recompute_tokens += len(fulls[j])
+        stats.nar_time_s += (now - t0) * n_first / n
+        stats.recompute_time_s += (now - t0) * (n - n_first) / n
+        stats.prefill_batches += 1
+        return fresh
+
+    @torch.no_grad()
+    def decode(self, stats: EngineStats) -> List[Tuple[GenerateTask, int]]:
+        """One lockstep AR step over every decoding slot.  Returns the
+        (task, output index) token events."""
+        t0 = time.perf_counter()
+        decoding = [(b, self.slots[b]) for b in self.decoding_slots()]
+        lane = dict(self.lane, step=self.pos.astype(np.int64) + 1)
+        max_len = max(int(self.pos[b]) + 1 for b, _ in decoding)
+        splits = decode_splits(max_len, self.layout.max_blocks,
+                               self.layout.block_size)
+        tok, _ = lm.forward_decode(
+            self.params, torch.tensor(self.tokens, device=self.device),
+            torch.tensor(self.pos, device=self.device), self.caches,
+            cfg=self.cfg, policy=self.policy, block_tables=self._tables(),
+            lane=lane, fused=self.fuse_epilogues, kv_splits=splits)
+        toks = tok.cpu().numpy()                   # waits: honest timing
+        self.pos += 1
+        now = time.perf_counter()
+        dt = now - t0
+        fresh: List[Tuple[GenerateTask, int]] = []
+        for b, task in decoding:
+            t = int(toks[b])
+            self.tokens[b] = t
+            task.output.append(t)
+            task.decode_ms += dt * 1e3
+            fresh.append((task, len(task.output) - 1))
+        stats.decode_steps += 1
+        stats.ar_tokens += len(decoding)
+        stats.ar_time_s += dt
+        stats.add_decode_step_ms(dt * 1e3)
+        stats.occupied_slot_steps += len(decoding)
+        return fresh

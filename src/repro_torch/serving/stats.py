@@ -1,0 +1,178 @@
+"""Serving telemetry (subset of the reference's serving/stats.py): the
+paper's NAR / AR split, TTFT and decode-step latency percentiles, length
+bucket hits, preemptions and KV pool use."""
+from __future__ import annotations
+
+import random
+from dataclasses import dataclass, field
+from typing import Dict, List
+
+
+def percentile(values: List[float], q: float) -> float:
+    """Nearest-rank percentile (q in [0, 100]); 0.0 on empty input."""
+    if not values:
+        return 0.0
+    s = sorted(values)
+    rank = max(0, min(len(s) - 1, int(round(q / 100.0 * (len(s) - 1)))))
+    return s[rank]
+
+
+def percentiles(values: List[float], qs=(50, 95, 99)) -> Dict[str, float]:
+    """{"p50": ..., "p95": ..., "p99": ...} in one sorted pass."""
+    if not values:
+        return {f"p{q:g}": 0.0 for q in qs}
+    s = sorted(values)
+    hi = len(s) - 1
+    return {f"p{q:g}": s[max(0, min(hi, int(round(q / 100.0 * hi))))]
+            for q in qs}
+
+
+MAX_SAMPLES = 4096
+
+
+class Reservoir(List[float]):
+    """Uniform reservoir sample (Algorithm R) that is a list; seeded, so two
+    engines fed the same samples hold identical reservoirs."""
+
+    def __init__(self, capacity: int = MAX_SAMPLES, seed: int = 0):
+        super().__init__()
+        self.capacity = capacity
+        self.seen = 0
+        self._rng = random.Random(seed)
+
+    def add(self, v: float) -> None:
+        self.seen += 1
+        if len(self) < self.capacity:
+            self.append(v)
+            return
+        j = self._rng.randrange(self.seen)
+        if j < self.capacity:
+            self[j] = v
+
+
+@dataclass
+class EngineStats:
+    batch_size: int = 0
+    requests_submitted: int = 0
+    requests_completed: int = 0
+    # -- NAR (prompt encoding / prefill) ------------------------------------
+    nar_tokens: int = 0            # true prompt tokens encoded
+    padded_nar_tokens: int = 0     # incl. length-bucket padding computed
+    nar_time_s: float = 0.0
+    prefill_batches: int = 0
+    # -- AR (decode) --------------------------------------------------------
+    ar_tokens: int = 0
+    ar_time_s: float = 0.0
+    decode_steps: int = 0
+    occupied_slot_steps: int = 0
+    decode_step_ms: List[float] = field(default_factory=Reservoir)
+    # -- serving-level ------------------------------------------------------
+    ttft_ms: List[float] = field(default_factory=Reservoir)
+    queue_wait_ms: List[float] = field(default_factory=Reservoir)
+    tpot_ms_samples: List[float] = field(default_factory=Reservoir)
+    bucket_hits: Dict[int, int] = field(default_factory=dict)
+    # -- paged KV pool ------------------------------------------------------
+    kv_pool_blocks: int = 0
+    kv_block_size: int = 0
+    peak_blocks_used: int = 0
+    preemptions: int = 0
+    recompute_tokens: int = 0
+    recompute_time_s: float = 0.0
+
+    def add_ttft_ms(self, v: float) -> None:
+        self.ttft_ms.add(v)
+
+    def add_decode_step_ms(self, v: float) -> None:
+        self.decode_step_ms.add(v)
+
+    def add_queue_wait_ms(self, v: float) -> None:
+        self.queue_wait_ms.add(v)
+
+    def add_tpot_ms(self, v: float) -> None:
+        self.tpot_ms_samples.add(v)
+
+    @property
+    def nar_tok_s(self) -> float:
+        return self.nar_tokens / self.nar_time_s if self.nar_time_s else 0.0
+
+    @property
+    def ar_tok_s(self) -> float:
+        return self.ar_tokens / self.ar_time_s if self.ar_time_s else 0.0
+
+    @property
+    def slot_occupancy(self) -> float:
+        total = self.decode_steps * self.batch_size
+        return self.occupied_slot_steps / total if total else 0.0
+
+    @property
+    def padding_overhead(self) -> float:
+        if not self.padded_nar_tokens:
+            return 0.0
+        return 1.0 - self.nar_tokens / self.padded_nar_tokens
+
+    @property
+    def ttft_p50_ms(self) -> float:
+        return percentile(self.ttft_ms, 50)
+
+    @property
+    def ttft_p95_ms(self) -> float:
+        return percentile(self.ttft_ms, 95)
+
+    @property
+    def decode_step_p50_ms(self) -> float:
+        return percentile(self.decode_step_ms, 50)
+
+    @property
+    def decode_step_p95_ms(self) -> float:
+        return percentile(self.decode_step_ms, 95)
+
+    @property
+    def pool_utilization(self) -> float:
+        if not self.kv_pool_blocks:
+            return 0.0
+        return self.peak_blocks_used / self.kv_pool_blocks
+
+    def to_dict(self) -> dict:
+        return {
+            "batch_size": self.batch_size,
+            "requests_submitted": self.requests_submitted,
+            "requests_completed": self.requests_completed,
+            "nar_tokens": self.nar_tokens,
+            "padded_nar_tokens": self.padded_nar_tokens,
+            "nar_time_s": self.nar_time_s,
+            "nar_tok_s": self.nar_tok_s,
+            "prefill_batches": self.prefill_batches,
+            "ar_tokens": self.ar_tokens,
+            "ar_time_s": self.ar_time_s,
+            "ar_tok_s": self.ar_tok_s,
+            "decode_steps": self.decode_steps,
+            "slot_occupancy": self.slot_occupancy,
+            "padding_overhead": self.padding_overhead,
+            **{f"ttft_{k}_ms": v for k, v in percentiles(self.ttft_ms).items()},
+            **{f"decode_step_{k}_ms": v
+               for k, v in percentiles(self.decode_step_ms).items()},
+            **{f"queue_wait_{k}_ms": v
+               for k, v in percentiles(self.queue_wait_ms).items()},
+            **{f"tpot_{k}_ms": v
+               for k, v in percentiles(self.tpot_ms_samples).items()},
+            "bucket_hits": {str(k): v
+                            for k, v in sorted(self.bucket_hits.items())},
+            "kv_pool_blocks": self.kv_pool_blocks,
+            "kv_block_size": self.kv_block_size,
+            "peak_blocks_used": self.peak_blocks_used,
+            "pool_utilization": self.pool_utilization,
+            "preemptions": self.preemptions,
+            "recompute_tokens": self.recompute_tokens,
+            "recompute_time_s": self.recompute_time_s,
+        }
+
+    def summary(self) -> str:
+        return (f"NAR {self.nar_tok_s:8.1f} tok/s ({self.nar_tokens} prompt "
+                f"tokens, {self.padding_overhead:.0%} pad) | "
+                f"AR {self.ar_tok_s:8.1f} tok/s ({self.ar_tokens} tokens, "
+                f"occupancy {self.slot_occupancy:.0%}) | "
+                f"TTFT p50 {self.ttft_p50_ms:.0f}ms p95 "
+                f"{self.ttft_p95_ms:.0f}ms | KV pool peak "
+                f"{self.pool_utilization:.0%} ({self.peak_blocks_used}/"
+                f"{self.kv_pool_blocks} x {self.kv_block_size}-token blocks, "
+                f"{self.preemptions} preempt)")

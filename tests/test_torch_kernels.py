@@ -1,0 +1,322 @@
+"""PyTorch port, kernel level: each kernel's plain PyTorch version (what
+the CUDA kernel computes, and what the wrapper runs for CPU tensors) held
+against the JAX Pallas kernel in interpret mode and against the reference's
+jnp oracle; the ref.py port against the jnp oracle; and the dispatch rules
+(no fallback from a kernel to its plain version).
+
+Inputs come from a numpy seed and go to both frameworks.  Tolerances:
+fp32 rtol = atol = 1e-4; bf16 the conftest's 2e-2.
+"""
+import ast
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention as jfa
+from repro.kernels import flash_decode as jfd
+from repro.kernels import matmul as jmm
+from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import flash_decode as tfd
+from repro_torch.kernels import matmul as tmm
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+
+# the suite runs beside JAX tests in parallel workers: keep torch from
+# claiming every core
+torch.set_num_threads(2)
+
+F32 = dict(rtol=1e-4, atol=1e-4)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _pair(arr, dtype):
+    """The same numpy values as a JAX array and a torch tensor."""
+    jd = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    td = torch.float32 if dtype == "f32" else torch.bfloat16
+    return jnp.asarray(arr, jnp.float32).astype(jd), torch.tensor(arr).to(td)
+
+
+# --------------------------------------------------------------------------
+# fused GEMM
+# --------------------------------------------------------------------------
+
+def _mm_inputs(seed, M=24, K=64, N=48, dtype="f32"):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) * 0.2).astype(np.float32)
+    g = (1.0 + 0.2 * rng.standard_normal(K)).astype(np.float32)
+    b = (0.2 * rng.standard_normal(K)).astype(np.float32)
+    res = rng.standard_normal((M, N)).astype(np.float32)
+    return [_pair(x, dtype) for x in (a, w, g, b, res)]
+
+
+def _mm_kwargs(norm, epilogue, g, b, res):
+    kw = dict(norm=norm, eps=1e-5 if norm == "layernorm" else 1e-6)
+    if norm != "none":
+        kw["gamma"] = g
+    if norm == "layernorm":
+        kw["nbeta"] = b
+    if epilogue == "i_gelu":
+        kw["activation"] = "i_gelu"
+    if epilogue == "residual":
+        kw["residual"] = res
+    return kw
+
+
+@pytest.mark.parametrize("epilogue", ["none", "i_gelu", "residual"])
+@pytest.mark.parametrize("norm", ["none", "layernorm", "rmsnorm"])
+def test_fused_matmul_plain_vs_pallas_and_oracle(norm, epilogue):
+    (ja, ta), (jw, tw), (jg, tg), (jb, tb), (jr, tr) = _mm_inputs(0)
+    got = tmm.matmul_plain(ta, tw, **_mm_kwargs(norm, epilogue, tg, tb, tr))
+    pallas = jmm.matmul(ja, jw, block_m=16, block_n=16, block_k=32,
+                        interpret=True,
+                        **_mm_kwargs(norm, epilogue, jg, jb, jr))
+    np.testing.assert_allclose(_np(got), _np(pallas), **F32)
+    oracle = jref.fused_matmul_ref(ja, jw, dot_dtype=jnp.float32,
+                                   out_dtype=jnp.float32,
+                                   **_mm_kwargs(norm, epilogue, jg, jb, jr))
+    np.testing.assert_allclose(_np(got), _np(oracle), **F32)
+
+
+@pytest.mark.parametrize("norm", ["none", "layernorm"])
+def test_fused_matmul_plain_vs_pallas_bf16(norm):
+    """bf16 operands: the plain version repeats the Pallas kernel's fp32
+    prologue arithmetic, so the two agree to a bf16 output ulp."""
+    (ja, ta), (jw, tw), (jg, tg), (jb, tb), (jr, tr) = _mm_inputs(1,
+                                                                  dtype="bf16")
+    kw = _mm_kwargs(norm, "residual", tg, tb, tr)
+    got = tmm.matmul_plain(ta, tw, activation="i_gelu", **kw)
+    pallas = jmm.matmul(ja, jw, activation="i_gelu", block_m=16, block_n=16,
+                        block_k=32, interpret=True,
+                        **_mm_kwargs(norm, "residual", jg, jb, jr))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(pallas), **BF16)
+
+
+@pytest.mark.parametrize("norm", ["none", "rmsnorm", "layernorm"])
+def test_fused_matmul_ref_port_matches_oracle_bf16(norm):
+    """ref.py port: same casts as the jnp oracle (normalize, cast, dot to
+    bf16, activation, residual)."""
+    (ja, ta), (jw, tw), (jg, tg), (jb, tb), (jr, tr) = _mm_inputs(2,
+                                                                  dtype="bf16")
+    got = tref.fused_matmul_ref(ta, tw, activation="i_gelu",
+                                compute_dtype=torch.bfloat16,
+                                **_mm_kwargs(norm, "residual", tg, tb, tr))
+    want = jref.fused_matmul_ref(ja, jw, activation="i_gelu",
+                                 compute_dtype=jnp.bfloat16,
+                                 **_mm_kwargs(norm, "residual", jg, jb, jr))
+    np.testing.assert_allclose(_np(got), _np(want), **BF16)
+
+
+@pytest.mark.parametrize("mode", ["auto", "ref"])
+@pytest.mark.parametrize("activation", ["none", "gelu"])
+def test_ops_matmul_matches_oracle(mode, activation):
+    (ja, ta), (jw, tw), _, _, _ = _mm_inputs(6)
+    with ops.kernel_mode(mode):
+        got = ops.matmul(ta.reshape(2, 12, 64), tw, activation=activation)
+    want = jref.matmul_ref(ja, jw, activation=activation)
+    assert got.shape == (2, 12, 48)
+    np.testing.assert_allclose(_np(got).reshape(24, 48), _np(want), **F32)
+
+
+def test_fused_matmul_wrapper_takes_plain_on_cpu():
+    (_, ta), (_, tw), (_, tg), (_, tb), _ = _mm_inputs(3)
+    before = tmm.fused_matmul.launches
+    got = tmm.fused_matmul(ta, tw, norm="layernorm", gamma=tg, nbeta=tb,
+                           eps=1e-5)
+    want = tmm.matmul_plain(ta, tw, norm="layernorm", gamma=tg, nbeta=tb,
+                            eps=1e-5)
+    assert torch.equal(got, want)
+    assert tmm.fused_matmul.launches == before     # no kernel launched
+
+
+# --------------------------------------------------------------------------
+# flash attention
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("causal,Sq,Skv,q_offset", [
+    (True, 20, 20, 0),        # causal, ragged against the 8-wide tiles
+    (False, 13, 20, 0),       # ragged kv_len, bidirectional
+    (True, 8, 20, 12),        # q rows at an offset (chunk-style)
+])
+def test_flash_attention_plain_vs_pallas_and_oracle(D, causal, Sq, Skv,
+                                                    q_offset):
+    rng = np.random.default_rng(D + Sq)
+    q = rng.standard_normal((2, Sq, 4, D)).astype(np.float32)
+    k = rng.standard_normal((2, Skv, 2, D)).astype(np.float32)
+    v = rng.standard_normal((2, Skv, 2, D)).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(x, "f32") for x in (q, k, v))
+    got = tfa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                    q_offset=q_offset, block_kv=8)
+    pallas = jfa.flash_attention(jq, jk, jv, causal=causal, q_offset=q_offset,
+                                 block_q=8, block_kv=8, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), **F32)
+    oracle = jref.attention_ref(jq, jk, jv, causal=causal, q_offset=q_offset)
+    np.testing.assert_allclose(_np(got), _np(oracle), **F32)
+    np.testing.assert_allclose(
+        _np(tref.attention_ref(tq, tk, tv, causal=causal, q_offset=q_offset)),
+        _np(oracle), **F32)
+    port_ref = tref.flash_attention_ref(tq, tk, tv, causal=causal,
+                                        q_offset=q_offset, block_kv=8)
+    want_ref = jref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                        q_offset=q_offset, block_kv=8)
+    np.testing.assert_allclose(_np(port_ref), _np(want_ref), **F32)
+
+
+def test_flash_attention_plain_vs_pallas_bf16():
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((1, 24, 2, 32)).astype(np.float32)
+               for _ in range(3))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(x, "bf16") for x in (q, k, v))
+    got = tfa.flash_attention(tq, tk, tv, causal=True)
+    pallas = jfa.flash_attention(jq, jk, jv, causal=True, block_q=8,
+                                 block_kv=8, interpret=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(pallas), **BF16)
+
+
+# --------------------------------------------------------------------------
+# paged decode
+# --------------------------------------------------------------------------
+
+def _paged_inputs(seed, dtype="f32"):
+    """3 slots, mixed lengths, an absent entry inside slot 1's table and
+    unallocated tails."""
+    rng = np.random.default_rng(seed)
+    B, H, KV, D, BS, NB, MB = 3, 4, 2, 16, 8, 12, 5
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kp = rng.standard_normal((NB, BS, KV, D)).astype(np.float32)
+    vp = rng.standard_normal((NB, BS, KV, D)).astype(np.float32)
+    tab = np.array([[3, 7, -1, -1, -1],
+                    [1, -1, 4, 9, -1],
+                    [11, 0, 2, 5, 6]], np.int32)
+    lengths = np.array([13, 30, 37], np.int32)
+    pairs = [_pair(x, dtype) for x in (q, kp, vp)]
+    jt, tt = jnp.asarray(tab), torch.tensor(tab)
+    jl, tl = jnp.asarray(lengths), torch.tensor(lengths)
+    return pairs, (jt, tt), (jl, tl)
+
+
+def test_paged_decode_partials_plain_vs_pallas_and_oracle():
+    ((jq, tq), (jk, tk), (jv, tv)), (jt, tt), (jl, tl) = _paged_inputs(0)
+    o, m, l = tfd.paged_decode_partials(tq, tk, tv, tt, tl)
+    po, pm, pl_ = jfd.paged_decode_partials(jq, jk, jv, jt, jl,
+                                            interpret=True)
+    for a, b in ((o, po), (m, pm), (l, pl_)):
+        np.testing.assert_allclose(_np(a), _np(b), **F32)
+    ro, rm, rl = jref.paged_decode_partials_ref(jq, jk, jv, jt, jl)
+    # the oracle's (m, l) are the whole-row statistics: compare normalized
+    np.testing.assert_allclose(_np(o / l[..., None]),
+                               _np(ro / rl[..., None]), **F32)
+    to, tm_, tl_ = tref.paged_decode_partials_ref(tq, tk, tv, tt, tl)
+    for a, b in ((to, ro), (tm_, rm), (tl_, rl)):
+        np.testing.assert_allclose(_np(a), _np(b), **F32)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_paged_decode_attention_plain_vs_pallas_and_oracle(dtype):
+    ((jq, tq), (jk, tk), (jv, tv)), (jt, tt), (jl, tl) = _paged_inputs(
+        1, dtype)
+    got = tfd.paged_decode_attention(tq, tk, tv, tt, tl)
+    pallas = jfd.paged_decode_attention(jq, jk, jv, jt, jl, interpret=True)
+    tol = F32 if dtype == "f32" else BF16
+    np.testing.assert_allclose(_np(got), _np(pallas), **tol)
+    oracle = jref.paged_decode_attention_ref(jq, jk, jv, jt, jl)
+    np.testing.assert_allclose(_np(got), _np(oracle), **tol)
+    port_ref = tref.paged_decode_attention_ref(tq, tk, tv, tt, tl)
+    np.testing.assert_allclose(_np(port_ref), _np(oracle), **tol)
+
+
+def test_split_kv_merge_matches_single_pass():
+    """The decode path's split-KV route (partials over table ranges, then
+    the online-softmax merge) equals the single normalized pass."""
+    from repro_torch.core.attention import _paged_attention
+    pairs, (_, tt), (_, tl) = _paged_inputs(2)
+    tq, tk, tv = (t for _, t in pairs)
+    one = _paged_attention(tq, tk, tv, tt, tl, 1)
+    for splits in (2, 3, 5):
+        np.testing.assert_allclose(
+            _np(_paged_attention(tq, tk, tv, tt, tl, splits)), _np(one), **F32)
+
+
+# --------------------------------------------------------------------------
+# dispatch: no fallback, validated modes
+# --------------------------------------------------------------------------
+
+def test_invalid_env_mode_raises(monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_KERNEL_MODE", "pallas")
+    with pytest.raises(ValueError, match="not a valid kernel mode"):
+        ops.get_mode()
+
+
+def test_cuda_mode_refuses_cpu_tensor():
+    x = torch.zeros((2, 8))
+    w = torch.zeros((8, 4))
+    with ops.kernel_mode("cuda"):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            ops.fused_matmul(x, w)
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            ops.flash_attention(torch.zeros((1, 4, 2, 8)),
+                                torch.zeros((1, 4, 2, 8)),
+                                torch.zeros((1, 4, 2, 8)))
+
+
+def test_auto_mode_non_cpu_tensor_raises_instead_of_falling_back():
+    """A tensor that is not on the CPU goes to the kernel; where no kernel
+    can launch the call raises — it never quietly runs the plain version."""
+    q = torch.zeros((1, 4, 2, 8), device="meta")
+    with ops.kernel_mode("auto"):
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.flash_attention(q, q, q)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.fused_matmul(torch.zeros((2, 8), device="meta"),
+                             torch.zeros((8, 4), device="meta"))
+        pools = torch.zeros((3, 4, 2, 8), device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.paged_decode_partials(
+                torch.zeros((1, 2, 8), device="meta"), pools, pools,
+                torch.zeros((1, 2), dtype=torch.int32, device="meta"),
+                torch.ones((1,), dtype=torch.int32, device="meta"))
+
+
+def test_ref_mode_runs_ref_port():
+    (_, ta), (_, tw), _, _, _ = _mm_inputs(4)
+    with ops.kernel_mode("ref"):
+        got = ops.fused_matmul(ta, tw, dot_dtype=torch.float32)
+    assert torch.equal(got, tref.fused_matmul_ref(ta, tw,
+                                                  dot_dtype=torch.float32))
+
+
+# --------------------------------------------------------------------------
+# the port stands alone
+# --------------------------------------------------------------------------
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, mod)
