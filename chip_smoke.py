@@ -6,19 +6,30 @@ Phases (each prints its results; any failure raises and the exit code is
 non-zero):
   1. device   the card's name and power limit (nvidia-smi), torch / CUDA /
               nvcc versions;
-  2. build    nvcc builds every kernel from src/repro_torch/kernels/csrc;
+  2. build    nvcc builds every kernel from src/repro_torch/kernels/csrc, one
+              process per source, all started together;
   3. kernels  each hand-written kernel against its plain PyTorch version on
-              the card, in bf16, at the GPT-J / GPT3-XL serving shapes: the
-              error against the stated tolerance, kernel / plain / library
+              the card, in bf16, at the serving shapes of GPT-J / GPT3-XL
+              (MHA) and phi4-mini (SwiGLU, RMSNorm, GQA 24 / 8): the error
+              against the stated tolerance, kernel / plain / library
               milliseconds (CUDA events, median of the timed launches) and
               the bound (the larger of bytes / 3.35 TB/s and FLOPs / 989
               TFLOP/s, the H100 SXM data-sheet peaks);
-  4. serve    GPT-J at full width and depth (random seeded weights) behind
-              InferenceEngine(batch_size=4, max_seq=512, block_size=16): 8
-              requests, every kernel's launch counter > 0, no leaked blocks;
-              then one prompt teacher-forced through the kernel path and
-              the plain path, final-position logits compared.
-The line before the last is {"kernels": [...]}; the last line is
+  4. sampling threefry Gumbel noise drawn on the card against the same draw
+              on the CPU: bits, uniforms and noise bit-equal, sampled
+              tokens identical;
+  5. serve    GPT-J, then phi4-mini, at full width and depth (random seeded
+              bf16 weights) behind InferenceEngine(batch_size=4,
+              max_seq=512, block_size=16): 8 requests each, every kernel of
+              the path launched, no leaked blocks; the device's busy share
+              of a decode step and its largest kernels and host ops
+              (torch.profiler); then one prompt
+              teacher-forced through the fused and the unfused kernel
+              paths, final-position logits held to the plain (`ref`) path
+              in bf16 and in fp32.
+Every driven path zeroes the launch counters just before it and reads them
+just after; a kernel of the path that never launched fails the run.  The
+line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -40,8 +51,9 @@ PEAK_BYTES = 3.35e12          # H100 SXM HBM3, bytes/s (data sheet)
 PEAK_BF16 = 989e12            # H100 SXM dense bf16 tensor FLOP/s (data sheet)
 GEMM_TOL = {"bf16": 1e-2, "fp32": 1e-3}    # max|k - p| / max|p|
 ATTN_TOL = 1e-2
-LOGIT_TOL = 5e-2              # teacher-forced head: max|dz| / max|z|
-LOGIT_COS = 0.999
+NORM_TOL = 1e-2
+LOGIT_TOL = 5e-2              # teacher-forced head: max|dz| / max|z| ...
+LOGIT_COS = 0.999             # ... or a multiple of the bf16 rounding floor
 
 
 def log(msg):
@@ -74,6 +86,22 @@ def rel_err(got, want):
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
     return err, err / max(want.abs().max().item(), 1e-30)
+
+
+def _row(case, err, rel, tol, ms, plain, lib, nbytes, flops):
+    b_ms, b_by = bound_ms(nbytes, flops)
+    return dict(case=case, max_abs_err=err, rel_err=rel, tol=tol, ms=ms,
+                plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+
+
+def _report(name, r, lib_name):
+    log(f"  {name} {r['case']:26s} rel err {r['rel_err']:.2e} (tol "
+        f"{r['tol']:.0e}) kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} "
+        f"ms {lib_name} {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} "
+        f"ms ({r['bound_by']})")
+    if not r["rel_err"] <= r["tol"]:
+        raise AssertionError(f"{name} {r['case']}: rel err {r['rel_err']} > "
+                             f"{r['tol']}")
 
 
 # --------------------------------------------------------------------------
@@ -129,7 +157,9 @@ def phase_build():
 
 def _gemm_cases():
     """(label, M, K, N, norm, activation, residual, out dtype) — the GPT-J
-    projections at decode batch (M=4) and a 512-token prefill."""
+    projections at decode batch (M=4) and a 512-token prefill, and
+    phi4-mini's projections and 200192-column logits head at decode
+    batch."""
     out = []
     for M in (4, 512):
         out += [(f"qkv M={M}", M, 4096, 4096, "layernorm", "none", False,
@@ -140,6 +170,14 @@ def _gemm_cases():
                  torch.bfloat16),
                 (f"head M={M}", M, 4096, 50432, "layernorm", "none", False,
                  torch.float32)]
+    out += [("phi4 q/o M=4", 4, 3072, 3072, "rmsnorm", "none", False,
+             torch.bfloat16),
+            ("phi4 k/v M=4", 4, 3072, 1024, "rmsnorm", "none", False,
+             torch.bfloat16),
+            ("phi4 w2 M=4", 4, 8192, 3072, "none", "none", True,
+             torch.bfloat16),
+            ("phi4 head M=4", 4, 3072, 200192, "rmsnorm", "none", False,
+             torch.float32)]
     return out
 
 
@@ -158,7 +196,9 @@ def check_gemm(rows):
         kw = dict(norm=norm, activation=act, residual=res, out_dtype=od,
                   eps=1e-5)
         if norm != "none":
-            kw.update(gamma=gam, nbeta=bet)
+            kw["gamma"] = gam
+        if norm == "layernorm":
+            kw["nbeta"] = bet
         got = mm.fused_matmul(a, w, **kw)
         torch.cuda.synchronize()
         want = mm.matmul_plain(a, w, **kw)
@@ -169,30 +209,103 @@ def check_gemm(rows):
         lib = time_ms(lambda: torch.matmul(a, w), iters=10)
         nbytes = (M * K + K * N) * 2 + M * N * (4 if od == torch.float32
                                                 else 2)
-        nbytes += (M * N * 2 if has_res else 0) + (2 * K * 2 if norm != "none"
-                                                   else 0)
-        b_ms, b_by = bound_ms(nbytes, 2 * M * N * K)
-        r = dict(case=label, max_abs_err=err, rel_err=rel, tol=tol, ms=ms,
-                 plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-        log(f"  fused_matmul {label:14s} rel err {rel:.2e} (tol {tol:.0e}) "
-            f"kernel {ms:.4f} ms plain {plain:.4f} ms torch.matmul "
-            f"{lib:.4f} ms bound {b_ms:.4f} ms ({b_by})")
-        if not rel <= tol:
-            raise AssertionError(f"fused_matmul {label}: rel err {rel} > {tol}")
+        nbytes += (M * N * 2 if has_res else 0) + (
+            {"none": 0, "rmsnorm": K * 2, "layernorm": 2 * K * 2}[norm])
+        r = _row(label, err, rel, tol, ms, plain, lib, nbytes, 2 * M * N * K)
+        _report("fused_matmul", r, "torch.matmul")
         results.append(r)
+        del w
     rows["fused_matmul"] = results
+
+
+def check_swiglu(rows):
+    """phi4-mini's MLP up-projection, 3072 -> 2 x 8192: the fused chain
+    (RMSNorm prologue) at decode batch and a 512-token prefill, and the
+    unfused chain's call (no prologue) at decode batch.  Library yardstick:
+    one torch.matmul against the two weights side by side, no prologue."""
+    from repro_torch.kernels import matmul as mm
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(4)
+    K, N = 3072, 8192
+    wg = (torch.randn((K, N), generator=g, device=dev) * 0.02).bfloat16()
+    wu = (torch.randn((K, N), generator=g, device=dev) * 0.02).bfloat16()
+    wcat = torch.cat([wg, wu], 1)
+    gam = (1 + 0.1 * torch.randn((K,), generator=g, device=dev)).bfloat16()
+    results = []
+    for label, M, norm in (("M=4 rmsnorm", 4, "rmsnorm"),
+                           ("M=512 rmsnorm", 512, "rmsnorm"),
+                           ("M=4 no norm", 4, "none")):
+        a = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        kw = dict(norm=norm, eps=1e-6, out_dtype=torch.bfloat16)
+        if norm != "none":
+            kw["gamma"] = gam
+        got = mm.matmul_swiglu(a, wg, wu, **kw)
+        torch.cuda.synchronize()
+        want = mm.matmul_swiglu_plain(a, wg, wu, **kw)
+        err, rel = rel_err(got, want)
+        ms = time_ms(lambda: mm.matmul_swiglu(a, wg, wu, **kw))
+        plain = time_ms(lambda: mm.matmul_swiglu_plain(a, wg, wu, **kw),
+                        iters=5)
+        lib = time_ms(lambda: torch.matmul(a, wcat), iters=10)
+        nbytes = (M * K + 2 * K * N + M * N) * 2 + (K * 2 if kw.get("gamma")
+                                                    is not None else 0)
+        r = _row(label, err, rel, GEMM_TOL["bf16"], ms, plain, lib, nbytes,
+                 2 * 2 * M * N * K)
+        _report("fused_matmul_swiglu", r, "torch.matmul")
+        results.append(r)
+    rows["fused_matmul_swiglu"] = results
+
+
+def check_norms(rows):
+    """RMSNorm and LayerNorm rows of phi4-mini's width at decode batch and
+    a 512-token prefill; yardsticks F.rms_norm / F.layer_norm."""
+    from repro_torch.kernels import rmsnorm as nm
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(5)
+    D = 3072
+    gam = (1 + 0.1 * torch.randn((D,), generator=g, device=dev)).bfloat16()
+    bet = (0.1 * torch.randn((D,), generator=g, device=dev)).bfloat16()
+    for name in ("rmsnorm", "layernorm"):
+        results = []
+        for R in (4, 512):
+            x = (torch.randn((R, D), generator=g, device=dev) * 2 + 0.3
+                 ).bfloat16()
+            if name == "rmsnorm":
+                fn = lambda: nm.rmsnorm(x, gam, eps=1e-6)
+                plain_fn = lambda: nm.rmsnorm_plain(x, gam, eps=1e-6)
+                lib_fn = lambda: F.rms_norm(x, (D,), gam, eps=1e-6)
+                vec_bytes = D * 2
+            else:
+                fn = lambda: nm.layernorm(x, gam, bet, eps=1e-5)
+                plain_fn = lambda: nm.layernorm_plain(x, gam, bet, eps=1e-5)
+                lib_fn = lambda: F.layer_norm(x, (D,), gam, bet, eps=1e-5)
+                vec_bytes = 2 * D * 2
+            got = fn()
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, plain_fn())
+            r = _row(f"[{R}, {D}]", err, rel, NORM_TOL, time_ms(fn),
+                     time_ms(plain_fn, iters=10), time_ms(lib_fn),
+                     2 * R * D * 2 + vec_bytes, 4 * R * D)
+            _report(name, r, "F." + ("rms_norm" if name == "rmsnorm"
+                                     else "layer_norm"))
+            results.append(r)
+        rows[name] = results
 
 
 def check_flash(rows):
     from repro_torch.kernels import flash_attention as fa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(2)
     results = []
-    for label, H, D in (("gpt-j S=512 D=256", 16, 256),
-                        ("gpt3-xl S=512 D=128", 16, 128)):
+    for label, H, KV, D in (("gpt-j S=512 D=256", 16, 16, 256),
+                            ("gpt3-xl S=512 D=128", 16, 16, 128),
+                            ("phi4 S=512 H24/KV8 D=128", 24, 8, 128)):
         S = 512
-        q, k, v = (torch.randn((1, S, H, D), generator=g, device=dev
-                               ).bfloat16() for _ in range(3))
+        q = torch.randn((1, S, H, D), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((1, S, KV, D), generator=g, device=dev
+                            ).bfloat16() for _ in range(2))
         got = fa.flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
         want = fa.flash_attention_plain(q, k, v, causal=True)
@@ -202,25 +315,20 @@ def check_flash(rows):
                                                          causal=True),
                         iters=5)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
+        lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                   enable_gqa=KV != H))
         flops = 4 * H * D * S * (S + 1) // 2
-        b_ms, b_by = bound_ms(4 * S * H * D * 2, flops)
-        log(f"  flash_attention {label:20s} rel err {rel:.2e} (tol "
-            f"{ATTN_TOL:.0e}) kernel {ms:.4f} ms plain {plain:.4f} ms sdpa "
-            f"{lib:.4f} ms bound {b_ms:.4f} ms ({b_by})")
-        if not rel <= ATTN_TOL:
-            raise AssertionError(f"flash_attention {label}: rel err {rel}")
-        results.append(dict(case=label, max_abs_err=err, rel_err=rel,
-                            tol=ATTN_TOL, ms=ms, plain_ms=plain,
-                            library_ms=lib, bound_ms=b_ms, bound_by=b_by))
+        r = _row(label, err, rel, ATTN_TOL, ms, plain, lib,
+                 2 * S * (H + KV) * D * 2, flops)
+        _report("flash_attention", r, "sdpa")
+        results.append(r)
     rows["flash_attention"] = results
 
 
-def _paged_inputs(g, dev):
-    """GPT-J decode batch: 4 slots, 16 heads x 256, 16-token blocks,
-    lengths 1..512 with absent table entries."""
-    B, H, D, BS, MB = 4, 16, 256, 16, 32
+def _paged_inputs(g, dev, H, KV, D):
+    """Decode batch: 4 slots, 16-token blocks, lengths 1..512 with absent
+    table entries."""
+    B, BS, MB = 4, 16, 32
     NB = B * MB + 8
     lengths = torch.tensor([1, 137, 300, 512], dtype=torch.int32, device=dev)
     perm = torch.randperm(NB, generator=g, device=dev)[:B * MB]
@@ -229,15 +337,15 @@ def _paged_inputs(g, dev):
         tab[b, -(-int(lengths[b]) // BS):] = -1
     tab[2, 5] = -1                                  # a hole inside slot 2
     q = torch.randn((B, H, D), generator=g, device=dev).bfloat16()
-    kp = torch.randn((NB, BS, H, D), generator=g, device=dev).bfloat16()
-    vp = torch.randn((NB, BS, H, D), generator=g, device=dev).bfloat16()
+    kp = torch.randn((NB, BS, KV, D), generator=g, device=dev).bfloat16()
+    vp = torch.randn((NB, BS, KV, D), generator=g, device=dev).bfloat16()
     live = sum(max(0, min(BS, int(lengths[b]) - e * BS))
                for b in range(B) for e in range(MB) if int(tab[b, e]) >= 0)
     return q, kp, vp, tab, lengths, live
 
 
 def _dense_from_paged(q, kp, vp, tab, lengths):
-    """Dense [B, H, S, D] copies + mask for the SDPA yardstick."""
+    """Dense [B, KV, S, D] copies + mask for the SDPA yardstick."""
     B, MB = tab.shape
     BS = kp.shape[1]
     safe = tab.clamp(min=0).long()
@@ -250,83 +358,273 @@ def _dense_from_paged(q, kp, vp, tab, lengths):
 
 def check_paged(rows):
     from repro_torch.kernels import flash_decode as fd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(3)
-    q, kp, vp, tab, lengths, live = _paged_inputs(g, dev)
-    B, H, D = q.shape
-    dq, dk, dv, mask = _dense_from_paged(q, kp, vp, tab, lengths)
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        dq, dk, dv, attn_mask=mask))
-    flops = 4 * H * D * live
-    nbytes = q.numel() * 2 + 2 * live * H * D * 2
-    o, m, l = fd.paged_decode_partials(q, kp, vp, tab, lengths)
-    out = fd.paged_decode_attention(q, kp, vp, tab, lengths)
-    torch.cuda.synchronize()
-    po, pm, pl = fd.paged_decode_plain(q, kp, vp, tab, lengths)
-    pout = (po / pl.clamp(min=1e-30)[..., None]).bfloat16()
-    results = {}
-    for name, fn, got, want, out_bytes in (
-            ("paged_decode_partials",
-             lambda: fd.paged_decode_partials(q, kp, vp, tab, lengths),
-             o / l[..., None], po / pl[..., None], B * H * (D + 2) * 4),
-            ("paged_decode_attention",
-             lambda: fd.paged_decode_attention(q, kp, vp, tab, lengths),
-             out, pout, B * H * D * 2)):
-        err, rel = rel_err(got, want)
-        if name == "paged_decode_partials":
-            # the statistics themselves, not only their ratio
-            for a, b in ((m, pm), (l, pl)):
-                rel = max(rel, rel_err(a, b)[1])
-        ms = time_ms(fn)
+    rows["paged_decode_partials"], rows["paged_decode_attention"] = [], []
+    for H, KV, D in ((16, 16, 256), (24, 8, 128)):
+        case = f"B=4 H={H}/KV={KV} D={D} BS=16 len 1/137/300/512"
+        q, kp, vp, tab, lengths, live = _paged_inputs(g, dev, H, KV, D)
+        B = q.shape[0]
+        dq, dk, dv, mask = _dense_from_paged(q, kp, vp, tab, lengths)
+        lib = time_ms(lambda: sdpa(dq, dk, dv, attn_mask=mask,
+                                   enable_gqa=KV != H))
+        flops = 4 * H * D * live
+        nbytes = q.numel() * 2 + 2 * live * KV * D * 2
+        o, m, l = fd.paged_decode_partials(q, kp, vp, tab, lengths)
+        out = fd.paged_decode_attention(q, kp, vp, tab, lengths)
+        torch.cuda.synchronize()
+        po, pm, pl = fd.paged_decode_plain(q, kp, vp, tab, lengths)
+        pout = (po / pl.clamp(min=1e-30)[..., None]).bfloat16()
         plain = time_ms(lambda: fd.paged_decode_plain(q, kp, vp, tab,
                                                       lengths), iters=5)
-        b_ms, b_by = bound_ms(nbytes + out_bytes, flops)
-        log(f"  {name:23s} B=4 H=16 D=256 len 1/137/300/512 rel err "
-            f"{rel:.2e} (tol {ATTN_TOL:.0e}) kernel {ms:.4f} ms plain "
-            f"{plain:.4f} ms sdpa {lib:.4f} ms bound {b_ms:.4f} ms ({b_by})")
-        if not rel <= ATTN_TOL:
-            raise AssertionError(f"{name}: rel err {rel}")
-        results[name] = [dict(case="B=4 H=16 D=256 BS=16 len 1/137/300/512",
-                              max_abs_err=err, rel_err=rel, tol=ATTN_TOL,
-                              ms=ms, plain_ms=plain, library_ms=lib,
-                              bound_ms=b_ms, bound_by=b_by)]
-    rows.update(results)
+        for name, fn, got, want, out_bytes in (
+                ("paged_decode_partials",
+                 lambda: fd.paged_decode_partials(q, kp, vp, tab, lengths),
+                 o / l[..., None], po / pl[..., None], B * H * (D + 2) * 4),
+                ("paged_decode_attention",
+                 lambda: fd.paged_decode_attention(q, kp, vp, tab, lengths),
+                 out, pout, B * H * D * 2)):
+            err, rel = rel_err(got, want)
+            if name == "paged_decode_partials":
+                # the statistics themselves, not only their ratio
+                for a, b in ((m, pm), (l, pl)):
+                    rel = max(rel, rel_err(a, b)[1])
+            r = _row(case, err, rel, ATTN_TOL, time_ms(fn), plain, lib,
+                     nbytes + out_bytes, flops)
+            _report(name, r, "sdpa")
+            rows[name].append(r)
 
 
 # --------------------------------------------------------------------------
-# 4. serve GPT-J end to end
+# 4. sampling: threefry noise on the card vs the CPU
+# --------------------------------------------------------------------------
+
+def phase_sampling():
+    """The sampler's Gumbel noise at phi4-mini's padded vocabulary for a
+    few (seed, step) pairs, drawn on the card and on the CPU: random bits,
+    uniforms and noise must be bit-equal, and the tokens `_lane_scores`
+    picks from one set of logits identical."""
+    from repro_torch.configs import PHI4_MINI
+    from repro_torch.core import embedding as emb
+    from repro_torch.core import prng
+    Vp = PHI4_MINI.padded_vocab
+    seeds = np.array([0, 100, 106, 2**31 - 1, 77, 5], np.int64)
+    steps = np.array([0, 301, 45, 511, 2**31 - 1, 9], np.int64)
+    tiny = torch.finfo(torch.float32).tiny
+    draws = {}
+    for dev in ("cpu", DEVICE):
+        k = prng.fold_in(prng.fold_in(
+            prng.key(torch.tensor(seeds, device=dev)),
+            torch.tensor(steps, device=dev)), 0)
+        draws[dev] = [t.cpu() for t in (
+            prng.random_bits(k, Vp), prng.uniform(k, Vp, minval=tiny),
+            prng.gumbel(k, Vp))]
+    (cb, cu, cg), (db, du, dg) = draws["cpu"], draws[DEVICE]
+    bits_equal = torch.equal(cb, db)
+    unif_equal = torch.equal(cu.view(torch.int32), du.view(torch.int32))
+    g_equal = torch.equal(cg.view(torch.int32), dg.view(torch.int32))
+
+    rng = np.random.default_rng(9)
+    B = len(seeds)
+    z = torch.tensor(rng.standard_normal((B, Vp)).astype(np.float32) * 3)
+    z[:, PHI4_MINI.vocab:] = -1e30
+    lane = {"temperature": np.array([0.8, 0.8, 1.0, 0.5, 1.3, 0.0],
+                                    np.float32),
+            "top_k": np.array([40, 0, 40, 64, 1, 0], np.int32),
+            "seed": seeds, "step": steps}
+    tok_cpu = emb._lane_scores(z, lane).argmax(-1)
+    tok_dev = emb._lane_scores(z.to(DEVICE), lane).argmax(-1).cpu()
+    sampled = {"temperature": np.full(2, 0.8, np.float32),
+               "top_k": np.full(2, 40, np.int32), "seed": seeds[:2],
+               "step": steps[:2]}
+    noise_ms = time_ms(lambda: emb.gumbel_noise(sampled, Vp, DEVICE),
+                       iters=10)
+    log(f"sampling: {B} (seed, step) pairs over {Vp} columns, card vs CPU: "
+        f"bits equal {bits_equal}, uniforms bit-equal {unif_equal}, Gumbel "
+        f"noise bit-equal {g_equal}, tokens {tok_dev.tolist()} vs "
+        f"{tok_cpu.tolist()}; noise for 2 sampled rows {noise_ms:.4f} ms")
+    if not (bits_equal and unif_equal and g_equal
+            and torch.equal(tok_cpu, tok_dev)):
+        raise AssertionError("threefry sampling differs between the card "
+                             "and the CPU")
+    return {"bits_equal": bits_equal, "uniforms_bit_equal": unif_equal,
+            "gumbel_bit_equal": g_equal,
+            "tokens": tok_dev.tolist(), "noise_ms_2_rows": noise_ms}
+
+
+# --------------------------------------------------------------------------
+# 5. serve end to end
 # --------------------------------------------------------------------------
 
 def _counters():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import rmsnorm as nm
     return {"fused_matmul": mm.fused_matmul,
+            "fused_matmul_swiglu": mm.matmul_swiglu,
             "flash_attention": fa.flash_attention,
             "paged_decode_partials": fd.paged_decode_partials,
-            "paged_decode_attention": fd.paged_decode_attention}
+            "paged_decode_attention": fd.paged_decode_attention,
+            "rmsnorm": nm.rmsnorm,
+            "layernorm": nm.layernorm}
 
 
-def phase_serve():
-    from repro_torch.configs import GPT_J
+TOTAL_LAUNCHES = {}            # kernel -> launches over every driven path
+
+
+def drive(path, fn, need):
+    """Run one path with every launch counter zeroed just before and read
+    just after; fail if a kernel in `need` never launched."""
+    counters = _counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in counters.items()}
+    for k, n in launches.items():
+        TOTAL_LAUNCHES[k] = TOTAL_LAUNCHES.get(k, 0) + n
+    missing = [k for k in need if launches[k] == 0]
+    log(f"  [{path}] launches {launches}")
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing}")
+    return out, launches
+
+
+def teacher_forced(cfg, params, prompt, *, mode, fused, policy=None):
+    """Final-position logits [1, vocab] fp32 of one prompt through the
+    prefill stack and the logits head, fused or unfused chain, under a
+    kernel mode and a precision policy (default bf16)."""
     from repro_torch.core.embedding import logits_local
     from repro_torch.core.precision import BF16
     from repro_torch.kernels import ops
     from repro_torch.models import lm
+    policy = policy or BF16
+    with ops.kernel_mode(mode), torch.no_grad():
+        x = lm._embed_sequence(params, prompt, policy=policy)
+        x, _ = lm._run_segments_prefill(params, x, cfg=cfg, policy=policy,
+                                        max_seq=512, fused=fused,
+                                        compact_kv=True)
+        x = x[:, -1]
+        norm = lm._head_norm(params, cfg, fused)
+        if norm is None:
+            x = ops.norm(x, params["final_norm"], cfg.norm)
+        return logits_local(x, params["embedding"]["unemb"], cfg=cfg,
+                            policy=policy, norm=norm)[:, :cfg.vocab].float()
+
+
+def _gap(got, want):
+    """(max|dz| / max|z|, angle in radians) between two logit rows."""
+    cos = torch.nn.functional.cosine_similarity(got, want).item()
+    return rel_err(got, want)[1], float(np.arccos(min(1.0, cos)))
+
+
+def _logit_gate(label, got, want, floor, k):
+    """Hold `got` to `want`: max|dz| / max|z| <= max(LOGIT_TOL, k * floor)
+    and the angle between them <= max(acos(LOGIT_COS), k * floor angle),
+    where `floor` is the gap between the plain bf16 path and the plain fp32
+    path — what bf16 rounding alone moves these logits by."""
+    rel, ang = _gap(got, want)
+    tol = max(LOGIT_TOL, k * floor[0])
+    cos_min = float(np.cos(max(np.arccos(LOGIT_COS), k * floor[1])))
+    cos = float(np.cos(ang))
+    finite = bool(torch.isfinite(got).all())
+    log(f"  teacher-forced {label}: rel {rel:.2e} (tol {tol:.2e}), cosine "
+        f"{cos:.6f} (min {cos_min:.6f}), argmax {int(got.argmax())} vs "
+        f"{int(want.argmax())}")
+    if not (finite and rel <= tol and cos >= cos_min):
+        raise AssertionError(f"teacher-forced logits disagree: {label}")
+    return {"rel": rel, "cosine": cos, "tol": tol, "cos_min": cos_min}
+
+
+SERVE_KERNELS = ("fused_matmul", "flash_attention", "paged_decode_partials",
+                 "paged_decode_attention")
+
+
+def profile_decode(eng, cfg, rng, steps=4):
+    """Where a decode step's time goes: a full batch (4 slots, 200-token
+    prompts, one row sampled) runs `steps` decode steps timed on the host
+    clock, then `steps` more under torch.profiler.  Reports the device's
+    busy time per step (kernel time, from the profile) against the
+    unprofiled step, the largest kernels, and the host ops that cost the
+    most CPU time (the profiler's own cost inflates these)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import Request, SamplingParams
+    for uid in range(4):
+        sp = (SamplingParams(temperature=0.8, top_k=40, seed=uid) if uid == 0
+              else SamplingParams())
+        eng.submit(Request(uid=1000 + uid, prompt=rng.integers(
+            0, cfg.vocab, 200, dtype=np.int32), max_new_tokens=2 * steps + 2,
+            sampling=sp))
+    eng.step()                      # admission prefill + one decode step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    eng.run()
+    if eng.allocator.num_free != eng.allocator.num_blocks:
+        raise AssertionError("KV blocks leaked")
+    dev, host = {}, {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            dev[ev.key] = (us / 1e3 / steps, ev.count // steps)
+        else:
+            host[ev.key] = (ev.self_cpu_time_total / 1e3 / steps,
+                            ev.count // steps)
+    out = {"steps": steps, "step_ms": step_ms}
+    if not dev:
+        log(f"  [{cfg.name} decode profile] {step_ms:.2f} ms/step; the "
+            f"profiler saw no kernels: device time not measured")
+        return out
+    busy = sum(ms for ms, _ in dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]
+    top_host = sorted(host.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"  [{cfg.name} decode profile] {step_ms:.2f} ms/step unprofiled, "
+        f"device busy {busy:.2f} ms/step ({busy / step_ms:.1%}); "
+        f"{sum(n for _, n in dev.values())} device events per step")
+    for name, (ms, n) in top:
+        log(f"    device {ms:8.3f} ms/step  x{n:<5d} {name[:80]}")
+    for name, (ms, n) in top_host:
+        log(f"    host   {ms:8.3f} ms/step  x{n:<5d} {name[:80]}")
+    out.update(device_busy_ms=busy, busy_share=busy / step_ms,
+               device_top=[{"kernel": k, "ms_per_step": ms, "per_step": n}
+                           for k, (ms, n) in top],
+               host_top=[{"op": k, "cpu_ms_per_step": ms, "per_step": n}
+                         for k, (ms, n) in top_host])
+    return out
+
+
+def serve_model(cfg, *, seed, unfused_norm):
+    """Serve 8 requests through InferenceEngine at full width and depth,
+    then teacher-force one prompt through the fused kernel path, the
+    unfused kernel path and the plain path."""
+    from repro_torch.core.precision import BF16, FP32
+    from repro_torch.models import lm
     from repro_torch.serving import InferenceEngine, Request, SamplingParams
 
-    cfg = GPT_J
     t0 = time.perf_counter()
-    params = lm.init_lm(cfg, dtype=torch.bfloat16, seed=0)
+    params = lm.init_lm(cfg, dtype=torch.bfloat16, device=DEVICE, seed=seed)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"serve: GPT-J {cfg.n_layers} layers d_model {cfg.d_model} "
-        f"{cfg.n_heads}x{cfg.head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab}->"
-        f"{cfg.padded_vocab}: {n_params / 1e9:.3f} B params, init "
+    log(f"serve: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} d_ff {cfg.d_ff} "
+        f"{cfg.mlp_act} {cfg.norm} vocab {cfg.vocab}->{cfg.padded_vocab}: "
+        f"{n_params / 1e9:.3f} B params, init "
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     eng = InferenceEngine(cfg, params, batch_size=4, max_seq=512,
-                          block_size=16, policy=BF16)
+                          block_size=16, policy=BF16, device=DEVICE)
     rng = np.random.default_rng(0)
     # first wave reaches 332 positions (split-KV partials), the second stays
     # under 256 (one normalized pass): both decode kernels serve traffic
@@ -337,21 +635,18 @@ def phase_serve():
               if uid in sampled else SamplingParams())
         eng.submit(Request(uid=uid, prompt=rng.integers(
             0, cfg.vocab, n, dtype=np.int32), max_new_tokens=32, sampling=sp))
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    need = SERVE_KERNELS + (("fused_matmul_swiglu",)
+                            if cfg.mlp_act == "swiglu" else ())
     t0 = time.perf_counter()
-    done = eng.run()
-    torch.cuda.synchronize()
+    done, launches = drive(f"{cfg.name} serve", eng.run, need)
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
     st = eng.stats()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"serve: {len(done)} requests in {wall:.2f} s | NAR "
         f"{st.nar_tok_s:.1f} tok/s | AR {st.ar_tok_s:.1f} tok/s | TTFT p50 "
         f"{st.ttft_p50_ms:.1f} ms | decode step p50 "
         f"{st.decode_step_p50_ms:.2f} ms p95 {st.decode_step_p95_ms:.2f} ms |"
-        f" peak memory {peak_gb:.2f} GB | launches {launches}")
+        f" peak memory {peak_gb:.2f} GB")
     if len(done) != len(lengths):
         raise AssertionError(f"{len(done)} of {len(lengths)} finished")
     for r in done:
@@ -361,36 +656,52 @@ def phase_serve():
             raise AssertionError(f"request {r.uid}: token out of vocab")
     if eng.allocator.num_free != eng.allocator.num_blocks:
         raise AssertionError("KV blocks leaked")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched while serving: "
-                             f"{missing}")
+    report = {"launches": {"serve": launches}, "stats": st.to_dict(),
+              "wall_s": wall, "peak_memory_gb": peak_gb, "params": n_params,
+              "teacher_forced": {}, "decode_profile": profile_decode(
+                  eng, cfg, rng)}
+    del eng
+    torch.cuda.empty_cache()
 
-    # teacher-forced: one prompt through the kernel path and the plain path
+    # teacher-forced: one prompt through the two kernel paths, held to the
+    # plain bf16 path (`ref` mode) and the plain fp32 path; the gap between
+    # those two is the rounding floor the gates scale with
     prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, 96),
                                        dtype=np.int32), device=DEVICE)
-    zs = {}
-    for mode in ("auto", "ref"):
-        with ops.kernel_mode(mode), torch.no_grad():
-            x = lm._embed_sequence(params, prompt, policy=BF16)
-            x, _ = lm._run_segments_prefill(params, x, cfg=cfg, policy=BF16,
-                                            max_seq=512, compact_kv=True)
-            zs[mode] = logits_local(
-                x[:, -1], params["embedding"]["unemb"], cfg=cfg, policy=BF16,
-                norm=ops.norm_prologue(params["final_norm"], cfg.norm)
-            )[:, :cfg.vocab].float()
-    err, rel = rel_err(zs["auto"], zs["ref"])
-    cos = torch.nn.functional.cosine_similarity(zs["auto"], zs["ref"]).item()
-    finite = bool(torch.isfinite(zs["auto"]).all())
-    log(f"teacher-forced 96-token prompt, final-position logits kernel vs "
-        f"plain: max abs {err:.4f}, rel {rel:.2e} (tol {LOGIT_TOL:.0e}), "
-        f"cosine {cos:.6f} (min {LOGIT_COS}), argmax "
-        f"{int(zs['auto'].argmax())} vs {int(zs['ref'].argmax())}")
-    if not (finite and rel <= LOGIT_TOL and cos >= LOGIT_COS):
-        raise AssertionError("teacher-forced logits disagree")
-    return {"launches": launches, "stats": st.to_dict(), "wall_s": wall,
-            "peak_memory_gb": peak_gb, "params": n_params,
-            "teacher_forced": {"max_abs": err, "rel": rel, "cosine": cos}}
+    z_ref = teacher_forced(cfg, params, prompt, mode="ref", fused=True)
+    z_fp32 = teacher_forced(cfg, params, prompt, mode="ref", fused=True,
+                            policy=FP32)
+    floor = _gap(z_ref, z_fp32)
+    log(f"  teacher-forced {cfg.name} plain bf16 vs plain fp32 (floor): rel "
+        f"{floor[0]:.2e}, cosine {np.cos(floor[1]):.6f}")
+    tf = report["teacher_forced"]
+    tf["floor"] = {"rel": floor[0], "cosine": float(np.cos(floor[1]))}
+    swiglu = ("fused_matmul_swiglu",) if cfg.mlp_act == "swiglu" else ()
+    for path, fused, need in (
+            ("fused", True, ("fused_matmul", "flash_attention") + swiglu),
+            ("unfused", False, ("flash_attention", unfused_norm) + swiglu)):
+        z, report["launches"][f"teacher_forced_{path}"] = drive(
+            f"{cfg.name} teacher-forced {path}",
+            lambda: teacher_forced(cfg, params, prompt, mode="auto",
+                                   fused=fused), need)
+        # two paths each within the floor of fp32 lie within twice the
+        # floor of each other
+        tf[f"{path}_vs_plain_bf16"] = _logit_gate(
+            f"{cfg.name} {path} kernel path vs plain bf16", z, z_ref, floor,
+            2.0)
+        tf[f"{path}_vs_plain_fp32"] = _logit_gate(
+            f"{cfg.name} {path} kernel path vs plain fp32", z, z_fp32, floor,
+            1.5)
+    del params
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_serve():
+    from repro_torch.configs import GPT_J, PHI4_MINI
+    return {"gpt-j": serve_model(GPT_J, seed=0, unfused_norm="layernorm"),
+            "phi4-mini-3.8b": serve_model(PHI4_MINI, seed=1,
+                                          unfused_norm="rmsnorm")}
 
 
 def _leaves(tree):
@@ -404,16 +715,26 @@ def _leaves(tree):
         yield tree
 
 
-KERNELS = {
-    "fused_matmul": ("src/repro_torch/kernels/csrc/fused_matmul.cu",
+CSRC = "src/repro_torch/kernels/csrc/"
+KERNELS = {   # name -> (source, TPU kernel replaced, case in the line)
+    "fused_matmul": (CSRC + "fused_matmul.cu",
                      "src/repro/kernels/matmul.py:161", "mlp_up M=4"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    "fused_matmul_swiglu": (CSRC + "fused_swiglu.cu",
+                            "src/repro/kernels/matmul.py:329",
+                            "M=4 rmsnorm"),
+    "flash_attention": (CSRC + "flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:94",
-                        "gpt-j S=512 D=256"),
-    "paged_decode_partials": ("src/repro_torch/kernels/csrc/paged_decode.cu",
-                              "src/repro/kernels/flash_decode.py:321", None),
-    "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_decode.cu",
-                               "src/repro/kernels/flash_decode.py:297", None),
+                        "phi4 S=512 H24/KV8 D=128"),
+    "paged_decode_partials": (
+        CSRC + "paged_decode.cu", "src/repro/kernels/flash_decode.py:321",
+        "B=4 H=24/KV=8 D=128 BS=16 len 1/137/300/512"),
+    "paged_decode_attention": (
+        CSRC + "paged_decode.cu", "src/repro/kernels/flash_decode.py:297",
+        "B=4 H=24/KV=8 D=128 BS=16 len 1/137/300/512"),
+    "rmsnorm": (CSRC + "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:42",
+                "[4, 3072]"),
+    "layernorm": (CSRC + "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:65",
+                  "[4, 3072]"),
 }
 
 
@@ -423,17 +744,20 @@ def main():
     rows = {}
     log("kernels vs plain versions (bf16, on the card):")
     check_gemm(rows)
+    check_swiglu(rows)
+    check_norms(rows)
     check_flash(rows)
     check_paged(rows)
     report["kernels"] = rows
+    report["sampling"] = phase_sampling()
     report["serve"] = phase_serve()
+    report["launches_total"] = dict(TOTAL_LAUNCHES)
     line = []
     for name, (src, replaces, case) in KERNELS.items():
-        rs = rows[name]
-        r = next(x for x in rs if case is None or x["case"] == case)
+        r = next(x for x in rows[name] if x["case"] == case)
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
-                     "launches": report["serve"]["launches"][name],
+                     "launches": TOTAL_LAUNCHES.get(name, 0),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -4,18 +4,19 @@ reference's core/embedding.py).
 The logits head is the step's largest GEMM: [B, E] @ [E, padded_vocab] in
 fp32 with the final LayerNorm fused as its prologue; padded vocabulary
 columns are masked to -1e30.  Sampling is Gumbel-max — argmax(z / T + g) —
-with the reference's top-k threshold rule.  The reference draws g with
-threefry keyed by (seed, step); until a bit-exact threefry port lands, the
-port draws it from a `torch.Generator` seeded by (seed, step), per row, on
-the device, so one (seed, position) pair always gives one draw whatever the
-batch slot.  `_lane_scores(noise=)` takes the noise from the caller instead
-(tests feed the reference's own draw through it).
+with the reference's top-k threshold rule.  The noise is the reference's
+own draw — threefry keyed by fold_in(fold_in(key(seed), step), shard 0)
+over the padded vocabulary (`core/prng.py`), bit-equal uniforms — so one
+(seed, position) pair samples the same token in both packages, whatever
+the batch slot.  `_lane_scores(noise=)` takes the noise from the caller
+instead.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.nn import act_dtype, fused_pdot
 
 NEG_INF = -1e30
@@ -64,24 +65,20 @@ def sample_token(x, unemb, lane, *, cfg, policy, norm=None):
     return torch.argmax(_lane_scores(z, lane), dim=-1).to(torch.int32)
 
 
-def _noise_seed(seed: int, step: int) -> int:
-    """One 64-bit generator seed per (request seed, position)."""
-    return ((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
-
-
 def gumbel_noise(lane, n_cols: int, device) -> torch.Tensor:
-    """[B, n_cols] fp32 Gumbel(0, 1) noise, one generator per sampled row
-    seeded by (seed, step); greedy rows get zeros (their score ignores it)."""
+    """[B, n_cols] fp32 Gumbel(0, 1) noise, vectorised on the device: row b
+    draws from fold_in(fold_in(key(seed[b]), step[b]), 0); greedy rows get
+    zeros (their score ignores it)."""
     temp = np.asarray(lane["temperature"], np.float32)
-    seeds = np.asarray(lane["seed"])
-    steps = np.asarray(lane["step"])
+    rows = np.flatnonzero(temp > 0)
     g = torch.zeros((len(temp), n_cols), dtype=torch.float32, device=device)
-    tiny = torch.finfo(torch.float32).tiny
-    for b in np.flatnonzero(temp > 0):
-        gen = torch.Generator(device=device)
-        gen.manual_seed(_noise_seed(seeds[b], steps[b]))
-        u = torch.rand((n_cols,), generator=gen, device=device)
-        g[b] = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+    if rows.size:
+        seed = torch.tensor(np.asarray(lane["seed"], np.int64)[rows],
+                            device=device)
+        step = torch.tensor(np.asarray(lane["step"], np.int64)[rows],
+                            device=device)
+        k = prng.fold_in(prng.fold_in(prng.key(seed), step), 0)
+        g[torch.tensor(rows, device=device)] = prng.gumbel(k, n_cols)
     return g
 
 

@@ -1,28 +1,39 @@
-"""Dense GELU MLP on one device (port of the reference's core/mlp.py dense
-path): the pre-norm fuses into the first GEMM as a prologue, the activation
-(i-GELU by default, paper T5) into its epilogue, and the residual add into
-the second GEMM's epilogue."""
+"""Dense MLP on one device (port of the reference's core/mlp.py dense path),
+GELU or SwiGLU: the pre-norm fuses into the first GEMM as a prologue, the
+activation (i-GELU by default, paper T5; or the silu gate of the fused
+gated GEMM) into its epilogue, and the residual add into the second GEMM's
+epilogue."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.activations import get_activation
 from repro_torch.core.nn import act_dtype, fused_pdot, pdot
+from repro_torch.kernels import ops
 from repro_torch.kernels.epilogue import Epilogue
 
 GELU_IMPL = "i_gelu"    # the reference plan's default (sharding/plan.py)
 
 
 def mlp_param_shapes(cfg) -> dict:
+    E, F = cfg.d_model, cfg.d_ff
+    if cfg.mlp_act == "swiglu":
+        return {"wg": (E, F), "wu": (E, F), "w2": (F, E)}
     if cfg.mlp_act != "gelu":
-        raise NotImplementedError(
-            f"mlp_act={cfg.mlp_act!r}: only the dense GELU MLP is ported")
-    return {"w1": (cfg.d_model, cfg.d_ff), "w2": (cfg.d_ff, cfg.d_model)}
+        raise NotImplementedError(f"mlp_act={cfg.mlp_act!r} is not ported")
+    return {"w1": (E, F), "w2": (F, E)}
 
 
 def _first_gemm(xt, p, cfg, policy, *, norm=None):
     """xt [T, E] -> h [T, F] at the activation dtype."""
     ad = act_dtype(policy)
+    cd = policy.compute_dtype
+    if cfg.mlp_act == "swiglu":
+        if norm is None:
+            return ops.matmul_swiglu(xt.to(cd), p["wg"].to(cd),
+                                     p["wu"].to(cd), out_dtype=ad)
+        return ops.fused_matmul_swiglu(xt, p["wg"], p["wu"], prologue=norm,
+                                       compute_dtype=cd, out_dtype=ad)
     if norm is None:
         h = pdot(xt, p["w1"], policy)
         return get_activation(GELU_IMPL)(h).to(ad)

@@ -21,6 +21,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rmsnorm as _norm
 from repro_torch.kernels.epilogue import (LN_EPS, RMS_EPS, Epilogue, Prologue,
                                           norm_prologue)
 
@@ -28,7 +29,7 @@ __all__ = [
     "Epilogue", "Prologue", "norm_prologue", "get_mode", "set_mode",
     "kernel_mode", "flash_attention", "paged_decode_attention",
     "paged_decode_partials", "split_quantized", "matmul", "fused_matmul",
-    "rmsnorm", "layernorm", "norm",
+    "matmul_swiglu", "fused_matmul_swiglu", "rmsnorm", "layernorm", "norm",
 ]
 
 _STATE = threading.local()
@@ -173,15 +174,53 @@ def fused_matmul(x, w, *, prologue=None, epilogue=None, compute_dtype=None,
         **pf)
 
 
+def matmul_swiglu(a, b_gate, b_up, *, out_dtype=None):
+    """o = silu(A @ Bg) * (A @ Bu), single fused pass; A: [M, K]."""
+    b_gate, _ = split_quantized(b_gate)
+    b_up, _ = split_quantized(b_up)
+    if _use_kernel(a):
+        return _mm.matmul_swiglu(a, b_gate, b_up, out_dtype=out_dtype)
+    return _ref.fused_matmul_swiglu_ref(a, b_gate, b_up, out_dtype=out_dtype)
+
+
+def fused_matmul_swiglu(x, wg, wu, *, prologue=None, residual=None,
+                        compute_dtype=None, out_dtype=None):
+    """y = silu(norm(x) @ wg) * (norm(x) @ wu) [+ residual];
+    x: [..., K], wg / wu: [K, N] -> [..., N].  As in `fused_matmul`, a
+    normalized operand stays fp32 in the kernel; only an un-normalized x is
+    cast to the compute dtype."""
+    wg, _ = split_quantized(wg)
+    wu, _ = split_quantized(wu)
+    pf = _prologue_fields(prologue)
+    if _use_kernel(x):
+        lead = x.shape[:-1]
+        K, N = x.shape[-1], wg.shape[-1]
+        cd = compute_dtype or x.dtype
+        x2 = x.reshape(-1, K)
+        if prologue is None:
+            x2 = x2.to(cd)
+        res2 = residual.reshape(-1, N) if residual is not None else None
+        out = _mm.matmul_swiglu(x2, wg.to(cd), wu.to(cd), residual=res2,
+                                out_dtype=out_dtype, **pf)
+        return out.reshape(*lead, N)
+    return _ref.fused_matmul_swiglu_ref(
+        x, wg, wu, residual=residual, compute_dtype=compute_dtype,
+        out_dtype=out_dtype, **pf)
+
+
 # --------------------------------------------------------------------------
-# normalization (the unfused chain; no kernel on the fused main path)
+# normalization (the unfused chain)
 # --------------------------------------------------------------------------
 
 def rmsnorm(x, gamma, *, eps=RMS_EPS):
+    if _use_kernel(x):
+        return _norm.rmsnorm(x, gamma, eps=eps)
     return _ref.rmsnorm_ref(x, gamma, eps=eps)
 
 
 def layernorm(x, gamma, beta, *, eps=LN_EPS):
+    if _use_kernel(x):
+        return _norm.layernorm(x, gamma, beta, eps=eps)
     return _ref.layernorm_ref(x, gamma, beta, eps=eps)
 
 

@@ -218,3 +218,21 @@ def fused_matmul_ref(x, w, *, norm="none", gamma=None, nbeta=None,
     if residual is not None:
         y = residual + y
     return y
+
+
+def fused_matmul_swiglu_ref(x, w_gate, w_up, *, norm="none", gamma=None,
+                            nbeta=None, residual=None, eps=RMS_EPS,
+                            compute_dtype=None, out_dtype=None):
+    """silu(norm(x) @ wg) * (norm(x) @ wu) [+ residual] — the exact op
+    chain of the unfused gated MLP (normalize, cast to the compute dtype,
+    two dots emitting `out_dtype`, fp32 silu-mul, cast, residual add)."""
+    h = norm_prologue_ref(x, norm=norm, gamma=gamma, nbeta=nbeta, eps=eps)
+    cd = compute_dtype or h.dtype
+    od = out_dtype or h.dtype
+    a = h.to(cd)
+    g = matmul_ref(a, w_gate.to(cd), activation="none", out_dtype=od)
+    u = matmul_ref(a, w_up.to(cd), activation="none", out_dtype=od)
+    y = (torch.nn.functional.silu(g.float()) * u.float()).to(od)
+    if residual is not None:
+        y = residual + y
+    return y

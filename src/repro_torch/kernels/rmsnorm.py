@@ -1,0 +1,85 @@
+"""Row norms: RMSNorm and LayerNorm with fp32 statistics.
+
+Replace the TPU kernels `src/repro/kernels/rmsnorm.py:rmsnorm`
+(`_rms_kernel`) and `:layernorm` (`_ln_kernel`).  Both come from one CUDA
+source, `csrc/rmsnorm.cu`, whose note says what bounds them on an H100 and
+how the design answers it.
+
+`rmsnorm_plain` / `layernorm_plain` are the kernels' arithmetic in plain
+PyTorch: fp32 row statistics (LayerNorm's mean, then its variance about
+the mean), fp32 normalize and scale, one cast to x's dtype.  The wrappers
+launch the kernel for CUDA tensors and take the plain version for CPU
+tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.epilogue import LN_EPS, RMS_EPS
+
+_KIND = {"rmsnorm": 1, "layernorm": 2}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P] * 4 + [_I] * 5 + [ctypes.c_float, _I, _P]
+
+
+def rmsnorm_plain(x, gamma, *, eps=RMS_EPS):
+    xf = x.float()
+    ss = (xf * xf).sum(-1, keepdim=True)
+    y = xf * torch.rsqrt(ss / x.shape[-1] + eps) * gamma.float()
+    return y.to(x.dtype)
+
+
+def layernorm_plain(x, gamma, beta, *, eps=LN_EPS):
+    xf = x.float()
+    D = x.shape[-1]
+    mu = xf.sum(-1, keepdim=True) / D
+    d = xf - mu
+    rstd = torch.rsqrt((d * d).sum(-1, keepdim=True) / D + eps)
+    return (d * rstd * gamma.float() + beta.float()).to(x.dtype)
+
+
+def _launch(kind, x, gamma, beta, eps):
+    build.require_cuda(kind, x, gamma, beta)
+    D = x.shape[-1]
+    if (gamma.shape != (D,) or (beta is not None and beta.shape != (D,))
+            or D == 0):
+        raise ValueError(f"{kind}: unsupported operands x {tuple(x.shape)}, "
+                         f"gamma {tuple(gamma.shape)}")
+    x2 = x.reshape(-1, D).contiguous()
+    gamma = gamma.contiguous()
+    if beta is not None:
+        beta = beta.to(gamma.dtype).contiguous()
+    out = torch.empty_like(x2)
+    fn = build.bind("rmsnorm", "repro_norm", _ARGTYPES)
+    err = fn(x2.data_ptr(), gamma.data_ptr(),
+             None if beta is None else beta.data_ptr(), out.data_ptr(),
+             x2.shape[0], D, build.dtype_code(x2), build.dtype_code(gamma),
+             _KIND[kind], float(eps), int(D % 4 == 0 and build.aligned16(x2)),
+             build.stream_of(x2))
+    build.check(err, f"{kind} launch")
+    return out.reshape(x.shape)
+
+
+def rmsnorm(x, gamma, *, eps=RMS_EPS):
+    """x: [..., D]; gamma: [D] -> same shape and dtype as x."""
+    if x.device.type == "cpu":
+        return rmsnorm_plain(x, gamma, eps=eps)
+    out = _launch("rmsnorm", x, gamma, None, eps)
+    rmsnorm.launches += 1
+    return out
+
+
+def layernorm(x, gamma, beta, *, eps=LN_EPS):
+    """x: [..., D]; gamma, beta: [D] -> same shape and dtype as x."""
+    if x.device.type == "cpu":
+        return layernorm_plain(x, gamma, beta, eps=eps)
+    out = _launch("layernorm", x, gamma, beta, eps)
+    layernorm.launches += 1
+    return out
+
+
+rmsnorm.launches = 0
+layernorm.launches = 0

@@ -19,11 +19,13 @@ from repro.kernels import flash_attention as jfa
 from repro.kernels import flash_decode as jfd
 from repro.kernels import matmul as jmm
 from repro.kernels import ref as jref
+from repro.kernels import rmsnorm as jnorm
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import matmul as tmm
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rmsnorm as tnorm
 
 # the suite runs beside JAX tests in parallel workers: keep torch from
 # claiming every core
@@ -139,6 +141,155 @@ def test_fused_matmul_wrapper_takes_plain_on_cpu():
                             eps=1e-5)
     assert torch.equal(got, want)
     assert tmm.fused_matmul.launches == before     # no kernel launched
+
+
+# --------------------------------------------------------------------------
+# fused gated GEMM (SwiGLU)
+# --------------------------------------------------------------------------
+
+def _swiglu_inputs(seed, dtype, M=24, K=64, N=48):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    wg, wu = ((rng.standard_normal((K, N)) * 0.2).astype(np.float32)
+              for _ in range(2))
+    g = (1.0 + 0.2 * rng.standard_normal(K)).astype(np.float32)
+    b = (0.2 * rng.standard_normal(K)).astype(np.float32)
+    res = rng.standard_normal((M, N)).astype(np.float32)
+    return [_pair(x, dtype) for x in (a, wg, wu, g, b, res)]
+
+
+def _swiglu_kwargs(norm, residual, g, b, res):
+    kw = _mm_kwargs(norm, "none", g, b, res)
+    if residual:
+        kw["residual"] = res
+    return kw
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("norm", ["none", "rmsnorm", "layernorm"])
+def test_matmul_swiglu_plain_vs_pallas_and_oracle(norm, residual, dtype):
+    """The plain version repeats the Pallas kernel's arithmetic (fp32
+    prologue, two fp32 accumulators, fp32 silu-mul): fp32 within 1e-4 of
+    the kernel in interpret mode; bf16 within a bf16 output ulp.  Against
+    the jnp oracle (normalize, cast, dot) the same in fp32."""
+    (ja, ta), (jwg, twg), (jwu, twu), (jg, tg), (jb, tb), (jr, tr) = \
+        _swiglu_inputs(10, dtype)
+    got = tmm.matmul_swiglu_plain(ta, twg, twu, **_swiglu_kwargs(
+        norm, residual, tg, tb, tr))
+    pallas = jmm.matmul_swiglu(ja, jwg, jwu, block_m=16, block_n=16,
+                               block_k=32, interpret=True,
+                               **_swiglu_kwargs(norm, residual, jg, jb, jr))
+    tol = F32 if dtype == "f32" else BF16
+    assert got.dtype == ta.dtype
+    np.testing.assert_allclose(_np(got), _np(pallas), **tol)
+    if dtype == "f32":
+        oracle = jref.fused_matmul_swiglu_ref(
+            ja, jwg, jwu, out_dtype=jnp.float32,
+            **_swiglu_kwargs(norm, residual, jg, jb, jr))
+        np.testing.assert_allclose(_np(got), _np(oracle), **F32)
+
+
+@pytest.mark.parametrize("norm", ["none", "rmsnorm", "layernorm"])
+def test_fused_matmul_swiglu_ref_port_matches_oracle_bf16(norm):
+    """ref.py port: same casts as the jnp oracle (normalize, cast to bf16,
+    two dots emitting bf16, fp32 silu-mul, cast, residual)."""
+    (ja, ta), (jwg, twg), (jwu, twu), (jg, tg), (jb, tb), (jr, tr) = \
+        _swiglu_inputs(11, "bf16")
+    got = tref.fused_matmul_swiglu_ref(
+        ta, twg, twu, compute_dtype=torch.bfloat16,
+        **_swiglu_kwargs(norm, True, tg, tb, tr))
+    want = jref.fused_matmul_swiglu_ref(
+        ja, jwg, jwu, compute_dtype=jnp.bfloat16,
+        **_swiglu_kwargs(norm, True, jg, jb, jr))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), **BF16)
+
+
+@pytest.mark.parametrize("mode", ["auto", "ref"])
+def test_ops_swiglu_entry_points_match_reference_ops(mode):
+    """`ops.matmul_swiglu` / `ops.fused_matmul_swiglu` in both modes
+    against the reference's `ops` entry points on their CPU path."""
+    from repro.kernels import ops as jops
+    (ja, ta), (jwg, twg), (jwu, twu), (jg, tg), _, (jr, tr) = \
+        _swiglu_inputs(12, "f32")
+    with ops.kernel_mode(mode):
+        got = ops.matmul_swiglu(ta, twg, twu)
+        got_f = ops.fused_matmul_swiglu(
+            ta.reshape(2, 12, 64), twg, twu,
+            prologue=ops.Prologue("rmsnorm", tg), residual=tr.reshape(
+                2, 12, 48), compute_dtype=torch.float32,
+            out_dtype=torch.float32)
+    np.testing.assert_allclose(_np(got), _np(jops.matmul_swiglu(ja, jwg, jwu)),
+                               **F32)
+    want_f = jops.fused_matmul_swiglu(
+        ja, jwg, jwu, prologue=jops.Prologue("rmsnorm", jg), residual=jr,
+        compute_dtype=jnp.float32, out_dtype=jnp.float32)
+    assert got_f.shape == (2, 12, 48)
+    np.testing.assert_allclose(_np(got_f).reshape(24, 48), _np(want_f),
+                               **F32)
+
+
+def test_matmul_swiglu_wrapper_takes_plain_on_cpu():
+    (_, ta), (_, twg), (_, twu), (_, tg), (_, tb), _ = _swiglu_inputs(13,
+                                                                     "f32")
+    before = tmm.matmul_swiglu.launches
+    got = tmm.matmul_swiglu(ta, twg, twu, norm="layernorm", gamma=tg,
+                            nbeta=tb, eps=1e-5)
+    want = tmm.matmul_swiglu_plain(ta, twg, twu, norm="layernorm", gamma=tg,
+                                   nbeta=tb, eps=1e-5)
+    assert torch.equal(got, want)
+    assert tmm.matmul_swiglu.launches == before     # no kernel launched
+
+
+# --------------------------------------------------------------------------
+# row norms
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+def test_norm_plain_vs_pallas_and_oracle(kind, dtype):
+    """[3, 7, 96] rows (21 rows against the kernel's 8-row blocks)."""
+    rng = np.random.default_rng(20)
+    x = (rng.standard_normal((3, 7, 96)) * 2 + 0.5).astype(np.float32)
+    g = (1 + 0.2 * rng.standard_normal(96)).astype(np.float32)
+    b = (0.2 * rng.standard_normal(96)).astype(np.float32)
+    (jx, tx), (jg, tg), (jb, tb) = (_pair(v, dtype) for v in (x, g, b))
+    tol = F32 if dtype == "f32" else BF16
+    if kind == "rmsnorm":
+        got = tnorm.rmsnorm(tx, tg)
+        pallas = jnorm.rmsnorm(jx, jg, block_rows=8, interpret=True)
+        oracle = jref.rmsnorm_ref(jx, jg)
+        port_ref = tref.rmsnorm_ref(tx, tg)
+    else:
+        got = tnorm.layernorm(tx, tg, tb)
+        pallas = jnorm.layernorm(jx, jg, jb, block_rows=8, interpret=True)
+        oracle = jref.layernorm_ref(jx, jg, jb)
+        port_ref = tref.layernorm_ref(tx, tg, tb)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    np.testing.assert_allclose(_np(got), _np(pallas), **tol)
+    np.testing.assert_allclose(_np(got), _np(oracle), **tol)
+    np.testing.assert_allclose(_np(port_ref), _np(oracle), **tol)
+
+
+@pytest.mark.parametrize("mode", ["auto", "ref"])
+def test_ops_norm_dispatch(mode):
+    """`ops.norm` routes both kinds; in `auto` on the CPU through the
+    kernel wrappers' plain versions (no launch), in `ref` through ref.py."""
+    rng = np.random.default_rng(21)
+    x = torch.tensor(rng.standard_normal((5, 32)).astype(np.float32))
+    p = {"scale": torch.tensor(1 + 0.1 * rng.standard_normal(32)).float(),
+         "bias": torch.tensor(0.1 * rng.standard_normal(32)).float()}
+    before = (tnorm.rmsnorm.launches, tnorm.layernorm.launches)
+    with ops.kernel_mode(mode):
+        rms = ops.norm(x, p, "rmsnorm")
+        ln = ops.norm(x, p, "layernorm")
+    assert (tnorm.rmsnorm.launches, tnorm.layernorm.launches) == before
+    want_rms = tnorm.rmsnorm_plain(x, p["scale"]) if mode == "auto" else \
+        tref.rmsnorm_ref(x, p["scale"])
+    assert torch.equal(rms, want_rms)
+    np.testing.assert_allclose(
+        _np(ln), _np(tref.layernorm_ref(x, p["scale"], p["bias"])), **F32)
 
 
 # --------------------------------------------------------------------------
@@ -289,6 +440,33 @@ def test_auto_mode_non_cpu_tensor_raises_instead_of_falling_back():
                 torch.zeros((1, 2, 8), device="meta"), pools, pools,
                 torch.zeros((1, 2), dtype=torch.int32, device="meta"),
                 torch.ones((1,), dtype=torch.int32, device="meta"))
+
+
+def _meta(*shape):
+    return torch.zeros(shape, device="meta")
+
+
+@pytest.mark.parametrize("op", ["matmul_swiglu", "fused_matmul_swiglu",
+                                "rmsnorm", "layernorm"])
+def test_new_ops_never_fall_back(op):
+    """The gated GEMM and the norms: `cuda` mode refuses a CPU tensor, and
+    a tensor off the CPU with no kernel to launch raises — neither quietly
+    runs the plain version."""
+    calls = {
+        "matmul_swiglu": lambda t: ops.matmul_swiglu(t(2, 8), t(8, 4),
+                                                     t(8, 4)),
+        "fused_matmul_swiglu": lambda t: ops.fused_matmul_swiglu(
+            t(2, 8), t(8, 4), t(8, 4), prologue=ops.Prologue("rmsnorm",
+                                                             t(8))),
+        "rmsnorm": lambda t: ops.rmsnorm(t(2, 8), t(8)),
+        "layernorm": lambda t: ops.layernorm(t(2, 8), t(8), t(8)),
+    }[op]
+    with ops.kernel_mode("cuda"):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            calls(lambda *s: torch.zeros(s))
+    with ops.kernel_mode("auto"):
+        with pytest.raises(ValueError, match="CUDA"):
+            calls(_meta)
 
 
 def test_ref_mode_runs_ref_port():
