@@ -10,7 +10,9 @@ non-zero):
               process per source, all started together;
   3. kernels  each hand-written kernel against its plain PyTorch version on
               the card, in bf16, at the serving shapes of GPT-J / GPT3-XL
-              (MHA) and phi4-mini (SwiGLU, RMSNorm, GQA 24 / 8): the error
+              (MHA), phi4-mini (SwiGLU, RMSNorm, GQA 24 / 8), hymba-1.5b
+              (SSD 64 heads x 64 x 16, residual RMSNorm at d_model 1600)
+              and mamba2-2.7b (SSD 80 heads x 64 x 128): the error
               against the stated tolerance, kernel / plain / library
               milliseconds (CUDA events, median of the timed launches) and
               the bound (the larger of bytes / 3.35 TB/s and FLOPs / 989
@@ -18,10 +20,15 @@ non-zero):
   4. sampling threefry Gumbel noise drawn on the card against the same draw
               on the CPU: bits, uniforms and noise bit-equal, sampled
               tokens identical;
-  5. serve    GPT-J, then phi4-mini, at full width and depth (random seeded
-              bf16 weights) behind InferenceEngine(batch_size=4,
+  5. serve    GPT-J, phi4-mini, hymba-1.5b, then mamba2-2.7b, at full
+              width and depth (random seeded bf16 weights; hymba and mamba2
+              prefill at exact prompt lengths) behind
+              InferenceEngine(batch_size=4,
               max_seq=512, block_size=16): 8 requests each, every kernel of
-              the path launched, no leaked blocks; the device's busy share
+              the path launched (the SSD kernel once per SSM layer per
+              prefill pass, the residual RMSNorm once per hymba layer per
+              prefill pass and decode step), no leaked blocks; the device's
+              busy share
               of a decode step and its largest kernels and host ops
               (torch.profiler); then one prompt
               teacher-forced through the fused and the unfused kernel
@@ -52,6 +59,7 @@ PEAK_BF16 = 989e12            # H100 SXM dense bf16 tensor FLOP/s (data sheet)
 GEMM_TOL = {"bf16": 1e-2, "fp32": 1e-3}    # max|k - p| / max|p|
 ATTN_TOL = 1e-2
 NORM_TOL = 1e-2
+SSD_TOL = {"y": 1e-2, "h": 1e-3}   # bf16 y; fp32 h_final (sum order only)
 LOGIT_TOL = 5e-2              # teacher-forced head: max|dz| / max|z| ...
 LOGIT_COS = 0.999             # ... or a multiple of the bf16 rounding floor
 
@@ -293,6 +301,107 @@ def check_norms(rows):
         rows[name] = results
 
 
+def check_residual_norms(rows):
+    """The residual add + norm at hymba's width, decode batch and a
+    512-token prefill: h against the plain version, r (one rounding of the
+    fp32 sum) exactly; yardstick F.rms_norm(x + y) / F.layer_norm(x + y)."""
+    from repro_torch.kernels import rmsnorm as nm
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(6)
+    D = 1600
+    gam = (1 + 0.1 * torch.randn((D,), generator=g, device=dev)).bfloat16()
+    bet = (0.1 * torch.randn((D,), generator=g, device=dev)).bfloat16()
+    for name in ("residual_rmsnorm", "residual_layernorm"):
+        results = []
+        for R in (4, 512):
+            x = (torch.randn((R, D), generator=g, device=dev) * 2 + 0.3
+                 ).bfloat16()
+            y = torch.randn((R, D), generator=g, device=dev).bfloat16()
+            if name == "residual_rmsnorm":
+                fn = lambda: nm.residual_rmsnorm(x, y, gam, eps=1e-6)
+                plain_fn = lambda: nm.residual_rmsnorm_plain(x, y, gam,
+                                                             eps=1e-6)
+                lib_fn = lambda: F.rms_norm(x + y, (D,), gam, eps=1e-6)
+                vec_bytes = D * 2
+            else:
+                fn = lambda: nm.residual_layernorm(x, y, gam, bet, eps=1e-5)
+                plain_fn = lambda: nm.residual_layernorm_plain(
+                    x, y, gam, bet, eps=1e-5)
+                lib_fn = lambda: F.layer_norm(x + y, (D,), gam, bet,
+                                              eps=1e-5)
+                vec_bytes = 2 * D * 2
+            h, r = fn()
+            torch.cuda.synchronize()
+            ph, pr = plain_fn()
+            err, rel = rel_err(h, ph)
+            if not torch.equal(r, pr):
+                raise AssertionError(f"{name} [{R}, {D}]: the stored "
+                                     f"residual differs from x + y")
+            row = _row(f"[{R}, {D}]", err, rel, NORM_TOL, time_ms(fn),
+                       time_ms(plain_fn, iters=10), time_ms(lib_fn),
+                       4 * R * D * 2 + vec_bytes, 6 * R * D)
+            _report(name, row, "F." + ("rms_norm" if name.endswith("rmsnorm")
+                                       else "layer_norm") + "(x + y)")
+            results.append(row)
+        rows[name] = results
+
+
+def _ssd_inputs(g, dev, Bt, S, H, P, N):
+    """SSD operands as the block makes them: bf16 x / B / C after the conv's
+    silu, dt = softplus(.) fp32, A = -U(1, 16), D = 1."""
+    F = torch.nn.functional
+    x = F.silu(torch.randn((Bt, S, H, P), generator=g, device=dev)
+               ).bfloat16()
+    dt = F.softplus(torch.randn((Bt, S, H), generator=g, device=dev) - 4)
+    A = -(1 + 15 * torch.rand((H,), generator=g, device=dev))
+    B, C = (F.silu(torch.randn((Bt, S, N), generator=g, device=dev)
+                   ).bfloat16() for _ in range(2))
+    return x, dt, A, B, C, torch.ones((H,), device=dev)
+
+
+def check_ssd(rows):
+    """The chunked SSD scan at hymba's shape (64 padded heads x 64 x 16, the
+    TPU's ssd_multihead) and mamba2's (80 heads x 64 x 128, the TPU's
+    per-head ssd), one prompt of 512 and of 137 (a prime length: the tail
+    chunk is padded), and the decode profile's admission group of four
+    200-token prompts.  y against the plain version at the bf16 tolerance,
+    h_final at the fp32 one.  No single PyTorch call computes the scan.
+    Bound: the bytes the function must move, or the sequential
+    recurrence's 4 S H P N operations at the bf16 rate."""
+    from repro_torch.kernels import ssd as sd
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(7)
+    for name, (H, P, N) in (("ssd_multihead", (64, 64, 16)),
+                            ("ssd", (80, 64, 128))):
+        results = []
+        for Bt, S in ((1, 512), (1, 137), (4, 200)):
+            ops_in = _ssd_inputs(g, dev, Bt, S, H, P, N)
+            y, h = sd.ssd(*ops_in)
+            torch.cuda.synchronize()
+            py, ph = sd.ssd_plain(*ops_in)
+            err, rel = rel_err(y, py)
+            h_rel = rel_err(h, ph)[1]
+            T = Bt * S
+            nbytes = (2 * T * H * P * 2 + T * H * 4 + 2 * T * N * 2
+                      + 2 * H * 4 + Bt * H * P * N * 4)
+            r = _row(f"B={Bt} S={S} H={H} P={P} N={N}", err, rel,
+                     SSD_TOL["y"], time_ms(lambda: sd.ssd(*ops_in)),
+                     time_ms(lambda: sd.ssd_plain(*ops_in), iters=5), None,
+                     nbytes, 4 * T * H * P * N)
+            r["h_rel_err"] = h_rel
+            log(f"  {name} {r['case']:26s} rel err y {rel:.2e} (tol "
+                f"{SSD_TOL['y']:.0e}) h {h_rel:.2e} (tol {SSD_TOL['h']:.0e}) "
+                f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+                f"library none bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+            if not (rel <= SSD_TOL["y"] and h_rel <= SSD_TOL["h"]):
+                raise AssertionError(f"{name} {r['case']}: rel err y {rel}, "
+                                     f"h {h_rel}")
+            results.append(r)
+        rows[name] = results
+
+
 def check_flash(rows):
     from repro_torch.kernels import flash_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -462,13 +571,17 @@ def _counters():
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import rmsnorm as nm
+    from repro_torch.kernels import ssd as sd
     return {"fused_matmul": mm.fused_matmul,
             "fused_matmul_swiglu": mm.matmul_swiglu,
             "flash_attention": fa.flash_attention,
             "paged_decode_partials": fd.paged_decode_partials,
             "paged_decode_attention": fd.paged_decode_attention,
             "rmsnorm": nm.rmsnorm,
-            "layernorm": nm.layernorm}
+            "layernorm": nm.layernorm,
+            "residual_rmsnorm": nm.residual_rmsnorm,
+            "residual_layernorm": nm.residual_layernorm,
+            "ssd": sd.ssd}
 
 
 TOTAL_LAUNCHES = {}            # kernel -> launches over every driven path
@@ -538,8 +651,45 @@ def _logit_gate(label, got, want, floor, k):
     return {"rel": rel, "cosine": cos, "tol": tol, "cos_min": cos_min}
 
 
-SERVE_KERNELS = ("fused_matmul", "flash_attention", "paged_decode_partials",
-                 "paged_decode_attention")
+def path_kernels(cfg, path):
+    """The kernels a path of `cfg` must launch: `serve` (engine prefill and
+    decode, fused), `fused` / `unfused` (one teacher-forced prefill)."""
+    kinds = {k for k, _ in cfg.schedule}
+    attention = bool(kinds & {"attn", "hybrid_attn", "hybrid_local"})
+    hybrid = bool(kinds & {"hybrid_attn", "hybrid_local"})
+    need = set()
+    if path != "unfused":
+        need.add("fused_matmul")                 # the fused logits head
+    if attention:
+        need.add("flash_attention")
+        if path == "serve":
+            need |= {"paged_decode_partials", "paged_decode_attention"}
+    if cfg.mlp_act == "swiglu" and kinds - {"ssm"}:
+        need.add("fused_matmul_swiglu")
+    if cfg.has_ssm:
+        need |= {"ssd", "rmsnorm"}               # SSM and hybrid ln1
+    if hybrid and path != "unfused":
+        need.add("residual_rmsnorm")             # the hybrid ln2
+    if path == "unfused":
+        need.add(cfg.norm)
+    return tuple(sorted(need))
+
+
+def check_serve_counts(cfg, launches, st):
+    """The SSD kernel runs once per SSM layer per prefill pass, the residual
+    RMSNorm once per hybrid layer per prefill pass and decode step."""
+    ssm_layers = sum(c for k, c in cfg.schedule
+                     if k in ("ssm", "hybrid_attn", "hybrid_local"))
+    hybrid_layers = sum(c for k, c in cfg.schedule
+                        if k in ("hybrid_attn", "hybrid_local"))
+    want = {"ssd": ssm_layers * st.prefill_batches,
+            "residual_rmsnorm": hybrid_layers * (st.prefill_batches
+                                                 + st.decode_steps)}
+    got = {k: launches[k] for k in want}
+    log(f"  [{cfg.name} serve] {st.prefill_batches} prefill passes, "
+        f"{st.decode_steps} decode steps: launches {got}, expected {want}")
+    if got != want:
+        raise AssertionError(f"{cfg.name} serve: launches {got} != {want}")
 
 
 def profile_decode(eng, cfg, rng, steps=4):
@@ -605,7 +755,7 @@ def profile_decode(eng, cfg, rng, steps=4):
     return out
 
 
-def serve_model(cfg, *, seed, unfused_norm):
+def serve_model(cfg, *, seed):
     """Serve 8 requests through InferenceEngine at full width and depth,
     then teacher-force one prompt through the fused kernel path, the
     unfused kernel path and the plain path."""
@@ -617,8 +767,10 @@ def serve_model(cfg, *, seed, unfused_norm):
     params = lm.init_lm(cfg, dtype=torch.bfloat16, device=DEVICE, seed=seed)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
+    ssm = (f" SSM {cfg.ssm_heads}->{cfg.padded_ssm_heads()} heads x "
+           f"{cfg.ssm_head_dim} state {cfg.ssm_state}" if cfg.has_ssm else "")
     log(f"serve: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
-        f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} d_ff {cfg.d_ff} "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} d_ff {cfg.d_ff}{ssm} "
         f"{cfg.mlp_act} {cfg.norm} vocab {cfg.vocab}->{cfg.padded_vocab}: "
         f"{n_params / 1e9:.3f} B params, init "
         f"{time.perf_counter() - t0:.1f} s")
@@ -635,12 +787,13 @@ def serve_model(cfg, *, seed, unfused_norm):
               if uid in sampled else SamplingParams())
         eng.submit(Request(uid=uid, prompt=rng.integers(
             0, cfg.vocab, n, dtype=np.int32), max_new_tokens=32, sampling=sp))
-    need = SERVE_KERNELS + (("fused_matmul_swiglu",)
-                            if cfg.mlp_act == "swiglu" else ())
     t0 = time.perf_counter()
-    done, launches = drive(f"{cfg.name} serve", eng.run, need)
+    done, launches = drive(f"{cfg.name} serve", eng.run,
+                           path_kernels(cfg, "serve"))
     wall = time.perf_counter() - t0
     st = eng.stats()
+    if cfg.has_ssm:
+        check_serve_counts(cfg, launches, st)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"serve: {len(done)} requests in {wall:.2f} s | NAR "
         f"{st.nar_tok_s:.1f} tok/s | AR {st.ar_tok_s:.1f} tok/s | TTFT p50 "
@@ -676,14 +829,11 @@ def serve_model(cfg, *, seed, unfused_norm):
         f"{floor[0]:.2e}, cosine {np.cos(floor[1]):.6f}")
     tf = report["teacher_forced"]
     tf["floor"] = {"rel": floor[0], "cosine": float(np.cos(floor[1]))}
-    swiglu = ("fused_matmul_swiglu",) if cfg.mlp_act == "swiglu" else ()
-    for path, fused, need in (
-            ("fused", True, ("fused_matmul", "flash_attention") + swiglu),
-            ("unfused", False, ("flash_attention", unfused_norm) + swiglu)):
+    for path, fused in (("fused", True), ("unfused", False)):
         z, report["launches"][f"teacher_forced_{path}"] = drive(
             f"{cfg.name} teacher-forced {path}",
             lambda: teacher_forced(cfg, params, prompt, mode="auto",
-                                   fused=fused), need)
+                                   fused=fused), path_kernels(cfg, path))
         # two paths each within the floor of fp32 lie within twice the
         # floor of each other
         tf[f"{path}_vs_plain_bf16"] = _logit_gate(
@@ -698,10 +848,9 @@ def serve_model(cfg, *, seed, unfused_norm):
 
 
 def phase_serve():
-    from repro_torch.configs import GPT_J, PHI4_MINI
-    return {"gpt-j": serve_model(GPT_J, seed=0, unfused_norm="layernorm"),
-            "phi4-mini-3.8b": serve_model(PHI4_MINI, seed=1,
-                                          unfused_norm="rmsnorm")}
+    from repro_torch.configs import GPT_J, HYMBA_1_5B, MAMBA2_2_7B, PHI4_MINI
+    return {cfg.name: serve_model(cfg, seed=seed) for seed, cfg in enumerate(
+        (GPT_J, PHI4_MINI, HYMBA_1_5B, MAMBA2_2_7B))}
 
 
 def _leaves(tree):
@@ -735,7 +884,26 @@ KERNELS = {   # name -> (source, TPU kernel replaced, case in the line)
                 "[4, 3072]"),
     "layernorm": (CSRC + "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:65",
                   "[4, 3072]"),
+    "residual_rmsnorm": (CSRC + "rmsnorm.cu",
+                         "src/repro/kernels/rmsnorm.py:136", "[4, 1600]"),
+    "residual_layernorm": (CSRC + "rmsnorm.cu",
+                           "src/repro/kernels/rmsnorm.py:146", "[4, 1600]"),
+    "ssd_multihead": (CSRC + "ssd.cu", "src/repro/kernels/ssd.py:141",
+                      "B=1 S=512 H=64 P=64 N=16"),
+    "ssd": (CSRC + "ssd.cu", "src/repro/kernels/ssd.py:174",
+            "B=1 S=512 H=80 P=64 N=128"),
 }
+# one CUDA kernel (the `ssd` wrapper) serves both TPU SSD kernels: its line
+# entries count its launches on the path of the config with that kernel's
+# shapes (the TPU runs ssd_multihead for hymba, ssd for mamba2)
+SSD_CONFIG = {"ssd_multihead": "hymba-1.5b", "ssd": "mamba2-2.7b"}
+
+
+def _launches(name, serve):
+    if name not in SSD_CONFIG:
+        return TOTAL_LAUNCHES.get(name, 0)
+    paths = serve[SSD_CONFIG[name]]["launches"].values()
+    return sum(p["ssd"] for p in paths)
 
 
 def main():
@@ -746,6 +914,8 @@ def main():
     check_gemm(rows)
     check_swiglu(rows)
     check_norms(rows)
+    check_residual_norms(rows)
+    check_ssd(rows)
     check_flash(rows)
     check_paged(rows)
     report["kernels"] = rows
@@ -757,7 +927,7 @@ def main():
         r = next(x for x in rows[name] if x["case"] == case)
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
-                     "launches": TOTAL_LAUNCHES.get(name, 0),
+                     "launches": _launches(name, report["serve"]),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -16,6 +16,8 @@ Schedule = Tuple[Tuple[str, int], ...]
 
 ATTN_KINDS = ("attn", "local", "moe", "moe_local", "hybrid_attn",
               "hybrid_local", "enc", "dec", "vit")
+LOCAL_KINDS = ("local", "moe_local", "hybrid_local")
+SSM_KINDS = ("ssm", "hybrid_attn", "hybrid_local")
 
 
 @dataclass(frozen=True)
@@ -62,14 +64,35 @@ class ModelConfig:
     max_seq: int = 32_768
 
     @property
+    def ssm_heads(self) -> int:
+        di = self.d_inner or 2 * self.d_model
+        return di // self.ssm_head_dim if self.ssm_state else 0
+
+    @property
     def padded_vocab(self) -> int:
         """Vocabulary padded to a multiple of 256; padded logit columns are
         masked out in sampling."""
         return -(-self.vocab // 256) * 256 if self.vocab else 0
 
+    def padded_ssm_heads(self, tp: int = 16) -> int:
+        """SSM heads padded up to a multiple of `tp` (hymba: 50 -> 64); the
+        pad heads' out-projection rows are zero, so the output is exact."""
+        if not self.ssm_state:
+            return 0
+        h = self.ssm_heads
+        return -(-h // tp) * tp if h % tp else h
+
+    def padded_d_inner(self, tp: int = 16) -> int:
+        return self.padded_ssm_heads(tp) * self.ssm_head_dim
+
+    @property
+    def has_ssm(self) -> bool:
+        return any(k in SSM_KINDS for k, _ in self.schedule)
+
     def n_params(self) -> int:
-        """Parameter count of the decoder path this port serves (embedding,
-        attention + dense MLP blocks, unembedding)."""
+        """Parameter count (embedding, blocks, unembedding) as the
+        reference counts it, for the kinds the port serves: attention and
+        SSM heads with a dense MLP, and the attention-free `ssm` block."""
         E, F, V = self.d_model, self.d_ff, self.vocab
         hd, H, KV = self.head_dim, self.n_heads, self.n_kv_heads
         total = V * E + (0 if self.tie_embeddings else E * V)
@@ -78,7 +101,13 @@ class ModelConfig:
             p = 2 * E
             if kind in ATTN_KINDS:
                 p += E * (H * hd) + 2 * E * (KV * hd) + (H * hd) * E
-            p += gated * E * F
+            if kind in SSM_KINDS:
+                di = self.d_inner or 2 * E
+                nh = di // self.ssm_head_dim
+                p += E * (2 * di + 2 * self.ssm_state + nh)
+                p += di * self.conv_width + 2 * nh + di * E
+            if kind != "ssm":
+                p += gated * E * F
             total += p * count
         return total
 

@@ -1,4 +1,5 @@
-// Row normalization: RMSNorm and LayerNorm with fp32 statistics.
+// Row normalization: RMSNorm and LayerNorm with fp32 statistics, alone or
+// behind a residual add.
 //
 // Replaces the TPU kernels src/repro/kernels/rmsnorm.py:rmsnorm (_rms_kernel)
 // and :layernorm (_ln_kernel):
@@ -6,6 +7,10 @@
 //     layernorm  y = (x - mu) * rsqrt(mean((x - mu)^2) + eps) * gamma + beta
 // over the last dimension of x [R, D], output in x's dtype.  LayerNorm takes
 // the mean and the variance in two passes, as _ln_kernel does.
+// And :residual_rmsnorm / :residual_layernorm (_res_rms_kernel,
+// _res_ln_kernel): r = x + y is stored rounded to x's dtype, and h = norm(r)
+// takes its statistics over r AS STORED ("norm what was stored"), so h is
+// the norm the unfused chain would take of the same residual.  -> (h, r).
 //
 // What bounds it on an H100: bytes (read x once, write y once; the
 // statistics are a few flops per element).  Design: one block of 128
@@ -81,6 +86,63 @@ __global__ void __launch_bounds__(NT) norm_kernel(const NormParams p) {
       y = v * rstd * g;
     st_elem(p.out, base + c, p.x_dt, y);
   }
+}
+
+struct ResNormParams {
+  const void* x;
+  const void* y;
+  const void* gamma;
+  const void* beta;
+  void* h;
+  void* r;
+  int D;
+  int x_dt, y_dt, vec_dt;
+  int kind;
+  float eps;
+};
+
+// One block per row.  Every pass walks the same elements per thread, so a
+// thread reads back only the r it stored itself (no barrier needed).
+__global__ void __launch_bounds__(NT) res_norm_kernel(const ResNormParams p) {
+  __shared__ float red[NT / 32];
+  const int64_t base = (int64_t)blockIdx.x * p.D;
+  const float df = (float)p.D;
+  float s = 0.f;
+  for (int c = threadIdx.x; c < p.D; c += NT) {
+    st_elem(p.r, base + c, p.x_dt,
+            ld_elem(p.x, base + c, p.x_dt) + ld_elem(p.y, base + c, p.y_dt));
+    const float rq = ld_elem(p.r, base + c, p.x_dt);
+    s += p.kind == KIND_LN ? rq : rq * rq;
+  }
+  s = block_sum(s, red);
+  float mu = 0.f, ss = s;
+  if (p.kind == KIND_LN) {
+    mu = s / df;
+    float d2 = 0.f;
+    for (int c = threadIdx.x; c < p.D; c += NT) {
+      const float d = ld_elem(p.r, base + c, p.x_dt) - mu;
+      d2 += d * d;
+    }
+    ss = block_sum(d2, red);
+  }
+  const float rstd = rsqrtf(ss / df + p.eps);
+  for (int c = threadIdx.x; c < p.D; c += NT) {
+    const float rq = ld_elem(p.r, base + c, p.x_dt);
+    const float g = ld_elem(p.gamma, c, p.vec_dt);
+    const float v = p.kind == KIND_LN ? (rq - mu) * rstd * g + ld_elem(p.beta, c, p.vec_dt)
+                                      : rq * rstd * g;
+    st_elem(p.h, base + c, p.x_dt, v);
+  }
+}
+
+extern "C" int repro_residual_norm(const void* x, const void* y, const void* gamma,
+                                   const void* beta, void* h, void* r, int R, int D,
+                                   int x_dt, int y_dt, int vec_dt, int kind, float eps,
+                                   void* stream) {
+  ResNormParams p{x, y, gamma, beta, h, r, D, x_dt, y_dt, vec_dt, kind, eps};
+  if (R == 0) return 0;
+  res_norm_kernel<<<R, NT, 0, reinterpret_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int repro_norm(const void* x, const void* gamma, const void* beta,

@@ -22,6 +22,7 @@ from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _norm
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels.epilogue import (LN_EPS, RMS_EPS, Epilogue, Prologue,
                                           norm_prologue)
 
@@ -29,7 +30,8 @@ __all__ = [
     "Epilogue", "Prologue", "norm_prologue", "get_mode", "set_mode",
     "kernel_mode", "flash_attention", "paged_decode_attention",
     "paged_decode_partials", "split_quantized", "matmul", "fused_matmul",
-    "matmul_swiglu", "fused_matmul_swiglu", "rmsnorm", "layernorm", "norm",
+    "matmul_swiglu", "fused_matmul_swiglu", "residual_norm", "rmsnorm",
+    "layernorm", "norm", "ssd", "ssd_decode",
 ]
 
 _STATE = threading.local()
@@ -208,6 +210,21 @@ def fused_matmul_swiglu(x, wg, wu, *, prologue=None, residual=None,
         out_dtype=out_dtype, **pf)
 
 
+def residual_norm(x, y, params, kind: str):
+    """Fused residual add + pre-norm: r = x + y; h = norm(r) in one pass —
+    the sub-layer boundary a GEMM epilogue can't absorb (the sum is both
+    the next residual and the norm input).  -> (h, r)."""
+    if _use_kernel(x):
+        if kind == "rmsnorm":
+            return _norm.residual_rmsnorm(x, y, params["scale"])
+        return _norm.residual_layernorm(x, y, params["scale"],
+                                        params["bias"])
+    r = x + y
+    if kind == "rmsnorm":
+        return _ref.rmsnorm_ref(r, params["scale"]), r
+    return _ref.layernorm_ref(r, params["scale"], params["bias"]), r
+
+
 # --------------------------------------------------------------------------
 # normalization (the unfused chain)
 # --------------------------------------------------------------------------
@@ -229,3 +246,32 @@ def norm(x, params, kind: str):
     if kind == "rmsnorm":
         return rmsnorm(x, params["scale"])
     return layernorm(x, params["scale"], params["bias"])
+
+
+# --------------------------------------------------------------------------
+# Mamba2 SSD
+# --------------------------------------------------------------------------
+
+def ssd(x, dt, A, B, C, D, *, chunk=128):
+    """x: [Bt, S, H, P] -> (y, h_final).  Chunked state-space-duality scan.
+
+    The kernel takes any S.  `ref` mode repeats the reference's own
+    dispatch off the TPU: `ssd_chunked_ref` at the largest chunk <= `chunk`
+    that divides S (1 for a prime length)."""
+    if _use_kernel(x):
+        return _ssd.ssd(x, dt, A, B, C, D)
+    return _ref.ssd_chunked_ref(x, dt, A, B, C, D,
+                                chunk=_best_chunk(x.shape[1], chunk))
+
+
+def _best_chunk(S: int, chunk: int) -> int:
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    return max(c, 1)
+
+
+def ssd_decode(x, dt, A, B, C, D, h):
+    """Single-step SSD state update; the reference has no kernel here
+    either (a few element-wise ops per state entry)."""
+    return _ref.ssd_decode_ref(x, dt, A, B, C, D, h)

@@ -236,3 +236,111 @@ def fused_matmul_swiglu_ref(x, w_gate, w_up, *, norm="none", gamma=None,
     if residual is not None:
         y = residual + y
     return y
+
+
+def residual_norm_ref(x, y, *, norm, gamma, nbeta=None, eps=RMS_EPS):
+    """r = x + y; h = norm(r) — same two ops as the unfused chain.
+    -> (h, r)."""
+    r = x + y
+    return norm_prologue_ref(r, norm=norm, gamma=gamma, nbeta=nbeta,
+                             eps=eps), r
+
+
+# --------------------------------------------------------------------------
+# Mamba2 SSD
+# --------------------------------------------------------------------------
+
+def ssd_ref(x, dt, A, B, C, D, *, out_dtype=None):
+    """Mamba2 SSD oracle — sequential recurrence over time (ground truth).
+
+    x:  [Bt, S, H, P]   (P = head dim)
+    dt: [Bt, S, H]      (positive step sizes; pre-softplus'd)
+    A:  [H]             (negative decay rates)
+    B:  [Bt, S, N]      (input gate,  N = state dim)
+    C:  [Bt, S, N]      (output gate)
+    D:  [H]             (skip)
+    state h: [Bt, H, P, N];  h_t = exp(dt*A) h_{t-1} + dt * x_t B_t^T
+                            y_t = h_t C_t + D * x_t
+    """
+    out_dtype = out_dtype or x.dtype
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    xf = x.float()
+    dtf = dt.float()
+    Af, Bf, Cf, Df = (t.float() for t in (A, B, C, D))
+    h = torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * Af[None])                  # [Bt, H]
+        h = h * decay[..., None, None] + torch.einsum(
+            "bhp,bn->bhpn", xf[:, t] * dtf[:, t, :, None], Bf[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + Df[None, None, :, None] * xf
+    return y.to(out_dtype), h
+
+
+def ssd_chunked_ref(x, dt, A, B, C, D, *, chunk=64, h0=None, out_dtype=None):
+    """Chunk-parallel SSD (the state-space-duality form the kernel uses):
+    intra-chunk attention-like matmuls + inter-chunk state recurrence.
+    Matches ssd_ref up to fp reordering."""
+    out_dtype = out_dtype or x.dtype
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    if S % chunk:
+        raise ValueError(f"ssd_chunked_ref: chunk {chunk} does not divide "
+                         f"S = {S}")
+    nc = S // chunk
+    xf = x.float().reshape(Bt, nc, chunk, H, P)
+    dtf = dt.float().reshape(Bt, nc, chunk, H)
+    Bf = B.float().reshape(Bt, nc, chunk, N)
+    Cf = C.float().reshape(Bt, nc, chunk, N)
+    Af = A.float()
+
+    # cumulative log-decay within each chunk: a[t] = sum_{u<=t} dt_u * A
+    da = dtf * Af[None, None, None, :]                    # [Bt,nc,L,H]
+    cum = torch.cumsum(da, dim=2)                         # inclusive
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # [Bt,nc,L,L,H]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    decay_mat = torch.where(tri[None, None, :, :, None], torch.exp(seg),
+                            torch.zeros((), device=x.device))
+
+    # intra-chunk (the "attention-like" quadratic term)
+    g = torch.einsum("bcln,bcmn->bclm", Cf, Bf)           # [Bt,nc,L,L]
+    m = g[..., None] * decay_mat                          # [Bt,nc,L,L,H]
+    y_intra = torch.einsum("bclmh,bcmh,bcmhp->bclhp", m, dtf, xf)
+
+    # chunk-boundary states
+    chunk_decay = torch.exp(cum[:, :, -1])                # [Bt,nc,H]
+    b_decay = torch.exp(cum[:, :, -1:, :] - cum)          # t -> chunk end
+    states = torch.einsum("bclh,bclh,bclhp,bcln->bchpn",
+                          b_decay, dtf, xf, Bf)           # [Bt,nc,H,P,N]
+
+    h = (torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                   # entering chunk c
+
+    # inter-chunk contribution
+    in_decay = torch.exp(cum)                             # chunk start -> t
+    y_inter = torch.einsum("bcln,bclh,bchpn->bclhp", Cf, in_decay, h_prev)
+
+    y = (y_intra + y_inter).reshape(Bt, S, H, P)
+    y = y + D.float()[None, None, :, None] * x.float()
+    return y.to(out_dtype), h
+
+
+def ssd_decode_ref(x, dt, A, B, C, D, h, *, out_dtype=None):
+    """Single-step SSD state update (AR decode).
+    x: [Bt,H,P], dt: [Bt,H], B,C: [Bt,N], h: [Bt,H,P,N]."""
+    out_dtype = out_dtype or x.dtype
+    xf, dtf = x.float(), dt.float()
+    decay = torch.exp(dtf * A.float()[None])
+    h = h * decay[..., None, None] + torch.einsum(
+        "bhp,bn->bhpn", xf * dtf[..., None], B.float())
+    y = torch.einsum("bhpn,bn->bhp", h, C.float())
+    y = y + D.float()[None, :, None] * xf
+    return y.to(out_dtype), h

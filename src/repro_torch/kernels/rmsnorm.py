@@ -1,15 +1,18 @@
-"""Row norms: RMSNorm and LayerNorm with fp32 statistics.
+"""Row norms: RMSNorm and LayerNorm with fp32 statistics, alone or behind
+a residual add.
 
 Replace the TPU kernels `src/repro/kernels/rmsnorm.py:rmsnorm`
-(`_rms_kernel`) and `:layernorm` (`_ln_kernel`).  Both come from one CUDA
-source, `csrc/rmsnorm.cu`, whose note says what bounds them on an H100 and
-how the design answers it.
+(`_rms_kernel`), `:layernorm` (`_ln_kernel`), `:residual_rmsnorm`
+(`_res_rms_kernel`) and `:residual_layernorm` (`_res_ln_kernel`).  All
+come from one CUDA source, `csrc/rmsnorm.cu`, whose note says what bounds
+them on an H100 and how the design answers it.
 
 `rmsnorm_plain` / `layernorm_plain` are the kernels' arithmetic in plain
 PyTorch: fp32 row statistics (LayerNorm's mean, then its variance about
-the mean), fp32 normalize and scale, one cast to x's dtype.  The wrappers
-launch the kernel for CUDA tensors and take the plain version for CPU
-tensors.
+the mean), fp32 normalize and scale, one cast to x's dtype.  The residual
+forms add in fp32, round r = x + y to x's dtype and normalize r as stored.
+The wrappers launch the kernel for CUDA tensors and take the plain version
+for CPU tensors.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.kernels.epilogue import LN_EPS, RMS_EPS
 _KIND = {"rmsnorm": 1, "layernorm": 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 5 + [ctypes.c_float, _I, _P]
+_RES_ARGTYPES = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P]
 
 
 def rmsnorm_plain(x, gamma, *, eps=RMS_EPS):
@@ -41,13 +45,28 @@ def layernorm_plain(x, gamma, beta, *, eps=LN_EPS):
     return (d * rstd * gamma.float() + beta.float()).to(x.dtype)
 
 
-def _launch(kind, x, gamma, beta, eps):
-    build.require_cuda(kind, x, gamma, beta)
+def residual_rmsnorm_plain(x, y, gamma, *, eps=RMS_EPS):
+    r = (x.float() + y.float()).to(x.dtype)
+    return rmsnorm_plain(r, gamma, eps=eps), r
+
+
+def residual_layernorm_plain(x, y, gamma, beta, *, eps=LN_EPS):
+    r = (x.float() + y.float()).to(x.dtype)
+    return layernorm_plain(r, gamma, beta, eps=eps), r
+
+
+def _check_rows(what, x, gamma, beta):
     D = x.shape[-1]
     if (gamma.shape != (D,) or (beta is not None and beta.shape != (D,))
             or D == 0):
-        raise ValueError(f"{kind}: unsupported operands x {tuple(x.shape)}, "
+        raise ValueError(f"{what}: unsupported operands x {tuple(x.shape)}, "
                          f"gamma {tuple(gamma.shape)}")
+
+
+def _launch(kind, x, gamma, beta, eps):
+    build.require_cuda(kind, x, gamma, beta)
+    _check_rows(kind, x, gamma, beta)
+    D = x.shape[-1]
     x2 = x.reshape(-1, D).contiguous()
     gamma = gamma.contiguous()
     if beta is not None:
@@ -81,5 +100,49 @@ def layernorm(x, gamma, beta, *, eps=LN_EPS):
     return out
 
 
+def _launch_residual(kind, x, y, gamma, beta, eps):
+    what = f"residual_{kind}"
+    build.require_cuda(what, x, y, gamma, beta)
+    _check_rows(what, x, gamma, beta)
+    if y.shape != x.shape:
+        raise ValueError(f"{what}: y {tuple(y.shape)} is not shaped as x "
+                         f"{tuple(x.shape)}")
+    D = x.shape[-1]
+    x2 = x.reshape(-1, D).contiguous()
+    y2 = y.reshape(-1, D).contiguous()
+    gamma = gamma.contiguous()
+    if beta is not None:
+        beta = beta.to(gamma.dtype).contiguous()
+    h, r = torch.empty_like(x2), torch.empty_like(x2)
+    fn = build.bind("rmsnorm", "repro_residual_norm", _RES_ARGTYPES)
+    err = fn(x2.data_ptr(), y2.data_ptr(), gamma.data_ptr(),
+             None if beta is None else beta.data_ptr(), h.data_ptr(),
+             r.data_ptr(), x2.shape[0], D, build.dtype_code(x2),
+             build.dtype_code(y2), build.dtype_code(gamma), _KIND[kind],
+             float(eps), build.stream_of(x2))
+    build.check(err, f"{what} launch")
+    return h.reshape(x.shape), r.reshape(x.shape)
+
+
+def residual_rmsnorm(x, y, gamma, *, eps=RMS_EPS):
+    """r = x + y (stored in x's dtype); h = rmsnorm(r) -> (h, r)."""
+    if x.device.type == "cpu":
+        return residual_rmsnorm_plain(x, y, gamma, eps=eps)
+    out = _launch_residual("rmsnorm", x, y, gamma, None, eps)
+    residual_rmsnorm.launches += 1
+    return out
+
+
+def residual_layernorm(x, y, gamma, beta, *, eps=LN_EPS):
+    """r = x + y (stored in x's dtype); h = layernorm(r) -> (h, r)."""
+    if x.device.type == "cpu":
+        return residual_layernorm_plain(x, y, gamma, beta, eps=eps)
+    out = _launch_residual("layernorm", x, y, gamma, beta, eps)
+    residual_layernorm.launches += 1
+    return out
+
+
 rmsnorm.launches = 0
 layernorm.launches = 0
+residual_rmsnorm.launches = 0
+residual_layernorm.launches = 0

@@ -1,8 +1,8 @@
-"""Paged KV-cache layout (port of the reference's launch/steps.py
-`PagedLayout`, `make_paged_layout` and the paged branch of `cache_layout`).
+"""Decode-cache layout (port of the reference's launch/steps.py
+`PagedLayout`, `make_paged_layout` and `cache_layout`, paged layout).
 
 The reference builds jitted step functions here; PyTorch runs eagerly, so
-the port keeps only the layout and allocates the pools directly.
+the port keeps only the layout and allocates the caches directly.
 """
 from __future__ import annotations
 
@@ -10,8 +10,10 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.configs.base import ATTN_KINDS, SSM_KINDS
 from repro_torch.core import blocks
 from repro_torch.core.attention import CACHE_DTYPE
+from repro_torch.core.nn import act_dtype
 
 
 @dataclass(frozen=True)
@@ -34,15 +36,34 @@ def make_paged_layout(cfg, max_seq: int, num_blocks: int,
                        for kind, _ in cfg.schedule))
 
 
-def cache_layout(cfg, layout: PagedLayout, *, device):
-    """Zeroed decode caches: one {"k", "v"} pool dict per segment."""
+def cache_layout(cfg, layout: PagedLayout, *, batch_size: int, policy,
+                 device):
+    """Zeroed decode caches, one dict per segment: attention kinds get
+    {"k", "v"} block pools; SSM kinds get per-slot dense state, "h"
+    [count, B, Hp, P, N] fp32 and the conv tails "cx" [count, B, cw - 1,
+    d_inner] / "cbc" [count, B, cw - 1, 2N] in the activation dtype.  An
+    attention segment that is not paged — a window shorter than max_seq,
+    which needs a ring cache — raises NotImplementedError."""
     KV, hd = cfg.n_kv_heads, cfg.head_dim
+    Hp, P, N = cfg.padded_ssm_heads(), cfg.ssm_head_dim, cfg.ssm_state
+    cw, dip = cfg.conv_width, cfg.padded_d_inner()
+    ad = act_dtype(policy)
+    B = batch_size
     out = []
     for (kind, count), paged in zip(cfg.schedule, layout.segments):
-        if not paged:
-            raise NotImplementedError(
-                f"segment kind {kind!r} needs a dense cache, not ported yet")
-        shape = (count, layout.num_blocks + 1, layout.block_size, KV, hd)
-        out.append({"k": torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
-                    "v": torch.zeros(shape, dtype=CACHE_DTYPE, device=device)})
+        if kind in ATTN_KINDS and not paged:
+            raise blocks.ring_cache_error(kind, cfg)
+        d = {}
+        if paged:
+            shape = (count, layout.num_blocks + 1, layout.block_size, KV, hd)
+            d["k"] = torch.zeros(shape, dtype=CACHE_DTYPE, device=device)
+            d["v"] = torch.zeros(shape, dtype=CACHE_DTYPE, device=device)
+        if kind in SSM_KINDS:
+            d["h"] = torch.zeros((count, B, Hp, P, N), dtype=torch.float32,
+                                 device=device)
+            d["cx"] = torch.zeros((count, B, cw - 1, dip), dtype=ad,
+                                  device=device)
+            d["cbc"] = torch.zeros((count, B, cw - 1, 2 * N), dtype=ad,
+                                   device=device)
+        out.append(d)
     return tuple(out)

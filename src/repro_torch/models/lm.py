@@ -4,12 +4,15 @@ reference's models/lm.py serving path).
 Parameters keep the reference's tree: `embedding/{embed, unemb}`,
 `final_norm/{scale, bias}`, and one dict per schedule segment whose leaves
 carry the layer dim first (`segments[i]/{ln1, ln2, attn/{wq, wk, wv, wo},
-mlp/{w1, w2}}`).  The reference scans each segment with `lax.scan`; the
-port runs a Python loop over its layers, eagerly.
+mlp/{w1 | wg, wu, w2}, ssm/{w_x, w_z, w_bc, w_dt, dt_bias, a_log, d_skip,
+conv_x, conv_bc, norm_scale, w_out}}`, each group where the kind has it).
+The reference scans each segment with `lax.scan`; the port runs a Python
+loop over its layers, eagerly.
 
 Modes: `forward_prefill` (NAR prompt pass, optional right-padding to a
-length bucket, compact KV for paged admission) and `forward_decode` (one AR
-step against the paged pools, which it updates in place).
+length bucket — exact only without SSM state — and compact KV for paged
+admission) and `forward_decode` (one AR step against the paged pools and
+the per-slot SSM state, which it updates in place).
 """
 from __future__ import annotations
 
@@ -105,25 +108,28 @@ def _embed_sequence(params, tokens, *, policy):
 
 def _run_segments_prefill(params, x, *, cfg, policy, max_seq, fused=True,
                           compact_kv=False):
-    """-> (x [B, S, E], caches): one dict per segment of stacked
-    [count, B, S_cache, KV, hd] k/v leaves."""
+    """-> (x [B, S, E], caches): one dict per segment of stacked leaves —
+    k / v [count, B, S_cache, KV, hd] for attention kinds, the SSM state
+    h [count, B, Hp, P, N] and conv tails cx / cbc [count, B, cw - 1, .]
+    for SSM kinds."""
     caches = []
     for (kind, count), p_seg in zip(cfg.schedule, params["segments"]):
-        ks, vs = [], []
+        layers = []
         for i in range(count):
-            x, kv = blocks.block_full(kind, _layer(p_seg, i), x, cfg=cfg,
-                                      policy=policy, fused=fused,
-                                      with_cache=True, max_seq=max_seq,
-                                      compact_kv=compact_kv)
-            ks.append(kv["k"])
-            vs.append(kv["v"])
-        caches.append({"k": torch.stack(ks), "v": torch.stack(vs)})
+            x, cache = blocks.block_full(kind, _layer(p_seg, i), x, cfg=cfg,
+                                         policy=policy, fused=fused,
+                                         with_cache=True, max_seq=max_seq,
+                                         compact_kv=compact_kv)
+            layers.append(cache)
+        caches.append({k: torch.stack([c[k] for c in layers])
+                       for k in layers[0]})
     return x, tuple(caches)
 
 
 def _run_segments_decode(params, x, pos, caches, *, cfg, policy,
                          block_tables, fused=True, kv_splits=1):
-    """Every layer's decode step; pool leaves are updated in place."""
+    """Every layer's decode step; pool and SSM-state leaves are updated in
+    place."""
     for (kind, count), p_seg, c_seg in zip(cfg.schedule, params["segments"],
                                            caches):
         for i in range(count):

@@ -4,8 +4,9 @@ serving/kv_cache.py: `BlockAllocator` and the admission scatter).
   BlockAllocator  refcounted free list over a global pool of fixed-size KV
                   blocks; the engine keeps a per-slot block table.
   prefill_scatter a freshly prefilled group's compact KV goes straight into
-                  its assigned pool blocks, IN PLACE (the reference donates
-                  the pools to a jitted scatter; the port writes them).
+                  its assigned pool blocks, and its SSM state into its
+                  slots' rows, IN PLACE (the reference donates the caches
+                  to a jitted scatter; the port writes them).
 """
 from __future__ import annotations
 
@@ -82,18 +83,26 @@ class BlockAllocator:
 
 
 @torch.no_grad()
-def prefill_scatter(caches, group_caches, tables, *, block_size: int):
-    """Write a prefilled group's compact KV into its pool blocks in place.
+def prefill_scatter(caches, group_caches, slots, tables, *, block_size: int):
+    """Write a prefilled group's caches into the live decode caches in place.
 
-    caches        live decode pools, per segment {"k", "v"}
-                  [count, NB + 1, BS, KV, hd] (trailing sink block)
-    group_caches  the group's compact caches [count, n, S, KV, hd]
+    caches        live decode caches, per segment: {"k", "v"} pools
+                  [count, NB + 1, BS, KV, hd] (trailing sink block) and / or
+                  per-slot SSM state {"h", "cx", "cbc"} [count, B, ...]
+    group_caches  the group's compact caches: k / v [count, n, S, KV, hd],
+                  SSM state [count, n, ...]
+    slots         [n] int tensor: the decode slot of each group row
     tables        [n, MB] int tensor of assigned blocks (-1 beyond the
                   allocation: written to the sink)
-    """
+
+    Pool leaves scatter per assigned block; every other leaf scatters per
+    slot row."""
     for seg, new in zip(caches, group_caches):
-        for key in ("k", "v"):
-            leaf, val = seg[key], new[key]
+        for key, leaf in seg.items():
+            val = new[key]
+            if key not in ("k", "v"):
+                leaf[:, slots.to(torch.int64)] = val.to(leaf.dtype)
+                continue
             sink = leaf.shape[1] - 1
             count, n, S = val.shape[:3]
             ne = -(-S // block_size)

@@ -1,11 +1,12 @@
 """ModelRunner: policy-free model execution for the serving engine (port of
 the reference's serving/runner.py, synchronous whole-prompt path).
 
-Owns the device state — parameters, the paged KV pools, the block allocator
-and block tables, the sampling lanes and the per-slot token/pos mirrors — and
-exposes two execution verbs: `prefill(group)` (one batched NAR pass
-admitting a group into free slots) and `decode()` (one AR step over every
-decoding slot).  Scheduling decisions live in the engine's policy.
+Owns the device state — parameters, the paged KV pools and per-slot SSM
+state, the block allocator and block tables, the sampling lanes and the
+per-slot token/pos mirrors — and exposes two execution verbs:
+`prefill(group)` (one batched NAR pass admitting a group into free slots)
+and `decode()` (one AR step over every decoding slot).  Scheduling
+decisions live in the engine's policy.
 
 Host mirrors (`tokens`, `pos`, `block_tables`, lanes) are numpy arrays that
 the runner mutates; every transfer to the device goes through
@@ -52,11 +53,16 @@ class ModelRunner:
         self.min_bucket = min_bucket
         self.policy = policy or BF16
         self.fuse_epilogues = fuse_epilogues
+        # pad-to-bucket is exact only for attention caches; recurrent state
+        # (SSM, hybrid) and window layers would absorb pad positions, so
+        # those configs prefill at each prompt's exact length
+        self._pad_buckets = not (cfg.has_ssm or cfg.sliding_window > 0)
         default_blocks = batch_size * (-(-max_seq // block_size))
         self.layout = make_paged_layout(cfg, max_seq,
                                         kv_pool_blocks or default_blocks,
                                         block_size)
-        self.caches = cache_layout(cfg, self.layout, device=self.device)
+        self.caches = cache_layout(cfg, self.layout, batch_size=batch_size,
+                                   policy=self.policy, device=self.device)
         self.allocator = BlockAllocator(self.layout.num_blocks, block_size)
         self.block_tables = np.full((batch_size, self.layout.max_blocks), -1,
                                     np.int32)
@@ -76,7 +82,10 @@ class ModelRunner:
 
     def bucket_for(self, prompt_len: int) -> int:
         """Smallest rung of {m, 1.5m} x 2^k >= max(min_bucket, len), capped
-        at max_seq (8, 12, 16, 24, 32, ... for min_bucket 8)."""
+        at max_seq (8, 12, 16, 24, 32, ... for min_bucket 8); the exact
+        length for configs whose caches cannot absorb padding."""
+        if not self._pad_buckets:
+            return prompt_len
         cap = self.max_seq
         base = self.min_bucket
         while True:
@@ -186,8 +195,9 @@ class ModelRunner:
                 free_slots: List[int], stats: EngineStats,
                 ) -> List[Tuple[GenerateTask, int]]:
         """One batched NAR pass for an admission group (all in one length
-        bucket), scattering its KV into the assigned blocks.  Returns
-        (task, output index) pairs for the freshly sampled first tokens."""
+        bucket), scattering its KV into the assigned blocks and its SSM
+        state into its slots' rows.  Returns (task, output index) pairs for
+        the freshly sampled first tokens."""
         tasks = [t for t, _ in group]
         fulls = [self.full_prompt(t) for t in tasks]
         bucket = self.bucket_for(len(fulls[0]))
@@ -207,6 +217,7 @@ class ModelRunner:
         for j, (_, blk) in enumerate(group):
             tables[j, :len(blk)] = blk
         prefill_scatter(self.caches, caches_g,
+                        torch.tensor(slots, device=self.device),
                         torch.tensor(tables, device=self.device),
                         block_size=self.layout.block_size)
         tok_np = tok.cpu().numpy()                 # waits: honest timing

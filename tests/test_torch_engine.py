@@ -53,9 +53,11 @@ def _direct_tokens(cfg, params, prompt, n_new, block_size=16):
         max_seq=MAX_SEQ, compact_kv=True)
     layout = make_paged_layout(cfg, MAX_SEQ, -(-MAX_SEQ // block_size),
                                block_size)
-    pools = cache_layout(cfg, layout, device="cpu")
+    pools = cache_layout(cfg, layout, batch_size=1, policy=FP32,
+                         device="cpu")
     table = torch.arange(layout.max_blocks, dtype=torch.int32)[None]
-    prefill_scatter(pools, caches, table, block_size=block_size)
+    prefill_scatter(pools, caches, torch.arange(1), table,
+                    block_size=block_size)
     toks = [int(tok[0])]
     for _ in range(n_new - 1):
         tok, pools = tlm.forward_decode(params, tok, pos, pools, cfg=cfg,

@@ -144,11 +144,13 @@ def test_teacher_forced_prefill_and_decode(arch):
 
     # -- scatter both compact caches into paged pools
     layout = make_paged_layout(tcfg, 32, num_blocks=10, block_size=BS)
-    tpools = cache_layout(tcfg, layout, device="cpu")
+    tpools = cache_layout(tcfg, layout, batch_size=B, policy=FP32,
+                          device="cpu")
     tables = np.full((B, layout.max_blocks), -1, np.int32)
     tables[0, :3] = [4, 1, 8]
     tables[1, :3] = [0, 9, 2]
-    prefill_scatter(tpools, tcaches, torch.tensor(tables), block_size=BS)
+    prefill_scatter(tpools, tcaches, torch.arange(B), torch.tensor(tables),
+                    block_size=BS)
     shape = (2, 10, BS, jcfg.n_kv_heads, jcfg.head_dim)
     jpools = ({"k": jnp.zeros(shape, jnp.bfloat16),
                "v": jnp.zeros(shape, jnp.bfloat16)},)

@@ -204,11 +204,13 @@ def test_teacher_forced_logits_prefill_and_decode(model, fused):
                                _np(_jax_logits(jcfg, jp, jx, fused)), **F32)
 
     layout = make_paged_layout(tcfg, 32, num_blocks=10, block_size=BS)
-    tpools = cache_layout(tcfg, layout, device="cpu")
+    tpools = cache_layout(tcfg, layout, batch_size=B, policy=FP32,
+                          device="cpu")
     tables = np.full((B, layout.max_blocks), -1, np.int32)
     tables[0, :3] = [4, 1, 8]
     tables[1, :3] = [0, 9, 2]
-    prefill_scatter(tpools, tcaches, torch.tensor(tables), block_size=BS)
+    prefill_scatter(tpools, tcaches, torch.arange(B), torch.tensor(tables),
+                    block_size=BS)
     shape = (2, 10, BS, jcfg.n_kv_heads, jcfg.head_dim)
     jpools = ({"k": jnp.zeros(shape, jnp.bfloat16),
                "v": jnp.zeros(shape, jnp.bfloat16)},)
@@ -249,9 +251,11 @@ def _direct_tokens(cfg, params, prompt, n_new, fused, block_size=16):
         max_seq=MAX_SEQ, compact_kv=True, fused=fused)
     layout = make_paged_layout(cfg, MAX_SEQ, -(-MAX_SEQ // block_size),
                                block_size)
-    pools = cache_layout(cfg, layout, device="cpu")
+    pools = cache_layout(cfg, layout, batch_size=1, policy=FP32,
+                         device="cpu")
     table = torch.arange(layout.max_blocks, dtype=torch.int32)[None]
-    prefill_scatter(pools, caches, table, block_size=block_size)
+    prefill_scatter(pools, caches, torch.arange(1), table,
+                    block_size=block_size)
     toks = [int(tok[0])]
     for _ in range(n_new - 1):
         tok, pools = tlm.forward_decode(params, tok, pos, pools, cfg=cfg,
