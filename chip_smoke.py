@@ -33,7 +33,12 @@ non-zero):
               (torch.profiler); then one prompt
               teacher-forced through the fused and the unfused kernel
               paths, final-position logits held to the plain (`ref`) path
-              in bf16 and in fp32.
+              in bf16 and in fp32;
+  6. witness  mamba2 at full width cut to 8 layers, where a random-init
+              stack barely amplifies rounding: the kernel paths held to
+              plain fp32 within 1.5 x the bf16 floor with no absolute
+              minimum, and the fused path with the SSD kernel swapped for
+              its plain version, to show the SSD kernel's share of the gap.
 Every driven path zeroes the launch counters just before it and reads them
 just after; a kernel of the path that never launched fails the run.  The
 line before the last is {"kernels": [...]}; the last line is
@@ -633,14 +638,17 @@ def _gap(got, want):
     return rel_err(got, want)[1], float(np.arccos(min(1.0, cos)))
 
 
-def _logit_gate(label, got, want, floor, k):
+def _logit_gate(label, got, want, floor, k, *, minimum=True):
     """Hold `got` to `want`: max|dz| / max|z| <= max(LOGIT_TOL, k * floor)
     and the angle between them <= max(acos(LOGIT_COS), k * floor angle),
     where `floor` is the gap between the plain bf16 path and the plain fp32
-    path — what bf16 rounding alone moves these logits by."""
+    path — what bf16 rounding alone moves these logits by.  With
+    `minimum=False` the gate is k * floor alone."""
     rel, ang = _gap(got, want)
-    tol = max(LOGIT_TOL, k * floor[0])
-    cos_min = float(np.cos(max(np.arccos(LOGIT_COS), k * floor[1])))
+    tol, ang_max = k * floor[0], k * floor[1]
+    if minimum:
+        tol, ang_max = max(LOGIT_TOL, tol), max(np.arccos(LOGIT_COS), ang_max)
+    cos_min = float(np.cos(ang_max))
     cos = float(np.cos(ang))
     finite = bool(torch.isfinite(got).all())
     log(f"  teacher-forced {label}: rel {rel:.2e} (tol {tol:.2e}), cosine "
@@ -853,6 +861,70 @@ def phase_serve():
         (GPT_J, PHI4_MINI, HYMBA_1_5B, MAMBA2_2_7B))}
 
 
+# --------------------------------------------------------------------------
+# 6. a shallow witness for the deepest stack's logit gate
+# --------------------------------------------------------------------------
+
+def depth_witness(cfg, *, layers, seed):
+    """At full depth mamba2's kernel paths sit just outside the bf16 floor
+    of the plain fp32 path, where 64 random-init layers amplify any
+    rounding and the gate's 5e-2 minimum is loose.  At `layers` layers, full
+    width, hold every kernel path to plain fp32 within 1.5 x the floor with
+    no minimum, and the fused path with the SSD kernel swapped for
+    `ssd_plain` (the kernel's arithmetic in plain PyTorch, also fp32 inside)
+    within 1 x the floor of the kernel path: what the SSD kernel itself adds
+    to the gap."""
+    import dataclasses
+
+    from repro_torch.core.precision import FP32
+    from repro_torch.kernels import ssd as sd
+    from repro_torch.models import lm
+
+    if cfg.schedule != (("ssm", cfg.n_layers),):
+        raise ValueError(f"{cfg.name}: the witness cuts a pure ssm stack")
+    cfg = dataclasses.replace(cfg, n_layers=layers,
+                              schedule=(("ssm", layers),))
+    params = lm.init_lm(cfg, dtype=torch.bfloat16, device=DEVICE, seed=seed)
+    rng = np.random.default_rng(0)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, 96),
+                                       dtype=np.int32), device=DEVICE)
+    name = f"{cfg.name} at {layers} layers"
+    z_ref = teacher_forced(cfg, params, prompt, mode="ref", fused=True)
+    z_fp32 = teacher_forced(cfg, params, prompt, mode="ref", fused=True,
+                            policy=FP32)
+    floor = _gap(z_ref, z_fp32)
+    log(f"witness: {name}, teacher-forced plain bf16 vs plain fp32 (floor): "
+        f"rel {floor[0]:.2e}, cosine {np.cos(floor[1]):.6f}")
+    out = {"layers": layers,
+           "floor": {"rel": floor[0], "cosine": float(np.cos(floor[1]))}}
+    z = {}
+    for path, fused in (("fused", True), ("unfused", False)):
+        sd.ssd.launches = 0
+        z[path] = teacher_forced(cfg, params, prompt, mode="auto",
+                                 fused=fused)
+        if sd.ssd.launches != layers:
+            raise AssertionError(f"{name} {path}: ssd launched "
+                                 f"{sd.ssd.launches} times, not {layers}")
+        out[f"{path}_vs_plain_fp32"] = _logit_gate(
+            f"{name} {path} kernel path vs plain fp32", z[path], z_fp32,
+            floor, 1.5, minimum=False)
+    kernel = sd.ssd
+    sd.ssd = lambda *args: sd.ssd_plain(*args)
+    try:
+        z_swap = teacher_forced(cfg, params, prompt, mode="auto", fused=True)
+    finally:
+        sd.ssd = kernel
+    out["ssd_plain_swap_vs_plain_fp32"] = _logit_gate(
+        f"{name} fused path, SSD kernel swapped for ssd_plain, vs plain fp32",
+        z_swap, z_fp32, floor, 1.5, minimum=False)
+    out["fused_vs_ssd_plain_swap"] = _logit_gate(
+        f"{name} fused kernel path vs the same with ssd_plain", z["fused"],
+        z_swap, floor, 1.0, minimum=False)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -921,6 +993,8 @@ def main():
     report["kernels"] = rows
     report["sampling"] = phase_sampling()
     report["serve"] = phase_serve()
+    from repro_torch.configs import MAMBA2_2_7B
+    report["witness"] = depth_witness(MAMBA2_2_7B, layers=8, seed=3)
     report["launches_total"] = dict(TOTAL_LAUNCHES)
     line = []
     for name, (src, replaces, case) in KERNELS.items():

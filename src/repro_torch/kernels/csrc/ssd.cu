@@ -46,8 +46,8 @@ struct SSDParams {
   int x_dt, bc_dt;
 };
 
-// floats of dynamic shared memory for state width N (the wrapper checks it
-// against the card's limit with the same formula)
+// floats of dynamic shared memory for state width N (a width past the card's
+// limit fails cudaFuncSetAttribute in repro_ssd, and the wrapper raises)
 __host__ __device__ inline int ssd_smem_floats(int N) {
   return 2 * SSD_L * (N + 1)        // B, C chunk
          + SSD_L * (SSD_L + 1)      // masked C.B^T * decay * dt
@@ -168,16 +168,12 @@ __global__ void __launch_bounds__(SSD_NT) ssd_kernel(const SSDParams p) {
   }
 }
 
-extern "C" int repro_ssd_smem_bytes(int N) {
-  return ssd_smem_floats(N) * (int)sizeof(float);
-}
-
 extern "C" int repro_ssd(const void* x, const float* dt, const float* A, const void* B,
                          const void* C, const float* D, void* y, float* hout, int Bt,
                          int S, int H, int P, int N, int x_dt, int bc_dt, void* stream) {
   if (Bt == 0 || S == 0 || H == 0 || P == 0) return 0;
   SSDParams prm{x, dt, A, B, C, D, y, hout, Bt, S, H, P, N, x_dt, bc_dt};
-  const int smem = repro_ssd_smem_bytes(N);
+  const int smem = ssd_smem_floats(N) * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(ssd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;

@@ -219,10 +219,9 @@ def residual_norm(x, y, params, kind: str):
             return _norm.residual_rmsnorm(x, y, params["scale"])
         return _norm.residual_layernorm(x, y, params["scale"],
                                         params["bias"])
-    r = x + y
-    if kind == "rmsnorm":
-        return _ref.rmsnorm_ref(r, params["scale"]), r
-    return _ref.layernorm_ref(r, params["scale"], params["bias"]), r
+    return _ref.residual_norm_ref(
+        x, y, norm=kind, gamma=params["scale"], nbeta=params.get("bias"),
+        eps=RMS_EPS if kind == "rmsnorm" else LN_EPS)
 
 
 # --------------------------------------------------------------------------

@@ -25,21 +25,20 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import ssd_chunked_ref
 
 CHUNK = 64                 # csrc/ssd.cu SSD_L
-SMEM_LIMIT = 232_448       # dynamic shared memory one H100 block may use
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 8 + [_I] * 7 + [_P]
 
 
-def ssd_plain(x, dt, A, B, C, D, *, chunk=CHUNK):
+def ssd_plain(x, dt, A, B, C, D):
     """x: [Bt, S, H, P], dt: [Bt, S, H], A / D: [H], B / C: [Bt, S, N]
     -> (y [Bt, S, H, P] in x's dtype, h_final [Bt, H, P, N] fp32)."""
     S = x.shape[1]
-    pad = -S % chunk
+    pad = -S % CHUNK
     if pad:
         x, B, C = (torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2)
                                            + (0, pad)) for t in (x, B, C))
         dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
-    y, h = ssd_chunked_ref(x, dt, A, B, C, D, chunk=chunk)
+    y, h = ssd_chunked_ref(x, dt, A, B, C, D, chunk=CHUNK)
     return y[:, :S], h
 
 
@@ -57,10 +56,6 @@ def ssd(x, dt, A, B, C, D):
                          f"{tuple(dt.shape)}, B {tuple(B.shape)}, C "
                          f"{tuple(C.shape)}, A {tuple(A.shape)}, D "
                          f"{tuple(D.shape)}")
-    smem = build.bind("ssd", "repro_ssd_smem_bytes", [_I])(N)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"ssd: state width N = {N} needs {smem} bytes of "
-                         f"shared memory a block, more than {SMEM_LIMIT}")
     x, B, C = x.contiguous(), B.contiguous(), C.contiguous()
     dt, A, D = (t.float().contiguous() for t in (dt, A, D))
     y = torch.empty_like(x)
@@ -70,7 +65,9 @@ def ssd(x, dt, A, B, C, D):
              C.data_ptr(), D.data_ptr(), y.data_ptr(), h.data_ptr(), Bt, S,
              H, P, N, build.dtype_code(x), build.dtype_code(B),
              build.stream_of(x))
-    build.check(err, "ssd launch")
+    build.check(err, f"ssd launch (state width N = {N}: a block holds its "
+                     f"[P-tile, N] state and a chunk of B / C in shared "
+                     f"memory)")
     ssd.launches += 1
     return y, h
 
