@@ -11,34 +11,45 @@ non-zero):
   3. kernels  each hand-written kernel against its plain PyTorch version on
               the card, in bf16, at the serving shapes of GPT-J / GPT3-XL
               (MHA), phi4-mini (SwiGLU, RMSNorm, GQA 24 / 8), hymba-1.5b
-              (SSD 64 heads x 64 x 16, residual RMSNorm at d_model 1600)
-              and mamba2-2.7b (SSD 80 heads x 64 x 128): the error
-              against the stated tolerance, kernel / plain / library
-              milliseconds (CUDA events, median of the timed launches) and
-              the bound (the larger of bytes / 3.35 TB/s and FLOPs / 989
-              TFLOP/s, the H100 SXM data-sheet peaks);
+              (SSD 64 heads x 64 x 16, residual RMSNorm at d_model 1600),
+              mamba2-2.7b (SSD 80 heads x 64 x 128) and gemma3-27b (flash
+              attention with a 1024 window; dense decode over 1024-slot
+              rings at GQA 32 / 16 and hymba's 25 / 5, and over a linear
+              2048 cache with the window): the error against the stated
+              tolerance, kernel / plain / library milliseconds (CUDA events,
+              median of the timed launches) and the bound (the larger of
+              bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s, the H100 SXM
+              data-sheet peaks);
   4. sampling threefry Gumbel noise drawn on the card against the same draw
               on the CPU: bits, uniforms and noise bit-equal, sampled
               tokens identical;
   5. serve    GPT-J, phi4-mini, hymba-1.5b, then mamba2-2.7b, at full
               width and depth (random seeded bf16 weights; hymba and mamba2
               prefill at exact prompt lengths) behind
-              InferenceEngine(batch_size=4,
-              max_seq=512, block_size=16): 8 requests each, every kernel of
-              the path launched (the SSD kernel once per SSM layer per
-              prefill pass, the residual RMSNorm once per hymba layer per
-              prefill pass and decode step), no leaked blocks; the device's
-              busy share
+              InferenceEngine(batch_size=4, max_seq=512, block_size=16),
+              then gemma3-27b (62 layers, 52 of them local) at max_seq
+              2048, where its local layers keep ring caches, and hymba cut
+              to 4 layers at max_seq 2048: 8 requests each (3 for the hymba
+              leg), every kernel of the path launched (the dense decode
+              kernel once per ring layer per decode step and never in
+              prefill, the SSD kernel once per SSM layer per prefill pass,
+              the residual RMSNorm once per hymba layer per prefill pass
+              and decode step), no leaked blocks; the device's busy share
               of a decode step and its largest kernels and host ops
-              (torch.profiler); then one prompt
-              teacher-forced through the fused and the unfused kernel
-              paths, final-position logits held to the plain (`ref`) path
-              in bf16 and in fp32;
+              (torch.profiler); then one prompt teacher-forced through the
+              fused and the unfused kernel paths, final-position logits
+              held to the plain (`ref`) path in bf16 and in fp32;
   6. witness  mamba2 at full width cut to 8 layers, where a random-init
               stack barely amplifies rounding: the kernel paths held to
               plain fp32 within 1.5 x the bf16 floor with no absolute
               minimum, and the fused path with the SSD kernel swapped for
-              its plain version, to show the SSD kernel's share of the gap.
+              its plain version, to show the SSD kernel's share of the gap;
+  7. ring     gemma3 at full width cut to one period (5 local, 1 global):
+              a 1000-token prompt and 40 teacher-forced decode steps across
+              position 1024, where the rings wrap; the kernel paths' logits
+              at every step held to plain bf16 and fp32, and plain fp32
+              decode (fp32 caches) held to exact-length prefill within 1e-4
+              at positions 1010, 1023, 1024 and 1039.
 Every driven path zeroes the launch counters just before it and reads them
 just after; a kernel of the path that never launched fails the run.  The
 line before the last is {"kernels": [...]}; the last line is
@@ -67,6 +78,7 @@ NORM_TOL = 1e-2
 SSD_TOL = {"y": 1e-2, "h": 1e-3}   # bf16 y; fp32 h_final (sum order only)
 LOGIT_TOL = 5e-2              # teacher-forced head: max|dz| / max|z| ...
 LOGIT_COS = 0.999             # ... or a multiple of the bf16 rounding floor
+RING_EXACT_TOL = 1e-4         # fp32 ring decode vs exact-length prefill
 
 
 def log(msg):
@@ -408,32 +420,45 @@ def check_ssd(rows):
 
 
 def check_flash(rows):
+    """Causal prefill attention at GPT-J / GPT3-XL / phi4-mini shapes, and
+    gemma3's local layers: window 1024 over an 1100-token prompt.
+    Yardstick: SDPA, causal, or with the window as a boolean mask."""
     from repro_torch.kernels import flash_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(2)
     results = []
-    for label, H, KV, D in (("gpt-j S=512 D=256", 16, 16, 256),
-                            ("gpt3-xl S=512 D=128", 16, 16, 128),
-                            ("phi4 S=512 H24/KV8 D=128", 24, 8, 128)):
-        S = 512
+    for label, S, H, KV, D, win in (
+            ("gpt-j S=512 D=256", 512, 16, 16, 256, 0),
+            ("gpt3-xl S=512 D=128", 512, 16, 16, 128, 0),
+            ("phi4 S=512 H24/KV8 D=128", 512, 24, 8, 128, 0),
+            ("gemma3 S=1100 H32/KV16 D=128 window 1024", 1100, 32, 16, 128,
+             1024)):
         q = torch.randn((1, S, H, D), generator=g, device=dev).bfloat16()
         k, v = (torch.randn((1, S, KV, D), generator=g, device=dev
                             ).bfloat16() for _ in range(2))
-        got = fa.flash_attention(q, k, v, causal=True)
+        kw = dict(causal=True, window=win)
+        got = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        want = fa.flash_attention_plain(q, k, v, causal=True)
+        want = fa.flash_attention_plain(q, k, v, **kw)
         err, rel = rel_err(got, want)
-        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
-        plain = time_ms(lambda: fa.flash_attention_plain(q, k, v,
-                                                         causal=True),
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                         iters=5)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                   enable_gqa=KV != H))
-        flops = 4 * H * D * S * (S + 1) // 2
+        if win:
+            i = torch.arange(S, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - win)
+            lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                       enable_gqa=KV != H))
+            pairs = int(mask.sum())
+        else:
+            lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                       enable_gqa=KV != H))
+            pairs = S * (S + 1) // 2
         r = _row(label, err, rel, ATTN_TOL, ms, plain, lib,
-                 2 * S * (H + KV) * D * 2, flops)
+                 2 * S * (H + KV) * D * 2, 4 * H * D * pairs)
         _report("flash_attention", r, "sdpa")
         results.append(r)
     rows["flash_attention"] = results
@@ -510,6 +535,61 @@ def check_paged(rows):
             rows[name].append(r)
 
 
+DECODE_CASES = (   # label, H, KV, D, S, lengths, window
+    ("gemma3 ring B=4 H32/KV16 D=128 S=1024 len 1/137/1000/1024", 32, 16,
+     128, 1024, (1, 137, 1000, 1024), 0),
+    ("hymba ring B=4 H25/KV5 D=64 S=1024 len 1/137/1000/1024", 25, 5, 64,
+     1024, (1, 137, 1000, 1024), 0),
+    ("linear B=4 H32/KV16 D=128 S=2048 window 1024 len 1/700/1500/2048",
+     32, 16, 128, 2048, (1, 700, 1500, 2048), 1024),
+)
+
+
+def check_decode_attention(rows):
+    """The dense decode kernel on gemma3's and hymba's ring caches (the
+    valid slots are a prefix of the ring) and on a linear cache with
+    gemma3's window.  Yardstick: SDPA with a boolean mask.  Bound: the
+    bytes of q, the valid K / V rows and the output."""
+    from repro_torch.kernels import flash_decode as fd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(8)
+    results = []
+    for label, H, KV, D, S, lens, win in DECODE_CASES:
+        B = len(lens)
+        q = torch.randn((B, H, D), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((B, S, KV, D), generator=g, device=dev
+                            ).bfloat16() for _ in range(2))
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = fd.decode_attention(q, k, v, ln, window=win)
+        torch.cuda.synchronize()
+        want = fd.decode_attention_plain(q, k, v, ln, window=win)
+        err, rel = rel_err(got, want)
+        pos = torch.arange(S, device=dev)[None]
+        ok = pos < ln[:, None].long()
+        if win:
+            ok &= pos >= ln[:, None].long() - win
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        lib = time_ms(lambda: sdpa(q[:, :, None], kt, vt,
+                                   attn_mask=ok[:, None, None],
+                                   enable_gqa=KV != H))
+        live = int(ok.sum())
+        r = _row(label, err, rel, ATTN_TOL,
+                 time_ms(lambda: fd.decode_attention(q, k, v, ln,
+                                                     window=win)),
+                 time_ms(lambda: fd.decode_attention_plain(q, k, v, ln,
+                                                           window=win),
+                         iters=5), lib,
+                 2 * B * H * D * 2 + 2 * live * KV * D * 2 + B * 4,
+                 4 * H * D * live)
+        r["splits"] = fd.dense_splits(B, KV, S, torch.cuda.
+                                      get_device_properties(0).
+                                      multi_processor_count)
+        _report("decode_attention", r, "sdpa")
+        results.append(r)
+    rows["decode_attention"] = results
+
+
 # --------------------------------------------------------------------------
 # 4. sampling: threefry noise on the card vs the CPU
 # --------------------------------------------------------------------------
@@ -582,6 +662,7 @@ def _counters():
             "flash_attention": fa.flash_attention,
             "paged_decode_partials": fd.paged_decode_partials,
             "paged_decode_attention": fd.paged_decode_attention,
+            "decode_attention": fd.decode_attention,
             "rmsnorm": nm.rmsnorm,
             "layernorm": nm.layernorm,
             "residual_rmsnorm": nm.residual_rmsnorm,
@@ -610,11 +691,24 @@ def drive(path, fn, need):
     return out, launches
 
 
-def teacher_forced(cfg, params, prompt, *, mode, fused, policy=None):
+def _head(params, cfg, x, *, fused, policy):
+    """Logits [B, vocab] fp32 of final hidden states x [B, E] through the
+    final norm (fused as a prologue or not) and the unembedding."""
+    from repro_torch.core.embedding import logits_local
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    norm = lm._head_norm(params, cfg, fused)
+    if norm is None:
+        x = ops.norm(x, params["final_norm"], cfg.norm)
+    return logits_local(x, params["embedding"]["unemb"], cfg=cfg,
+                        policy=policy, norm=norm)[:, :cfg.vocab].float()
+
+
+def teacher_forced(cfg, params, prompt, *, mode, fused, policy=None,
+                   max_seq=512):
     """Final-position logits [1, vocab] fp32 of one prompt through the
     prefill stack and the logits head, fused or unfused chain, under a
     kernel mode and a precision policy (default bf16)."""
-    from repro_torch.core.embedding import logits_local
     from repro_torch.core.precision import BF16
     from repro_torch.kernels import ops
     from repro_torch.models import lm
@@ -622,14 +716,9 @@ def teacher_forced(cfg, params, prompt, *, mode, fused, policy=None):
     with ops.kernel_mode(mode), torch.no_grad():
         x = lm._embed_sequence(params, prompt, policy=policy)
         x, _ = lm._run_segments_prefill(params, x, cfg=cfg, policy=policy,
-                                        max_seq=512, fused=fused,
+                                        max_seq=max_seq, fused=fused,
                                         compact_kv=True)
-        x = x[:, -1]
-        norm = lm._head_norm(params, cfg, fused)
-        if norm is None:
-            x = ops.norm(x, params["final_norm"], cfg.norm)
-        return logits_local(x, params["embedding"]["unemb"], cfg=cfg,
-                            policy=policy, norm=norm)[:, :cfg.vocab].float()
+        return _head(params, cfg, x[:, -1], fused=fused, policy=policy)
 
 
 def _gap(got, want):
@@ -638,7 +727,7 @@ def _gap(got, want):
     return rel_err(got, want)[1], float(np.arccos(min(1.0, cos)))
 
 
-def _logit_gate(label, got, want, floor, k, *, minimum=True):
+def _logit_gate(label, got, want, floor, k, *, minimum=True, quiet=False):
     """Hold `got` to `want`: max|dz| / max|z| <= max(LOGIT_TOL, k * floor)
     and the angle between them <= max(acos(LOGIT_COS), k * floor angle),
     where `floor` is the gap between the plain bf16 path and the plain fp32
@@ -651,27 +740,43 @@ def _logit_gate(label, got, want, floor, k, *, minimum=True):
     cos_min = float(np.cos(ang_max))
     cos = float(np.cos(ang))
     finite = bool(torch.isfinite(got).all())
-    log(f"  teacher-forced {label}: rel {rel:.2e} (tol {tol:.2e}), cosine "
-        f"{cos:.6f} (min {cos_min:.6f}), argmax {int(got.argmax())} vs "
-        f"{int(want.argmax())}")
+    if not quiet or not (finite and rel <= tol and cos >= cos_min):
+        log(f"  teacher-forced {label}: rel {rel:.2e} (tol {tol:.2e}), "
+            f"cosine {cos:.6f} (min {cos_min:.6f}), argmax "
+            f"{int(got.argmax())} vs {int(want.argmax())}")
     if not (finite and rel <= tol and cos >= cos_min):
         raise AssertionError(f"teacher-forced logits disagree: {label}")
     return {"rel": rel, "cosine": cos, "tol": tol, "cos_min": cos_min}
 
 
-def path_kernels(cfg, path):
+def ring_layers(cfg, max_seq):
+    """Layers whose window is shorter than max_seq: dense ring caches."""
+    from repro_torch.configs.base import ATTN_KINDS
+    from repro_torch.core import blocks
+    return sum(c for k, c in cfg.schedule
+               if k in ATTN_KINDS and not blocks.kind_paged(k, cfg, max_seq))
+
+
+def path_kernels(cfg, path, *, max_seq=512, one_split=True):
     """The kernels a path of `cfg` must launch: `serve` (engine prefill and
-    decode, fused), `fused` / `unfused` (one teacher-forced prefill)."""
+    decode, fused; `one_split`: some decode step's longest context fits one
+    split, so the normalized paged kernel runs too), `fused` / `unfused`
+    (one teacher-forced prefill)."""
+    from repro_torch.configs.base import ATTN_KINDS
     kinds = {k for k, _ in cfg.schedule}
-    attention = bool(kinds & {"attn", "hybrid_attn", "hybrid_local"})
+    attention = bool(kinds & set(ATTN_KINDS))
     hybrid = bool(kinds & {"hybrid_attn", "hybrid_local"})
     need = set()
     if path != "unfused":
         need.add("fused_matmul")                 # the fused logits head
     if attention:
         need.add("flash_attention")
-        if path == "serve":
-            need |= {"paged_decode_partials", "paged_decode_attention"}
+    if attention and path == "serve":
+        need.add("paged_decode_partials")
+        if one_split:
+            need.add("paged_decode_attention")
+        if ring_layers(cfg, max_seq):
+            need.add("decode_attention")
     if cfg.mlp_act == "swiglu" and kinds - {"ssm"}:
         need.add("fused_matmul_swiglu")
     if cfg.has_ssm:
@@ -683,16 +788,20 @@ def path_kernels(cfg, path):
     return tuple(sorted(need))
 
 
-def check_serve_counts(cfg, launches, st):
-    """The SSD kernel runs once per SSM layer per prefill pass, the residual
-    RMSNorm once per hybrid layer per prefill pass and decode step."""
-    ssm_layers = sum(c for k, c in cfg.schedule
-                     if k in ("ssm", "hybrid_attn", "hybrid_local"))
-    hybrid_layers = sum(c for k, c in cfg.schedule
-                        if k in ("hybrid_attn", "hybrid_local"))
-    want = {"ssd": ssm_layers * st.prefill_batches,
-            "residual_rmsnorm": hybrid_layers * (st.prefill_batches
-                                                 + st.decode_steps)}
+def check_serve_counts(cfg, launches, st, max_seq):
+    """The dense decode kernel runs once per ring layer per decode step and
+    never in prefill; the SSD kernel once per SSM layer per prefill pass,
+    the residual RMSNorm once per hybrid layer per prefill pass and decode
+    step."""
+    want = {"decode_attention": ring_layers(cfg, max_seq) * st.decode_steps}
+    if cfg.has_ssm:
+        ssm_layers = sum(c for k, c in cfg.schedule
+                         if k in ("ssm", "hybrid_attn", "hybrid_local"))
+        hybrid_layers = sum(c for k, c in cfg.schedule
+                            if k in ("hybrid_attn", "hybrid_local"))
+        want.update(ssd=ssm_layers * st.prefill_batches,
+                    residual_rmsnorm=hybrid_layers * (st.prefill_batches
+                                                      + st.decode_steps))
     got = {k: launches[k] for k in want}
     log(f"  [{cfg.name} serve] {st.prefill_batches} prefill passes, "
         f"{st.decode_steps} decode steps: launches {got}, expected {want}")
@@ -763,10 +872,15 @@ def profile_decode(eng, cfg, rng, steps=4):
     return out
 
 
-def serve_model(cfg, *, seed):
-    """Serve 8 requests through InferenceEngine at full width and depth,
-    then teacher-force one prompt through the fused kernel path, the
-    unfused kernel path and the plain path."""
+SERVE_LENGTHS = (300, 40, 120, 60, 20, 90, 200, 150)
+
+
+def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
+                one_split=True):
+    """Serve len(lengths) requests of 32 new tokens (uids 1 and 6 sampled)
+    through InferenceEngine at full width, then profile decode steps and
+    teacher-force one prompt through the fused kernel path, the unfused
+    kernel path and the plain path.  `one_split`: see `path_kernels`."""
     from repro_torch.core.precision import BF16, FP32
     from repro_torch.models import lm
     from repro_torch.serving import InferenceEngine, Request, SamplingParams
@@ -783,25 +897,21 @@ def serve_model(cfg, *, seed):
         f"{n_params / 1e9:.3f} B params, init "
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    eng = InferenceEngine(cfg, params, batch_size=4, max_seq=512,
+    eng = InferenceEngine(cfg, params, batch_size=4, max_seq=max_seq,
                           block_size=16, policy=BF16, device=DEVICE)
     rng = np.random.default_rng(0)
-    # first wave reaches 332 positions (split-KV partials), the second stays
-    # under 256 (one normalized pass): both decode kernels serve traffic
-    lengths = (300, 40, 120, 60, 20, 90, 200, 150)
-    sampled = {1, 6}
     for uid, n in enumerate(lengths):
         sp = (SamplingParams(temperature=0.8, top_k=40, seed=100 + uid)
-              if uid in sampled else SamplingParams())
+              if uid in (1, 6) else SamplingParams())
         eng.submit(Request(uid=uid, prompt=rng.integers(
             0, cfg.vocab, n, dtype=np.int32), max_new_tokens=32, sampling=sp))
     t0 = time.perf_counter()
     done, launches = drive(f"{cfg.name} serve", eng.run,
-                           path_kernels(cfg, "serve"))
+                           path_kernels(cfg, "serve", max_seq=max_seq,
+                                        one_split=one_split))
     wall = time.perf_counter() - t0
     st = eng.stats()
-    if cfg.has_ssm:
-        check_serve_counts(cfg, launches, st)
+    check_serve_counts(cfg, launches, st, max_seq)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"serve: {len(done)} requests in {wall:.2f} s | NAR "
         f"{st.nar_tok_s:.1f} tok/s | AR {st.ar_tok_s:.1f} tok/s | TTFT p50 "
@@ -819,6 +929,7 @@ def serve_model(cfg, *, seed):
         raise AssertionError("KV blocks leaked")
     report = {"launches": {"serve": launches}, "stats": st.to_dict(),
               "wall_s": wall, "peak_memory_gb": peak_gb, "params": n_params,
+              "max_seq": max_seq, "layers": cfg.n_layers,
               "teacher_forced": {}, "decode_profile": profile_decode(
                   eng, cfg, rng)}
     del eng
@@ -829,9 +940,10 @@ def serve_model(cfg, *, seed):
     # those two is the rounding floor the gates scale with
     prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, 96),
                                        dtype=np.int32), device=DEVICE)
-    z_ref = teacher_forced(cfg, params, prompt, mode="ref", fused=True)
+    z_ref = teacher_forced(cfg, params, prompt, mode="ref", fused=True,
+                           max_seq=max_seq)
     z_fp32 = teacher_forced(cfg, params, prompt, mode="ref", fused=True,
-                            policy=FP32)
+                            policy=FP32, max_seq=max_seq)
     floor = _gap(z_ref, z_fp32)
     log(f"  teacher-forced {cfg.name} plain bf16 vs plain fp32 (floor): rel "
         f"{floor[0]:.2e}, cosine {np.cos(floor[1]):.6f}")
@@ -841,7 +953,8 @@ def serve_model(cfg, *, seed):
         z, report["launches"][f"teacher_forced_{path}"] = drive(
             f"{cfg.name} teacher-forced {path}",
             lambda: teacher_forced(cfg, params, prompt, mode="auto",
-                                   fused=fused), path_kernels(cfg, path))
+                                   fused=fused, max_seq=max_seq),
+            path_kernels(cfg, path))
         # two paths each within the floor of fp32 lie within twice the
         # floor of each other
         tf[f"{path}_vs_plain_bf16"] = _logit_gate(
@@ -856,9 +969,32 @@ def serve_model(cfg, *, seed):
 
 
 def phase_serve():
-    from repro_torch.configs import GPT_J, HYMBA_1_5B, MAMBA2_2_7B, PHI4_MINI
-    return {cfg.name: serve_model(cfg, seed=seed) for seed, cfg in enumerate(
+    """Every served configuration at full width and depth behind
+    max_seq 512 (paged KV only: the first wave reaches 332 positions,
+    split-KV partials; the second stays under 256, one normalized pass),
+    then gemma3-27b at max_seq 2048, where its 52 local layers keep ring
+    caches, and hymba cut to one global and three local layers at max_seq
+    2048, its ring case.  Both long-context runs hold a context past 1000
+    positions in every decode step, so the paged decode always splits."""
+    import dataclasses
+
+    from repro_torch.configs import (GEMMA3_27B, GPT_J, HYMBA_1_5B,
+                                     MAMBA2_2_7B, PHI4_MINI)
+    out = {cfg.name: serve_model(cfg, seed=seed) for seed, cfg in enumerate(
         (GPT_J, PHI4_MINI, HYMBA_1_5B, MAMBA2_2_7B))}
+    # two prompts prefill past the window (the ring is rolled at
+    # admission); the 1010 prompt crosses position 1024 while it decodes
+    # (the ring wraps in place)
+    out[GEMMA3_27B.name] = serve_model(
+        GEMMA3_27B, seed=4, max_seq=2048, one_split=False,
+        lengths=(1100, 40, 1010, 300, 20, 90, 1030, 150))
+    hymba = dataclasses.replace(
+        HYMBA_1_5B, n_layers=4,
+        schedule=(("hybrid_attn", 1), ("hybrid_local", 3)))
+    out["hymba-1.5b ring"] = serve_model(hymba, seed=5, max_seq=2048,
+                                         one_split=False,
+                                         lengths=(1100, 300, 1010))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -925,6 +1061,136 @@ def depth_witness(cfg, *, layers, seed):
     return out
 
 
+# --------------------------------------------------------------------------
+# 7. the ring witness: decode across the ring's wrap, held to prefill
+# --------------------------------------------------------------------------
+
+def decode_logits(cfg, params, tokens, prompt_len, *, mode, fused, policy,
+                  kv_dtype, max_seq, block_size=16):
+    """Teacher-forced decode logits [steps, vocab] fp32 of one sequence:
+    `tokens[:prompt_len]` prefilled into the engine's decode caches
+    (`cache_layout` / `prefill_scatter`, paged global layers, ring local
+    ones), then one step per remaining token through the decode stack that
+    `forward_decode` runs, and the logits head."""
+    from repro_torch.core.attention import decode_splits
+    from repro_torch.core.embedding import embed_token
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import cache_layout, make_paged_layout
+    from repro_torch.models import lm
+    from repro_torch.serving.kv_cache import prefill_scatter
+    dev = torch.device(DEVICE)
+    layout = make_paged_layout(cfg, max_seq, -(-max_seq // block_size),
+                               block_size)
+    table = torch.arange(layout.max_blocks, dtype=torch.int32,
+                         device=dev)[None]
+    tok = torch.tensor(tokens, device=dev)
+    out = []
+    with ops.kernel_mode(mode), torch.no_grad():
+        caches = cache_layout(cfg, layout, batch_size=1, policy=policy,
+                              device=dev, kv_dtype=kv_dtype)
+        x = lm._embed_sequence(params, tok[None, :prompt_len], policy=policy)
+        _, group = lm._run_segments_prefill(
+            params, x, cfg=cfg, policy=policy, max_seq=max_seq, fused=fused,
+            compact_kv=True, kv_dtype=kv_dtype)
+        prefill_scatter(caches, group, torch.zeros(1, dtype=torch.int64,
+                                                   device=dev), table,
+                        block_size=block_size,
+                        paged_segments=layout.segments)
+        del group
+        for pos in range(prompt_len, len(tokens)):
+            xd = embed_token(params["embedding"]["embed"], tok[pos:pos + 1],
+                             policy=policy)
+            xd, _ = lm._run_segments_decode(
+                params, xd, torch.tensor([pos], device=dev), caches, cfg=cfg,
+                policy=policy, block_tables=table, fused=fused,
+                kv_splits=decode_splits(pos + 1, layout.max_blocks,
+                                        block_size),
+                paged_segments=layout.segments)
+            out.append(_head(params, cfg, xd, fused=fused, policy=policy))
+    return torch.cat(out)
+
+
+def ring_witness(cfg, *, seed, prompt_len=1000, steps=40, max_seq=2048,
+                 exact_at=(1010, 1023, 1024, 1039)):
+    """gemma3 at full width cut to one period (5 local layers, 1 global) at
+    max_seq 2048: a `prompt_len` prompt, then `steps` teacher-forced decode
+    steps across position 1024, where each local layer's 1024-slot ring
+    wraps in place.
+    (a) the fused and unfused kernel paths' logits at every step held to
+        plain bf16 (k = 2) and plain fp32 (k = 1.5) under the serve phase's
+        floor-scaled gate, the floor (plain bf16 vs plain fp32) taken as its
+        largest value over the same steps;
+    (b) plain fp32 decode (fp32 KV caches) at `exact_at` positions within
+        1e-4 of max|z| of the final-position logits of an exact-length
+        prefill of the same tokens: the ring's semantics held to the
+        windowed flash-attention mask."""
+    import dataclasses
+
+    from repro_torch.core.precision import BF16, FP32
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(cfg, n_layers=6,
+                              schedule=(("local", 5), ("attn", 1)))
+    params = lm.init_lm(cfg, dtype=torch.bfloat16, device=DEVICE, seed=seed)
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab, prompt_len + steps, dtype=np.int32)
+    name = f"{cfg.name} one period, prompt {prompt_len} + {steps} steps"
+    kw = dict(max_seq=max_seq)
+    z_ref = decode_logits(cfg, params, tokens, prompt_len, mode="ref",
+                          fused=True, policy=BF16, kv_dtype=torch.bfloat16,
+                          **kw)
+    z_fp32 = decode_logits(cfg, params, tokens, prompt_len, mode="ref",
+                           fused=True, policy=FP32, kv_dtype=torch.float32,
+                           **kw)
+    gaps = [_gap(z_ref[i:i + 1], z_fp32[i:i + 1]) for i in range(steps)]
+    floor = (max(g[0] for g in gaps), max(g[1] for g in gaps))
+    log(f"witness: {name}, plain bf16 vs plain fp32 over the {steps} steps "
+        f"(floor): rel {floor[0]:.2e}, cosine {np.cos(floor[1]):.6f}")
+    out = {"floor": {"rel": floor[0], "cosine": float(np.cos(floor[1]))}}
+    ring = ring_layers(cfg, max_seq)
+    for path, fused in (("fused", True), ("unfused", False)):
+        z, launches = drive(
+            f"{name} {path}",
+            lambda: decode_logits(cfg, params, tokens, prompt_len,
+                                  mode="auto", fused=fused, policy=BF16,
+                                  kv_dtype=torch.bfloat16, **kw),
+            ("decode_attention", "paged_decode_partials", "flash_attention"))
+        if launches["decode_attention"] != ring * steps:
+            raise AssertionError(f"{name} {path}: decode_attention launched "
+                                 f"{launches['decode_attention']} times, not "
+                                 f"{ring * steps}")
+        for label, want, k in (("plain bf16", z_ref, 2.0),
+                               ("plain fp32", z_fp32, 1.5)):
+            worst = {"rel": 0.0, "cosine": 1.0}
+            for i in range(steps):
+                g = _logit_gate(f"{name} {path} vs {label} at position "
+                                f"{prompt_len + i}", z[i:i + 1],
+                                want[i:i + 1], floor, k, quiet=True)
+                worst = {"rel": max(worst["rel"], g["rel"]),
+                         "cosine": min(worst["cosine"], g["cosine"]),
+                         "tol": g["tol"], "cos_min": g["cos_min"]}
+            log(f"  {path} kernel path vs {label}, every step: worst rel "
+                f"{worst['rel']:.2e} (tol {worst['tol']:.2e}), cosine "
+                f"{worst['cosine']:.6f} (min {worst['cos_min']:.6f})")
+            out[f"{path}_vs_{label.replace(' ', '_')}"] = worst
+    exact = {}
+    for p in exact_at:
+        zp = teacher_forced(cfg, params, torch.tensor(tokens[None, :p + 1],
+                                                      device=DEVICE),
+                            mode="ref", fused=True, policy=FP32, **kw)
+        rel = _gap(z_fp32[p - prompt_len:p - prompt_len + 1], zp)[0]
+        exact[p] = rel
+        log(f"  plain fp32 decode at position {p} vs exact-length prefill: "
+            f"max|dz| / max|z| {rel:.2e} (tol {RING_EXACT_TOL:.0e})")
+        if not rel <= RING_EXACT_TOL:
+            raise AssertionError(f"{name}: ring decode at position {p} "
+                                 f"differs from prefill by {rel}")
+    out["decode_vs_prefill_fp32"] = exact
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -952,6 +1218,9 @@ KERNELS = {   # name -> (source, TPU kernel replaced, case in the line)
     "paged_decode_attention": (
         CSRC + "paged_decode.cu", "src/repro/kernels/flash_decode.py:297",
         "B=4 H=24/KV=8 D=128 BS=16 len 1/137/300/512"),
+    "decode_attention": (CSRC + "decode_attention.cu",
+                         "src/repro/kernels/flash_decode.py:116",
+                         DECODE_CASES[0][0]),
     "rmsnorm": (CSRC + "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:42",
                 "[4, 3072]"),
     "layernorm": (CSRC + "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:65",
@@ -990,11 +1259,13 @@ def main():
     check_ssd(rows)
     check_flash(rows)
     check_paged(rows)
+    check_decode_attention(rows)
     report["kernels"] = rows
     report["sampling"] = phase_sampling()
     report["serve"] = phase_serve()
-    from repro_torch.configs import MAMBA2_2_7B
+    from repro_torch.configs import GEMMA3_27B, MAMBA2_2_7B
     report["witness"] = depth_witness(MAMBA2_2_7B, layers=8, seed=3)
+    report["ring_witness"] = ring_witness(GEMMA3_27B, seed=6)
     report["launches_total"] = dict(TOTAL_LAUNCHES)
     line = []
     for name, (src, replaces, case) in KERNELS.items():

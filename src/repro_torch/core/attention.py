@@ -4,8 +4,11 @@ core/attention.py, unsharded route).
 Prefill (`attn_full`) is the reference's `tp == 1` route `_attn_seq_sp` with
 no sequence shards: Q/K/V projections (norm prologue fused), rotary
 positions, flash attention with the static offset 0, out-projection with the
-residual fused into its epilogue.  Decode (`attn_decode_paged`) writes the
-new token's K/V into its pool block and attends the slot's paged blocks.
+residual fused into its epilogue.  Decode writes the new token's K/V in
+place and attends: `attn_decode_paged` against the block pools (full-context
+layers), `attn_decode` against a dense per-slot cache [B, W, KV, hd] — the
+ring cache of a sliding-window layer whose window W is shorter than max_seq
+(slot = position % W), or a linear cache.
 
 Paged pools are [NB + 1, BS, KV, hd]: the trailing block is a write sink
 that absorbs the writes the reference drops (`mode="drop"`) — absent table
@@ -46,21 +49,40 @@ def merge_partials(o, m, l, dim=None):
     return o_all / torch.clamp(l_all, min=1e-30)[..., None]
 
 
-def build_cache(k_full, v_full, *, cache_len: int):
-    """-> {"k", "v"} [B, cache_len, KV, hd] in the cache dtype (padded with
-    zeros past the sequence)."""
+def ring_from_full(k_full, window: int):
+    """Arrange the last `window` positions of [B, S, KV, hd] into ring-buffer
+    order (slot = pos % window).  S < window pads at the tail (masked by pos
+    validity at decode)."""
     S = k_full.shape[1]
-    if S < cache_len:
+    if S >= window:
+        return torch.roll(k_full[:, S - window:], shifts=S % window, dims=1)
+    return torch.nn.functional.pad(k_full, (0, 0, 0, 0, 0, window - S))
+
+
+def build_cache(k_full, v_full, *, cache_len: int, window: int = 0,
+                dtype=CACHE_DTYPE):
+    """-> {"k", "v"} at `dtype` (the reference's plan.kv_cache_dtype):
+    window > 0, a ring cache of `window` slots [B, window, KV, hd]; else
+    [B, cache_len, KV, hd] in position order, padded with zeros past the
+    sequence."""
+    S = k_full.shape[1]
+    if window > 0:
+        k_full = ring_from_full(k_full, window)
+        v_full = ring_from_full(v_full, window)
+    elif S < cache_len:
         pad = (0, 0, 0, 0, 0, cache_len - S)
         k_full = torch.nn.functional.pad(k_full, pad)
         v_full = torch.nn.functional.pad(v_full, pad)
-    return {"k": k_full.to(CACHE_DTYPE), "v": v_full.to(CACHE_DTYPE)}
+    return {"k": k_full.to(dtype), "v": v_full.to(dtype)}
 
 
 def attn_full(p, x, *, cfg, policy: Policy, causal: bool, window: int = 0,
-              with_cache: bool = False, cache_len: int = 0, norm=None,
+              with_cache: bool = False, cache_len: int = 0,
+              cache_window: int = 0, kv_dtype=CACHE_DTYPE, norm=None,
               residual=None):
-    """x: [B, S, E] -> (y [B, S, E], cache | None).  `norm`: fused pre-norm
+    """x: [B, S, E] -> (y [B, S, E], cache | None).  `cache_window` > 0:
+    the cache is a ring of that many slots (else `cache_len` rows in
+    position order), stored at `kv_dtype`.  `norm`: fused pre-norm
     prologue on the Q/K/V GEMMs (x arrives un-normalized); `residual`:
     folded into the out-projection epilogue, and y is then the updated
     residual stream."""
@@ -85,7 +107,8 @@ def attn_full(p, x, *, cfg, policy: Policy, causal: bool, window: int = 0,
                        epilogue=Epilogue(residual=residual, out_dtype=ad))
     else:
         y = pdot(o, p["wo"], policy)
-    cache = build_cache(k, v, cache_len=cache_len) if with_cache else None
+    cache = (build_cache(k, v, cache_len=cache_len, window=cache_window,
+                         dtype=kv_dtype) if with_cache else None)
     return y, cache
 
 
@@ -194,6 +217,46 @@ def attn_decode_paged(p, x, pos, cache, block_tables, *, cfg,
                       block_tables, torch.full_like(block_tables, -1))
     out = _paged_attention(q.to(ad), k_pool, v_pool, tab.to(torch.int32),
                            length, kv_splits)
+    merged = out.reshape(B, H * hd)
+    return _decode_out_proj(p, merged, policy=policy,
+                            residual=residual), cache
+
+
+def attn_decode(p, x, pos, cache, *, cfg, policy: Policy, window: int,
+                norm=None, residual=None):
+    """One decode step against a dense per-slot cache.
+
+    x: [B, E]; pos: [B] position of the token being written; cache: {"k",
+    "v"} [B, W, KV, hd].  A window layer whose cache holds exactly `window`
+    slots is a ring: the new K/V goes IN PLACE to slot pos % W, and the
+    valid slots are the prefix s < min(pos + 1, W) (slot s holds position
+    pos - ((pos - s) mod W)); softmax does not depend on slot order, so that
+    prefix is all the kernel needs.  Otherwise the cache is linear (pos <
+    W): slot pos, and positions (pos - window, pos] attend.  Returns
+    (y [B, E], cache)."""
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.head_dim
+    ad = act_dtype(policy)
+    k_cache, v_cache = cache["k"], cache["v"]
+    W = k_cache.shape[1]
+    ring = window > 0 and W == window
+
+    q = _decode_q(p, x, pos, cfg=cfg, policy=policy, norm=norm)
+    k_new, v_new = _decode_kv_new(p, x, pos, cfg=cfg, policy=policy,
+                                  norm=norm)
+    pos = pos.to(torch.int64)
+    rows = torch.arange(B, device=x.device)
+    if ring:
+        slot, length, win = pos % W, torch.clamp(pos + 1, max=W), 0
+    else:
+        slot, length, win = pos, pos + 1, window
+    k_cache[rows, slot] = k_new.to(k_cache.dtype)
+    v_cache[rows, slot] = v_new.to(v_cache.dtype)
+
+    # the caches join at the activation dtype, as the reference casts them
+    # to q's (a no-op under bf16)
+    out = ops.decode_attention(q.to(ad), k_cache.to(ad), v_cache.to(ad),
+                               length.to(torch.int32), window=win)
     merged = out.reshape(B, H * hd)
     return _decode_out_proj(p, merged, policy=policy,
                             residual=residual), cache

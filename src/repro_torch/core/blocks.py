@@ -4,15 +4,16 @@ epilogues inside the GEMMs, add + norm in one pass where no GEMM can absorb
 it) or unfused (the discrete norm -> GEMM -> add chain):
 
   ``attn``          pre-norm attention + dense MLP
+  ``local``         the same with sliding-window attention
   ``ssm``           pre-norm Mamba2 SSD block (attention-free, no MLP)
   ``hybrid_attn``   attention and SSM heads in parallel on one normalized
                     input, outputs averaged, then a dense MLP
   ``hybrid_local``  the same with sliding-window attention
 
-The other kinds of the reference (MoE, encoder / decoder, ViT) raise
-NotImplementedError, and so does any attention layer whose window is
-shorter than max_seq: that needs the reference's ring cache, which is not
-ported (`kind_paged`)."""
+Full-context attention layers keep their KV in the block pool
+(`kind_paged`); a window shorter than max_seq keeps a dense per-slot ring
+cache of `window` slots instead.  The other kinds of the reference (MoE,
+encoder / decoder, ViT) raise NotImplementedError."""
 from __future__ import annotations
 
 import torch
@@ -23,7 +24,7 @@ from repro_torch.core import mlp as mlp_mod
 from repro_torch.core import ssm as ssm_mod
 from repro_torch.kernels import ops
 
-PORTED_KINDS = ("attn", "ssm", "hybrid_attn", "hybrid_local")
+PORTED_KINDS = ("attn", "local", "ssm", "hybrid_attn", "hybrid_local")
 HYBRID_KINDS = ("hybrid_attn", "hybrid_local")
 BIDIR_KINDS = ("enc", "vit")
 SSM_STATE = ("h", "cx", "cbc")
@@ -118,22 +119,8 @@ def kind_cache_len(kind: str, cfg, max_seq: int) -> int:
 
 def kind_paged(kind: str, cfg, max_seq: int) -> bool:
     """Full-context attention layers keep their KV in the block pool; a
-    window shorter than max_seq needs a dense ring cache (not ported)."""
+    window shorter than max_seq keeps a dense per-slot ring cache."""
     return kind in ATTN_KINDS and kind_cache_len(kind, cfg, max_seq) == max_seq
-
-
-def ring_cache_error(kind: str, cfg) -> NotImplementedError:
-    return NotImplementedError(
-        f"kind {kind!r} with sliding window {cfg.sliding_window} shorter "
-        f"than max_seq needs a ring cache; ring caches (and the dense "
-        f"decode_attention kernel they feed) are not ported yet")
-
-
-def require_paged(kind: str, cfg, max_seq: int):
-    """Refuse a layer that would need a ring cache: the port never falls
-    back to a full cache for a window layer."""
-    if kind in ATTN_KINDS and not kind_paged(kind, cfg, max_seq):
-        raise ring_cache_error(kind, cfg)
 
 
 # --------------------------------------------------------------------------
@@ -149,34 +136,37 @@ def _store_state(cache, new):
 
 def block_full(kind: str, p, x, *, cfg, policy, fused: bool = True,
                with_cache: bool = False, max_seq: int = 0,
-               compact_kv: bool = False):
-    """x: [B, S, E] -> (x', cache | None).  `compact_kv`: the KV cache at the
-    sequence's own length instead of `max_seq` (paged admission scatters it
-    into pool blocks)."""
+               compact_kv: bool = False, kv_dtype=attn.CACHE_DTYPE):
+    """x: [B, S, E] -> (x', cache | None).  A paged layer's KV cache has
+    `max_seq` rows, or with `compact_kv` the sequence's own length (paged
+    admission scatters it into pool blocks); a ring layer's is always its
+    `window` slots, so that admission overwrites the whole slot row.  KV
+    caches are stored at `kv_dtype`."""
     _require_ported(kind)
     if kind == "ssm":
         h = ops.norm(x, p["ln1"], cfg.norm)
         y, sc = ssm_mod.ssm_full(p["ssm"], h, cfg=cfg, policy=policy,
                                  with_cache=with_cache)
         return x + y, sc
-    cache_len = 0
-    if with_cache:
-        require_paged(kind, cfg, max_seq)
-        cache_len = x.shape[1] if compact_kv else max_seq
     causal = kind_causal(kind, cfg)
     window = kind_window(kind, cfg)
+    cache_len = cache_window = 0
+    if with_cache and kind_paged(kind, cfg, max_seq):
+        cache_len = x.shape[1] if compact_kv else max_seq
+    elif with_cache:
+        cache_len = cache_window = kind_cache_len(kind, cfg, max_seq)
+    kv_kw = dict(causal=causal, window=window, with_cache=with_cache,
+                 cache_len=cache_len, cache_window=cache_window,
+                 kv_dtype=kv_dtype)
     hybrid = kind in HYBRID_KINDS
     if fused and not hybrid:
         x, kv = attn.attn_full(p["attn"], x, cfg=cfg, policy=policy,
-                               causal=causal, window=window,
-                               with_cache=with_cache, cache_len=cache_len,
                                norm=ops.norm_prologue(p["ln1"], cfg.norm),
-                               residual=x)
+                               residual=x, **kv_kw)
     else:
         h = ops.norm(x, p["ln1"], cfg.norm)
         y, kv = attn.attn_full(p["attn"], h, cfg=cfg, policy=policy,
-                               causal=causal, window=window,
-                               with_cache=with_cache, cache_len=cache_len)
+                               **kv_kw)
     cache = dict(kv) if with_cache else None
     if hybrid:
         s, sc = ssm_mod.ssm_full(p["ssm"], h, cfg=cfg, policy=policy,
@@ -199,10 +189,25 @@ def block_full(kind: str, p, x, *, cfg, policy, fused: bool = True,
     return x, cache
 
 
+def _attn_decode(p, x, pos, cache, *, kind, cfg, policy, paged,
+                 block_tables, kv_splits, norm=None, residual=None):
+    """The layer's decode attention: the block pools when `paged`, else the
+    dense per-slot (ring) cache."""
+    if paged:
+        return attn.attn_decode_paged(p, x, pos, cache, block_tables,
+                                      cfg=cfg, policy=policy, norm=norm,
+                                      residual=residual, kv_splits=kv_splits)
+    return attn.attn_decode(p, x, pos, cache, cfg=cfg, policy=policy,
+                            window=kind_window(kind, cfg), norm=norm,
+                            residual=residual)
+
+
 def block_decode(kind: str, p, x, pos, cache, *, cfg, policy,
-                 block_tables, fused: bool = True, kv_splits: int = 1):
+                 block_tables, fused: bool = True, kv_splits: int = 1,
+                 paged: bool = True):
     """x: [B, E]; pos: [B]; cache: this layer's cache views — {"k", "v"}
-    pools and / or the SSM state {"h", "cx", "cbc"} — updated in place.
+    block pools (`paged`) or dense per-slot [B, W, KV, hd] ring caches, and
+    / or the SSM state {"h", "cx", "cbc"} — updated in place.
     -> (x', cache)."""
     _require_ported(kind)
     if kind == "ssm":
@@ -212,16 +217,15 @@ def block_decode(kind: str, p, x, pos, cache, *, cfg, policy,
         _store_state(cache, sc)
         return x + y, cache
     hybrid = kind in HYBRID_KINDS
+    kv_kw = dict(kind=kind, cfg=cfg, policy=policy, paged=paged,
+                 block_tables=block_tables, kv_splits=kv_splits)
     if fused and not hybrid:
-        x, _ = attn.attn_decode_paged(
-            p["attn"], x, pos, cache, block_tables, cfg=cfg, policy=policy,
-            norm=ops.norm_prologue(p["ln1"], cfg.norm), residual=x,
-            kv_splits=kv_splits)
+        x, _ = _attn_decode(p["attn"], x, pos, cache,
+                            norm=ops.norm_prologue(p["ln1"], cfg.norm),
+                            residual=x, **kv_kw)
     else:
         h = ops.norm(x, p["ln1"], cfg.norm)
-        y, _ = attn.attn_decode_paged(p["attn"], h, pos, cache,
-                                      block_tables, cfg=cfg, policy=policy,
-                                      kv_splits=kv_splits)
+        y, _ = _attn_decode(p["attn"], h, pos, cache, **kv_kw)
     if hybrid:
         s, sc = ssm_mod.ssm_decode(p["ssm"], h, cache, cfg=cfg,
                                    policy=policy)

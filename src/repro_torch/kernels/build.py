@@ -23,7 +23,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fused_matmul", "fused_swiglu", "flash_attention",
-           "paged_decode", "rmsnorm", "ssd")
+           "paged_decode", "decode_attention", "rmsnorm", "ssd")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()

@@ -16,18 +16,16 @@
 // (2 * len * KV * D * 2 bytes per slot) against a handful of FLOPs per byte.
 // Design: one block of 128 threads per (kv head, slot), walking the slot's
 // table entries in order (the TPU grid's sequential innermost dimension
-// becomes a loop inside the block).  Warps score one (query head, token)
-// pair each with 4-wide loads and a shuffle reduction; every thread then
-// applies the online-softmax update to its share of the D output dims with
+// becomes a loop inside the block); each live entry's valid tokens are one
+// chunk of common.cuh's `dec_fold`, which decode_attention.cu shares: warps
+// score one token each for all G query heads with 4-wide K loads and a
+// shuffle reduction, one warp per head updates the statistics, and every
+// thread applies the rescale to its share of the G x D outputs with
 // coalesced V row loads.  With B = 4 and 16 heads this is 64 blocks on 132
 // SMs: the callers split long contexts across blocks through the partials
 // variant (split-KV) and merge, which is how both variants run on the
 // serving path.
 #include "common.cuh"
-
-constexpr int PD_THREADS = 128;
-constexpr int PD_MAXG = 8;                     // query heads per kv head
-constexpr int PD_MAXV = 16;                    // (G * D) / PD_THREADS upper bound
 
 struct PDParams {
   const void* q;
@@ -44,110 +42,31 @@ struct PDParams {
 };
 
 template <bool NORMALIZE>
-__global__ void __launch_bounds__(PD_THREADS) paged_decode_kernel(const PDParams p) {
+__global__ void __launch_bounds__(DEC_THREADS) paged_decode_kernel(const PDParams p) {
   extern __shared__ float smem[];
   const int G = p.H / p.KV, D = p.D, BS = p.BS;
-  float* Qs = smem;            // [G][D]
-  float* Ss = Qs + G * D;      // [G][BS]
-
+  const DecSmem sh = dec_smem(smem, G, D, BS);
   const int kvh = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int len = p.lengths[b];
-  const bool round_p = p.dt == DT_BF16;
+  const int64_t head0 = (int64_t)b * p.H + kvh * G;
 
-  for (int i = tid; i < G * D; i += PD_THREADS) {
-    const int g = i / D, d = i % D;
-    Qs[i] = ld_elem(p.q, ((int64_t)b * p.H + kvh * G + g) * D + d, p.dt);
-  }
-
-  float m[PD_MAXG], l[PD_MAXG], acc[PD_MAXV];
-#pragma unroll
-  for (int g = 0; g < PD_MAXG; ++g) {
-    m[g] = NEG_INF_F;
-    l[g] = 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < PD_MAXV; ++i) acc[i] = 0.f;
-
+  float acc[DEC_MAXV];
+  dec_begin(sh, acc, p.q, head0, G, D, p.dt);
   for (int e = 0; e < p.MB; ++e) {
     const int t = p.tables[(int64_t)b * p.MB + e];
     if (t < 0 || e * BS >= len) continue;   // dead entry: no fold
-    __syncthreads();                         // Qs ready / previous Ss consumed
-    const int64_t blk = (int64_t)t * BS;
-    for (int pr = warp; pr < G * BS; pr += PD_THREADS / 32) {
-      const int g = pr / BS, tok = pr % BS;
-      const int64_t krow = ((blk + tok) * p.KV + kvh) * D;
-      const float* qg = Qs + g * D;
-      float dot = 0.f;
-      for (int c = lane * 4; c < D; c += 128) {
-        const float4 k4 = p.vec ? ld4_aligned(p.k_pool, krow + c, p.dt)
-                                : make_float4(ld_elem(p.k_pool, krow + c, p.dt),
-                                              ld_elem(p.k_pool, krow + c + 1, p.dt),
-                                              ld_elem(p.k_pool, krow + c + 2, p.dt),
-                                              ld_elem(p.k_pool, krow + c + 3, p.dt));
-        dot = fmaf(qg[c], k4.x, dot);
-        dot = fmaf(qg[c + 1], k4.y, dot);
-        dot = fmaf(qg[c + 2], k4.z, dot);
-        dot = fmaf(qg[c + 3], k4.w, dot);
-      }
-      dot = warp_sum(dot);
-      if (lane == 0) {
-        const float s = dot * p.sm_scale;
-        Ss[g * BS + tok] = (e * BS + tok < len) ? s : NEG_INF_F;
-      }
-    }
-    __syncthreads();
-
-    float corr[PD_MAXG], mnew[PD_MAXG];
-#pragma unroll
-    for (int g = 0; g < PD_MAXG; ++g) {
-      if (g >= G) break;
-      float mb = NEG_INF_F;
-      for (int tok = 0; tok < BS; ++tok) mb = fmaxf(mb, Ss[g * BS + tok]);
-      mnew[g] = fmaxf(m[g], mb);
-      corr[g] = expf(m[g] - mnew[g]);
-      float ps = 0.f;
-      for (int tok = 0; tok < BS; ++tok) ps += expf(Ss[g * BS + tok] - mnew[g]);
-      l[g] = l[g] * corr[g] + ps;
-      m[g] = mnew[g];
-    }
-#pragma unroll
-    for (int i = 0; i < PD_MAXV; ++i) {
-      const int pi = tid + i * PD_THREADS;
-      if (pi >= G * D) break;
-      const int g = pi / D, d = pi % D;
-      float a = acc[i] * corr[g];
-      for (int tok = 0; tok < BS; ++tok) {
-        float pw = expf(Ss[g * BS + tok] - mnew[g]);
-        if (round_p) pw = round_bf16(pw);
-        a = fmaf(pw, ld_elem(p.v_pool, ((blk + tok) * p.KV + kvh) * D + d, p.dt), a);
-      }
-      acc[i] = a;
-    }
+    dec_fold(sh, acc, p.k_pool, p.v_pool, ((int64_t)t * BS * p.KV + kvh) * D,
+             (int64_t)p.KV * D, min(BS, len - e * BS), G, D, p.dt, p.vec,
+             p.sm_scale);
   }
-
-#pragma unroll
-  for (int i = 0; i < PD_MAXV; ++i) {
-    const int pi = tid + i * PD_THREADS;
-    if (pi >= G * D) break;
-    const int g = pi / D, d = pi % D;
-    const int64_t o = ((int64_t)b * p.H + kvh * G + g) * D + d;
-    if (NORMALIZE)
-      st_elem(p.o, o, p.dt, acc[i] / fmaxf(l[g], 1e-30f));
-    else
-      reinterpret_cast<float*>(p.o)[o] = acc[i];
-  }
-  if (!NORMALIZE && tid < G) {
-    p.m[(int64_t)b * p.H + kvh * G + tid] = m[tid];
-    p.l[(int64_t)b * p.H + kvh * G + tid] = l[tid];
-  }
+  dec_finish<NORMALIZE>(sh, acc, p.o, p.m, p.l, head0, G, D, p.dt);
 }
 
 static int launch_paged(bool normalize, const PDParams& p, void* stream) {
   const int G = p.H / p.KV;
-  if (G > PD_MAXG || G * p.D > PD_MAXV * PD_THREADS || p.D % 4 != 0)
+  if (G > DEC_MAXG || G * p.D > DEC_MAXV * DEC_THREADS || p.D % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(G * p.D + G * p.BS) * sizeof(float);
+  const size_t smem = dec_smem_bytes(G, p.D, p.BS);
   dim3 grid(p.KV, p.B);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e;
@@ -155,12 +74,12 @@ static int launch_paged(bool normalize, const PDParams& p, void* stream) {
     e = cudaFuncSetAttribute(paged_decode_kernel<true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    paged_decode_kernel<true><<<grid, PD_THREADS, smem, s>>>(p);
+    paged_decode_kernel<true><<<grid, DEC_THREADS, smem, s>>>(p);
   } else {
     e = cudaFuncSetAttribute(paged_decode_kernel<false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    paged_decode_kernel<false><<<grid, PD_THREADS, smem, s>>>(p);
+    paged_decode_kernel<false><<<grid, DEC_THREADS, smem, s>>>(p);
   }
   return (int)cudaGetLastError();
 }

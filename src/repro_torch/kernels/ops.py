@@ -28,7 +28,8 @@ from repro_torch.kernels.epilogue import (LN_EPS, RMS_EPS, Epilogue, Prologue,
 
 __all__ = [
     "Epilogue", "Prologue", "norm_prologue", "get_mode", "set_mode",
-    "kernel_mode", "flash_attention", "paged_decode_attention",
+    "kernel_mode", "flash_attention", "decode_attention",
+    "paged_decode_attention",
     "paged_decode_partials", "split_quantized", "matmul", "fused_matmul",
     "matmul_swiglu", "fused_matmul_swiglu", "residual_norm", "rmsnorm",
     "layernorm", "norm", "ssd", "ssd_decode",
@@ -91,6 +92,17 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
                                    q_offset=q_offset)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset, block_kv=512)
+
+
+def decode_attention(q, k_cache, v_cache, length, *, window=0):
+    """Single-token decode over dense per-slot caches.  q: [B, H, D];
+    k/v_cache: [B, S, KV, D]; length: [B] valid positions;
+    `window` > 0: only the last `window` of them attend."""
+    if _use_kernel(q):
+        return _fd.decode_attention(q, k_cache, v_cache, length,
+                                    window=window)
+    return _ref.decode_attention_ref(q, k_cache, v_cache, length,
+                                     window=window)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):

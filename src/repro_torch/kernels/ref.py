@@ -112,6 +112,33 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0,
     return out.to(out_dtype)
 
 
+def decode_attention_ref(q, k_cache, v_cache, length, *, window=0,
+                         out_dtype=None):
+    """Single-token decode oracle.  q: [B, H, D]; caches: [B, S, KV, D];
+    `length`: number of valid cache entries (scalar or [B]).  Entries at
+    positions >= length are masked.  `window`: only the last `window`
+    positions attend (SWA)."""
+    out_dtype = out_dtype or q.dtype
+    B, S, KV, D = k_cache.shape
+    H = q.shape[1]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    qf = (q.float() * scale).reshape(B, KV, G, D)
+    kf = k_cache.float()
+    s = torch.einsum("bkgd,bskd->bkgs", qf, kf)
+    pos = torch.arange(S, device=q.device)[None, :]
+    length = torch.as_tensor(length, device=q.device)
+    ln = length[:, None] if length.ndim else length.reshape(1, 1)
+    msk = pos < ln
+    if window and window > 0:
+        msk = msk & (pos >= ln - window)
+    s = torch.where(msk[:, None, None], s,
+                    torch.tensor(NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(B, H, D).to(out_dtype)
+
+
 def _paged_gather(k_pool, v_pool, block_tables, lengths):
     """Dereference block tables into a dense [B, MB*BS, KV, D] fp32 view
     plus a [B, MB*BS] validity mask (token t of entry e holds absolute

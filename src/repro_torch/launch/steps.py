@@ -1,5 +1,7 @@
 """Decode-cache layout (port of the reference's launch/steps.py
-`PagedLayout`, `make_paged_layout` and `cache_layout`, paged layout).
+`PagedLayout`, `make_paged_layout` and `cache_layout`, paged layout: block
+pools for full-context attention, dense ring caches for window layers
+shorter than max_seq, per-slot SSM state).
 
 The reference builds jitted step functions here; PyTorch runs eagerly, so
 the port keeps only the layout and allocates the caches directly.
@@ -37,13 +39,14 @@ def make_paged_layout(cfg, max_seq: int, num_blocks: int,
 
 
 def cache_layout(cfg, layout: PagedLayout, *, batch_size: int, policy,
-                 device):
-    """Zeroed decode caches, one dict per segment: attention kinds get
-    {"k", "v"} block pools; SSM kinds get per-slot dense state, "h"
-    [count, B, Hp, P, N] fp32 and the conv tails "cx" [count, B, cw - 1,
-    d_inner] / "cbc" [count, B, cw - 1, 2N] in the activation dtype.  An
-    attention segment that is not paged — a window shorter than max_seq,
-    which needs a ring cache — raises NotImplementedError."""
+                 device, kv_dtype=CACHE_DTYPE):
+    """Zeroed decode caches, one dict per segment: paged attention kinds
+    get {"k", "v"} block pools; window layers shorter than max_seq get
+    dense per-slot ring caches "k" / "v" [count, B, window, KV, hd]; both
+    at `kv_dtype` (the reference's plan.kv_cache_dtype).  SSM kinds get
+    per-slot dense state, "h" [count, B, Hp, P, N] fp32 and the conv tails
+    "cx" [count, B, cw - 1, d_inner] / "cbc" [count, B, cw - 1, 2N] in the
+    activation dtype."""
     KV, hd = cfg.n_kv_heads, cfg.head_dim
     Hp, P, N = cfg.padded_ssm_heads(), cfg.ssm_head_dim, cfg.ssm_state
     cw, dip = cfg.conv_width, cfg.padded_d_inner()
@@ -51,13 +54,13 @@ def cache_layout(cfg, layout: PagedLayout, *, batch_size: int, policy,
     B = batch_size
     out = []
     for (kind, count), paged in zip(cfg.schedule, layout.segments):
-        if kind in ATTN_KINDS and not paged:
-            raise blocks.ring_cache_error(kind, cfg)
         d = {}
-        if paged:
-            shape = (count, layout.num_blocks + 1, layout.block_size, KV, hd)
-            d["k"] = torch.zeros(shape, dtype=CACHE_DTYPE, device=device)
-            d["v"] = torch.zeros(shape, dtype=CACHE_DTYPE, device=device)
+        if kind in ATTN_KINDS:
+            rows = ((layout.num_blocks + 1, layout.block_size) if paged
+                    else (B, blocks.kind_window(kind, cfg)))
+            shape = (count, *rows, KV, hd)
+            d["k"] = torch.zeros(shape, dtype=kv_dtype, device=device)
+            d["v"] = torch.zeros(shape, dtype=kv_dtype, device=device)
         if kind in SSM_KINDS:
             d["h"] = torch.zeros((count, B, Hp, P, N), dtype=torch.float32,
                                  device=device)

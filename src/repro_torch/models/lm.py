@@ -10,9 +10,10 @@ The reference scans each segment with `lax.scan`; the port runs a Python
 loop over its layers, eagerly.
 
 Modes: `forward_prefill` (NAR prompt pass, optional right-padding to a
-length bucket — exact only without SSM state — and compact KV for paged
-admission) and `forward_decode` (one AR step against the paged pools and
-the per-slot SSM state, which it updates in place).
+length bucket — exact only without SSM state or ring caches — and compact
+KV for paged admission) and `forward_decode` (one AR step against the paged
+pools, the per-slot ring caches of window layers and the per-slot SSM
+state, which it updates in place).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import blocks
+from repro_torch.core.attention import CACHE_DTYPE
 from repro_torch.core.embedding import (embed_sequence, embed_token,
                                         embedding_param_shapes, greedy_token,
                                         init_embedding, sample_token)
@@ -107,9 +109,10 @@ def _embed_sequence(params, tokens, *, policy):
 
 
 def _run_segments_prefill(params, x, *, cfg, policy, max_seq, fused=True,
-                          compact_kv=False):
+                          compact_kv=False, kv_dtype=CACHE_DTYPE):
     """-> (x [B, S, E], caches): one dict per segment of stacked leaves —
-    k / v [count, B, S_cache, KV, hd] for attention kinds, the SSM state
+    k / v [count, B, S_cache, KV, hd] at `kv_dtype` for attention kinds
+    (ring layers: S_cache = window, in slot order), the SSM state
     h [count, B, Hp, P, N] and conv tails cx / cbc [count, B, cw - 1, .]
     for SSM kinds."""
     caches = []
@@ -119,7 +122,8 @@ def _run_segments_prefill(params, x, *, cfg, policy, max_seq, fused=True,
             x, cache = blocks.block_full(kind, _layer(p_seg, i), x, cfg=cfg,
                                          policy=policy, fused=fused,
                                          with_cache=True, max_seq=max_seq,
-                                         compact_kv=compact_kv)
+                                         compact_kv=compact_kv,
+                                         kv_dtype=kv_dtype)
             layers.append(cache)
         caches.append({k: torch.stack([c[k] for c in layers])
                        for k in layers[0]})
@@ -127,17 +131,21 @@ def _run_segments_prefill(params, x, *, cfg, policy, max_seq, fused=True,
 
 
 def _run_segments_decode(params, x, pos, caches, *, cfg, policy,
-                         block_tables, fused=True, kv_splits=1):
-    """Every layer's decode step; pool and SSM-state leaves are updated in
-    place."""
-    for (kind, count), p_seg, c_seg in zip(cfg.schedule, params["segments"],
-                                           caches):
+                         block_tables, fused=True, kv_splits=1,
+                         paged_segments=None):
+    """Every layer's decode step; pool, ring-cache and SSM-state leaves are
+    updated in place.  `paged_segments`: per segment, whether its k / v are
+    block pools (the layout's `segments`); None: every segment's are."""
+    paged_segments = paged_segments or (True,) * len(cfg.schedule)
+    for (kind, count), p_seg, c_seg, paged in zip(
+            cfg.schedule, params["segments"], caches, paged_segments):
         for i in range(count):
             x, _ = blocks.block_decode(kind, _layer(p_seg, i), x, pos,
                                        _layer(c_seg, i), cfg=cfg,
                                        policy=policy,
                                        block_tables=block_tables,
-                                       fused=fused, kv_splits=kv_splits)
+                                       fused=fused, kv_splits=kv_splits,
+                                       paged=paged)
     return x, caches
 
 
@@ -197,15 +205,18 @@ def forward_prefill(params, tokens, *, cfg, policy, max_seq: int,
 
 def forward_decode(params, token, pos, caches, *, cfg, policy,
                    block_tables, lane=None, fused: bool = True,
-                   kv_splits: int = 1):
+                   kv_splits: int = 1, paged_segments=None):
     """One AR step.  token, pos: [B] device tensors; block_tables [B, MB]
     -> (next_token [B], caches).  `lane` (host arrays, with "step" = the
     position each sampled token will occupy): greedy when None.
-    `kv_splits`: split-KV count for the paged attention (host int)."""
+    `kv_splits`: split-KV count for the paged attention (host int);
+    `paged_segments`: per segment, pools or ring caches (the layout's
+    `segments`; None: pools everywhere)."""
     x = embed_token(params["embedding"]["embed"], token, policy=policy)
     x, caches = _run_segments_decode(params, x, pos, caches, cfg=cfg,
                                      policy=policy, block_tables=block_tables,
-                                     fused=fused, kv_splits=kv_splits)
+                                     fused=fused, kv_splits=kv_splits,
+                                     paged_segments=paged_segments)
     head_norm = _head_norm(params, cfg, fused)
     if head_norm is None:
         x = ops.norm(x, params["final_norm"], cfg.norm)

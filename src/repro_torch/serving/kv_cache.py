@@ -4,9 +4,10 @@ serving/kv_cache.py: `BlockAllocator` and the admission scatter).
   BlockAllocator  refcounted free list over a global pool of fixed-size KV
                   blocks; the engine keeps a per-slot block table.
   prefill_scatter a freshly prefilled group's compact KV goes straight into
-                  its assigned pool blocks, and its SSM state into its
-                  slots' rows, IN PLACE (the reference donates the caches
-                  to a jitted scatter; the port writes them).
+                  its assigned pool blocks, and its ring caches and SSM
+                  state into its slots' rows, IN PLACE (the reference
+                  donates the caches to a jitted scatter; the port writes
+                  them).
 """
 from __future__ import annotations
 
@@ -83,24 +84,29 @@ class BlockAllocator:
 
 
 @torch.no_grad()
-def prefill_scatter(caches, group_caches, slots, tables, *, block_size: int):
+def prefill_scatter(caches, group_caches, slots, tables, *, block_size: int,
+                    paged_segments=None):
     """Write a prefilled group's caches into the live decode caches in place.
 
-    caches        live decode caches, per segment: {"k", "v"} pools
-                  [count, NB + 1, BS, KV, hd] (trailing sink block) and / or
-                  per-slot SSM state {"h", "cx", "cbc"} [count, B, ...]
-    group_caches  the group's compact caches: k / v [count, n, S, KV, hd],
-                  SSM state [count, n, ...]
-    slots         [n] int tensor: the decode slot of each group row
-    tables        [n, MB] int tensor of assigned blocks (-1 beyond the
-                  allocation: written to the sink)
+    caches          live decode caches, per segment: {"k", "v"} pools
+                    [count, NB + 1, BS, KV, hd] (trailing sink block) or
+                    ring caches [count, B, W, KV, hd], and / or per-slot SSM
+                    state {"h", "cx", "cbc"} [count, B, ...]
+    group_caches    the group's caches: k / v [count, n, S, KV, hd] (rings:
+                    S = W), SSM state [count, n, ...]
+    slots           [n] int tensor: the decode slot of each group row
+    tables          [n, MB] int tensor of assigned blocks (-1 beyond the
+                    allocation: written to the sink)
+    paged_segments  per segment, whether its k / v are pools (the layout's
+                    `segments`); None: every segment's are
 
-    Pool leaves scatter per assigned block; every other leaf scatters per
-    slot row."""
-    for seg, new in zip(caches, group_caches):
+    Pool leaves scatter per assigned block; every other leaf — ring caches
+    included, though they too are named k / v — scatters per slot row."""
+    paged_segments = paged_segments or (True,) * len(caches)
+    for seg, new, paged in zip(caches, group_caches, paged_segments):
         for key, leaf in seg.items():
             val = new[key]
-            if key not in ("k", "v"):
+            if not (paged and key in ("k", "v")):
                 leaf[:, slots.to(torch.int64)] = val.to(leaf.dtype)
                 continue
             sink = leaf.shape[1] - 1

@@ -1,9 +1,10 @@
 """ModelRunner: policy-free model execution for the serving engine (port of
 the reference's serving/runner.py, synchronous whole-prompt path).
 
-Owns the device state — parameters, the paged KV pools and per-slot SSM
-state, the block allocator and block tables, the sampling lanes and the
-per-slot token/pos mirrors — and exposes two execution verbs:
+Owns the device state — parameters, the paged KV pools, the per-slot ring
+caches of window layers and SSM state, the block allocator and block
+tables, the sampling lanes and the per-slot token/pos mirrors — and exposes
+two execution verbs:
 `prefill(group)` (one batched NAR pass admitting a group into free slots)
 and `decode()` (one AR step over every decoding slot).  Scheduling
 decisions live in the engine's policy.
@@ -53,9 +54,10 @@ class ModelRunner:
         self.min_bucket = min_bucket
         self.policy = policy or BF16
         self.fuse_epilogues = fuse_epilogues
-        # pad-to-bucket is exact only for attention caches; recurrent state
-        # (SSM, hybrid) and window layers would absorb pad positions, so
-        # those configs prefill at each prompt's exact length
+        # pad-to-bucket is exact only for linear attention caches:
+        # recurrent state (SSM, hybrid) would absorb pad positions and a
+        # ring cache would roll pad rows in, so those configs prefill at
+        # each prompt's exact length
         self._pad_buckets = not (cfg.has_ssm or cfg.sliding_window > 0)
         default_blocks = batch_size * (-(-max_seq // block_size))
         self.layout = make_paged_layout(cfg, max_seq,
@@ -195,9 +197,9 @@ class ModelRunner:
                 free_slots: List[int], stats: EngineStats,
                 ) -> List[Tuple[GenerateTask, int]]:
         """One batched NAR pass for an admission group (all in one length
-        bucket), scattering its KV into the assigned blocks and its SSM
-        state into its slots' rows.  Returns (task, output index) pairs for
-        the freshly sampled first tokens."""
+        bucket), scattering its KV into the assigned blocks and its ring
+        caches and SSM state into its slots' rows.  Returns (task, output
+        index) pairs for the freshly sampled first tokens."""
         tasks = [t for t, _ in group]
         fulls = [self.full_prompt(t) for t in tasks]
         bucket = self.bucket_for(len(fulls[0]))
@@ -219,7 +221,8 @@ class ModelRunner:
         prefill_scatter(self.caches, caches_g,
                         torch.tensor(slots, device=self.device),
                         torch.tensor(tables, device=self.device),
-                        block_size=self.layout.block_size)
+                        block_size=self.layout.block_size,
+                        paged_segments=self.layout.segments)
         tok_np = tok.cpu().numpy()                 # waits: honest timing
         self.tokens[slots] = tok_np
         self.pos[slots] = pos_g.cpu().numpy()
@@ -267,7 +270,8 @@ class ModelRunner:
             self.params, torch.tensor(self.tokens, device=self.device),
             torch.tensor(self.pos, device=self.device), self.caches,
             cfg=self.cfg, policy=self.policy, block_tables=self._tables(),
-            lane=lane, fused=self.fuse_epilogues, kv_splits=splits)
+            lane=lane, fused=self.fuse_epilogues, kv_splits=splits,
+            paged_segments=self.layout.segments)
         toks = tok.cpu().numpy()                   # waits: honest timing
         self.pos += 1
         now = time.perf_counter()

@@ -16,13 +16,12 @@ CPU:
     prefill + decode loop (free-running engine tokens are never compared
     across frameworks: near-tied logits at random init make that no gate).
 
-Reduced hymba has a sliding window of 8 under max_seq 128: a ring cache,
-which the port does not serve yet.  So the cache-free block prefill runs
-at window 8, where the window mask matters (S = 13); the lm and engine
-tests run hymba with the window widened to max_seq
-(`sliding_window=cfg.max_seq`), the paged case the card serves at max_seq
-512 under hymba's window of 1024; and one test checks that the ring-cache
-layout raises NotImplementedError.
+Reduced hymba has a sliding window of 8 under max_seq 128.  The
+cache-free block prefill runs at window 8, where the window mask matters
+(S = 13); the lm and engine tests here run hymba with the window widened
+to max_seq (`sliding_window=cfg.max_seq`), the paged case the card serves
+at max_seq 512 under hymba's window of 1024.  Its ring caches (a window
+shorter than max_seq) are tested in test_torch_window.py.
 
 Tolerances: fp32 rtol = atol = 1e-4 (the two sides differ in the order of
 fp32 sums); bf16 KV pools 2e-2 (a pool row is one bf16 rounding); decode
@@ -490,22 +489,3 @@ def test_engine_preemption_recompute_matches_direct_loop(arch):
     for req in done:
         assert _direct(tcfg, tp, req.prompt, 8, True)[0] == req.output
     assert eng.allocator.num_free == eng.allocator.num_blocks
-
-
-def test_ring_cache_layout_raises():
-    """Reduced hymba's window of 8 under max_seq 64 needs a ring cache: the
-    engine, the cache layout and a cached prefill refuse it rather than
-    fall back to a full cache."""
-    _, tcfg, _, tp = _model("hymba-1.5b")
-    with pytest.raises(NotImplementedError, match="ring cache"):
-        InferenceEngine(tcfg, tp, batch_size=2, max_seq=MAX_SEQ,
-                        policy=FP32, device="cpu")
-    layout = make_paged_layout(tcfg, MAX_SEQ, 8, 16)
-    assert layout.segments == (True, False, True)
-    with pytest.raises(NotImplementedError, match="ring cache"):
-        cache_layout(tcfg, layout, batch_size=2, policy=FP32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ring cache"):
-        tlm.forward_prefill(tp, torch.zeros((1, 12), dtype=torch.int32),
-                            cfg=tcfg, policy=FP32, max_seq=MAX_SEQ,
-                            compact_kv=True)
-    assert tblocks.kind_paged("hybrid_local", _paged(tcfg), MAX_SEQ)

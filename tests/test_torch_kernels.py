@@ -447,11 +447,11 @@ def _meta(*shape):
 
 
 @pytest.mark.parametrize("op", ["matmul_swiglu", "fused_matmul_swiglu",
-                                "rmsnorm", "layernorm"])
+                                "rmsnorm", "layernorm", "decode_attention"])
 def test_new_ops_never_fall_back(op):
-    """The gated GEMM and the norms: `cuda` mode refuses a CPU tensor, and
-    a tensor off the CPU with no kernel to launch raises — neither quietly
-    runs the plain version."""
+    """The gated GEMM, the norms and the dense decode attention: `cuda`
+    mode refuses a CPU tensor, and a tensor off the CPU with no kernel to
+    launch raises — neither quietly runs the plain version."""
     calls = {
         "matmul_swiglu": lambda t: ops.matmul_swiglu(t(2, 8), t(8, 4),
                                                      t(8, 4)),
@@ -460,6 +460,8 @@ def test_new_ops_never_fall_back(op):
                                                              t(8))),
         "rmsnorm": lambda t: ops.rmsnorm(t(2, 8), t(8)),
         "layernorm": lambda t: ops.layernorm(t(2, 8), t(8), t(8)),
+        "decode_attention": lambda t: ops.decode_attention(
+            t(1, 2, 8), t(1, 4, 2, 8), t(1, 4, 2, 8), t(1), window=2),
     }[op]
     with ops.kernel_mode("cuda"):
         with pytest.raises(ValueError, match="needs CUDA tensors"):
@@ -475,6 +477,24 @@ def test_ref_mode_runs_ref_port():
         got = ops.fused_matmul(ta, tw, dot_dtype=torch.float32)
     assert torch.equal(got, tref.fused_matmul_ref(ta, tw,
                                                   dot_dtype=torch.float32))
+
+
+def test_decode_attention_modes():
+    """`ref` runs the oracle; `auto` on CPU tensors the kernel's plain
+    version (512-position chunks), which agrees with it."""
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.tensor(rng.standard_normal(s), dtype=torch.float32)
+               for s in ((3, 4, 16), (3, 600, 2, 16), (3, 600, 2, 16)))
+    ln = torch.tensor([1, 333, 600])
+    with ops.kernel_mode("ref"):
+        got = ops.decode_attention(q, k, v, ln, window=100)
+    assert torch.equal(got, tref.decode_attention_ref(q, k, v, ln,
+                                                      window=100))
+    with ops.kernel_mode("auto"):
+        plain = ops.decode_attention(q, k, v, ln, window=100)
+    assert torch.equal(plain, tfd.decode_attention_plain(q, k, v, ln,
+                                                         window=100))
+    np.testing.assert_allclose(_np(plain), _np(got), **F32)
 
 
 # --------------------------------------------------------------------------
