@@ -25,7 +25,6 @@ from repro_torch.core.rope import apply_rope
 from repro_torch.kernels import ops
 from repro_torch.kernels.epilogue import Epilogue
 
-CACHE_DTYPE = torch.bfloat16
 SPLIT_TOKENS = 256      # decode: KV positions per split-KV partial
 
 
@@ -60,11 +59,10 @@ def ring_from_full(k_full, window: int):
 
 
 def build_cache(k_full, v_full, *, cache_len: int, window: int = 0,
-                dtype=CACHE_DTYPE):
-    """-> {"k", "v"} at `dtype` (the reference's plan.kv_cache_dtype):
-    window > 0, a ring cache of `window` slots [B, window, KV, hd]; else
-    [B, cache_len, KV, hd] in position order, padded with zeros past the
-    sequence."""
+                dtype):
+    """-> {"k", "v"} at `dtype`: window > 0, a ring cache of `window` slots
+    [B, window, KV, hd]; else [B, cache_len, KV, hd] in position order,
+    padded with zeros past the sequence."""
     S = k_full.shape[1]
     if window > 0:
         k_full = ring_from_full(k_full, window)
@@ -78,12 +76,12 @@ def build_cache(k_full, v_full, *, cache_len: int, window: int = 0,
 
 def attn_full(p, x, *, cfg, policy: Policy, causal: bool, window: int = 0,
               with_cache: bool = False, cache_len: int = 0,
-              cache_window: int = 0, kv_dtype=CACHE_DTYPE, norm=None,
-              residual=None):
+              cache_window: int = 0, norm=None, residual=None):
     """x: [B, S, E] -> (y [B, S, E], cache | None).  `cache_window` > 0:
     the cache is a ring of that many slots (else `cache_len` rows in
-    position order), stored at `kv_dtype`.  `norm`: fused pre-norm
-    prologue on the Q/K/V GEMMs (x arrives un-normalized); `residual`:
+    position order), stored at the activation dtype (bf16 caches under the
+    bf16 policy, fp32 under fp32).  `norm`: fused pre-norm prologue on the
+    Q/K/V GEMMs (x arrives un-normalized); `residual`:
     folded into the out-projection epilogue, and y is then the updated
     residual stream."""
     B, S, E = x.shape
@@ -108,7 +106,7 @@ def attn_full(p, x, *, cfg, policy: Policy, causal: bool, window: int = 0,
     else:
         y = pdot(o, p["wo"], policy)
     cache = (build_cache(k, v, cache_len=cache_len, window=cache_window,
-                         dtype=kv_dtype) if with_cache else None)
+                         dtype=ad) if with_cache else None)
     return y, cache
 
 
@@ -232,8 +230,11 @@ def attn_decode(p, x, pos, cache, *, cfg, policy: Policy, window: int,
     valid slots are the prefix s < min(pos + 1, W) (slot s holds position
     pos - ((pos - s) mod W)); softmax does not depend on slot order, so that
     prefix is all the kernel needs.  Otherwise the cache is linear (pos <
-    W): slot pos, and positions (pos - window, pos] attend.  Returns
-    (y [B, E], cache)."""
+    W): slot pos, and positions (pos - window, pos] attend.  As in the
+    reference, the cache's shape picks the branch; every dense cache the
+    port builds is a ring (`blocks._attn_decode` asserts it), and only the
+    tests reach the linear branch, which mirrors the reference's mask.
+    Returns (y [B, E], cache)."""
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
     ad = act_dtype(policy)

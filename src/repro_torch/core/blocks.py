@@ -136,12 +136,11 @@ def _store_state(cache, new):
 
 def block_full(kind: str, p, x, *, cfg, policy, fused: bool = True,
                with_cache: bool = False, max_seq: int = 0,
-               compact_kv: bool = False, kv_dtype=attn.CACHE_DTYPE):
+               compact_kv: bool = False):
     """x: [B, S, E] -> (x', cache | None).  A paged layer's KV cache has
     `max_seq` rows, or with `compact_kv` the sequence's own length (paged
     admission scatters it into pool blocks); a ring layer's is always its
-    `window` slots, so that admission overwrites the whole slot row.  KV
-    caches are stored at `kv_dtype`."""
+    `window` slots, so that admission overwrites the whole slot row."""
     _require_ported(kind)
     if kind == "ssm":
         h = ops.norm(x, p["ln1"], cfg.norm)
@@ -156,8 +155,7 @@ def block_full(kind: str, p, x, *, cfg, policy, fused: bool = True,
     elif with_cache:
         cache_len = cache_window = kind_cache_len(kind, cfg, max_seq)
     kv_kw = dict(causal=causal, window=window, with_cache=with_cache,
-                 cache_len=cache_len, cache_window=cache_window,
-                 kv_dtype=kv_dtype)
+                 cache_len=cache_len, cache_window=cache_window)
     hybrid = kind in HYBRID_KINDS
     if fused and not hybrid:
         x, kv = attn.attn_full(p["attn"], x, cfg=cfg, policy=policy,
@@ -192,14 +190,17 @@ def block_full(kind: str, p, x, *, cfg, policy, fused: bool = True,
 def _attn_decode(p, x, pos, cache, *, kind, cfg, policy, paged,
                  block_tables, kv_splits, norm=None, residual=None):
     """The layer's decode attention: the block pools when `paged`, else the
-    dense per-slot (ring) cache."""
+    dense per-slot ring cache of `window` slots (`kind_paged`)."""
     if paged:
         return attn.attn_decode_paged(p, x, pos, cache, block_tables,
                                       cfg=cfg, policy=policy, norm=norm,
                                       residual=residual, kv_splits=kv_splits)
+    window = kind_window(kind, cfg)
+    if cache["k"].shape[1] != window:
+        raise ValueError(f"{kind}: a dense decode cache is a ring of "
+                         f"{window} slots, not {cache['k'].shape[1]}")
     return attn.attn_decode(p, x, pos, cache, cfg=cfg, policy=policy,
-                            window=kind_window(kind, cfg), norm=norm,
-                            residual=residual)
+                            window=window, norm=norm, residual=residual)
 
 
 def block_decode(kind: str, p, x, pos, cache, *, cfg, policy,

@@ -14,7 +14,6 @@ import torch
 
 from repro_torch.configs.base import ATTN_KINDS, SSM_KINDS
 from repro_torch.core import blocks
-from repro_torch.core.attention import CACHE_DTYPE
 from repro_torch.core.nn import act_dtype
 
 
@@ -39,14 +38,13 @@ def make_paged_layout(cfg, max_seq: int, num_blocks: int,
 
 
 def cache_layout(cfg, layout: PagedLayout, *, batch_size: int, policy,
-                 device, kv_dtype=CACHE_DTYPE):
+                 device):
     """Zeroed decode caches, one dict per segment: paged attention kinds
     get {"k", "v"} block pools; window layers shorter than max_seq get
     dense per-slot ring caches "k" / "v" [count, B, window, KV, hd]; both
-    at `kv_dtype` (the reference's plan.kv_cache_dtype).  SSM kinds get
-    per-slot dense state, "h" [count, B, Hp, P, N] fp32 and the conv tails
-    "cx" [count, B, cw - 1, d_inner] / "cbc" [count, B, cw - 1, 2N] in the
-    activation dtype."""
+    in the activation dtype.  SSM kinds get per-slot dense state, "h"
+    [count, B, Hp, P, N] fp32 and the conv tails "cx" [count, B, cw - 1,
+    d_inner] / "cbc" [count, B, cw - 1, 2N] in the activation dtype."""
     KV, hd = cfg.n_kv_heads, cfg.head_dim
     Hp, P, N = cfg.padded_ssm_heads(), cfg.ssm_head_dim, cfg.ssm_state
     cw, dip = cfg.conv_width, cfg.padded_d_inner()
@@ -59,8 +57,8 @@ def cache_layout(cfg, layout: PagedLayout, *, batch_size: int, policy,
             rows = ((layout.num_blocks + 1, layout.block_size) if paged
                     else (B, blocks.kind_window(kind, cfg)))
             shape = (count, *rows, KV, hd)
-            d["k"] = torch.zeros(shape, dtype=kv_dtype, device=device)
-            d["v"] = torch.zeros(shape, dtype=kv_dtype, device=device)
+            d["k"] = torch.zeros(shape, dtype=ad, device=device)
+            d["v"] = torch.zeros(shape, dtype=ad, device=device)
         if kind in SSM_KINDS:
             d["h"] = torch.zeros((count, B, Hp, P, N), dtype=torch.float32,
                                  device=device)

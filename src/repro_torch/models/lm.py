@@ -21,7 +21,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import blocks
-from repro_torch.core.attention import CACHE_DTYPE
 from repro_torch.core.embedding import (embed_sequence, embed_token,
                                         embedding_param_shapes, greedy_token,
                                         init_embedding, sample_token)
@@ -109,10 +108,10 @@ def _embed_sequence(params, tokens, *, policy):
 
 
 def _run_segments_prefill(params, x, *, cfg, policy, max_seq, fused=True,
-                          compact_kv=False, kv_dtype=CACHE_DTYPE):
+                          compact_kv=False):
     """-> (x [B, S, E], caches): one dict per segment of stacked leaves —
-    k / v [count, B, S_cache, KV, hd] at `kv_dtype` for attention kinds
-    (ring layers: S_cache = window, in slot order), the SSM state
+    k / v [count, B, S_cache, KV, hd] at the activation dtype for attention
+    kinds (ring layers: S_cache = window, in slot order), the SSM state
     h [count, B, Hp, P, N] and conv tails cx / cbc [count, B, cw - 1, .]
     for SSM kinds."""
     caches = []
@@ -122,8 +121,7 @@ def _run_segments_prefill(params, x, *, cfg, policy, max_seq, fused=True,
             x, cache = blocks.block_full(kind, _layer(p_seg, i), x, cfg=cfg,
                                          policy=policy, fused=fused,
                                          with_cache=True, max_seq=max_seq,
-                                         compact_kv=compact_kv,
-                                         kv_dtype=kv_dtype)
+                                         compact_kv=compact_kv)
             layers.append(cache)
         caches.append({k: torch.stack([c[k] for c in layers])
                        for k in layers[0]})

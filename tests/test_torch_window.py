@@ -71,9 +71,11 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
-def _plan(fused, kv_dtype="bfloat16"):
+def _plan(fused):
+    """The reference's plan; its KV caches in fp32, as the port's fp32
+    policy stores them."""
     return dataclasses.replace(UNSHARDED, fuse_epilogues=fused,
-                               kv_cache_dtype=kv_dtype)
+                               kv_cache_dtype="float32")
 
 
 @functools.lru_cache(maxsize=None)
@@ -320,8 +322,7 @@ def test_block_full_ring_cache_matches_reference(case, fused, S):
     assert set(tcache) == set(jcache)
     for key in tcache:
         assert tuple(tcache[key].shape) == jcache[key].shape
-        np.testing.assert_allclose(_np(tcache[key]), _np(jcache[key]),
-                                   **(BF16 if key in "kv" else F32))
+        np.testing.assert_allclose(_np(tcache[key]), _np(jcache[key]), **F32)
     assert tcache["k"].shape[1] == 8
 
 
@@ -382,13 +383,14 @@ def test_teacher_forced_ring_decode_matches_reference(arch, fused):
     into the decode layout (paged global, ring local segments), then 20
     decode steps through positions 12..31 — the rings wrap twice — with
     each side's caches evolving on their own.  Both sides store K/V in fp32
-    (the reference's plan.kv_cache_dtype), so the comparison is at the fp32
-    tolerance; the caches are held to each other after every step."""
+    (the port's fp32 policy; the reference's plan.kv_cache_dtype), so the
+    comparison is at the fp32 tolerance; the caches are held to each other
+    after every step."""
     jcfg, tcfg, jp, tp = _model(arch)
     rng = np.random.default_rng(21)
     B, S, BS, NB, n_dec = 2, 12, 8, 10, 20
     tokens = rng.integers(0, jcfg.vocab, (B, S + n_dec), dtype=np.int32)
-    plan = _plan(fused, kv_dtype="float32")
+    plan = _plan(fused)
     jx = jlm._embed_sequence(jp, {"tokens": jnp.asarray(tokens[:, :S])},
                              plan=plan, cfg=jcfg, policy=JFP32,
                              with_labels=False)[0]
@@ -398,7 +400,7 @@ def test_teacher_forced_ring_decode_matches_reference(arch, fused):
     tx = tlm._embed_sequence(tp, torch.tensor(tokens[:, :S]), policy=FP32)
     tx, tcaches = tlm._run_segments_prefill(
         tp, tx, cfg=tcfg, policy=FP32, max_seq=MAX_SEQ, fused=fused,
-        compact_kv=True, kv_dtype=torch.float32)
+        compact_kv=True)
     np.testing.assert_allclose(_np(tx), _np(jx), **F32)
 
     layout = make_paged_layout(tcfg, MAX_SEQ, num_blocks=NB, block_size=BS)
@@ -406,8 +408,7 @@ def test_teacher_forced_ring_decode_matches_reference(arch, fused):
     assert paged == tuple(jblocks.kind_paged(k, jcfg, MAX_SEQ)
                           for k, _ in jcfg.schedule)
     assert not all(paged) and any(paged)
-    tc = cache_layout(tcfg, layout, batch_size=B, policy=FP32, device="cpu",
-                      kv_dtype=torch.float32)
+    tc = cache_layout(tcfg, layout, batch_size=B, policy=FP32, device="cpu")
     tables = np.full((B, layout.max_blocks), -1, np.int32)
     tables[0, :4] = [4, 1, 7, 2]
     tables[1, :4] = [0, 9, 3, 5]
