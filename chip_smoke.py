@@ -19,7 +19,11 @@ non-zero):
               tolerance, kernel / plain / library milliseconds (CUDA events,
               median of the timed launches) and the bound (the larger of
               bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s, the H100 SXM
-              data-sheet peaks);
+              data-sheet peaks); the fused GEMMs also at gemma3's widths,
+              hymba's SwiGLU and ragged M (9, 17, 1100), with the template
+              the planner took and device times of the kernel and of
+              torch.matmul (torch.profiler kernel events, no host time);
+              decode cases rotate weight copies past the 50 MB L2;
   4. sampling threefry Gumbel noise drawn on the card against the same draw
               on the CPU: bits, uniforms and noise bit-equal, sampled
               tokens identical;
@@ -51,12 +55,16 @@ non-zero):
               decode (fp32 caches) held to exact-length prefill within 1e-4
               at positions 1010, 1023, 1024 and 1039.
 Every driven path zeroes the launch counters just before it and reads them
-just after; a kernel of the path that never launched fails the run.  The
+just after; a kernel of the path that never launched fails the run, and so
+does a GEMM that ran the fp32-weight template (fma32) on these bf16 paths;
+in each serve run prefill GEMMs must run the wgmma template and decode GEMMs
+the stream template, launch for launch.  The
 line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -79,6 +87,7 @@ SSD_TOL = {"y": 1e-2, "h": 1e-3}   # bf16 y; fp32 h_final (sum order only)
 LOGIT_TOL = 5e-2              # teacher-forced head: max|dz| / max|z| ...
 LOGIT_COS = 0.999             # ... or a multiple of the bf16 rounding floor
 RING_EXACT_TOL = 1e-4         # fp32 ring decode vs exact-length prefill
+L2_ROTATE_BYTES = 64 << 20    # decode GEMMs rotate weights past the 50 MB L2
 
 
 def log(msg):
@@ -107,6 +116,31 @@ def time_ms(fn, iters=20, warmup=3):
     return float(np.median(times))
 
 
+def _rotate(fns):
+    """One callable that runs `fns` in turn, call after call."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def device_ms(fns, iters=20):
+    """Mean device time of one call: the CUDA kernels' time in a
+    torch.profiler trace of `iters` calls (of `fns` in turn), per call; no
+    host time between launches is counted.  None when the profiler sees no
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", 0.0)
+             for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters if us > 0 else None
+
+
 def rel_err(got, want):
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
@@ -124,6 +158,10 @@ def row_rel_err(got, want):
     return dz.max().item(), max(per), per
 
 
+def _ms(x):
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 def _row(case, err, rel, tol, ms, plain, lib, nbytes, flops):
     b_ms, b_by = bound_ms(nbytes, flops)
     return dict(case=case, max_abs_err=err, rel_err=rel, tol=tol, ms=ms,
@@ -131,10 +169,14 @@ def _row(case, err, rel, tol, ms, plain, lib, nbytes, flops):
 
 
 def _report(name, r, lib_name):
+    dev = ""
+    if "device_ms" in r:
+        dev = (f" | device: kernel {_ms(r['device_ms'])} {lib_name} "
+               f"{_ms(r['library_device_ms'])} [{r['template']}]")
     log(f"  {name} {r['case']:26s} rel err {r['rel_err']:.2e} (tol "
         f"{r['tol']:.0e}) kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} "
         f"ms {lib_name} {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} "
-        f"ms ({r['bound_by']})")
+        f"ms ({r['bound_by']}){dev}")
     if not r["rel_err"] <= r["tol"]:
         raise AssertionError(f"{name} {r['case']}: rel err {r['rel_err']} > "
                              f"{r['tol']}")
@@ -192,10 +234,12 @@ def phase_build():
 # --------------------------------------------------------------------------
 
 def _gemm_cases():
-    """(label, M, K, N, norm, activation, residual, out dtype) — the GPT-J
-    projections at decode batch (M=4) and a 512-token prefill, and
-    phi4-mini's projections and 200192-column logits head at decode
-    batch."""
+    """(label, M, K, N, norm, activation, residual, out dtype): the GPT-J
+    projections at decode batch (M=4) and a 512-token prefill, phi4-mini's
+    projections and 200192-column logits head at decode batch, gemma3-27b's
+    at decode batch (q, up, down, the 262144-column head), and ragged M —
+    the first M past the stream template (9), 17 and gemma3's exact-length
+    1100-token prefill — on gemma3's q projection."""
     out = []
     for M in (4, 512):
         out += [(f"qkv M={M}", M, 4096, 4096, "layernorm", "none", False,
@@ -213,83 +257,109 @@ def _gemm_cases():
             ("phi4 w2 M=4", 4, 8192, 3072, "none", "none", True,
              torch.bfloat16),
             ("phi4 head M=4", 4, 3072, 200192, "rmsnorm", "none", False,
+             torch.float32),
+            ("gemma3 q M=4", 4, 5376, 4096, "rmsnorm", "none", False,
+             torch.bfloat16),
+            ("gemma3 up M=4", 4, 5376, 21504, "rmsnorm", "i_gelu", False,
+             torch.bfloat16),
+            ("gemma3 down M=4", 4, 21504, 5376, "none", "none", True,
+             torch.bfloat16),
+            ("gemma3 head M=4", 4, 5376, 262144, "rmsnorm", "none", False,
              torch.float32)]
+    out += [(f"gemma3 q M={M}", M, 5376, 4096, "rmsnorm", "none", False,
+             torch.bfloat16) for M in (9, 17, 1100)]
     return out
 
 
-def check_gemm(rows):
+def _weights(g, dev, K, N, nb, cold):
+    """Weight sets for the timed calls: `cold` (decode cases) rotates as
+    many copies as reach L2_ROTATE_BYTES, so that every call reads its
+    weights from device memory, as a served decode step does."""
+    copies = max(1, -(-L2_ROTATE_BYTES // (K * N * 2 * nb))) if cold else 1
+    return [[(torch.randn((K, N), generator=g, device=dev) * 0.02).bfloat16()
+             for _ in range(nb)] for _ in range(copies)]
+
+
+def _gemm_row(name, label, M, K, N, norm, act, has_res, od, *, gated, g):
+    """One fused GEMM case: error against the plain version, with-wrapper
+    and device times of the kernel and of one torch.matmul over the same
+    weights (both weights side by side when gated), the bound and the
+    template the planner took."""
     from repro_torch.kernels import matmul as mm
     dev = torch.device(DEVICE)
+    nb = 2 if gated else 1
+    cold = M <= mm.STREAM_MAX_M
+    ws = _weights(g, dev, K, N, nb, cold)
+    a = torch.randn((M, K), generator=g, device=dev).bfloat16()
+    gam = (1 + 0.1 * torch.randn((K,), generator=g, device=dev)).bfloat16()
+    bet = (0.1 * torch.randn((K,), generator=g, device=dev)).bfloat16()
+    res = (torch.randn((M, N), generator=g, device=dev).bfloat16()
+           if has_res else None)
+    kw = dict(norm=norm, residual=res, out_dtype=od,
+              eps=1e-6 if gated else 1e-5)
+    if norm != "none":
+        kw["gamma"] = gam
+    if norm == "layernorm":
+        kw["nbeta"] = bet
+    if gated:
+        kern = [lambda w=w: mm.matmul_swiglu(a, w[0], w[1], **kw) for w in ws]
+        plain = lambda: mm.matmul_swiglu_plain(a, ws[0][0], ws[0][1], **kw)
+        wl = [torch.cat(w, 1) for w in ws]
+    else:
+        kw["activation"] = act
+        kern = [lambda w=w: mm.fused_matmul(a, w[0], **kw) for w in ws]
+        plain = lambda: mm.matmul_plain(a, ws[0][0], **kw)
+        wl = [w[0] for w in ws]
+    lib = [lambda w=w: torch.matmul(a, w) for w in wl]
+    wrapper = mm.matmul_swiglu if gated else mm.fused_matmul
+    before = dict(wrapper.launches_by)
+    got = kern[0]()
+    torch.cuda.synchronize()
+    template = next(k for k, n in wrapper.launches_by.items()
+                    if n != before[k])
+    err, rel = rel_err(got, plain())
+    tol = GEMM_TOL["fp32" if od == torch.float32 else "bf16"]
+    nbytes = (M * K + nb * K * N) * 2 + M * N * (4 if od == torch.float32
+                                                 else 2)
+    nbytes += (M * N * 2 if has_res else 0) + (
+        {"none": 0, "rmsnorm": K * 2, "layernorm": 2 * K * 2}[norm])
+    r = _row(label, err, rel, tol, time_ms(_rotate(kern)),
+             time_ms(plain, iters=5), time_ms(_rotate(lib), iters=10),
+             nbytes, 2 * nb * M * N * K)
+    r.update(device_ms=device_ms(kern), library_device_ms=device_ms(lib),
+             template=template, weight_copies=len(ws))
+    _report(name, r, "torch.matmul")
+    del ws, wl, kern, lib
+    return r
+
+
+def check_gemm(rows):
+    dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(1)
-    results = []
-    for label, M, K, N, norm, act, has_res, od in _gemm_cases():
-        a = torch.randn((M, K), generator=g, device=dev).bfloat16()
-        w = (torch.randn((K, N), generator=g, device=dev) * 0.02).bfloat16()
-        gam = (1 + 0.1 * torch.randn((K,), generator=g, device=dev)).bfloat16()
-        bet = (0.1 * torch.randn((K,), generator=g, device=dev)).bfloat16()
-        res = (torch.randn((M, N), generator=g, device=dev).bfloat16()
-               if has_res else None)
-        kw = dict(norm=norm, activation=act, residual=res, out_dtype=od,
-                  eps=1e-5)
-        if norm != "none":
-            kw["gamma"] = gam
-        if norm == "layernorm":
-            kw["nbeta"] = bet
-        got = mm.fused_matmul(a, w, **kw)
-        torch.cuda.synchronize()
-        want = mm.matmul_plain(a, w, **kw)
-        err, rel = rel_err(got, want)
-        tol = GEMM_TOL["fp32" if od == torch.float32 else "bf16"]
-        ms = time_ms(lambda: mm.fused_matmul(a, w, **kw))
-        plain = time_ms(lambda: mm.matmul_plain(a, w, **kw), iters=5)
-        lib = time_ms(lambda: torch.matmul(a, w), iters=10)
-        nbytes = (M * K + K * N) * 2 + M * N * (4 if od == torch.float32
-                                                else 2)
-        nbytes += (M * N * 2 if has_res else 0) + (
-            {"none": 0, "rmsnorm": K * 2, "layernorm": 2 * K * 2}[norm])
-        r = _row(label, err, rel, tol, ms, plain, lib, nbytes, 2 * M * N * K)
-        _report("fused_matmul", r, "torch.matmul")
-        results.append(r)
-        del w
-    rows["fused_matmul"] = results
+    rows["fused_matmul"] = [
+        _gemm_row("fused_matmul", *case, gated=False, g=g)
+        for case in _gemm_cases()]
 
 
 def check_swiglu(rows):
     """phi4-mini's MLP up-projection, 3072 -> 2 x 8192: the fused chain
-    (RMSNorm prologue) at decode batch and a 512-token prefill, and the
-    unfused chain's call (no prologue) at decode batch.  Library yardstick:
+    (RMSNorm prologue) at decode batch, a 512-token prefill and ragged M (9,
+    17, 1100), and the unfused chain's call (no prologue) at decode batch;
+    hymba-1.5b's, 1600 -> 2 x 5504 with no prologue (its residual norm runs
+    before), at decode batch and a 512-token prefill.  Library yardstick:
     one torch.matmul against the two weights side by side, no prologue."""
-    from repro_torch.kernels import matmul as mm
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(4)
-    K, N = 3072, 8192
-    wg = (torch.randn((K, N), generator=g, device=dev) * 0.02).bfloat16()
-    wu = (torch.randn((K, N), generator=g, device=dev) * 0.02).bfloat16()
-    wcat = torch.cat([wg, wu], 1)
-    gam = (1 + 0.1 * torch.randn((K,), generator=g, device=dev)).bfloat16()
-    results = []
-    for label, M, norm in (("M=4 rmsnorm", 4, "rmsnorm"),
-                           ("M=512 rmsnorm", 512, "rmsnorm"),
-                           ("M=4 no norm", 4, "none")):
-        a = torch.randn((M, K), generator=g, device=dev).bfloat16()
-        kw = dict(norm=norm, eps=1e-6, out_dtype=torch.bfloat16)
-        if norm != "none":
-            kw["gamma"] = gam
-        got = mm.matmul_swiglu(a, wg, wu, **kw)
-        torch.cuda.synchronize()
-        want = mm.matmul_swiglu_plain(a, wg, wu, **kw)
-        err, rel = rel_err(got, want)
-        ms = time_ms(lambda: mm.matmul_swiglu(a, wg, wu, **kw))
-        plain = time_ms(lambda: mm.matmul_swiglu_plain(a, wg, wu, **kw),
-                        iters=5)
-        lib = time_ms(lambda: torch.matmul(a, wcat), iters=10)
-        nbytes = (M * K + 2 * K * N + M * N) * 2 + (K * 2 if kw.get("gamma")
-                                                    is not None else 0)
-        r = _row(label, err, rel, GEMM_TOL["bf16"], ms, plain, lib, nbytes,
-                 2 * 2 * M * N * K)
-        _report("fused_matmul_swiglu", r, "torch.matmul")
-        results.append(r)
-    rows["fused_matmul_swiglu"] = results
+    cases = [("M=4 rmsnorm", 4, 3072, 8192, "rmsnorm"),
+             ("M=512 rmsnorm", 512, 3072, 8192, "rmsnorm"),
+             ("M=4 no norm", 4, 3072, 8192, "none")]
+    cases += [(f"M={M} rmsnorm", M, 3072, 8192, "rmsnorm")
+              for M in (9, 17, 1100)]
+    cases += [(f"hymba M={M}", M, 1600, 5504, "none") for M in (4, 512)]
+    rows["fused_matmul_swiglu"] = [
+        _gemm_row("fused_matmul_swiglu", label, M, K, N, norm, "none", False,
+                  torch.bfloat16, gated=True, g=g)
+        for label, M, K, N, norm in cases]
 
 
 def check_norms(rows):
@@ -687,24 +757,58 @@ def _counters():
 
 
 TOTAL_LAUNCHES = {}            # kernel -> launches over every driven path
+GEMM_WRAPPERS = ("fused_matmul", "fused_matmul_swiglu")
+GEMM_KERNELS = ("stream_kernel", "splitk_finish", "wgmma_kernel",
+                "fused_mm_kernel", "fused_swiglu_kernel")
+TEMPLATE_LAUNCHES = {}         # path -> GEMM wrapper -> template -> launches
 
 
 def drive(path, fn, need):
     """Run one path with every launch counter zeroed just before and read
-    just after; fail if a kernel in `need` never launched."""
+    just after; fail if a kernel in `need` never launched, or if a GEMM ran
+    the fp32-weight template (every driven path serves bf16 weights)."""
     counters = _counters()
     for wrapper in counters.values():
         wrapper.launches = 0
+    for k in GEMM_WRAPPERS:
+        counters[k].launches_by = dict.fromkeys(counters[k].launches_by, 0)
     out = fn()
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in counters.items()}
     for k, n in launches.items():
         TOTAL_LAUNCHES[k] = TOTAL_LAUNCHES.get(k, 0) + n
+    by = {k: dict(counters[k].launches_by) for k in GEMM_WRAPPERS}
+    TEMPLATE_LAUNCHES[path] = by
     missing = [k for k in need if launches[k] == 0]
     log(f"  [{path}] launches {launches}")
+    log(f"  [{path}] GEMM launches by template {by}")
     if missing:
         raise AssertionError(f"{path}: kernels never launched: {missing}")
+    fma32 = {k: v["fma32"] for k, v in by.items() if v["fma32"]}
+    if fma32:
+        raise AssertionError(f"{path}: a bf16 path launched the fma32 "
+                             f"template: {fma32}")
     return out, launches
+
+
+def check_gemm_templates(cfg, st, by):
+    """Prefill GEMMs run the wgmma template and decode GEMMs the stream
+    template: each fused GEMM of the layers launches wgmma once a prefill
+    pass and stream once a decode step; the logits head (M = the pass's
+    sequences, <= 4) streams in both."""
+    P, D = st.prefill_batches, st.decode_steps
+    mm, sw = by["fused_matmul"], by["fused_matmul_swiglu"]
+    per_layer, per_swiglu = mm["wgmma"] // P, sw["wgmma"] // P
+    want = {"fused_matmul": {"fma32": 0, "stream": P + D * (per_layer + 1),
+                             "wgmma": P * per_layer},
+            "fused_matmul_swiglu": {"fma32": 0, "stream": D * per_swiglu,
+                                    "wgmma": P * per_swiglu}}
+    log(f"  [{cfg.name} serve] GEMM templates: {per_layer} fused GEMMs and "
+        f"{per_swiglu} gated GEMMs of the layers per pass; launches {by}, "
+        f"expected {want}")
+    if by != want:
+        raise AssertionError(f"{cfg.name} serve: GEMM templates {by} != "
+                             f"{want}")
 
 
 def _head(params, cfg, x, *, fused, policy):
@@ -871,16 +975,29 @@ def profile_decode(eng, cfg, rng, steps=4):
             f"profiler saw no kernels: device time not measured")
         return out
     busy = sum(ms for ms, _ in dev.values())
+    # the GEMM templates' kernels (gemm.cuh; GATED = the SwiGLU kernel)
+    gemm = {"fused_matmul": [0.0, 0], "fused_matmul_swiglu": [0.0, 0]}
+    for name, (ms, n) in dev.items():
+        if any(k in name for k in GEMM_KERNELS):
+            key = ("fused_matmul_swiglu" if "true>" in name
+                   or "fused_swiglu_kernel" in name else "fused_matmul")
+            gemm[key][0] += ms
+            gemm[key][1] += n
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]
     top_host = sorted(host.items(), key=lambda kv: -kv[1][0])[:8]
     log(f"  [{cfg.name} decode profile] {step_ms:.2f} ms/step unprofiled, "
         f"device busy {busy:.2f} ms/step ({busy / step_ms:.1%}); "
         f"{sum(n for _, n in dev.values())} device events per step")
+    for key, (ms, n) in gemm.items():
+        log(f"    {key} (every template) {ms:.3f} ms/step in {n} kernel "
+            f"launches")
     for name, (ms, n) in top:
         log(f"    device {ms:8.3f} ms/step  x{n:<5d} {name[:80]}")
     for name, (ms, n) in top_host:
         log(f"    host   {ms:8.3f} ms/step  x{n:<5d} {name[:80]}")
     out.update(device_busy_ms=busy, busy_share=busy / step_ms,
+               device_events=sum(n for _, n in dev.values()),
+               gemm_ms_per_step={k: v[0] for k, v in gemm.items()},
                device_top=[{"kernel": k, "ms_per_step": ms, "per_step": n}
                            for k, (ms, n) in top],
                host_top=[{"op": k, "cpu_ms_per_step": ms, "per_step": n}
@@ -928,6 +1045,7 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
     wall = time.perf_counter() - t0
     st = eng.stats()
     check_serve_counts(cfg, launches, st, max_seq)
+    check_gemm_templates(cfg, st, TEMPLATE_LAUNCHES[f"{cfg.name} serve"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"serve: {len(done)} requests in {wall:.2f} s | NAR "
         f"{st.nar_tok_s:.1f} tok/s | AR {st.ar_tok_s:.1f} tok/s | TTFT p50 "
@@ -943,7 +1061,9 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
             raise AssertionError(f"request {r.uid}: token out of vocab")
     if eng.allocator.num_free != eng.allocator.num_blocks:
         raise AssertionError("KV blocks leaked")
-    report = {"launches": {"serve": launches}, "stats": st.to_dict(),
+    report = {"launches": {"serve": launches},
+              "gemm_templates": TEMPLATE_LAUNCHES[f"{cfg.name} serve"],
+              "stats": st.to_dict(),
               "wall_s": wall, "peak_memory_gb": peak_gb, "params": n_params,
               "max_seq": max_seq, "layers": cfg.n_layers,
               "teacher_forced": {}, "decode_profile": profile_decode(
@@ -1282,6 +1402,7 @@ def main():
     report["witness"] = depth_witness(MAMBA2_2_7B, layers=8, seed=3)
     report["ring_witness"] = ring_witness(GEMMA3_27B, seed=6)
     report["launches_total"] = dict(TOTAL_LAUNCHES)
+    report["gemm_templates"] = dict(TEMPLATE_LAUNCHES)
     line = []
     for name, (src, replaces, case) in KERNELS.items():
         r = next(x for x in rows[name] if x["case"] == case)
@@ -1292,6 +1413,10 @@ def main():
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      "shape": r["case"]})
+        if "device_ms" in r:
+            line[-1].update(device_ms=r["device_ms"],
+                            library_device_ms=r["library_device_ms"],
+                            template=r["template"])
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1,

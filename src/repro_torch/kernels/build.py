@@ -139,7 +139,14 @@ def aligned16(*tensors) -> bool:
 
 
 def stream_of(t) -> int:
+    """PyTorch's current stream on t's device, as the raw cudaStream_t,
+    through the binding PyTorch's own generated code uses when it has one
+    (`torch.cuda.current_stream` resolves the device on every call, and a
+    decode step makes hundreds of launches)."""
     import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

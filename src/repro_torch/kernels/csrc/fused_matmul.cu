@@ -3,30 +3,43 @@
 // Replaces the TPU kernel src/repro/kernels/matmul.py:matmul
 // (_fused_mm_kernel, _finalize_norm):
 //     C = act(norm(A) @ B + bias) + residual,   A [M, K], B [K, N].
+// The deferred norm: the product runs on x * gamma (fp32), the row sums
+// sum x^2 (RMSNorm) and sum x, gamma @ W, beta @ W (LayerNorm) run beside it,
+// and rsqrt / mu / beta@W are applied once to the fp32 accumulator; bias,
+// activation and residual follow before the single store.
 //
-// Arithmetic follows the TPU kernel exactly: the prologue multiplies the A
-// tile by gamma in fp32 and the product runs on fp32 operands (the weight
-// tile upcast), accumulating in fp32; RMSNorm applies rsqrt(sum x^2 / K +
-// eps) to the accumulator at the end, LayerNorm applies
-// rstd * (acc - mu * (gamma @ W)) + beta @ W with the row sums and the two
-// column vectors accumulated alongside the product.  Bias, activation and
-// residual run on the fp32 accumulator before the single store.
+// Three templates (gemm.cuh), picked per call by kernels/matmul.py:gemm_plan:
 //
-// What bounds it on an H100: at decode batch (M <= 16) the weight stream
-// (K*N*2 bytes) over 3.35 TB/s; at prefill M the operations.  Design: the
-// whole K loop lives in one block (Hopper blocks run in no order, so nothing
-// carries over between them), and that block accumulates the row statistics
-// of its rows and gamma@W / beta@W of its columns itself.  Tiles are staged
-// through shared memory with a one-tile register prefetch that overlaps the
-// next tile's loads with this tile's FMAs.  Plain fp32 FMA keeps the
-// prologue's fp32 operands exact; tensor cores (wgmma) are later work.
-// Two tile shapes: 16 x 32 x 128 for decode (more blocks in flight on the
-// weight stream), 64 x 64 x 16 for prefill.
-#include "common.cuh"
-
-enum NormCode { NORM_NONE = 0, NORM_RMS = 1, NORM_LN = 2 };
-enum ActCode { ACT_NONE = 0, ACT_GELU_TANH = 1, ACT_GELU_EXACT = 2, ACT_I_GELU = 3,
-               ACT_SILU = 4 };
+// stream (bf16 W, M <= 8: decode).  Bound: the weight stream, K*N*2 bytes
+//   over 3.35 TB/s; 2*M FLOPs per 2 weight bytes is <= 27 TFLOP/s at the
+//   full HBM rate, under the 67 TFLOP/s fp32 FMA peak, so CUDA-core fp32
+//   arithmetic (exact: x * gamma in fp32, fp32 FMA) keeps up.  Design: no
+//   shared-memory staging of W; each lane reads 16 bytes (8 columns) of a
+//   weight row, neighbouring lanes neighbouring bytes, 8 rows in flight per
+//   lane and the next 8 prefetched; the M rows of x * gamma sit in shared
+//   memory as broadcasts.  K is split across blocks so that the grid fills
+//   whole waves of resident blocks (at least two per SM); each split writes
+//   acc, sum x, sum x^2, gamma@W and beta@W partials, and a second kernel
+//   adds them in split order before it applies the norm (never per split).
+// wgmma (bf16 A and W, M > 8: prefill).  Bound: the operations, 2*M*N*K
+//   over 989 TFLOP/s.  Design: tensor cores; TMA (descriptors encoded on the
+//   host through the runtime's driver entry point, passed as
+//   __grid_constant__) fills a 3-stage ring of A [128 x 64] and B [64 x 256]
+//   tiles, 128-byte swizzled and zero-filled past the edges; two consumer
+//   warpgroups, 64 rows each, turn their A rows into bf16(x * gamma) in
+//   place, sum x and x^2, and run wgmma.m64n256k16 from shared memory.
+//   Rounding: x * gamma is rounded once to bf16 for a bf16 output (as the
+//   unfused chain rounds norm(x) before its GEMM); for an fp32 output (the
+//   logits head) it is split into bf16 hi + lo, two MMAs, ~1e-5 from fp32;
+//   an un-normalized bf16 A is exact.  LayerNorm's gamma@W and beta@W: the
+//   producer warpgroup's three spare warps run CUDA-core fp32 FMA over the
+//   B tiles already in shared memory.  When the tiles cannot fill the card
+//   (small M or N), K is split as in the stream template.
+// fma32 (fp32 W: an fp32 policy in `auto` mode; no served path).  The
+//   port's first design, kept as is: the K loop in one block, tiles staged
+//   through shared memory with a one-tile register prefetch, fp32 FMA;
+//   16 x 32 x 128 tiles at M <= 16, 64 x 64 x 16 above.
+#include "gemm.cuh"
 
 struct MMParams {
   const void* a;
@@ -42,29 +55,6 @@ struct MMParams {
   float eps;
   int a_vec, b_vec;
 };
-
-__device__ __forceinline__ float activate(float x, int act) {
-  switch (act) {
-    case ACT_GELU_TANH: {
-      const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-      return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
-    }
-    case ACT_GELU_EXACT:
-      return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
-    case ACT_I_GELU: {  // I-BERT polynomial (core/activations.py:i_gelu)
-      const float arg = x * 0.70710678118654752f;
-      const float sgn = (float)((arg > 0.f) - (arg < 0.f));
-      const float a = fminf(fabsf(arg), 1.769f);
-      const float t = a - 1.769f;
-      const float erf_approx = sgn * (-0.2888f * t * t + 1.f);
-      return 0.5f * x * (1.f + erf_approx);
-    }
-    case ACT_SILU:
-      return x / (1.f + expf(-x));
-    default:
-      return x;
-  }
-}
 
 template <int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__(256) fused_mm_kernel(const MMParams p) {
@@ -249,13 +239,22 @@ __global__ void __launch_bounds__(256) fused_mm_kernel(const MMParams p) {
 
 extern "C" int repro_fused_matmul(const void* a, const void* b, const void* gamma,
                                   const void* beta, const void* bias,
-                                  const void* residual, void* out, int M, int N,
-                                  int K, int a_dt, int b_dt, int vec_dt, int res_dt,
-                                  int out_dt, int norm, int act, float eps,
-                                  int a_vec, int b_vec, void* stream) {
+                                  const void* residual, void* out, void* part, int M,
+                                  int N, int K, int a_dt, int b_dt, int vec_dt,
+                                  int res_dt, int out_dt, int norm, int act, float eps,
+                                  int a_vec, int b_vec, int tpl, int kchunk, int splits,
+                                  void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (tpl != TPL_FMA32) {
+    GemmParams g{a, b, nullptr, gamma, beta, bias, residual, out,
+                 reinterpret_cast<float*>(part), M, N, K, a_dt, b_dt, vec_dt, res_dt,
+                 out_dt, norm, act, eps, kchunk, splits};
+    if (tpl == TPL_STREAM) return (int)launch_stream<false>(g, s);
+    if (tpl == TPL_WGMMA) return (int)launch_wgmma<false>(g, s);
+    return (int)cudaErrorInvalidValue;
+  }
   MMParams p{a, b, gamma, beta, bias, residual, out, M, N, K, a_dt, b_dt,
              vec_dt, res_dt, out_dt, norm, act, eps, a_vec, b_vec};
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (M <= 16) {
     dim3 grid((N + 31) / 32, (M + 15) / 16);
     fused_mm_kernel<16, 32, 128, 1, 2><<<grid, 256, 0, s>>>(p);
@@ -265,3 +264,5 @@ extern "C" int repro_fused_matmul(const void* a, const void* b, const void* gamm
   }
   return (int)cudaGetLastError();
 }
+
+extern "C" int repro_fused_matmul_stream_occupancy(int M) { return stream_occupancy<false>(M); }

@@ -4,27 +4,28 @@
 // (_fused_gated_kernel):
 //     C = silu(norm(A) @ Bg) * (norm(A) @ Bu) + residual,
 //     A [M, K], Bg / Bu [K, N].
+// Both products run on x * gamma (fp32) into their own fp32 accumulators
+// over one K loop; one set of row sums serves both (sum x^2; LayerNorm adds
+// sum x and gamma@Wg, beta@Wg, gamma@Wu, beta@Wu per column).  The finish is
+// _finalize_norm twice, silu(g) * u in fp32, the residual, one store.
 //
-// Arithmetic follows the TPU kernel: the prologue multiplies the A tile by
-// gamma in fp32 and both products run on fp32 operands (the weight tiles
-// upcast), each into its own fp32 accumulator over one K loop.  One set of
-// row statistics serves both (sum x^2 for RMSNorm, plus sum x for
-// LayerNorm); LayerNorm also accumulates gamma@Wg, beta@Wg, gamma@Wu and
-// beta@Wu per column.  The finish is _finalize_norm twice, then
-// silu(g) * u in fp32, the residual add, and one store.
-//
-// What bounds it on an H100: at decode batch (M <= 16) the two weight
-// streams (2*K*N*2 bytes) over 3.35 TB/s; at prefill M the operations.
-// Design: derived from fused_matmul.cu — the whole K loop in one block,
-// which accumulates its own rows' statistics and its own columns' LN
-// vectors, tiles staged through shared memory with a one-tile register
-// prefetch, plain fp32 FMA.  The second accumulator doubles the registers
-// per output element, so the tiles are fused_matmul.cu's with half the N
-// width: 16 x 16 x 128 for decode (512 blocks on phi4's N = 8192) and
-// 64 x 32 x 16 for prefill.
-#include "common.cuh"
-
-enum NormCode { NORM_NONE = 0, NORM_RMS = 1, NORM_LN = 2 };
+// The templates are fused_matmul.cu's (gemm.cuh, GATED = true), picked by
+// kernels/matmul.py:gemm_plan:
+// stream (bf16 W, M <= 8).  Bound: the two weight streams, 2*K*N*2 bytes
+//   over 3.35 TB/s.  Each lane reads the same 16 bytes (8 columns) of a row
+//   of Bg and of Bu; twice the accumulators, so 4 rows in flight per weight
+//   (2 at M > 4) instead of 8.  Split K and the ordered second pass as in
+//   fused_matmul.cu, carrying both products' partials.
+// wgmma (bf16, M > 8).  Bound: the operations, 2*2*M*N*K over 989
+//   TFLOP/s.  The block's four B boxes per stage are Bg and Bu at the same
+//   128 output columns (the plain GEMM's 256 B columns, half the output
+//   width), so one warpgroup's m64n256k16 accumulator holds g and u of the
+//   same outputs and the epilogue pairs them.  Rounding, the LayerNorm
+//   column sums and the split of K as in fused_matmul.cu.
+// fma32 (fp32 W; no served path): the first design, kept as is — the K loop
+//   in one block, a one-tile register prefetch, fp32 FMA; 16 x 16 x 128
+//   tiles at M <= 16 and 64 x 32 x 16 above.
+#include "gemm.cuh"
 
 struct SGParams {
   const void* a;
@@ -246,13 +247,22 @@ __global__ void __launch_bounds__(256) fused_swiglu_kernel(const SGParams p) {
 
 extern "C" int repro_fused_swiglu(const void* a, const void* bg, const void* bu,
                                   const void* gamma, const void* beta,
-                                  const void* residual, void* out, int M, int N,
-                                  int K, int a_dt, int b_dt, int vec_dt, int res_dt,
-                                  int out_dt, int norm, float eps, int a_vec,
-                                  int b_vec, void* stream) {
+                                  const void* residual, void* out, void* part, int M,
+                                  int N, int K, int a_dt, int b_dt, int vec_dt,
+                                  int res_dt, int out_dt, int norm, float eps, int a_vec,
+                                  int b_vec, int tpl, int kchunk, int splits,
+                                  void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (tpl != TPL_FMA32) {
+    GemmParams g{a, bg, bu, gamma, beta, nullptr, residual, out,
+                 reinterpret_cast<float*>(part), M, N, K, a_dt, b_dt, vec_dt, res_dt,
+                 out_dt, norm, ACT_NONE, eps, kchunk, splits};
+    if (tpl == TPL_STREAM) return (int)launch_stream<true>(g, s);
+    if (tpl == TPL_WGMMA) return (int)launch_wgmma<true>(g, s);
+    return (int)cudaErrorInvalidValue;
+  }
   SGParams p{a, bg, bu, gamma, beta, residual, out, M, N, K, a_dt, b_dt,
              vec_dt, res_dt, out_dt, norm, eps, a_vec, b_vec};
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (M <= 16) {
     dim3 grid((N + 15) / 16, (M + 15) / 16);
     fused_swiglu_kernel<16, 16, 128, 1, 1><<<grid, 256, 0, s>>>(p);
@@ -262,3 +272,5 @@ extern "C" int repro_fused_swiglu(const void* a, const void* bg, const void* bu,
   }
   return (int)cudaGetLastError();
 }
+
+extern "C" int repro_fused_swiglu_stream_occupancy(int M) { return stream_occupancy<true>(M); }

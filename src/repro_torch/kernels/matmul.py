@@ -4,22 +4,38 @@
 (`_fused_mm_kernel`); its CUDA source is `csrc/fused_matmul.cu`.
 `matmul_swiglu` replaces `matmul.py:matmul_swiglu` (`_fused_gated_kernel`):
 silu(norm(A) @ Bg) * (norm(A) @ Bu) + residual in one pass, CUDA source
-`csrc/fused_swiglu.cu`.  Each source's note says what bounds the kernel on
-an H100 and how the design answers it.
+`csrc/fused_swiglu.cu`.  Both sources share the templates of `csrc/gemm.cuh`;
+`gemm_plan` picks one per call:
 
-`matmul_plain` is the kernel's arithmetic in plain PyTorch: fp32 operands
-(the prologue scales A by gamma in fp32 and the weight is upcast), fp32
-accumulation, the deferred RMSNorm / LayerNorm finalize, fp32 epilogue, one
-cast at the store; `matmul_swiglu_plain` does the same for both gated
-products, then silu(g) * u in fp32.  It differs from `ref.fused_matmul_ref` — which
-normalizes first and casts to the compute dtype before the dot — by bf16
-rounding only.  `fused_matmul` launches the kernel for CUDA tensors and
-takes `matmul_plain` for CPU tensors; it never falls back from one to the
-other.
+  ``stream``  bf16 weights, M <= 8 (decode): a weight stream on CUDA cores in
+              exact fp32, K split across blocks, the splits' partials added
+              in split order by a second kernel before the norm is applied;
+  ``wgmma``   bf16 A and weights, M > 8 (prefill): TMA and tensor cores;
+              x * gamma is rounded once to bf16 for a bf16 output, split into
+              bf16 hi + lo (two products) for an fp32 output;
+  ``fma32``   fp32 weights (an fp32 policy in `auto` mode): the first design's
+              fp32 FMA loop.
+
+`matmul_plain` is the function's definition in plain PyTorch: fp32
+operands (the prologue scales A by gamma in fp32 and the weight is upcast),
+fp32 accumulation, the deferred RMSNorm / LayerNorm finalize, fp32
+epilogue, one cast at the store; `matmul_swiglu_plain` does the same for
+both gated products, then silu(g) * u in fp32.  The stream and fma32
+templates differ from it by the order of fp32 sums only; the wgmma template
+also by where it rounds x * gamma (above).  `gemm_emulate` repeats each
+template's arithmetic (split ranges and their order, the bf16 roundings) in
+plain PyTorch for the tests.  `matmul_plain` differs from
+`ref.fused_matmul_ref` — which normalizes first and casts to the compute
+dtype before the dot — by bf16 rounding only.  The wrappers launch a kernel
+for CUDA tensors and take the plain version for CPU tensors; they never
+fall back from one to the other, and raise on operands no template takes.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,14 +45,121 @@ from repro_torch.kernels.epilogue import RMS_EPS
 
 _NORM = {"none": 0, "rmsnorm": 1, "layernorm": 2}
 _ACT = {"none": 0, "gelu": 1, "gelu_exact": 2, "i_gelu": 3, "silu": 4}
+_TEMPLATES = {"fma32": 0, "stream": 1, "wgmma": 2}    # gemm.cuh TemplateCode
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 7 + [_I] * 10 + [ctypes.c_float, _I, _I, _P]
-_SWIGLU_ARGTYPES = [_P] * 7 + [_I] * 9 + [ctypes.c_float, _I, _I, _P]
+_ARGTYPES = [_P] * 8 + [_I] * 10 + [ctypes.c_float] + [_I] * 5 + [_P]
+_SWIGLU_ARGTYPES = [_P] * 8 + [_I] * 9 + [ctypes.c_float] + [_I] * 5 + [_P]
+
+SM_COUNT = 132              # H100 SXM
+STREAM_MAX_M = 8            # gemm.cuh STREAM_MAX_M
+STREAM_COLS = 256           # output columns of one stream block
+STREAM_BLOCKS_PER_SM = 3    # resident stream blocks per SM when not queried
+STREAM_MIN_CHUNK = 32       # K rows of one split, at least
+STREAM_STAGE_BYTES = 32 * 1024   # staged rows of one split: (M + 2) fp32 each
+STREAM_MAX_WAVES = 8        # grids of up to this many waves are considered
+WG_TILE = (128, 256, 64)    # wgmma block tile (rows, B columns, K step)
+WG_MIN_SPLIT_STEPS = 4      # K steps of one wgmma split, at least
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """How one fused GEMM call runs: the template, its tile, the K rows of
+    one split (`kchunk`), the number of splits and the launch grid."""
+    template: str
+    tile: Tuple[int, ...]
+    kchunk: int
+    splits: int
+    grid: Tuple[int, ...]
+
+    def k_ranges(self, K: int):
+        """The K rows [k0, k1) of each split, in split order."""
+        return [(z * self.kchunk, min(K, (z + 1) * self.kchunk))
+                for z in range(self.splits)]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def gemm_plan(M: int, K: int, N: int, *, w_dtype=torch.bfloat16,
+              gated: bool = False, sm_count: int = SM_COUNT,
+              blocks_per_sm: int = STREAM_BLOCKS_PER_SM,
+              kchunk: Optional[int] = None) -> GemmPlan:
+    """The plan of an [M, K] @ [K, N] fused GEMM (gated: N output columns of
+    each of two weights).  Stream template: the K split is chosen so that
+    the grid fills whole waves of `sm_count * blocks_per_sm` resident
+    blocks, the fewest waves that reach 90%; `kchunk` overrides it (tests).
+    Raises on bf16 shapes no template takes."""
+    if w_dtype == torch.float32:
+        tile = ((16, 16 if gated else 32, 128) if M <= 16
+                else (64, 32 if gated else 64, 16))
+        return GemmPlan("fma32", tile, K, 1,
+                        (_cdiv(N, tile[1]), _cdiv(M, tile[0])))
+    if w_dtype != torch.bfloat16:
+        raise TypeError(f"fused GEMM: weights must be bfloat16 or float32, "
+                        f"not {w_dtype}")
+    if M < 1 or N % 8 or K % 8:
+        raise ValueError(f"fused GEMM: a bf16 [{M}, {K}] @ [{K}, {N}] needs "
+                         f"M >= 1 and N, K multiples of 8 (16-byte rows)")
+    if M <= STREAM_MAX_M:
+        mt = next(t for t in (1, 2, 4, 8) if M <= t)
+        strips = _cdiv(N, STREAM_COLS)
+        if kchunk is None:
+            kchunk = _stream_chunk(K, strips, mt, sm_count, blocks_per_sm)
+        splits = _cdiv(K, kchunk)
+        return GemmPlan("stream", (mt, STREAM_COLS), kchunk, splits,
+                        (strips, splits))
+    bm, bn, bk = WG_TILE
+    if gated:
+        bn //= 2
+    tiles = _cdiv(M, bm) * _cdiv(N, bn)
+    ktiles = _cdiv(K, bk)
+    if kchunk is None:
+        # too few tiles to fill the card: split K, each split at least
+        # WG_MIN_SPLIT_STEPS K steps, in one wave of one block per SM
+        want = 1
+        if tiles < sm_count:
+            want = max(1, min(sm_count // tiles, ktiles // WG_MIN_SPLIT_STEPS))
+        kchunk = _cdiv(ktiles, want) * bk
+    kchunk = _cdiv(kchunk, bk) * bk
+    splits = _cdiv(K, kchunk)
+    return GemmPlan("wgmma", (bm, bn, bk), kchunk, splits,
+                    (_cdiv(M, bm), _cdiv(N, bn), splits))
+
+
+def _stream_chunk(K: int, strips: int, mt: int, sm_count: int,
+                  blocks_per_sm: int) -> int:
+    """K rows of one split: a multiple of 8 in [STREAM_MIN_CHUNK, the
+    staging cap] whose grid (strips x splits) holds at least two blocks per
+    SM and fills waves of sm_count x blocks_per_sm resident blocks best: the
+    fewest waves that reach 90%, else the best fill."""
+    cap = STREAM_STAGE_BYTES // (4 * (mt + 2)) // 8 * 8
+    slots = sm_count * blocks_per_sm
+    best = None
+    for waves in range(1, STREAM_MAX_WAVES + 1):
+        want = max(1, round(waves * slots / strips))
+        chunk = min(max(_cdiv(_cdiv(K, want), 8) * 8, STREAM_MIN_CHUNK), cap)
+        blocks = strips * _cdiv(K, chunk)
+        fill = blocks / (_cdiv(blocks, slots) * slots)
+        score = (blocks >= 2 * sm_count, fill)
+        if best is None or score > best[0]:
+            best = (score, chunk)
+        if score >= (True, 0.9):
+            return chunk
+    return best[1]
+
+
+def _part_numel(plan: GemmPlan, M: int, N: int, nb: int) -> int:
+    """fp32 scratch of a split stream GEMM: acc [S, nb, M, N], gamma@W and
+    beta@W [S, nb, 2, N], row sums [S, M, 2] (gemm.cuh stream_kernel)."""
+    S = plan.splits
+    return S * nb * M * N + S * nb * 2 * N + S * M * 2
 
 
 def _normed_product(a, b, norm, gamma, nbeta, eps):
-    """norm(A) @ B in fp32 the kernels' way: A scaled by gamma in fp32,
-    the weight upcast, the norm statistics applied after the product."""
+    """norm(A) @ B in fp32: A scaled by gamma in fp32, the weight upcast,
+    the norm statistics applied after the product."""
     af, bf = a.float(), b.float()
     K = a.shape[-1]
     if norm == "none":
@@ -59,20 +182,154 @@ def _out_dtype(a, residual, out_dtype):
     return out_dtype or (residual.dtype if residual is not None else a.dtype)
 
 
+def _epilogue(ys, bias, residual, activation, out_dtype):
+    """bias + activation (one product) or silu(g) * u (two), then the
+    residual and one cast."""
+    if len(ys) == 2:
+        y = torch.nn.functional.silu(ys[0]) * ys[1]
+    else:
+        y = ys[0]
+        if bias is not None:
+            y = y + bias.float()
+        if activation != "none":
+            y = get_activation(activation)(y)
+    if residual is not None:
+        y = y + residual.float().reshape(y.shape)
+    return y.to(out_dtype)
+
+
 def matmul_plain(a, b, *, norm="none", gamma=None, nbeta=None, bias=None,
                  residual=None, activation="none", eps=RMS_EPS,
                  out_dtype=None):
-    """act(norm(A) @ B + bias) + residual with the kernel's fp32 math.
-    A: [M, K], B: [K, N]."""
+    """act(norm(A) @ B + bias) + residual in fp32.  A: [M, K], B: [K, N]."""
     out_dtype = _out_dtype(a, residual, out_dtype)
     y = _normed_product(a, b, norm, gamma, nbeta, eps)
-    if bias is not None:
-        y = y + bias.float()
-    if activation != "none":
-        y = get_activation(activation)(y)
+    return _epilogue([y], bias, residual, activation, out_dtype)
+
+
+def gemm_emulate(a, b, b_up=None, *, plan: GemmPlan, norm="none", gamma=None,
+                 nbeta=None, bias=None, residual=None, activation="none",
+                 eps=RMS_EPS, out_dtype=None):
+    """A template's arithmetic in plain PyTorch (tests only): `plan`'s K
+    ranges each give fp32 partials of x*gamma @ W, sum x, sum x^2, gamma @ W
+    and beta @ W, added in split order before the norm is applied once; the
+    wgmma template rounds x * gamma to bf16 (bf16 output) or splits it into
+    bf16 hi + lo (fp32 output).  `b_up`: the gated kernel, silu(g) * u."""
+    out_dtype = _out_dtype(a, residual, out_dtype)
+    af = a.float()
+    K = a.shape[1]
+    ws = [w.float() for w in ((b,) if b_up is None else (b, b_up))]
+    g = gamma.float() if norm != "none" else af.new_ones(K)
+    bt = nbeta.float() if norm == "layernorm" else af.new_zeros(K)
+    terms = None                      # stream / fma32: x * gamma in fp32
+    if plan.template == "wgmma":
+        if a.dtype != torch.bfloat16:
+            raise ValueError("the wgmma template takes a bf16 A")
+        v = af * g
+        terms = [v]
+        if norm != "none":
+            hi = v.bfloat16().float()
+            terms = [hi]
+            if out_dtype == torch.float32:
+                terms.append((v - hi).bfloat16().float())
+    M = a.shape[0]
+    s1 = s2 = af.new_zeros(M, 1)
+    accs = [af.new_zeros(M, w.shape[1]) for w in ws]
+    gws = [af.new_zeros(w.shape[1]) for w in ws]
+    bws = [af.new_zeros(w.shape[1]) for w in ws]
+    for k0, k1 in plan.k_ranges(K):
+        x = af[:, k0:k1]
+        s1 = s1 + x.sum(-1, keepdim=True)
+        s2 = s2 + (x * x).sum(-1, keepdim=True)
+        for i, w in enumerate(ws):
+            wk = w[k0:k1]
+            if terms is None:
+                accs[i] = accs[i] + (x * g[k0:k1]) @ wk
+            else:
+                for t in terms:
+                    accs[i] = accs[i] + t[:, k0:k1] @ wk
+            gws[i] = gws[i] + g[k0:k1] @ wk
+            bws[i] = bws[i] + bt[k0:k1] @ wk
+    ys = []
+    for acc, gw, bw in zip(accs, gws, bws):
+        if norm == "rmsnorm":
+            acc = acc * torch.rsqrt(s2 / K + eps)
+        elif norm == "layernorm":
+            mu = s1 / K
+            rstd = torch.rsqrt(s2 / K - mu * mu + eps)
+            acc = (acc - mu * gw) * rstd + bw
+        ys.append(acc)
+    return _epilogue(ys, bias, residual, activation, out_dtype)
+
+
+def _count(wrapper, plan: GemmPlan) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by[plan.template] += 1
+
+
+_OCCUPANCY = {}
+
+
+def _stream_slots(device, M, gated):
+    """(SMs, resident stream blocks per SM) of the card at M rows, queried
+    from the built kernel once."""
+    mt = next(t for t in (1, 2, 4, 8) if M <= t)
+    key = (device.index, mt, gated)
+    if key not in _OCCUPANCY:
+        lib, sym = (("fused_swiglu", "repro_fused_swiglu_stream_occupancy")
+                    if gated else
+                    ("fused_matmul", "repro_fused_matmul_stream_occupancy"))
+        blocks = build.bind(lib, sym, [_I])(mt)
+        if blocks < 1:
+            raise RuntimeError(f"{lib}: stream occupancy query failed "
+                               f"({blocks})")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _OCCUPANCY[key] = (sms, blocks)
+    return _OCCUPANCY[key]
+
+
+def _launch_operands(what, a, weights, vecs, residual, M, N, out_dtype,
+                     gated):
+    """Plan, check and lay out one launch: (plan, a, weights, vecs,
+    residual, out, part)."""
+    K = a.shape[1]
+    slots = {}
+    if weights[0].dtype == torch.bfloat16 and M <= STREAM_MAX_M:
+        sms, blocks = _stream_slots(a.device, M, gated)
+        slots = dict(sm_count=sms, blocks_per_sm=blocks)
+    plan = gemm_plan(M, K, N, w_dtype=weights[0].dtype, gated=gated, **slots)
+    if plan.template == "wgmma" and a.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: the wgmma template (M > {STREAM_MAX_M}) "
+                         f"takes a bf16 A with bf16 weights, got {a.dtype}")
+    if plan.template != "fma32" and any(w.dtype != weights[0].dtype
+                                        for w in weights):
+        raise ValueError(f"{what}: the weights' dtypes differ")
+    # TMA and 16-byte weight loads want 16-byte aligned rows: an activation
+    # view at an odd offset gets a fresh (aligned) copy
+    a = a.contiguous()
+    if plan.template != "fma32" and not build.aligned16(a):
+        a = a.clone()
+    weights = [w.contiguous() for w in weights]
+    if plan.template != "fma32" and not build.aligned16(*weights):
+        raise ValueError(f"{what}: weights must be 16-byte aligned")
+    vec_dtype = next((v.dtype for v in vecs if v is not None), torch.float32)
+    vecs = [None if v is None else v.to(vec_dtype).contiguous()
+            for v in vecs]
+    if plan.template == "wgmma":        # gamma / beta are read by TMA too
+        vecs = [v if v is None or build.aligned16(v) else v.clone()
+                for v in vecs]
     if residual is not None:
-        y = y + residual.float()
-    return y.to(out_dtype)
+        residual = residual.reshape(M, N).contiguous()
+    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    part = None
+    if plan.splits > 1:
+        part = torch.empty(_part_numel(plan, M, N, 2 if gated else 1),
+                           dtype=torch.float32, device=a.device)
+    return plan, a, weights, vecs, residual, out, part
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def fused_matmul(a, b, *, norm="none", gamma=None, nbeta=None, bias=None,
@@ -92,45 +349,39 @@ def fused_matmul(a, b, *, norm="none", gamma=None, nbeta=None, bias=None,
                          f"{tuple(b.shape)}")
     M, K = a.shape
     N = b.shape[1]
-    a, b = a.contiguous(), b.contiguous()
-    vecs = [v for v in (gamma, nbeta, bias) if v is not None]
-    vec_dtype = vecs[0].dtype if vecs else torch.float32
-    gamma, nbeta, bias = (None if v is None else v.to(vec_dtype).contiguous()
-                          for v in (gamma, nbeta, bias))
-    if residual is not None:
-        residual = residual.reshape(M, N).contiguous()
-    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    plan, a, (b,), (gamma, nbeta, bias), residual, out, part = \
+        _launch_operands("fused_matmul", a, [b], [gamma, nbeta, bias],
+                         residual, M, N, out_dtype, gated=False)
+    vec = next((v for v in (gamma, nbeta, bias) if v is not None), None)
     fn = build.bind("fused_matmul", "repro_fused_matmul", _ARGTYPES)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    err = fn(ptr(a), ptr(b), ptr(gamma), ptr(nbeta), ptr(bias),
-             ptr(residual), ptr(out), M, N, K,
+    err = fn(_ptr(a), _ptr(b), _ptr(gamma), _ptr(nbeta), _ptr(bias),
+             _ptr(residual), _ptr(out), _ptr(part), M, N, K,
              build.dtype_code(a), build.dtype_code(b),
-             build.dtype_code(vecs[0]) if vecs else 0,
+             build.dtype_code(vec) if vec is not None else 0,
              build.dtype_code(residual) if residual is not None else 0,
              build.dtype_code(out), _NORM[norm], _ACT[activation], float(eps),
              int(K % 4 == 0 and build.aligned16(a)),
              int(N % 4 == 0 and build.aligned16(b)),
+             _TEMPLATES[plan.template], plan.kchunk, plan.splits,
              build.stream_of(a))
-    build.check(err, "fused_matmul launch")
-    fused_matmul.launches += 1
+    build.check(err, f"fused_matmul launch ({plan.template})")
+    _count(fused_matmul, plan)
     return out
 
 
 fused_matmul.launches = 0
+fused_matmul.launches_by = dict.fromkeys(_TEMPLATES, 0)
 
 
 def matmul_swiglu_plain(a, b_gate, b_up, *, norm="none", gamma=None,
                         nbeta=None, residual=None, eps=RMS_EPS,
                         out_dtype=None):
-    """silu(norm(A) @ Bg) * (norm(A) @ Bu) + residual with the kernel's
-    fp32 math.  A: [M, K]; Bg, Bu: [K, N]."""
+    """silu(norm(A) @ Bg) * (norm(A) @ Bu) + residual in fp32.
+    A: [M, K]; Bg, Bu: [K, N]."""
     out_dtype = _out_dtype(a, residual, out_dtype)
     g = _normed_product(a, b_gate, norm, gamma, nbeta, eps)
     u = _normed_product(a, b_up, norm, gamma, nbeta, eps)
-    y = torch.nn.functional.silu(g) * u
-    if residual is not None:
-        y = y + residual.float()
-    return y.to(out_dtype)
+    return _epilogue([g, u], None, residual, "none", out_dtype)
 
 
 def _check_swiglu(a, b_gate, b_up, norm, gamma, nbeta, residual):
@@ -163,27 +414,24 @@ def matmul_swiglu(a, b_gate, b_up, *, norm="none", gamma=None, nbeta=None,
     _check_swiglu(a, b_gate, b_up, norm, gamma, nbeta, residual)
     M, K = a.shape
     N = b_gate.shape[1]
-    a, b_gate, b_up = a.contiguous(), b_gate.contiguous(), b_up.contiguous()
-    vec_dtype = gamma.dtype if gamma is not None else torch.float32
-    gamma, nbeta = (None if v is None else v.to(vec_dtype).contiguous()
-                    for v in (gamma, nbeta))
-    if residual is not None:
-        residual = residual.reshape(M, N).contiguous()
-    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    plan, a, (b_gate, b_up), (gamma, nbeta), residual, out, part = \
+        _launch_operands("matmul_swiglu", a, [b_gate, b_up], [gamma, nbeta],
+                         residual, M, N, out_dtype, gated=True)
     fn = build.bind("fused_swiglu", "repro_fused_swiglu", _SWIGLU_ARGTYPES)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    err = fn(ptr(a), ptr(b_gate), ptr(b_up), ptr(gamma), ptr(nbeta),
-             ptr(residual), ptr(out), M, N, K,
+    err = fn(_ptr(a), _ptr(b_gate), _ptr(b_up), _ptr(gamma), _ptr(nbeta),
+             _ptr(residual), _ptr(out), _ptr(part), M, N, K,
              build.dtype_code(a), build.dtype_code(b_gate),
              build.dtype_code(gamma) if gamma is not None else 0,
              build.dtype_code(residual) if residual is not None else 0,
              build.dtype_code(out), _NORM[norm], float(eps),
              int(K % 4 == 0 and build.aligned16(a)),
              int(N % 4 == 0 and build.aligned16(b_gate, b_up)),
+             _TEMPLATES[plan.template], plan.kchunk, plan.splits,
              build.stream_of(a))
-    build.check(err, "matmul_swiglu launch")
-    matmul_swiglu.launches += 1
+    build.check(err, f"matmul_swiglu launch ({plan.template})")
+    _count(matmul_swiglu, plan)
     return out
 
 
 matmul_swiglu.launches = 0
+matmul_swiglu.launches_by = dict.fromkeys(_TEMPLATES, 0)

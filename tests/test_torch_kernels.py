@@ -512,7 +512,7 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "gemm_probe.py"]
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):
