@@ -900,53 +900,80 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       *reinterpret_cast<float2*>(ct + (lrow + 8 * h) * WG_CPAD + 8 * j + 2 * t) =
           make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   named_sync(3, 256);
-  // GATED: output column lc is gate column lc and up column WG_COLS / 2 + lc
+  // The tile leaves in chunks of 8 consecutive columns a thread (two
+  // float4 reads of the staged row, one 16-byte or two 32-byte stores):
+  // eight independent outputs in flight per thread.  GATED: output column
+  // lc is gate column lc and up column OCOLS + lc.
   constexpr int OCOLS = GATED ? WG_COLS / 2 : WG_COLS;
   constexpr int NB = GATED ? 2 : 1;
-  if (p.splits > 1) {
-    // leave this split's partials to splitk_finish (stream_kernel's layout)
-    float* pacc = p.part;                                     // [S][NB][M][N]
-    float* pcol = pacc + (size_t)p.splits * NB * p.M * p.N;   // [S][NB][2][N]
-    float* pst = pcol + (size_t)p.splits * NB * 2 * p.N;      // [S][M][2]
-    if (blockIdx.y == 0 && t == 0) {
+  constexpr int CHUNKS = OCOLS / 8;
+  const bool partial = p.splits > 1;
+  float* pacc = p.part;                                     // [S][NB][M][N]
+  float* pcol = pacc + (size_t)p.splits * NB * p.M * p.N;   // [S][NB][2][N]
+  float* pst = pcol + (size_t)p.splits * NB * 2 * p.N;      // [S][M][2]
+  if (partial && blockIdx.y == 0 && t == 0) {
+    // this split's partials go to splitk_finish (stream_kernel's layout)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = m0 + lrow + 8 * h;
-        if (r < p.M) {
-          pst[((size_t)z * p.M + r) * 2] = s1[h];
-          pst[((size_t)z * p.M + r) * 2 + 1] = s2[h];
-        }
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + lrow + 8 * h;
+      if (r < p.M) {
+        pst[((size_t)z * p.M + r) * 2] = s1[h];
+        pst[((size_t)z * p.M + r) * 2 + 1] = s2[h];
       }
     }
-    for (int idx = tid - 128; idx < WG_BM * OCOLS; idx += 256) {
-      const int lr = idx / OCOLS, lc = idx % OCOLS;
-      const int r = m0 + lr, c = ncol0 + lc;
-      if (r >= p.M || c >= p.N) continue;
+  }
+  for (int ch = tid - 128; ch < WG_BM * CHUNKS; ch += 256) {
+    const int lr = ch / CHUNKS, lc = (ch % CHUNKS) * 8;
+    const int r = m0 + lr, c = ncol0 + lc;
+    if (r >= p.M || c >= p.N) continue;  // N % 8 == 0: a chunk is all in or out
+    const float* row = ct + lr * WG_CPAD;
+    float v[NB][8];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const float4 lo = *reinterpret_cast<const float4*>(row + b * OCOLS + lc);
+      const float4 hi = *reinterpret_cast<const float4*>(row + b * OCOLS + lc + 4);
+      v[b][0] = lo.x, v[b][1] = lo.y, v[b][2] = lo.z, v[b][3] = lo.w;
+      v[b][4] = hi.x, v[b][5] = hi.y, v[b][6] = hi.z, v[b][7] = hi.w;
+    }
+    if (partial) {
 #pragma unroll
       for (int b = 0; b < NB; ++b) {
-        pacc[((size_t)(z * NB + b) * p.M + r) * p.N + c] = ct[lr * WG_CPAD + b * OCOLS + lc];
+        float4* dst = reinterpret_cast<float4*>(
+            pacc + ((size_t)(z * NB + b) * p.M + r) * p.N + c);
+        dst[0] = make_float4(v[b][0], v[b][1], v[b][2], v[b][3]);
+        dst[1] = make_float4(v[b][4], v[b][5], v[b][6], v[b][7]);
         if (ln && blockIdx.x == 0 && lr == 0) {
-          pcol[((size_t)(z * NB + b) * 2) * p.N + c] = colsum[b * OCOLS + lc];
-          pcol[((size_t)(z * NB + b) * 2 + 1) * p.N + c] = colsum[WG_COLS + b * OCOLS + lc];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            pcol[((size_t)(z * NB + b) * 2) * p.N + c + e] = colsum[b * OCOLS + lc + e];
+            pcol[((size_t)(z * NB + b) * 2 + 1) * p.N + c + e] =
+                colsum[WG_COLS + b * OCOLS + lc + e];
+          }
         }
       }
+      continue;
     }
-    return;
-  }
-  for (int idx = tid - 128; idx < WG_BM * OCOLS; idx += 256) {
-    const int lr = idx / OCOLS, lc = idx % OCOLS;
-    const int r = m0 + lr, c = ncol0 + lc;
-    if (r >= p.M || c >= p.N) continue;
     const float rstd = rowscale[lr * 2], mu = rowscale[lr * 2 + 1];
-    const float* row = ct + lr * WG_CPAD;
-    const float y0 = finalize(row[lc], p.norm, rstd, mu, ln ? colsum[lc] : 0.f,
-                              ln ? colsum[WG_COLS + lc] : 0.f);
-    float y1 = 0.f;
-    if (GATED)
-      y1 = finalize(row[OCOLS + lc], p.norm, rstd, mu, ln ? colsum[OCOLS + lc] : 0.f,
-                    ln ? colsum[WG_COLS + OCOLS + lc] : 0.f);
     const int64_t o = (int64_t)r * p.N + c;
-    st_elem(p.out, o, p.out_dt, epilogue<GATED>(p, c, o, y0, y1));
+    float y[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float f[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        f[b] = finalize(v[b][e], p.norm, rstd, mu, ln ? colsum[b * OCOLS + lc + e] : 0.f,
+                        ln ? colsum[WG_COLS + b * OCOLS + lc + e] : 0.f);
+      y[e] = epilogue<GATED>(p, c + e, o + e, f[0], f[NB - 1]);
+    }
+    if (p.out_dt == DT_BF16) {
+      *reinterpret_cast<uint4*>(reinterpret_cast<__nv_bfloat16*>(p.out) + o) =
+          make_uint4(pack2(y[0], y[1]), pack2(y[2], y[3]), pack2(y[4], y[5]),
+                     pack2(y[6], y[7]));
+    } else {
+      float4* dst = reinterpret_cast<float4*>(reinterpret_cast<float*>(p.out) + o);
+      dst[0] = make_float4(y[0], y[1], y[2], y[3]);
+      dst[1] = make_float4(y[4], y[5], y[6], y[7]);
+    }
   }
 }
 
