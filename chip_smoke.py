@@ -11,19 +11,24 @@ non-zero):
   3. kernels  each hand-written kernel against its plain PyTorch version on
               the card, in bf16, at the serving shapes of GPT-J / GPT3-XL
               (MHA), phi4-mini (SwiGLU, RMSNorm, GQA 24 / 8), hymba-1.5b
-              (SSD 64 heads x 64 x 16, residual RMSNorm at d_model 1600),
-              mamba2-2.7b (SSD 80 heads x 64 x 128) and gemma3-27b (flash
-              attention with a 1024 window; dense decode over 1024-slot
-              rings at GQA 32 / 16 and hymba's 25 / 5, and over a linear
-              2048 cache with the window): the error against the stated
-              tolerance, kernel / plain / library milliseconds (CUDA events,
-              median of the timed launches) and the bound (the larger of
-              bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s, the H100 SXM
-              data-sheet peaks); the fused GEMMs also at gemma3's widths,
-              hymba's SwiGLU and ragged M (9, 17, 1100), with the template
-              the planner took and device times of the kernel and of
-              torch.matmul (torch.profiler kernel events, no host time);
-              decode cases rotate weight copies past the 50 MB L2;
+              (SSD 64 heads x 64 x 16, residual RMSNorm at d_model 1600,
+              flash attention at 25 / 5 x 64), mamba2-2.7b (SSD 80 heads x
+              64 x 128), ViT-B (bidirectional flash attention, 197 tokens,
+              12 x 64) and gemma3-27b (flash attention with a 1024 window;
+              dense decode over 1024-slot rings at GQA 32 / 16 and hymba's
+              25 / 5, and over a linear 2048 cache with the window); the
+              paged decode's partials at 1, 2 and 4 splits of the table,
+              also over GPT-J's serving batch (lengths 200-332): the error
+              against the stated tolerance, kernel / plain / library
+              milliseconds (CUDA events, median of the timed launches) and
+              the bound (the larger of bytes / 3.35 TB/s and FLOPs / 989
+              TFLOP/s, the H100 SXM data-sheet peaks); the fused GEMMs also
+              at gemma3's widths, hymba's SwiGLU and ragged M (9, 17,
+              1100), with the template the planner took; device times of
+              the kernel and of its library call (torch.profiler kernel
+              events, no host time) for the GEMMs and the attention
+              kernels; decode GEMM cases rotate weight copies past the 50
+              MB L2;
   4. sampling threefry Gumbel noise drawn on the card against the same draw
               on the CPU: bits, uniforms and noise bit-equal, sampled
               tokens identical;
@@ -56,9 +61,11 @@ non-zero):
               at positions 1010, 1023, 1024 and 1039.
 Every driven path zeroes the launch counters just before it and reads them
 just after; a kernel of the path that never launched fails the run, and so
-does a GEMM that ran the fp32-weight template (fma32) on these bf16 paths;
-in each serve run prefill GEMMs must run the wgmma template and decode GEMMs
-the stream template, launch for launch.  The
+does a GEMM that ran the fp32-weight template (fma32) or a flash launch
+that ran another template than wgmma on these bf16 paths; in each serve
+run every GEMM of the layers (the plain `pdot` products included) must run
+the wgmma template once a prefill pass and the stream template once a
+decode step, launch for launch.  The
 line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -66,6 +73,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -125,20 +133,23 @@ def _rotate(fns):
 def device_ms(fns, iters=20):
     """Mean device time of one call: the CUDA kernels' time in a
     torch.profiler trace of `iters` calls (of `fns` in turn), per call; no
-    host time between launches is counted.  None when the profiler sees no
+    host time between launches is counted.  None when two traces see no
     kernel."""
     from torch.profiler import ProfilerActivity, profile
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    us = sum(getattr(ev, "self_device_time_total", 0.0)
-             for ev in prof.key_averages()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / iters if us > 0 else None
+    for _ in range(2):        # a trace that caught no kernel is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        us = sum(getattr(ev, "self_device_time_total", 0.0)
+                 for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    return None
 
 
 def rel_err(got, want):
@@ -500,30 +511,46 @@ def check_ssd(rows):
         rows[name] = results
 
 
+FLASH_CASES = (   # label, S, H, KV, D, window, causal
+    ("gpt-j S=512 D=256", 512, 16, 16, 256, 0, True),
+    ("gpt3-xl S=512 D=128", 512, 16, 16, 128, 0, True),
+    ("phi4 S=512 H24/KV8 D=128", 512, 24, 8, 128, 0, True),
+    ("hymba S=512 H25/KV5 D=64", 512, 25, 5, 64, 0, True),
+    ("vit-b S=197 H12 D=64 bidirectional", 197, 12, 12, 64, 0, False),
+    ("gemma3 S=1100 H32/KV16 D=128 window 1024", 1100, 32, 16, 128, 1024,
+     True),
+)
+
+
 def check_flash(rows):
-    """Causal prefill attention at GPT-J / GPT3-XL / phi4-mini shapes, and
-    gemma3's local layers: window 1024 over an 1100-token prompt.
-    Yardstick: SDPA, causal, or with the window as a boolean mask."""
+    """Prefill attention at GPT-J / GPT3-XL / phi4-mini / hymba shapes
+    (causal), ViT-B's bidirectional 197-token encoder, and gemma3's local
+    layers: window 1024 over an 1100-token prompt.  Every bf16 case must
+    plan the wgmma template.  Yardstick: SDPA, causal or not, or with the
+    window as a boolean mask; device times of the kernel and of SDPA from
+    torch.profiler kernel events."""
     from repro_torch.kernels import flash_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(2)
     results = []
-    for label, S, H, KV, D, win in (
-            ("gpt-j S=512 D=256", 512, 16, 16, 256, 0),
-            ("gpt3-xl S=512 D=128", 512, 16, 16, 128, 0),
-            ("phi4 S=512 H24/KV8 D=128", 512, 24, 8, 128, 0),
-            ("gemma3 S=1100 H32/KV16 D=128 window 1024", 1100, 32, 16, 128,
-             1024)):
+    for label, S, H, KV, D, win, causal in FLASH_CASES:
         q = torch.randn((1, S, H, D), generator=g, device=dev).bfloat16()
         k, v = (torch.randn((1, S, KV, D), generator=g, device=dev
                             ).bfloat16() for _ in range(2))
-        kw = dict(causal=True, window=win)
+        kw = dict(causal=causal, window=win)
+        before = dict(fa.flash_attention.launches_by)
         got = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        template = next(t for t, n in fa.flash_attention.launches_by.items()
+                        if n != before[t])
+        if template != "wgmma":
+            raise AssertionError(f"flash_attention {label}: a bf16 case ran "
+                                 f"the {template} template")
         want = fa.flash_attention_plain(q, k, v, **kw)
         err, rel = rel_err(got, want)
-        ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        fn = lambda: fa.flash_attention(q, k, v, **kw)
+        ms = time_ms(fn)
         plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                         iters=5)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -531,31 +558,41 @@ def check_flash(rows):
             i = torch.arange(S, device=dev)
             mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
                                                  - win)
-            lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
-                                       enable_gqa=KV != H))
+            lib_fn = lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                  enable_gqa=KV != H)
             pairs = int(mask.sum())
         else:
-            lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                       enable_gqa=KV != H))
-            pairs = S * (S + 1) // 2
-        r = _row(label, err, rel, ATTN_TOL, ms, plain, lib,
+            lib_fn = lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                  enable_gqa=KV != H)
+            pairs = S * (S + 1) // 2 if causal else S * S
+        r = _row(label, err, rel, ATTN_TOL, ms, plain, time_ms(lib_fn),
                  2 * S * (H + KV) * D * 2, 4 * H * D * pairs)
+        r.update(device_ms=device_ms([fn]), library_device_ms=device_ms(
+            [lib_fn]), template=template,
+            # the first design (the simt template) on the same bf16
+            # operands
+            simt_device_ms=device_ms([lambda: fa._run("simt", q, k, v,
+                                                      q_offset=0, **kw)]))
         _report("flash_attention", r, "sdpa")
+        log(f"    the first design (simt) on the same operands: device "
+            f"{_ms(r['simt_device_ms'])}")
         results.append(r)
     rows["flash_attention"] = results
 
 
-def _paged_inputs(g, dev, H, KV, D):
-    """Decode batch: 4 slots, 16-token blocks, lengths 1..512 with absent
-    table entries."""
-    B, BS, MB = 4, 16, 32
+def _paged_inputs(g, dev, H, KV, D, lengths=(1, 137, 300, 512)):
+    """Decode batch: 4 slots, 16-token blocks, 32 table entries, the given
+    lengths, absent table entries past each length and a hole inside slot
+    2 when it is long enough."""
+    B, BS, MB = len(lengths), 16, 32
     NB = B * MB + 8
-    lengths = torch.tensor([1, 137, 300, 512], dtype=torch.int32, device=dev)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
     perm = torch.randperm(NB, generator=g, device=dev)[:B * MB]
     tab = perm.reshape(B, MB).to(torch.int32)
     for b in range(B):
         tab[b, -(-int(lengths[b]) // BS):] = -1
-    tab[2, 5] = -1                                  # a hole inside slot 2
+    if int(lengths[2]) > 6 * BS:
+        tab[2, 5] = -1                              # a hole inside slot 2
     q = torch.randn((B, H, D), generator=g, device=dev).bfloat16()
     kp = torch.randn((NB, BS, KV, D), generator=g, device=dev).bfloat16()
     vp = torch.randn((NB, BS, KV, D), generator=g, device=dev).bfloat16()
@@ -576,45 +613,150 @@ def _dense_from_paged(q, kp, vp, tab, lengths):
     return q[:, :, None], k.contiguous(), v.contiguous(), ok[:, None, None]
 
 
+PAGED_CASES = (   # H, KV, D, lengths
+    (16, 16, 256, (1, 137, 300, 512)),
+    (24, 8, 128, (1, 137, 300, 512)),
+    (16, 16, 256, (200, 250, 290, 332)),    # GPT-J's serving batch
+)
+PAGED_SPLITS = (1, 2, 4)   # splits of the partials kernel's table
+
+
+def _host_split_chain(q, kp, vp, tab, lengths, S):
+    """The split-KV route the decode path ran before the split moved into
+    the paged kernel's grid, rebuilt here only to count its device events:
+    S masked copies of the table, q and the lengths repeated, one partials
+    launch over S x B rows, then the merge rule's element-wise ops."""
+    from repro_torch.kernels import flash_decode as fd
+    B, MB = tab.shape
+    per = -(-MB // S)
+    entry = torch.arange(MB, device=tab.device)
+    split = torch.arange(S, device=tab.device)
+    inside = (entry[None, :] // per) == split[:, None]
+    tabs = torch.where(inside[:, None, :], tab[None],
+                       torch.full_like(tab[None], -1))
+    o, m, l = fd.paged_decode_partials(q.repeat(S, 1, 1), kp, vp,
+                                       tabs.reshape(S * B, MB),
+                                       lengths.repeat(S))
+    H, D = q.shape[1], q.shape[2]
+    return fd.paged_decode_merge_plain(
+        o.reshape(S, B, H, D), m.reshape(S, B, H), l.reshape(S, B, H),
+        out_dtype=torch.float32)
+
+
+def device_events(fn, iters=5):
+    """Device events (kernels and copies) of one call, from a
+    torch.profiler trace of `iters` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / iters
+
+
 def check_paged(rows):
+    """The paged decode kernel at GPT-J's and phi4-mini's widths over a
+    mixed batch (lengths 1..512, a hole in the table) and over GPT-J's
+    serving batch (lengths 200-332): the partials kernel at 1, 2 and 4
+    splits of the table (each split's statistics and the merged output
+    held row by row to the plain split grid, and the merge to the single
+    plain pass), the merge kernel, and the normalized kernel, which splits
+    the table as `paged_splits` says for this card (held to the same plain
+    split and to the single pass).  Yardstick: SDPA over dense copies
+    with a boolean mask; device times of both from torch.profiler kernel
+    events.  Bound: the bytes of q, the live K / V rows and the outputs.
+    On GPT-J's serving batch the decode path's two-split route is counted
+    in device events against the host-side split chain it replaced."""
+    from repro_torch.core.attention import _paged_attention
     from repro_torch.kernels import flash_decode as fd
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows["paged_decode_partials"], rows["paged_decode_attention"] = [], []
-    for H, KV, D in ((16, 16, 256), (24, 8, 128)):
-        case = f"B=4 H={H}/KV={KV} D={D} BS=16 len 1/137/300/512"
-        q, kp, vp, tab, lengths, live = _paged_inputs(g, dev, H, KV, D)
+    merge = lambda o, m, l: fd.paged_decode_merge_plain(
+        o, m, l, out_dtype=torch.float32)
+    for H, KV, D, lens in PAGED_CASES:
+        case = (f"B=4 H={H}/KV={KV} D={D} BS=16 len "
+                + "/".join(str(n) for n in lens))
+        q, kp, vp, tab, lengths, live = _paged_inputs(g, dev, H, KV, D,
+                                                      lens)
         B = q.shape[0]
         dq, dk, dv, mask = _dense_from_paged(q, kp, vp, tab, lengths)
-        lib = time_ms(lambda: sdpa(dq, dk, dv, attn_mask=mask,
-                                   enable_gqa=KV != H))
+        lib_fn = lambda: sdpa(dq, dk, dv, attn_mask=mask, enable_gqa=KV != H)
+        lib = time_ms(lib_fn)
+        lib_dev = device_ms([lib_fn])
         flops = 4 * H * D * live
         nbytes = q.numel() * 2 + 2 * live * KV * D * 2
-        o, m, l = fd.paged_decode_partials(q, kp, vp, tab, lengths)
-        out = fd.paged_decode_attention(q, kp, vp, tab, lengths)
-        torch.cuda.synchronize()
         po, pm, pl = fd.paged_decode_plain(q, kp, vp, tab, lengths)
-        pout = (po / pl.clamp(min=1e-30)[..., None]).bfloat16()
+        one = po / pl.clamp(min=1e-30)[..., None]       # the single pass
         plain = time_ms(lambda: fd.paged_decode_plain(q, kp, vp, tab,
                                                       lengths), iters=5)
-        for name, fn, got, want, out_bytes in (
-                ("paged_decode_partials",
-                 lambda: fd.paged_decode_partials(q, kp, vp, tab, lengths),
-                 o / l[..., None], po / pl[..., None], B * H * (D + 2) * 4),
-                ("paged_decode_attention",
+        s_att = fd.paged_splits(B, KV, tab.shape[1], sms=sms)
+        runs = [("paged_decode_attention", s_att,
                  lambda: fd.paged_decode_attention(q, kp, vp, tab, lengths),
-                 out, pout, B * H * D * 2)):
-            err, rel, per = row_rel_err(got, want)
-            if name == "paged_decode_partials":
-                # the statistics themselves, not only their ratio
-                for a, b in ((m, pm), (l, pl)):
-                    rel = max(rel, row_rel_err(a, b)[1])
-            r = _row(case, err, rel, ATTN_TOL, time_ms(fn), plain, lib,
+                 B * H * D * 2)]
+        runs += [("paged_decode_partials", S,
+                  lambda S=S: fd.paged_decode_partials(q, kp, vp, tab,
+                                                       lengths, S),
+                  S * B * H * (D + 2) * 4) for S in PAGED_SPLITS]
+        for name, S, fn, out_bytes in runs:
+            got = fn()
+            torch.cuda.synchronize()
+            so, sm, sl = fd.paged_decode_plain(q, kp, vp, tab, lengths, S)
+            want = merge(so, sm, sl) if S > 1 else so / sl[..., None]
+            extra = ""
+            if name == "paged_decode_attention":
+                err, rel, per = row_rel_err(got, want.bfloat16())
+                rel = max(rel, row_rel_err(got, one.bfloat16())[1])
+            else:
+                o, m, l = got
+                merged = merge(o, m, l) if S > 1 else o / l[..., None]
+                err, rel, per = row_rel_err(merged, want)
+                rel = max(rel, row_rel_err(merged, one)[1])
+                # each split's statistics, not only the merged ratio
+                live_rows = sl > 0
+                if not torch.equal(l > 0, live_rows):
+                    raise AssertionError(f"{name} {case} splits {S}: live "
+                                         f"ranges differ from the plain grid")
+                for a, b in ((m, sm), (l, sl)):
+                    rel = max(rel, rel_err(a[live_rows], b[live_rows])[1])
+                if S > 1:
+                    # the merge kernel against the plain merge of the same
+                    # partials and against the single pass
+                    mfn = lambda: fd.paged_decode_merge(
+                        o, m, l, out_dtype=torch.bfloat16)
+                    mk = mfn()
+                    torch.cuda.synchronize()
+                    rel = max(rel, row_rel_err(mk, fd.paged_decode_merge_plain(
+                        o, m, l, out_dtype=torch.bfloat16))[1],
+                        row_rel_err(mk, one.bfloat16())[1])
+                    extra = f"; merge kernel device {_ms(device_ms([mfn]))}"
+            label = case if name == "paged_decode_attention" or S == 1 \
+                else f"{case} splits {S}"
+            r = _row(label, err, rel, ATTN_TOL, time_ms(fn), plain, lib,
                      nbytes + out_bytes, flops)
-            r["row_rel_err"] = per
+            r.update(row_rel_err=per, device_ms=device_ms([fn]),
+                     library_device_ms=lib_dev, template=f"splits {S}")
             _report(name, r, "sdpa")
+            if extra:
+                log(f"    {label}{extra}")
             rows[name].append(r)
+        if lens == PAGED_CASES[-1][3]:
+            new = device_events(lambda: _paged_attention(q, kp, vp, tab,
+                                                         lengths, 2))
+            old_fn = lambda: _host_split_chain(q, kp, vp, tab, lengths, 2)
+            rel = row_rel_err(old_fn(), one)[1]
+            old = device_events(old_fn)
+            rows["paged_split_route_events"] = {
+                "kernel_split": new, "host_chain": old,
+                "host_chain_rel_err": rel}
+            log(f"  decode path's two-split route on {case}: {new:.0f} "
+                f"device events a call (the host split chain it replaced: "
+                f"{old:.0f}, its result within {rel:.2e} of the single pass)")
 
 
 DECODE_CASES = (   # label, H, KV, D, S, lengths, window
@@ -657,9 +799,8 @@ def check_decode_attention(rows):
                                    attn_mask=ok[:, None, None],
                                    enable_gqa=KV != H))
         live = int(ok.sum())
-        r = _row(label, err, rel, ATTN_TOL,
-                 time_ms(lambda: fd.decode_attention(q, k, v, ln,
-                                                     window=win)),
+        fn = lambda: fd.decode_attention(q, k, v, ln, window=win)
+        r = _row(label, err, rel, ATTN_TOL, time_ms(fn),
                  time_ms(lambda: fd.decode_attention_plain(q, k, v, ln,
                                                            window=win),
                          iters=5), lib,
@@ -668,6 +809,10 @@ def check_decode_attention(rows):
         r["splits"] = fd.dense_splits(B, KV, S, torch.cuda.
                                       get_device_properties(0).
                                       multi_processor_count)
+        r.update(device_ms=device_ms([fn]), library_device_ms=device_ms(
+            [lambda: sdpa(q[:, :, None], kt, vt, attn_mask=ok[:, None, None],
+                          enable_gqa=KV != H)]),
+                 template=f"splits {r['splits'][0]}")
         r["row_rel_err"] = per
         log("  decode_attention rel err by row (len " + ", ".join(
             f"{n}: {e:.2e}" for n, e in zip(lens, per)) + ")")
@@ -748,6 +893,7 @@ def _counters():
             "flash_attention": fa.flash_attention,
             "paged_decode_partials": fd.paged_decode_partials,
             "paged_decode_attention": fd.paged_decode_attention,
+            "paged_decode_merge": fd.paged_decode_merge,
             "decode_attention": fd.decode_attention,
             "rmsnorm": nm.rmsnorm,
             "layernorm": nm.layernorm,
@@ -758,56 +904,86 @@ def _counters():
 
 TOTAL_LAUNCHES = {}            # kernel -> launches over every driven path
 GEMM_WRAPPERS = ("fused_matmul", "fused_matmul_swiglu")
+TEMPLATED = GEMM_WRAPPERS + ("flash_attention",)   # wrappers with launches_by
 GEMM_KERNELS = ("stream_kernel", "splitk_finish", "wgmma_kernel",
                 "fused_mm_kernel", "fused_swiglu_kernel")
-TEMPLATE_LAUNCHES = {}         # path -> GEMM wrapper -> template -> launches
+TEMPLATE_LAUNCHES = {}         # path -> wrapper -> template -> launches
 
 
 def drive(path, fn, need):
     """Run one path with every launch counter zeroed just before and read
-    just after; fail if a kernel in `need` never launched, or if a GEMM ran
-    the fp32-weight template (every driven path serves bf16 weights)."""
+    just after; fail if a kernel in `need` never launched, if a GEMM ran
+    the fp32-weight template (every driven path serves bf16 weights), or if
+    a flash launch ran another template than wgmma (every driven path
+    prefills in bf16)."""
     counters = _counters()
     for wrapper in counters.values():
         wrapper.launches = 0
-    for k in GEMM_WRAPPERS:
+    for k in TEMPLATED:
         counters[k].launches_by = dict.fromkeys(counters[k].launches_by, 0)
     out = fn()
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in counters.items()}
     for k, n in launches.items():
         TOTAL_LAUNCHES[k] = TOTAL_LAUNCHES.get(k, 0) + n
-    by = {k: dict(counters[k].launches_by) for k in GEMM_WRAPPERS}
+    by = {k: dict(counters[k].launches_by) for k in TEMPLATED}
     TEMPLATE_LAUNCHES[path] = by
     missing = [k for k in need if launches[k] == 0]
     log(f"  [{path}] launches {launches}")
-    log(f"  [{path}] GEMM launches by template {by}")
+    log(f"  [{path}] launches by template {by}")
     if missing:
         raise AssertionError(f"{path}: kernels never launched: {missing}")
-    fma32 = {k: v["fma32"] for k, v in by.items() if v["fma32"]}
+    fma32 = {k: by[k]["fma32"] for k in GEMM_WRAPPERS if by[k]["fma32"]}
     if fma32:
         raise AssertionError(f"{path}: a bf16 path launched the fma32 "
                              f"template: {fma32}")
+    flash = by["flash_attention"]
+    if flash["wgmma"] != launches["flash_attention"]:
+        raise AssertionError(f"{path}: a bf16 prefill flash launch ran "
+                             f"another template than wgmma: {flash}")
     return out, launches
+
+
+def gemms_per_pass(cfg):
+    """(fused GEMMs, gated GEMMs) the layers of `cfg` launch in one pass of
+    the fused chain: q / k / v / o per attention layer, the five SSM
+    projections (x, z, B|C, dt, out: `pdot`, the hand GEMM with no
+    prologue) per SSM layer, and per MLP the down-projection plus the
+    up-projection (gated for SwiGLU); pure SSM layers have no MLP."""
+    from repro_torch.configs.base import ATTN_KINDS
+    fused = gated = 0
+    for kind, count in cfg.schedule:
+        if kind in ATTN_KINDS:
+            fused += 4 * count
+        if kind in ("ssm", "hybrid_attn", "hybrid_local"):
+            fused += 5 * count
+        if kind != "ssm":
+            swiglu = cfg.mlp_act == "swiglu"
+            fused += (1 if swiglu else 2) * count
+            gated += (1 if swiglu else 0) * count
+    return fused, gated
 
 
 def check_gemm_templates(cfg, st, by):
     """Prefill GEMMs run the wgmma template and decode GEMMs the stream
-    template: each fused GEMM of the layers launches wgmma once a prefill
-    pass and stream once a decode step; the logits head (M = the pass's
-    sequences, <= 4) streams in both."""
+    template: each GEMM of the layers (`gemms_per_pass`, the plain `pdot`
+    products included) launches wgmma once a prefill pass and stream once
+    a decode step; the logits head (M = the pass's sequences, <= 4)
+    streams in both."""
     P, D = st.prefill_batches, st.decode_steps
     mm, sw = by["fused_matmul"], by["fused_matmul_swiglu"]
-    per_layer, per_swiglu = mm["wgmma"] // P, sw["wgmma"] // P
+    per_layer, per_swiglu = gemms_per_pass(cfg)
     want = {"fused_matmul": {"fma32": 0, "stream": P + D * (per_layer + 1),
                              "wgmma": P * per_layer},
             "fused_matmul_swiglu": {"fma32": 0, "stream": D * per_swiglu,
                                     "wgmma": P * per_swiglu}}
+    got = {k: by[k] for k in GEMM_WRAPPERS}
     log(f"  [{cfg.name} serve] GEMM templates: {per_layer} fused GEMMs and "
-        f"{per_swiglu} gated GEMMs of the layers per pass; launches {by}, "
-        f"expected {want}")
-    if by != want:
-        raise AssertionError(f"{cfg.name} serve: GEMM templates {by} != "
+        f"{per_swiglu} gated GEMMs of the layers per pass; launches {got}, "
+        f"expected {want} (observed {mm['wgmma'] / max(P, 1):.1f} and "
+        f"{sw['wgmma'] / max(P, 1):.1f} wgmma a pass)")
+    if got != want:
+        raise AssertionError(f"{cfg.name} serve: GEMM templates {got} != "
                              f"{want}")
 
 
@@ -892,7 +1068,7 @@ def path_kernels(cfg, path, *, max_seq=512, one_split=True):
     if attention:
         need.add("flash_attention")
     if attention and path == "serve":
-        need.add("paged_decode_partials")
+        need |= {"paged_decode_partials", "paged_decode_merge"}
         if one_split:
             need.add("paged_decode_attention")
         if ring_layers(cfg, max_seq):
@@ -929,10 +1105,13 @@ def check_serve_counts(cfg, launches, st, max_seq):
         raise AssertionError(f"{cfg.name} serve: launches {got} != {want}")
 
 
-def profile_decode(eng, cfg, rng, steps=4):
-    """Where a decode step's time goes: a full batch (4 slots, 200-token
-    prompts, one row sampled) runs `steps` decode steps timed on the host
-    clock, then `steps` more under torch.profiler.  Reports the device's
+def profile_decode(eng, cfg, rng, steps=4, prompt_len=200):
+    """Where a decode step's time goes: a full batch (4 slots,
+    `prompt_len`-token prompts, one row sampled) runs `steps` decode steps
+    timed on the host clock, then `steps` more under torch.profiler.  At
+    200 tokens the paged layers decode in one normalized pass; at 300 the
+    longest context passes 256 positions and they split in two (partials,
+    then the merge kernel).  Reports the device's
     busy time per step (kernel time, from the profile) against the
     unprofiled step, the largest kernels, and the host ops that cost the
     most CPU time (the profiler's own cost inflates these)."""
@@ -941,8 +1120,9 @@ def profile_decode(eng, cfg, rng, steps=4):
     for uid in range(4):
         sp = (SamplingParams(temperature=0.8, top_k=40, seed=uid) if uid == 0
               else SamplingParams())
-        eng.submit(Request(uid=1000 + uid, prompt=rng.integers(
-            0, cfg.vocab, 200, dtype=np.int32), max_new_tokens=2 * steps + 2,
+        eng.submit(Request(uid=1000 + prompt_len + uid, prompt=rng.integers(
+            0, cfg.vocab, prompt_len, dtype=np.int32),
+            max_new_tokens=2 * steps + 2,
             sampling=sp))
     eng.step()                      # admission prefill + one decode step
     torch.cuda.synchronize()
@@ -969,10 +1149,11 @@ def profile_decode(eng, cfg, rng, steps=4):
         else:
             host[ev.key] = (ev.self_cpu_time_total / 1e3 / steps,
                             ev.count // steps)
-    out = {"steps": steps, "step_ms": step_ms}
+    out = {"steps": steps, "prompt_len": prompt_len, "step_ms": step_ms}
     if not dev:
-        log(f"  [{cfg.name} decode profile] {step_ms:.2f} ms/step; the "
-            f"profiler saw no kernels: device time not measured")
+        log(f"  [{cfg.name} decode profile, {prompt_len}-token prompts] "
+            f"{step_ms:.2f} ms/step; the profiler saw no kernels: device "
+            f"time not measured")
         return out
     busy = sum(ms for ms, _ in dev.values())
     # the GEMM templates' kernels (gemm.cuh; GATED = the SwiGLU kernel)
@@ -985,12 +1166,29 @@ def profile_decode(eng, cfg, rng, steps=4):
             gemm[key][1] += n
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]
     top_host = sorted(host.items(), key=lambda kv: -kv[1][0])[:8]
-    log(f"  [{cfg.name} decode profile] {step_ms:.2f} ms/step unprofiled, "
+
+    def _share(pred):
+        hits = [v for k, v in dev.items() if pred(k)]
+        return (sum(ms for ms, _ in hits), sum(n for _, n in hits))
+
+    # the paged decode kernel; library GEMMs (cuBLAS / CUTLASS: none of
+    # the port's projections should reach one); copies and casts
+    shares = {
+        "paged_decode": _share(lambda k: "paged_decode_kernel" in k),
+        "library_gemm": _share(lambda k: re.search(
+            r"gemm|gemv|xmma|cutlass", k, re.I) is not None and not any(
+                g in k for g in GEMM_KERNELS)),
+        "copy": _share(lambda k: "copy" in k.lower()),
+    }
+    log(f"  [{cfg.name} decode profile, {prompt_len}-token prompts] "
+        f"{step_ms:.2f} ms/step unprofiled, "
         f"device busy {busy:.2f} ms/step ({busy / step_ms:.1%}); "
         f"{sum(n for _, n in dev.values())} device events per step")
     for key, (ms, n) in gemm.items():
         log(f"    {key} (every template) {ms:.3f} ms/step in {n} kernel "
             f"launches")
+    for key, (ms, n) in shares.items():
+        log(f"    {key} {ms:.3f} ms/step in {n} kernel launches")
     for name, (ms, n) in top:
         log(f"    device {ms:8.3f} ms/step  x{n:<5d} {name[:80]}")
     for name, (ms, n) in top_host:
@@ -998,6 +1196,8 @@ def profile_decode(eng, cfg, rng, steps=4):
     out.update(device_busy_ms=busy, busy_share=busy / step_ms,
                device_events=sum(n for _, n in dev.values()),
                gemm_ms_per_step={k: v[0] for k, v in gemm.items()},
+               per_step={k: {"ms": ms, "launches": n}
+                         for k, (ms, n) in shares.items()},
                device_top=[{"kernel": k, "ms_per_step": ms, "per_step": n}
                            for k, (ms, n) in top],
                host_top=[{"op": k, "cpu_ms_per_step": ms, "per_step": n}
@@ -1067,7 +1267,9 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
               "wall_s": wall, "peak_memory_gb": peak_gb, "params": n_params,
               "max_seq": max_seq, "layers": cfg.n_layers,
               "teacher_forced": {}, "decode_profile": profile_decode(
-                  eng, cfg, rng)}
+                  eng, cfg, rng),
+              "decode_profile_split": profile_decode(eng, cfg, rng,
+                                                     prompt_len=300)}
     del eng
     torch.cuda.empty_cache()
 
@@ -1288,7 +1490,8 @@ def ring_witness(cfg, *, seed, prompt_len=1000, steps=40, max_seq=2048,
             lambda: decode_logits(cfg, params, tokens, prompt_len,
                                   mode="auto", fused=fused, policy=BF16,
                                   **kw),
-            ("decode_attention", "paged_decode_partials", "flash_attention"))
+            ("decode_attention", "paged_decode_partials",
+             "paged_decode_merge", "flash_attention"))
         if launches["decode_attention"] != ring * steps:
             raise AssertionError(f"{name} {path}: decode_attention launched "
                                  f"{launches['decode_attention']} times, not "

@@ -34,20 +34,6 @@ def attention_param_shapes(cfg) -> dict:
             "wv": (E, KV * hd), "wo": (H * hd, E)}
 
 
-def merge_partials(o, m, l, dim=None):
-    """Finish online-softmax partials.  o: [..., D] unnormalized; m, l: [...]
-    fp32.  `dim`: the split dimension to merge over (the reference's T4
-    rule, with the cross-device psum/pmax as a sum/max over that dim);
-    None: a single partial, which only needs its normalization."""
-    if dim is None:
-        return o / torch.clamp(l, min=1e-30)[..., None]
-    m_all = m.amax(dim=dim, keepdim=True)
-    corr = torch.exp(m - m_all)
-    l_all = (l * corr).sum(dim=dim)
-    o_all = (o * corr[..., None]).sum(dim=dim)
-    return o_all / torch.clamp(l_all, min=1e-30)[..., None]
-
-
 def ring_from_full(k_full, window: int):
     """Arrange the last `window` positions of [B, S, KV, hd] into ring-buffer
     order (slot = pos % window).  S < window pads at the tail (masked by pos
@@ -154,28 +140,19 @@ def decode_splits(max_len: int, max_blocks: int, block_size: int) -> int:
 def _paged_attention(q, k_pool, v_pool, tables, length, kv_splits: int):
     """One decode step's attention over the paged pools -> [B, H, hd].
 
-    kv_splits == 1: the normalized paged kernel.  kv_splits > 1: the table
-    is cut into `kv_splits` contiguous entry ranges (entries outside a
-    range read as absent), each range runs through the partials kernel as
-    its own batch row, and the partials merge with the online-softmax rule
-    — the reference's cross-shard merge, applied across splits of one
-    card's pool."""
+    kv_splits == 1: the normalized paged kernel (which splits the table
+    across the card by itself).  kv_splits > 1: the partials kernel cuts
+    each slot's table into at least `kv_splits` contiguous entry ranges
+    inside its grid (`ops.paged_splits`: enough for two blocks per SM), and
+    the merge kernel folds the per-range partials with the online-softmax
+    rule — the reference's cross-shard `merge_partials`, applied across
+    splits of one card's pool.  Output at q's dtype."""
     if kv_splits <= 1:
         return ops.paged_decode_attention(q, k_pool, v_pool, tables, length)
-    B, MB = tables.shape
-    per = -(-MB // kv_splits)
-    entry = torch.arange(MB, device=tables.device)
-    split = torch.arange(kv_splits, device=tables.device)
-    inside = (entry[None, :] // per) == split[:, None]          # [S, MB]
-    tabs = torch.where(inside[:, None, :], tables[None],
-                       torch.full_like(tables[None], -1))       # [S, B, MB]
-    S = kv_splits
-    o, m, l = ops.paged_decode_partials(
-        q.repeat(S, 1, 1), k_pool, v_pool, tabs.reshape(S * B, MB),
-        length.repeat(S))
-    H, D = q.shape[1], q.shape[2]
-    return merge_partials(o.reshape(S, B, H, D), m.reshape(S, B, H),
-                          l.reshape(S, B, H), dim=0)
+    splits = ops.paged_splits(q, tables, k_pool, at_least=kv_splits)
+    o, m, l = ops.paged_decode_partials(q, k_pool, v_pool, tables, length,
+                                        splits=splits)
+    return ops.paged_decode_merge(o, m, l, out_dtype=q.dtype)
 
 
 def attn_decode_paged(p, x, pos, cache, block_tables, *, cfg,

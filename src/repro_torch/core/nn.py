@@ -3,6 +3,8 @@ compute dtype, fp32 accumulation, activations carried in the compute dtype.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.precision import Policy
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import _dot
@@ -15,11 +17,18 @@ def act_dtype(policy: Policy):
 def pdot(x, w, policy: Policy, *, out_dtype=None):
     """x: [..., K] @ w: [K, N] in the policy compute dtype, fp32 accumulation,
     emitted as `out_dtype` (default: the activation dtype).  The reference
-    leaves this unfused product to XLA outside Pallas; the port leaves it to
-    PyTorch."""
+    leaves this unfused product to XLA outside Pallas (a dot with
+    preferred_element_type fp32).  On the card under a bf16 policy it runs
+    the hand GEMM with no prologue and no epilogue (`ops.fused_matmul`:
+    exact bf16 products summed in fp32, the same function); the CPU, the
+    `ref` mode and an fp32 policy keep the fp32 product `_dot`."""
     w, _ = ops.split_quantized(w)
     cd = policy.compute_dtype
-    return _dot(x.to(cd), w.to(cd), out_dtype or act_dtype(policy))
+    od = out_dtype or act_dtype(policy)
+    if (x.device.type == "cuda" and cd == torch.bfloat16
+            and ops.get_mode() != "ref"):
+        return ops.fused_matmul(x, w, compute_dtype=cd, dot_dtype=od)
+    return _dot(x.to(cd), w.to(cd), od)
 
 
 def fused_pdot(x, w, policy: Policy, *, prologue=None, epilogue=None,

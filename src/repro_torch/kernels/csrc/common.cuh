@@ -52,6 +52,27 @@ __device__ __forceinline__ float4 ld4_row(const void* p, int r, int c, int rows,
   return make_float4(v[0], v[1], v[2], v[3]);
 }
 
+// Eight bf16 values of a 16-byte load, element 0 in the low half of u.x.
+__device__ __forceinline__ void unpack8(const uint4 u, float w[8]) {
+  w[0] = __uint_as_float(u.x << 16);
+  w[1] = __uint_as_float(u.x & 0xffff0000u);
+  w[2] = __uint_as_float(u.y << 16);
+  w[3] = __uint_as_float(u.y & 0xffff0000u);
+  w[4] = __uint_as_float(u.z << 16);
+  w[5] = __uint_as_float(u.z & 0xffff0000u);
+  w[6] = __uint_as_float(u.w << 16);
+  w[7] = __uint_as_float(u.w & 0xffff0000u);
+}
+
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
 // Round through bf16 (the P tile is cast to V's dtype before P.V).
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));

@@ -2,19 +2,21 @@
 
 Replaces the TPU kernels of `src/repro/kernels/flash_decode.py`:
 `decode_attention` (`_decode_kernel`) over dense per-slot caches, through
-`csrc/decode_attention.cu`, and `paged_decode_partials`
-(`_paged_partials_kernel`) / `paged_decode_attention`
-(`_paged_decode_kernel`) over the block pool, through one CUDA template,
-`csrc/paged_decode.cu`.  Both sources fold KV positions with the same
-online-softmax code (`csrc/common.cuh`); their notes say what bounds them on
-an H100 and how the designs answer it.
+`csrc/decode_attention.cu` (its folds are `csrc/common.cuh:dec_fold`), and
+`paged_decode_partials` (`_paged_partials_kernel`) /
+`paged_decode_attention` (`_paged_decode_kernel`) over the block pool,
+through one CUDA template, `csrc/paged_decode.cu`, whose grid also splits
+each slot's table into contiguous entry ranges (`splits`); its second
+kernel merges the splits (`paged_decode_merge`).  The sources'
+notes say what bounds them on an H100 and how the designs answer it.
 
 The plain versions are the kernels' arithmetic in plain PyTorch: per chunk
 (512 cache positions; one pool block), fp32 scores q.k / sqrt(D), -1e30
 masks, the online-softmax rescale, P cast to V's dtype for P.V; chunks that
 are wholly masked (dense), absent (< 0) or wholly past the slot's length
-(paged) are skipped.  The wrappers launch the kernel for CUDA tensors and
-take the plain version for CPU tensors.
+(paged) are skipped.  A split of the paged table is the plain fold over
+its entry range with every other entry absent.  The wrappers launch the
+kernel for CUDA tensors and take the plain version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -29,8 +31,12 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PARTIALS_ARGTYPES = [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P]
-_ATTENTION_ARGTYPES = [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P]
+_ATTENTION_ARGTYPES = [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P]
 _DENSE_ARGTYPES = [_P] * 8 + [_I] * 10 + [ctypes.c_float, _P]
+_MERGE_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
+MAX_MERGE_SPLITS = 64   # csrc/paged_decode.cu PD_MAX_SPLITS
+PAGED_MIN_ENTRIES = 4   # table entries a split of the paged grid spans
+SM_COUNT = 132          # H100 SXM: the split rule's SMs off the card
 DENSE_CHUNK = 512       # the TPU kernel's block_kv: positions per plain step
 FOLD = 32               # positions per fold in csrc/decode_attention.cu
 MAX_SPLITS = 64         # csrc/decode_attention.cu DA_MAX_SPLITS
@@ -134,12 +140,48 @@ def decode_attention(q, k_cache, v_cache, length, *, window=0):
     return out
 
 
-def paged_decode_plain(q, k_pool, v_pool, block_tables, lengths):
-    """-> (o unnormalized fp32 [B, H, D], m [B, H], l [B, H])."""
+def sm_count(device) -> int:
+    """SMs of a CUDA device; SM_COUNT for any other (the plain versions
+    compute the same function whatever the split)."""
+    if device.type != "cuda":
+        return SM_COUNT
+    return _sm_count(device.index or 0)
+
+
+def paged_splits(B: int, KV: int, MB: int, *, sms: int = SM_COUNT,
+                 at_least: int = 1) -> int:
+    """Splits of the paged kernel's grid (KV, B, splits): at least
+    `at_least`, and enough for two blocks per SM, each split spanning at
+    least PAGED_MIN_ENTRIES table entries, at most MAX_MERGE_SPLITS."""
+    want = max(at_least, -(-2 * sms // max(B * KV, 1)))
+    cap = max(1, -(-MB // PAGED_MIN_ENTRIES))
+    return max(1, min(want, max(cap, at_least), MAX_MERGE_SPLITS))
+
+
+def split_ranges(MB: int, splits: int):
+    """The contiguous table-entry range [e0, e1) of each split (the
+    kernel's grid z: per = ceil(MB / splits) entries each)."""
+    per = -(-MB // splits)
+    return [(z * per, min(MB, (z + 1) * per)) for z in range(splits)]
+
+
+def paged_decode_plain(q, k_pool, v_pool, block_tables, lengths, splits=1):
+    """-> (o unnormalized fp32 [B, H, D], m [B, H], l [B, H]); with
+    `splits` > 1, one set per split of the table (`split_ranges`):
+    [splits, B, H, D] and [splits, B, H]."""
+    if splits > 1:
+        parts = [_paged_fold(q, k_pool, v_pool, block_tables, lengths, e0, e1)
+                 for e0, e1 in split_ranges(block_tables.shape[1], splits)]
+        return tuple(torch.stack(x) for x in zip(*parts))
+    return _paged_fold(q, k_pool, v_pool, block_tables, lengths, 0,
+                       block_tables.shape[1])
+
+
+def _paged_fold(q, k_pool, v_pool, block_tables, lengths, e0, e1):
+    """The page-by-page fold over table entries [e0, e1)."""
     B, H, D = q.shape
     _, BS, KV, _ = k_pool.shape
     G = H // KV
-    MB = block_tables.shape[1]
     dev = q.device
     sm_scale = 1.0 / math.sqrt(D)
     qf = q.float().reshape(B, KV, G, D)
@@ -148,7 +190,7 @@ def paged_decode_plain(q, k_pool, v_pool, block_tables, lengths):
     acc = torch.zeros((B, KV, G, D), dtype=torch.float32, device=dev)
     lengths = lengths.to(torch.int64)
     tok = torch.arange(BS, device=dev)
-    for e in range(MB):
+    for e in range(e0, e1):
         t = block_tables[:, e].to(torch.int64)
         live = (t >= 0) & (e * BS < lengths)                      # [B]
         blk = torch.clamp(t, min=0)
@@ -175,10 +217,13 @@ def _check(what, q, k_pool, v_pool, block_tables, lengths):
     build.require_cuda(what, q, k_pool, v_pool, block_tables, lengths)
     B, H, D = q.shape
     _, BS, KV, Dk = k_pool.shape
+    cols = D * q.element_size() // 16       # 16-byte columns of a row
     if (Dk != D or v_pool.shape != k_pool.shape or H % KV or H // KV > 8
-            or D % 4 or H // KV * D > 2048 or k_pool.dtype != q.dtype
-            or v_pool.dtype != q.dtype
-            or block_tables.shape[0] != B or lengths.shape != (B,)):
+            or (D * q.element_size()) % 16 or 128 % (2 * max(cols, 1))
+            or H // KV * D > 2048
+            or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype
+            or block_tables.shape[0] != B or lengths.shape != (B,)
+            or not build.aligned16(k_pool, v_pool)):
         raise ValueError(f"{what}: unsupported operands q {tuple(q.shape)} "
                          f"{q.dtype}, pools {tuple(k_pool.shape)} "
                          f"{k_pool.dtype}, tables {tuple(block_tables.shape)}")
@@ -187,53 +232,108 @@ def _check(what, q, k_pool, v_pool, block_tables, lengths):
             lengths.to(torch.int32).contiguous())
 
 
-def paged_decode_partials(q, k_pool, v_pool, block_tables, lengths):
+def paged_decode_partials(q, k_pool, v_pool, block_tables, lengths,
+                          splits=1):
     """q: [B, H, D]; k/v_pool: [NB, BS, KV, D]; block_tables: [B, MB]
     (< 0 absent); lengths: [B] -> (o fp32 [B, H, D] unnormalized, m [B, H],
-    l [B, H])."""
+    l [B, H]); with `splits` > 1 the table's entries are cut into that many
+    contiguous ranges (`split_ranges`), one grid slice each, and every
+    output gains a leading [splits] dimension."""
     if q.device.type == "cpu":
-        return paged_decode_plain(q, k_pool, v_pool, block_tables, lengths)
+        return paged_decode_plain(q, k_pool, v_pool, block_tables, lengths,
+                                  splits)
     q, k_pool, v_pool, tab, ln = _check("paged_decode_partials", q, k_pool,
                                         v_pool, block_tables, lengths)
     B, H, D = q.shape
     _, BS, KV, _ = k_pool.shape
-    o = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    lead = (splits,) if splits > 1 else ()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o = torch.empty((*lead, B, H, D), **f32)
+    m = torch.empty((*lead, B, H), **f32)
+    l = torch.empty((*lead, B, H), **f32)
     fn = build.bind("paged_decode", "repro_paged_decode_partials",
                     _PARTIALS_ARGTYPES)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              tab.data_ptr(), ln.data_ptr(), o.data_ptr(), m.data_ptr(),
-             l.data_ptr(), B, H, KV, D, BS, tab.shape[1],
-             build.dtype_code(q), int(build.aligned16(k_pool)),
-             1.0 / math.sqrt(D), build.stream_of(q))
+             l.data_ptr(), B, H, KV, D, BS, tab.shape[1], int(splits),
+             build.dtype_code(q), 1.0 / math.sqrt(D), build.stream_of(q))
     build.check(err, "paged_decode_partials launch")
     paged_decode_partials.launches += 1
     return o, m, l
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
-    """As `paged_decode_partials`, normalized: -> [B, H, D] at q's dtype."""
+    """As `paged_decode_partials`, normalized: -> [B, H, D] at q's dtype.
+    The grid splits the table as `paged_splits` says for the device and
+    the same launch merges the splits (the plain version likewise)."""
     if q.device.type == "cpu":
-        o, _, l = paged_decode_plain(q, k_pool, v_pool, block_tables,
-                                     lengths)
+        S = paged_splits(q.shape[0], k_pool.shape[2], block_tables.shape[1],
+                         sms=sm_count(q.device))
+        o, m, l = paged_decode_plain(q, k_pool, v_pool, block_tables,
+                                     lengths, S)
+        if S > 1:
+            return paged_decode_merge_plain(o, m, l, out_dtype=q.dtype)
         return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
     q, k_pool, v_pool, tab, ln = _check("paged_decode_attention", q, k_pool,
                                         v_pool, block_tables, lengths)
     B, H, D = q.shape
     _, BS, KV, _ = k_pool.shape
+    S = paged_splits(B, KV, tab.shape[1], sms=sm_count(q.device))
     out = torch.empty_like(q)
+    parts = (None, None, None)
+    if S > 1:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        parts = (torch.empty((S, B, H, D), **f32),
+                 torch.empty((S, B, H), **f32), torch.empty((S, B, H), **f32))
     fn = build.bind("paged_decode", "repro_paged_decode_attention",
                     _ATTENTION_ARGTYPES)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             tab.data_ptr(), ln.data_ptr(), out.data_ptr(), B, H, KV, D, BS,
-             tab.shape[1], build.dtype_code(q), int(build.aligned16(k_pool)),
+             tab.data_ptr(), ln.data_ptr(), out.data_ptr(),
+             *(t.data_ptr() if t is not None else None for t in parts),
+             B, H, KV, D, BS, tab.shape[1], S, build.dtype_code(q),
              1.0 / math.sqrt(D), build.stream_of(q))
     build.check(err, "paged_decode_attention launch")
     paged_decode_attention.launches += 1
     return out
 
 
+def paged_decode_merge_plain(o, m, l, *, out_dtype):
+    """The online-softmax merge of split partials o [S, B, H, D], m, l
+    [S, B, H] -> [B, H, D] at `out_dtype`: sum_s o_s e^(m_s - m) /
+    max(sum_s l_s e^(m_s - m), 1e-30), m = max_s m_s."""
+    m_all = m.amax(dim=0, keepdim=True)
+    corr = torch.exp(m - m_all)
+    l_all = (l * corr).sum(dim=0)
+    o_all = (o * corr[..., None]).sum(dim=0)
+    return (o_all / torch.clamp(l_all, min=1e-30)[..., None]).to(out_dtype)
+
+
+def paged_decode_merge(o, m, l, *, out_dtype):
+    """Merge `paged_decode_partials`' split partials (o [S, B, H, D], m, l
+    [S, B, H], fp32) into the normalized output [B, H, D] at `out_dtype`:
+    one launch of the second kernel of `csrc/paged_decode.cu`."""
+    if o.device.type == "cpu":
+        return paged_decode_merge_plain(o, m, l, out_dtype=out_dtype)
+    build.require_cuda("paged_decode_merge", o, m, l)
+    S, B, H, D = o.shape if o.ndim == 4 else (0,) * 4
+    if (o.ndim != 4 or m.shape != (S, B, H) or l.shape != m.shape
+            or not 1 <= S <= MAX_MERGE_SPLITS
+            or any(t.dtype != torch.float32 for t in (o, m, l))):
+        raise ValueError(f"paged_decode_merge: unsupported partials o "
+                         f"{tuple(o.shape)}, m {tuple(m.shape)}, l "
+                         f"{tuple(l.shape)}")
+    o, m, l = o.contiguous(), m.contiguous(), l.contiguous()
+    out = torch.empty((B, H, D), dtype=out_dtype, device=o.device)
+    fn = build.bind("paged_decode", "repro_paged_decode_merge",
+                    _MERGE_ARGTYPES)
+    err = fn(o.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), B, H,
+             D, S, build.dtype_code(out), build.stream_of(o))
+    build.check(err, "paged_decode_merge launch")
+    paged_decode_merge.launches += 1
+    return out
+
+
 decode_attention.launches = 0
 paged_decode_partials.launches = 0
 paged_decode_attention.launches = 0
+paged_decode_merge.launches = 0

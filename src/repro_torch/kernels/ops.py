@@ -17,6 +17,8 @@ import contextlib
 import os
 import threading
 
+import torch
+
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import matmul as _mm
@@ -30,7 +32,8 @@ __all__ = [
     "Epilogue", "Prologue", "norm_prologue", "get_mode", "set_mode",
     "kernel_mode", "flash_attention", "decode_attention",
     "paged_decode_attention",
-    "paged_decode_partials", "split_quantized", "matmul", "fused_matmul",
+    "paged_decode_partials", "paged_decode_merge", "paged_splits",
+    "split_quantized", "matmul", "fused_matmul",
     "matmul_swiglu", "fused_matmul_swiglu", "residual_norm", "rmsnorm",
     "layernorm", "norm", "ssd", "ssd_decode",
 ]
@@ -115,14 +118,44 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
                                            lengths)
 
 
-def paged_decode_partials(q, k_pool, v_pool, block_tables, lengths):
+def paged_decode_partials(q, k_pool, v_pool, block_tables, lengths,
+                          splits=1):
     """Block-paged decode partials -> (o unnormalized fp32 [B, H, D],
-    m [B, H], l [B, H]) for the online-softmax merge."""
+    m [B, H], l [B, H]) for the online-softmax merge; with `splits` > 1 the
+    table's entries are cut into that many contiguous ranges and each
+    output gains a leading [splits] dimension.  `ref` mode runs the oracle
+    once per range, with the entries outside it absent."""
     if _use_kernel(q):
         return _fd.paged_decode_partials(q, k_pool, v_pool, block_tables,
-                                         lengths)
-    return _ref.paged_decode_partials_ref(q, k_pool, v_pool, block_tables,
-                                          lengths)
+                                         lengths, splits)
+    if splits <= 1:
+        return _ref.paged_decode_partials_ref(q, k_pool, v_pool,
+                                              block_tables, lengths)
+    entry = torch.arange(block_tables.shape[1], device=block_tables.device)
+    parts = [_ref.paged_decode_partials_ref(
+        q, k_pool, v_pool,
+        torch.where((entry >= e0) & (entry < e1), block_tables,
+                    torch.full_like(block_tables, -1)), lengths)
+        for e0, e1 in _fd.split_ranges(block_tables.shape[1], splits)]
+    return tuple(torch.stack(x) for x in zip(*parts))
+
+
+def paged_splits(q, block_tables, k_pool, at_least=1) -> int:
+    """The paged partials grid's split count for these operands: at least
+    `at_least`, enough for two blocks per SM of q's device
+    (`flash_decode.paged_splits`)."""
+    return _fd.paged_splits(q.shape[0], k_pool.shape[2],
+                            block_tables.shape[1],
+                            sms=_fd.sm_count(q.device), at_least=at_least)
+
+
+def paged_decode_merge(o, m, l, *, out_dtype):
+    """Merge split partials (o [S, B, H, D], m, l [S, B, H]) with the
+    online-softmax rule -> [B, H, D] at `out_dtype`; `ref` mode applies the
+    rule in plain PyTorch."""
+    if _use_kernel(o):
+        return _fd.paged_decode_merge(o, m, l, out_dtype=out_dtype)
+    return _fd.paged_decode_merge_plain(o, m, l, out_dtype=out_dtype)
 
 
 # --------------------------------------------------------------------------

@@ -211,6 +211,65 @@ def test_planner_covers_served_shapes(cfg):
                 or plan.splits == 1
 
 
+def _pdot_shapes(cfg):
+    """(K, N) of the plain products (`core/nn.py:pdot`) a served path of
+    `cfg` launches on the card: the SSM projections (x, z, B|C, dt, out;
+    widths padded to whole heads, core/ssm.py), the out-projection and
+    the MLP of the unfused chain, and q / k / v of the hybrid layers."""
+    from repro_torch.core.ssm import ssm_param_shapes
+    E = cfg.d_model
+    kinds = {k for k, _ in cfg.schedule}
+    shapes = set()
+    if cfg.has_ssm:
+        shapes |= {s for name, s in ssm_param_shapes(cfg).items()
+                   if name.startswith("w_")}
+    if kinds - {"ssm"}:
+        q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        shapes |= {(E, q), (E, kv), (q, E), (cfg.d_ff, E)}
+        if cfg.mlp_act != "swiglu":
+            shapes.add((E, cfg.d_ff))
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("cfg", SERVED, ids=lambda c: c.name)
+def test_planner_covers_served_pdot_shapes(cfg):
+    """`pdot` on the card runs the hand GEMM with no prologue and no
+    epilogue: every served plain product plans, stream at decode batch
+    and wgmma at prefill lengths, none falls to another template."""
+    shapes = _pdot_shapes(cfg)
+    assert shapes
+    for K_, N_ in shapes:
+        assert K_ % 8 == 0 and N_ % 8 == 0, (K_, N_)
+        for M in (1, 4, 8):
+            assert tmm.gemm_plan(M, K_, N_).template == "stream"
+        for M in (9, 96, 512, 1100):
+            assert tmm.gemm_plan(M, K_, N_).template == "wgmma"
+
+
+@pytest.mark.parametrize("out", ["act", "fp32"])
+@pytest.mark.parametrize("policy", ["BF16", "FP32"])
+def test_pdot_on_the_cpu_is_bit_equal_to_dot(policy, out):
+    """The CPU (and the `ref` mode) keep the fp32 product `_dot`: the
+    oracles do not move."""
+    from repro_torch.core import precision
+    from repro_torch.core.nn import act_dtype, pdot
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import _dot
+    pol = getattr(precision, policy)
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.standard_normal((3, 7, 64)),
+                     dtype=torch.float32).to(pol.compute_dtype)
+    w = torch.tensor(rng.standard_normal((64, 40)) * 0.1,
+                     dtype=torch.float32).bfloat16()
+    od = torch.float32 if out == "fp32" else None
+    want = _dot(x.to(pol.compute_dtype), w.to(pol.compute_dtype),
+                od or act_dtype(pol))
+    for mode in ("auto", "ref"):
+        with ops.kernel_mode(mode):
+            got = pdot(x, w, pol, out_dtype=od)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("M", [4, 512])
 def test_planner_refuses_unaligned_bf16_and_routes_fp32(M):
     with pytest.raises(ValueError, match="multiples of 8"):

@@ -402,6 +402,138 @@ def test_split_kv_merge_matches_single_pass():
             _np(_paged_attention(tq, tk, tv, tt, tl, splits)), _np(one), **F32)
 
 
+def _split_inputs(seed):
+    """4 slots over 9 table entries of 4-token blocks: a hole inside slot
+    1, length 1 (slot 0), a slot whose later ranges lie wholly past its
+    length (slot 2), and a full slot (slot 3)."""
+    rng = np.random.default_rng(seed)
+    B, H, KV, D, BS, NB, MB = 4, 4, 2, 16, 4, 40, 9
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kp = rng.standard_normal((NB, BS, KV, D)).astype(np.float32)
+    vp = rng.standard_normal((NB, BS, KV, D)).astype(np.float32)
+    tab = rng.permutation(NB)[:B * MB].reshape(B, MB).astype(np.int32)
+    tab[0, 1:] = -1
+    tab[1, 3] = -1
+    tab[1, 6:] = -1
+    tab[2, 3:] = rng.permutation(NB)[:MB - 3]   # allocated, past the length
+    lengths = np.array([1, 23, 10, 36], np.int32)
+    pairs = [_pair(x, "f32") for x in (q, kp, vp)]
+    return pairs, (jnp.asarray(tab), torch.tensor(tab)), (
+        jnp.asarray(lengths), torch.tensor(lengths))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+def test_split_paged_partials_plain_vs_pallas(splits):
+    """The paged kernel's split grid on the CPU: each split's partials are
+    the Pallas partials kernel (interpret mode) over the table with the
+    entries outside the split's range absent; the merged splits equal the
+    single pass, `paged_decode_plain`, and the Pallas attention kernel."""
+    ((jq, tq), (jk, tk), (jv, tv)), (jt, tt), (jl, tl) = _split_inputs(
+        10 + splits)
+    o, m, l = tfd.paged_decode_partials(tq, tk, tv, tt, tl, splits)
+    lead = (splits,) if splits > 1 else ()
+    assert o.shape == (*lead, 4, 4, 16) and m.shape == l.shape == (*lead,
+                                                                   4, 4)
+    ranges = tfd.split_ranges(tt.shape[1], splits)
+    assert ranges[0][0] == 0 and ranges[-1][1] == tt.shape[1]
+    for z, (e0, e1) in enumerate(ranges):
+        keep = np.zeros(tt.shape[1], bool)
+        keep[e0:e1] = True
+        jtz = jnp.where(jnp.asarray(keep)[None, :], jt, -1)
+        po, pm, pl_ = jfd.paged_decode_partials(jq, jk, jv, jtz, jl,
+                                                interpret=True)
+        got = (o, m, l) if splits == 1 else (o[z], m[z], l[z])
+        # a slot with no live entry in this range: the kernels' empty state
+        # (m = -1e30, l = 0, o = 0) where the oracle-free Pallas kernel
+        # reports its own init; compare the live slots' statistics
+        live = np.asarray([(np.asarray(jtz)[b] >= 0).any()
+                           and e0 * 4 < int(tl[b]) for b in range(4)])
+        for a, b in zip(got, (po, pm, pl_)):
+            np.testing.assert_allclose(_np(a)[live], _np(b)[live], **F32)
+        assert (_np(got[2])[~live] == 0).all()
+    merged = (tfd.paged_decode_merge_plain(o, m, l, out_dtype=torch.float32)
+              if splits > 1 else o / l[..., None])
+    one_o, _, one_l = tfd.paged_decode_plain(tq, tk, tv, tt, tl)
+    np.testing.assert_allclose(_np(merged), _np(one_o / one_l[..., None]),
+                               **F32)
+    pallas = jfd.paged_decode_attention(jq, jk, jv, jt, jl, interpret=True)
+    np.testing.assert_allclose(_np(merged), _np(pallas), **F32)
+
+
+def test_paged_splits_rule():
+    """Two blocks per SM over the (KV, B) grid, at least the caller's
+    count, each split at least 4 table entries, at most 64 splits."""
+    assert tfd.paged_splits(4, 16, 32, sms=132) == 5       # GPT-J serve
+    assert tfd.paged_splits(4, 8, 32, sms=132) == 8        # capped: 32 / 4
+    assert tfd.paged_splits(4, 16, 128, sms=132, at_least=8) == 8
+    assert tfd.paged_splits(4, 16, 8, sms=132, at_least=3) == 3
+    assert tfd.paged_splits(64, 16, 32, sms=132) == 1
+    assert tfd.paged_splits(1, 1, 4096, sms=132) == tfd.MAX_MERGE_SPLITS
+
+
+def test_paged_attention_plain_splits_as_the_card_does():
+    """The normalized wrapper's plain version splits the table as the
+    kernel's grid does (`paged_splits`) and merges: within fp32 rounding of
+    the single pass."""
+    pairs, (_, tt), (_, tl) = _split_inputs(5)
+    tq, tk, tv = (t for _, t in pairs)
+    S = tfd.paged_splits(4, 2, tt.shape[1])
+    assert S > 1
+    got = tfd.paged_decode_attention(tq, tk, tv, tt, tl)
+    o, m, l = tfd.paged_decode_plain(tq, tk, tv, tt, tl, S)
+    assert torch.equal(got, tfd.paged_decode_merge_plain(
+        o, m, l, out_dtype=torch.float32))
+    one_o, _, one_l = tfd.paged_decode_plain(tq, tk, tv, tt, tl)
+    np.testing.assert_allclose(_np(got), _np(one_o / one_l[..., None]),
+                               **F32)
+
+
+def test_paged_decode_merge_plain_is_the_merge_rule():
+    """The merge kernel's plain version against the rule written out per
+    (slot, head) in numpy: sum_s o_s e^(m_s - m) / sum_s l_s e^(m_s - m),
+    m = max_s m_s; an empty split (m = -1e30, l = 0) drops out."""
+    rng = np.random.default_rng(7)
+    o = rng.standard_normal((3, 2, 4, 16)).astype(np.float32)
+    m = rng.standard_normal((3, 2, 4)).astype(np.float32)
+    l = rng.uniform(0.5, 4, (3, 2, 4)).astype(np.float32)
+    m[1, 0], l[1, 0], o[1, 0] = -1e30, 0.0, 0.0
+    want = np.zeros((2, 4, 16), np.float32)
+    for b in range(2):
+        for h in range(4):
+            w = np.exp(m[:, b, h] - m[:, b, h].max())
+            want[b, h] = (w[:, None] * o[:, b, h]).sum(0) / (
+                w * l[:, b, h]).sum()
+    to, tm_, tl_ = (torch.tensor(x) for x in (o, m, l))
+    got = tfd.paged_decode_merge(to, tm_, tl_, out_dtype=torch.float32)
+    np.testing.assert_allclose(_np(got), want, **F32)
+    assert torch.equal(tfd.paged_decode_merge(to, tm_, tl_,
+                                              out_dtype=torch.bfloat16),
+                       got.bfloat16())
+
+
+@pytest.mark.parametrize("mode", ["auto", "ref"])
+def test_ops_split_partials_modes(mode):
+    """`ops.paged_decode_partials` with a split count: the plain split grid
+    (auto) and the oracle per range (ref) agree, and the decode path's
+    `_paged_attention` merges either into the single normalized pass."""
+    from repro_torch.core.attention import _paged_attention
+    pairs, (_, tt), (_, tl) = _split_inputs(3)
+    tq, tk, tv = (t for _, t in pairs)
+    with ops.kernel_mode(mode):
+        o, m, l = ops.paged_decode_partials(tq, tk, tv, tt, tl, splits=3)
+        one = _paged_attention(tq, tk, tv, tt, tl, 1)
+        three = _paged_attention(tq, tk, tv, tt, tl, 3)
+    po, pm, pl_ = tfd.paged_decode_plain(tq, tk, tv, tt, tl, 3)
+    assert o.shape == (3, 4, 4, 16)
+    # ranges with no live entry: the oracle's fully masked rows differ
+    # (ROADMAP queue 3) and carry m = -1e30, so the merge drops them
+    live = _np(pl_) > 0
+    np.testing.assert_allclose(_np(o / l[..., None])[live],
+                               _np(po / pl_[..., None])[live], **F32)
+    np.testing.assert_allclose(_np(m)[live], _np(pm)[live], **F32)
+    np.testing.assert_allclose(_np(three), _np(one), **F32)
+
+
 # --------------------------------------------------------------------------
 # dispatch: no fallback, validated modes
 # --------------------------------------------------------------------------
@@ -447,7 +579,8 @@ def _meta(*shape):
 
 
 @pytest.mark.parametrize("op", ["matmul_swiglu", "fused_matmul_swiglu",
-                                "rmsnorm", "layernorm", "decode_attention"])
+                                "rmsnorm", "layernorm", "decode_attention",
+                                "paged_decode_merge"])
 def test_new_ops_never_fall_back(op):
     """The gated GEMM, the norms and the dense decode attention: `cuda`
     mode refuses a CPU tensor, and a tensor off the CPU with no kernel to
@@ -462,6 +595,8 @@ def test_new_ops_never_fall_back(op):
         "layernorm": lambda t: ops.layernorm(t(2, 8), t(8), t(8)),
         "decode_attention": lambda t: ops.decode_attention(
             t(1, 2, 8), t(1, 4, 2, 8), t(1, 4, 2, 8), t(1), window=2),
+        "paged_decode_merge": lambda t: ops.paged_decode_merge(
+            t(2, 1, 2, 8), t(2, 1, 2), t(2, 1, 2), out_dtype=torch.float32),
     }[op]
     with ops.kernel_mode("cuda"):
         with pytest.raises(ValueError, match="needs CUDA tensors"):
@@ -512,7 +647,8 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "gemm_probe.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "gemm_probe.py",
+              ROOT / "attn_probe.py"]
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):
