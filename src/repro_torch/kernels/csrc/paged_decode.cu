@@ -17,7 +17,7 @@
 //
 // What bounds it on an H100: bytes — every live K and V row is read once
 // (2 * len * KV * D * 2 bytes per slot) against a handful of FLOPs per byte.
-// Design: grid (kv head, slot, split), 128 threads.  The block first
+// Design: grid (kv head, slot, split), 256 threads.  The block first
 // compacts its range's live entries (one warp ballot per 32 entries) into
 // a list in shared memory, then keeps PD_STAGES stages of pages in flight
 // with 16-byte cp.async: a stage holds whole K and V pages, max(BS, 32)
@@ -36,14 +36,15 @@
 // launches both kernels itself when it splits.
 #include "common.cuh"
 
-constexpr int PD_THREADS = 128;
-constexpr int PD_WARPS = PD_THREADS / 32;
+constexpr int PD_THREADS = 256;
+constexpr int PD_WARPS = PD_THREADS / 32;   // a warp for each query head's statistics
 constexpr int PD_STAGES = 3;            // stages of pages in flight
 constexpr int PD_STAGE_TOKENS = 32;     // tokens a stage holds at least
 constexpr int PD_LPT = 8;               // lanes scoring one key row
 constexpr int PD_ROWS = 32 / PD_LPT;    // key rows a warp scores at once
 constexpr int PD_MAXG = DEC_MAXG;       // query heads per kv head
-constexpr int PD_MAXPAIRS = 8;          // (G * D / 2) / PD_THREADS upper bound
+static_assert(PD_WARPS >= PD_MAXG, "one warp a query head");
+constexpr int PD_MAXPAIRS = 4;          // (G * D / 2) / PD_THREADS upper bound
 constexpr int PD_SMEM_MAX = 226 * 1024; // dynamic shared memory (227 KB less static)
 constexpr int PD_MAX_SPLITS = 64;       // splits the merge kernel takes
 
@@ -176,8 +177,8 @@ __global__ void __launch_bounds__(PD_THREADS) paged_decode_kernel(const PDParams
     }
   };
 
-  // each warp folds heads warp, warp + 4 (their m, l in registers)
-  float m_r[2] = {NEG_INF_F, NEG_INF_F}, l_r[2] = {0.f, 0.f};
+  // warp g folds query head g (its m, l in registers)
+  float m_r = NEG_INF_F, l_r = 0.f;
   float acc[2 * PD_MAXPAIRS];
 #pragma unroll
   for (int i = 0; i < 2 * PD_MAXPAIRS; ++i) acc[i] = 0.f;
@@ -230,19 +231,16 @@ __global__ void __launch_bounds__(PD_THREADS) paged_decode_kernel(const PDParams
     }
     __syncthreads();
 
-    // statistics, page by page; P replaces the scores in place
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int g = warp + j * PD_WARPS;
-      if (g >= G) break;
-      float* sg = Ss + g * TOK;
+    // statistics, page by page, warp g for head g; P replaces the scores
+    if (warp < G) {
+      float* sg = Ss + warp * TOK;
       for (int pi = 0; pi < np; ++pi) {
         const int n = min(BS, len - ents[i0 + pi] * BS);
         float* sp = sg + pi * BS;
         float mb = NEG_INF_F;
         for (int t = lane; t < n; t += 32) mb = fmaxf(mb, sp[t]);
         mb = warp_max(mb);
-        const float m_new = fmaxf(m_r[j], mb);
+        const float m_new = fmaxf(m_r, mb);
         float ps = 0.f;
         for (int t = lane; t < n; t += 32) {
           const float pw = expf(sp[t] - m_new);
@@ -250,10 +248,10 @@ __global__ void __launch_bounds__(PD_THREADS) paged_decode_kernel(const PDParams
           sp[t] = sizeof(T) == 2 ? round_bf16(pw) : pw;
         }
         ps = warp_sum(ps);
-        const float corr = expf(m_r[j] - m_new);
-        if (lane == 0) Cs[g * P + pi] = corr;
-        l_r[j] = l_r[j] * corr + ps;
-        m_r[j] = m_new;
+        const float corr = expf(m_r - m_new);
+        if (lane == 0) Cs[warp * P + pi] = corr;
+        l_r = l_r * corr + ps;
+        m_r = m_new;
       }
     }
     __syncthreads();
@@ -300,15 +298,11 @@ __global__ void __launch_bounds__(PD_THREADS) paged_decode_kernel(const PDParams
 
   // the statistics leave the stats warps
   const int64_t split0 = (int64_t)z * p.B * p.H;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int g = warp + j * PD_WARPS;
-    if (g < G && lane == 0) {
-      Ls[g] = l_r[j];
-      if (!NORMALIZE) {
-        p.m[split0 + head0 + g] = m_r[j];
-        p.l[split0 + head0 + g] = l_r[j];
-      }
+  if (warp < G && lane == 0) {
+    Ls[warp] = l_r;
+    if (!NORMALIZE) {
+      p.m[split0 + head0 + warp] = m_r;
+      p.l[split0 + head0 + warp] = l_r;
     }
   }
   __syncthreads();
