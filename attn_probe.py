@@ -1,159 +1,30 @@
-"""Probe the attention kernels' templates on one NVIDIA GPU, in about a minute.
+"""Probe the attention kernels on one NVIDIA GPU, in a few minutes.
 
     python3 attn_probe.py
 
 Builds `csrc/flash_attention.cu` and `csrc/paged_decode.cu` (printing
-ptxas' register and spill lines), then holds the flash kernel's wgmma
-template to its plain version at the served head dims (64, 128, 256, and
-80), causal, bidirectional, windowed, GQA and with a query offset, and the
-paged decode kernel at 1, 2, 4 and `paged_splits` splits of the table, its
-merge kernel and its normalized wrapper, each against its plain version;
-device times (torch.profiler kernel events, no host time) beside SDPA's and,
-for the paged kernel, the byte bound (H100 SXM: 3.35 TB/s).  A case off its
-tolerance (max|k - p| / max|p| <= 1e-2, bf16) fails the run; so does a
-process that stalls for PROBE_STALL_S seconds (a hung kernel holds the card
-until the call's own time limit).  `chip_smoke.py` is the whole check; this
-is the quick loop for attention kernel work.
+ptxas' register and spill lines), then runs `chip_smoke.py`'s two
+attention checks alone: `check_flash` (every flash case against its plain
+version, the wgmma template gate, device times beside SDPA's) and
+`check_paged` (the paged kernel at 1, 2 and 4 splits and its normalized
+wrapper at `paged_splits`, one split included, its merge kernel, each row
+by row against the plain version, with the byte bound).  A case off its
+tolerance fails the run; so does a process that stalls for PROBE_STALL_S
+seconds (a hung kernel holds the card until the call's own time limit).
+`chip_smoke.py` is the whole check; this is the quick loop for attention
+kernel work.
 """
 from __future__ import annotations
 
 import os
 import subprocess
-import sys
 import threading
-from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+import chip_smoke
 
-TOL = 1e-2
-PEAK_BYTES = 3.35e12
 PROBE_STALL_S = 330
-
-FLASH_CASES = (   # label, S, H, KV, D, window, causal, q_offset
-    ("gpt-j S=512 16x256", 512, 16, 16, 256, 0, True, 0),
-    ("phi4 S=512 24/8x128", 512, 24, 8, 128, 0, True, 0),
-    ("hymba S=512 25/5x64", 512, 25, 5, 64, 0, True, 0),
-    ("vit-b S=197 12x64 bidirectional", 197, 12, 12, 64, 0, False, 0),
-    ("vit-h S=257 16x80 bidirectional", 257, 16, 16, 80, 0, False, 0),
-    ("q_offset 37 S=100 4/2x128", 100, 4, 2, 128, 0, True, 37),
-    ("gemma3 S=1100 32/16x128 window 1024", 1100, 32, 16, 128, 1024, True,
-     0),
-)
-PAGED_CASES = (   # H, KV, D, lengths
-    (16, 16, 256, (200, 250, 290, 332)),
-    (24, 8, 128, (1, 137, 300, 512)),
-    (25, 5, 64, (1, 137, 300, 512)),
-)
-
-
-def device_ms(fn, iters=20):
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(ev, "self_device_time_total", 0.0)
-             for ev in prof.key_averages()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / iters
-
-
-def rel(got, want):
-    got, want = got.float(), want.float()
-    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)
-            ).item()
-
-
-def check(label, err):
-    if not err <= TOL:
-        raise AssertionError(f"{label}: rel err {err:.2e} > {TOL:.0e}")
-
-
-def probe_flash(g):
-    from repro_torch.kernels import flash_attention as fa
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    for label, S, H, KV, D, win, causal, qo in FLASH_CASES:
-        q = torch.randn((1, S, H, D), generator=g, device="cuda").bfloat16()
-        k, v = (torch.randn((1, S + qo, KV, D), generator=g, device="cuda"
-                            ).bfloat16() for _ in range(2))
-        kw = dict(causal=causal, window=win, q_offset=qo)
-        fn = lambda: fa.flash_attention(q, k, v, **kw)
-        before = fa.flash_attention.launches_by["wgmma"]
-        err = rel(fn(), fa.flash_attention_plain(q, k, v, **kw))
-        if fa.flash_attention.launches_by["wgmma"] != before + 1:
-            raise AssertionError(f"flash {label}: not the wgmma template")
-        lib = "-"
-        if qo == 0:
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            kw_lib = dict(is_causal=causal)
-            if win:
-                i = torch.arange(S, device="cuda")
-                kw_lib = dict(attn_mask=(i[None] <= i[:, None])
-                              & (i[None] > i[:, None] - win))
-            lib_fn = lambda: sdpa(qt, kt, vt, enable_gqa=KV != H, **kw_lib)
-            lib = f"{device_ms(lib_fn):.4f}"
-        print(f"flash {label}: rel err {err:.2e} device {device_ms(fn):.4f}"
-              f" ms sdpa {lib} ms", flush=True)
-        check(f"flash {label}", err)
-
-
-def _paged_inputs(g, H, KV, D, lens):
-    B, BS, MB = len(lens), 16, 32
-    NB = B * MB + 8
-    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    tab = torch.randperm(NB, generator=g, device="cuda")[:B * MB].reshape(
-        B, MB).to(torch.int32)
-    for b in range(B):
-        tab[b, -(-lens[b] // BS):] = -1
-    if lens[2] > 6 * BS:
-        tab[2, 5] = -1
-    q = torch.randn((B, H, D), generator=g, device="cuda").bfloat16()
-    kp, vp = (torch.randn((NB, BS, KV, D), generator=g, device="cuda"
-                          ).bfloat16() for _ in range(2))
-    return q, kp, vp, tab, lengths
-
-
-def probe_paged(g):
-    from repro_torch.kernels import flash_decode as fd
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for H, KV, D, lens in PAGED_CASES:
-        q, kp, vp, tab, lengths = _paged_inputs(g, H, KV, D, lens)
-        B, MB = tab.shape
-        case = f"{H}/{KV}x{D} len {lens}"
-        po, _, pl = fd.paged_decode_plain(q, kp, vp, tab, lengths)
-        one = po / pl[..., None]
-        for S in sorted({1, 2, 4, fd.paged_splits(B, KV, MB, sms=sms)}):
-            fn = lambda S=S: fd.paged_decode_partials(q, kp, vp, tab,
-                                                      lengths, S)
-            o, m, l = fn()
-            so, sm, sl = fd.paged_decode_plain(q, kp, vp, tab, lengths, S)
-            live = sl > 0
-            err = max(rel(m[live], sm[live]), rel(l[live], sl[live]))
-            merge = ""
-            if S > 1:
-                mfn = lambda: fd.paged_decode_merge(o, m, l,
-                                                    out_dtype=torch.float32)
-                err = max(err, rel(mfn(), one))
-                merge = f" merge {device_ms(mfn):.4f} ms"
-            else:
-                err = max(err, rel(o / l[..., None], one))
-            print(f"paged partials {case} splits {S}: rel err {err:.2e} "
-                  f"device {device_ms(fn):.4f} ms{merge}", flush=True)
-            check(f"paged partials {case} splits {S}", err)
-        fn = lambda: fd.paged_decode_attention(q, kp, vp, tab, lengths)
-        err = rel(fn(), one)
-        live_rows = sum(max(0, min(16, n - 16 * e)) for b, n in
-                        enumerate(lens) for e in range(MB)
-                        if int(tab[b, e]) >= 0)
-        bound = 2 * live_rows * KV * D * 2 / PEAK_BYTES * 1e3
-        print(f"paged attention {case}: rel err {err:.2e} device "
-              f"{device_ms(fn):.4f} ms, byte bound {bound:.4f} ms", flush=True)
-        check(f"paged attention {case}", err)
 
 
 def main():
@@ -165,18 +36,18 @@ def main():
     stall.daemon = True
     stall.start()
     from repro_torch.kernels import build
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip(), flush=True)
+    chip_smoke.log(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip())
     for r in build.build_all(("flash_attention", "paged_decode")):
         for line in r["log"].splitlines():
             if "registers" in line or "bytes stack" in line:
-                print(f"  ptxas[{r['name']}]: {line.strip()}", flush=True)
-    g = torch.Generator(device="cuda").manual_seed(0)
-    probe_flash(g)
-    probe_paged(g)
+                chip_smoke.log(f"  ptxas[{r['name']}]: {line.strip()}")
+    rows = {}
+    chip_smoke.check_flash(rows)
+    chip_smoke.check_paged(rows)
     stall.cancel()
-    print("attn_probe: every case within tolerance", flush=True)
+    chip_smoke.log("attn_probe: every case within tolerance")
 
 
 if __name__ == "__main__":

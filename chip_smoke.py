@@ -13,12 +13,14 @@ non-zero):
               (MHA), phi4-mini (SwiGLU, RMSNorm, GQA 24 / 8), hymba-1.5b
               (SSD 64 heads x 64 x 16, residual RMSNorm at d_model 1600,
               flash attention at 25 / 5 x 64), mamba2-2.7b (SSD 80 heads x
-              64 x 128), ViT-B (bidirectional flash attention, 197 tokens,
-              12 x 64) and gemma3-27b (flash attention with a 1024 window;
+              64 x 128), ViT-B and ViT-H (bidirectional flash attention,
+              197 tokens at 12 x 64, 257 at 16 x 80), a causal chunk with a
+              query offset, and gemma3-27b (flash attention with a 1024 window;
               dense decode over 1024-slot rings at GQA 32 / 16 and hymba's
               25 / 5, and over a linear 2048 cache with the window); the
               paged decode's partials at 1, 2 and 4 splits of the table,
-              also over GPT-J's serving batch (lengths 200-332): the error
+              also over GPT-J's serving batch (lengths 200-332) and over 17
+              slots, where the normalized wrapper runs one split: the error
               against the stated tolerance, kernel / plain / library
               milliseconds (CUDA events, median of the timed launches) and
               the bound (the larger of bytes / 3.35 TB/s and FLOPs / 989
@@ -511,34 +513,38 @@ def check_ssd(rows):
         rows[name] = results
 
 
-FLASH_CASES = (   # label, S, H, KV, D, window, causal
-    ("gpt-j S=512 D=256", 512, 16, 16, 256, 0, True),
-    ("gpt3-xl S=512 D=128", 512, 16, 16, 128, 0, True),
-    ("phi4 S=512 H24/KV8 D=128", 512, 24, 8, 128, 0, True),
-    ("hymba S=512 H25/KV5 D=64", 512, 25, 5, 64, 0, True),
-    ("vit-b S=197 H12 D=64 bidirectional", 197, 12, 12, 64, 0, False),
+FLASH_CASES = (   # label, S, H, KV, D, window, causal, q_offset
+    ("gpt-j S=512 D=256", 512, 16, 16, 256, 0, True, 0),
+    ("gpt3-xl S=512 D=128", 512, 16, 16, 128, 0, True, 0),
+    ("phi4 S=512 H24/KV8 D=128", 512, 24, 8, 128, 0, True, 0),
+    ("hymba S=512 H25/KV5 D=64", 512, 25, 5, 64, 0, True, 0),
+    ("vit-b S=197 H12 D=64 bidirectional", 197, 12, 12, 64, 0, False, 0),
+    ("vit-h S=257 H16 D=80 bidirectional", 257, 16, 16, 80, 0, False, 0),
+    ("q_offset 37 S=100 H4/KV2 D=128", 100, 4, 2, 128, 0, True, 37),
     ("gemma3 S=1100 H32/KV16 D=128 window 1024", 1100, 32, 16, 128, 1024,
-     True),
+     True, 0),
 )
 
 
 def check_flash(rows):
     """Prefill attention at GPT-J / GPT3-XL / phi4-mini / hymba shapes
-    (causal), ViT-B's bidirectional 197-token encoder, and gemma3's local
-    layers: window 1024 over an 1100-token prompt.  Every bf16 case must
-    plan the wgmma template.  Yardstick: SDPA, causal or not, or with the
-    window as a boolean mask; device times of the kernel and of SDPA from
-    torch.profiler kernel events."""
+    (causal), ViT-B's and ViT-H's (D = 80) bidirectional encoders, a
+    causal chunk whose queries start 37 positions into the keys, and
+    gemma3's local layers: window 1024 over an 1100-token prompt.  Every
+    bf16 case must plan the wgmma template.  Yardstick: SDPA, causal or
+    not, or with the window or the offset as a boolean mask; device times
+    of the kernel and of SDPA from torch.profiler kernel events."""
     from repro_torch.kernels import flash_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(2)
     results = []
-    for label, S, H, KV, D, win, causal in FLASH_CASES:
+    for label, S, H, KV, D, win, causal, qo in FLASH_CASES:
+        Skv = S + qo
         q = torch.randn((1, S, H, D), generator=g, device=dev).bfloat16()
-        k, v = (torch.randn((1, S, KV, D), generator=g, device=dev
+        k, v = (torch.randn((1, Skv, KV, D), generator=g, device=dev
                             ).bfloat16() for _ in range(2))
-        kw = dict(causal=causal, window=win)
+        kw = dict(causal=causal, window=win, q_offset=qo)
         before = dict(fa.flash_attention.launches_by)
         got = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -554,10 +560,12 @@ def check_flash(rows):
         plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                         iters=5)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if win:
-            i = torch.arange(S, device=dev)
-            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
-                                                 - win)
+        if win or qo:
+            i = torch.arange(S, device=dev)[:, None] + qo
+            j = torch.arange(Skv, device=dev)[None, :]
+            mask = j <= i
+            if win:
+                mask &= j > i - win
             lib_fn = lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                   enable_gqa=KV != H)
             pairs = int(mask.sum())
@@ -566,13 +574,13 @@ def check_flash(rows):
                                   enable_gqa=KV != H)
             pairs = S * (S + 1) // 2 if causal else S * S
         r = _row(label, err, rel, ATTN_TOL, ms, plain, time_ms(lib_fn),
-                 2 * S * (H + KV) * D * 2, 4 * H * D * pairs)
+                 2 * (S * H + Skv * KV) * D * 2, 4 * H * D * pairs)
         r.update(device_ms=device_ms([fn]), library_device_ms=device_ms(
             [lib_fn]), template=template,
             # the first design (the simt template) on the same bf16
             # operands
             simt_device_ms=device_ms([lambda: fa._run("simt", q, k, v,
-                                                      q_offset=0, **kw)]))
+                                                      **kw)]))
         _report("flash_attention", r, "sdpa")
         log(f"    the first design (simt) on the same operands: device "
             f"{_ms(r['simt_device_ms'])}")
@@ -581,8 +589,8 @@ def check_flash(rows):
 
 
 def _paged_inputs(g, dev, H, KV, D, lengths=(1, 137, 300, 512)):
-    """Decode batch: 4 slots, 16-token blocks, 32 table entries, the given
-    lengths, absent table entries past each length and a hole inside slot
+    """Decode batch: a slot per length, 16-token blocks, 32 table entries,
+    absent table entries past each length and a hole inside slot
     2 when it is long enough."""
     B, BS, MB = len(lengths), 16, 32
     NB = B * MB + 8
@@ -613,10 +621,15 @@ def _dense_from_paged(q, kp, vp, tab, lengths):
     return q[:, :, None], k.contiguous(), v.contiguous(), ok[:, None, None]
 
 
+GPTJ_SERVE_LENS = (200, 250, 290, 332)   # GPT-J's serving batch
 PAGED_CASES = (   # H, KV, D, lengths
     (16, 16, 256, (1, 137, 300, 512)),
     (24, 8, 128, (1, 137, 300, 512)),
-    (16, 16, 256, (200, 250, 290, 332)),    # GPT-J's serving batch
+    (16, 16, 256, GPTJ_SERVE_LENS),
+    # 17 slots of 16 kv heads fill the card's SMs twice over: the
+    # normalized wrapper runs one split (`paged_splits` == 1)
+    (16, 16, 256, (1, 137, 300, 512, 17, 33, 64, 65, 96, 128, 160, 200,
+                   250, 290, 332, 400, 480)),
 )
 PAGED_SPLITS = (1, 2, 4)   # splits of the partials kernel's table
 
@@ -659,13 +672,14 @@ def device_events(fn, iters=5):
 
 def check_paged(rows):
     """The paged decode kernel at GPT-J's and phi4-mini's widths over a
-    mixed batch (lengths 1..512, a hole in the table) and over GPT-J's
-    serving batch (lengths 200-332): the partials kernel at 1, 2 and 4
-    splits of the table (each split's statistics and the merged output
-    held row by row to the plain split grid, and the merge to the single
-    plain pass), the merge kernel, and the normalized kernel, which splits
-    the table as `paged_splits` says for this card (held to the same plain
-    split and to the single pass).  Yardstick: SDPA over dense copies
+    mixed batch (lengths 1..512, a hole in the table), over GPT-J's
+    serving batch (lengths 200-332) and over 17 slots: the partials kernel
+    at 1, 2 and 4 splits of the table (each split's statistics and the
+    merged output held row by row to the plain split grid, and the merge
+    to the single plain pass), the merge kernel, and the normalized
+    wrapper (partials, then the merge), which splits the table as
+    `paged_splits` says for this card (held to the same plain split and to
+    the single pass); the 17-slot case must run it at one split.  Yardstick: SDPA over dense copies
     with a boolean mask; device times of both from torch.profiler kernel
     events.  Bound: the bytes of q, the live K / V rows and the outputs.
     On GPT-J's serving batch the decode path's two-split route is counted
@@ -680,7 +694,7 @@ def check_paged(rows):
     merge = lambda o, m, l: fd.paged_decode_merge_plain(
         o, m, l, out_dtype=torch.float32)
     for H, KV, D, lens in PAGED_CASES:
-        case = (f"B=4 H={H}/KV={KV} D={D} BS=16 len "
+        case = (f"B={len(lens)} H={H}/KV={KV} D={D} BS=16 len "
                 + "/".join(str(n) for n in lens))
         q, kp, vp, tab, lengths, live = _paged_inputs(g, dev, H, KV, D,
                                                       lens)
@@ -745,7 +759,7 @@ def check_paged(rows):
             if extra:
                 log(f"    {label}{extra}")
             rows[name].append(r)
-        if lens == PAGED_CASES[-1][3]:
+        if lens == GPTJ_SERVE_LENS:
             new = device_events(lambda: _paged_attention(q, kp, vp, tab,
                                                          lengths, 2))
             old_fn = lambda: _host_split_chain(q, kp, vp, tab, lengths, 2)
@@ -757,6 +771,10 @@ def check_paged(rows):
             log(f"  decode path's two-split route on {case}: {new:.0f} "
                 f"device events a call (the host split chain it replaced: "
                 f"{old:.0f}, its result within {rel:.2e} of the single pass)")
+    if not any(r["template"] == "splits 1"
+               for r in rows["paged_decode_attention"]):
+        raise AssertionError("paged_decode_attention: no case ran at one "
+                             "split of the table")
 
 
 DECODE_CASES = (   # label, H, KV, D, S, lengths, window

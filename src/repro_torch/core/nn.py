@@ -7,7 +7,6 @@ import torch
 
 from repro_torch.core.precision import Policy
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import _dot
 
 
 def act_dtype(policy: Policy):
@@ -16,19 +15,9 @@ def act_dtype(policy: Policy):
 
 def pdot(x, w, policy: Policy, *, out_dtype=None):
     """x: [..., K] @ w: [K, N] in the policy compute dtype, fp32 accumulation,
-    emitted as `out_dtype` (default: the activation dtype).  The reference
-    leaves this unfused product to XLA outside Pallas (a dot with
-    preferred_element_type fp32).  On the card under a bf16 policy it runs
-    the hand GEMM with no prologue and no epilogue (`ops.fused_matmul`:
-    exact bf16 products summed in fp32, the same function); the CPU, the
-    `ref` mode and an fp32 policy keep the fp32 product `_dot`."""
-    w, _ = ops.split_quantized(w)
-    cd = policy.compute_dtype
-    od = out_dtype or act_dtype(policy)
-    if (x.device.type == "cuda" and cd == torch.bfloat16
-            and ops.get_mode() != "ref"):
-        return ops.fused_matmul(x, w, compute_dtype=cd, dot_dtype=od)
-    return _dot(x.to(cd), w.to(cd), od)
+    emitted as `out_dtype` (default: the activation dtype): `ops.pdot`."""
+    return ops.pdot(x, w, compute_dtype=policy.compute_dtype,
+                    out_dtype=out_dtype or act_dtype(policy))
 
 
 def fused_pdot(x, w, policy: Policy, *, prologue=None, epilogue=None,

@@ -1,10 +1,11 @@
-// Paged single-token decode attention, two variants from one template.
+// Paged single-token decode attention: one fold kernel and one merge kernel.
 //
 // Replaces the TPU kernels src/repro/kernels/flash_decode.py:
-//   paged_decode_partials  (_paged_partials_kernel, _online_merge) -> NORMALIZE = false:
+//   paged_decode_partials  (_paged_partials_kernel, _online_merge) -> paged_decode_kernel:
 //       unnormalized fp32 o [S, B, H, D] and m, l [S, B, H] for the online-softmax
 //       merge, one set per split of the table (S = 1: the TPU kernel's shapes);
-//   paged_decode_attention (_paged_decode_kernel, _online_merge)   -> NORMALIZE = true:
+//   paged_decode_attention (_paged_decode_kernel, _online_merge)   -> paged_decode_kernel
+//       then paged_merge_kernel, at every split count (one included):
 //       o / max(l, 1e-30) at q's dtype.
 // q [B, H, D]; k/v pools [NB, BS, KV, D]; block tables [B, MB] int32 (entries
 // < 0 absent); lengths [B].  Token t of table entry e holds position
@@ -32,8 +33,8 @@
 // positions of the longest slot) spreads the pages over the card;
 // paged_merge_kernel then folds the splits' partials into the normalized
 // output at q's dtype in one launch (the online-softmax merge rule of the
-// reference's core/attention.py:merge_partials).  The normalized variant
-// launches both kernels itself when it splits.
+// reference's core/attention.py:merge_partials).  The normalized entry point
+// launches both kernels itself, so one verified fold serves every shape.
 #include "common.cuh"
 
 constexpr int PD_THREADS = 256;
@@ -54,8 +55,8 @@ struct PDParams {
   const void* v_pool;
   const int* tables;
   const int* lengths;
-  void* o;      // NORMALIZE: [B, H, D] at dt; else fp32 [S, B, H, D]
-  float* m;     // partials only: [S, B, H]
+  float* o;     // [S, B, H, D]
+  float* m;     // [S, B, H]
   float* l;
   int B, H, KV, D, BS, MB, per;
   float sm_scale;
@@ -85,12 +86,12 @@ __host__ __device__ inline size_t pd_ring_bytes(int BS, int D, int esize) {
 }
 
 // shared memory: the ring, then fp32 Qs [G][D], Ss [G][stage tokens] (scores,
-// then P), Cs [G][pages] (each page's rescale), Ls [G]; then the live list:
-// entry and pool block, [per] each
+// then P), Cs [G][pages] (each page's rescale); then the live list: entry and
+// pool block, [per] each
 __host__ __device__ inline size_t pd_smem_bytes(int G, int D, int BS, int per, int esize) {
   const int tok = pd_pages(BS) * BS;
   return pd_ring_bytes(BS, D, esize) +
-         (size_t)(G * D + G * tok + G * pd_pages(BS) + G) * sizeof(float) +
+         (size_t)(G * D + G * tok + G * pd_pages(BS)) * sizeof(float) +
          (size_t)2 * per * sizeof(int) + 16;
 }
 
@@ -112,7 +113,7 @@ __device__ __forceinline__ float2 pd_pair(const T* p) {
   else return *reinterpret_cast<const float2*>(p);
 }
 
-template <typename T, bool NORMALIZE>
+template <typename T>
 __global__ void __launch_bounds__(PD_THREADS) paged_decode_kernel(const PDParams p) {
   constexpr int EPC = 16 / sizeof(T);  // elements of a 16-byte chunk
   extern __shared__ __align__(16) uint8_t pd_smem[];
@@ -123,8 +124,7 @@ __global__ void __launch_bounds__(PD_THREADS) paged_decode_kernel(const PDParams
   float* Qs = reinterpret_cast<float*>(pd_smem + pd_ring_bytes(BS, D, sizeof(T)));
   float* Ss = Qs + G * D;
   float* Cs = Ss + G * TOK;
-  float* Ls = Cs + G * P;
-  int* ents = reinterpret_cast<int*>(Ls + G);      // live entries of the range
+  int* ents = reinterpret_cast<int*>(Cs + G * P);  // live entries of the range
   int* blks = ents + p.per;
   __shared__ int nlive_sh;
 
@@ -296,34 +296,17 @@ __global__ void __launch_bounds__(PD_THREADS) paged_decode_kernel(const PDParams
   }
   cp_async_wait<0>();
 
-  // the statistics leave the stats warps
   const int64_t split0 = (int64_t)z * p.B * p.H;
   if (warp < G && lane == 0) {
-    Ls[warp] = l_r;
-    if (!NORMALIZE) {
-      p.m[split0 + head0 + warp] = m_r;
-      p.l[split0 + head0 + warp] = l_r;
-    }
+    p.m[split0 + head0 + warp] = m_r;
+    p.l[split0 + head0 + warp] = l_r;
   }
-  __syncthreads();
 #pragma unroll
   for (int i = 0; i < PD_MAXPAIRS; ++i) {
     const int pr = tid + i * PD_THREADS;
     if (pr >= npairs) break;
-    const int g = (2 * pr) / D;
-    const int64_t idx = head0 * D + 2 * pr;
-    if (NORMALIZE) {
-      const float inv = 1.f / fmaxf(Ls[g], 1e-30f);
-      if constexpr (sizeof(T) == 2)
-        *reinterpret_cast<uint32_t*>(reinterpret_cast<__nv_bfloat16*>(p.o) + idx) =
-            pack2(acc[2 * i] * inv, acc[2 * i + 1] * inv);
-      else
-        *reinterpret_cast<float2*>(reinterpret_cast<float*>(p.o) + idx) =
-            make_float2(acc[2 * i] * inv, acc[2 * i + 1] * inv);
-    } else {
-      *reinterpret_cast<float2*>(reinterpret_cast<float*>(p.o) + split0 * D + idx) =
-          make_float2(acc[2 * i], acc[2 * i + 1]);
-    }
+    *reinterpret_cast<float2*>(p.o + (split0 + head0) * D + 2 * pr) =
+        make_float2(acc[2 * i], acc[2 * i + 1]);
   }
 }
 
@@ -357,22 +340,22 @@ __global__ void __launch_bounds__(PD_THREADS)
   }
 }
 
-template <typename T, bool NORMALIZE>
+template <typename T>
 static cudaError_t launch_paged_t(const PDParams& p, int splits, size_t smem, cudaStream_t s) {
   static bool attr = false;
   if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T, NORMALIZE>,
+    const cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                PD_SMEM_MAX);
     if (e != cudaSuccess) return e;
     attr = true;
   }
   dim3 grid(p.KV, p.B, splits);
-  paged_decode_kernel<T, NORMALIZE><<<grid, PD_THREADS, smem, s>>>(p);
+  paged_decode_kernel<T><<<grid, PD_THREADS, smem, s>>>(p);
   return cudaGetLastError();
 }
 
-static int launch_paged(bool normalize, const PDParams& p, int splits, int dt, void* stream) {
+static int launch_paged(const PDParams& p, int splits, int dt, void* stream) {
   const int G = p.KV > 0 ? p.H / p.KV : 0;
   const int esize = dt == DT_BF16 ? 2 : 4;
   const uintptr_t align = reinterpret_cast<uintptr_t>(p.k_pool) |
@@ -380,20 +363,13 @@ static int launch_paged(bool normalize, const PDParams& p, int splits, int dt, v
   const int cr = p.D * esize / 16;  // 16-byte columns of a row: 2 cr must divide the block
   if (G < 1 || p.H % p.KV || G > PD_MAXG || G * p.D > 2 * PD_MAXPAIRS * PD_THREADS ||
       (p.D * esize) % 16 || cr < 1 || PD_THREADS % (2 * cr) || align % 16 || splits < 1 ||
-      p.per < 1 ||
-      (int64_t)p.per * splits < p.MB)
+      p.per < 1 || (int64_t)p.per * splits < p.MB)
     return (int)cudaErrorInvalidValue;
   const size_t smem = pd_smem_bytes(G, p.D, p.BS, p.per, esize);
   if (smem > PD_SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dt == DT_BF16)
-    e = normalize ? launch_paged_t<__nv_bfloat16, true>(p, splits, smem, s)
-                  : launch_paged_t<__nv_bfloat16, false>(p, splits, smem, s);
-  else
-    e = normalize ? launch_paged_t<float, true>(p, splits, smem, s)
-                  : launch_paged_t<float, false>(p, splits, smem, s);
-  return (int)e;
+  return (int)(dt == DT_BF16 ? launch_paged_t<__nv_bfloat16>(p, splits, smem, s)
+                             : launch_paged_t<float>(p, splits, smem, s));
 }
 
 extern "C" int repro_paged_decode_partials(const void* q, const void* k_pool,
@@ -402,38 +378,32 @@ extern "C" int repro_paged_decode_partials(const void* q, const void* k_pool,
                                            float* l, int B, int H, int KV, int D,
                                            int BS, int MB, int splits, int dt,
                                            float sm_scale, void* stream) {
+  if (splits < 1) return (int)cudaErrorInvalidValue;
   const int per = (MB + splits - 1) / splits;
   PDParams p{q, k_pool, v_pool, tables, lengths, o, m, l,
              B, H, KV, D, BS, MB, per, sm_scale};
-  return launch_paged(false, p, splits, dt, stream);
+  return launch_paged(p, splits, dt, stream);
 }
 
-// The normalized variant fills the card by itself: with splits > 1 the
-// partials of `splits` ranges go to the caller's scratch (o_part [S, B, H,
-// D], m_part / l_part [S, B, H]) and the merge kernel normalizes them.
+// The normalized entry point: the partials of `splits` ranges (one or more)
+// go to the caller's scratch (o_part [S, B, H, D], m_part / l_part [S, B, H])
+// and the merge kernel normalizes them into o at q's dtype.
 extern "C" int repro_paged_decode_attention(const void* q, const void* k_pool,
                                             const void* v_pool, const int* tables,
                                             const int* lengths, void* o, float* o_part,
                                             float* m_part, float* l_part, int B, int H,
                                             int KV, int D, int BS, int MB, int splits,
                                             int dt, float sm_scale, void* stream) {
-  if (splits == 1) {
-    PDParams p{q, k_pool, v_pool, tables, lengths, o, nullptr, nullptr,
-               B, H, KV, D, BS, MB, MB, sm_scale};
-    return launch_paged(true, p, 1, dt, stream);
-  }
   if (!o_part || !m_part || !l_part || splits < 1 || splits > PD_MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
-  const int per = (MB + splits - 1) / splits;
-  PDParams p{q, k_pool, v_pool, tables, lengths, o_part, m_part, l_part,
-             B, H, KV, D, BS, MB, per, sm_scale};
-  const int e = launch_paged(false, p, splits, dt, stream);
+  const int e = repro_paged_decode_partials(q, k_pool, v_pool, tables, lengths, o_part,
+                                            m_part, l_part, B, H, KV, D, BS, MB, splits,
+                                            dt, sm_scale, stream);
   if (e != 0) return e;
   paged_merge_kernel<<<B * H, PD_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       o_part, m_part, l_part, o, splits, B * H, D, dt);
   return (int)cudaGetLastError();
 }
-
 extern "C" int repro_paged_decode_merge(const float* o, const float* m, const float* l,
                                         void* out, int B, int H, int D, int splits, int dt,
                                         void* stream) {

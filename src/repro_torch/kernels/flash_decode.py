@@ -7,7 +7,8 @@ Replaces the TPU kernels of `src/repro/kernels/flash_decode.py`:
 `paged_decode_attention` (`_paged_decode_kernel`) over the block pool,
 through one CUDA template, `csrc/paged_decode.cu`, whose grid also splits
 each slot's table into contiguous entry ranges (`splits`); its second
-kernel merges the splits (`paged_decode_merge`).  The sources'
+kernel merges the splits (`paged_decode_merge`), and the normalized
+wrapper always runs the two, at one split too.  The sources'
 notes say what bounds them on an H100 and how the designs answer it.
 
 The plain versions are the kernels' arithmetic in plain PyTorch: per chunk
@@ -35,6 +36,7 @@ _ATTENTION_ARGTYPES = [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P]
 _DENSE_ARGTYPES = [_P] * 8 + [_I] * 10 + [ctypes.c_float, _P]
 _MERGE_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
 MAX_MERGE_SPLITS = 64   # csrc/paged_decode.cu PD_MAX_SPLITS
+PAGED_THREADS = 256     # csrc/paged_decode.cu PD_THREADS
 PAGED_MIN_ENTRIES = 4   # table entries a split of the paged grid spans
 SM_COUNT = 132          # H100 SXM: the split rule's SMs off the card
 DENSE_CHUNK = 512       # the TPU kernel's block_kv: positions per plain step
@@ -219,7 +221,8 @@ def _check(what, q, k_pool, v_pool, block_tables, lengths):
     _, BS, KV, Dk = k_pool.shape
     cols = D * q.element_size() // 16       # 16-byte columns of a row
     if (Dk != D or v_pool.shape != k_pool.shape or H % KV or H // KV > 8
-            or (D * q.element_size()) % 16 or 128 % (2 * max(cols, 1))
+            or (D * q.element_size()) % 16
+            or PAGED_THREADS % (2 * max(cols, 1))
             or H // KV * D > 2048
             or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype
             or block_tables.shape[0] != B or lengths.shape != (B,)
@@ -264,32 +267,31 @@ def paged_decode_partials(q, k_pool, v_pool, block_tables, lengths,
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     """As `paged_decode_partials`, normalized: -> [B, H, D] at q's dtype.
-    The grid splits the table as `paged_splits` says for the device and
-    the same launch merges the splits (the plain version likewise)."""
+    The grid splits the table as `paged_splits` says for the device (one
+    split or more) and the same call merges the splits (the plain version
+    likewise)."""
     if q.device.type == "cpu":
         S = paged_splits(q.shape[0], k_pool.shape[2], block_tables.shape[1],
                          sms=sm_count(q.device))
         o, m, l = paged_decode_plain(q, k_pool, v_pool, block_tables,
                                      lengths, S)
-        if S > 1:
-            return paged_decode_merge_plain(o, m, l, out_dtype=q.dtype)
-        return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+        if S == 1:
+            o, m, l = o[None], m[None], l[None]
+        return paged_decode_merge_plain(o, m, l, out_dtype=q.dtype)
     q, k_pool, v_pool, tab, ln = _check("paged_decode_attention", q, k_pool,
                                         v_pool, block_tables, lengths)
     B, H, D = q.shape
     _, BS, KV, _ = k_pool.shape
     S = paged_splits(B, KV, tab.shape[1], sms=sm_count(q.device))
     out = torch.empty_like(q)
-    parts = (None, None, None)
-    if S > 1:
-        f32 = dict(dtype=torch.float32, device=q.device)
-        parts = (torch.empty((S, B, H, D), **f32),
-                 torch.empty((S, B, H), **f32), torch.empty((S, B, H), **f32))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    parts = (torch.empty((S, B, H, D), **f32),
+             torch.empty((S, B, H), **f32), torch.empty((S, B, H), **f32))
     fn = build.bind("paged_decode", "repro_paged_decode_attention",
                     _ATTENTION_ARGTYPES)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              tab.data_ptr(), ln.data_ptr(), out.data_ptr(),
-             *(t.data_ptr() if t is not None else None for t in parts),
+             *(t.data_ptr() for t in parts),
              B, H, KV, D, BS, tab.shape[1], S, build.dtype_code(q),
              1.0 / math.sqrt(D), build.stream_of(q))
     build.check(err, "paged_decode_attention launch")

@@ -33,7 +33,7 @@ __all__ = [
     "kernel_mode", "flash_attention", "decode_attention",
     "paged_decode_attention",
     "paged_decode_partials", "paged_decode_merge", "paged_splits",
-    "split_quantized", "matmul", "fused_matmul",
+    "split_quantized", "matmul", "pdot", "fused_matmul",
     "matmul_swiglu", "fused_matmul_swiglu", "residual_norm", "rmsnorm",
     "layernorm", "norm", "ssd", "ssd_decode",
 ]
@@ -188,6 +188,21 @@ def _prologue_fields(prologue):
         return dict(norm="none", gamma=None, nbeta=None, eps=RMS_EPS)
     return dict(norm=prologue.kind, gamma=prologue.scale, nbeta=prologue.bias,
                 eps=prologue.eps)
+
+
+def pdot(x, w, *, compute_dtype, out_dtype):
+    """x: [..., K] @ w: [K, N] with operands at `compute_dtype`, fp32
+    accumulation, emitted as `out_dtype` (the reference's unfused dot, an
+    XLA dot with preferred_element_type fp32).  A bf16 product on the card
+    runs the hand GEMM with no prologue and no epilogue: exact bf16
+    products summed in fp32, the same function.  The CPU, `ref` mode and
+    an fp32 compute dtype keep the fp32 product `_dot`."""
+    w, _ = split_quantized(w)
+    if (_use_kernel(x) and x.device.type != "cpu"
+            and compute_dtype == torch.bfloat16):
+        return fused_matmul(x, w, compute_dtype=compute_dtype,
+                            dot_dtype=out_dtype)
+    return _ref._dot(x.to(compute_dtype), w.to(compute_dtype), out_dtype)
 
 
 def fused_matmul(x, w, *, prologue=None, epilogue=None, compute_dtype=None,

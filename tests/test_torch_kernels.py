@@ -488,6 +488,32 @@ def test_paged_attention_plain_splits_as_the_card_does():
                                **F32)
 
 
+def test_paged_attention_plain_at_one_split_merges():
+    """Where the (KV, B) grid fills the card by itself (`paged_splits` ==
+    1) the normalized wrapper still folds into partials and merges them,
+    as the kernel does: equal to the merge of the one-split partials and
+    within fp32 rounding of the JAX oracle."""
+    rng = np.random.default_rng(9)
+    B, H, KV, D, BS, MB = 17, 16, 16, 8, 4, 3
+    NB = B * MB
+    assert tfd.paged_splits(B, KV, MB) == 1
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kp, vp = (rng.standard_normal((NB, BS, KV, D)).astype(np.float32)
+              for _ in range(2))
+    tab = rng.permutation(NB).reshape(B, MB).astype(np.int32)
+    lengths = rng.integers(1, MB * BS + 1, B).astype(np.int32)
+    tab[3, 1] = -1                                  # a hole
+    tq, tk, tv, tt, tl = (torch.tensor(x) for x in (q, kp, vp, tab,
+                                                     lengths))
+    got = tfd.paged_decode_attention(tq, tk, tv, tt, tl)
+    o, m, l = tfd.paged_decode_plain(tq, tk, tv, tt, tl)
+    assert torch.equal(got, tfd.paged_decode_merge_plain(
+        o[None], m[None], l[None], out_dtype=torch.float32))
+    want = jref.paged_decode_attention_ref(*(jnp.asarray(x) for x in (
+        q, kp, vp, tab, lengths)))
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+
+
 def test_paged_decode_merge_plain_is_the_merge_rule():
     """The merge kernel's plain version against the rule written out per
     (slot, head) in numpy: sum_s o_s e^(m_s - m) / sum_s l_s e^(m_s - m),
@@ -580,7 +606,7 @@ def _meta(*shape):
 
 @pytest.mark.parametrize("op", ["matmul_swiglu", "fused_matmul_swiglu",
                                 "rmsnorm", "layernorm", "decode_attention",
-                                "paged_decode_merge"])
+                                "paged_decode_merge", "pdot"])
 def test_new_ops_never_fall_back(op):
     """The gated GEMM, the norms and the dense decode attention: `cuda`
     mode refuses a CPU tensor, and a tensor off the CPU with no kernel to
@@ -597,6 +623,9 @@ def test_new_ops_never_fall_back(op):
             t(1, 2, 8), t(1, 4, 2, 8), t(1, 4, 2, 8), t(1), window=2),
         "paged_decode_merge": lambda t: ops.paged_decode_merge(
             t(2, 1, 2, 8), t(2, 1, 2), t(2, 1, 2), out_dtype=torch.float32),
+        "pdot": lambda t: ops.pdot(t(2, 8), t(8, 4),
+                                   compute_dtype=torch.bfloat16,
+                                   out_dtype=torch.float32),
     }[op]
     with ops.kernel_mode("cuda"):
         with pytest.raises(ValueError, match="needs CUDA tensors"):
