@@ -17,20 +17,22 @@ non-zero):
               197 tokens at 12 x 64, 257 at 16 x 80), a causal chunk with a
               query offset, and gemma3-27b (flash attention with a 1024 window;
               dense decode over 1024-slot rings at GQA 32 / 16 and hymba's
-              25 / 5, and over a linear 2048 cache with the window); the
-              paged decode's partials at 1, 2 and 4 splits of the table,
-              also over GPT-J's serving batch (lengths 200-332) and over 17
-              slots, where the normalized wrapper runs one split: the error
-              against the stated tolerance, kernel / plain / library
-              milliseconds (CUDA events, median of the timed launches) and
-              the bound (the larger of bytes / 3.35 TB/s and FLOPs / 989
-              TFLOP/s, the H100 SXM data-sheet peaks); the fused GEMMs also
-              at gemma3's widths, hymba's SwiGLU and ragged M (9, 17,
-              1100), with the template the planner took; device times of
-              the kernel and of its library call (torch.profiler kernel
-              events, no host time) for the GEMMs and the attention
-              kernels; decode GEMM cases rotate weight copies past the 50
-              MB L2;
+              25 / 5, and over a linear 2048 cache with the window, each
+              held to the plain version at the kernel's split count and to
+              the TPU kernel's walk); the paged decode's partials at 1, 2
+              and 4 splits of the table, also over GPT-J's serving batch
+              (lengths 200-332) and over 17 slots, where the normalized
+              wrapper runs one split; the plain norms at widths 3072, 2560
+              and 1600: the error against the stated tolerance, kernel /
+              plain / library milliseconds (CUDA events, median of the
+              timed launches) and the bound (the larger of bytes / 3.35
+              TB/s and FLOPs / 989 TFLOP/s, the H100 SXM data-sheet
+              peaks); the fused GEMMs also at gemma3's widths, hymba's
+              SwiGLU and ragged M (9, 17, 1100), with the template the
+              planner took; device times of the kernel and of its library
+              call (torch.profiler kernel events, no host time) for every
+              kernel, and the plain norms' host time a call; decode GEMM
+              cases rotate weight copies past the 50 MB L2;
   4. sampling threefry Gumbel noise drawn on the card against the same draw
               on the CPU: bits, uniforms and noise bit-equal, sampled
               tokens identical;
@@ -126,6 +128,20 @@ def time_ms(fn, iters=20, warmup=3):
     return float(np.median(times))
 
 
+def host_ms(fn, iters=200):
+    """Mean wall time of one call over `iters` calls issued back to back and
+    ended by one synchronize: where a call's device time is the shorter,
+    the host's cost of a call (Python, checks, allocation, launch)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
 def _rotate(fns):
     """One callable that runs `fns` in turn, call after call."""
     it = itertools.cycle(fns)
@@ -185,7 +201,9 @@ def _report(name, r, lib_name):
     dev = ""
     if "device_ms" in r:
         dev = (f" | device: kernel {_ms(r['device_ms'])} {lib_name} "
-               f"{_ms(r['library_device_ms'])} [{r['template']}]")
+               f"{_ms(r['library_device_ms'])}")
+        if r.get("template"):
+            dev += f" [{r['template']}]"
     log(f"  {name} {r['case']:26s} rel err {r['rel_err']:.2e} (tol "
         f"{r['tol']:.0e}) kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} "
         f"ms {lib_name} {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} "
@@ -375,19 +393,26 @@ def check_swiglu(rows):
         for label, M, K, N, norm in cases]
 
 
+NORM_SHAPES = ((4, 3072), (512, 3072), (4, 2560), (512, 2560), (4, 1600),
+               (512, 1600))   # phi4 / gemma3-like, mamba2, hymba widths
+
+
 def check_norms(rows):
-    """RMSNorm and LayerNorm rows of phi4-mini's width at decode batch and
-    a 512-token prefill; yardsticks F.rms_norm / F.layer_norm."""
+    """RMSNorm and LayerNorm rows at phi4-mini's width (3072), mamba2's
+    (2560) and hymba's (1600), at decode batch and a 512-token prefill;
+    yardsticks F.rms_norm / F.layer_norm, with the wrapper, in device time
+    and in host time a call (`host_ms`)."""
     from repro_torch.kernels import rmsnorm as nm
     F = torch.nn.functional
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(5)
-    D = 3072
-    gam = (1 + 0.1 * torch.randn((D,), generator=g, device=dev)).bfloat16()
-    bet = (0.1 * torch.randn((D,), generator=g, device=dev)).bfloat16()
     for name in ("rmsnorm", "layernorm"):
         results = []
-        for R in (4, 512):
+        for R, D in NORM_SHAPES:
+            gam = (1 + 0.1 * torch.randn((D,), generator=g, device=dev)
+                   ).bfloat16()
+            bet = (0.1 * torch.randn((D,), generator=g, device=dev)
+                   ).bfloat16()
             x = (torch.randn((R, D), generator=g, device=dev) * 2 + 0.3
                  ).bfloat16()
             if name == "rmsnorm":
@@ -406,8 +431,13 @@ def check_norms(rows):
             r = _row(f"[{R}, {D}]", err, rel, NORM_TOL, time_ms(fn),
                      time_ms(plain_fn, iters=10), time_ms(lib_fn),
                      2 * R * D * 2 + vec_bytes, 4 * R * D)
+            r.update(device_ms=device_ms([fn]),
+                     library_device_ms=device_ms([lib_fn]), template=None,
+                     host_ms=host_ms(fn), library_host_ms=host_ms(lib_fn))
             _report(name, r, "F." + ("rms_norm" if name == "rmsnorm"
                                      else "layer_norm"))
+            log(f"    host, back to back: kernel {r['host_ms']:.4f} ms, "
+                f"library {r['library_host_ms']:.4f} ms a call")
             results.append(r)
         rows[name] = results
 
@@ -415,7 +445,9 @@ def check_norms(rows):
 def check_residual_norms(rows):
     """The residual add + norm at hymba's width, decode batch and a
     512-token prefill: h against the plain version, r (one rounding of the
-    fp32 sum) exactly; yardstick F.rms_norm(x + y) / F.layer_norm(x + y)."""
+    fp32 sum) exactly; yardstick F.rms_norm(x + y) / F.layer_norm(x + y),
+    with the wrapper and in device time (the add and the norm: two
+    kernels)."""
     from repro_torch.kernels import rmsnorm as nm
     F = torch.nn.functional
     dev = torch.device(DEVICE)
@@ -452,6 +484,8 @@ def check_residual_norms(rows):
             row = _row(f"[{R}, {D}]", err, rel, NORM_TOL, time_ms(fn),
                        time_ms(plain_fn, iters=10), time_ms(lib_fn),
                        4 * R * D * 2 + vec_bytes, 6 * R * D)
+            row.update(device_ms=device_ms([fn]),
+                       library_device_ms=device_ms([lib_fn]), template=None)
             _report(name, row, "F." + ("rms_norm" if name.endswith("rmsnorm")
                                        else "layer_norm") + "(x + y)")
             results.append(row)
@@ -479,7 +513,8 @@ def check_ssd(rows):
     200-token prompts.  y against the plain version at the bf16 tolerance,
     h_final at the fp32 one.  No single PyTorch call computes the scan.
     Bound: the bytes the function must move, or the sequential
-    recurrence's 4 S H P N operations at the bf16 rate."""
+    recurrence's 4 S H P N operations at the bf16 rate.  Device time from
+    torch.profiler kernel events beside the time with the wrapper."""
     from repro_torch.kernels import ssd as sd
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(7)
@@ -500,12 +535,14 @@ def check_ssd(rows):
                      SSD_TOL["y"], time_ms(lambda: sd.ssd(*ops_in)),
                      time_ms(lambda: sd.ssd_plain(*ops_in), iters=5), None,
                      nbytes, 4 * T * H * P * N)
-            r["h_rel_err"] = h_rel
+            r.update(h_rel_err=h_rel, device_ms=device_ms(
+                [lambda: sd.ssd(*ops_in)]), library_device_ms=None,
+                template=None)
             log(f"  {name} {r['case']:26s} rel err y {rel:.2e} (tol "
                 f"{SSD_TOL['y']:.0e}) h {h_rel:.2e} (tol {SSD_TOL['h']:.0e}) "
                 f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
                 f"library none bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']})")
+                f"({r['bound_by']}) | device: kernel {_ms(r['device_ms'])}")
             if not (rel <= SSD_TOL["y"] and h_rel <= SSD_TOL["h"]):
                 raise AssertionError(f"{name} {r['case']}: rel err y {rel}, "
                                      f"h {h_rel}")
@@ -790,13 +827,16 @@ DECODE_CASES = (   # label, H, KV, D, S, lengths, window
 def check_decode_attention(rows):
     """The dense decode kernel on gemma3's and hymba's ring caches (the
     valid slots are a prefix of the ring) and on a linear cache with
-    gemma3's window, each batch row held to its own scale.  Yardstick:
-    SDPA with a boolean mask.  Bound: the bytes of q, the valid K / V rows
-    and the output."""
+    gemma3's window, each batch row held to its own scale against the
+    plain version at the kernel's split count (`splits=`: the same ranges,
+    32-position stages and merge) and against the TPU kernel's walk (one
+    pass of 512-position chunks).  Yardstick: SDPA with a boolean mask.
+    Bound: the bytes of q, the valid K / V rows and the output."""
     from repro_torch.kernels import flash_decode as fd
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(8)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = []
     for label, H, KV, D, S, lens, win in DECODE_CASES:
         B = len(lens)
@@ -804,34 +844,35 @@ def check_decode_attention(rows):
         k, v = (torch.randn((B, S, KV, D), generator=g, device=dev
                             ).bfloat16() for _ in range(2))
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        splits = fd.dense_splits(B, KV, S, sms, window=win)
         got = fd.decode_attention(q, k, v, ln, window=win)
         torch.cuda.synchronize()
-        want = fd.decode_attention_plain(q, k, v, ln, window=win)
-        err, rel, per = row_rel_err(got, want)
+        err, rel, per = row_rel_err(got, fd.decode_attention_plain(
+            q, k, v, ln, window=win, splits=splits))
+        one = row_rel_err(got, fd.decode_attention_plain(q, k, v, ln,
+                                                         window=win))
+        rel = max(rel, one[1])
+        per = [max(a, b) for a, b in zip(per, one[2])]
         pos = torch.arange(S, device=dev)[None]
         ok = pos < ln[:, None].long()
         if win:
             ok &= pos >= ln[:, None].long() - win
         kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
-        lib = time_ms(lambda: sdpa(q[:, :, None], kt, vt,
-                                   attn_mask=ok[:, None, None],
-                                   enable_gqa=KV != H))
+        lib_fn = lambda: sdpa(q[:, :, None], kt, vt,
+                              attn_mask=ok[:, None, None],
+                              enable_gqa=KV != H)
         live = int(ok.sum())
         fn = lambda: fd.decode_attention(q, k, v, ln, window=win)
         r = _row(label, err, rel, ATTN_TOL, time_ms(fn),
-                 time_ms(lambda: fd.decode_attention_plain(q, k, v, ln,
-                                                           window=win),
-                         iters=5), lib,
+                 time_ms(lambda: fd.decode_attention_plain(
+                     q, k, v, ln, window=win, splits=splits), iters=5),
+                 time_ms(lib_fn),
                  2 * B * H * D * 2 + 2 * live * KV * D * 2 + B * 4,
                  4 * H * D * live)
-        r["splits"] = fd.dense_splits(B, KV, S, torch.cuda.
-                                      get_device_properties(0).
-                                      multi_processor_count)
-        r.update(device_ms=device_ms([fn]), library_device_ms=device_ms(
-            [lambda: sdpa(q[:, :, None], kt, vt, attn_mask=ok[:, None, None],
-                          enable_gqa=KV != H)]),
-                 template=f"splits {r['splits'][0]}")
-        r["row_rel_err"] = per
+        r.update(splits=splits, range=fd.dense_range(S, splits),
+                 device_ms=device_ms([fn]),
+                 library_device_ms=device_ms([lib_fn]),
+                 template=f"splits {splits}", row_rel_err=per)
         log("  decode_attention rel err by row (len " + ", ".join(
             f"{n}: {e:.2e}" for n, e in zip(lens, per)) + ")")
         _report("decode_attention", r, "sdpa")
@@ -1189,10 +1230,17 @@ def profile_decode(eng, cfg, rng, steps=4, prompt_len=200):
         hits = [v for k, v in dev.items() if pred(k)]
         return (sum(ms for ms, _ in hits), sum(n for _, n in hits))
 
-    # the paged decode kernel; library GEMMs (cuBLAS / CUTLASS: none of
-    # the port's projections should reach one); copies and casts
+    # the decode kernels and their merges, the norm kernels; library GEMMs
+    # (cuBLAS / CUTLASS: none of the port's projections should reach one);
+    # copies and casts
     shares = {
         "paged_decode": _share(lambda k: "paged_decode_kernel" in k),
+        "decode_attention": _share(lambda k: "decode_attention_kernel" in k),
+        # the merge kernel of both decode kernels (decode_fold.cuh)
+        "decode_merge": _share(lambda k: "dec_merge_kernel" in k),
+        "norm": _share(lambda k: re.search(r"(?<!res_)norm_kernel", k)
+                       is not None),
+        "residual_norm": _share(lambda k: "res_norm_kernel" in k),
         "library_gemm": _share(lambda k: re.search(
             r"gemm|gemv|xmma|cutlass", k, re.I) is not None and not any(
                 g in k for g in GEMM_KERNELS)),

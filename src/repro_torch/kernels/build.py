@@ -28,6 +28,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_raw_stream = None   # torch's current-raw-stream binding, found at first use
 
 
 def nvcc_path() -> str:
@@ -142,12 +143,13 @@ def stream_of(t) -> int:
     """PyTorch's current stream on t's device, as the raw cudaStream_t,
     through the binding PyTorch's own generated code uses when it has one
     (`torch.cuda.current_stream` resolves the device on every call, and a
-    decode step makes hundreds of launches)."""
-    import torch
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return raw(t.device.index)
-    return torch.cuda.current_stream(t.device).cuda_stream
+    decode step makes hundreds of launches); the binding is looked up once."""
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+            lambda index: torch.cuda.current_stream(index).cuda_stream)
+    return _raw_stream(t.get_device())
 
 
 def check(err: int, what: str) -> None:

@@ -89,164 +89,3 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
-
-// ---------------------------------------------------------------------------
-// Single-token decode attention, shared by paged_decode.cu and
-// decode_attention.cu: one block of DEC_THREADS threads owns one (slot, kv
-// head) pair and its G = H / KV query heads, and folds the KV positions it
-// walks chunk by chunk into online-softmax state (the TPU kernels'
-// `_online_merge`): per chunk, scores = (q . k) / sqrt(D) in fp32, the
-// running max / sum rescale, P cast to V's dtype for P.V.  Each chunk is a
-// run of `n` consecutive valid positions (rows `row0 + t * stride`, t < n);
-// the caller never hands over a masked position, so masked positions cost no
-// bytes and contribute exactly the zero they contribute on the TPU.
-// ---------------------------------------------------------------------------
-
-constexpr int DEC_THREADS = 128;
-constexpr int DEC_WARPS = DEC_THREADS / 32;
-constexpr int DEC_MAXG = 8;                  // query heads per kv head
-constexpr int DEC_MAXV = 16;                 // (G * D) / DEC_THREADS upper bound
-
-// Shared memory of one block: Qs [G][D] fp32 queries, Ss [G][chunk] scores
-// (overwritten by P), and the per-head statistics Ms / Ls and this chunk's
-// rescale factor Cs, [G] each.
-struct DecSmem {
-  float* Qs;
-  float* Ss;
-  float* Ms;
-  float* Ls;
-  float* Cs;
-};
-
-__host__ __device__ inline size_t dec_smem_bytes(int G, int D, int chunk) {
-  return (size_t)(G * D + G * chunk + 3 * G) * sizeof(float);
-}
-
-__device__ __forceinline__ DecSmem dec_smem(float* smem, int G, int D, int chunk) {
-  DecSmem s;
-  s.Qs = smem;
-  s.Ss = s.Qs + G * D;
-  s.Ms = s.Ss + G * chunk;
-  s.Ls = s.Ms + G;
-  s.Cs = s.Ls + G;
-  return s;
-}
-
-// Load the block's G query rows (q[head0 .. head0 + G) of a [., D] tensor)
-// and reset the state: m = -1e30, l = 0, acc = 0.
-__device__ __forceinline__ void dec_begin(const DecSmem& sh, float acc[DEC_MAXV],
-                                          const void* q, int64_t head0, int G,
-                                          int D, int dt) {
-  for (int i = threadIdx.x; i < G * D; i += DEC_THREADS)
-    sh.Qs[i] = ld_elem(q, head0 * D + i, dt);
-  if (threadIdx.x < G) {
-    sh.Ms[threadIdx.x] = NEG_INF_F;
-    sh.Ls[threadIdx.x] = 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < DEC_MAXV; ++i) acc[i] = 0.f;
-}
-
-// Fold one chunk of n >= 1 valid positions into the state.
-__device__ __forceinline__ void dec_fold(const DecSmem& sh, float acc[DEC_MAXV],
-                                         const void* k, const void* v,
-                                         int64_t row0, int64_t stride, int n,
-                                         int G, int D, int dt, int vec,
-                                         float sm_scale) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  __syncthreads();                 // Qs / state ready, previous P consumed
-
-  // scores: one warp per position, each K row read once for all G heads
-  for (int t = warp; t < n; t += DEC_WARPS) {
-    const int64_t krow = row0 + (int64_t)t * stride;
-    float dot[DEC_MAXG];
-#pragma unroll
-    for (int g = 0; g < DEC_MAXG; ++g) dot[g] = 0.f;
-    for (int c = lane * 4; c < D; c += 128) {
-      const float4 k4 = vec ? ld4_aligned(k, krow + c, dt)
-                            : make_float4(ld_elem(k, krow + c, dt),
-                                          ld_elem(k, krow + c + 1, dt),
-                                          ld_elem(k, krow + c + 2, dt),
-                                          ld_elem(k, krow + c + 3, dt));
-#pragma unroll
-      for (int g = 0; g < DEC_MAXG; ++g) {
-        if (g >= G) break;
-        const float* qg = sh.Qs + g * D + c;
-        float d = fmaf(qg[0], k4.x, dot[g]);
-        d = fmaf(qg[1], k4.y, d);
-        d = fmaf(qg[2], k4.z, d);
-        dot[g] = fmaf(qg[3], k4.w, d);
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < DEC_MAXG; ++g) {
-      if (g >= G) break;
-      const float s = warp_sum(dot[g]);
-      if (lane == 0) sh.Ss[g * n + t] = s * sm_scale;
-    }
-  }
-  __syncthreads();
-
-  // statistics: one warp per query head; P replaces the scores in place
-  for (int g = warp; g < G; g += DEC_WARPS) {
-    float* sg = sh.Ss + g * n;
-    float mb = NEG_INF_F;
-    for (int t = lane; t < n; t += 32) mb = fmaxf(mb, sg[t]);
-    mb = warp_max(mb);
-    const float m_old = sh.Ms[g];
-    const float m_new = fmaxf(m_old, mb);
-    float ps = 0.f;
-    for (int t = lane; t < n; t += 32) {
-      const float pw = expf(sg[t] - m_new);
-      ps += pw;
-      sg[t] = dt == DT_BF16 ? round_bf16(pw) : pw;
-    }
-    ps = warp_sum(ps);
-    if (lane == 0) {
-      const float corr = expf(m_old - m_new);
-      sh.Cs[g] = corr;
-      sh.Ls[g] = sh.Ls[g] * corr + ps;
-      sh.Ms[g] = m_new;
-    }
-  }
-  __syncthreads();
-
-  // P.V: each thread its (head, dim) outputs, V rows read coalesced
-#pragma unroll
-  for (int i = 0; i < DEC_MAXV; ++i) {
-    const int pi = tid + i * DEC_THREADS;
-    if (pi >= G * D) break;
-    const int g = pi / D, d = pi % D;
-    const float* pg = sh.Ss + g * n;
-    float a = acc[i] * sh.Cs[g];
-    for (int t = 0; t < n; ++t)
-      a = fmaf(pg[t], ld_elem(v, row0 + (int64_t)t * stride + d, dt), a);
-    acc[i] = a;
-  }
-}
-
-// Write the state: NORMALIZE -> acc / max(l, 1e-30) at dt into o [., D];
-// else the fp32 partials o (unnormalized) and m, l [.].
-template <bool NORMALIZE>
-__device__ __forceinline__ void dec_finish(const DecSmem& sh,
-                                           const float acc[DEC_MAXV], void* o,
-                                           float* m, float* l, int64_t head0,
-                                           int G, int D, int dt) {
-  const int tid = threadIdx.x;
-  __syncthreads();                 // statistics of the last chunk visible
-#pragma unroll
-  for (int i = 0; i < DEC_MAXV; ++i) {
-    const int pi = tid + i * DEC_THREADS;
-    if (pi >= G * D) break;
-    const int g = pi / D;
-    const int64_t idx = head0 * D + pi;
-    if (NORMALIZE)
-      st_elem(o, idx, dt, acc[i] / fmaxf(sh.Ls[g], 1e-30f));
-    else
-      reinterpret_cast<float*>(o)[idx] = acc[i];
-  }
-  if (!NORMALIZE && tid < G) {
-    m[head0 + tid] = sh.Ms[tid];
-    l[head0 + tid] = sh.Ls[tid];
-  }
-}

@@ -12,113 +12,87 @@
 //
 // What bounds it on an H100: bytes.  Every valid K and V row is read once
 // (gemma3's ring at B = 4, KV 16, D 128, S 1024 full: 16.8 MB, 5.0 us at
-// 3.35 TB/s) against ~4 FLOPs per cache element.
-// Design: the TPU walks the cache in 512-position chunks along a sequential
-// grid axis; a (slot, kv head) grid alone is 64 blocks at gemma3's shapes,
-// under half the 132 SMs.  So S is cut into `nsplit` ranges of `range`
-// positions (the wrapper picks enough for two blocks per SM), grid (KV, B,
-// nsplit).  Each block folds the valid positions of its range, 32 at a time,
-// through common.cuh's `dec_fold` (shared with paged_decode.cu) and writes
-// fp32 partials (o, m, l); ranges wholly outside [length - window, length)
-// fold nothing, as the TPU's `live` skips dead chunks.  A second small kernel
-// merges the partials with the online-softmax rule (the reference's
-// merge_partials).  With one range the block normalizes itself and the
-// merge is skipped.
-#include "common.cuh"
-
-constexpr int DA_CHUNK = 32;          // positions per fold
-constexpr int DA_MAX_SPLITS = 64;
+// 3.35 TB/s) against ~4 FLOPs per cache element.  The first design walked
+// 32 positions a fold behind three barriers at 128 threads and read V row
+// after row with 2-byte loads, each waiting on the last row's FMA chain:
+// almost no bytes in flight, so latency and instructions bound it, at
+// 10-46x the byte bound.
+// Design: a dense cache is a pool whose table is implicit (row `pos` of slot
+// b and kv head h at ((b * S + pos) * KV + h) * D), so the block folds
+// through the paged decode's stage ring (decode_fold.cuh, DenseRows):
+// grid (kv head, slot, split), 256 threads, DF_STAGES stages of 32
+// positions in flight with 16-byte cp.async, only valid rows copied; 8
+// lanes score a key row for all G heads, one warp a query head keeps its
+// statistics, and each thread accumulates a pair of output dimensions with
+// bf16x2 / float2 reads of V.  S is cut into `splits` ranges of `range`
+// positions, a multiple of the stage (kernels/flash_decode.py:dense_splits:
+// two blocks an SM over the (kv head, slot) grid, at most 64); each range
+// walks stages aligned to 32 positions from the window's lower bound
+// lo = max(0, length - window), and a block whose range lies outside
+// [lo, length) writes empty partials and exits before any copy.
+// dec_merge_kernel folds the splits' partials into the output, at every
+// split count.
+#include "decode_fold.cuh"
 
 struct DAParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const int* lengths;
-  void* out;        // [B, H, D] at dt
-  float* o_part;    // [nsplit, B, H, D] fp32 (nsplit > 1)
-  float* m_part;    // [nsplit, B, H]
-  float* l_part;
-  int B, H, KV, D, S, range, nsplit, window;
-  int dt, vec;
-  float sm_scale;
+  DecFold f;
+  const int* lengths;  // [B]
+  int S, range, window;
 };
 
-template <bool NORMALIZE>
-__global__ void __launch_bounds__(DEC_THREADS) decode_attention_kernel(const DAParams p) {
-  extern __shared__ float smem[];
-  const int G = p.H / p.KV, D = p.D;
-  const DecSmem sh = dec_smem(smem, G, D, DA_CHUNK);
-  const int kvh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+template <typename T>
+__global__ void __launch_bounds__(DF_THREADS) decode_attention_kernel(const DAParams p) {
+  extern __shared__ __align__(16) uint8_t da_smem[];
+  const int kvh = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
   const int len = min(max(p.lengths[b], 0), p.S);
   const int lo = p.window > 0 ? max(0, len - p.window) : 0;
-  const int first = max(split * p.range, lo);
-  const int end = min(split * p.range + p.range, len);
-  const int64_t head0 = (int64_t)b * p.H + kvh * G;
-  const int64_t stride = (int64_t)p.KV * D;
-
-  float acc[DEC_MAXV];
-  dec_begin(sh, acc, p.q, head0, G, D, p.dt);
-  for (int c0 = first; c0 < end; c0 += DA_CHUNK)
-    dec_fold(sh, acc, p.k, p.v, ((int64_t)b * p.S + c0) * stride + (int64_t)kvh * D,
-             stride, min(DA_CHUNK, end - c0), G, D, p.dt, p.vec, p.sm_scale);
-  if (NORMALIZE) {
-    dec_finish<true>(sh, acc, p.out, nullptr, nullptr, head0, G, D, p.dt);
-  } else {
-    const int64_t bh = (int64_t)split * p.B * p.H;
-    dec_finish<false>(sh, acc, p.o_part + bh * D, p.m_part + bh, p.l_part + bh,
-                      head0, G, D, p.dt);
+  const int first = max(z * p.range, lo), end = min(z * p.range + p.range, len);
+  if (first >= end) {
+    df_store_empty(p.f, kvh, b, z);
+    return;
   }
+  DenseRows rows{(int64_t)b * p.S, first - first % DF_STAGE_TOKENS, first, end};
+  dec_fold<T>(p.f, rows, da_smem, kvh, b, z);
 }
 
-// One block per (slot, query head): out = sum_s o_s e^(m_s - m) /
-// max(sum_s l_s e^(m_s - m), 1e-30), m = max_s m_s.
-__global__ void __launch_bounds__(DEC_THREADS) decode_merge_kernel(const DAParams p) {
-  __shared__ float corr[DA_MAX_SPLITS];
-  __shared__ float l_all;
-  const int64_t BH = (int64_t)p.B * p.H, bh = blockIdx.x;
-  if (threadIdx.x == 0) {
-    float m_all = NEG_INF_F;
-    for (int s = 0; s < p.nsplit; ++s) m_all = fmaxf(m_all, p.m_part[s * BH + bh]);
-    float l = 0.f;
-    for (int s = 0; s < p.nsplit; ++s) {
-      corr[s] = expf(p.m_part[s * BH + bh] - m_all);
-      l += p.l_part[s * BH + bh] * corr[s];
-    }
-    l_all = fmaxf(l, 1e-30f);
+template <typename T>
+static cudaError_t launch_dense_t(const DAParams& p, int splits, size_t smem,
+                                  cudaStream_t s) {
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<T>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               DF_SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    attr = true;
   }
-  __syncthreads();
-  for (int d = threadIdx.x; d < p.D; d += DEC_THREADS) {
-    float o = 0.f;
-    for (int s = 0; s < p.nsplit; ++s)
-      o = fmaf(p.o_part[(s * BH + bh) * p.D + d], corr[s], o);
-    st_elem(p.out, bh * p.D + d, p.dt, o / l_all);
-  }
+  dim3 grid(p.f.KV, p.f.B, splits);
+  decode_attention_kernel<T><<<grid, DF_THREADS, smem, s>>>(p);
+  return cudaGetLastError();
 }
 
+// The partials of `splits` ranges of `range` positions go to the caller's
+// scratch (o_part [splits, B, H, D], m_part / l_part [splits, B, H]) and the
+// merge kernel normalizes them into out at q's dtype.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
                                       const int* lengths, void* out, float* o_part,
                                       float* m_part, float* l_part, int B, int H,
-                                      int KV, int D, int S, int range, int nsplit,
-                                      int window, int dt, int vec, float sm_scale,
-                                      void* stream) {
-  const int G = KV > 0 ? H / KV : 0;
-  if (G < 1 || H % KV != 0 || G > DEC_MAXG || G * D > DEC_MAXV * DEC_THREADS ||
-      D % 4 != 0 || nsplit < 1 || nsplit > DA_MAX_SPLITS || range < 1 ||
-      (long long)range * nsplit < S || window < 0 ||
-      (nsplit > 1 && (o_part == nullptr || m_part == nullptr || l_part == nullptr)))
+                                      int KV, int D, int S, int range, int splits,
+                                      int window, int dt, float sm_scale, void* stream) {
+  const int esize = dt == DT_BF16 ? 2 : 4;
+  if (!df_shape_ok(H, KV, D, esize, k, v, o_part) || !out || !o_part || !m_part ||
+      !l_part || splits < 1 || splits > DF_MAX_SPLITS || range < 1 ||
+      range % DF_STAGE_TOKENS || (int64_t)range * splits < S || window < 0)
     return (int)cudaErrorInvalidValue;
-  DAParams p{q, k, v, lengths, out, o_part, m_part, l_part,
-             B, H, KV, D, S, range, nsplit, window, dt, vec, sm_scale};
-  const size_t smem = dec_smem_bytes(G, D, DA_CHUNK);
+  const size_t smem = df_smem_bytes(H / KV, D, DF_STAGE_TOKENS, esize, 0);
+  if (smem > DF_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  DAParams p{{q, k, v, o_part, m_part, l_part, B, H, KV, D, sm_scale}, lengths, S, range,
+             window};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  dim3 grid(KV, B, nsplit);
-  if (nsplit == 1) {
-    decode_attention_kernel<true><<<grid, DEC_THREADS, smem, s>>>(p);
-    return (int)cudaGetLastError();
-  }
-  decode_attention_kernel<false><<<grid, DEC_THREADS, smem, s>>>(p);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = dt == DT_BF16 ? launch_dense_t<__nv_bfloat16>(p, splits, smem, s)
+                                      : launch_dense_t<float>(p, splits, smem, s);
   if (e != cudaSuccess) return (int)e;
-  decode_merge_kernel<<<B * H, DEC_THREADS, 0, s>>>(p);
+  dec_merge_kernel<<<B * H, DF_THREADS, 0, s>>>(o_part, m_part, l_part, out, splits, B * H,
+                                                D, dt);
   return (int)cudaGetLastError();
 }

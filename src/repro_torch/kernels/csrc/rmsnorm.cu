@@ -6,24 +6,38 @@
 //     rmsnorm    y = x * rsqrt(mean(x^2) + eps) * gamma
 //     layernorm  y = (x - mu) * rsqrt(mean((x - mu)^2) + eps) * gamma + beta
 // over the last dimension of x [R, D], output in x's dtype.  LayerNorm takes
-// the mean and the variance in two passes, as _ln_kernel does.
+// the mean first, then the variance about that mean, as _ln_kernel does.
 // And :residual_rmsnorm / :residual_layernorm (_res_rms_kernel,
 // _res_ln_kernel): r = x + y is stored rounded to x's dtype, and h = norm(r)
 // takes its statistics over r AS STORED ("norm what was stored"), so h is
 // the norm the unfused chain would take of the same residual.  -> (h, r).
 //
 // What bounds it on an H100: bytes (read x once, write y once; the
-// statistics are a few flops per element).  Design: one block of 128
-// threads per row; each pass walks the row with 4-wide loads (8 bytes of
-// bf16, 16 of fp32) where the row is aligned, a warp-shuffle plus
-// shared-memory block reduction gives the sums, and the row's later passes
-// hit L1 / L2.  With a handful of rows (decode) the kernel is launch-bound,
-// not byte-bound.
+// statistics are a few flops per element); with a handful of rows (decode)
+// the launch and one round trip to memory.
+// norm_kernel: a row is held in registers, so x is read from HBM once and
+// both LayerNorm statistics come from the registers.  `tpr` threads a row
+// (a power of two from 32 to NORM_MAX_TPR: one warp a row up to
+// 32 x NORM_NV 16-byte vectors, 2048 bf16 elements), each holding up to
+// NORM_NV 16-byte vectors of the row (vector j at thread j % tpr) with x,
+// gamma and beta loaded 16 bytes at a time before the first reduction;
+// max(NORM_MIN_BLOCK, tpr) threads a block, so that rows of up to 2048 bf16
+// elements share a block and a 512-row prefill is 256 blocks.  Each sum is
+// a warp shuffle plus, above a warp, one shared-memory step; y is stored 16
+// bytes at a time.  A row that fits no tile (D not a multiple of the
+// vector, an operand not 16-byte aligned, more than NORM_MAX_TPR x NORM_NV
+// vectors) takes the looped path of the same kernel: one NT-thread block a
+// row walking it element by element, its later passes from L1 / L2.
+// res_norm_kernel: one NT-thread block a row, scalar loads, its passes over
+// the stored r from L1 / L2.
 #include "common.cuh"
 
 enum NormKind { KIND_RMS = 1, KIND_LN = 2 };
 
-constexpr int NT = 128;
+constexpr int NT = 128;              // threads a row on the looped paths
+constexpr int NORM_NV = 8;           // 16-byte vectors of a row a thread holds
+constexpr int NORM_MAX_TPR = 256;    // threads a row on the register path
+constexpr int NORM_MIN_BLOCK = 64;   // threads a block on the register path
 
 struct NormParams {
   const void* x;
@@ -31,10 +45,9 @@ struct NormParams {
   const void* beta;
   void* out;
   int R, D;
-  int x_dt, vec_dt;
   int kind;
   float eps;
-  int vec;
+  int tpr;  // threads a row of the register tile; 0: the looped path
 };
 
 __device__ __forceinline__ float block_sum(float v, float* red) {
@@ -49,42 +62,166 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
-// sum over the row of f(x) for the elements this thread owns
-template <typename F>
-__device__ __forceinline__ float row_pass(const NormParams& p, int64_t base, F f) {
-  float s = 0.f;
-  if (p.vec) {
-    for (int c = threadIdx.x * 4; c < p.D; c += NT * 4) {
-      const float4 v = ld4_aligned(p.x, base + c, p.x_dt);
-      s += f(v.x) + f(v.y) + f(v.z) + f(v.w);
-    }
-  } else {
-    for (int c = threadIdx.x; c < p.D; c += NT) s += f(ld_elem(p.x, base + c, p.x_dt));
-  }
-  return s;
+// The sum over one row of the threads' values: `tpr` threads a row, rows
+// `grp` of the block side by side; `red` holds a value per warp.
+__device__ __forceinline__ float row_sum(float v, float* red, int tpr, int grp) {
+  v = warp_sum(v);
+  if (tpr == 32) return v;
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  const int wpr = tpr / 32;
+  float t = 0.f;
+  for (int w = 0; w < wpr; ++w) t += red[grp * wpr + w];
+  return t;
 }
 
-__global__ void __launch_bounds__(NT) norm_kernel(const NormParams p) {
-  __shared__ float red[NT / 32];
+// W 32-bit words of a vector, loaded 16 (or 8) bytes at a time
+template <int W>
+struct Raw {
+  uint32_t w[W];
+};
+
+template <int W>
+__device__ __forceinline__ Raw<W> ld_raw(const void* p) {
+  Raw<W> r;
+  if constexpr (W == 2) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    r.w[0] = u.x;
+    r.w[1] = u.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < W / 4; ++k) {
+      const uint4 u = reinterpret_cast<const uint4*>(p)[k];
+      r.w[4 * k] = u.x;
+      r.w[4 * k + 1] = u.y;
+      r.w[4 * k + 2] = u.z;
+      r.w[4 * k + 3] = u.w;
+    }
+  }
+  return r;
+}
+
+// element e of a vector of T held in raw words
+template <typename T, int W>
+__device__ __forceinline__ float raw_elem(const Raw<W>& r, int e) {
+  if constexpr (sizeof(T) == 2)
+    return __uint_as_float(e % 2 ? r.w[e / 2] & 0xffff0000u : r.w[e / 2] << 16);
+  else
+    return __uint_as_float(r.w[e]);
+}
+
+template <typename T>
+__device__ __forceinline__ float to_f(T v) {
+  if constexpr (sizeof(T) == 2) return __bfloat162float(v);
+  else return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v) {
+  if constexpr (sizeof(T) == 2) return __float2bfloat16(v);
+  else return v;
+}
+
+// The looped path: one block of NT threads a row, element by element.
+template <typename TX, typename TG>
+__device__ __forceinline__ void norm_looped(const NormParams& p, float* red) {
   const int64_t base = (int64_t)blockIdx.x * p.D;
+  const TX* x = reinterpret_cast<const TX*>(p.x) + base;
+  const TG* gamma = reinterpret_cast<const TG*>(p.gamma);
+  const TG* beta = reinterpret_cast<const TG*>(p.beta);
+  TX* out = reinterpret_cast<TX*>(p.out) + base;
+  const bool ln = p.kind == KIND_LN;
   const float df = (float)p.D;
   float mu = 0.f;
-  if (p.kind == KIND_LN)
-    mu = block_sum(row_pass(p, base, [](float v) { return v; }), red) / df;
-  const float ss = block_sum(row_pass(p, base, [mu](float v) {
-                               const float d = v - mu;
-                               return d * d;
-                             }), red);
-  const float rstd = rsqrtf(ss / df + p.eps);
+  if (ln) {
+    float s = 0.f;
+    for (int c = threadIdx.x; c < p.D; c += NT) s += to_f(x[c]);
+    mu = block_sum(s, red) / df;
+  }
+  float ss = 0.f;
   for (int c = threadIdx.x; c < p.D; c += NT) {
-    const float v = ld_elem(p.x, base + c, p.x_dt);
-    const float g = ld_elem(p.gamma, c, p.vec_dt);
-    float y;
-    if (p.kind == KIND_LN)
-      y = (v - mu) * rstd * g + ld_elem(p.beta, c, p.vec_dt);
-    else
-      y = v * rstd * g;
-    st_elem(p.out, base + c, p.x_dt, y);
+    const float d = to_f(x[c]) - mu;
+    ss += d * d;
+  }
+  const float rstd = rsqrtf(block_sum(ss, red) / df + p.eps);
+  for (int c = threadIdx.x; c < p.D; c += NT) {
+    const float y = (to_f(x[c]) - mu) * rstd * to_f(gamma[c]);
+    out[c] = from_f<TX>(ln ? y + to_f(beta[c]) : y);
+  }
+}
+
+template <typename TX, typename TG>
+__global__ void __launch_bounds__(NORM_MAX_TPR) norm_kernel(const NormParams p) {
+  __shared__ float red[2][NORM_MAX_TPR / 32];
+  if (p.tpr == 0) {
+    norm_looped<TX, TG>(p, red[0]);
+    return;
+  }
+  constexpr int EPV = 16 / sizeof(TX);          // elements of a 16-byte x vector
+  constexpr int GW = EPV * sizeof(TG) / 4;      // 32-bit words of gamma for them
+  const int tpr = p.tpr, t = threadIdx.x % tpr, grp = threadIdx.x / tpr;
+  const int64_t row = (int64_t)blockIdx.x * (blockDim.x / tpr) + grp;
+  const int nvec = p.D / EPV;
+  const int nmine = row < p.R ? (nvec - t + tpr - 1) / tpr : 0;  // vectors of this thread
+  const bool ln = p.kind == KIND_LN;
+  const TX* x = reinterpret_cast<const TX*>(p.x) + row * p.D;
+  const TG* gamma = reinterpret_cast<const TG*>(p.gamma);
+  const TG* beta = reinterpret_cast<const TG*>(p.beta);
+
+  Raw<4> xv[NORM_NV];
+  Raw<GW> gv[NORM_NV], bv[NORM_NV];
+#pragma unroll
+  for (int i = 0; i < NORM_NV; ++i) {
+    if (i < nmine) {
+      const int j = t + i * tpr;
+      xv[i] = ld_raw<4>(x + j * EPV);
+      gv[i] = ld_raw<GW>(gamma + j * EPV);
+      if (ln) bv[i] = ld_raw<GW>(beta + j * EPV);
+    }
+  }
+  const float df = (float)p.D;
+  float mu = 0.f;
+  if (ln) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NORM_NV; ++i)
+      if (i < nmine) {
+#pragma unroll
+        for (int e = 0; e < EPV; ++e) s += raw_elem<TX>(xv[i], e);
+      }
+    mu = row_sum(s, red[0], tpr, grp) / df;
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < NORM_NV; ++i)
+    if (i < nmine) {
+#pragma unroll
+      for (int e = 0; e < EPV; ++e) {
+        const float d = raw_elem<TX>(xv[i], e) - mu;
+        ss += d * d;
+      }
+    }
+  const float rstd = rsqrtf(row_sum(ss, red[1], tpr, grp) / df + p.eps);
+  TX* out = reinterpret_cast<TX*>(p.out) + row * p.D;
+#pragma unroll
+  for (int i = 0; i < NORM_NV; ++i) {
+    if (i < nmine) {
+      float y[EPV];
+#pragma unroll
+      for (int e = 0; e < EPV; ++e) {
+        y[e] = (raw_elem<TX>(xv[i], e) - mu) * rstd * raw_elem<TG>(gv[i], e);
+        if (ln) y[e] += raw_elem<TG>(bv[i], e);
+      }
+      uint4 u;
+      if constexpr (sizeof(TX) == 2) {
+        u = make_uint4(pack2(y[0], y[1]), pack2(y[2], y[3]), pack2(y[4], y[5]),
+                       pack2(y[6], y[7]));
+      } else {
+        u = make_uint4(__float_as_uint(y[0]), __float_as_uint(y[1]), __float_as_uint(y[2]),
+                       __float_as_uint(y[3]));
+      }
+      *reinterpret_cast<uint4*>(out + (t + i * tpr) * EPV) = u;
+    }
   }
 }
 
@@ -146,10 +283,38 @@ extern "C" int repro_residual_norm(const void* x, const void* y, const void* gam
 }
 
 extern "C" int repro_norm(const void* x, const void* gamma, const void* beta,
-                          void* out, int R, int D, int x_dt, int vec_dt, int kind,
-                          float eps, int vec, void* stream) {
-  NormParams p{x, gamma, beta, out, R, D, x_dt, vec_dt, kind, eps, vec};
+                          void* out, int R, int D, int x_dt, int g_dt, int kind,
+                          float eps, void* stream) {
   if (R == 0) return 0;
-  norm_kernel<<<R, NT, 0, reinterpret_cast<cudaStream_t>(stream)>>>(p);
+  const bool dts_ok = (x_dt == DT_F32 || x_dt == DT_BF16) && (g_dt == DT_F32 || g_dt == DT_BF16);
+  if (R < 0 || D < 1 || !dts_ok || (kind != KIND_RMS && kind != KIND_LN) ||
+      (kind == KIND_LN && !beta))
+    return (int)cudaErrorInvalidValue;
+  // the register tile: the fewest threads a row (a power of two from 32)
+  // whose NORM_NV vectors each hold the row; 0 where no tile fits
+  const int epv = x_dt == DT_BF16 ? 8 : 4;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(gamma) |
+                          reinterpret_cast<uintptr_t>(out) |
+                          (kind == KIND_LN ? reinterpret_cast<uintptr_t>(beta) : 0);
+  int tpr = 0;
+  if (D % epv == 0 && align % 16 == 0)
+    for (int t = 32; t <= NORM_MAX_TPR && !tpr; t *= 2)
+      if (t * NORM_NV * epv >= D) tpr = t;
+  NormParams p{x, gamma, beta, out, R, D, kind, eps, tpr};
+  int block = NT, grid = R;
+  if (tpr) {
+    block = tpr > NORM_MIN_BLOCK ? tpr : NORM_MIN_BLOCK;
+    const int rows = block / tpr;
+    grid = (R + rows - 1) / rows;
+  }
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (x_dt == DT_BF16 && g_dt == DT_BF16)
+    norm_kernel<__nv_bfloat16, __nv_bfloat16><<<grid, block, 0, s>>>(p);
+  else if (x_dt == DT_BF16)
+    norm_kernel<__nv_bfloat16, float><<<grid, block, 0, s>>>(p);
+  else if (g_dt == DT_BF16)
+    norm_kernel<float, __nv_bfloat16><<<grid, block, 0, s>>>(p);
+  else
+    norm_kernel<float, float><<<grid, block, 0, s>>>(p);
   return (int)cudaGetLastError();
 }

@@ -2,22 +2,27 @@
 
 Replaces the TPU kernels of `src/repro/kernels/flash_decode.py`:
 `decode_attention` (`_decode_kernel`) over dense per-slot caches, through
-`csrc/decode_attention.cu` (its folds are `csrc/common.cuh:dec_fold`), and
-`paged_decode_partials` (`_paged_partials_kernel`) /
-`paged_decode_attention` (`_paged_decode_kernel`) over the block pool,
-through one CUDA template, `csrc/paged_decode.cu`, whose grid also splits
-each slot's table into contiguous entry ranges (`splits`); its second
-kernel merges the splits (`paged_decode_merge`), and the normalized
-wrapper always runs the two, at one split too.  The sources'
-notes say what bounds them on an H100 and how the designs answer it.
+`csrc/decode_attention.cu`, and `paged_decode_partials`
+(`_paged_partials_kernel`) / `paged_decode_attention`
+(`_paged_decode_kernel`) over the block pool, through
+`csrc/paged_decode.cu`.  Both fold through one stage ring,
+`csrc/decode_fold.cuh`, over a grid (kv head, slot, split): the dense
+kernel cuts the cache's positions into ranges (`dense_splits`,
+`dense_range`), the paged kernel the table's entries (`paged_splits`,
+`split_ranges`), and a merge kernel folds the splits' partials into the
+normalized output (`paged_decode_merge` alone; the normalized wrappers
+always run it, at one split too).  The sources' notes say what bounds them
+on an H100 and how the design answers it.
 
 The plain versions are the kernels' arithmetic in plain PyTorch: per chunk
-(512 cache positions; one pool block), fp32 scores q.k / sqrt(D), -1e30
-masks, the online-softmax rescale, P cast to V's dtype for P.V; chunks that
-are wholly masked (dense), absent (< 0) or wholly past the slot's length
-(paged) are skipped.  A split of the paged table is the plain fold over
-its entry range with every other entry absent.  The wrappers launch the
-kernel for CUDA tensors and take the plain version for CPU tensors.
+of positions (dense: 512, the TPU kernel's walk, or with `splits` the
+kernel's own 32-position stages in each split's range; paged: one pool
+block), fp32 scores q.k / sqrt(D), -1e30 masks, the online-softmax
+rescale, P cast to V's dtype for P.V; chunks that are wholly masked
+(dense), absent (< 0) or wholly past the slot's length (paged) are
+skipped.  A split is the plain fold over its range, the splits merged by
+the online-softmax rule (`paged_decode_merge_plain`).  The wrappers launch
+the kernel for CUDA tensors and take the plain version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -33,42 +38,61 @@ NEG_INF = -1e30
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PARTIALS_ARGTYPES = [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P]
 _ATTENTION_ARGTYPES = [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P]
-_DENSE_ARGTYPES = [_P] * 8 + [_I] * 10 + [ctypes.c_float, _P]
+_DENSE_ARGTYPES = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P]
 _MERGE_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
-MAX_MERGE_SPLITS = 64   # csrc/paged_decode.cu PD_MAX_SPLITS
-PAGED_THREADS = 256     # csrc/paged_decode.cu PD_THREADS
+MAX_MERGE_SPLITS = 64   # csrc/decode_fold.cuh DF_MAX_SPLITS
+FOLD_THREADS = 256      # csrc/decode_fold.cuh DF_THREADS
+STAGE = 32              # csrc/decode_fold.cuh DF_STAGE_TOKENS: dense stage
 PAGED_MIN_ENTRIES = 4   # table entries a split of the paged grid spans
+DENSE_BLOCKS_PER_SM = 4  # blocks the dense split rule aims at per SM
 SM_COUNT = 132          # H100 SXM: the split rule's SMs off the card
 DENSE_CHUNK = 512       # the TPU kernel's block_kv: positions per plain step
-FOLD = 32               # positions per fold in csrc/decode_attention.cu
-MAX_SPLITS = 64         # csrc/decode_attention.cu DA_MAX_SPLITS
 
 
-def decode_attention_plain(q, k_cache, v_cache, length, *, window=0):
+def decode_attention_plain(q, k_cache, v_cache, length, *, window=0,
+                           splits=None):
     """q: [B, H, D]; k/v_cache: [B, S, KV, D]; length: [B] valid positions
     (<= S) -> [B, H, D] at q's dtype.  The TPU kernel's walk: chunks of
     min(512, S) positions, masked at pos >= length and, for window > 0, at
-    pos < length - window; wholly masked chunks skipped."""
+    pos < length - window; wholly masked chunks skipped.  With `splits`,
+    the kernel's walk: S cut into `splits` ranges of `dense_range(S,
+    splits)` positions, each folded in STAGE-position chunks into fp32
+    partials, merged by the online-softmax rule."""
+    S = k_cache.shape[1]
+    if splits is None:
+        o, _, l = _dense_fold(q, k_cache, v_cache, length, window, 0, S,
+                              min(DENSE_CHUNK, S))
+        return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    rng = dense_range(S, splits)
+    parts = [_dense_fold(q, k_cache, v_cache, length, window, z * rng,
+                         min(S, (z + 1) * rng), STAGE) for z in range(splits)]
+    o, m, l = (torch.stack(x) for x in zip(*parts))
+    return paged_decode_merge_plain(o, m, l, out_dtype=q.dtype)
+
+
+def _dense_fold(q, k_cache, v_cache, length, window, p0, p1, chunk):
+    """The chunk-by-chunk fold over positions [p0, p1) in chunks of `chunk`
+    from p0 -> (o unnormalized fp32 [B, H, D], m [B, H], l [B, H])."""
     B, H, D = q.shape
-    _, S, KV, _ = k_cache.shape
+    KV = k_cache.shape[2]
     G = H // KV
     dev = q.device
-    chunk = min(DENSE_CHUNK, S)
     sm_scale = 1.0 / math.sqrt(D)
     length = length.to(torch.int64)
     qf = q.float().reshape(B, KV, G, D)
     m = torch.full((B, KV, G), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, KV, G), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, KV, G, D), dtype=torch.float32, device=dev)
-    for c0 in range(0, S, chunk):
-        kb = k_cache[:, c0:c0 + chunk].float()                    # [B,n,KV,D]
-        vb = v_cache[:, c0:c0 + chunk].float()
-        pos = c0 + torch.arange(kb.shape[1], device=dev)
+    for c0 in range(p0, p1, chunk):
+        c1 = min(c0 + chunk, p1)
+        kb = k_cache[:, c0:c1].float()                            # [B,n,KV,D]
+        vb = v_cache[:, c0:c1].float()
+        pos = torch.arange(c0, c1, device=dev)
         ok = pos[None, :] < length[:, None]                       # [B, n]
         live = c0 < length                                        # [B]
         if window > 0:
             ok &= pos[None, :] >= (length - window)[:, None]
-            live &= c0 + chunk > length - window
+            live &= c1 > length - window
         s = torch.einsum("bkgd,bskd->bkgs", qf, kb) * sm_scale
         s = torch.where(ok[:, None, None], s,
                         torch.tensor(NEG_INF, device=dev))
@@ -82,8 +106,7 @@ def decode_attention_plain(q, k_cache, v_cache, length, *, window=0):
         m = torch.where(lv, m_new, m)
         l = torch.where(lv, l_new, l)
         acc = torch.where(lv[..., None], acc_new, acc)
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(B, H, D).to(q.dtype)
+    return acc.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H)
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,52 +114,66 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def dense_splits(B: int, KV: int, S: int, sms: int):
-    """(nsplit, range): S cut into ranges of a multiple of FOLD positions,
-    enough of them for two blocks per SM over the (KV, B) grid."""
-    folds = -(-S // FOLD)
-    want = max(1, min(-(-2 * sms // max(B * KV, 1)), folds, MAX_SPLITS))
-    rng = -(-folds // want) * FOLD
-    return -(-S // rng), rng
+def dense_splits(B: int, KV: int, S: int, sms: int = SM_COUNT, *,
+                 window: int = 0) -> int:
+    """Splits of the dense kernel's grid (KV, B, splits): S cut into ranges
+    of whole STAGE-position stages (`dense_range`), short enough that the
+    positions a slot can attend (S, or the window where it is shorter)
+    cover DENSE_BLOCKS_PER_SM blocks an SM over the (KV, B) grid (each
+    range rounded down to whole stages, so the count rounds up), at most
+    MAX_MERGE_SPLITS."""
+    stages = -(-S // STAGE)
+    span = -(-min(S, window if window > 0 else S) // STAGE)
+    want = max(1, min(-(-DENSE_BLOCKS_PER_SM * sms // max(B * KV, 1)), span,
+                      MAX_MERGE_SPLITS))
+    per = max(span // want, -(-stages // MAX_MERGE_SPLITS))
+    return -(-stages // per)
 
 
-def decode_attention(q, k_cache, v_cache, length, *, window=0):
+def dense_range(S: int, splits: int) -> int:
+    """Positions of each split's range [z * range, (z + 1) * range): whole
+    STAGE-position stages, ceil(stages / splits) of them."""
+    return -(-(-(-S // STAGE)) // splits) * STAGE
+
+
+def decode_attention(q, k_cache, v_cache, length, *, window=0,
+                     splits=None):
     """q: [B, H, D]; k/v_cache: [B, S, KV, D]; length: [B] valid positions
     (<= S); `window` > 0: only positions >= length - window attend.
-    -> [B, H, D] at q's dtype."""
+    -> [B, H, D] at q's dtype.  `splits`: the grid's split count, by
+    default `dense_splits` for the device (the plain version for CPU
+    tensors: the TPU kernel's walk, or the split walk when given)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, length,
-                                      window=window)
+                                      window=window, splits=splits)
     build.require_cuda("decode_attention", q, k_cache, v_cache, length)
     B, H, D = q.shape
     _, S, KV, _ = k_cache.shape if k_cache.ndim == 4 else (0,) * 4
+    q, k_cache, v_cache = (t.contiguous() for t in (q, k_cache, v_cache))
     if (k_cache.ndim != 4 or k_cache.shape[0] != B or k_cache.shape[3] != D
-            or length.shape != (B,)
-            or v_cache.shape != k_cache.shape or KV < 1 or H % KV
-            or H // KV > 8 or D % 4 or H // KV * D > 2048 or window < 0
-            or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype):
+            or length.shape != (B,) or v_cache.shape != k_cache.shape
+            or not _fold_shape_ok(H, KV, D, q.element_size()) or window < 0
+            or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype
+            or not build.aligned16(k_cache, v_cache)):
         raise ValueError(f"decode_attention: unsupported operands q "
                          f"{tuple(q.shape)} {q.dtype}, caches "
                          f"{tuple(k_cache.shape)} {k_cache.dtype}, window "
                          f"{window}")
-    q, k_cache, v_cache = (t.contiguous() for t in (q, k_cache, v_cache))
     ln = length.to(torch.int32).contiguous()
-    nsplit, rng = dense_splits(B, KV, S, _sm_count(q.device.index or 0))
+    if splits is None:
+        splits = dense_splits(B, KV, S, _sm_count(q.device.index or 0),
+                              window=window)
     out = torch.empty_like(q)
-    parts = (None, None, None)
-    if nsplit > 1:
-        f32 = dict(dtype=torch.float32, device=q.device)
-        parts = (torch.empty((nsplit, B, H, D), **f32),
-                 torch.empty((nsplit, B, H), **f32),
-                 torch.empty((nsplit, B, H), **f32))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    parts = (torch.empty((splits, B, H, D), **f32),
+             torch.empty((splits, B, H), **f32),
+             torch.empty((splits, B, H), **f32))
     fn = build.bind("decode_attention", "repro_decode_attention",
                     _DENSE_ARGTYPES)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             ln.data_ptr(), out.data_ptr(),
-             *(t.data_ptr() if t is not None else None for t in parts),
-             B, H, KV, D, S, rng, nsplit, int(window), build.dtype_code(q),
-             int(build.aligned16(k_cache)), 1.0 / math.sqrt(D),
-             build.stream_of(q))
+             ln.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in parts),
+             B, H, KV, D, S, dense_range(S, splits), splits, int(window),
+             build.dtype_code(q), 1.0 / math.sqrt(D), build.stream_of(q))
     build.check(err, "decode_attention launch")
     decode_attention.launches += 1
     return out
@@ -215,15 +252,22 @@ def _paged_fold(q, k_pool, v_pool, block_tables, lengths, e0, e1):
     return acc.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H)
 
 
+def _fold_shape_ok(H, KV, D, esize) -> bool:
+    """The stage ring's shapes (csrc/decode_fold.cuh df_shape_ok): at most
+    8 query heads a kv head, G * D <= 2048, rows of whole 16-byte columns,
+    twice their count dividing the block's FOLD_THREADS."""
+    cols = D * esize // 16
+    return (KV >= 1 and H % KV == 0 and H // KV <= 8 and H // KV * D <= 2048
+            and (D * esize) % 16 == 0 and cols >= 1
+            and FOLD_THREADS % (2 * cols) == 0)
+
+
 def _check(what, q, k_pool, v_pool, block_tables, lengths):
     build.require_cuda(what, q, k_pool, v_pool, block_tables, lengths)
     B, H, D = q.shape
     _, BS, KV, Dk = k_pool.shape
-    cols = D * q.element_size() // 16       # 16-byte columns of a row
-    if (Dk != D or v_pool.shape != k_pool.shape or H % KV or H // KV > 8
-            or (D * q.element_size()) % 16
-            or PAGED_THREADS % (2 * max(cols, 1))
-            or H // KV * D > 2048
+    if (Dk != D or v_pool.shape != k_pool.shape
+            or not _fold_shape_ok(H, KV, D, q.element_size())
             or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype
             or block_tables.shape[0] != B or lengths.shape != (B,)
             or not build.aligned16(k_pool, v_pool)):

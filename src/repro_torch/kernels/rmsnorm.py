@@ -4,8 +4,13 @@ a residual add.
 Replace the TPU kernels `src/repro/kernels/rmsnorm.py:rmsnorm`
 (`_rms_kernel`), `:layernorm` (`_ln_kernel`), `:residual_rmsnorm`
 (`_res_rms_kernel`) and `:residual_layernorm` (`_res_ln_kernel`).  All
-come from one CUDA source, `csrc/rmsnorm.cu`, whose note says what bounds
-them on an H100 and how the design answers it.
+come from one CUDA source, `csrc/rmsnorm.cu`: `norm_kernel` holds each row
+in registers and reads it once (the register tile picked by D inside the
+C entry point, a looped path for a row that fits no tile), and
+`res_norm_kernel` walks its row in passes; the source's note says what
+bounds them on an H100 and how the design answers it.  The wrappers keep
+the host light: the C entry points are bound once, dtype codes come from a
+dict, and only the copies and casts that do something are made.
 
 `rmsnorm_plain` / `layernorm_plain` are the kernels' arithmetic in plain
 PyTorch: fp32 row statistics (LayerNorm's mean, then its variance about
@@ -24,9 +29,26 @@ from repro_torch.kernels import build
 from repro_torch.kernels.epilogue import LN_EPS, RMS_EPS
 
 _KIND = {"rmsnorm": 1, "layernorm": 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # common.cuh DTypeCode
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 4 + [_I] * 5 + [ctypes.c_float, _I, _P]
+_ARGTYPES = [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P]
 _RES_ARGTYPES = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P]
+_ENTRY = {}   # C entry point -> bound function, bound at first launch
+
+
+def _entry(symbol, argtypes):
+    fn = _ENTRY.get(symbol)
+    if fn is None:
+        fn = _ENTRY[symbol] = build.bind("rmsnorm", symbol, argtypes)
+    return fn
+
+
+def _code(t):
+    code = _DTYPE_CODE.get(t.dtype)
+    if code is None:
+        raise TypeError(f"the norm kernels take float32 or bfloat16, not "
+                        f"{t.dtype}")
+    return code
 
 
 def rmsnorm_plain(x, gamma, *, eps=RMS_EPS):
@@ -55,31 +77,42 @@ def residual_layernorm_plain(x, y, gamma, beta, *, eps=LN_EPS):
     return layernorm_plain(r, gamma, beta, eps=eps), r
 
 
-def _check_rows(what, x, gamma, beta):
+def _operands(what, x, gamma, beta):
+    """Check the operands the kernels take and make them contiguous, with
+    beta at gamma's dtype, copying or casting only where that changes
+    something."""
     D = x.shape[-1]
-    if (gamma.shape != (D,) or (beta is not None and beta.shape != (D,))
-            or D == 0):
+    if (D == 0 or gamma.shape != (D,)
+            or (beta is not None and beta.shape != (D,))):
         raise ValueError(f"{what}: unsupported operands x {tuple(x.shape)}, "
                          f"gamma {tuple(gamma.shape)}")
+    dev = x.device
+    if (dev.type != "cuda" or gamma.device != dev
+            or (beta is not None and beta.device != dev)):
+        raise ValueError(f"{what}: the CUDA kernel needs every operand on "
+                         f"one CUDA device, got {dev} and {gamma.device}")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not gamma.is_contiguous():
+        gamma = gamma.contiguous()
+    if beta is not None and (beta.dtype != gamma.dtype
+                             or not beta.is_contiguous()):
+        beta = beta.to(gamma.dtype).contiguous()
+    return x, gamma, beta
 
 
 def _launch(kind, x, gamma, beta, eps):
-    build.require_cuda(kind, x, gamma, beta)
-    _check_rows(kind, x, gamma, beta)
+    x, gamma, beta = _operands(kind, x, gamma, beta)
     D = x.shape[-1]
-    x2 = x.reshape(-1, D).contiguous()
-    gamma = gamma.contiguous()
-    if beta is not None:
-        beta = beta.to(gamma.dtype).contiguous()
-    out = torch.empty_like(x2)
-    fn = build.bind("rmsnorm", "repro_norm", _ARGTYPES)
-    err = fn(x2.data_ptr(), gamma.data_ptr(),
-             None if beta is None else beta.data_ptr(), out.data_ptr(),
-             x2.shape[0], D, build.dtype_code(x2), build.dtype_code(gamma),
-             _KIND[kind], float(eps), int(D % 4 == 0 and build.aligned16(x2)),
-             build.stream_of(x2))
-    build.check(err, f"{kind} launch")
-    return out.reshape(x.shape)
+    out = torch.empty_like(x)
+    err = _entry("repro_norm", _ARGTYPES)(
+        x.data_ptr(), gamma.data_ptr(),
+        None if beta is None else beta.data_ptr(), out.data_ptr(),
+        x.numel() // D, D, _code(x), _code(gamma), _KIND[kind], eps,
+        build.stream_of(x))
+    if err:
+        build.check(err, f"{kind} launch")
+    return out
 
 
 def rmsnorm(x, gamma, *, eps=RMS_EPS):
@@ -102,26 +135,22 @@ def layernorm(x, gamma, beta, *, eps=LN_EPS):
 
 def _launch_residual(kind, x, y, gamma, beta, eps):
     what = f"residual_{kind}"
-    build.require_cuda(what, x, y, gamma, beta)
-    _check_rows(what, x, gamma, beta)
-    if y.shape != x.shape:
-        raise ValueError(f"{what}: y {tuple(y.shape)} is not shaped as x "
-                         f"{tuple(x.shape)}")
+    x, gamma, beta = _operands(what, x, gamma, beta)
+    if y.shape != x.shape or y.device != x.device:
+        raise ValueError(f"{what}: y {tuple(y.shape)} on {y.device} is not "
+                         f"shaped as x {tuple(x.shape)} on {x.device}")
+    if not y.is_contiguous():
+        y = y.contiguous()
     D = x.shape[-1]
-    x2 = x.reshape(-1, D).contiguous()
-    y2 = y.reshape(-1, D).contiguous()
-    gamma = gamma.contiguous()
-    if beta is not None:
-        beta = beta.to(gamma.dtype).contiguous()
-    h, r = torch.empty_like(x2), torch.empty_like(x2)
-    fn = build.bind("rmsnorm", "repro_residual_norm", _RES_ARGTYPES)
-    err = fn(x2.data_ptr(), y2.data_ptr(), gamma.data_ptr(),
-             None if beta is None else beta.data_ptr(), h.data_ptr(),
-             r.data_ptr(), x2.shape[0], D, build.dtype_code(x2),
-             build.dtype_code(y2), build.dtype_code(gamma), _KIND[kind],
-             float(eps), build.stream_of(x2))
-    build.check(err, f"{what} launch")
-    return h.reshape(x.shape), r.reshape(x.shape)
+    h, r = torch.empty_like(x), torch.empty_like(x)
+    err = _entry("repro_residual_norm", _RES_ARGTYPES)(
+        x.data_ptr(), y.data_ptr(), gamma.data_ptr(),
+        None if beta is None else beta.data_ptr(), h.data_ptr(),
+        r.data_ptr(), x.numel() // D, D, _code(x), _code(y), _code(gamma),
+        _KIND[kind], eps, build.stream_of(x))
+    if err:
+        build.check(err, f"{what} launch")
+    return h, r
 
 
 def residual_rmsnorm(x, y, gamma, *, eps=RMS_EPS):

@@ -8,6 +8,7 @@ Inputs come from a numpy seed and go to both frameworks.  Tolerances:
 fp32 rtol = atol = 1e-4; bf16 the conftest's 2e-2.
 """
 import ast
+import itertools
 import pathlib
 
 import jax.numpy as jnp
@@ -246,14 +247,20 @@ def test_matmul_swiglu_wrapper_takes_plain_on_cpu():
 # row norms
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
-def test_norm_plain_vs_pallas_and_oracle(kind, dtype):
-    """[3, 7, 96] rows (21 rows against the kernel's 8-row blocks)."""
+NORM_CASES = [(kind, dtype, D) for D in (96, 1600, 2560)
+              for kind in ("rmsnorm", "layernorm") for dtype in ("f32", "bf16")]
+
+
+@pytest.mark.parametrize(
+    "kind,dtype,D", NORM_CASES,
+    ids=[f"{k}-{t}" + ("" if D == 96 else f"-D{D}") for k, t, D in NORM_CASES])
+def test_norm_plain_vs_pallas_and_oracle(kind, dtype, D):
+    """[3, 7, D] rows (21 rows against the kernel's 8-row blocks); D = 96,
+    and hymba's (1600) and mamba2's (2560) widths."""
     rng = np.random.default_rng(20)
-    x = (rng.standard_normal((3, 7, 96)) * 2 + 0.5).astype(np.float32)
-    g = (1 + 0.2 * rng.standard_normal(96)).astype(np.float32)
-    b = (0.2 * rng.standard_normal(96)).astype(np.float32)
+    x = (rng.standard_normal((3, 7, D)) * 2 + 0.5).astype(np.float32)
+    g = (1 + 0.2 * rng.standard_normal(D)).astype(np.float32)
+    b = (0.2 * rng.standard_normal(D)).astype(np.float32)
     (jx, tx), (jg, tg), (jb, tb) = (_pair(v, dtype) for v in (x, g, b))
     tol = F32 if dtype == "f32" else BF16
     if kind == "rmsnorm":
@@ -471,6 +478,39 @@ def test_paged_splits_rule():
     assert tfd.paged_splits(1, 1, 4096, sms=132) == tfd.MAX_MERGE_SPLITS
 
 
+def test_dense_splits_rule():
+    """The dense kernel's split ranges: whole 32-position stages, every
+    position of [lo, len) in exactly one split (ring caches: lo = 0; linear
+    caches with a window: lo = len - window), at most 64 splits, and at
+    least two blocks an SM over the (KV, B) grid at gemma3's (KV 16, a ring
+    and a windowed linear cache) and hymba's (KV 5) decode shapes."""
+    shapes = ((4, 16, 1024), (4, 5, 1024), (4, 16, 2048), (1, 1, 4096),
+              (64, 16, 1024), (4, 8, 37), (3, 2, 100))
+    for (B, KV, S), window in itertools.product(shapes, (0, 1024, 30)):
+        n = tfd.dense_splits(B, KV, S, sms=132, window=window)
+        rng = tfd.dense_range(S, n)
+        assert 1 <= n <= tfd.MAX_MERGE_SPLITS and rng % tfd.STAGE == 0
+        assert n * rng >= S
+        for length in (S, 1, S // 3 + 1, S // 2 + 5, 0):
+            lo = max(0, length - window) if window else 0
+            hits = np.zeros(S, np.int64)
+            for z in range(n):       # the kernel's block z: [first, end)
+                first, end = max(z * rng, lo), min((z + 1) * rng, length)
+                hits[first:max(first, end)] += 1
+            assert (hits[lo:length] == 1).all(), (B, KV, S, length, window)
+            assert hits[:lo].sum() == 0 and hits[length:].sum() == 0
+    for KV, S, window in ((16, 1024, 0), (5, 1024, 0), (16, 2048, 1024)):
+        n = tfd.dense_splits(4, KV, S, sms=132, window=window)
+        rng = tfd.dense_range(S, n)
+        live = -(-min(S, window or S) // rng)    # ranges a full slot reaches
+        assert 4 * KV * live >= 2 * 132, (KV, S, window, n)
+    assert tfd.dense_splits(4, 16, 1024, sms=132) == 11
+    assert tfd.dense_splits(4, 5, 1024, sms=132) == 32
+    assert tfd.dense_splits(4, 16, 2048, sms=132, window=1024) == 22
+    assert tfd.dense_splits(64, 16, 1024, sms=132) == 1
+    assert tfd.dense_splits(1, 1, 4096, sms=132) == tfd.MAX_MERGE_SPLITS
+
+
 def test_paged_attention_plain_splits_as_the_card_does():
     """The normalized wrapper's plain version splits the table as the
     kernel's grid does (`paged_splits`) and merges: within fp32 rounding of
@@ -633,6 +673,30 @@ def test_new_ops_never_fall_back(op):
     with ops.kernel_mode("auto"):
         with pytest.raises(ValueError, match="CUDA"):
             calls(_meta)
+
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+def test_norm_wrapper_refuses_what_the_kernel_does_not_take(kind):
+    """The norm wrappers' lighter host path keeps its checks: `cuda` mode
+    refuses a CPU tensor, a gamma (or beta) not shaped [D] raises before
+    anything launches, and a tensor off the CPU with no kernel to launch
+    raises — none of them quietly runs the plain version."""
+    args = {"rmsnorm": lambda t, gs, bs: (t(2, 8), t(*gs)),
+            "layernorm": lambda t, gs, bs: (t(2, 8), t(*gs), t(*bs))}[kind]
+    cpu = lambda *s: torch.zeros(s)
+    with ops.kernel_mode("cuda"):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            getattr(ops, kind)(*args(cpu, (8,), (8,)))
+    wrapper = getattr(tnorm, kind)
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="gamma"):
+        wrapper(*args(_meta, (7,), (8,)))
+    if kind == "layernorm":
+        with pytest.raises(ValueError, match="gamma"):
+            wrapper(*args(_meta, (8,), (8, 1)))
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(*args(_meta, (8,), (8,)))
+    assert wrapper.launches == before
 
 
 def test_ref_mode_runs_ref_port():

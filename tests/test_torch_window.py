@@ -227,6 +227,28 @@ def test_decode_attention_plain_matches_pallas_and_oracle(case, dtype):
     np.testing.assert_allclose(_np(port_oracle), _np(oracle), **tol)
 
 
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", DECODE_CASES,
+                         ids=lambda c: f"H{c[0]}KV{c[1]}D{c[2]}S{c[3]}w{c[4]}")
+def test_decode_attention_plain_splits_match_pallas_and_oracle(case, dtype,
+                                                               splits):
+    """The plain version at the kernel's split count (`splits=`: ranges of
+    whole 32-position stages, each folded stage by stage, the partials
+    merged) against the Pallas kernel in interpret mode and the oracle."""
+    win = case[4]
+    (jq, jk, jv, jl), (tq, tk, tv, tl) = _decode_inputs(case, dtype)
+    got = tfd.decode_attention_plain(tq, tk, tv, tl, window=win,
+                                     splits=splits)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    pallas = jfd.decode_attention(jq, jk, jv, jl, window=win, block_kv=64,
+                                  interpret=True)
+    oracle = jref.decode_attention_ref(jq, jk, jv, jl, window=win)
+    tol = F32 if dtype == "f32" else BF16
+    np.testing.assert_allclose(_np(got), _np(pallas), **tol)
+    np.testing.assert_allclose(_np(got), _np(oracle), **tol)
+
+
 @pytest.mark.parametrize("window", [0, 300])
 def test_decode_attention_plain_chunks_match_oracle(window):
     """S = 1100 walks three 512-position chunks, the last one ragged; with
