@@ -38,22 +38,28 @@ SWEEP_SPLITS = (8, 12, 16, 22, 32)
 def dense_split_sweep():
     """Device time of the dense decode kernel (fold and merge) on each of
     chip_smoke.py's DECODE_CASES at the split count `dense_splits` picks
-    and at SWEEP_SPLITS."""
+    and at SWEEP_SPLITS (`dense_splits` replaced for each timing)."""
     from repro_torch.kernels import flash_decode as fd
     g = torch.Generator(device="cuda").manual_seed(8)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for label, H, KV, D, S, lens, win in chip_smoke.DECODE_CASES:
+    rule_of = fd.dense_splits
+    for label, H, KV, D, S, lens, win, dtype in chip_smoke.DECODE_CASES:
         B = len(lens)
-        q = torch.randn((B, H, D), generator=g, device="cuda").bfloat16()
+        q = torch.randn((B, H, D), generator=g, device="cuda").to(dtype)
         k, v = (torch.randn((B, S, KV, D), generator=g, device="cuda"
-                            ).bfloat16() for _ in range(2))
+                            ).to(dtype) for _ in range(2))
         ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        rule = fd.dense_splits(B, KV, S, sms, window=win)
-        times = [f"{n}{' (rule)' if n == rule else ''}: "
-                 + chip_smoke._ms(chip_smoke.device_ms([
-                     lambda n=n: fd.decode_attention(q, k, v, ln, window=win,
-                                                     splits=n)]))
-                 for n in sorted({rule, *SWEEP_SPLITS})]
+        rule = rule_of(B, KV, S, sms, window=win)
+        times = []
+        try:
+            for n in sorted({rule, *SWEEP_SPLITS}):
+                fd.dense_splits = lambda *a, n=n, **kw: n
+                ms = chip_smoke.device_ms([
+                    lambda: fd.decode_attention(q, k, v, ln, window=win)])
+                times.append(f"{n}{' (rule)' if n == rule else ''}: "
+                             + chip_smoke._ms(ms))
+        finally:
+            fd.dense_splits = rule_of
         chip_smoke.log(f"  dense split sweep, {label}: " + ", ".join(times))
 
 

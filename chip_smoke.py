@@ -395,6 +395,20 @@ def check_swiglu(rows):
 
 NORM_SHAPES = ((4, 3072), (512, 3072), (4, 2560), (512, 2560), (4, 1600),
                (512, 1600))   # phi4 / gemma3-like, mamba2, hymba widths
+# the norm kernel's other instantiations and its looped path, checked
+# against the plain version only: label, R, D, x dtype, gamma dtype,
+# elements between the buffer's start and the first row
+F32, BF16 = torch.float32, torch.bfloat16
+NORM_PATHS = (
+    ("tile fp32 x, fp32 gamma [4, 3072]", 4, 3072, F32, F32, 0),
+    ("tile fp32 x, fp32 gamma [512, 1600]", 512, 1600, F32, F32, 0),
+    ("tile bf16 x, fp32 gamma [512, 2560]", 512, 2560, BF16, F32, 0),
+    ("tile fp32 x, bf16 gamma [4, 1600]", 4, 1600, F32, BF16, 0),
+    ("looped: D % 8 != 0 [64, 1601]", 64, 1601, BF16, BF16, 0),
+    ("looped: rows 2 bytes off 16 [4, 3072]", 4, 3072, BF16, BF16, 1),
+    ("looped: wider than a tile [4, 20480]", 4, 20480, BF16, BF16, 0),
+    ("looped fp32 x, fp32 gamma [4, 1601]", 4, 1601, F32, F32, 0),
+)
 
 
 def check_norms(rows):
@@ -440,6 +454,35 @@ def check_norms(rows):
                 f"library {r['library_host_ms']:.4f} ms a call")
             results.append(r)
         rows[name] = results
+    rows["norm_paths"] = check_norm_paths(g)
+
+
+def check_norm_paths(g):
+    """Each NORM_PATHS case through both norm wrappers against the plain
+    version: the dtype pairs the timed rows do not take, and rows that fit
+    no register tile (the looped path of the same kernel)."""
+    from repro_torch.kernels import rmsnorm as nm
+    dev = torch.device(DEVICE)
+    results = []
+    for label, R, D, xdt, gdt, off in NORM_PATHS:
+        gam = (1 + 0.1 * torch.randn((D,), generator=g, device=dev)).to(gdt)
+        bet = (0.1 * torch.randn((D,), generator=g, device=dev)).to(gdt)
+        buf = torch.randn((off + R * D,), generator=g, device=dev) * 2 + 0.3
+        x = buf.to(xdt)[off:].view(R, D)
+        for name, got, want in (
+                ("rmsnorm", nm.rmsnorm(x, gam, eps=1e-6),
+                 nm.rmsnorm_plain(x, gam, eps=1e-6)),
+                ("layernorm", nm.layernorm(x, gam, bet, eps=1e-5),
+                 nm.layernorm_plain(x, gam, bet, eps=1e-5))):
+            err, rel = rel_err(got, want)
+            log(f"  {name:9s} {label:40s} rel err {rel:.2e} (tol "
+                f"{NORM_TOL:.0e})")
+            if not rel <= NORM_TOL:
+                raise AssertionError(f"{name} {label}: rel err {rel} > "
+                                     f"{NORM_TOL}")
+            results.append(dict(name=name, case=label, max_abs_err=err,
+                                rel_err=rel, tol=NORM_TOL))
+    return results
 
 
 def check_residual_norms(rows):
@@ -625,11 +668,12 @@ def check_flash(rows):
     rows["flash_attention"] = results
 
 
-def _paged_inputs(g, dev, H, KV, D, lengths=(1, 137, 300, 512)):
-    """Decode batch: a slot per length, 16-token blocks, 32 table entries,
-    absent table entries past each length and a hole inside slot
+def _paged_inputs(g, dev, H, KV, D, lengths=(1, 137, 300, 512), BS=16,
+                  dtype=torch.bfloat16):
+    """Decode batch: a slot per length, BS-token blocks, 512 / BS table
+    entries, absent table entries past each length and a hole inside slot
     2 when it is long enough."""
-    B, BS, MB = len(lengths), 16, 32
+    B, MB = len(lengths), 512 // BS
     NB = B * MB + 8
     lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
     perm = torch.randperm(NB, generator=g, device=dev)[:B * MB]
@@ -638,9 +682,9 @@ def _paged_inputs(g, dev, H, KV, D, lengths=(1, 137, 300, 512)):
         tab[b, -(-int(lengths[b]) // BS):] = -1
     if int(lengths[2]) > 6 * BS:
         tab[2, 5] = -1                              # a hole inside slot 2
-    q = torch.randn((B, H, D), generator=g, device=dev).bfloat16()
-    kp = torch.randn((NB, BS, KV, D), generator=g, device=dev).bfloat16()
-    vp = torch.randn((NB, BS, KV, D), generator=g, device=dev).bfloat16()
+    q = torch.randn((B, H, D), generator=g, device=dev).to(dtype)
+    kp = torch.randn((NB, BS, KV, D), generator=g, device=dev).to(dtype)
+    vp = torch.randn((NB, BS, KV, D), generator=g, device=dev).to(dtype)
     live = sum(max(0, min(BS, int(lengths[b]) - e * BS))
                for b in range(B) for e in range(MB) if int(tab[b, e]) >= 0)
     return q, kp, vp, tab, lengths, live
@@ -812,22 +856,76 @@ def check_paged(rows):
                for r in rows["paged_decode_attention"]):
         raise AssertionError("paged_decode_attention: no case ran at one "
                              "split of the table")
+    rows["paged_block_sizes"] = check_paged_block_sizes(g)
 
 
-DECODE_CASES = (   # label, H, KV, D, S, lengths, window
+# the paged fold's other instantiations, checked against the plain version
+# only: block sizes the kernel reads at run time, and fp32 pools
+PAGED_FOLDS = ((8, torch.bfloat16), (32, torch.float32), (16, torch.float32))
+
+
+def check_paged_block_sizes(g):
+    """The partials kernel at 1 and 2 splits and the normalized wrapper at
+    each PAGED_FOLDS block size and dtype (phi4-mini's heads, the mixed
+    batch): split statistics and merged output held row by row to the
+    plain split grid and to the single pass."""
+    from repro_torch.kernels import flash_decode as fd
+    dev = torch.device(DEVICE)
+    results = []
+    for BS, dtype in PAGED_FOLDS:
+        q, kp, vp, tab, lengths, _ = _paged_inputs(g, dev, 24, 8, 128,
+                                                   BS=BS, dtype=dtype)
+        po, _, pl = fd.paged_decode_plain(q, kp, vp, tab, lengths)
+        one = po / pl.clamp(min=1e-30)[..., None]
+        for S in (1, 2):
+            o, m, l = fd.paged_decode_partials(q, kp, vp, tab, lengths, S)
+            so, sm, sl = fd.paged_decode_plain(q, kp, vp, tab, lengths, S)
+            if S == 1:
+                o, m, l, so, sm, sl = (t[None] for t in (o, m, l, so, sm, sl))
+            live = sl > 0
+            if not torch.equal(l > 0, live):
+                raise AssertionError(f"paged_decode_partials BS={BS} "
+                                     f"{dtype} splits {S}: live ranges "
+                                     f"differ from the plain grid")
+            merged = fd.paged_decode_merge_plain(o, m, l,
+                                                 out_dtype=torch.float32)
+            rel = max(row_rel_err(merged, fd.paged_decode_merge_plain(
+                so, sm, sl, out_dtype=torch.float32))[1],
+                row_rel_err(merged, one)[1],
+                rel_err(m[live], sm[live])[1], rel_err(l[live], sl[live])[1])
+            results.append(dict(name="paged_decode_partials", bs=BS,
+                                dtype=str(dtype), splits=S, rel_err=rel))
+        got = fd.paged_decode_attention(q, kp, vp, tab, lengths)
+        results.append(dict(name="paged_decode_attention", bs=BS,
+                            dtype=str(dtype), rel_err=row_rel_err(
+                                got, one.to(dtype))[1]))
+    for r in results:
+        label = (f"{r['name']} BS={r['bs']} {r['dtype']}"
+                 + (f" splits {r['splits']}" if "splits" in r else ""))
+        log(f"  {label:50s} rel err {r['rel_err']:.2e} (tol {ATTN_TOL:.0e})")
+        if not r["rel_err"] <= ATTN_TOL:
+            raise AssertionError(f"{label}: rel err {r['rel_err']} > "
+                                 f"{ATTN_TOL}")
+    return results
+
+
+DECODE_CASES = (   # label, H, KV, D, S, lengths, window, dtype
     ("gemma3 ring B=4 H32/KV16 D=128 S=1024 len 1/137/1000/1024", 32, 16,
-     128, 1024, (1, 137, 1000, 1024), 0),
+     128, 1024, (1, 137, 1000, 1024), 0, torch.bfloat16),
     ("hymba ring B=4 H25/KV5 D=64 S=1024 len 1/137/1000/1024", 25, 5, 64,
-     1024, (1, 137, 1000, 1024), 0),
+     1024, (1, 137, 1000, 1024), 0, torch.bfloat16),
     ("linear B=4 H32/KV16 D=128 S=2048 window 1024 len 1/700/1500/2048",
-     32, 16, 128, 2048, (1, 700, 1500, 2048), 1024),
+     32, 16, 128, 2048, (1, 700, 1500, 2048), 1024, torch.bfloat16),
+    # the fp32 instantiation (the served paths' fp32 policy)
+    ("fp32 linear B=4 H32/KV16 D=128 S=2048 window 1024 len 1/700/1500/2048",
+     32, 16, 128, 2048, (1, 700, 1500, 2048), 1024, torch.float32),
 )
 
 
 def check_decode_attention(rows):
     """The dense decode kernel on gemma3's and hymba's ring caches (the
     valid slots are a prefix of the ring) and on a linear cache with
-    gemma3's window, each batch row held to its own scale against the
+    gemma3's window (in bf16, and in fp32), each batch row held to its own scale against the
     plain version at the kernel's split count (`splits=`: the same ranges,
     32-position stages and merge) and against the TPU kernel's walk (one
     pass of 512-position chunks).  Yardstick: SDPA with a boolean mask.
@@ -838,11 +936,11 @@ def check_decode_attention(rows):
     g = torch.Generator(device=dev).manual_seed(8)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = []
-    for label, H, KV, D, S, lens, win in DECODE_CASES:
+    for label, H, KV, D, S, lens, win, dtype in DECODE_CASES:
         B = len(lens)
-        q = torch.randn((B, H, D), generator=g, device=dev).bfloat16()
+        q = torch.randn((B, H, D), generator=g, device=dev).to(dtype)
         k, v = (torch.randn((B, S, KV, D), generator=g, device=dev
-                            ).bfloat16() for _ in range(2))
+                            ).to(dtype) for _ in range(2))
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
         splits = fd.dense_splits(B, KV, S, sms, window=win)
         got = fd.decode_attention(q, k, v, ln, window=win)
@@ -867,8 +965,8 @@ def check_decode_attention(rows):
                  time_ms(lambda: fd.decode_attention_plain(
                      q, k, v, ln, window=win, splits=splits), iters=5),
                  time_ms(lib_fn),
-                 2 * B * H * D * 2 + 2 * live * KV * D * 2 + B * 4,
-                 4 * H * D * live)
+                 (2 * B * H * D + 2 * live * KV * D) * q.element_size()
+                 + B * 4, 4 * H * D * live)
         r.update(splits=splits, range=fd.dense_range(S, splits),
                  device_ms=device_ms([fn]),
                  library_device_ms=device_ms([lib_fn]),

@@ -18,7 +18,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -28,6 +30,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}   # bound entry points
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # common.cuh DTypeCode
 _raw_stream = None   # torch's current-raw-stream binding, found at first use
 
 
@@ -106,33 +110,36 @@ def load(name: str) -> ctypes.CDLL:
 
 def bind(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry point `symbol` of library `name` with its argument types
-    declared (pointers and the stream as c_void_p, never as 32-bit ints)."""
-    fn = getattr(load(name), symbol)
-    if fn.argtypes is None:
+    declared (pointers and the stream as c_void_p, never as 32-bit ints),
+    bound at its first call and kept: a wrapper calls this on every
+    launch."""
+    fn = _FNS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        _FNS[(name, symbol)] = fn
     return fn
 
 
 def dtype_code(t) -> int:
     """Element-type code the kernels take (common.cuh DTypeCode)."""
-    import torch
-    if t.dtype == torch.float32:
-        return 0
-    if t.dtype == torch.bfloat16:
-        return 1
-    raise TypeError(f"the CUDA kernels take float32 or bfloat16, not {t.dtype}")
+    code = _DTYPE_CODES.get(t.dtype)
+    if code is None:
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16, not "
+                        f"{t.dtype}")
+    return code
 
 
 def require_cuda(what: str, *tensors) -> None:
-    """A kernel launch needs every operand on one CUDA device."""
+    """A kernel launch needs every operand (None: absent) on one CUDA
+    device."""
     dev = tensors[0].device
-    for t in tensors:
-        if t is None:
-            continue
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"{what}: the CUDA kernel needs every operand on "
-                             f"one CUDA device, got {t.device} and {dev}")
+    if dev.type != "cuda" or any(t is not None and t.device != dev
+                                 for t in tensors[1:]):
+        got = [str(t.device) for t in tensors if t is not None]
+        raise ValueError(f"{what}: the CUDA kernel needs every operand on "
+                         f"one CUDA device, got {', '.join(got)}")
 
 
 def aligned16(*tensors) -> bool:
@@ -146,7 +153,6 @@ def stream_of(t) -> int:
     decode step makes hundreds of launches); the binding is looked up once."""
     global _raw_stream
     if _raw_stream is None:
-        import torch
         _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
             lambda index: torch.cuda.current_stream(index).cuda_stream)
     return _raw_stream(t.get_device())

@@ -8,7 +8,8 @@
 // valid:
 //   PagedRows  page i is the i-th live entry of the block's range of the
 //              block table (compacted into shared memory first), BS the
-//              pool's block size, lo = 0;
+//              pool's block size (compiled in where the launcher knows
+//              it), lo = 0;
 //   DenseRows  page i is the i-th run of DF_STAGE_TOKENS positions of the
 //              block's position range, aligned to DF_STAGE_TOKENS and
 //              clipped to [max(range start, length - window),
@@ -88,23 +89,26 @@ struct DecFold {
   float sm_scale;
 };
 
-// Block tables: the live entries of table entries [e0, e1) of one slot.
+// Block tables: the live entries of table entries [e0, e1) of one slot, in
+// pool blocks of kBS tokens (kBS = 0: the block size BS is read at run
+// time; a compiled size turns the fold's divisions by it into shifts).
+template <int kBS>
 struct PagedRows {
   static constexpr bool kKnown = false;  // warp 0 compacts the live list first
   const int* table;  // the slot's row of the block table
-  int BS, P, len, e0, e1;
+  int BS, len, e0, e1;
   int* ents;         // shared: live entries, then their pool blocks
   int* blks;
   int* nlive;
-  __device__ __forceinline__ int bs() const { return BS; }
-  __device__ __forceinline__ int pages() const { return P; }
+  __device__ __forceinline__ int bs() const { return kBS ? kBS : BS; }
+  __device__ __forceinline__ int pages() const { return df_pages(bs()); }
   // warp 0 compacts the range's live entries, in order
   __device__ __forceinline__ void prepare(int lane) {
     int count = 0;
     for (int c = e0; c < e1; c += 32) {
       const int e = c + lane;
       const int t = e < e1 ? table[e] : -1;
-      const bool live = t >= 0 && e * BS < len;
+      const bool live = t >= 0 && e * bs() < len;
       const unsigned mask = __ballot_sync(0xffffffffu, live);
       if (live) {
         const int at = count + __popc(mask & ((1u << lane) - 1));
@@ -116,10 +120,10 @@ struct PagedRows {
     if (lane == 0) *nlive = count;
   }
   __device__ __forceinline__ int count() const { return *nlive; }
-  __device__ __forceinline__ int64_t row0(int i) const { return (int64_t)blks[i] * BS; }
+  __device__ __forceinline__ int64_t row0(int i) const { return (int64_t)blks[i] * bs(); }
   __device__ __forceinline__ void span(int i, int& lo, int& hi) const {
     lo = 0;
-    hi = min(BS, len - ents[i] * BS);
+    hi = min(bs(), len - ents[i] * bs());
   }
 };
 

@@ -23,7 +23,10 @@
 // (one warp ballot per 32 entries) into a list in shared memory, then keeps
 // DF_STAGES stages of pages in flight with 16-byte cp.async, a stage holding
 // whole K and V pages, max(BS, 32) tokens, only the valid rows of a page
-// copied, and folds each stage with a rescale per page.  The split count
+// copied, and folds each stage with a rescale per page.  The engine's block
+// size (PD_COMPILED_BS) is compiled into the fold, so that its divisions
+// by the block size become shifts; every other block size runs the same
+// fold with the size read at run time.  The split count
 // (kernels/flash_decode.py:paged_splits: two blocks an SM over the (kv head,
 // slot) grid, at least the serving path's one split per 256 positions of
 // the longest slot) spreads the pages over the card; dec_merge_kernel then
@@ -31,6 +34,8 @@
 // launch.  The normalized entry point launches both kernels itself, so one
 // verified fold serves every shape.
 #include "decode_fold.cuh"
+
+constexpr int PD_COMPILED_BS = 16;  // the engine's default pool block size
 
 struct PDParams {
   DecFold f;
@@ -45,7 +50,7 @@ __host__ __device__ inline size_t pd_smem_bytes(int G, int D, int BS, int per, i
   return df_smem_bytes(G, D, BS, esize, (size_t)2 * per * sizeof(int));
 }
 
-template <typename T>
+template <typename T, int kBS>
 __global__ void __launch_bounds__(DF_THREADS) paged_decode_kernel(const PDParams p) {
   extern __shared__ __align__(16) uint8_t pd_smem[];
   __shared__ int nlive_sh;
@@ -53,24 +58,32 @@ __global__ void __launch_bounds__(DF_THREADS) paged_decode_kernel(const PDParams
   const int e0 = z * p.per;
   int* ents = reinterpret_cast<int*>(
       pd_smem + df_smem_bytes(p.f.H / p.f.KV, p.f.D, p.BS, sizeof(T), 0));
-  PagedRows rows{p.tables + (int64_t)b * p.MB, p.BS, df_pages(p.BS), p.lengths[b], e0,
-                 min(p.MB, e0 + p.per), ents, ents + p.per, &nlive_sh};
+  PagedRows<kBS> rows{p.tables + (int64_t)b * p.MB, p.BS, p.lengths[b], e0,
+                      min(p.MB, e0 + p.per), ents, ents + p.per, &nlive_sh};
   dec_fold<T>(p.f, rows, pd_smem, kvh, b, z);
 }
 
-template <typename T>
+template <typename T, int kBS>
 static cudaError_t launch_paged_t(const PDParams& p, int splits, size_t smem, cudaStream_t s) {
   static bool attr = false;
   if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T>,
+    const cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T, kBS>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                DF_SMEM_MAX);
     if (e != cudaSuccess) return e;
     attr = true;
   }
   dim3 grid(p.f.KV, p.f.B, splits);
-  paged_decode_kernel<T><<<grid, DF_THREADS, smem, s>>>(p);
+  paged_decode_kernel<T, kBS><<<grid, DF_THREADS, smem, s>>>(p);
   return cudaGetLastError();
+}
+
+// the serving engine's block size runs a fold with it compiled in
+template <typename T>
+static cudaError_t launch_paged_bs(const PDParams& p, int splits, size_t smem,
+                                   cudaStream_t s) {
+  return p.BS == PD_COMPILED_BS ? launch_paged_t<T, PD_COMPILED_BS>(p, splits, smem, s)
+                                : launch_paged_t<T, 0>(p, splits, smem, s);
 }
 
 static int launch_paged(const PDParams& p, int splits, int dt, void* stream) {
@@ -81,8 +94,8 @@ static int launch_paged(const PDParams& p, int splits, int dt, void* stream) {
   const size_t smem = pd_smem_bytes(p.f.H / p.f.KV, p.f.D, p.BS, p.per, esize);
   if (smem > DF_SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(dt == DT_BF16 ? launch_paged_t<__nv_bfloat16>(p, splits, smem, s)
-                             : launch_paged_t<float>(p, splits, smem, s));
+  return (int)(dt == DT_BF16 ? launch_paged_bs<__nv_bfloat16>(p, splits, smem, s)
+                             : launch_paged_bs<float>(p, splits, smem, s));
 }
 
 extern "C" int repro_paged_decode_partials(const void* q, const void* k_pool,

@@ -136,16 +136,15 @@ def dense_range(S: int, splits: int) -> int:
     return -(-(-(-S // STAGE)) // splits) * STAGE
 
 
-def decode_attention(q, k_cache, v_cache, length, *, window=0,
-                     splits=None):
+def decode_attention(q, k_cache, v_cache, length, *, window=0):
     """q: [B, H, D]; k/v_cache: [B, S, KV, D]; length: [B] valid positions
     (<= S); `window` > 0: only positions >= length - window attend.
-    -> [B, H, D] at q's dtype.  `splits`: the grid's split count, by
-    default `dense_splits` for the device (the plain version for CPU
-    tensors: the TPU kernel's walk, or the split walk when given)."""
+    -> [B, H, D] at q's dtype.  The grid's split count is `dense_splits`
+    for the device (the plain version for CPU tensors: the TPU kernel's
+    walk)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, length,
-                                      window=window, splits=splits)
+                                      window=window)
     build.require_cuda("decode_attention", q, k_cache, v_cache, length)
     B, H, D = q.shape
     _, S, KV, _ = k_cache.shape if k_cache.ndim == 4 else (0,) * 4
@@ -160,9 +159,8 @@ def decode_attention(q, k_cache, v_cache, length, *, window=0,
                          f"{tuple(k_cache.shape)} {k_cache.dtype}, window "
                          f"{window}")
     ln = length.to(torch.int32).contiguous()
-    if splits is None:
-        splits = dense_splits(B, KV, S, _sm_count(q.device.index or 0),
-                              window=window)
+    splits = dense_splits(B, KV, S, _sm_count(q.device.index or 0),
+                          window=window)
     out = torch.empty_like(q)
     f32 = dict(dtype=torch.float32, device=q.device)
     parts = (torch.empty((splits, B, H, D), **f32),

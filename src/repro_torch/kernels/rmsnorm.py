@@ -9,8 +9,8 @@ in registers and reads it once (the register tile picked by D inside the
 C entry point, a looped path for a row that fits no tile), and
 `res_norm_kernel` walks its row in passes; the source's note says what
 bounds them on an H100 and how the design answers it.  The wrappers keep
-the host light: the C entry points are bound once, dtype codes come from a
-dict, and only the copies and casts that do something are made.
+the host light: `build` binds each C entry point once and maps dtype codes
+from a dict, and only the copies and casts that do something are made.
 
 `rmsnorm_plain` / `layernorm_plain` are the kernels' arithmetic in plain
 PyTorch: fp32 row statistics (LayerNorm's mean, then its variance about
@@ -29,26 +29,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.epilogue import LN_EPS, RMS_EPS
 
 _KIND = {"rmsnorm": 1, "layernorm": 2}
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # common.cuh DTypeCode
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P]
 _RES_ARGTYPES = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P]
-_ENTRY = {}   # C entry point -> bound function, bound at first launch
-
-
-def _entry(symbol, argtypes):
-    fn = _ENTRY.get(symbol)
-    if fn is None:
-        fn = _ENTRY[symbol] = build.bind("rmsnorm", symbol, argtypes)
-    return fn
-
-
-def _code(t):
-    code = _DTYPE_CODE.get(t.dtype)
-    if code is None:
-        raise TypeError(f"the norm kernels take float32 or bfloat16, not "
-                        f"{t.dtype}")
-    return code
 
 
 def rmsnorm_plain(x, gamma, *, eps=RMS_EPS):
@@ -86,11 +69,7 @@ def _operands(what, x, gamma, beta):
             or (beta is not None and beta.shape != (D,))):
         raise ValueError(f"{what}: unsupported operands x {tuple(x.shape)}, "
                          f"gamma {tuple(gamma.shape)}")
-    dev = x.device
-    if (dev.type != "cuda" or gamma.device != dev
-            or (beta is not None and beta.device != dev)):
-        raise ValueError(f"{what}: the CUDA kernel needs every operand on "
-                         f"one CUDA device, got {dev} and {gamma.device}")
+    build.require_cuda(what, x, gamma, beta)
     if not x.is_contiguous():
         x = x.contiguous()
     if not gamma.is_contiguous():
@@ -105,11 +84,11 @@ def _launch(kind, x, gamma, beta, eps):
     x, gamma, beta = _operands(kind, x, gamma, beta)
     D = x.shape[-1]
     out = torch.empty_like(x)
-    err = _entry("repro_norm", _ARGTYPES)(
+    err = build.bind("rmsnorm", "repro_norm", _ARGTYPES)(
         x.data_ptr(), gamma.data_ptr(),
         None if beta is None else beta.data_ptr(), out.data_ptr(),
-        x.numel() // D, D, _code(x), _code(gamma), _KIND[kind], eps,
-        build.stream_of(x))
+        x.numel() // D, D, build.dtype_code(x), build.dtype_code(gamma),
+        _KIND[kind], eps, build.stream_of(x))
     if err:
         build.check(err, f"{kind} launch")
     return out
@@ -143,11 +122,12 @@ def _launch_residual(kind, x, y, gamma, beta, eps):
         y = y.contiguous()
     D = x.shape[-1]
     h, r = torch.empty_like(x), torch.empty_like(x)
-    err = _entry("repro_residual_norm", _RES_ARGTYPES)(
+    err = build.bind("rmsnorm", "repro_residual_norm", _RES_ARGTYPES)(
         x.data_ptr(), y.data_ptr(), gamma.data_ptr(),
         None if beta is None else beta.data_ptr(), h.data_ptr(),
-        r.data_ptr(), x.numel() // D, D, _code(x), _code(y), _code(gamma),
-        _KIND[kind], eps, build.stream_of(x))
+        r.data_ptr(), x.numel() // D, D, build.dtype_code(x),
+        build.dtype_code(y), build.dtype_code(gamma), _KIND[kind], eps,
+        build.stream_of(x))
     if err:
         build.check(err, f"{what} launch")
     return h, r
