@@ -11,10 +11,12 @@ non-zero):
   3. kernels  each hand-written kernel against its plain PyTorch version on
               the card, in bf16, at the serving shapes of GPT-J / GPT3-XL
               (MHA), phi4-mini (SwiGLU, RMSNorm, GQA 24 / 8), hymba-1.5b
-              (SSD 64 heads x 64 x 16, residual RMSNorm at d_model 1600,
-              flash attention at 25 / 5 x 64), mamba2-2.7b (SSD 80 heads x
-              64 x 128), ViT-B and ViT-H (bidirectional flash attention,
-              197 tokens at 12 x 64, 257 at 16 x 80), a causal chunk with a
+              (SSD 64 heads x 64 x 16, also with fp32 operands; residual
+              RMSNorm at d_model 1600, also cold in L2, and its other dtype
+              pairs and looped path; flash attention at 25 / 5 x 64),
+              mamba2-2.7b (SSD 80 heads x 64 x 128, also fp32), ViT-B and
+              ViT-H (bidirectional flash attention, 197 tokens at 12 x 64,
+              257 at 16 x 80), a causal chunk with a
               query offset, and gemma3-27b (flash attention with a 1024 window;
               dense decode over 1024-slot rings at GQA 32 / 16 and hymba's
               25 / 5, and over a linear 2048 cache with the window, each
@@ -49,8 +51,10 @@ non-zero):
               the residual RMSNorm once per hymba layer per prefill pass
               and decode step), no leaked blocks; the device's busy share
               of a decode step and its largest kernels and host ops
-              (torch.profiler); then one prompt teacher-forced through the
-              fused and the unfused kernel paths, final-position logits
+              (torch.profiler), and for hymba and mamba2 of one 512-token
+              prefill pass with the SSD kernels' share; then one prompt
+              teacher-forced through the fused and the unfused kernel
+              paths, final-position logits
               held to the plain (`ref`) path in bf16 and in fp32;
   6. witness  mamba2 at full width cut to 8 layers, where a random-init
               stack barely amplifies rounding: the kernel paths held to
@@ -168,6 +172,22 @@ def device_ms(fns, iters=20):
         if us > 0:
             return us / 1e3 / iters
     return None
+
+
+def device_kernels(fn, iters=20):
+    """{kernel name: mean device ms a call} of `fn` over a torch.profiler
+    trace of `iters` calls: which kernels one call launches and what each
+    takes."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: getattr(ev, "self_device_time_total", 0.0) / 1e3 / iters
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def rel_err(got, want):
@@ -485,12 +505,30 @@ def check_norm_paths(g):
     return results
 
 
+# the residual norm kernel's other dtype pairs and its looped path, checked
+# against the plain version only: label, R, D, x dtype, y dtype, gamma
+# dtype, elements between the buffers' start and the first row
+RES_NORM_PATHS = (
+    ("tile fp32 x, fp32 y [512, 1600]", 512, 1600, F32, F32, F32, 0),
+    ("tile bf16 x, bf16 y, fp32 gamma [4, 1600]", 4, 1600, BF16, BF16, F32,
+     0),
+    ("looped: bf16 x, fp32 y [4, 1600]", 4, 1600, BF16, F32, BF16, 0),
+    ("looped: fp32 x, bf16 y [512, 1600]", 512, 1600, F32, BF16, F32, 0),
+    ("looped: D % 8 != 0 [64, 1601]", 64, 1601, BF16, BF16, BF16, 0),
+    ("looped: rows 2 bytes off 16 [4, 1600]", 4, 1600, BF16, BF16, BF16, 1),
+    ("looped: wider than a tile [4, 20480]", 4, 20480, BF16, BF16, BF16, 0),
+)
+
+
 def check_residual_norms(rows):
     """The residual add + norm at hymba's width, decode batch and a
     512-token prefill: h against the plain version, r (one rounding of the
     fp32 sum) exactly; yardstick F.rms_norm(x + y) / F.layer_norm(x + y),
     with the wrapper and in device time (the add and the norm: two
-    kernels)."""
+    kernels).  Also the kernel's device time with its operands cold in L2
+    (`cold_device_ms`: calls rotate over as many x, y and gamma copies as
+    reach L2_ROTATE_BYTES), as a decode step finds x and gamma after the
+    layer's weights have streamed through L2."""
     from repro_torch.kernels import rmsnorm as nm
     F = torch.nn.functional
     dev = torch.device(DEVICE)
@@ -505,18 +543,21 @@ def check_residual_norms(rows):
                  ).bfloat16()
             y = torch.randn((R, D), generator=g, device=dev).bfloat16()
             if name == "residual_rmsnorm":
-                fn = lambda: nm.residual_rmsnorm(x, y, gam, eps=1e-6)
+                call = lambda x, y, gam, bet: nm.residual_rmsnorm(
+                    x, y, gam, eps=1e-6)
                 plain_fn = lambda: nm.residual_rmsnorm_plain(x, y, gam,
                                                              eps=1e-6)
                 lib_fn = lambda: F.rms_norm(x + y, (D,), gam, eps=1e-6)
                 vec_bytes = D * 2
             else:
-                fn = lambda: nm.residual_layernorm(x, y, gam, bet, eps=1e-5)
+                call = lambda x, y, gam, bet: nm.residual_layernorm(
+                    x, y, gam, bet, eps=1e-5)
                 plain_fn = lambda: nm.residual_layernorm_plain(
                     x, y, gam, bet, eps=1e-5)
                 lib_fn = lambda: F.layer_norm(x + y, (D,), gam, bet,
                                               eps=1e-5)
                 vec_bytes = 2 * D * 2
+            fn = lambda: call(x, y, gam, bet)
             h, r = fn()
             torch.cuda.synchronize()
             ph, pr = plain_fn()
@@ -524,69 +565,127 @@ def check_residual_norms(rows):
             if not torch.equal(r, pr):
                 raise AssertionError(f"{name} [{R}, {D}]: the stored "
                                      f"residual differs from x + y")
+            nbytes = 4 * R * D * 2 + vec_bytes
+            copies = -(-L2_ROTATE_BYTES // (2 * R * D * 2 + 2 * D * 2))
+            cold = [(x.clone(), y.clone(), gam.clone(), bet.clone())
+                    for _ in range(copies)]
             row = _row(f"[{R}, {D}]", err, rel, NORM_TOL, time_ms(fn),
                        time_ms(plain_fn, iters=10), time_ms(lib_fn),
-                       4 * R * D * 2 + vec_bytes, 6 * R * D)
+                       nbytes, 6 * R * D)
             row.update(device_ms=device_ms([fn]),
-                       library_device_ms=device_ms([lib_fn]), template=None)
+                       library_device_ms=device_ms([lib_fn]), template=None,
+                       cold_device_ms=device_ms(
+                           [lambda o=o: call(*o) for o in cold]),
+                       cold_copies=copies)
+            del cold
             _report(name, row, "F." + ("rms_norm" if name.endswith("rmsnorm")
                                        else "layer_norm") + "(x + y)")
+            log(f"    operands cold in L2 ({copies} copies): kernel "
+                f"{_ms(row['cold_device_ms'])}")
             results.append(row)
         rows[name] = results
+    rows["residual_norm_paths"] = check_residual_norm_paths(g)
 
 
-def _ssd_inputs(g, dev, Bt, S, H, P, N):
-    """SSD operands as the block makes them: bf16 x / B / C after the conv's
-    silu, dt = softplus(.) fp32, A = -U(1, 16), D = 1."""
+def check_residual_norm_paths(g):
+    """Each RES_NORM_PATHS case through both residual norm wrappers against
+    the plain version: h within NORM_TOL and r bit-equal, on the dtype pairs
+    the timed rows do not take and on rows that fit no register tile (the
+    looped path of the same kernel)."""
+    from repro_torch.kernels import rmsnorm as nm
+    dev = torch.device(DEVICE)
+    results = []
+    for label, R, D, xdt, ydt, gdt, off in RES_NORM_PATHS:
+        gam = (1 + 0.1 * torch.randn((D,), generator=g, device=dev)).to(gdt)
+        bet = (0.1 * torch.randn((D,), generator=g, device=dev)).to(gdt)
+        bufs = [torch.randn((off + R * D,), generator=g, device=dev)
+                * s + 0.3 * s for s in (2, 1)]
+        x = bufs[0].to(xdt)[off:].view(R, D)
+        y = bufs[1].to(ydt)[off:].view(R, D)
+        for name, got, want in (
+                ("residual_rmsnorm", nm.residual_rmsnorm(x, y, gam, eps=1e-6),
+                 nm.residual_rmsnorm_plain(x, y, gam, eps=1e-6)),
+                ("residual_layernorm",
+                 nm.residual_layernorm(x, y, gam, bet, eps=1e-5),
+                 nm.residual_layernorm_plain(x, y, gam, bet, eps=1e-5))):
+            err, rel = rel_err(got[0], want[0])
+            same_r = torch.equal(got[1], want[1])
+            log(f"  {name:18s} {label:42s} rel err h {rel:.2e} (tol "
+                f"{NORM_TOL:.0e}), r {'bit-equal' if same_r else 'DIFFERS'}")
+            if not (rel <= NORM_TOL and same_r):
+                raise AssertionError(f"{name} {label}: rel err {rel}, r "
+                                     f"bit-equal {same_r}")
+            results.append(dict(name=name, case=label, max_abs_err=err,
+                                rel_err=rel, tol=NORM_TOL))
+    return results
+
+
+def _ssd_inputs(g, dev, Bt, S, H, P, N, dtype=torch.bfloat16):
+    """SSD operands as the block makes them: x / B / C after the conv's
+    silu (bf16 on the served paths), dt = softplus(.) fp32, A = -U(1, 16),
+    D = 1."""
     F = torch.nn.functional
     x = F.silu(torch.randn((Bt, S, H, P), generator=g, device=dev)
-               ).bfloat16()
+               ).to(dtype)
     dt = F.softplus(torch.randn((Bt, S, H), generator=g, device=dev) - 4)
     A = -(1 + 15 * torch.rand((H,), generator=g, device=dev))
     B, C = (F.silu(torch.randn((Bt, S, N), generator=g, device=dev)
-                   ).bfloat16() for _ in range(2))
+                   ).to(dtype) for _ in range(2))
     return x, dt, A, B, C, torch.ones((H,), device=dev)
+
+
+SSD_SHAPES = (("ssd_multihead", (64, 64, 16)), ("ssd", (80, 64, 128)))
+# (Bt, S, x / B / C dtype): one prompt of 512 and of 137 (a prime length:
+# the tail chunk is padded), the decode profile's admission group of four
+# 200-token prompts, and fp32 operands (the fp32 policy's path) held to
+# the fp32 tolerance in y too
+SSD_CASES = ((1, 512, BF16), (1, 137, BF16), (4, 200, BF16), (1, 137, F32),
+             (1, 512, F32))
 
 
 def check_ssd(rows):
     """The chunked SSD scan at hymba's shape (64 padded heads x 64 x 16, the
     TPU's ssd_multihead) and mamba2's (80 heads x 64 x 128, the TPU's
-    per-head ssd), one prompt of 512 and of 137 (a prime length: the tail
-    chunk is padded), and the decode profile's admission group of four
-    200-token prompts.  y against the plain version at the bf16 tolerance,
-    h_final at the fp32 one.  No single PyTorch call computes the scan.
-    Bound: the bytes the function must move, or the sequential
-    recurrence's 4 S H P N operations at the bf16 rate.  Device time from
-    torch.profiler kernel events beside the time with the wrapper."""
+    per-head ssd) in SSD_CASES.  y against the plain version at the bf16
+    tolerance (fp32 operands: at the fp32 one), h_final at the fp32 one.
+    No single PyTorch call computes the scan.  Bound: the bytes the function
+    must move, or the sequential recurrence's 4 S H P N operations at the
+    bf16 rate.  Device time: every kernel of one call (torch.profiler
+    kernel events), beside the time with the wrapper; each kernel's share
+    in `device_kernels`."""
     from repro_torch.kernels import ssd as sd
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(7)
-    for name, (H, P, N) in (("ssd_multihead", (64, 64, 16)),
-                            ("ssd", (80, 64, 128))):
+    for name, (H, P, N) in SSD_SHAPES:
         results = []
-        for Bt, S in ((1, 512), (1, 137), (4, 200)):
-            ops_in = _ssd_inputs(g, dev, Bt, S, H, P, N)
+        for Bt, S, dtype in SSD_CASES:
+            ops_in = _ssd_inputs(g, dev, Bt, S, H, P, N, dtype)
             y, h = sd.ssd(*ops_in)
             torch.cuda.synchronize()
             py, ph = sd.ssd_plain(*ops_in)
             err, rel = rel_err(y, py)
             h_rel = rel_err(h, ph)[1]
-            T = Bt * S
-            nbytes = (2 * T * H * P * 2 + T * H * 4 + 2 * T * N * 2
+            y_tol = SSD_TOL["y"] if dtype == BF16 else SSD_TOL["h"]
+            T, eb = Bt * S, dtype.itemsize
+            nbytes = (2 * T * H * P * eb + T * H * 4 + 2 * T * N * eb
                       + 2 * H * 4 + Bt * H * P * N * 4)
-            r = _row(f"B={Bt} S={S} H={H} P={P} N={N}", err, rel,
-                     SSD_TOL["y"], time_ms(lambda: sd.ssd(*ops_in)),
+            fn = lambda: sd.ssd(*ops_in)
+            case = (f"B={Bt} S={S} H={H} P={P} N={N}"
+                    + ("" if dtype == BF16 else " fp32"))
+            r = _row(case, err, rel, y_tol, time_ms(fn),
                      time_ms(lambda: sd.ssd_plain(*ops_in), iters=5), None,
                      nbytes, 4 * T * H * P * N)
-            r.update(h_rel_err=h_rel, device_ms=device_ms(
-                [lambda: sd.ssd(*ops_in)]), library_device_ms=None,
-                template=None)
-            log(f"  {name} {r['case']:26s} rel err y {rel:.2e} (tol "
-                f"{SSD_TOL['y']:.0e}) h {h_rel:.2e} (tol {SSD_TOL['h']:.0e}) "
+            r.update(h_rel_err=h_rel, device_ms=device_ms([fn]),
+                     library_device_ms=None, template=None,
+                     device_kernels=device_kernels(fn))
+            log(f"  {name} {r['case']:31s} rel err y {rel:.2e} (tol "
+                f"{y_tol:.0e}) h {h_rel:.2e} (tol {SSD_TOL['h']:.0e}) "
                 f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
                 f"library none bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']}) | device: kernel {_ms(r['device_ms'])}")
-            if not (rel <= SSD_TOL["y"] and h_rel <= SSD_TOL["h"]):
+                f"({r['bound_by']}) | device: kernel {_ms(r['device_ms'])} "
+                + " ".join(f"[{k.split('<')[0].split('(')[0]} {v:.4f}]"
+                           for k, v in r["device_kernels"].items()))
+            if not (rel <= y_tol and h_rel <= SSD_TOL["h"]):
                 raise AssertionError(f"{name} {r['case']}: rel err y {rel}, "
                                      f"h {h_rel}")
             results.append(r)
@@ -1369,13 +1468,75 @@ def profile_decode(eng, cfg, rng, steps=4, prompt_len=200):
     return out
 
 
+def profile_prefill(cfg, params, rng, *, prompt_len=512, max_seq=512):
+    """Where a prefill pass's time goes: one `prompt_len`-token prompt
+    through the fused prefill stack and the logits head (`teacher_forced`,
+    `auto` mode), once to warm up, once timed on the host clock, once more
+    under torch.profiler.  Reports the device's busy time (kernel time)
+    against the pass, the device events, the SSD kernels' share (every
+    kernel of `csrc/ssd.cu`), the GEMM templates' share and the largest
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, prompt_len),
+                                       dtype=np.int32), device=DEVICE)
+    run = lambda: teacher_forced(cfg, params, prompt, mode="auto",
+                                 fused=True, max_seq=max_seq)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    pass_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev = {ev.key: (getattr(ev, "self_device_time_total", 0.0) / 1e3,
+                    ev.count)
+           for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA}
+    out = {"prompt_len": prompt_len, "pass_ms": pass_ms}
+    if not dev:
+        log(f"  [{cfg.name} prefill profile, {prompt_len} tokens] "
+            f"{pass_ms:.2f} ms; the profiler saw no kernels: device time "
+            f"not measured")
+        return out
+    busy = sum(ms for ms, _ in dev.values())
+
+    def _share(pred):
+        hits = [v for k, v in dev.items() if pred(k)]
+        return (sum(ms for ms, _ in hits), sum(n for _, n in hits))
+
+    shares = {"ssd": _share(lambda k: k.startswith("void ssd_")
+                            or k.startswith("ssd_")),
+              "gemm": _share(lambda k: any(g in k for g in GEMM_KERNELS)),
+              "flash": _share(lambda k: "flash" in k)}
+    events = sum(n for _, n in dev.values())
+    log(f"  [{cfg.name} prefill profile, {prompt_len} tokens] {pass_ms:.2f} "
+        f"ms unprofiled, device busy {busy:.3f} ms ({busy / pass_ms:.1%}); "
+        f"{events} device events")
+    for key, (ms, n) in shares.items():
+        log(f"    {key} {ms:.3f} ms ({ms / busy:.1%} of busy) in {n} kernel "
+            f"launches")
+    top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (ms, n) in top:
+        log(f"    device {ms:8.3f} ms  x{n:<5d} {name[:80]}")
+    out.update(device_busy_ms=busy, busy_share=busy / pass_ms,
+               device_events=events,
+               shares={k: {"ms": ms, "launches": n, "share_of_busy": ms / busy}
+                       for k, (ms, n) in shares.items()},
+               device_top=[{"kernel": k, "ms": ms, "launches": n}
+                           for k, (ms, n) in top])
+    return out
+
+
 SERVE_LENGTHS = (300, 40, 120, 60, 20, 90, 200, 150)
 
 
 def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
-                one_split=True):
+                one_split=True, prefill_profile=False):
     """Serve len(lengths) requests of 32 new tokens (uids 1 and 6 sampled)
-    through InferenceEngine at full width, then profile decode steps and
+    through InferenceEngine at full width, then profile decode steps
+    (and, `prefill_profile`, one prefill pass of max_seq tokens) and
     teacher-force one prompt through the fused kernel path, the unfused
     kernel path and the plain path.  `one_split`: see `path_kernels`."""
     from repro_torch.core.precision import BF16, FP32
@@ -1436,6 +1597,10 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
                                                      prompt_len=300)}
     del eng
     torch.cuda.empty_cache()
+    if prefill_profile:
+        report["prefill_profile"] = profile_prefill(
+            cfg, params, np.random.default_rng(1), prompt_len=max_seq,
+            max_seq=max_seq)
 
     # teacher-forced: one prompt through the two kernel paths, held to the
     # plain bf16 path (`ref` mode) and the plain fp32 path; the gap between
@@ -1482,8 +1647,10 @@ def phase_serve():
 
     from repro_torch.configs import (GEMMA3_27B, GPT_J, HYMBA_1_5B,
                                      MAMBA2_2_7B, PHI4_MINI)
-    out = {cfg.name: serve_model(cfg, seed=seed) for seed, cfg in enumerate(
-        (GPT_J, PHI4_MINI, HYMBA_1_5B, MAMBA2_2_7B))}
+    out = {cfg.name: serve_model(cfg, seed=seed,
+                                 prefill_profile=cfg.has_ssm)
+           for seed, cfg in enumerate((GPT_J, PHI4_MINI, HYMBA_1_5B,
+                                       MAMBA2_2_7B))}
     # two prompts prefill past the window (the ring is rolled at
     # admission); the 1010 prompt crosses position 1024 while it decodes
     # (the ring wraps in place)

@@ -4,11 +4,12 @@ a residual add.
 Replace the TPU kernels `src/repro/kernels/rmsnorm.py:rmsnorm`
 (`_rms_kernel`), `:layernorm` (`_ln_kernel`), `:residual_rmsnorm`
 (`_res_rms_kernel`) and `:residual_layernorm` (`_res_ln_kernel`).  All
-come from one CUDA source, `csrc/rmsnorm.cu`: `norm_kernel` holds each row
-in registers and reads it once (the register tile picked by D inside the
-C entry point, a looped path for a row that fits no tile), and
-`res_norm_kernel` walks its row in passes; the source's note says what
-bounds them on an H100 and how the design answers it.  The wrappers keep
+come from one CUDA source, `csrc/rmsnorm.cu`: `norm_kernel` and
+`res_norm_kernel` share one register tile that holds each row and reads it
+once (picked by D inside the C entry points, a looped path for a row that
+fits no tile); the residual form rounds r = x + y in the registers, stores
+it and normalizes what it stored.  The source's note says what bounds them
+on an H100 and how the design answers it.  The wrappers keep
 the host light: `build` binds each C entry point once and maps dtype codes
 from a dict, and only the copies and casts that do something are made.
 

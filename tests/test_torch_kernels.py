@@ -741,7 +741,7 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "gemm_probe.py",
-              ROOT / "attn_probe.py"]
+              ROOT / "attn_probe.py", ROOT / "ssm_probe.py"]
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):

@@ -1,10 +1,16 @@
 """PyTorch port, the Mamba2 SSD path and the residual norms, on the CPU:
 
-  * `ssd_plain` (what the CUDA kernel `csrc/ssd.cu` computes, and what the
+  * `ssd_plain` (what the CUDA kernels of `csrc/ssd.cu` compute, stage by
+    stage: chunk states, the scan over chunks, the outputs; and what the
     wrapper runs for CPU tensors) against the reference's sequential
     `ssd_ref`, its `ssd_chunked_ref`, and BOTH Pallas kernels in interpret
     mode (`ssd_multihead`, `ssd`) at S in {64, 128, 256}; at ragged S (137,
-    and 5 < one chunk) against `ssd_ref`, y and h_final both;
+    and 5 < one chunk) against `ssd_ref`, y and h_final both, all at
+    Bt = 2; the scan's state entering each chunk against `ssd_ref` run to
+    that chunk's start;
+  * `ssd_emulate` (the kernels' tensor-core operands: each fp32 operand
+    split into bf16 hi + lo) against `ssd_plain` at the kernels' head dim,
+    within the tolerances `chip_smoke.py` holds the kernels to;
   * `ops.ssd` dispatch (`ref` mode repeats the reference's chunk choice),
     `ssd_decode`, the conv steps and the gated RMSNorm with padded heads;
   * the residual norms' plain versions against the Pallas kernels in
@@ -126,6 +132,49 @@ def test_ssd_plain_ragged_vs_sequential(S):
     assert y.shape == t[0].shape
     np.testing.assert_allclose(_np(y), _np(want_y), **F32)
     np.testing.assert_allclose(_np(h), _np(want_h), **F32)
+
+
+@pytest.mark.parametrize("S", [137, 256])
+def test_ssd_scan_states_vs_sequential(S):
+    """The scan stage alone: the state entering each chunk (and h_final)
+    against the sequential recurrence run up to that chunk's start."""
+    arrs = _ssd_inputs(S, seed=11 + S)
+    _, t = _both(arrs)
+    _, _, _, h_in, h = tssd.ssd_stages(*t[:5])
+    L = tssd.CHUNK
+    assert h_in.shape[1] == -(-S // L)
+    np.testing.assert_array_equal(_np(h_in[:, 0]), 0)
+    for c in range(1, h_in.shape[1]):
+        j, _ = _both(tuple(a[:, :c * L] if a.ndim > 1 else a for a in arrs))
+        np.testing.assert_allclose(_np(h_in[:, c]), _np(jref.ssd_ref(*j)[1]),
+                                   **F32)
+    np.testing.assert_allclose(_np(h), _np(jref.ssd_ref(*_both(arrs)[0])[1]),
+                               **F32)
+
+
+# the kernels' head dim; hymba's state width and mamba2's, few heads
+@pytest.mark.parametrize("N", [16, 128])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_ssd_emulate_vs_plain(dtype, N):
+    """The kernels' split operands move y and h_final by ~2^-16 of a term:
+    held to `ssd_plain` within chip_smoke.py's SSD tolerances (max|d| /
+    max|plain|: y 1e-2 with bf16 operands — y itself is stored in bf16 —
+    and 1e-3 with fp32 ones; h_final 1e-3)."""
+    _, t = _both(_ssd_inputs(137, Bt=2, H=3, P=tssd.HEAD_DIM, N=N,
+                             seed=N), dtype)
+    y, h = tssd.ssd_plain(*t)
+    ye, he = tssd.ssd_emulate(*t)
+    y_tol = 1e-2 if dtype == "bf16" else 1e-3
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    assert ye.dtype == y.dtype and he.dtype == torch.float32
+    assert rel(ye, y) <= y_tol and rel(he, h) <= 1e-3
+    # the split is not a no-op: single bf16 parts would round x * w, the
+    # decay-weighted G and the state at 2^-9
+    assert 0 < rel(he, h) < 1e-4
 
 
 def test_ref_ports_match_reference_oracles():
