@@ -15,8 +15,11 @@ non-zero):
               RMSNorm at d_model 1600, also cold in L2, and its other dtype
               pairs and looped path; flash attention at 25 / 5 x 64),
               mamba2-2.7b (SSD 80 heads x 64 x 128, also fp32), ViT-B and
-              ViT-H (bidirectional flash attention, 197 tokens at 12 x 64,
-              257 at 16 x 80), a causal chunk with a
+              ViT-H (bidirectional flash attention, 197 tokens at 12 x 64
+              and 16 x 80, also 257 at 16 x 80; the GEMMs of a batch-8
+              pass at ViT-B / L / H widths and the 1000-class head on
+              both GEMM templates; LayerNorm at 768 / 1024 / 1280, and
+              2048 for GPT3-XL's encode pooling), a causal chunk with a
               query offset, and gemma3-27b (flash attention with a 1024 window;
               dense decode over 1024-slot rings at GQA 32 / 16 and hymba's
               25 / 5, and over a linear 2048 cache with the window, each
@@ -38,9 +41,11 @@ non-zero):
   4. sampling threefry Gumbel noise drawn on the card against the same draw
               on the CPU: bits, uniforms and noise bit-equal, sampled
               tokens identical;
-  5. serve    GPT-J, phi4-mini, hymba-1.5b, then mamba2-2.7b, at full
-              width and depth (random seeded bf16 weights; hymba and mamba2
-              prefill at exact prompt lengths) behind
+  5. serve    GPT-J, phi4-mini, hymba-1.5b, mamba2-2.7b, then GPT3-XL
+              with 4 EncodeTasks (pooling last and mean) interleaved with
+              its generate requests, at full width and depth (random seeded
+              bf16 weights; hymba and mamba2 prefill at exact prompt
+              lengths) behind
               InferenceEngine(batch_size=4, max_seq=512, block_size=16),
               then gemma3-27b (62 layers, 52 of them local) at max_seq
               2048, where its local layers keep ring caches, and hymba cut
@@ -49,19 +54,28 @@ non-zero):
               kernel once per ring layer per decode step and never in
               prefill, the SSD kernel once per SSM layer per prefill pass,
               the residual RMSNorm once per hymba layer per prefill pass
-              and decode step), no leaked blocks; the device's busy share
+              and decode step, flash once per attention layer per prefill
+              or encode pass, the wgmma GEMMs once per prefill or encode
+              pass, LayerNorm once per encode batch), no leaked blocks,
+              each embedding held to a direct forward_encode on the plain
+              path in bf16 and fp32; the device's busy share
               of a decode step and its largest kernels and host ops
               (torch.profiler), and for hymba and mamba2 of one 512-token
               prefill pass with the SSD kernels' share; then one prompt
               teacher-forced through the fused and the unfused kernel
               paths, final-position logits
               held to the plain (`ref`) path in bf16 and in fp32;
-  6. witness  mamba2 at full width cut to 8 layers, where a random-init
+  6. vit      ViT-B, ViT-L and ViT-H at full width and depth, a batch of 8
+              seeded images: the fused and unfused kernel paths with exact
+              launch counts, logits held to the plain path in bf16 and
+              fp32; images/s, the device's busy share of a pass and its
+              largest kernels;
+  7. witness  mamba2 at full width cut to 8 layers, where a random-init
               stack barely amplifies rounding: the kernel paths held to
               plain fp32 within 1.5 x the bf16 floor with no absolute
               minimum, and the fused path with the SSD kernel swapped for
               its plain version, to show the SSD kernel's share of the gap;
-  7. ring     gemma3 at full width cut to one period (5 local, 1 global):
+  8. ring     gemma3 at full width cut to one period (5 local, 1 global):
               a 1000-token prompt and 40 teacher-forced decode steps across
               position 1024, where the rings wrap; the kernel paths' logits
               at every step held to plain bf16 and fp32, and plain fp32
@@ -175,9 +189,9 @@ def device_ms(fns, iters=20):
 
 
 def device_kernels(fn, iters=20):
-    """{kernel name: mean device ms a call} of `fn` over a torch.profiler
-    trace of `iters` calls: which kernels one call launches and what each
-    takes."""
+    """{kernel name: (mean device ms a call, launches a call)} of `fn` over
+    a torch.profiler trace of `iters` calls after one warm-up call: which
+    kernels one call launches and what each takes."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -185,7 +199,8 @@ def device_kernels(fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {ev.key: getattr(ev, "self_device_time_total", 0.0) / 1e3 / iters
+    return {ev.key: (getattr(ev, "self_device_time_total", 0.0) / 1e3 / iters,
+                     ev.count // iters)
             for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA}
 
@@ -319,6 +334,35 @@ def _gemm_cases():
              torch.float32)]
     out += [(f"gemma3 q M={M}", M, 5376, 4096, "rmsnorm", "none", False,
              torch.bfloat16) for M in (9, 17, 1100)]
+    return out + _vit_gemm_cases()
+
+
+def _vit_gemm_cases():
+    """The ViT pass at batch 8: the patchify GEMM (M = 8 x 196 pixels
+    rows, K = 768, no prologue), each width's q projection (LN prologue),
+    MLP up (LN + i_gelu) and down (residual) at M = 8 x 197; and the
+    classifier head, N = 1000 (not a multiple of 16), fp32 out with its
+    bias, on both templates (M = 8 streams, M = 32 runs wgmma: 31 x 8 + 8
+    ragged columns in its last tile), with the final LayerNorm folded in
+    (fused pass) and without (unfused)."""
+    out = []
+    for name, E in (("vit-b", 768), ("vit-l", 1024), ("vit-h", 1280)):
+        M = 8 * 197
+        if name != "vit-l":
+            out.append((f"{name} patchify M=1568", 8 * 196, 768, E, "none",
+                        "none", False, torch.bfloat16))
+        out += [(f"{name} q M={M}", M, E, E, "layernorm", "none", False,
+                 torch.bfloat16),
+                (f"{name} up M={M}", M, E, 4 * E, "layernorm", "i_gelu",
+                 False, torch.bfloat16),
+                (f"{name} down M={M}", M, 4 * E, E, "none", "none", True,
+                 torch.bfloat16)]
+    for E, M, norm in ((768, 8, "layernorm"), (1280, 8, "layernorm"),
+                       (1280, 8, "none"), (1280, 32, "layernorm"),
+                       (1280, 32, "none")):
+        tag = " LN" if norm == "layernorm" else ""
+        out.append((f"head E={E} M={M} N=1000{tag} +bias", M, E, 1000, norm,
+                    "none", False, torch.float32, True))
     return out
 
 
@@ -331,11 +375,13 @@ def _weights(g, dev, K, N, nb, cold):
              for _ in range(nb)] for _ in range(copies)]
 
 
-def _gemm_row(name, label, M, K, N, norm, act, has_res, od, *, gated, g):
+def _gemm_row(name, label, M, K, N, norm, act, has_res, od, has_bias=False,
+              *, gated, g):
     """One fused GEMM case: error against the plain version, with-wrapper
     and device times of the kernel and of one torch.matmul over the same
     weights (both weights side by side when gated), the bound and the
-    template the planner took."""
+    template the planner took.  `has_bias`: an fp32-accumulated bias in
+    the epilogue (the library yardstick is then torch.addmm)."""
     from repro_torch.kernels import matmul as mm
     dev = torch.device(DEVICE)
     nb = 2 if gated else 1
@@ -346,6 +392,8 @@ def _gemm_row(name, label, M, K, N, norm, act, has_res, od, *, gated, g):
     bet = (0.1 * torch.randn((K,), generator=g, device=dev)).bfloat16()
     res = (torch.randn((M, N), generator=g, device=dev).bfloat16()
            if has_res else None)
+    bias = ((0.1 * torch.randn((N,), generator=g, device=dev)).bfloat16()
+            if has_bias else None)
     kw = dict(norm=norm, residual=res, out_dtype=od,
               eps=1e-6 if gated else 1e-5)
     if norm != "none":
@@ -357,11 +405,13 @@ def _gemm_row(name, label, M, K, N, norm, act, has_res, od, *, gated, g):
         plain = lambda: mm.matmul_swiglu_plain(a, ws[0][0], ws[0][1], **kw)
         wl = [torch.cat(w, 1) for w in ws]
     else:
-        kw["activation"] = act
+        kw.update(activation=act, bias=bias)
         kern = [lambda w=w: mm.fused_matmul(a, w[0], **kw) for w in ws]
         plain = lambda: mm.matmul_plain(a, ws[0][0], **kw)
         wl = [w[0] for w in ws]
     lib = [lambda w=w: torch.matmul(a, w) for w in wl]
+    if has_bias:
+        lib = [lambda w=w: torch.addmm(bias, a, w) for w in wl]
     wrapper = mm.matmul_swiglu if gated else mm.fused_matmul
     before = dict(wrapper.launches_by)
     got = kern[0]()
@@ -372,14 +422,14 @@ def _gemm_row(name, label, M, K, N, norm, act, has_res, od, *, gated, g):
     tol = GEMM_TOL["fp32" if od == torch.float32 else "bf16"]
     nbytes = (M * K + nb * K * N) * 2 + M * N * (4 if od == torch.float32
                                                  else 2)
-    nbytes += (M * N * 2 if has_res else 0) + (
+    nbytes += (M * N * 2 if has_res else 0) + (N * 2 if has_bias else 0) + (
         {"none": 0, "rmsnorm": K * 2, "layernorm": 2 * K * 2}[norm])
     r = _row(label, err, rel, tol, time_ms(_rotate(kern)),
              time_ms(plain, iters=5), time_ms(_rotate(lib), iters=10),
              nbytes, 2 * nb * M * N * K)
     r.update(device_ms=device_ms(kern), library_device_ms=device_ms(lib),
              template=template, weight_copies=len(ws))
-    _report(name, r, "torch.matmul")
+    _report(name, r, "torch.addmm" if has_bias else "torch.matmul")
     del ws, wl, kern, lib
     return r
 
@@ -415,6 +465,11 @@ def check_swiglu(rows):
 
 NORM_SHAPES = ((4, 3072), (512, 3072), (4, 2560), (512, 2560), (4, 1600),
                (512, 1600))   # phi4 / gemma3-like, mamba2, hymba widths
+# LayerNorm alone: the unfused ViT pass's norms (8 x 197 rows at ViT-B /
+# L / H widths; the final norm of the cls rows), and GPT3-XL's encode
+# pooling norm (a `last` batch's rows, a `mean` batch's 256-token bucket)
+LAYERNORM_SHAPES = ((1576, 768), (1576, 1024), (1576, 1280), (8, 1280),
+                    (2, 2048), (256, 2048))
 # the norm kernel's other instantiations and its looped path, checked
 # against the plain version only: label, R, D, x dtype, gamma dtype,
 # elements between the buffer's start and the first row
@@ -433,16 +488,19 @@ NORM_PATHS = (
 
 def check_norms(rows):
     """RMSNorm and LayerNorm rows at phi4-mini's width (3072), mamba2's
-    (2560) and hymba's (1600), at decode batch and a 512-token prefill;
-    yardsticks F.rms_norm / F.layer_norm, with the wrapper, in device time
-    and in host time a call (`host_ms`)."""
+    (2560) and hymba's (1600), at decode batch and a 512-token prefill,
+    and LayerNorm at LAYERNORM_SHAPES; yardsticks F.rms_norm /
+    F.layer_norm, with the wrapper, in device time and in host time a call
+    (`host_ms`)."""
     from repro_torch.kernels import rmsnorm as nm
     F = torch.nn.functional
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(5)
     for name in ("rmsnorm", "layernorm"):
         results = []
-        for R, D in NORM_SHAPES:
+        shapes = NORM_SHAPES + (LAYERNORM_SHAPES if name == "layernorm"
+                                else ())
+        for R, D in shapes:
             gam = (1 + 0.1 * torch.randn((D,), generator=g, device=dev)
                    ).bfloat16()
             bet = (0.1 * torch.randn((D,), generator=g, device=dev)
@@ -677,7 +735,8 @@ def check_ssd(rows):
                      nbytes, 4 * T * H * P * N)
             r.update(h_rel_err=h_rel, device_ms=device_ms([fn]),
                      library_device_ms=None, template=None,
-                     device_kernels=device_kernels(fn))
+                     device_kernels={k: ms for k, (ms, _) in
+                                     device_kernels(fn).items()})
             log(f"  {name} {r['case']:31s} rel err y {rel:.2e} (tol "
                 f"{y_tol:.0e}) h {h_rel:.2e} (tol {SSD_TOL['h']:.0e}) "
                 f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
@@ -698,7 +757,9 @@ FLASH_CASES = (   # label, S, H, KV, D, window, causal, q_offset
     ("phi4 S=512 H24/KV8 D=128", 512, 24, 8, 128, 0, True, 0),
     ("hymba S=512 H25/KV5 D=64", 512, 25, 5, 64, 0, True, 0),
     ("vit-b S=197 H12 D=64 bidirectional", 197, 12, 12, 64, 0, False, 0),
-    ("vit-h S=257 H16 D=80 bidirectional", 257, 16, 16, 80, 0, False, 0),
+    ("vit-h S=197 H16 D=80 bidirectional", 197, 16, 16, 80, 0, False, 0),
+    ("S=257 H16 D=80 bidirectional (ragged tile)", 257, 16, 16, 80, 0,
+     False, 0),
     ("q_offset 37 S=100 H4/KV2 D=128", 100, 4, 2, 128, 0, True, 37),
     ("gemma3 S=1100 H32/KV16 D=128 window 1024", 1100, 32, 16, 128, 1024,
      True, 0),
@@ -707,7 +768,8 @@ FLASH_CASES = (   # label, S, H, KV, D, window, causal, q_offset
 
 def check_flash(rows):
     """Prefill attention at GPT-J / GPT3-XL / phi4-mini / hymba shapes
-    (causal), ViT-B's and ViT-H's (D = 80) bidirectional encoders, a
+    (causal), ViT-B's and ViT-H's (D = 80) bidirectional encoders, also
+    D = 80 at 257 tokens (a 1-row tail past four 64-row tiles), a
     causal chunk whose queries start 37 positions into the keys, and
     gemma3's local layers: window 1024 over an 1100-token prompt.  Every
     bf16 case must plan the wgmma template.  Yardstick: SDPA, causal or
@@ -1225,19 +1287,22 @@ def check_gemm_templates(cfg, st, by):
     template: each GEMM of the layers (`gemms_per_pass`, the plain `pdot`
     products included) launches wgmma once a prefill pass and stream once
     a decode step; the logits head (M = the pass's sequences, <= 4)
-    streams in both."""
-    P, D = st.prefill_batches, st.decode_steps
+    streams in both.  An encode batch runs the layers' GEMMs once at M =
+    its tasks x its bucket rows, which the served encodes keep above 8
+    (wgmma), and no head."""
+    P, D, E = st.prefill_batches, st.decode_steps, st.encode_batches
     mm, sw = by["fused_matmul"], by["fused_matmul_swiglu"]
     per_layer, per_swiglu = gemms_per_pass(cfg)
     want = {"fused_matmul": {"fma32": 0, "stream": P + D * (per_layer + 1),
-                             "wgmma": P * per_layer},
+                             "wgmma": (P + E) * per_layer},
             "fused_matmul_swiglu": {"fma32": 0, "stream": D * per_swiglu,
-                                    "wgmma": P * per_swiglu}}
+                                    "wgmma": (P + E) * per_swiglu}}
     got = {k: by[k] for k in GEMM_WRAPPERS}
     log(f"  [{cfg.name} serve] GEMM templates: {per_layer} fused GEMMs and "
-        f"{per_swiglu} gated GEMMs of the layers per pass; launches {got}, "
-        f"expected {want} (observed {mm['wgmma'] / max(P, 1):.1f} and "
-        f"{sw['wgmma'] / max(P, 1):.1f} wgmma a pass)")
+        f"{per_swiglu} gated GEMMs of the layers per pass, {P} prefill and "
+        f"{E} encode passes; launches {got}, expected {want} (observed "
+        f"{mm['wgmma'] / max(P + E, 1):.1f} and "
+        f"{sw['wgmma'] / max(P + E, 1):.1f} wgmma a pass)")
     if got != want:
         raise AssertionError(f"{cfg.name} serve: GEMM templates {got} != "
                              f"{want}")
@@ -1309,11 +1374,12 @@ def ring_layers(cfg, max_seq):
                if k in ATTN_KINDS and not blocks.kind_paged(k, cfg, max_seq))
 
 
-def path_kernels(cfg, path, *, max_seq=512, one_split=True):
+def path_kernels(cfg, path, *, max_seq=512, one_split=True, encode=False):
     """The kernels a path of `cfg` must launch: `serve` (engine prefill and
     decode, fused; `one_split`: some decode step's longest context fits one
-    split, so the normalized paged kernel runs too), `fused` / `unfused`
-    (one teacher-forced prefill)."""
+    split, so the normalized paged kernel runs too; `encode`: EncodeTasks
+    too, whose pooling norm runs the plain norm kernel), `fused` /
+    `unfused` (one teacher-forced prefill)."""
     from repro_torch.configs.base import ATTN_KINDS
     kinds = {k for k, _ in cfg.schedule}
     attention = bool(kinds & set(ATTN_KINDS))
@@ -1335,17 +1401,26 @@ def path_kernels(cfg, path, *, max_seq=512, one_split=True):
         need |= {"ssd", "rmsnorm"}               # SSM and hybrid ln1
     if hybrid and path != "unfused":
         need.add("residual_rmsnorm")             # the hybrid ln2
-    if path == "unfused":
+    if path == "unfused" or encode:
         need.add(cfg.norm)
     return tuple(sorted(need))
 
 
 def check_serve_counts(cfg, launches, st, max_seq):
     """The dense decode kernel runs once per ring layer per decode step and
-    never in prefill; the SSD kernel once per SSM layer per prefill pass,
-    the residual RMSNorm once per hybrid layer per prefill pass and decode
-    step."""
-    want = {"decode_attention": ring_layers(cfg, max_seq) * st.decode_steps}
+    never in prefill; flash once per attention layer per prefill or encode
+    pass; the SSD kernel once per SSM layer per prefill pass, the residual
+    RMSNorm once per hybrid layer per prefill pass and decode step; in a
+    LayerNorm config the plain LayerNorm only as an encode batch's pooling
+    norm, once a batch (the fused engine folds every other norm into a
+    GEMM)."""
+    from repro_torch.configs.base import ATTN_KINDS
+    attn_layers = sum(c for k, c in cfg.schedule if k in ATTN_KINDS)
+    want = {"decode_attention": ring_layers(cfg, max_seq) * st.decode_steps,
+            "flash_attention": attn_layers * (st.prefill_batches
+                                              + st.encode_batches)}
+    if cfg.norm == "layernorm":
+        want["layernorm"] = st.encode_batches
     if cfg.has_ssm:
         ssm_layers = sum(c for k, c in cfg.schedule
                          if k in ("ssm", "hybrid_attn", "hybrid_local"))
@@ -1356,7 +1431,8 @@ def check_serve_counts(cfg, launches, st, max_seq):
                                                       + st.decode_steps))
     got = {k: launches[k] for k in want}
     log(f"  [{cfg.name} serve] {st.prefill_batches} prefill passes, "
-        f"{st.decode_steps} decode steps: launches {got}, expected {want}")
+        f"{st.encode_batches} encode passes, {st.decode_steps} decode "
+        f"steps: launches {got}, expected {want}")
     if got != want:
         raise AssertionError(f"{cfg.name} serve: launches {got} != {want}")
 
@@ -1471,12 +1547,11 @@ def profile_decode(eng, cfg, rng, steps=4, prompt_len=200):
 def profile_prefill(cfg, params, rng, *, prompt_len=512, max_seq=512):
     """Where a prefill pass's time goes: one `prompt_len`-token prompt
     through the fused prefill stack and the logits head (`teacher_forced`,
-    `auto` mode), once to warm up, once timed on the host clock, once more
-    under torch.profiler.  Reports the device's busy time (kernel time)
+    `auto` mode), once to warm up, once timed on the host clock, then once
+    under torch.profiler (`device_kernels`).  Reports the device's busy time (kernel time)
     against the pass, the device events, the SSD kernels' share (every
     kernel of `csrc/ssd.cu`), the GEMM templates' share and the largest
     kernels."""
-    from torch.profiler import ProfilerActivity, profile
     prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, prompt_len),
                                        dtype=np.int32), device=DEVICE)
     run = lambda: teacher_forced(cfg, params, prompt, mode="auto",
@@ -1487,13 +1562,7 @@ def profile_prefill(cfg, params, rng, *, prompt_len=512, max_seq=512):
     run()
     torch.cuda.synchronize()
     pass_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    dev = {ev.key: (getattr(ev, "self_device_time_total", 0.0) / 1e3,
-                    ev.count)
-           for ev in prof.key_averages()
-           if ev.device_type == torch.autograd.DeviceType.CUDA}
+    dev = device_kernels(run, iters=1)
     out = {"prompt_len": prompt_len, "pass_ms": pass_ms}
     if not dev:
         log(f"  [{cfg.name} prefill profile, {prompt_len} tokens] "
@@ -1530,18 +1599,62 @@ def profile_prefill(cfg, params, rng, *, prompt_len=512, max_seq=512):
 
 
 SERVE_LENGTHS = (300, 40, 120, 60, 20, 90, 200, 150)
+# (pooling, prompt length) of the EncodeTasks interleaved with GPT3-XL's
+# generate requests: the two `last` tasks share bucket 128 and one batch
+# (M = 256); the `mean` ones run alone in buckets 64 and 256 — every
+# batch above the stream template's 8 rows
+SERVE_ENCODES = (("last", 100), ("mean", 60), ("last", 120), ("mean", 250))
+
+
+def check_encodes(cfg, params, tasks, max_seq):
+    """Each EncodeTask's embedding (fused kernel path, padded to its
+    bucket) held to a direct exact-length `forward_encode` on the plain
+    (`ref`) path in bf16 (k = 2) and fp32 (k = 1.5) under the serve phase's
+    floor-scaled gate, the floor being the gap between those two."""
+    from repro_torch.core.precision import BF16, FP32
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    out = {}
+    for t in tasks:
+        tok = torch.tensor(np.asarray(t.prompt)[None], device=DEVICE)
+        with ops.kernel_mode("ref"), torch.no_grad():
+            z_ref, z_fp32 = (lm.forward_encode(params, tok, cfg=cfg,
+                                               policy=pol, pooling=t.pooling)
+                             for pol in (BF16, FP32))
+        z = torch.tensor(t.embedding, device=DEVICE)[None]
+        if z.shape != z_ref.shape:
+            raise AssertionError(f"encode {t.uid}: embedding shape "
+                                 f"{tuple(z.shape)}")
+        floor = _gap(z_ref, z_fp32)
+        label = (f"{cfg.name} encode {t.uid} ({t.pooling}, {t.prompt_len} "
+                 f"tokens in bucket {t.bucket})")
+        log(f"  {label}: plain bf16 vs plain fp32 (floor) rel "
+            f"{floor[0]:.2e}, cosine {np.cos(floor[1]):.6f}")
+        out[t.uid] = {
+            "pooling": t.pooling, "prompt_len": t.prompt_len,
+            "bucket": t.bucket, "encode_ms": t.encode_ms,
+            "latency_ms": t.latency_ms,
+            "floor": {"rel": floor[0], "cosine": float(np.cos(floor[1]))},
+            "vs_plain_bf16": _logit_gate(f"{label} vs plain bf16", z, z_ref,
+                                         floor, 2.0),
+            "vs_plain_fp32": _logit_gate(f"{label} vs plain fp32", z,
+                                         z_fp32, floor, 1.5)}
+    return out
 
 
 def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
-                one_split=True, prefill_profile=False):
+                one_split=True, prefill_profile=False, encodes=()):
     """Serve len(lengths) requests of 32 new tokens (uids 1 and 6 sampled)
-    through InferenceEngine at full width, then profile decode steps
-    (and, `prefill_profile`, one prefill pass of max_seq tokens) and
-    teacher-force one prompt through the fused kernel path, the unfused
-    kernel path and the plain path.  `one_split`: see `path_kernels`."""
+    through InferenceEngine at full width, the EncodeTasks `encodes`
+    ((pooling, length) pairs, uids 100 + i) interleaved with the first of
+    them, then profile decode steps (and, `prefill_profile`, one prefill
+    pass of max_seq tokens) and teacher-force one prompt through the fused
+    kernel path, the unfused kernel path and the plain path.  `one_split`:
+    see `path_kernels`."""
     from repro_torch.core.precision import BF16, FP32
     from repro_torch.models import lm
-    from repro_torch.serving import InferenceEngine, Request, SamplingParams
+    from repro_torch.serving import (EncodeTask, InferenceEngine, Request,
+                                     SamplingParams)
 
     t0 = time.perf_counter()
     params = lm.init_lm(cfg, dtype=torch.bfloat16, device=DEVICE, seed=seed)
@@ -1558,27 +1671,42 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
     eng = InferenceEngine(cfg, params, batch_size=4, max_seq=max_seq,
                           block_size=16, policy=BF16, device=DEVICE)
     rng = np.random.default_rng(0)
+    enc_tasks = []
     for uid, n in enumerate(lengths):
         sp = (SamplingParams(temperature=0.8, top_k=40, seed=100 + uid)
               if uid in (1, 6) else SamplingParams())
         eng.submit(Request(uid=uid, prompt=rng.integers(
             0, cfg.vocab, n, dtype=np.int32), max_new_tokens=32, sampling=sp))
+        if uid < len(encodes):
+            pooling, m = encodes[uid]
+            enc_tasks.append(EncodeTask(uid=100 + uid, prompt=rng.integers(
+                0, cfg.vocab, m, dtype=np.int32), pooling=pooling))
+            eng.submit(enc_tasks[-1])
     t0 = time.perf_counter()
     done, launches = drive(f"{cfg.name} serve", eng.run,
                            path_kernels(cfg, "serve", max_seq=max_seq,
-                                        one_split=one_split))
+                                        one_split=one_split,
+                                        encode=bool(encodes)))
     wall = time.perf_counter() - t0
     st = eng.stats()
     check_serve_counts(cfg, launches, st, max_seq)
     check_gemm_templates(cfg, st, TEMPLATE_LAUNCHES[f"{cfg.name} serve"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    enc_log = ""
+    if encodes:
+        enc_log = (f" | encode {st.encode_tok_s:.1f} tok/s ({st.encode_batches}"
+                   f" batches) latency p50 {st.encode_latency_p50_ms:.1f} ms")
     log(f"serve: {len(done)} requests in {wall:.2f} s | NAR "
         f"{st.nar_tok_s:.1f} tok/s | AR {st.ar_tok_s:.1f} tok/s | TTFT p50 "
         f"{st.ttft_p50_ms:.1f} ms | decode step p50 "
         f"{st.decode_step_p50_ms:.2f} ms p95 {st.decode_step_p95_ms:.2f} ms |"
-        f" peak memory {peak_gb:.2f} GB")
-    if len(done) != len(lengths):
-        raise AssertionError(f"{len(done)} of {len(lengths)} finished")
+        f" peak memory {peak_gb:.2f} GB{enc_log}")
+    if len(done) != len(lengths) + len(encodes):
+        raise AssertionError(f"{len(done)} of {len(lengths) + len(encodes)} "
+                             f"finished")
+    if any(not (t.done and t.embedding is not None) for t in enc_tasks):
+        raise AssertionError("an EncodeTask has no embedding")
+    done = [r for r in done if not isinstance(r, EncodeTask)]
     for r in done:
         if len(r.output) != 32:
             raise AssertionError(f"request {r.uid}: {len(r.output)} tokens")
@@ -1597,6 +1725,8 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
                                                      prompt_len=300)}
     del eng
     torch.cuda.empty_cache()
+    if encodes:
+        report["encode"] = check_encodes(cfg, params, enc_tasks, max_seq)
     if prefill_profile:
         report["prefill_profile"] = profile_prefill(
             cfg, params, np.random.default_rng(1), prompt_len=max_seq,
@@ -1638,19 +1768,22 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
 def phase_serve():
     """Every served configuration at full width and depth behind
     max_seq 512 (paged KV only: the first wave reaches 332 positions,
-    split-KV partials; the second stays under 256, one normalized pass),
+    split-KV partials; the second stays under 256, one normalized pass;
+    GPT3-XL with SERVE_ENCODES interleaved),
     then gemma3-27b at max_seq 2048, where its 52 local layers keep ring
     caches, and hymba cut to one global and three local layers at max_seq
     2048, its ring case.  Both long-context runs hold a context past 1000
     positions in every decode step, so the paged decode always splits."""
     import dataclasses
 
-    from repro_torch.configs import (GEMMA3_27B, GPT_J, HYMBA_1_5B,
+    from repro_torch.configs import (GEMMA3_27B, GPT3_XL, GPT_J, HYMBA_1_5B,
                                      MAMBA2_2_7B, PHI4_MINI)
     out = {cfg.name: serve_model(cfg, seed=seed,
                                  prefill_profile=cfg.has_ssm)
            for seed, cfg in enumerate((GPT_J, PHI4_MINI, HYMBA_1_5B,
                                        MAMBA2_2_7B))}
+    # the paper's other decoder, its generate traffic mixed with encodes
+    out[GPT3_XL.name] = serve_model(GPT3_XL, seed=7, encodes=SERVE_ENCODES)
     # two prompts prefill past the window (the ring is rolled at
     # admission); the 1010 prompt crosses position 1024 while it decodes
     # (the ring wraps in place)
@@ -1667,7 +1800,143 @@ def phase_serve():
 
 
 # --------------------------------------------------------------------------
-# 6. a shallow witness for the deepest stack's logit gate
+# 6. the encoder-only ViT
+# --------------------------------------------------------------------------
+
+VIT_BATCH = 8
+
+
+def vit_flops(cfg, B):
+    """Model FLOPs of one ViT pass: 2 per weight per row (the patchify on
+    the patch rows, q / k / v / o and the MLP on every row, the head on the
+    cls rows) and the attention's two products, 4 S^2 H hd a layer."""
+    from repro_torch.models.vit import PATCH_DIM
+    E, S, H, hd = cfg.d_model, cfg.image_seq, cfg.n_heads, cfg.head_dim
+    layer = 2 * S * (4 * E * H * hd + 2 * E * cfg.d_ff) + 4 * S * S * H * hd
+    return B * (2 * (S - 1) * PATCH_DIM * E + cfg.n_layers * layer
+                + 2 * E * cfg.n_classes)
+
+
+def check_vit_counts(cfg, path, launches, fused):
+    """One pass launches flash once a layer (all wgmma), the fused GEMM 4 +
+    2 times a layer plus the patchify (wgmma, like the layers' GEMMs: M = B
+    x 196 / 197) and the head (stream: M = B), the plain LayerNorm twice a
+    layer plus the final norm when unfused and never when fused (the final
+    norm folds into the head's prologue), and no other kernel."""
+    L = cfg.n_layers
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_attention=L, fused_matmul=6 * L + 2,
+                layernorm=0 if fused else 2 * L + 1)
+    want_by = {"fused_matmul": {"fma32": 0, "stream": 1, "wgmma": 6 * L + 1},
+               "fused_matmul_swiglu": {"fma32": 0, "stream": 0, "wgmma": 0},
+               "flash_attention": {"simt": 0, "wgmma": L}}
+    by = TEMPLATE_LAUNCHES[path]
+    if launches != want or by != want_by:
+        raise AssertionError(f"{path}: launches {launches} by template {by},"
+                             f" expected {want} by template {want_by}")
+
+
+def vit_model(cfg, *, seed, card):
+    """ViT at full width and depth, random seeded bf16 weights, a batch of
+    VIT_BATCH seeded images (196 patches of 16 x 16 x 3 pixels each): the
+    fused and the unfused kernel paths with exact launch counts, their
+    logits held row by row to the plain (`ref`) path in bf16 (k = 2) and
+    fp32 (k = 1.5) under the serve phase's floor-scaled gate (the floor:
+    the worst row's gap between those two); then images/s (CUDA-event time
+    of a pass, median of 20), the device's busy share of a pass and its
+    largest kernels (torch.profiler)."""
+    from repro_torch.core.precision import BF16, FP32
+    from repro_torch.kernels import ops
+    from repro_torch.models import vit
+    B = VIT_BATCH
+    t0 = time.perf_counter()
+    params = vit.init_vit(cfg, dtype=torch.bfloat16, device=DEVICE,
+                          seed=seed)
+    rng = np.random.default_rng(seed)
+    patches = torch.tensor(rng.standard_normal(
+        (B, cfg.image_seq - 1, vit.PATCH_DIM)).astype(np.float32),
+        device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"vit: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"{cfg.n_heads}x{cfg.head_dim} d_ff {cfg.d_ff}, {n_params / 1e6:.1f} M "
+        f"params, batch {B} x {cfg.image_seq} tokens, init "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def run(mode, fused, policy=BF16):
+        with ops.kernel_mode(mode), torch.no_grad():
+            return vit.forward_vit(params, patches, cfg=cfg, policy=policy,
+                                   fused=fused)
+
+    z_ref, z_fp32 = run("ref", True), run("ref", True, FP32)
+    gaps = [_gap(z_ref[i:i + 1], z_fp32[i:i + 1]) for i in range(B)]
+    floor = (max(g[0] for g in gaps), max(g[1] for g in gaps))
+    log(f"  {cfg.name} plain bf16 vs plain fp32, worst row (floor): rel "
+        f"{floor[0]:.2e}, cosine {np.cos(floor[1]):.6f}")
+    out = {"params": n_params, "batch": B,
+           "floor": {"rel": floor[0], "cosine": float(np.cos(floor[1]))},
+           "launches": {}}
+    flops = vit_flops(cfg, B)
+    for path, fused in (("fused", True), ("unfused", False)):
+        name = f"{cfg.name} vit {path}"
+        need = ("flash_attention", "fused_matmul") + (
+            () if fused else ("layernorm",))
+        z, launches = drive(name, lambda: run("auto", fused), need)
+        check_vit_counts(cfg, name, launches, fused)
+        out["launches"][path] = launches
+        if z.shape != (B, cfg.n_classes) or z.dtype != torch.float32:
+            raise AssertionError(f"{name}: logits {tuple(z.shape)} {z.dtype}")
+        for label, want, k in (("plain bf16", z_ref, 2.0),
+                               ("plain fp32", z_fp32, 1.5)):
+            worst = {"rel": 0.0, "cosine": 1.0}
+            for i in range(B):
+                g = _logit_gate(f"{name} vs {label}, image {i}", z[i:i + 1],
+                                want[i:i + 1], floor, k, quiet=True)
+                worst = {"rel": max(worst["rel"], g["rel"]),
+                         "cosine": min(worst["cosine"], g["cosine"]),
+                         "tol": g["tol"], "cos_min": g["cos_min"]}
+            log(f"  {name} vs {label}, every image: worst rel "
+                f"{worst['rel']:.2e} (tol {worst['tol']:.2e}), cosine "
+                f"{worst['cosine']:.6f} (min {worst['cos_min']:.6f})")
+            out[f"{path}_vs_{label.replace(' ', '_')}"] = worst
+        fn = lambda: run("auto", fused)
+        ms = time_ms(fn)
+        dev = device_kernels(fn, iters=5)
+        busy = sum(t for t, _ in dev.values())
+        top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:6]
+        gemm = sum(t for k, (t, _) in dev.items()
+                   if any(g in k for g in GEMM_KERNELS))
+        flash = sum(t for k, (t, _) in dev.items() if "flash" in k)
+        out[path] = {
+            "pass_ms": ms, "images_per_s": B / ms * 1e3,
+            "model_tflops": flops / ms / 1e9,
+            "device_busy_ms": busy, "busy_share": busy / ms,
+            "device_events": sum(n for _, n in dev.values()),
+            "gemm_ms": gemm, "flash_ms": flash,
+            "device_top": [{"kernel": k, "ms": t, "launches": n}
+                           for k, (t, n) in top]}
+        log(f"  {name}: {B / ms * 1e3:.1f} images/s at batch {B} (pass "
+            f"{ms:.3f} ms, median of 20, {flops / ms / 1e9:.1f} model "
+            f"TFLOP/s; {card}); device busy {busy:.3f} ms ({busy / ms:.1%});"
+            f" GEMM templates {gemm:.3f} ms, flash {flash:.3f} ms, "
+            f"{out[path]['device_events']} device events")
+        for k, (t, n) in top:
+            log(f"    device {t:8.3f} ms  x{n:<4d} {k[:80]}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_vit(card):
+    """The paper's encoder-only ViT-B, ViT-L and ViT-H at full width and
+    depth (`vit_model`)."""
+    from repro_torch.configs import VIT_B, VIT_H, VIT_L
+    return {cfg.name: vit_model(cfg, seed=seed, card=card)
+            for seed, cfg in ((8, VIT_B), (9, VIT_L), (10, VIT_H))}
+
+
+# --------------------------------------------------------------------------
+# 7. a shallow witness for the deepest stack's logit gate
 # --------------------------------------------------------------------------
 
 def depth_witness(cfg, *, layers, seed):
@@ -1731,7 +2000,7 @@ def depth_witness(cfg, *, layers, seed):
 
 
 # --------------------------------------------------------------------------
-# 7. the ring witness: decode across the ring's wrap, held to prefill
+# 8. the ring witness: decode across the ring's wrap, held to prefill
 # --------------------------------------------------------------------------
 
 def decode_logits(cfg, params, tokens, prompt_len, *, mode, fused, policy,
@@ -1932,6 +2201,7 @@ def main():
     report["kernels"] = rows
     report["sampling"] = phase_sampling()
     report["serve"] = phase_serve()
+    report["vit"] = phase_vit(info["nvidia_smi"])
     from repro_torch.configs import GEMMA3_27B, MAMBA2_2_7B
     report["witness"] = depth_witness(MAMBA2_2_7B, layers=8, seed=3)
     report["ring_witness"] = ring_witness(GEMMA3_27B, seed=6)

@@ -92,10 +92,15 @@ class ModelConfig:
     def n_params(self) -> int:
         """Parameter count (embedding, blocks, unembedding) as the
         reference counts it, for the kinds the port serves: attention and
-        SSM heads with a dense MLP, and the attention-free `ssm` block."""
+        SSM heads with a dense MLP, and the attention-free `ssm` block; a
+        ViT counts its positions and classifier head instead of the
+        vocabulary (as the reference does, not the patchify weight, the cls
+        token or the head bias)."""
         E, F, V = self.d_model, self.d_ff, self.vocab
         hd, H, KV = self.head_dim, self.n_heads, self.n_kv_heads
         total = V * E + (0 if self.tie_embeddings else E * V)
+        if self.n_classes:
+            total = self.image_seq * E + E * self.n_classes
         gated = 3 if self.mlp_act == "swiglu" else 2
         for kind, count in self.schedule:
             p = 2 * E

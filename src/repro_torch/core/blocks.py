@@ -9,11 +9,14 @@ it) or unfused (the discrete norm -> GEMM -> add chain):
   ``hybrid_attn``   attention and SSM heads in parallel on one normalized
                     input, outputs averaged, then a dense MLP
   ``hybrid_local``  the same with sliding-window attention
+  ``vit``           the ``attn`` block with bidirectional attention (the
+                    paper's encoder-only topology): full-sequence passes
+                    only, no decode step
 
 Full-context attention layers keep their KV in the block pool
 (`kind_paged`); a window shorter than max_seq keeps a dense per-slot ring
 cache of `window` slots instead.  The other kinds of the reference (MoE,
-encoder / decoder, ViT) raise NotImplementedError."""
+encoder / decoder) raise NotImplementedError."""
 from __future__ import annotations
 
 import torch
@@ -24,7 +27,8 @@ from repro_torch.core import mlp as mlp_mod
 from repro_torch.core import ssm as ssm_mod
 from repro_torch.kernels import ops
 
-PORTED_KINDS = ("attn", "local", "ssm", "hybrid_attn", "hybrid_local")
+PORTED_KINDS = ("attn", "local", "ssm", "hybrid_attn", "hybrid_local",
+                "vit")
 HYBRID_KINDS = ("hybrid_attn", "hybrid_local")
 BIDIR_KINDS = ("enc", "vit")
 SSM_STATE = ("h", "cx", "cbc")
@@ -35,14 +39,14 @@ def _require_ported(kind: str):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
 
 
-def _norm_shapes(cfg):
+def norm_shapes(cfg):
     E = cfg.d_model
     if cfg.norm == "rmsnorm":
         return {"scale": (E,)}
     return {"scale": (E,), "bias": (E,)}
 
 
-def _init_norm(cfg, dtype, device, count=None):
+def init_norm(cfg, dtype, device, count=None):
     lead = () if count is None else (count,)
     p = {"scale": torch.ones(lead + (cfg.d_model,), dtype=dtype,
                              device=device)}
@@ -54,13 +58,13 @@ def _init_norm(cfg, dtype, device, count=None):
 
 def block_param_shapes(kind: str, cfg) -> dict:
     _require_ported(kind)
-    out = {"ln1": _norm_shapes(cfg)}
+    out = {"ln1": norm_shapes(cfg)}
     if kind in ATTN_KINDS:
         out["attn"] = attn.attention_param_shapes(cfg)
     if kind in SSM_KINDS:
         out["ssm"] = ssm_mod.ssm_param_shapes(cfg)
     if kind != "ssm":
-        out["ln2"] = _norm_shapes(cfg)
+        out["ln2"] = norm_shapes(cfg)
         out["mlp"] = mlp_mod.mlp_param_shapes(cfg)
     return out
 
@@ -81,7 +85,7 @@ def init_block(generator, kind: str, cfg, dtype, device, count: int):
     layer from `generator`: N(0, 0.02) attention / MLP weights, unit norms,
     SSM leaves as `ssm.init_ssm` draws them."""
     _require_ported(kind)
-    out = {"ln1": _init_norm(cfg, dtype, device, count)}
+    out = {"ln1": init_norm(cfg, dtype, device, count)}
     if kind in ATTN_KINDS:
         out["attn"] = _init_normal(generator, attn.attention_param_shapes(cfg),
                                    dtype, device, count)
@@ -91,7 +95,7 @@ def init_block(generator, kind: str, cfg, dtype, device, count: int):
         out["ssm"] = {k: torch.stack([lp[k] for lp in layers])
                       for k in layers[0]}
     if kind != "ssm":
-        out["ln2"] = _init_norm(cfg, dtype, device, count)
+        out["ln2"] = init_norm(cfg, dtype, device, count)
         out["mlp"] = _init_normal(generator, mlp_mod.mlp_param_shapes(cfg),
                                   dtype, device, count)
     return out
@@ -209,8 +213,12 @@ def block_decode(kind: str, p, x, pos, cache, *, cfg, policy,
     """x: [B, E]; pos: [B]; cache: this layer's cache views — {"k", "v"}
     block pools (`paged`) or dense per-slot [B, W, KV, hd] ring caches, and
     / or the SSM state {"h", "cx", "cbc"} — updated in place.
-    -> (x', cache)."""
+    -> (x', cache).  A bidirectional (encoder) kind has no decode step and
+    raises."""
     _require_ported(kind)
+    if kind in BIDIR_KINDS:
+        raise ValueError(f"block kind {kind!r} is bidirectional: an encoder "
+                         f"has no decode step")
     if kind == "ssm":
         h = ops.norm(x, p["ln1"], cfg.norm)
         y, sc = ssm_mod.ssm_decode(p["ssm"], h, cache, cfg=cfg,

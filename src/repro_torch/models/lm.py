@@ -11,9 +11,10 @@ loop over its layers, eagerly.
 
 Modes: `forward_prefill` (NAR prompt pass, optional right-padding to a
 length bucket — exact only without SSM state or ring caches — and compact
-KV for paged admission) and `forward_decode` (one AR step against the paged
-pools, the per-slot ring caches of window layers and the per-slot SSM
-state, which it updates in place).
+KV for paged admission), `forward_encode` (the same stack with no cache,
+pooled to one fp32 vector a row) and `forward_decode` (one AR step against
+the paged pools, the per-slot ring caches of window layers and the
+per-slot SSM state, which it updates in place).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from repro_torch.core.embedding import (embed_sequence, embed_token,
                                         init_embedding, sample_token)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.models.params import layer, tree_from_numpy
 
 
 # --------------------------------------------------------------------------
@@ -40,7 +42,7 @@ def lm_param_shapes(cfg) -> dict:
                     else (count,) + tuple(v)) for k, v in tree.items()}
     return {
         "embedding": embedding_param_shapes(cfg),
-        "final_norm": blocks._norm_shapes(cfg),
+        "final_norm": blocks.norm_shapes(cfg),
         "segments": tuple(stack(blocks.block_param_shapes(kind, cfg), count)
                           for kind, count in cfg.schedule),
     }
@@ -55,7 +57,7 @@ def init_lm(cfg, *, dtype=torch.bfloat16, device=None, seed: int = 0):
     segs = tuple(blocks.init_block(gen, kind, cfg, dtype, dev, count)
                  for kind, count in cfg.schedule)
     return {"embedding": init_embedding(gen, cfg, dtype, dev),
-            "final_norm": blocks._init_norm(cfg, dtype, dev),
+            "final_norm": blocks.init_norm(cfg, dtype, dev),
             "segments": segs}
 
 
@@ -64,38 +66,8 @@ def params_from_numpy(tree, cfg, *, dtype=torch.float32, device=None):
     `jax.tree.map(np.asarray, lm.init_lm(...))`) -> the port's parameters.
     bf16 leaves pass through float32, which is exact.  Raises on a missing
     leaf or a shape that does not match `cfg`."""
-    dev = resolve_device(device)
-    shapes = lm_param_shapes(cfg)
-
-    def conv(node, shape_node, path):
-        if isinstance(shape_node, dict):
-            if not isinstance(node, dict) or set(node) != set(shape_node):
-                raise ValueError(f"params_from_numpy: {path or 'root'} has "
-                                 f"keys {sorted(node)}, expected "
-                                 f"{sorted(shape_node)}")
-            return {k: conv(node[k], shape_node[k], f"{path}/{k}")
-                    for k in shape_node}
-        if isinstance(shape_node, tuple) and shape_node and isinstance(
-                shape_node[0], dict):
-            if len(node) != len(shape_node):
-                raise ValueError(f"params_from_numpy: {path} has "
-                                 f"{len(node)} segments, expected "
-                                 f"{len(shape_node)}")
-            return tuple(conv(n, s, f"{path}[{i}]")
-                         for i, (n, s) in enumerate(zip(node, shape_node)))
-        arr = np.asarray(node, np.float32)
-        if arr.shape != tuple(shape_node):
-            raise ValueError(f"params_from_numpy: {path} has shape "
-                             f"{arr.shape}, expected {tuple(shape_node)}")
-        return torch.tensor(arr, device=dev).to(dtype)
-
-    return conv(tree, shapes, "")
-
-
-def _layer(p_seg, i):
-    """Layer `i`'s parameter (or cache) views from a stacked segment."""
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
-            for k, v in p_seg.items()}
+    return tree_from_numpy(tree, lm_param_shapes(cfg), dtype=dtype,
+                           device=device)
 
 
 # --------------------------------------------------------------------------
@@ -108,24 +80,27 @@ def _embed_sequence(params, tokens, *, policy):
 
 
 def _run_segments_prefill(params, x, *, cfg, policy, max_seq, fused=True,
-                          compact_kv=False):
+                          compact_kv=False, with_cache=True):
     """-> (x [B, S, E], caches): one dict per segment of stacked leaves —
     k / v [count, B, S_cache, KV, hd] at the activation dtype for attention
     kinds (ring layers: S_cache = window, in slot order), the SSM state
     h [count, B, Hp, P, N] and conv tails cx / cbc [count, B, cw - 1, .]
-    for SSM kinds."""
+    for SSM kinds.  `with_cache=False` runs the same stack and builds no
+    cache (the encode pass); caches is then None."""
     caches = []
     for (kind, count), p_seg in zip(cfg.schedule, params["segments"]):
         layers = []
         for i in range(count):
-            x, cache = blocks.block_full(kind, _layer(p_seg, i), x, cfg=cfg,
+            x, cache = blocks.block_full(kind, layer(p_seg, i), x, cfg=cfg,
                                          policy=policy, fused=fused,
-                                         with_cache=True, max_seq=max_seq,
+                                         with_cache=with_cache,
+                                         max_seq=max_seq,
                                          compact_kv=compact_kv)
             layers.append(cache)
-        caches.append({k: torch.stack([c[k] for c in layers])
-                       for k in layers[0]})
-    return x, tuple(caches)
+        if with_cache:
+            caches.append({k: torch.stack([c[k] for c in layers])
+                           for k in layers[0]})
+    return x, (tuple(caches) if with_cache else None)
 
 
 def _run_segments_decode(params, x, pos, caches, *, cfg, policy,
@@ -138,8 +113,8 @@ def _run_segments_decode(params, x, pos, caches, *, cfg, policy,
     for (kind, count), p_seg, c_seg, paged in zip(
             cfg.schedule, params["segments"], caches, paged_segments):
         for i in range(count):
-            x, _ = blocks.block_decode(kind, _layer(p_seg, i), x, pos,
-                                       _layer(c_seg, i), cfg=cfg,
+            x, _ = blocks.block_decode(kind, layer(p_seg, i), x, pos,
+                                       layer(c_seg, i), cfg=cfg,
                                        policy=policy,
                                        block_tables=block_tables,
                                        fused=fused, kv_splits=kv_splits,
@@ -199,6 +174,47 @@ def forward_prefill(params, tokens, *, cfg, policy, max_seq: int,
     tok = _choose(x_last, params, lane, pos_host, cfg=cfg, policy=policy,
                   norm=head_norm)
     return tok, caches, pos.to(torch.int32)
+
+
+def forward_encode(params, tokens, *, cfg, policy, prompt_len=None,
+                   pooling: str = "last", fused: bool = True):
+    """Encoder-only NAR pass: one full-sequence forward, no KV cache, no
+    sampling.  tokens: [B, S] -> pooled [B, E] float32.
+
+    `prompt_len` (host int array [B], optional): true lengths of rows
+    right-padded to a length bucket.  Padding is output-exact only for
+    causal schedules (a bidirectional kind attends its pads); the runner
+    pads only when every kind is causal.
+    `pooling`: "last" — the normalized residual at the last true position
+    (what a prefill samples from); "mean" — the masked fp32 mean of the
+    normalized rows over the true positions.  Fused "last" selects the raw
+    row and normalizes only that row (the norm is row-wise); mean pooling
+    normalizes every row first (the norm of a mean is not the mean of the
+    norms)."""
+    if cfg.n_patches or cfg.enc_schedule:
+        raise NotImplementedError(f"{cfg.name}: encode passes with a patch "
+                                  f"prefix or an encoder schedule are not "
+                                  f"ported")
+    if pooling not in ("last", "mean"):
+        raise ValueError(f"pooling must be 'last' or 'mean': {pooling!r}")
+    x = _embed_sequence(params, tokens, policy=policy)
+    x, _ = _run_segments_prefill(params, x, cfg=cfg, policy=policy,
+                                 max_seq=0, fused=fused, with_cache=False)
+    fused_head = fused and pooling == "last"
+    if not fused_head:
+        x = ops.norm(x, params["final_norm"], cfg.norm)
+    B, S = tokens.shape
+    lens = (np.full((B,), S, np.int64) if prompt_len is None
+            else np.asarray(prompt_len, np.int64))
+    pos = torch.tensor(lens, device=tokens.device)
+    if pooling == "last":
+        row = _residual_at(x, pos - 1)
+        if fused_head:
+            row = ops.norm(row, params["final_norm"], cfg.norm)
+        return row.float()
+    keep = (torch.arange(S, device=x.device)[None, :] < pos[:, None])
+    s = (x.float() * keep[..., None]).sum(1)
+    return s / pos.clamp(min=1).float()[:, None]
 
 
 def forward_decode(params, token, pos, caches, *, cfg, policy,

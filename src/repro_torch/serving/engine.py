@@ -6,6 +6,9 @@ A fixed decode batch of B slots runs lockstep AR steps; finished rows are
 replaced at once by prefilling queued requests, batched per length bucket;
 KV memory is block-paged with recompute preemption when the pool runs out;
 `generate()` streams `TokenEvent`s and `stats()` returns `EngineStats`.
+EncodeTasks (one pooled, cache-free pass each, the paper's encoder
+topology) take no slot and no block: each engine step first runs one
+same-bucket, same-pooling batch of them, then admits generate traffic.
 The engine runs on the GPU unless `device="cpu"` is passed.
 """
 from __future__ import annotations
@@ -17,8 +20,8 @@ from repro_torch.serving.runner import ModelRunner
 from repro_torch.serving.sampling import validate_sampling
 from repro_torch.serving.scheduler import FCFSPolicy, SchedulerPolicy
 from repro_torch.serving.stats import EngineStats
-from repro_torch.serving.tasks import (GenerateTask, Request, Task, TokenEvent,
-                                       validate_task)
+from repro_torch.serving.tasks import (EncodeTask, GenerateTask, Request,
+                                       Task, TokenEvent, validate_task)
 
 
 class InferenceEngine:
@@ -37,7 +40,8 @@ class InferenceEngine:
                                   fuse_epilogues=fuse_epilogues,
                                   device=device)
         self.scheduler = scheduler or FCFSPolicy()
-        self.queue: List[Task] = []
+        self.queue: List[GenerateTask] = []
+        self.encode_queue: List[EncodeTask] = []
         self.completed: List[Task] = []
         self._stats = self._fresh_stats()
 
@@ -57,21 +61,25 @@ class InferenceEngine:
         return st
 
     # -- admission -----------------------------------------------------
-    def submit(self, task: GenerateTask):
-        """Queue a GenerateTask (alias: Request)."""
+    def submit(self, task: Task):
+        """Queue a GenerateTask (alias: Request) or an EncodeTask."""
         validate_task(task)
         n = len(task.prompt)
-        cap = self.runner.prompt_cap
+        encode = isinstance(task, EncodeTask)
+        # an encode pass reserves no decode position
+        cap = self.runner.max_seq if encode else self.runner.prompt_cap
         if not 0 < n <= cap:
             raise ValueError(f"prompt length {n} not in [1, {cap}] "
                              f"(max_seq={self.runner.max_seq})")
-        if task.max_new_tokens < 1:
-            raise ValueError(f"max_new_tokens must be >= 1 (the prefill "
-                             f"emits the first token): {task.max_new_tokens}")
-        validate_sampling(task.sampling)
+        if not encode:
+            if task.max_new_tokens < 1:
+                raise ValueError(f"max_new_tokens must be >= 1 (the prefill "
+                                 f"emits the first token): "
+                                 f"{task.max_new_tokens}")
+            validate_sampling(task.sampling)
         task.prompt_len = n
         task._t_submit = time.perf_counter()
-        self.queue.append(task)
+        (self.encode_queue if encode else self.queue).append(task)
         self._stats.requests_submitted += 1
 
     def _first_admission(self, task: Task):
@@ -127,6 +135,29 @@ class InferenceEngine:
             fresh.extend(runner.prefill(group, free, self._stats))
             admitted += len(group)
 
+    def _run_encode(self) -> int:
+        """Run ONE encode batch: the scheduler's head EncodeTask and the
+        queued ones of its bucket and pooling, up to the batch size.  One
+        batch per engine step keeps a long encode backlog from starving
+        decode."""
+        if not self.encode_queue:
+            return 0
+        runner = self.runner
+        order = self.scheduler.admission_order(self.encode_queue,
+                                               time.perf_counter())
+        head = order[0]
+        bucket = runner.encode_bucket_for(head.prompt_len)
+        group = [t for t in order
+                 if runner.encode_bucket_for(t.prompt_len) == bucket
+                 and t.pooling == head.pooling][:runner.B]
+        for task in group:
+            self.encode_queue.remove(task)
+            self._first_admission(task)
+        runner.encode(group, self._stats)
+        self.completed.extend(group)
+        self._stats.requests_completed += len(group)
+        return len(group)
+
     # -- retirement ------------------------------------------------------
     def _retire(self):
         runner = self.runner
@@ -150,10 +181,12 @@ class InferenceEngine:
 
     # -- engine loop ------------------------------------------------------
     def step(self) -> List[TokenEvent]:
-        """One engine iteration: admit -> retire -> AR step -> retire.
-        Returns the TokenEvents produced."""
+        """One engine iteration: one encode batch -> admit -> retire -> AR
+        step -> retire.  Returns the TokenEvents produced (EncodeTasks
+        carry their result in `.embedding`)."""
         runner = self.runner
         fresh: List = []
+        self._run_encode()
         while True:
             n_done = len(self.completed)
             admitted = self._admit(fresh)
@@ -175,7 +208,8 @@ class InferenceEngine:
                 for task, i in fresh]
 
     def has_work(self) -> bool:
-        return bool(self.queue) or self.runner.has_running()
+        return (bool(self.queue) or bool(self.encode_queue)
+                or self.runner.has_running())
 
     def generate(self, max_steps: int = 10_000) -> Iterator[TokenEvent]:
         """Run engine steps until queue and slots drain, yielding each token
@@ -202,4 +236,5 @@ class InferenceEngine:
         self._stats = self._fresh_stats()
 
 
-__all__ = ["InferenceEngine", "Request", "GenerateTask", "TokenEvent"]
+__all__ = ["InferenceEngine", "Request", "GenerateTask", "EncodeTask",
+           "TokenEvent"]

@@ -4,10 +4,11 @@ the reference's serving/runner.py, synchronous whole-prompt path).
 Owns the device state — parameters, the paged KV pools, the per-slot ring
 caches of window layers and SSM state, the block allocator and block
 tables, the sampling lanes and the per-slot token/pos mirrors — and exposes
-two execution verbs:
-`prefill(group)` (one batched NAR pass admitting a group into free slots)
-and `decode()` (one AR step over every decoding slot).  Scheduling
-decisions live in the engine's policy.
+three execution verbs:
+`prefill(group)` (one batched NAR pass admitting a group into free slots),
+`decode()` (one AR step over every decoding slot) and `encode(group)` (one
+pooled, cache-free NAR pass for a batch of EncodeTasks; no slot, no
+block).  Scheduling decisions live in the engine's policy.
 
 Host mirrors (`tokens`, `pos`, `block_tables`, lanes) are numpy arrays that
 the runner mutates; every transfer to the device goes through
@@ -22,6 +23,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import blocks
 from repro_torch.core.attention import decode_splits
 from repro_torch.core.precision import BF16
 from repro_torch.device import resolve_device
@@ -30,7 +32,7 @@ from repro_torch.models import lm
 from repro_torch.serving.kv_cache import BlockAllocator, prefill_scatter
 from repro_torch.serving.sampling import set_lane, stack_lanes, zero_lane
 from repro_torch.serving.stats import EngineStats
-from repro_torch.serving.tasks import GenerateTask, Task
+from repro_torch.serving.tasks import EncodeTask, GenerateTask, Task
 
 
 class ModelRunner:
@@ -59,6 +61,11 @@ class ModelRunner:
         # ring cache would roll pad rows in, so those configs prefill at
         # each prompt's exact length
         self._pad_buckets = not (cfg.has_ssm or cfg.sliding_window > 0)
+        # encode has no cache: padding is exact whenever every kind is
+        # causal (pads sit after the true positions and are never pooled);
+        # a bidirectional kind attends its pads
+        self._encode_pad = all(blocks.kind_causal(k, cfg)
+                               for k, _ in cfg.schedule)
         default_blocks = batch_size * (-(-max_seq // block_size))
         self.layout = make_paged_layout(cfg, max_seq,
                                         kv_pool_blocks or default_blocks,
@@ -88,6 +95,16 @@ class ModelRunner:
         length for configs whose caches cannot absorb padding."""
         if not self._pad_buckets:
             return prompt_len
+        return self._bucket(prompt_len)
+
+    def encode_bucket_for(self, prompt_len: int) -> int:
+        """Length bucket of an EncodeTask batch: the same rungs when every
+        kind is causal (`_encode_pad`), else the exact length."""
+        if not self._encode_pad:
+            return prompt_len
+        return self._bucket(prompt_len)
+
+    def _bucket(self, prompt_len: int) -> int:
         cap = self.max_seq
         base = self.min_bucket
         while True:
@@ -289,3 +306,37 @@ class ModelRunner:
         stats.add_decode_step_ms(dt * 1e3)
         stats.occupied_slot_steps += len(decoding)
         return fresh
+
+    @torch.no_grad()
+    def encode(self, group: List[EncodeTask], stats: EngineStats):
+        """One pooled full-sequence pass for a same-bucket, same-pooling
+        batch of EncodeTasks; fills each task's `embedding` (read back to
+        the host once a batch, so the timing is honest)."""
+        if not group or len({t.pooling for t in group}) != 1:
+            raise ValueError("an encode batch needs tasks of one pooling")
+        n = len(group)
+        lens = [t.prompt_len for t in group]
+        bucket = self.encode_bucket_for(max(lens))
+        t0 = time.perf_counter()
+        padded = np.zeros((n, bucket), np.int32)
+        for j, task in enumerate(group):
+            padded[j, :task.prompt_len] = np.asarray(task.prompt, np.int32)
+        pooled = lm.forward_encode(
+            self.params, torch.tensor(padded, device=self.device),
+            cfg=self.cfg, policy=self.policy, prompt_len=np.asarray(lens),
+            pooling=group[0].pooling, fused=self.fuse_epilogues)
+        pooled_np = pooled.cpu().numpy()           # waits: honest timing
+        now = time.perf_counter()
+        dt = now - t0
+        for j, task in enumerate(group):
+            task.bucket = bucket
+            task.embedding = pooled_np[j]
+            task.encode_ms = dt * 1e3 / n
+            task.latency_ms = (now - task._t_submit) * 1e3
+            task.done = True
+            stats.encode_tokens += task.prompt_len
+            stats.padded_encode_tokens += bucket
+            stats.add_encode_latency_ms(task.latency_ms)
+            stats.bucket_hits[bucket] = stats.bucket_hits.get(bucket, 0) + 1
+        stats.encode_time_s += dt
+        stats.encode_batches += 1

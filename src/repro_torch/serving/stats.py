@@ -1,6 +1,8 @@
 """Serving telemetry (subset of the reference's serving/stats.py): the
-paper's NAR / AR split, TTFT and decode-step latency percentiles, length
-bucket hits, preemptions and KV pool use."""
+paper's NAR / AR split, the encode (EncodeTask) side, TTFT, decode-step and
+encode latency percentiles, length bucket hits, preemptions and KV pool
+use.  The reference's `encode_compiles` (distinct compiled encode steps) is
+left out: the port runs eagerly and compiles nothing."""
 from __future__ import annotations
 
 import random
@@ -66,6 +68,12 @@ class EngineStats:
     decode_steps: int = 0
     occupied_slot_steps: int = 0
     decode_step_ms: List[float] = field(default_factory=Reservoir)
+    # -- encoder-only (EncodeTask) ------------------------------------------
+    encode_tokens: int = 0         # true tokens through pooled passes
+    padded_encode_tokens: int = 0  # incl. length-bucket padding computed
+    encode_time_s: float = 0.0
+    encode_batches: int = 0        # batched pooled passes run
+    encode_latency_ms: List[float] = field(default_factory=Reservoir)
     # -- serving-level ------------------------------------------------------
     ttft_ms: List[float] = field(default_factory=Reservoir)
     queue_wait_ms: List[float] = field(default_factory=Reservoir)
@@ -91,6 +99,9 @@ class EngineStats:
     def add_tpot_ms(self, v: float) -> None:
         self.tpot_ms_samples.add(v)
 
+    def add_encode_latency_ms(self, v: float) -> None:
+        self.encode_latency_ms.add(v)
+
     @property
     def nar_tok_s(self) -> float:
         return self.nar_tokens / self.nar_time_s if self.nar_time_s else 0.0
@@ -98,6 +109,17 @@ class EngineStats:
     @property
     def ar_tok_s(self) -> float:
         return self.ar_tokens / self.ar_time_s if self.ar_time_s else 0.0
+
+    @property
+    def encode_tok_s(self) -> float:
+        """Encoder-only throughput: true tokens through pooled passes / s."""
+        return (self.encode_tokens / self.encode_time_s
+                if self.encode_time_s else 0.0)
+
+    @property
+    def encode_completed(self) -> int:
+        """EncodeTasks finished (every one adds a latency sample)."""
+        return self.encode_latency_ms.seen
 
     @property
     def slot_occupancy(self) -> float:
@@ -127,6 +149,18 @@ class EngineStats:
         return percentile(self.decode_step_ms, 95)
 
     @property
+    def encode_latency_p50_ms(self) -> float:
+        return percentile(self.encode_latency_ms, 50)
+
+    @property
+    def encode_latency_p95_ms(self) -> float:
+        return percentile(self.encode_latency_ms, 95)
+
+    @property
+    def encode_latency_p99_ms(self) -> float:
+        return percentile(self.encode_latency_ms, 99)
+
+    @property
     def pool_utilization(self) -> float:
         if not self.kv_pool_blocks:
             return 0.0
@@ -148,6 +182,14 @@ class EngineStats:
             "decode_steps": self.decode_steps,
             "slot_occupancy": self.slot_occupancy,
             "padding_overhead": self.padding_overhead,
+            "encode_tokens": self.encode_tokens,
+            "padded_encode_tokens": self.padded_encode_tokens,
+            "encode_time_s": self.encode_time_s,
+            "encode_tok_s": self.encode_tok_s,
+            "encode_batches": self.encode_batches,
+            "encode_completed": self.encode_completed,
+            **{f"encode_latency_{k}_ms": v
+               for k, v in percentiles(self.encode_latency_ms).items()},
             **{f"ttft_{k}_ms": v for k, v in percentiles(self.ttft_ms).items()},
             **{f"decode_step_{k}_ms": v
                for k, v in percentiles(self.decode_step_ms).items()},
@@ -167,6 +209,11 @@ class EngineStats:
         }
 
     def summary(self) -> str:
+        enc = ""
+        if self.encode_batches:
+            enc = (f" | ENC {self.encode_tok_s:8.1f} tok/s "
+                   f"({self.encode_completed} reqs, p95 "
+                   f"{self.encode_latency_p95_ms:.0f}ms)")
         return (f"NAR {self.nar_tok_s:8.1f} tok/s ({self.nar_tokens} prompt "
                 f"tokens, {self.padding_overhead:.0%} pad) | "
                 f"AR {self.ar_tok_s:8.1f} tok/s ({self.ar_tokens} tokens, "
@@ -175,4 +222,4 @@ class EngineStats:
                 f"{self.ttft_p95_ms:.0f}ms | KV pool peak "
                 f"{self.pool_utilization:.0%} ({self.peak_blocks_used}/"
                 f"{self.kv_pool_blocks} x {self.kv_block_size}-token blocks, "
-                f"{self.preemptions} preempt)")
+                f"{self.preemptions} preempt)" + enc)

@@ -1,7 +1,8 @@
 """Serving requests (copy of the reference's serving/tasks.py for generate
-traffic): `GenerateTask` (alias `Request`) is what a client wants, the
-scheduler decides when it runs, the runner how.  `validate_task` runs at
-construction and again at `InferenceEngine.submit`."""
+and encode traffic): `GenerateTask` (alias `Request`) and `EncodeTask` are
+what a client wants, the scheduler decides when they run, the runner how.
+`validate_task` runs at construction and again at
+`InferenceEngine.submit`."""
 from __future__ import annotations
 
 import math
@@ -14,8 +15,8 @@ from repro_torch.serving.sampling import SamplingParams
 
 
 def validate_task(task: "Task") -> None:
-    """Reject unservable `priority` / `deadline_ms` / `slo_tpot_ms` values
-    with a clear ValueError."""
+    """Reject unservable `priority` / `deadline_ms` / `slo_tpot_ms` /
+    `pooling` values with a clear ValueError."""
     try:
         p = float(task.priority)
     except (TypeError, ValueError):
@@ -33,6 +34,9 @@ def validate_task(task: "Task") -> None:
                              f"budget or None: {v!r}")
         if math.isnan(f) or math.isinf(f) or f <= 0:
             raise ValueError(f"{name} must be > 0 and finite; got {v!r}")
+    pooling = getattr(task, "pooling", "last")
+    if pooling not in ("last", "mean"):
+        raise ValueError(f"pooling must be 'last' or 'mean': {pooling!r}")
 
 
 def _require_keyword_prompt(task: "Task") -> None:
@@ -74,6 +78,27 @@ class GenerateTask(Task):
     latency_ms: float = 0.0
     tpot_ms: float = 0.0
     prefilled: int = 0
+
+    def __post_init__(self):
+        _require_keyword_prompt(self)
+        validate_task(self)
+
+
+@dataclass
+class EncodeTask(Task):
+    """Encoder-only request: one full-sequence forward, pooled output; it
+    takes no decode slot and no KV block.
+
+    pooling   "last" — the normalized residual of the final true position
+                       (the hidden state a prefill would sample from)
+              "mean" — the masked mean over the true positions
+    """
+    prompt: np.ndarray = None           # [S_prompt] int32
+    pooling: str = "last"
+    # filled by the engine:
+    embedding: Optional[np.ndarray] = None   # [d_model] float32 result
+    encode_ms: float = 0.0              # amortized share of the batched pass
+    latency_ms: float = 0.0             # submit -> result
 
     def __post_init__(self):
         _require_keyword_prompt(self)

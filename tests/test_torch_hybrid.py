@@ -52,6 +52,7 @@ from repro_torch.core.precision import FP32
 from repro_torch.kernels import ops as tops
 from repro_torch.launch.steps import cache_layout, make_paged_layout
 from repro_torch.models import lm as tlm
+from repro_torch.models import params as tptree
 from repro_torch.serving import InferenceEngine, Request
 from repro_torch.serving.kv_cache import prefill_scatter
 
@@ -190,7 +191,7 @@ def _layer_of(arch, seg, kind):
     jcfg, tcfg, jp, tp = _model(arch)
     assert jcfg.schedule[seg][0] == kind
     return (jax.tree.map(lambda a: a[0], jp["segments"][seg]),
-            tlm._layer(tp["segments"][seg], 0))
+            tptree.layer(tp["segments"][seg], 0))
 
 
 @pytest.mark.parametrize("fused", [True, False])

@@ -23,6 +23,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import blocks as tblocks
 from repro_torch.core.precision import FP32
 from repro_torch.models import lm as tlm
+from repro_torch.models import params as tptree
 
 # the suite runs beside JAX tests in parallel workers: keep torch from
 # claiming every core
@@ -69,7 +70,7 @@ def _plan(fused):
 def test_block_full_matches_reference(arch, fused):
     jcfg, tcfg, jp, tp = _models(arch)
     jlayer = jax.tree.map(lambda a: a[0], jp["segments"][0])
-    tlayer = tlm._layer(tp["segments"][0], 0)
+    tlayer = tptree.layer(tp["segments"][0], 0)
     x = np.random.default_rng(1).standard_normal((2, 11, 64)).astype(
         np.float32)
     jx, jcache, _ = jblocks.block_full(
@@ -94,7 +95,7 @@ def test_block_decode_matches_reference(arch, fused):
     after the new token's K/V append (absent table rows write nothing)."""
     jcfg, tcfg, jp, tp = _models(arch, seed=2)
     jlayer = jax.tree.map(lambda a: a[0], jp["segments"][0])
-    tlayer = tlm._layer(tp["segments"][0], 0)
+    tlayer = tptree.layer(tp["segments"][0], 0)
     rng = np.random.default_rng(3)
     B, NB, BS, KV, hd = 3, 9, 8, jcfg.n_kv_heads, jcfg.head_dim
     pools = [rng.standard_normal((NB, BS, KV, hd)).astype(np.float32)

@@ -38,6 +38,7 @@ from repro_torch.core.precision import FP32
 from repro_torch.kernels import ops as tops
 from repro_torch.launch.steps import cache_layout, make_paged_layout
 from repro_torch.models import lm as tlm
+from repro_torch.models import params as tptree
 from repro_torch.serving import InferenceEngine, Request, SamplingParams
 from repro_torch.serving.kv_cache import prefill_scatter
 
@@ -108,7 +109,7 @@ def test_params_from_numpy_swiglu_tree(model):
 def test_block_full_matches_reference(model, fused):
     jcfg, tcfg, jp, tp = model
     jlayer = jax.tree.map(lambda a: a[1], jp["segments"][0])
-    tlayer = tlm._layer(tp["segments"][0], 1)
+    tlayer = tptree.layer(tp["segments"][0], 1)
     x = np.random.default_rng(1).standard_normal((2, 11, 64)).astype(
         np.float32)
     jx, jcache, _ = jblocks.block_full(
@@ -131,7 +132,7 @@ def test_block_decode_matches_reference(model, fused):
     after the append."""
     jcfg, tcfg, jp, tp = model
     jlayer = jax.tree.map(lambda a: a[0], jp["segments"][0])
-    tlayer = tlm._layer(tp["segments"][0], 0)
+    tlayer = tptree.layer(tp["segments"][0], 0)
     rng = np.random.default_rng(3)
     B, NB, BS, KV, hd = 3, 9, 8, jcfg.n_kv_heads, jcfg.head_dim
     pools = [rng.standard_normal((NB, BS, KV, hd)).astype(np.float32)

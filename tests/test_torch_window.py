@@ -52,6 +52,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.launch.steps import cache_layout, make_paged_layout
 from repro_torch.models import lm as tlm
+from repro_torch.models import params as tptree
 from repro_torch.serving import InferenceEngine, Request
 from repro_torch.serving.kv_cache import prefill_scatter
 
@@ -267,7 +268,7 @@ def test_decode_attention_plain_chunks_match_oracle(window):
 def _layer_of(arch, seg):
     jcfg, tcfg, jp, tp = _model(arch)
     return (jax.tree.map(lambda a: a[0], jp["segments"][seg]),
-            tlm._layer(tp["segments"][seg], 0))
+            tptree.layer(tp["segments"][seg], 0))
 
 
 # pos per row: < W - 1, W - 1, W, and after several wraps (W = 8)
