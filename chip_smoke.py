@@ -58,13 +58,22 @@ non-zero):
               or encode pass, the wgmma GEMMs once per prefill or encode
               pass, LayerNorm once per encode batch), no leaked blocks,
               each embedding held to a direct forward_encode on the plain
-              path in bf16 and fp32; the device's busy share
-              of a decode step and its largest kernels and host ops
+              path in bf16 and fp32; each engine captures its decode step
+              in one CUDA graph at construction and every decode step is a
+              replay of it (a replay adds the launch counts of the
+              capture), the paged layers through the one paged route
+              exactly once a step; a replay held to an eager
+              forward_decode on cloned caches, tokens identical and caches
+              bit-equal; the device's busy share
+              of a decode step, its host launch calls (cudaGraphLaunch,
+              cudaLaunchKernel), its largest kernels and host ops
               (torch.profiler), and for hymba and mamba2 of one 512-token
               prefill pass with the SSD kernels' share; then one prompt
               teacher-forced through the fused and the unfused kernel
               paths, final-position logits
               held to the plain (`ref`) path in bf16 and in fp32;
+     cli      `python -m repro_torch.launch.serve` (its `main`) at GPT-J
+              full width: 6 sampled generate requests, then 6 encodes;
   6. vit      ViT-B, ViT-L and ViT-H at full width and depth, a batch of 8
               seeded images: the fused and unfused kernel paths with exact
               launch counts, logits held to the plain path in bf16 and
@@ -924,9 +933,9 @@ def check_paged(rows):
     the single pass); the 17-slot case must run it at one split.  Yardstick: SDPA over dense copies
     with a boolean mask; device times of both from torch.profiler kernel
     events.  Bound: the bytes of q, the live K / V rows and the outputs.
-    On GPT-J's serving batch the decode path's two-split route is counted
-    in device events against the host-side split chain it replaced."""
-    from repro_torch.core.attention import _paged_attention
+    On GPT-J's serving batch the decode path's one paged route (the
+    normalized wrapper) is counted in device events against the host-side
+    split chain it replaced."""
     from repro_torch.kernels import flash_decode as fd
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device(DEVICE)
@@ -951,7 +960,9 @@ def check_paged(rows):
         one = po / pl.clamp(min=1e-30)[..., None]       # the single pass
         plain = time_ms(lambda: fd.paged_decode_plain(q, kp, vp, tab,
                                                       lengths), iters=5)
-        s_att = fd.paged_splits(B, KV, tab.shape[1], sms=sms)
+        s_att = fd.paged_splits(B, KV, tab.shape[1], sms=sms,
+                                at_least=fd.paged_min_splits(tab.shape[1],
+                                                             16))
         runs = [("paged_decode_attention", s_att,
                  lambda: fd.paged_decode_attention(q, kp, vp, tab, lengths),
                  B * H * D * 2)]
@@ -1002,15 +1013,15 @@ def check_paged(rows):
                 log(f"    {label}{extra}")
             rows[name].append(r)
         if lens == GPTJ_SERVE_LENS:
-            new = device_events(lambda: _paged_attention(q, kp, vp, tab,
-                                                         lengths, 2))
+            new = device_events(lambda: fd.paged_decode_attention(
+                q, kp, vp, tab, lengths))
             old_fn = lambda: _host_split_chain(q, kp, vp, tab, lengths, 2)
             rel = row_rel_err(old_fn(), one)[1]
             old = device_events(old_fn)
             rows["paged_split_route_events"] = {
                 "kernel_split": new, "host_chain": old,
                 "host_chain_rel_err": rel}
-            log(f"  decode path's two-split route on {case}: {new:.0f} "
+            log(f"  decode path's paged route on {case}: {new:.0f} "
                 f"device events a call (the host split chain it replaced: "
                 f"{old:.0f}, its result within {rel:.2e} of the single pass)")
     if not any(r["template"] == "splits 1"
@@ -1151,6 +1162,7 @@ def phase_sampling():
     from repro_torch.configs import PHI4_MINI
     from repro_torch.core import embedding as emb
     from repro_torch.core import prng
+    from repro_torch.serving.sampling import device_lane
     Vp = PHI4_MINI.padded_vocab
     seeds = np.array([0, 100, 106, 2**31 - 1, 77, 5], np.int64)
     steps = np.array([0, 301, 45, 511, 2**31 - 1, 9], np.int64)
@@ -1176,13 +1188,13 @@ def phase_sampling():
                                     np.float32),
             "top_k": np.array([40, 0, 40, 64, 1, 0], np.int32),
             "seed": seeds, "step": steps}
-    tok_cpu = emb._lane_scores(z, lane).argmax(-1)
-    tok_dev = emb._lane_scores(z.to(DEVICE), lane).argmax(-1).cpu()
-    sampled = {"temperature": np.full(2, 0.8, np.float32),
-               "top_k": np.full(2, 40, np.int32), "seed": seeds[:2],
-               "step": steps[:2]}
-    noise_ms = time_ms(lambda: emb.gumbel_noise(sampled, Vp, DEVICE),
-                       iters=10)
+    tok_cpu = emb._lane_scores(z, device_lane(lane, "cpu")).argmax(-1)
+    tok_dev = emb._lane_scores(z.to(DEVICE), device_lane(
+        lane, DEVICE)).argmax(-1).cpu()
+    sampled = device_lane({"temperature": np.full(2, 0.8, np.float32),
+                           "top_k": np.full(2, 40, np.int32),
+                           "seed": seeds[:2], "step": steps[:2]}, DEVICE)
+    noise_ms = time_ms(lambda: emb.gumbel_noise(sampled, Vp), iters=10)
     log(f"sampling: {B} (seed, step) pairs over {Vp} columns, card vs CPU: "
         f"bits equal {bits_equal}, uniforms bit-equal {unif_equal}, Gumbel "
         f"noise bit-equal {g_equal}, tokens {tok_dev.tolist()} vs "
@@ -1201,23 +1213,8 @@ def phase_sampling():
 # --------------------------------------------------------------------------
 
 def _counters():
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import flash_decode as fd
-    from repro_torch.kernels import matmul as mm
-    from repro_torch.kernels import rmsnorm as nm
-    from repro_torch.kernels import ssd as sd
-    return {"fused_matmul": mm.fused_matmul,
-            "fused_matmul_swiglu": mm.matmul_swiglu,
-            "flash_attention": fa.flash_attention,
-            "paged_decode_partials": fd.paged_decode_partials,
-            "paged_decode_attention": fd.paged_decode_attention,
-            "paged_decode_merge": fd.paged_decode_merge,
-            "decode_attention": fd.decode_attention,
-            "rmsnorm": nm.rmsnorm,
-            "layernorm": nm.layernorm,
-            "residual_rmsnorm": nm.residual_rmsnorm,
-            "residual_layernorm": nm.residual_layernorm,
-            "ssd": sd.ssd}
+    from repro_torch.kernels import ops
+    return ops.launch_counters()
 
 
 TOTAL_LAUNCHES = {}            # kernel -> launches over every driven path
@@ -1374,12 +1371,12 @@ def ring_layers(cfg, max_seq):
                if k in ATTN_KINDS and not blocks.kind_paged(k, cfg, max_seq))
 
 
-def path_kernels(cfg, path, *, max_seq=512, one_split=True, encode=False):
+def path_kernels(cfg, path, *, max_seq=512, encode=False):
     """The kernels a path of `cfg` must launch: `serve` (engine prefill and
-    decode, fused; `one_split`: some decode step's longest context fits one
-    split, so the normalized paged kernel runs too; `encode`: EncodeTasks
-    too, whose pooling norm runs the plain norm kernel), `fused` /
-    `unfused` (one teacher-forced prefill)."""
+    the captured decode step, fused: every paged layer through the one
+    paged route, whose C entry runs the partials kernel and the merge;
+    `encode`: EncodeTasks too, whose pooling norm runs the plain norm
+    kernel), `fused` / `unfused` (one teacher-forced prefill)."""
     from repro_torch.configs.base import ATTN_KINDS
     kinds = {k for k, _ in cfg.schedule}
     attention = bool(kinds & set(ATTN_KINDS))
@@ -1390,9 +1387,7 @@ def path_kernels(cfg, path, *, max_seq=512, one_split=True, encode=False):
     if attention:
         need.add("flash_attention")
     if attention and path == "serve":
-        need |= {"paged_decode_partials", "paged_decode_merge"}
-        if one_split:
-            need.add("paged_decode_attention")
+        need.add("paged_decode_attention")
         if ring_layers(cfg, max_seq):
             need.add("decode_attention")
     if cfg.mlp_act == "swiglu" and kinds - {"ssm"}:
@@ -1408,15 +1403,19 @@ def path_kernels(cfg, path, *, max_seq=512, one_split=True, encode=False):
 
 def check_serve_counts(cfg, launches, st, max_seq):
     """The dense decode kernel runs once per ring layer per decode step and
-    never in prefill; flash once per attention layer per prefill or encode
-    pass; the SSD kernel once per SSM layer per prefill pass, the residual
+    never in prefill, the paged route once per paged layer per decode step
+    (its own wrappers for the partials and the merge never); flash once
+    per attention layer per prefill or encode pass; the SSD kernel once per SSM layer per prefill pass, the residual
     RMSNorm once per hybrid layer per prefill pass and decode step; in a
     LayerNorm config the plain LayerNorm only as an encode batch's pooling
     norm, once a batch (the fused engine folds every other norm into a
     GEMM)."""
     from repro_torch.configs.base import ATTN_KINDS
     attn_layers = sum(c for k, c in cfg.schedule if k in ATTN_KINDS)
-    want = {"decode_attention": ring_layers(cfg, max_seq) * st.decode_steps,
+    rings = ring_layers(cfg, max_seq)
+    want = {"decode_attention": rings * st.decode_steps,
+            "paged_decode_attention": (attn_layers - rings) * st.decode_steps,
+            "paged_decode_partials": 0, "paged_decode_merge": 0,
             "flash_attention": attn_layers * (st.prefill_batches
                                               + st.encode_batches)}
     if cfg.norm == "layernorm":
@@ -1437,15 +1436,78 @@ def check_serve_counts(cfg, launches, st, max_seq):
         raise AssertionError(f"{cfg.name} serve: launches {got} != {want}")
 
 
-def profile_decode(eng, cfg, rng, steps=4, prompt_len=200):
+def graph_pool_gb():
+    """GB the caching allocator holds in private pools: the captured
+    graphs' pools (the step's activations and kernel scratch, kept between
+    replays as free blocks, so `memory_allocated` does not count them)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) / 1e9
+
+
+def _clone_caches(caches):
+    return tuple({k: v.clone() for k, v in seg.items()} for seg in caches)
+
+
+def check_graph_vs_eager(eng, cfg):
+    """The runner's captured decode step, replayed, against an eager
+    `lm.forward_decode` on clones of the same caches at the same inputs
+    (the runner's slots as they stand: seated, mid-decode): next tokens
+    and pos + 1 identical, every cache leaf bit-equal.  The runner's
+    caches are restored afterwards, so the engine goes on as if neither
+    step had run."""
+    from repro_torch.models import lm
+    from repro_torch.serving.sampling import device_lane
+    r = eng.runner
+    step = r.decode_step.fn
+    if step.graph is None:
+        raise AssertionError(f"{cfg.name}: the decode step is not captured")
+    dev = torch.device(DEVICE)
+    saved, eager = _clone_caches(r.caches), _clone_caches(r.caches)
+    with torch.no_grad():
+        tok_g, pos_g, _ = step(r.tokens, r.pos, r.block_tables, r.lane)
+        tok_g, pos_g = tok_g.clone(), pos_g.clone()
+        tok_e, _ = lm.forward_decode(
+            r.params, torch.tensor(r.tokens, device=dev),
+            torch.tensor(r.pos, device=dev), eager, cfg=cfg, policy=r.policy,
+            block_tables=torch.tensor(r.block_tables, device=dev),
+            lane=device_lane(r.lane, dev), fused=r.fuse_epilogues,
+            paged_segments=r.layout.segments)
+    torch.cuda.synchronize()
+    diffs = {}
+    for i, (seg_g, seg_e) in enumerate(zip(r.caches, eager)):
+        for k in seg_g:
+            if not torch.equal(seg_g[k], seg_e[k]):
+                diffs[f"segment {i} {k}"] = float(
+                    (seg_g[k].float() - seg_e[k].float()).abs().max())
+    same_tok = torch.equal(tok_g, tok_e.to(torch.int32))
+    same_pos = torch.equal(pos_g.cpu(), torch.from_numpy(r.pos + 1))
+    for seg, seg_s in zip(r.caches, saved):
+        for k in seg:
+            seg[k].copy_(seg_s[k])
+    del saved, eager
+    leaves = sum(len(seg) for seg in r.caches)
+    log(f"  [{cfg.name}] captured decode step vs eager forward_decode "
+        f"({len(r.decoding_slots())} live slots, pos {r.pos.tolist()}): "
+        f"tokens {tok_g.tolist()} vs {tok_e.tolist()}, pos + 1 equal "
+        f"{same_pos}, {leaves - len(diffs)} of {leaves} cache leaves "
+        f"bit-equal{f', differing: {diffs}' if diffs else ''}")
+    if not (same_tok and same_pos and not diffs):
+        raise AssertionError(f"{cfg.name}: the graph replay differs from "
+                             f"the eager decode step")
+    return {"tokens_equal": same_tok, "pos_equal": same_pos,
+            "cache_leaves": leaves, "leaves_bit_equal": leaves - len(diffs)}
+
+
+def profile_decode(eng, cfg, rng, steps=4, prompt_len=200,
+                   graph_check=False):
     """Where a decode step's time goes: a full batch (4 slots,
     `prompt_len`-token prompts, one row sampled) runs `steps` decode steps
-    timed on the host clock, then `steps` more under torch.profiler.  At
-    200 tokens the paged layers decode in one normalized pass; at 300 the
-    longest context passes 256 positions and they split in two (partials,
-    then the merge kernel).  Reports the device's
-    busy time per step (kernel time, from the profile) against the
-    unprofiled step, the largest kernels, and the host ops that cost the
+    timed on the host clock, then `steps` more under torch.profiler; the
+    paged layers split their tables as the shapes say at either length.
+    `graph_check`: after admission, `check_graph_vs_eager`.  Reports the
+    device's busy time per step (kernel time, from the profile) against
+    the unprofiled step, the largest kernels, the host launch calls a step
+    (cudaGraphLaunch, cudaLaunchKernel) and the host ops that cost the
     most CPU time (the profiler's own cost inflates these)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import Request, SamplingParams
@@ -1458,6 +1520,7 @@ def profile_decode(eng, cfg, rng, steps=4, prompt_len=200):
             sampling=sp))
     eng.step()                      # admission prefill + one decode step
     torch.cuda.synchronize()
+    graph = check_graph_vs_eager(eng, cfg) if graph_check else None
     t0 = time.perf_counter()
     for _ in range(steps):
         eng.step()
@@ -1481,7 +1544,17 @@ def profile_decode(eng, cfg, rng, steps=4, prompt_len=200):
         else:
             host[ev.key] = (ev.self_cpu_time_total / 1e3 / steps,
                             ev.count // steps)
-    out = {"steps": steps, "prompt_len": prompt_len, "step_ms": step_ms}
+    # host launch calls a step: one cudaGraphLaunch for the captured
+    # step, the eager path's cudaLaunchKernel calls before it
+    calls = {k: host.get(k, (0.0, 0))[1]
+             for k in ("cudaGraphLaunch", "cudaLaunchKernel",
+                       "cudaLaunchKernelExC", "cuLaunchKernel")}
+    out = {"steps": steps, "prompt_len": prompt_len, "step_ms": step_ms,
+           "host_launch_calls": calls}
+    if graph is not None:
+        out["graph_vs_eager"] = graph
+    log(f"  [{cfg.name} decode profile, {prompt_len}-token prompts] host "
+        f"launch calls a step: {calls}")
     if not dev:
         log(f"  [{cfg.name} decode profile, {prompt_len}-token prompts] "
             f"{step_ms:.2f} ms/step; the profiler saw no kernels: device "
@@ -1643,14 +1716,16 @@ def check_encodes(cfg, params, tasks, max_seq):
 
 
 def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
-                one_split=True, prefill_profile=False, encodes=()):
+                prefill_profile=False, encodes=()):
     """Serve len(lengths) requests of 32 new tokens (uids 1 and 6 sampled)
     through InferenceEngine at full width, the EncodeTasks `encodes`
     ((pooling, length) pairs, uids 100 + i) interleaved with the first of
     them, then profile decode steps (and, `prefill_profile`, one prefill
     pass of max_seq tokens) and teacher-force one prompt through the fused
-    kernel path, the unfused kernel path and the plain path.  `one_split`:
-    see `path_kernels`."""
+    kernel path, the unfused kernel path and the plain path.  The engine
+    captures its decode step once, at construction; every decode step of
+    the run must be a replay of that one graph, and the first profile
+    holds a replay to the eager step (`check_graph_vs_eager`)."""
     from repro_torch.core.precision import BF16, FP32
     from repro_torch.models import lm
     from repro_torch.serving import (EncodeTask, InferenceEngine, Request,
@@ -1668,8 +1743,22 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
         f"{n_params / 1e9:.3f} B params, init "
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     eng = InferenceEngine(cfg, params, batch_size=4, max_seq=max_seq,
                           block_size=16, policy=BF16, device=DEVICE)
+    torch.cuda.synchronize()
+    step = eng.runner.decode_step
+    build_s = time.perf_counter() - t0
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in _leaves(eng.runner.caches)) / 1e9
+    graph_gb = graph_pool_gb()
+    peak_build = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  [{cfg.name}] engine built in {build_s:.2f} s, decode step "
+        f"captured {step.aux['captured']}; caches {cache_gb:.3f} GB, the "
+        f"graph's memory pool {graph_gb:.3f} GB, peak allocated "
+        f"{peak_build:.2f} GB")
+    if not step.aux["captured"]:
+        raise AssertionError(f"{cfg.name}: the decode step is not captured")
     rng = np.random.default_rng(0)
     enc_tasks = []
     for uid, n in enumerate(lengths):
@@ -1683,12 +1772,18 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
                 0, cfg.vocab, m, dtype=np.int32), pooling=pooling))
             eng.submit(enc_tasks[-1])
     t0 = time.perf_counter()
+    replays = step.fn.replays
     done, launches = drive(f"{cfg.name} serve", eng.run,
                            path_kernels(cfg, "serve", max_seq=max_seq,
-                                        one_split=one_split,
                                         encode=bool(encodes)))
     wall = time.perf_counter() - t0
     st = eng.stats()
+    replays = step.fn.replays - replays
+    log(f"  [{cfg.name} serve] {st.decode_steps} decode steps, "
+        f"{replays} replays of the one captured graph")
+    if eng.runner.decode_step is not step or replays != st.decode_steps:
+        raise AssertionError(f"{cfg.name}: {st.decode_steps} decode steps "
+                             f"but {replays} replays of its graph")
     check_serve_counts(cfg, launches, st, max_seq)
     check_gemm_templates(cfg, st, TEMPLATE_LAUNCHES[f"{cfg.name} serve"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1718,9 +1813,12 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
               "gemm_templates": TEMPLATE_LAUNCHES[f"{cfg.name} serve"],
               "stats": st.to_dict(),
               "wall_s": wall, "peak_memory_gb": peak_gb, "params": n_params,
+              "engine_build_s": build_s, "caches_gb": cache_gb,
+              "graph_pool_gb": graph_gb,
+              "graph_replays": replays,
               "max_seq": max_seq, "layers": cfg.n_layers,
               "teacher_forced": {}, "decode_profile": profile_decode(
-                  eng, cfg, rng),
+                  eng, cfg, rng, graph_check=True),
               "decode_profile_split": profile_decode(eng, cfg, rng,
                                                      prompt_len=300)}
     del eng
@@ -1788,14 +1886,60 @@ def phase_serve():
     # admission); the 1010 prompt crosses position 1024 while it decodes
     # (the ring wraps in place)
     out[GEMMA3_27B.name] = serve_model(
-        GEMMA3_27B, seed=4, max_seq=2048, one_split=False,
+        GEMMA3_27B, seed=4, max_seq=2048,
         lengths=(1100, 40, 1010, 300, 20, 90, 1030, 150))
     hymba = dataclasses.replace(
         HYMBA_1_5B, n_layers=4,
         schedule=(("hybrid_attn", 1), ("hybrid_local", 3)))
     out["hymba-1.5b ring"] = serve_model(hymba, seed=5, max_seq=2048,
-                                         one_split=False,
                                          lengths=(1100, 300, 1010))
+    return out
+
+
+SERVE_CLI = ["--arch", "gpt-j", "--requests", "6", "--batch", "4",
+             "--prompt-len", "160", "--min-prompt-len", "40", "--max-new",
+             "12", "--max-seq", "256", "--seed", "11"]
+
+
+def phase_serve_cli():
+    """The port's CLI, `python -m repro_torch.launch.serve` (its `main`, in
+    this process), at GPT-J's full width and depth: 6 sampled generate
+    requests, then 6 encode requests (pooling `last`).  Each run's kernels
+    must launch (the generate run decoding through its captured graph) and
+    its summary lines print."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import GPT_J
+    from repro_torch.launch import serve
+    runs = {"generate": (SERVE_CLI + ["--temperature", "0.8", "--top-k",
+                                      "40"],
+                         path_kernels(GPT_J, "serve", max_seq=256),
+                         "decode step captured"),
+            "encode": (SERVE_CLI + ["--task", "encode", "--pooling", "last"],
+                       ("flash_attention", "fused_matmul", "layernorm"),
+                       "ENC")}
+    out = {}
+    for task, (argv, need, marker) in runs.items():
+        buf = io.StringIO()
+
+        def main():
+            with contextlib.redirect_stdout(buf):
+                return serve.main(argv)
+        t0 = time.perf_counter()
+        rc, launches = drive(f"serve CLI gpt-j {task}", main, need)
+        seconds = time.perf_counter() - t0
+        text = buf.getvalue()
+        log(f"serve CLI ({task}): python -m repro_torch.launch.serve "
+            f"{' '.join(argv)}: exit {rc} in {seconds:.1f} s")
+        for line in text.splitlines():
+            log(f"  | {line}")
+        if rc != 0 or "served 6 requests" not in text or marker not in text:
+            raise AssertionError(f"serve CLI ({task}) did not serve its "
+                                 f"trace")
+        out[task] = {"argv": argv, "seconds": seconds, "stdout": text,
+                     "launches": launches}
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2010,7 +2154,6 @@ def decode_logits(cfg, params, tokens, prompt_len, *, mode, fused, policy,
     (`cache_layout` / `prefill_scatter`, paged global layers, ring local
     ones), then one step per remaining token through the decode stack that
     `forward_decode` runs, and the logits head."""
-    from repro_torch.core.attention import decode_splits
     from repro_torch.core.embedding import embed_token
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import cache_layout, make_paged_layout
@@ -2041,8 +2184,6 @@ def decode_logits(cfg, params, tokens, prompt_len, *, mode, fused, policy,
             xd, _ = lm._run_segments_decode(
                 params, xd, torch.tensor([pos], device=dev), caches, cfg=cfg,
                 policy=policy, block_tables=table, fused=fused,
-                kv_splits=decode_splits(pos + 1, layout.max_blocks,
-                                        block_size),
                 paged_segments=layout.segments)
             out.append(_head(params, cfg, xd, fused=fused, policy=policy))
     return torch.cat(out)
@@ -2090,8 +2231,8 @@ def ring_witness(cfg, *, seed, prompt_len=1000, steps=40, max_seq=2048,
             lambda: decode_logits(cfg, params, tokens, prompt_len,
                                   mode="auto", fused=fused, policy=BF16,
                                   **kw),
-            ("decode_attention", "paged_decode_partials",
-             "paged_decode_merge", "flash_attention"))
+            ("decode_attention", "paged_decode_attention",
+             "flash_attention"))
         if launches["decode_attention"] != ring * steps:
             raise AssertionError(f"{name} {path}: decode_attention launched "
                                  f"{launches['decode_attention']} times, not "
@@ -2178,7 +2319,15 @@ KERNELS = {   # name -> (source, TPU kernel replaced, case in the line)
 SSD_CONFIG = {"ssd_multihead": "hymba-1.5b", "ssd": "mamba2-2.7b"}
 
 
+# the partials kernel runs on the served paths as the first pass of the one
+# paged route's C entry (csrc/paged_decode.cu), once a route launch; its
+# own wrapper serves the kernels phase only
+PASS_OF = {"paged_decode_partials": "paged_decode_attention"}
+
+
 def _launches(name, serve):
+    if name in PASS_OF:
+        return TOTAL_LAUNCHES.get(PASS_OF[name], 0)
     if name not in SSD_CONFIG:
         return TOTAL_LAUNCHES.get(name, 0)
     paths = serve[SSD_CONFIG[name]]["launches"].values()
@@ -2201,6 +2350,7 @@ def main():
     report["kernels"] = rows
     report["sampling"] = phase_sampling()
     report["serve"] = phase_serve()
+    report["serve_cli"] = phase_serve_cli()
     report["vit"] = phase_vit(info["nvidia_smi"])
     from repro_torch.configs import GEMMA3_27B, MAMBA2_2_7B
     report["witness"] = depth_witness(MAMBA2_2_7B, layers=8, seed=3)

@@ -19,7 +19,7 @@ _B = -1.769
 def i_gelu(x):
     """Second-order polynomial GELU (I-BERT).  Max abs err ~0.01."""
     xf = x.float()
-    arg = xf * torch.tensor(1.0 / math.sqrt(2.0), dtype=torch.float32)
+    arg = xf * (1.0 / math.sqrt(2.0))
     sgn = torch.sign(arg)
     a = torch.clamp(arg.abs(), max=-_B)
     erf_approx = sgn * (_A * (a + _B) ** 2 + 1.0)

@@ -25,8 +25,6 @@ from repro_torch.core.rope import apply_rope
 from repro_torch.kernels import ops
 from repro_torch.kernels.epilogue import Epilogue
 
-SPLIT_TOKENS = 256      # decode: KV positions per split-KV partial
-
 
 def attention_param_shapes(cfg) -> dict:
     E, H, hd, KV = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
@@ -128,44 +126,17 @@ def _decode_out_proj(p, merged, *, policy: Policy, residual=None):
     return pdot(o, p["wo"], policy, out_dtype=torch.float32).to(ad)
 
 
-def decode_splits(max_len: int, max_blocks: int, block_size: int) -> int:
-    """Split-KV count for a decode step whose longest slot holds `max_len`
-    positions: one split per SPLIT_TOKENS, so long contexts spread over more
-    blocks of the card; 1 keeps the single normalized pass."""
-    per = max(1, SPLIT_TOKENS // block_size)
-    need = -(-max(max_len, 1) // (per * block_size))
-    return max(1, min(need, -(-max_blocks // per)))
-
-
-def _paged_attention(q, k_pool, v_pool, tables, length, kv_splits: int):
-    """One decode step's attention over the paged pools -> [B, H, hd].
-
-    kv_splits == 1: the normalized paged kernel (which splits the table
-    across the card by itself).  kv_splits > 1: the partials kernel cuts
-    each slot's table into at least `kv_splits` contiguous entry ranges
-    inside its grid (`ops.paged_splits`: enough for two blocks per SM), and
-    the merge kernel folds the per-range partials with the online-softmax
-    rule — the reference's cross-shard `merge_partials`, applied across
-    splits of one card's pool.  Output at q's dtype."""
-    if kv_splits <= 1:
-        return ops.paged_decode_attention(q, k_pool, v_pool, tables, length)
-    splits = ops.paged_splits(q, tables, k_pool, at_least=kv_splits)
-    o, m, l = ops.paged_decode_partials(q, k_pool, v_pool, tables, length,
-                                        splits=splits)
-    return ops.paged_decode_merge(o, m, l, out_dtype=q.dtype)
-
-
 def attn_decode_paged(p, x, pos, cache, block_tables, *, cfg,
-                      policy: Policy, norm=None, residual=None,
-                      kv_splits: int = 1):
+                      policy: Policy, norm=None, residual=None):
     """One decode step against the block-paged KV pools.
 
     x: [B, E]; pos: [B] position of the token being written; cache:
     {"k", "v"} pools [NB + 1, BS, KV, hd] (trailing sink block); block_tables:
     [B, MB] pool indices (< 0 unallocated).  The new token's K/V is written
     IN PLACE into block table[pos // BS] at offset pos % BS (absent blocks
-    go to the sink), then attention runs over length pos + 1.  Returns
-    (y [B, E], cache)."""
+    go to the sink), then attention runs over length pos + 1 through the
+    one paged route, `ops.paged_decode_attention`, whose split count
+    depends on the shapes alone.  Returns (y [B, E], cache)."""
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
     ad = act_dtype(policy)
@@ -190,8 +161,8 @@ def attn_decode_paged(p, x, pos, cache, block_tables, *, cfg,
     length = (pos + 1).to(torch.int32)
     tab = torch.where((block_tables >= 0) & (block_tables < sink),
                       block_tables, torch.full_like(block_tables, -1))
-    out = _paged_attention(q.to(ad), k_pool, v_pool, tab.to(torch.int32),
-                           length, kv_splits)
+    out = ops.paged_decode_attention(q.to(ad), k_pool, v_pool,
+                                     tab.to(torch.int32), length)
     merged = out.reshape(B, H * hd)
     return _decode_out_proj(p, merged, policy=policy,
                             residual=residual), cache

@@ -192,13 +192,13 @@ def block_full(kind: str, p, x, *, cfg, policy, fused: bool = True,
 
 
 def _attn_decode(p, x, pos, cache, *, kind, cfg, policy, paged,
-                 block_tables, kv_splits, norm=None, residual=None):
+                 block_tables, norm=None, residual=None):
     """The layer's decode attention: the block pools when `paged`, else the
     dense per-slot ring cache of `window` slots (`kind_paged`)."""
     if paged:
         return attn.attn_decode_paged(p, x, pos, cache, block_tables,
                                       cfg=cfg, policy=policy, norm=norm,
-                                      residual=residual, kv_splits=kv_splits)
+                                      residual=residual)
     window = kind_window(kind, cfg)
     if cache["k"].shape[1] != window:
         raise ValueError(f"{kind}: a dense decode cache is a ring of "
@@ -208,8 +208,7 @@ def _attn_decode(p, x, pos, cache, *, kind, cfg, policy, paged,
 
 
 def block_decode(kind: str, p, x, pos, cache, *, cfg, policy,
-                 block_tables, fused: bool = True, kv_splits: int = 1,
-                 paged: bool = True):
+                 block_tables, fused: bool = True, paged: bool = True):
     """x: [B, E]; pos: [B]; cache: this layer's cache views — {"k", "v"}
     block pools (`paged`) or dense per-slot [B, W, KV, hd] ring caches, and
     / or the SSM state {"h", "cx", "cbc"} — updated in place.
@@ -227,7 +226,7 @@ def block_decode(kind: str, p, x, pos, cache, *, cfg, policy,
         return x + y, cache
     hybrid = kind in HYBRID_KINDS
     kv_kw = dict(kind=kind, cfg=cfg, policy=policy, paged=paged,
-                 block_tables=block_tables, kv_splits=kv_splits)
+                 block_tables=block_tables)
     if fused and not hybrid:
         x, _ = _attn_decode(p["attn"], x, pos, cache,
                             norm=ops.norm_prologue(p["ln1"], cfg.norm),

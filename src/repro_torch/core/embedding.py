@@ -13,7 +13,6 @@ instead.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.core import prng
@@ -49,7 +48,7 @@ def logits_local(x, unemb, *, cfg, policy, norm=None):
     final norm fused into the logits GEMM as its prologue."""
     z = fused_pdot(x, unemb, policy, prologue=norm, out_dtype=torch.float32)
     real = torch.arange(z.shape[-1], device=z.device)[None, :] < cfg.vocab
-    return torch.where(real, z, torch.tensor(NEG_INF, device=z.device))
+    return z.masked_fill(~real, NEG_INF)
 
 
 def greedy_token(x, unemb, *, cfg, policy, norm=None):
@@ -65,21 +64,14 @@ def sample_token(x, unemb, lane, *, cfg, policy, norm=None):
     return torch.argmax(_lane_scores(z, lane), dim=-1).to(torch.int32)
 
 
-def gumbel_noise(lane, n_cols: int, device) -> torch.Tensor:
-    """[B, n_cols] fp32 Gumbel(0, 1) noise, vectorised on the device: row b
-    draws from fold_in(fold_in(key(seed[b]), step[b]), 0); greedy rows get
-    zeros (their score ignores it)."""
-    temp = np.asarray(lane["temperature"], np.float32)
-    rows = np.flatnonzero(temp > 0)
-    g = torch.zeros((len(temp), n_cols), dtype=torch.float32, device=device)
-    if rows.size:
-        seed = torch.tensor(np.asarray(lane["seed"], np.int64)[rows],
-                            device=device)
-        step = torch.tensor(np.asarray(lane["step"], np.int64)[rows],
-                            device=device)
-        k = prng.fold_in(prng.fold_in(prng.key(seed), step), 0)
-        g[torch.tensor(rows, device=device)] = prng.gumbel(k, n_cols)
-    return g
+def gumbel_noise(lane, n_cols: int) -> torch.Tensor:
+    """[B, n_cols] fp32 Gumbel(0, 1) noise on the lane's device: row b
+    draws from fold_in(fold_in(key(seed[b]), step[b]), 0); greedy rows
+    (temperature <= 0) get zeros.  Every row is drawn, whatever its
+    temperature, so the work does not depend on the lane's values."""
+    k = prng.fold_in(prng.fold_in(prng.key(lane["seed"]), lane["step"]), 0)
+    g = prng.gumbel(k, n_cols)
+    return g.masked_fill((lane["temperature"] <= 0)[:, None], 0.0)
 
 
 def _lane_scores(z, lane, *, noise=None):
@@ -87,21 +79,21 @@ def _lane_scores(z, lane, *, noise=None):
     (temperature <= 0) keep the raw logits, sampled rows get top-k-masked,
     temperature-scaled, Gumbel-perturbed logits.
 
-    z: [B, V] fp32.  lane: host-side per-row arrays "temperature", "top_k",
-    "seed", "step" ([B] each).  `noise` [B, V] replaces the drawn Gumbel
-    noise."""
-    B, V = z.shape
-    dev = z.device
-    t = torch.tensor(np.asarray(lane["temperature"], np.float32), device=dev)
-    k = torch.tensor(np.asarray(lane["top_k"], np.int64), device=dev)
+    z: [B, V] fp32.  lane: per-row tensors on z's device (`serving.sampling.
+    device_lane`) "temperature" fp32, "top_k" int, "seed" int, "step" int
+    ([B] each).  `noise` [B, V] replaces the drawn Gumbel noise.  No host
+    value reaches the device: the step that samples can be captured."""
+    V = z.shape[1]
+    t = lane["temperature"].float()
+    k = lane["top_k"].long()
     sampled = t > 0.0
     kcap = min(TOP_K_CAP, V)
     top = torch.topk(z, kcap, dim=-1).values                    # [B, kcap]
     kth = torch.clamp(k, 1, kcap) - 1
     thresh = top.gather(1, kth[:, None])
     keep = (k[:, None] <= 0) | (z >= thresh)
-    g = noise if noise is not None else gumbel_noise(lane, V, dev)
+    g = noise if noise is not None else gumbel_noise(lane, V)
     t_safe = torch.where(sampled, torch.clamp(t, min=1e-6),
                          torch.ones_like(t))
-    masked = torch.where(keep, z, torch.tensor(NEG_INF, device=dev))
+    masked = z.masked_fill(~keep, NEG_INF)
     return torch.where(sampled[:, None], masked / t_safe[:, None] + g, z)

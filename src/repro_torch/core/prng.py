@@ -22,10 +22,13 @@ step), shard))` under partitionable threefry (its launch/steps.py turns
 
 torch has no full uint32 arithmetic on CUDA, so every word is carried in an
 int64 tensor and masked to 32 bits after each add and shift.  Keys are
-tensors of any batch shape; everything runs vectorised on the keys' device.
+tensors of any batch shape; everything runs vectorised on the keys' device
+and makes no tensor from host data, so it can run inside a captured CUDA
+graph.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -53,15 +56,21 @@ def threefry2x32(k1, k2, x1, x2):
 
 
 def key(seed):
-    """Raw keys (k1, k2) for int32 seeds (a scalar or a tensor)."""
-    s = torch.as_tensor(seed, dtype=torch.int64)
+    """Raw keys (k1, k2) for int32 seeds (a tensor; a Python int makes a
+    0-dim CPU key)."""
+    if not isinstance(seed, torch.Tensor):
+        seed = torch.tensor(seed)
+    s = seed.to(torch.int64)
     return torch.zeros_like(s), s & MASK32
 
 
 def fold_in(k, data):
     """Fold the 32-bit `data` (broadcasts against the key) into key `k`."""
     k1, k2 = k
-    d = torch.as_tensor(data, dtype=torch.int64, device=k1.device) & MASK32
+    if isinstance(data, torch.Tensor):
+        d = data.to(torch.int64) & MASK32
+    else:
+        d = torch.full_like(k1, data & MASK32)
     return threefry2x32(k1, k2, torch.zeros_like(d), d)
 
 
@@ -78,8 +87,10 @@ def uniform(k, n: int, *, minval: float = 0.0):
     """[..., n] float32 uniforms in [minval, 1)."""
     bits = (random_bits(k, n) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
-    return torch.maximum(lo, floats * (1.0 - lo) + lo)
+    # minval and 1 - minval rounded to float32 as the reference rounds them
+    lo = np.float32(minval)
+    scale = np.float32(1.0) - lo
+    return torch.clamp(floats * float(scale) + float(lo), min=float(lo))
 
 
 def gumbel(k, n: int):

@@ -44,6 +44,7 @@ MAX_MERGE_SPLITS = 64   # csrc/decode_fold.cuh DF_MAX_SPLITS
 FOLD_THREADS = 256      # csrc/decode_fold.cuh DF_THREADS
 STAGE = 32              # csrc/decode_fold.cuh DF_STAGE_TOKENS: dense stage
 PAGED_MIN_ENTRIES = 4   # table entries a split of the paged grid spans
+SPLIT_TOKENS = 512      # pool positions a split of a full table spans at most
 DENSE_BLOCKS_PER_SM = 4  # blocks the dense split rule aims at per SM
 SM_COUNT = 132          # H100 SXM: the split rule's SMs off the card
 DENSE_CHUNK = 512       # the TPU kernel's block_kv: positions per plain step
@@ -94,8 +95,7 @@ def _dense_fold(q, k_cache, v_cache, length, window, p0, p1, chunk):
             ok &= pos[None, :] >= (length - window)[:, None]
             live &= c1 > length - window
         s = torch.einsum("bkgd,bskd->bkgs", qf, kb) * sm_scale
-        s = torch.where(ok[:, None, None], s,
-                        torch.tensor(NEG_INF, device=dev))
+        s = s.masked_fill(~ok[:, None, None], NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -195,6 +195,15 @@ def paged_splits(B: int, KV: int, MB: int, *, sms: int = SM_COUNT,
     return max(1, min(want, max(cap, at_least), MAX_MERGE_SPLITS))
 
 
+def paged_min_splits(MB: int, BS: int) -> int:
+    """Splits a full table of MB entries of BS positions needs so that no
+    split spans more than SPLIT_TOKENS positions, however few slots and
+    kv heads the grid has: long tables spread over more blocks of the
+    card.  A function of the table's shape alone, so a decode step's
+    launches never depend on the live lengths."""
+    return max(1, -(-MB * BS // SPLIT_TOKENS))
+
+
 def split_ranges(MB: int, splits: int):
     """The contiguous table-entry range [e0, e1) of each split (the
     kernel's grid z: per = ceil(MB / splits) entries each)."""
@@ -235,8 +244,7 @@ def _paged_fold(q, k_pool, v_pool, block_tables, lengths, e0, e1):
         vb = v_pool[blk].float()
         s = torch.einsum("bkgd,bskd->bkgs", qf, kb) * sm_scale
         ok = (e * BS + tok)[None, :] < lengths[:, None]           # [B, BS]
-        s = torch.where(ok[:, None, None], s,
-                        torch.tensor(NEG_INF, device=dev))
+        s = s.masked_fill(~ok[:, None, None], NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -309,12 +317,16 @@ def paged_decode_partials(q, k_pool, v_pool, block_tables, lengths,
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     """As `paged_decode_partials`, normalized: -> [B, H, D] at q's dtype.
-    The grid splits the table as `paged_splits` says for the device (one
-    split or more) and the same call merges the splits (the plain version
-    likewise)."""
+    The grid splits the table as `paged_splits` says for the device, at
+    least `paged_min_splits` of the table (one split or more), and the same
+    call merges the splits (the plain version likewise).  The split count
+    depends on the operands' shapes alone: the one paged route of a decode
+    step."""
     if q.device.type == "cpu":
-        S = paged_splits(q.shape[0], k_pool.shape[2], block_tables.shape[1],
-                         sms=sm_count(q.device))
+        MB = block_tables.shape[1]
+        S = paged_splits(q.shape[0], k_pool.shape[2], MB,
+                         sms=sm_count(q.device),
+                         at_least=paged_min_splits(MB, k_pool.shape[1]))
         o, m, l = paged_decode_plain(q, k_pool, v_pool, block_tables,
                                      lengths, S)
         if S == 1:
@@ -324,7 +336,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
                                         v_pool, block_tables, lengths)
     B, H, D = q.shape
     _, BS, KV, _ = k_pool.shape
-    S = paged_splits(B, KV, tab.shape[1], sms=sm_count(q.device))
+    S = paged_splits(B, KV, tab.shape[1], sms=sm_count(q.device),
+                     at_least=paged_min_splits(tab.shape[1], BS))
     out = torch.empty_like(q)
     f32 = dict(dtype=torch.float32, device=q.device)
     parts = (torch.empty((S, B, H, D), **f32),

@@ -32,10 +32,10 @@ __all__ = [
     "Epilogue", "Prologue", "norm_prologue", "get_mode", "set_mode",
     "kernel_mode", "flash_attention", "decode_attention",
     "paged_decode_attention",
-    "paged_decode_partials", "paged_decode_merge", "paged_splits",
+    "paged_decode_partials", "paged_decode_merge",
     "split_quantized", "matmul", "pdot", "fused_matmul",
     "matmul_swiglu", "fused_matmul_swiglu", "residual_norm", "rmsnorm",
-    "layernorm", "norm", "ssd", "ssd_decode",
+    "layernorm", "norm", "ssd", "ssd_decode", "launch_counters",
 ]
 
 _STATE = threading.local()
@@ -81,6 +81,25 @@ def _use_kernel(x) -> bool:
         raise ValueError(f"kernel mode 'cuda' needs CUDA tensors, got a "
                          f"tensor on {x.device}")
     return True
+
+
+def launch_counters() -> dict:
+    """The hand-written kernels' wrappers by name.  Each adds one to its
+    `launches` (and to `launches_by[template]`, where it has templates)
+    where it launches its kernel; a replayed CUDA graph adds the counts of
+    its capture (`launch/steps.py`)."""
+    return {"fused_matmul": _mm.fused_matmul,
+            "fused_matmul_swiglu": _mm.matmul_swiglu,
+            "flash_attention": _fa.flash_attention,
+            "paged_decode_partials": _fd.paged_decode_partials,
+            "paged_decode_attention": _fd.paged_decode_attention,
+            "paged_decode_merge": _fd.paged_decode_merge,
+            "decode_attention": _fd.decode_attention,
+            "rmsnorm": _norm.rmsnorm,
+            "layernorm": _norm.layernorm,
+            "residual_rmsnorm": _norm.residual_rmsnorm,
+            "residual_layernorm": _norm.residual_layernorm,
+            "ssd": _ssd.ssd}
 
 
 # --------------------------------------------------------------------------
@@ -138,15 +157,6 @@ def paged_decode_partials(q, k_pool, v_pool, block_tables, lengths,
                     torch.full_like(block_tables, -1)), lengths)
         for e0, e1 in _fd.split_ranges(block_tables.shape[1], splits)]
     return tuple(torch.stack(x) for x in zip(*parts))
-
-
-def paged_splits(q, block_tables, k_pool, at_least=1) -> int:
-    """The paged partials grid's split count for these operands: at least
-    `at_least`, enough for two blocks per SM of q's device
-    (`flash_decode.paged_splits`)."""
-    return _fd.paged_splits(q.shape[0], k_pool.shape[2],
-                            block_tables.shape[1],
-                            sms=_fd.sm_count(q.device), at_least=at_least)
 
 
 def paged_decode_merge(o, m, l, *, out_dtype):

@@ -7,7 +7,8 @@ carry the layer dim first (`segments[i]/{ln1, ln2, attn/{wq, wk, wv, wo},
 mlp/{w1 | wg, wu, w2}, ssm/{w_x, w_z, w_bc, w_dt, dt_bias, a_log, d_skip,
 conv_x, conv_bc, norm_scale, w_out}}`, each group where the kind has it).
 The reference scans each segment with `lax.scan`; the port runs a Python
-loop over its layers, eagerly.
+loop over its layers (`launch/steps.py` captures the decode step's launches
+in one CUDA graph).
 
 Modes: `forward_prefill` (NAR prompt pass, optional right-padding to a
 length bucket — exact only without SSM state or ring caches — and compact
@@ -18,7 +19,6 @@ per-slot SSM state, which it updates in place).
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.core import blocks
@@ -104,8 +104,7 @@ def _run_segments_prefill(params, x, *, cfg, policy, max_seq, fused=True,
 
 
 def _run_segments_decode(params, x, pos, caches, *, cfg, policy,
-                         block_tables, fused=True, kv_splits=1,
-                         paged_segments=None):
+                         block_tables, fused=True, paged_segments=None):
     """Every layer's decode step; pool, ring-cache and SSM-state leaves are
     updated in place.  `paged_segments`: per segment, whether its k / v are
     block pools (the layout's `segments`); None: every segment's are."""
@@ -117,8 +116,7 @@ def _run_segments_decode(params, x, pos, caches, *, cfg, policy,
                                        layer(c_seg, i), cfg=cfg,
                                        policy=policy,
                                        block_tables=block_tables,
-                                       fused=fused, kv_splits=kv_splits,
-                                       paged=paged)
+                                       fused=fused, paged=paged)
     return x, caches
 
 
@@ -134,6 +132,15 @@ def _residual_at(x, idx):
     """x: [B, S, E]; idx: [B] positions -> [B, E]."""
     rows = torch.arange(x.shape[0], device=x.device)
     return x[rows, idx.long()]
+
+
+def _lengths(tokens, prompt_len):
+    """[B] int64 true lengths on the tokens' device: `prompt_len` (host
+    array or tensor), or every row's full length S."""
+    B, S = tokens.shape
+    if prompt_len is None:
+        return torch.full((B,), S, dtype=torch.int64, device=tokens.device)
+    return torch.as_tensor(prompt_len, device=tokens.device).to(torch.int64)
 
 
 def _choose(x, params, lane, step, *, cfg, policy, norm):
@@ -153,10 +160,12 @@ def forward_prefill(params, tokens, *, cfg, policy, max_seq: int,
                     fused: bool = True):
     """NAR prompt pass.  tokens: [B, S] -> (next_token [B], caches, pos [B]).
 
-    `prompt_len` (host int array [B], optional): true lengths of rows
-    right-padded to a length bucket; the next token is read at each row's
-    last true position.  `lane` (host per-row sampling arrays, see
-    core.embedding._lane_scores, without "step"): greedy when None."""
+    `prompt_len` ([B] ints, a host array or a tensor on the tokens' device,
+    optional): true lengths of rows right-padded to a length bucket; the
+    next token is read at each row's last true position.  `lane` (per-row
+    sampling tensors on the tokens' device, see
+    core.embedding._lane_scores, without "step": the sampled token's
+    position is each row's length): greedy when None."""
     x = _embed_sequence(params, tokens, policy=policy)
     x, caches = _run_segments_prefill(params, x, cfg=cfg, policy=policy,
                                       max_seq=max_seq, fused=fused,
@@ -164,14 +173,9 @@ def forward_prefill(params, tokens, *, cfg, policy, max_seq: int,
     head_norm = _head_norm(params, cfg, fused)
     if head_norm is None:
         x = ops.norm(x, params["final_norm"], cfg.norm)
-    B, S = tokens.shape
-    if prompt_len is None:
-        pos_host = np.full((B,), S, np.int64)
-    else:
-        pos_host = np.asarray(prompt_len, np.int64)
-    pos = torch.tensor(pos_host, device=tokens.device)
+    pos = _lengths(tokens, prompt_len)
     x_last = _residual_at(x, pos - 1)
-    tok = _choose(x_last, params, lane, pos_host, cfg=cfg, policy=policy,
+    tok = _choose(x_last, params, lane, pos, cfg=cfg, policy=policy,
                   norm=head_norm)
     return tok, caches, pos.to(torch.int32)
 
@@ -181,8 +185,8 @@ def forward_encode(params, tokens, *, cfg, policy, prompt_len=None,
     """Encoder-only NAR pass: one full-sequence forward, no KV cache, no
     sampling.  tokens: [B, S] -> pooled [B, E] float32.
 
-    `prompt_len` (host int array [B], optional): true lengths of rows
-    right-padded to a length bucket.  Padding is output-exact only for
+    `prompt_len` ([B] ints, host or device, optional): true lengths of
+    rows right-padded to a length bucket.  Padding is output-exact only for
     causal schedules (a bidirectional kind attends its pads); the runner
     pads only when every kind is causal.
     `pooling`: "last" — the normalized residual at the last true position
@@ -203,10 +207,8 @@ def forward_encode(params, tokens, *, cfg, policy, prompt_len=None,
     fused_head = fused and pooling == "last"
     if not fused_head:
         x = ops.norm(x, params["final_norm"], cfg.norm)
-    B, S = tokens.shape
-    lens = (np.full((B,), S, np.int64) if prompt_len is None
-            else np.asarray(prompt_len, np.int64))
-    pos = torch.tensor(lens, device=tokens.device)
+    S = tokens.shape[1]
+    pos = _lengths(tokens, prompt_len)
     if pooling == "last":
         row = _residual_at(x, pos - 1)
         if fused_head:
@@ -219,22 +221,23 @@ def forward_encode(params, tokens, *, cfg, policy, prompt_len=None,
 
 def forward_decode(params, token, pos, caches, *, cfg, policy,
                    block_tables, lane=None, fused: bool = True,
-                   kv_splits: int = 1, paged_segments=None):
+                   paged_segments=None):
     """One AR step.  token, pos: [B] device tensors; block_tables [B, MB]
-    -> (next_token [B], caches).  `lane` (host arrays, with "step" = the
-    position each sampled token will occupy): greedy when None.
-    `kv_splits`: split-KV count for the paged attention (host int);
+    -> (next_token [B], caches).  `lane` (per-row sampling tensors on the
+    device, without "step": a sampled token's step is pos + 1, the position
+    it will occupy, as the reference's): greedy when None.
     `paged_segments`: per segment, pools or ring caches (the layout's
-    `segments`; None: pools everywhere)."""
+    `segments`; None: pools everywhere).  No host value reaches the device
+    and every launch depends on the shapes alone: `launch/steps.py`
+    captures this function in a CUDA graph."""
     x = embed_token(params["embedding"]["embed"], token, policy=policy)
     x, caches = _run_segments_decode(params, x, pos, caches, cfg=cfg,
                                      policy=policy, block_tables=block_tables,
-                                     fused=fused, kv_splits=kv_splits,
+                                     fused=fused,
                                      paged_segments=paged_segments)
     head_norm = _head_norm(params, cfg, fused)
     if head_norm is None:
         x = ops.norm(x, params["final_norm"], cfg.norm)
-    step = None if lane is None else lane["step"]
-    tok = _choose(x, params, lane, step, cfg=cfg, policy=policy,
+    tok = _choose(x, params, lane, pos + 1, cfg=cfg, policy=policy,
                   norm=head_norm)
     return tok, caches

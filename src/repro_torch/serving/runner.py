@@ -10,27 +10,32 @@ three execution verbs:
 pooled, cache-free NAR pass for a batch of EncodeTasks; no slot, no
 block).  Scheduling decisions live in the engine's policy.
 
+The steps come from `launch/steps.py`: the decode step is built (on a
+card: captured in one CUDA graph) at construction, before any slot is
+seated; prefill and encode steps are built per (bucket, group) and
+(bucket, group, pooling) at first use and kept.
+
 Host mirrors (`tokens`, `pos`, `block_tables`, lanes) are numpy arrays that
-the runner mutates; every transfer to the device goes through
-`torch.tensor(...)`, which copies, so a later mutation can never reach a
-tensor a step is still reading.
+the runner mutates; every transfer to the device copies (the decode step
+copies them into its static buffers, the other steps take `torch.tensor`
+copies), so a later mutation can never reach a tensor a step is still
+reading.
 """
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import blocks
-from repro_torch.core.attention import decode_splits
 from repro_torch.core.precision import BF16
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import cache_layout, make_paged_layout
-from repro_torch.models import lm
+from repro_torch.launch import steps as steps_mod
 from repro_torch.serving.kv_cache import BlockAllocator, prefill_scatter
-from repro_torch.serving.sampling import set_lane, stack_lanes, zero_lane
+from repro_torch.serving.sampling import (device_lane, set_lane,
+                                          stack_lanes, zero_lane)
 from repro_torch.serving.stats import EngineStats
 from repro_torch.serving.tasks import EncodeTask, GenerateTask, Task
 
@@ -67,15 +72,20 @@ class ModelRunner:
         self._encode_pad = all(blocks.kind_causal(k, cfg)
                                for k, _ in cfg.schedule)
         default_blocks = batch_size * (-(-max_seq // block_size))
-        self.layout = make_paged_layout(cfg, max_seq,
-                                        kv_pool_blocks or default_blocks,
-                                        block_size)
-        self.caches = cache_layout(cfg, self.layout, batch_size=batch_size,
-                                   policy=self.policy, device=self.device)
+        self.layout = steps_mod.make_paged_layout(
+            cfg, max_seq, kv_pool_blocks or default_blocks, block_size)
+        self.caches = steps_mod.cache_layout(
+            cfg, self.layout, batch_size=batch_size, policy=self.policy,
+            device=self.device)
+        self.decode_step = steps_mod.make_decode_step(
+            cfg, params, self.caches, policy=self.policy, layout=self.layout,
+            batch_size=batch_size, fuse_epilogues=fuse_epilogues,
+            device=self.device)
+        self._prefill_steps: Dict[tuple, steps_mod.StepBundle] = {}
+        self._encode_steps: Dict[tuple, steps_mod.StepBundle] = {}
         self.allocator = BlockAllocator(self.layout.num_blocks, block_size)
         self.block_tables = np.full((batch_size, self.layout.max_blocks), -1,
                                     np.int32)
-        self._tables_dev = None            # device copy, rebuilt when dirty
         self._slot_blocks: List[List[int]] = [[] for _ in range(batch_size)]
         self._admit_seq = 0
         self.tokens = np.zeros((batch_size,), np.int32)
@@ -149,7 +159,6 @@ class ModelRunner:
             self.allocator.free(self._slot_blocks[b])
         self._slot_blocks[b] = []
         self.block_tables[b, :] = -1
-        self._tables_dev = None
         self.slots[b] = None
 
     def evict(self, b: int) -> GenerateTask:
@@ -160,11 +169,29 @@ class ModelRunner:
         task.prefilled = 0
         return task
 
-    def _tables(self):
-        if self._tables_dev is None:
-            self._tables_dev = torch.tensor(self.block_tables,
-                                            device=self.device)
-        return self._tables_dev
+    # -- step caches -----------------------------------------------------
+    def _prefill_for(self, bucket: int, group: int,
+                     stats: EngineStats) -> steps_mod.StepBundle:
+        step = self._prefill_steps.get((bucket, group))
+        if step is None:
+            step = steps_mod.make_prefill_step(
+                self.cfg, policy=self.policy, max_seq=self.max_seq,
+                bucket=bucket, group=group, compact_kv=True,
+                fuse_epilogues=self.fuse_epilogues)
+            self._prefill_steps[(bucket, group)] = step
+            stats.prefill_compiles += 1
+        return step
+
+    def _encode_for(self, bucket: int, group: int, pooling: str,
+                    stats: EngineStats) -> steps_mod.StepBundle:
+        step = self._encode_steps.get((bucket, group, pooling))
+        if step is None:
+            step = steps_mod.make_encode_step(
+                self.cfg, policy=self.policy, bucket=bucket, group=group,
+                pooling=pooling, fuse_epilogues=self.fuse_epilogues)
+            self._encode_steps[(bucket, group, pooling)] = step
+            stats.encode_compiles += 1
+        return step
 
     def ensure_decode_blocks(
             self, select_victim: Callable[[Sequence[Task]], Task],
@@ -190,7 +217,6 @@ class ModelRunner:
                 if got is not None:
                     self.block_tables[b, len(self._slot_blocks[b])] = got[0]
                     self._slot_blocks[b].extend(got)
-                    self._tables_dev = None
                     continue
                 cand = self.running()
                 if not cand:
@@ -225,12 +251,15 @@ class ModelRunner:
         padded = np.zeros((n, bucket), np.int32)
         for j, seq in enumerate(fulls):
             padded[j, :len(seq)] = seq
-        lane = stack_lanes([t.sampling for t in tasks])
-        tok, caches_g, pos_g = lm.forward_prefill(
+        lane = {"prompt_len": np.asarray([len(f) for f in fulls], np.int64)}
+        if any(not t.sampling.is_greedy for t in tasks):
+            # an all-greedy group draws no noise: the eager step's
+            # launches may follow the host's lane, the captured one's not
+            lane.update(stack_lanes([t.sampling for t in tasks]))
+        step = self._prefill_for(bucket, n, stats)
+        tok, caches_g, pos_g = step.fn(
             self.params, torch.tensor(padded, device=self.device),
-            cfg=self.cfg, policy=self.policy, max_seq=self.max_seq,
-            prompt_len=np.asarray([len(f) for f in fulls]), lane=lane,
-            compact_kv=True, fused=self.fuse_epilogues)
+            device_lane(lane, self.device))
         slots = free_slots[:n]
         tables = np.full((n, self.layout.max_blocks), -1, np.int32)
         for j, (_, blk) in enumerate(group):
@@ -257,7 +286,6 @@ class ModelRunner:
             task.output.append(int(tok_np[j]))
             self._seat(task, b, blk)
             self.block_tables[b] = tables[j]
-            self._tables_dev = None
             fresh.append((task, len(task.output) - 1))
             stats.bucket_hits[bucket] = stats.bucket_hits.get(bucket, 0) + 1
             if first_admit:
@@ -279,16 +307,8 @@ class ModelRunner:
         (task, output index) token events."""
         t0 = time.perf_counter()
         decoding = [(b, self.slots[b]) for b in self.decoding_slots()]
-        lane = dict(self.lane, step=self.pos.astype(np.int64) + 1)
-        max_len = max(int(self.pos[b]) + 1 for b, _ in decoding)
-        splits = decode_splits(max_len, self.layout.max_blocks,
-                               self.layout.block_size)
-        tok, _ = lm.forward_decode(
-            self.params, torch.tensor(self.tokens, device=self.device),
-            torch.tensor(self.pos, device=self.device), self.caches,
-            cfg=self.cfg, policy=self.policy, block_tables=self._tables(),
-            lane=lane, fused=self.fuse_epilogues, kv_splits=splits,
-            paged_segments=self.layout.segments)
+        tok, _, _ = self.decode_step.fn(self.tokens, self.pos,
+                                        self.block_tables, self.lane)
         toks = tok.cpu().numpy()                   # waits: honest timing
         self.pos += 1
         now = time.perf_counter()
@@ -317,14 +337,14 @@ class ModelRunner:
         n = len(group)
         lens = [t.prompt_len for t in group]
         bucket = self.encode_bucket_for(max(lens))
+        step = self._encode_for(bucket, n, group[0].pooling, stats)
         t0 = time.perf_counter()
         padded = np.zeros((n, bucket), np.int32)
         for j, task in enumerate(group):
             padded[j, :task.prompt_len] = np.asarray(task.prompt, np.int32)
-        pooled = lm.forward_encode(
-            self.params, torch.tensor(padded, device=self.device),
-            cfg=self.cfg, policy=self.policy, prompt_len=np.asarray(lens),
-            pooling=group[0].pooling, fused=self.fuse_epilogues)
+        pooled = step.fn(self.params,
+                         torch.tensor(padded, device=self.device),
+                         torch.tensor(lens, device=self.device))
         pooled_np = pooled.cpu().numpy()           # waits: honest timing
         now = time.perf_counter()
         dt = now - t0

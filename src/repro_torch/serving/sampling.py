@@ -1,11 +1,13 @@
 """Per-request sampling parameters (copy of the reference's
-serving/sampling.py host side).  Lanes are host numpy arrays, one row per
-decode slot; the model's sampler reads them at the step boundary."""
+serving/sampling.py).  Lanes are host numpy arrays, one row per decode slot;
+`device_lane` copies one to the device, where the model's sampler reads it
+(the decode step copies the runner's lane into its own static buffers)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from repro_torch.core.embedding import TOP_K_CAP
 
@@ -55,6 +57,12 @@ def set_lane(lane: dict, slot: int, params: SamplingParams) -> dict:
     out["top_k"][slot] = params.top_k
     out["seed"][slot] = params.seed
     return out
+
+
+def device_lane(lane: dict, device) -> dict:
+    """Host lane -> device tensors for a step call (copies: a later host
+    mutation never reaches them)."""
+    return {k: torch.tensor(v, device=device) for k, v in lane.items()}
 
 
 def stack_lanes(params_list) -> dict:

@@ -1,8 +1,11 @@
 """Serving telemetry (subset of the reference's serving/stats.py): the
 paper's NAR / AR split, the encode (EncodeTask) side, TTFT, decode-step and
 encode latency percentiles, length bucket hits, preemptions and KV pool
-use.  The reference's `encode_compiles` (distinct compiled encode steps) is
-left out: the port runs eagerly and compiles nothing."""
+use, and the step builds.  The port's prefill and encode steps run eagerly
+(`launch/steps.py`); `prefill_compiles` / `encode_compiles` count the
+distinct step callables built, as the reference counts its compiled steps.
+The decode step is built once per runner, and on a card captured in one
+CUDA graph."""
 from __future__ import annotations
 
 import random
@@ -62,6 +65,7 @@ class EngineStats:
     padded_nar_tokens: int = 0     # incl. length-bucket padding computed
     nar_time_s: float = 0.0
     prefill_batches: int = 0
+    prefill_compiles: int = 0      # distinct (bucket, group-size) steps
     # -- AR (decode) --------------------------------------------------------
     ar_tokens: int = 0
     ar_time_s: float = 0.0
@@ -73,6 +77,7 @@ class EngineStats:
     padded_encode_tokens: int = 0  # incl. length-bucket padding computed
     encode_time_s: float = 0.0
     encode_batches: int = 0        # batched pooled passes run
+    encode_compiles: int = 0       # distinct (bucket, group, pooling) steps
     encode_latency_ms: List[float] = field(default_factory=Reservoir)
     # -- serving-level ------------------------------------------------------
     ttft_ms: List[float] = field(default_factory=Reservoir)
@@ -176,6 +181,7 @@ class EngineStats:
             "nar_time_s": self.nar_time_s,
             "nar_tok_s": self.nar_tok_s,
             "prefill_batches": self.prefill_batches,
+            "prefill_compiles": self.prefill_compiles,
             "ar_tokens": self.ar_tokens,
             "ar_time_s": self.ar_time_s,
             "ar_tok_s": self.ar_tok_s,
@@ -187,6 +193,7 @@ class EngineStats:
             "encode_time_s": self.encode_time_s,
             "encode_tok_s": self.encode_tok_s,
             "encode_batches": self.encode_batches,
+            "encode_compiles": self.encode_compiles,
             "encode_completed": self.encode_completed,
             **{f"encode_latency_{k}_ms": v
                for k, v in percentiles(self.encode_latency_ms).items()},

@@ -249,7 +249,7 @@ def test_block_decode_matches_reference(case, fused):
     ty, tc = tblocks.block_decode(kind, tlayer, torch.tensor(x),
                                   torch.tensor(pos), tcache, cfg=tcfg,
                                   policy=FP32, block_tables=torch.tensor(tab),
-                                  fused=fused, kv_splits=1 + int(fused))
+                                  fused=fused)
     np.testing.assert_allclose(_np(ty), _np(jy), **F32)
     assert tc["h"] is h_leaf                          # written in place
     for key in SSM_KEYS:
@@ -379,7 +379,7 @@ def test_teacher_forced_logits_prefill_and_decode(arch, fused):
                                policy=FP32)
         txd, tc = tlm._run_segments_decode(
             tp, txd, torch.tensor(pos), tc, cfg=tcfg, policy=FP32,
-            block_tables=ttab, fused=fused, kv_splits=1 + i % 2)
+            block_tables=ttab, fused=fused)
         tol = DECODE_LOGITS if any(paged) else F32
         np.testing.assert_allclose(_np(txd), _np(jxd), **tol)
         np.testing.assert_allclose(

@@ -397,16 +397,24 @@ def test_paged_decode_attention_plain_vs_pallas_and_oracle(dtype):
     np.testing.assert_allclose(_np(port_ref), _np(oracle), **tol)
 
 
+def _split_route(q, k, v, tables, lengths, splits):
+    """The partials over `splits` table ranges, merged by the
+    online-softmax rule."""
+    o, m, l = ops.paged_decode_partials(q, k, v, tables, lengths,
+                                        splits=splits)
+    return ops.paged_decode_merge(o, m, l, out_dtype=q.dtype)
+
+
 def test_split_kv_merge_matches_single_pass():
-    """The decode path's split-KV route (partials over table ranges, then
-    the online-softmax merge) equals the single normalized pass."""
-    from repro_torch.core.attention import _paged_attention
+    """The split-KV partials over table ranges, then the online-softmax
+    merge, equal the decode path's one paged route (which splits as the
+    shapes say) and so the single normalized pass."""
     pairs, (_, tt), (_, tl) = _paged_inputs(2)
     tq, tk, tv = (t for _, t in pairs)
-    one = _paged_attention(tq, tk, tv, tt, tl, 1)
+    one = ops.paged_decode_attention(tq, tk, tv, tt, tl)
     for splits in (2, 3, 5):
         np.testing.assert_allclose(
-            _np(_paged_attention(tq, tk, tv, tt, tl, splits)), _np(one), **F32)
+            _np(_split_route(tq, tk, tv, tt, tl, splits)), _np(one), **F32)
 
 
 def _split_inputs(seed):
@@ -580,15 +588,14 @@ def test_paged_decode_merge_plain_is_the_merge_rule():
 @pytest.mark.parametrize("mode", ["auto", "ref"])
 def test_ops_split_partials_modes(mode):
     """`ops.paged_decode_partials` with a split count: the plain split grid
-    (auto) and the oracle per range (ref) agree, and the decode path's
-    `_paged_attention` merges either into the single normalized pass."""
-    from repro_torch.core.attention import _paged_attention
+    (auto) and the oracle per range (ref) agree, and the merge folds
+    either into the decode path's one paged route."""
     pairs, (_, tt), (_, tl) = _split_inputs(3)
     tq, tk, tv = (t for _, t in pairs)
     with ops.kernel_mode(mode):
         o, m, l = ops.paged_decode_partials(tq, tk, tv, tt, tl, splits=3)
-        one = _paged_attention(tq, tk, tv, tt, tl, 1)
-        three = _paged_attention(tq, tk, tv, tt, tl, 3)
+        one = ops.paged_decode_attention(tq, tk, tv, tt, tl)
+        three = _split_route(tq, tk, tv, tt, tl, 3)
     po, pm, pl_ = tfd.paged_decode_plain(tq, tk, tv, tt, tl, 3)
     assert o.shape == (3, 4, 4, 16)
     # ranges with no live entry: the oracle's fully masked rows differ
@@ -740,8 +747,7 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "gemm_probe.py",
-              ROOT / "attn_probe.py", ROOT / "ssm_probe.py"]
+    files += [ROOT / "chip_smoke.py"] + sorted(ROOT.glob("*_probe.py"))
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):

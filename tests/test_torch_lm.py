@@ -29,6 +29,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.launch.steps import cache_layout, make_paged_layout
 from repro_torch.models import lm as tlm
 from repro_torch.serving.kv_cache import prefill_scatter
+from repro_torch.serving.sampling import device_lane
 
 # the suite runs beside JAX tests in parallel workers: keep torch from
 # claiming every core
@@ -181,7 +182,7 @@ def test_teacher_forced_prefill_and_decode(arch):
                                policy=FP32)
         txd, tpools = tlm._run_segments_decode(
             tp, txd, torch.tensor(pos), tpools, cfg=tcfg, policy=FP32,
-            block_tables=ttab, kv_splits=1 + i % 2)
+            block_tables=ttab)
         np.testing.assert_allclose(_np(txd), _np(jxd), **F32)
         np.testing.assert_allclose(
             _np(_torch_logits(tcfg, tp, txd[:, None])),
@@ -232,7 +233,7 @@ def test_lane_scores_bit_equal_with_reference_noise():
     want = jemb._lane_scores(jnp.asarray(z),
                              {k: jnp.asarray(v) for k, v in lane.items()},
                              plan=UNSHARDED)
-    got = temb._lane_scores(torch.tensor(z), lane,
+    got = temb._lane_scores(torch.tensor(z), device_lane(lane, "cpu"),
                             noise=torch.tensor(noise))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -240,8 +241,9 @@ def test_lane_scores_bit_equal_with_reference_noise():
 def test_sampling_noise_is_keyed_by_seed_and_step():
     lane = {"temperature": np.array([1.0, 1.0, 0.0], np.float32),
             "seed": np.array([5, 5, 5]), "step": np.array([9, 9, 9])}
-    g = temb.gumbel_noise(lane, 64, "cpu")
+    g = temb.gumbel_noise(device_lane(lane, "cpu"), 64)
     assert torch.equal(g[0], g[1])                       # same (seed, step)
     assert torch.count_nonzero(g[2]) == 0                # greedy row
     lane["step"] = np.array([9, 10, 9])
-    assert not torch.equal(temb.gumbel_noise(lane, 64, "cpu")[1], g[1])
+    assert not torch.equal(
+        temb.gumbel_noise(device_lane(lane, "cpu"), 64)[1], g[1])

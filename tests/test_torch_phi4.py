@@ -152,7 +152,7 @@ def test_block_decode_matches_reference(model, fused):
     ty, tc = tblocks.block_decode("attn", tlayer, torch.tensor(x),
                                   torch.tensor(pos), tcache, cfg=tcfg,
                                   policy=FP32, block_tables=torch.tensor(tab),
-                                  fused=fused, kv_splits=1 + int(fused))
+                                  fused=fused)
     np.testing.assert_allclose(_np(ty), _np(jy), **F32)
     for key in ("k", "v"):
         np.testing.assert_array_equal(_np(tc[key][:NB]), _np(jc[key]))
@@ -235,7 +235,7 @@ def test_teacher_forced_logits_prefill_and_decode(model, fused):
                                policy=FP32)
         txd, tpools = tlm._run_segments_decode(
             tp, txd, torch.tensor(pos), tpools, cfg=tcfg, policy=FP32,
-            block_tables=ttab, fused=fused, kv_splits=1 + i % 2)
+            block_tables=ttab, fused=fused)
         np.testing.assert_allclose(_np(txd), _np(jxd), **F32)
         np.testing.assert_allclose(
             _np(_torch_logits(tcfg, tp, txd[:, None], fused)),

@@ -30,6 +30,7 @@ from repro_torch.core import embedding as temb
 from repro_torch.core import prng
 from repro_torch.core.precision import FP32
 from repro_torch.kernels import ops as tops
+from repro_torch.serving.sampling import device_lane
 
 # the suite runs beside JAX tests in parallel workers: keep torch from
 # claiming every core
@@ -116,7 +117,7 @@ def test_gumbel_noise_over_padded_vocab():
     lane = {"temperature": np.array([0.8, 0.0, 1.0], np.float32),
             "seed": np.array([101, 5, 106], np.int64),
             "step": np.array([301, 40, 12], np.int64)}
-    got = temb.gumbel_noise(lane, Vp, "cpu").numpy()
+    got = temb.gumbel_noise(device_lane(lane, "cpu"), Vp).numpy()
     rows = [0, 2]
     want = _jax_draw(lane["seed"][rows].astype(np.int32),
                      lane["step"][rows].astype(np.int32),
@@ -145,7 +146,7 @@ def test_lane_scores_token_identical(seed):
     want = jemb._lane_scores(jnp.asarray(z),
                              {k: jnp.asarray(v) for k, v in lane.items()},
                              plan=UNSHARDED)
-    got = temb._lane_scores(torch.tensor(z), lane)
+    got = temb._lane_scores(torch.tensor(z), device_lane(lane, "cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **GUMBEL)
     np.testing.assert_array_equal(got.argmax(-1).numpy(),
                                   np.asarray(want).argmax(-1))
@@ -173,7 +174,8 @@ def test_sample_token_identical(arch):
         norm=jops.norm_prologue({k: jnp.asarray(v) for k, v in fn.items()},
                                 jcfg.norm))
     got = temb.sample_token(
-        torch.tensor(x), torch.tensor(unemb), lane, cfg=tcfg, policy=FP32,
+        torch.tensor(x), torch.tensor(unemb), device_lane(lane, "cpu"),
+        cfg=tcfg, policy=FP32,
         norm=tops.norm_prologue({k: torch.tensor(v) for k, v in fn.items()},
                                 tcfg.norm))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))

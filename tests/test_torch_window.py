@@ -471,7 +471,7 @@ def test_teacher_forced_ring_decode_matches_reference(arch, fused):
                                policy=FP32)
         txd, tc = tlm._run_segments_decode(
             tp, txd, torch.tensor(pos), tc, cfg=tcfg, policy=FP32,
-            block_tables=ttab, fused=fused, kv_splits=1 + i % 2,
+            block_tables=ttab, fused=fused,
             paged_segments=paged)
         np.testing.assert_allclose(_np(txd), _np(jxd), **F32)
         np.testing.assert_allclose(
