@@ -37,7 +37,17 @@ non-zero):
               planner took; device times of the kernel and of its library
               call (torch.profiler kernel events, no host time) for every
               kernel, and the plain norms' host time a call; decode GEMM
-              cases rotate weight copies past the 50 MB L2;
+              cases rotate weight copies past the 50 MB L2; then the int8
+              forms (int8 serving): both fused GEMMs with int8 weights and
+              their column scales (GPT-J's projections at M = 4 and 512,
+              its head, phi4-mini's head and gated up-projection: the
+              stream and wgmma templates, K split) and the paged decode
+              over int8 pools with per-(block, kv head) scales (GPT-J's
+              serving batch, phi4-mini's GQA: the partials at 1, 2 and 4
+              splits, the normalized wrapper), each against its plain
+              version on the same int8 operands, beside one bf16
+              torch.matmul / SDPA call at the shape and a bound that
+              counts int8 bytes;
   4. sampling threefry Gumbel noise drawn on the card against the same draw
               on the CPU: bits, uniforms and noise bit-equal, sampled
               tokens identical;
@@ -71,9 +81,20 @@ non-zero):
               prefill pass with the SSD kernels' share; then one prompt
               teacher-forced through the fused and the unfused kernel
               paths, final-position logits
-              held to the plain (`ref`) path in bf16 and in fp32;
+              held to the plain (`ref`) path in bf16 and in fp32; then
+              GPT-J and phi4-mini again with int8 weights and int8 KV
+              (`weight_dtype="int8", kv_dtype="int8"`): every GEMM launch
+              an int8 form and every paged launch the int8-pool form, the
+              same graph, replay, leak and teacher-forced gates on the
+              quantized weights, then a teacher-forced decode through
+              the int8 KV pools held to the int8 plain path, and greedy
+              flips of int8 against bf16 beside a noise-floor control
+              (`flip_rule`); weight and KV bytes, AR / NAR tok/s, decode
+              step and peak memory beside the bf16 runs;
      cli      `python -m repro_torch.launch.serve` (its `main`) at GPT-J
-              full width: 6 sampled generate requests, then 6 encodes;
+              full width: 6 sampled generate requests, 6 encodes, and the
+              generate run again with `--weight-dtype int8 --kv-dtype
+              int8` (int8 forms only);
   6. vit      ViT-B, ViT-L and ViT-H at full width and depth, a batch of 8
               seeded images: the fused and unfused kernel paths with exact
               launch counts, logits held to the plain path in bf16 and
@@ -375,27 +396,34 @@ def _vit_gemm_cases():
     return out
 
 
-def _weights(g, dev, K, N, nb, cold):
+def _weights(g, dev, K, N, nb, cold, wbytes=2):
     """Weight sets for the timed calls: `cold` (decode cases) rotates as
-    many copies as reach L2_ROTATE_BYTES, so that every call reads its
-    weights from device memory, as a served decode step does."""
-    copies = max(1, -(-L2_ROTATE_BYTES // (K * N * 2 * nb))) if cold else 1
+    many copies as reach L2_ROTATE_BYTES (at `wbytes` bytes a weight), so
+    that every call reads its weights from device memory, as a served
+    decode step does."""
+    copies = (max(1, -(-L2_ROTATE_BYTES // (K * N * wbytes * nb))) if cold
+              else 1)
     return [[(torch.randn((K, N), generator=g, device=dev) * 0.02).bfloat16()
              for _ in range(nb)] for _ in range(copies)]
 
 
 def _gemm_row(name, label, M, K, N, norm, act, has_res, od, has_bias=False,
-              *, gated, g):
+              *, gated, g, int8=False):
     """One fused GEMM case: error against the plain version, with-wrapper
     and device times of the kernel and of one torch.matmul over the same
     weights (both weights side by side when gated), the bound and the
     template the planner took.  `has_bias`: an fp32-accumulated bias in
-    the epilogue (the library yardstick is then torch.addmm)."""
+    the epilogue (the library yardstick is then torch.addmm).  `int8`: the
+    weights quantized per output column (`quantize_int8_axiswise`) and
+    passed as int8 with their scales; the yardstick stays one bf16
+    torch.matmul over the unquantized weights (no PyTorch call computes an
+    int8-weight fused GEMM), and the bound counts int8 weight bytes."""
     from repro_torch.kernels import matmul as mm
+    from repro_torch.optim.compression import quantize_int8_axiswise
     dev = torch.device(DEVICE)
     nb = 2 if gated else 1
     cold = M <= mm.STREAM_MAX_M
-    ws = _weights(g, dev, K, N, nb, cold)
+    ws = _weights(g, dev, K, N, nb, cold, 1 if int8 else 2)
     a = torch.randn((M, K), generator=g, device=dev).bfloat16()
     gam = (1 + 0.1 * torch.randn((K,), generator=g, device=dev)).bfloat16()
     bet = (0.1 * torch.randn((K,), generator=g, device=dev)).bfloat16()
@@ -409,15 +437,21 @@ def _gemm_row(name, label, M, K, N, norm, act, has_res, od, has_bias=False,
         kw["gamma"] = gam
     if norm == "layernorm":
         kw["nbeta"] = bet
+    # each weight as (tensor, column scale or None)
+    wk = [[quantize_int8_axiswise(w, axis=(1,)) if int8 else (w, None)
+           for w in ws_i] for ws_i in ws]
     if gated:
-        kern = [lambda w=w: mm.matmul_swiglu(a, w[0], w[1], **kw) for w in ws]
-        plain = lambda: mm.matmul_swiglu_plain(a, ws[0][0], ws[0][1], **kw)
+        run = lambda fn, w: fn(a, w[0][0], w[1][0], bg_scale=w[0][1],
+                               bu_scale=w[1][1], **kw)
+        fns = (mm.matmul_swiglu, mm.matmul_swiglu_plain)
         wl = [torch.cat(w, 1) for w in ws]
     else:
         kw.update(activation=act, bias=bias)
-        kern = [lambda w=w: mm.fused_matmul(a, w[0], **kw) for w in ws]
-        plain = lambda: mm.matmul_plain(a, ws[0][0], **kw)
+        run = lambda fn, w: fn(a, w[0][0], b_scale=w[0][1], **kw)
+        fns = (mm.fused_matmul, mm.matmul_plain)
         wl = [w[0] for w in ws]
+    kern = [lambda w=w: run(fns[0], w) for w in wk]
+    plain = lambda: run(fns[1], wk[0])
     lib = [lambda w=w: torch.matmul(a, w) for w in wl]
     if has_bias:
         lib = [lambda w=w: torch.addmm(bias, a, w) for w in wl]
@@ -429,17 +463,24 @@ def _gemm_row(name, label, M, K, N, norm, act, has_res, od, has_bias=False,
                     if n != before[k])
     err, rel = rel_err(got, plain())
     tol = GEMM_TOL["fp32" if od == torch.float32 else "bf16"]
-    nbytes = (M * K + nb * K * N) * 2 + M * N * (4 if od == torch.float32
-                                                 else 2)
+    nbytes = M * K * 2 + nb * K * N * (1 if int8 else 2) + M * N * (
+        4 if od == torch.float32 else 2) + (nb * N * 4 if int8 else 0)
     nbytes += (M * N * 2 if has_res else 0) + (N * 2 if has_bias else 0) + (
         {"none": 0, "rmsnorm": K * 2, "layernorm": 2 * K * 2}[norm])
     r = _row(label, err, rel, tol, time_ms(_rotate(kern)),
              time_ms(plain, iters=5), time_ms(_rotate(lib), iters=10),
              nbytes, 2 * nb * M * N * K)
+    slots = {}
+    if cold:           # the wrapper's plan: the card's stream occupancy
+        sms, blocks = mm._stream_slots(dev, M, gated, int8)
+        slots = dict(sm_count=sms, blocks_per_sm=blocks)
+    plan = mm.gemm_plan(M, K, N, w_dtype=torch.int8 if int8
+                        else torch.bfloat16, gated=gated, **slots)
     r.update(device_ms=device_ms(kern), library_device_ms=device_ms(lib),
-             template=template, weight_copies=len(ws))
-    _report(name, r, "torch.addmm" if has_bias else "torch.matmul")
-    del ws, wl, kern, lib
+             template=template, weight_copies=len(ws), splits=plan.splits)
+    lib_name = "torch.addmm" if has_bias else "torch.matmul"
+    _report(name, r, f"bf16 {lib_name}" if int8 else lib_name)
+    del ws, wl, wk, kern, lib
     return r
 
 
@@ -470,6 +511,50 @@ def check_swiglu(rows):
         _gemm_row("fused_matmul_swiglu", label, M, K, N, norm, "none", False,
                   torch.bfloat16, gated=True, g=g)
         for label, M, K, N, norm in cases]
+
+
+# the int8-weight forms (weight-only int8 serving of GPT-J and phi4-mini):
+# GPT-J's projections at decode batch and a 512-token prefill (the qkv
+# GEMM at M = 512 fills 64 tiles: the wgmma template splits K), its
+# 50432-column fp32 head, and phi4-mini's gated up-projection
+INT8_GEMM_CASES = (
+    ("qkv M=4", 4, 4096, 4096, "layernorm", "none", False, torch.bfloat16),
+    ("mlp_up M=4", 4, 4096, 16384, "layernorm", "i_gelu", False,
+     torch.bfloat16),
+    ("mlp_down M=4", 4, 16384, 4096, "none", "none", True, torch.bfloat16),
+    ("head M=4", 4, 4096, 50432, "layernorm", "none", False, torch.float32),
+    ("qkv M=512", 512, 4096, 4096, "layernorm", "none", False,
+     torch.bfloat16),
+    ("mlp_up M=512", 512, 4096, 16384, "layernorm", "i_gelu", False,
+     torch.bfloat16),
+    ("mlp_down M=512", 512, 16384, 4096, "none", "none", True,
+     torch.bfloat16),
+    ("phi4 head M=4", 4, 3072, 200192, "rmsnorm", "none", False,
+     torch.float32))
+INT8_SWIGLU_CASES = (("M=4 rmsnorm", 4, 3072, 8192, "rmsnorm"),
+                     ("M=512 rmsnorm", 512, 3072, 8192, "rmsnorm"),
+                     ("M=4 no norm", 4, 3072, 8192, "none"))
+
+
+def check_gemm_int8(rows):
+    """The fused GEMMs' int8-weight forms (`INT8_GEMM_CASES`,
+    `INT8_SWIGLU_CASES`) against their plain versions on the same int8
+    weights and scales; each row records the template and the splits the
+    planner took."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows["fused_matmul_int8"] = [
+        _gemm_row("fused_matmul int8", *case, gated=False, g=g, int8=True)
+        for case in INT8_GEMM_CASES]
+    rows["fused_matmul_swiglu_int8"] = [
+        _gemm_row("fused_matmul_swiglu int8", label, M, K, N, norm, "none",
+                  False, torch.bfloat16, gated=True, g=g, int8=True)
+        for label, M, K, N, norm in INT8_SWIGLU_CASES]
+    for name in ("fused_matmul_int8", "fused_matmul_swiglu_int8"):
+        forms = {r["template"] for r in rows[name]}
+        if forms != {"stream_int8", "wgmma_int8"}:
+            raise AssertionError(f"{name}: the int8 cases ran {forms}, not "
+                                 f"both int8 templates")
 
 
 NORM_SHAPES = ((4, 3072), (512, 3072), (4, 2560), (512, 2560), (4, 1600),
@@ -1031,6 +1116,90 @@ def check_paged(rows):
     rows["paged_block_sizes"] = check_paged_block_sizes(g)
 
 
+# the int8-pool form at GPT-J's serving batch and at phi4-mini's GQA
+PAGED_INT8_CASES = ((16, 16, 256, GPTJ_SERVE_LENS),
+                    (24, 8, 128, (1, 137, 300, 512)))
+
+
+def check_paged_int8(rows):
+    """The paged decode's int8-pool form (`PAGED_INT8_CASES`): pools
+    quantized per (block, kv head) as the cache scatters write them, the
+    partials kernel at 1, 2 and 4 splits of the table (merged, and each
+    split's m / l) and the normalized wrapper, each held row by row to the
+    plain int8 fold at the same split.  Yardstick: bf16 SDPA over dense
+    copies of the unquantized pools (no PyTorch call reads an int8 pool
+    with scales).  Bound: q, the live int8 K / V rows, their blocks'
+    scales and the outputs."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.optim.compression import quantize_int8_axiswise
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(13)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows["paged_decode_partials_int8"] = []
+    rows["paged_decode_attention_int8"] = []
+    merge = lambda o, m, l: fd.paged_decode_merge_plain(
+        o, m, l, out_dtype=torch.float32)
+    for H, KV, D, lens in PAGED_INT8_CASES:
+        case = (f"B={len(lens)} H={H}/KV={KV} D={D} BS=16 len "
+                + "/".join(str(n) for n in lens))
+        q, kp, vp, tab, lengths, live = _paged_inputs(g, dev, H, KV, D, lens)
+        kq, ks = quantize_int8_axiswise(kp, axis=(0, 2))
+        vq, vs = quantize_int8_axiswise(vp, axis=(0, 2))
+        sc = dict(k_scale=ks, v_scale=vs)
+        B = q.shape[0]
+        dq, dk, dv, mask = _dense_from_paged(q, kp, vp, tab, lengths)
+        lib_fn = lambda: sdpa(dq, dk, dv, attn_mask=mask, enable_gqa=KV != H)
+        lib, lib_dev = time_ms(lib_fn), device_ms([lib_fn])
+        entry = torch.arange(tab.shape[1], device=dev)
+        blocks = int(((tab >= 0) & (entry[None] * 16 < lengths[:, None]))
+                     .sum())
+        nbytes = q.numel() * 2 + 2 * live * KV * D + 2 * blocks * KV * 4
+        flops = 4 * H * D * live
+        plain = time_ms(lambda: fd.paged_decode_plain(q, kq, vq, tab, lengths,
+                                                      **sc), iters=5)
+        s_att = fd.paged_splits(B, KV, tab.shape[1], sms=sms,
+                                at_least=fd.paged_min_splits(tab.shape[1],
+                                                             16))
+        runs = [("paged_decode_attention_int8", s_att,
+                 lambda: fd.paged_decode_attention(q, kq, vq, tab, lengths,
+                                                   **sc), B * H * D * 2)]
+        runs += [("paged_decode_partials_int8", S,
+                  lambda S=S: fd.paged_decode_partials(q, kq, vq, tab,
+                                                       lengths, S, **sc),
+                  S * B * H * (D + 2) * 4) for S in PAGED_SPLITS]
+        for name, S, fn, out_bytes in runs:
+            before = dict(getattr(fd, name[:-5]).launches_by)
+            got = fn()
+            torch.cuda.synchronize()
+            if getattr(fd, name[:-5]).launches_by["int8"] != \
+                    before["int8"] + 1:
+                raise AssertionError(f"{name}: no int8-pool launch")
+            so, sm, sl = fd.paged_decode_plain(q, kq, vq, tab, lengths, S,
+                                               **sc)
+            want = merge(so, sm, sl) if S > 1 else so / sl[..., None]
+            if name == "paged_decode_attention_int8":
+                err, rel, per = row_rel_err(got, want.bfloat16())
+            else:
+                o, m, l = got
+                merged = merge(o, m, l) if S > 1 else o / l[..., None]
+                err, rel, per = row_rel_err(merged, want)
+                live_rows = sl > 0
+                if not torch.equal(l > 0, live_rows):
+                    raise AssertionError(f"{name} {case} splits {S}: live "
+                                         f"ranges differ from the plain grid")
+                for a, b in ((m, sm), (l, sl)):
+                    rel = max(rel, rel_err(a[live_rows], b[live_rows])[1])
+            label = case if name == "paged_decode_attention_int8" or S == 1 \
+                else f"{case} splits {S}"
+            r = _row(label, err, rel, ATTN_TOL, time_ms(fn), plain, lib,
+                     nbytes + out_bytes, flops)
+            r.update(row_rel_err=per, device_ms=device_ms([fn]),
+                     library_device_ms=lib_dev, template=f"splits {S}")
+            _report(name, r, "bf16 sdpa")
+            rows[name].append(r)
+
+
 # the paged fold's other instantiations, checked against the plain version
 # only: block sizes the kernel reads at run time, and fp32 pools
 PAGED_FOLDS = ((8, torch.bfloat16), (32, torch.float32), (16, torch.float32))
@@ -1218,8 +1387,12 @@ def _counters():
 
 
 TOTAL_LAUNCHES = {}            # kernel -> launches over every driven path
+TOTAL_BY = {}                  # kernel -> form -> launches over every path
 GEMM_WRAPPERS = ("fused_matmul", "fused_matmul_swiglu")
-TEMPLATED = GEMM_WRAPPERS + ("flash_attention",)   # wrappers with launches_by
+PAGED_WRAPPERS = ("paged_decode_attention", "paged_decode_partials")
+# wrappers with launches_by: the GEMMs by template and weight form, flash
+# by template, the paged decode by pool dtype
+TEMPLATED = GEMM_WRAPPERS + ("flash_attention",) + PAGED_WRAPPERS
 GEMM_KERNELS = ("stream_kernel", "splitk_finish", "wgmma_kernel",
                 "fused_mm_kernel", "fused_swiglu_kernel")
 TEMPLATE_LAUNCHES = {}         # path -> wrapper -> template -> launches
@@ -1243,6 +1416,10 @@ def drive(path, fn, need):
         TOTAL_LAUNCHES[k] = TOTAL_LAUNCHES.get(k, 0) + n
     by = {k: dict(counters[k].launches_by) for k in TEMPLATED}
     TEMPLATE_LAUNCHES[path] = by
+    for k, forms in by.items():
+        for t, n in forms.items():
+            TOTAL_BY.setdefault(k, {}).setdefault(t, 0)
+            TOTAL_BY[k][t] += n
     missing = [k for k in need if launches[k] == 0]
     log(f"  [{path}] launches {launches}")
     log(f"  [{path}] launches by template {by}")
@@ -1250,7 +1427,7 @@ def drive(path, fn, need):
         raise AssertionError(f"{path}: kernels never launched: {missing}")
     fma32 = {k: by[k]["fma32"] for k in GEMM_WRAPPERS if by[k]["fma32"]}
     if fma32:
-        raise AssertionError(f"{path}: a bf16 path launched the fma32 "
+        raise AssertionError(f"{path}: a bf16 / int8 path launched the fma32 "
                              f"template: {fma32}")
     flash = by["flash_attention"]
     if flash["wgmma"] != launches["flash_attention"]:
@@ -1279,27 +1456,33 @@ def gemms_per_pass(cfg):
     return fused, gated
 
 
-def check_gemm_templates(cfg, st, by):
+def check_gemm_templates(cfg, st, by, *, int8=False):
     """Prefill GEMMs run the wgmma template and decode GEMMs the stream
     template: each GEMM of the layers (`gemms_per_pass`, the plain `pdot`
     products included) launches wgmma once a prefill pass and stream once
     a decode step; the logits head (M = the pass's sequences, <= 4)
     streams in both.  An encode batch runs the layers' GEMMs once at M =
     its tasks x its bucket rows, which the served encodes keep above 8
-    (wgmma), and no head."""
+    (wgmma), and no head.  `int8`: every one of them runs the template's
+    int8-weight form, and no bf16 form launches at all (no int8 weight is
+    widened to a bf16 copy)."""
     P, D, E = st.prefill_batches, st.decode_steps, st.encode_batches
     mm, sw = by["fused_matmul"], by["fused_matmul_swiglu"]
     per_layer, per_swiglu = gemms_per_pass(cfg)
-    want = {"fused_matmul": {"fma32": 0, "stream": P + D * (per_layer + 1),
-                             "wgmma": (P + E) * per_layer},
-            "fused_matmul_swiglu": {"fma32": 0, "stream": D * per_swiglu,
-                                    "wgmma": (P + E) * per_swiglu}}
+    sfx = "_int8" if int8 else ""
+    want = {"fused_matmul": {"stream" + sfx: P + D * (per_layer + 1),
+                             "wgmma" + sfx: (P + E) * per_layer},
+            "fused_matmul_swiglu": {"stream" + sfx: D * per_swiglu,
+                                    "wgmma" + sfx: (P + E) * per_swiglu}}
+    for forms in want.values():
+        for t in ("fma32", "stream", "wgmma", "stream_int8", "wgmma_int8"):
+            forms.setdefault(t, 0)
     got = {k: by[k] for k in GEMM_WRAPPERS}
     log(f"  [{cfg.name} serve] GEMM templates: {per_layer} fused GEMMs and "
         f"{per_swiglu} gated GEMMs of the layers per pass, {P} prefill and "
         f"{E} encode passes; launches {got}, expected {want} (observed "
-        f"{mm['wgmma'] / max(P + E, 1):.1f} and "
-        f"{sw['wgmma'] / max(P + E, 1):.1f} wgmma a pass)")
+        f"{mm['wgmma' + sfx] / max(P + E, 1):.1f} and "
+        f"{sw['wgmma' + sfx] / max(P + E, 1):.1f} wgmma a pass)")
     if got != want:
         raise AssertionError(f"{cfg.name} serve: GEMM templates {got} != "
                              f"{want}")
@@ -1401,15 +1584,17 @@ def path_kernels(cfg, path, *, max_seq=512, encode=False):
     return tuple(sorted(need))
 
 
-def check_serve_counts(cfg, launches, st, max_seq):
+def check_serve_counts(cfg, launches, st, max_seq, by=None, kv_int8=False):
     """The dense decode kernel runs once per ring layer per decode step and
     never in prefill, the paged route once per paged layer per decode step
-    (its own wrappers for the partials and the merge never); flash once
-    per attention layer per prefill or encode pass; the SSD kernel once per SSM layer per prefill pass, the residual
-    RMSNorm once per hybrid layer per prefill pass and decode step; in a
-    LayerNorm config the plain LayerNorm only as an encode batch's pooling
-    norm, once a batch (the fused engine folds every other norm into a
-    GEMM)."""
+    (its own wrappers for the partials and the merge never), every one of
+    those launches in the int8-pool form when `kv_int8` and in the bf16
+    form otherwise (`by`: the path's launches by form); flash once per
+    attention layer per prefill or encode pass; the SSD kernel once per
+    SSM layer per prefill pass, the residual RMSNorm once per hybrid layer
+    per prefill pass and decode step; in a LayerNorm config the plain
+    LayerNorm only as an encode batch's pooling norm, once a batch (the
+    fused engine folds every other norm into a GEMM)."""
     from repro_torch.configs.base import ATTN_KINDS
     attn_layers = sum(c for k, c in cfg.schedule if k in ATTN_KINDS)
     rings = ring_layers(cfg, max_seq)
@@ -1429,6 +1614,12 @@ def check_serve_counts(cfg, launches, st, max_seq):
                     residual_rmsnorm=hybrid_layers * (st.prefill_batches
                                                       + st.decode_steps))
     got = {k: launches[k] for k in want}
+    if by is not None:
+        paged = want["paged_decode_attention"]
+        want["paged_decode_attention by form"] = {
+            "bf16": 0 if kv_int8 else paged, "fp32": 0,
+            "int8": paged if kv_int8 else 0}
+        got["paged_decode_attention by form"] = by["paged_decode_attention"]
     log(f"  [{cfg.name} serve] {st.prefill_batches} prefill passes, "
         f"{st.encode_batches} encode passes, {st.decode_steps} decode "
         f"steps: launches {got}, expected {want}")
@@ -1498,6 +1689,21 @@ def check_graph_vs_eager(eng, cfg):
             "cache_leaves": leaves, "leaves_bit_equal": leaves - len(diffs)}
 
 
+def _gated_kernel(name):
+    """Whether a GEMM kernel of a profile is the gated (SwiGLU) one: its
+    GATED template argument (stream_kernel<MT, GATED, I8>,
+    wgmma_kernel<GATED, I8>, splitk_finish<GATED>) or the fp32 template's
+    own kernel."""
+    if "fused_swiglu_kernel" in name:
+        return True
+    m = re.search(r"(stream_kernel|wgmma_kernel|splitk_finish)<([^>]*)>",
+                  name)
+    if m is None:
+        return False
+    args = [a.strip() for a in m.group(2).split(",")]
+    return args[1 if m.group(1) == "stream_kernel" else 0] == "true"
+
+
 def profile_decode(eng, cfg, rng, steps=4, prompt_len=200,
                    graph_check=False):
     """Where a decode step's time goes: a full batch (4 slots,
@@ -1565,8 +1771,8 @@ def profile_decode(eng, cfg, rng, steps=4, prompt_len=200,
     gemm = {"fused_matmul": [0.0, 0], "fused_matmul_swiglu": [0.0, 0]}
     for name, (ms, n) in dev.items():
         if any(k in name for k in GEMM_KERNELS):
-            key = ("fused_matmul_swiglu" if "true>" in name
-                   or "fused_swiglu_kernel" in name else "fused_matmul")
+            key = ("fused_matmul_swiglu" if _gated_kernel(name)
+                   else "fused_matmul")
             gemm[key][0] += ms
             gemm[key][1] += n
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]
@@ -1716,7 +1922,8 @@ def check_encodes(cfg, params, tasks, max_seq):
 
 
 def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
-                prefill_profile=False, encodes=()):
+                prefill_profile=False, encodes=(), weight_dtype="bfloat16",
+                kv_dtype=None):
     """Serve len(lengths) requests of 32 new tokens (uids 1 and 6 sampled)
     through InferenceEngine at full width, the EncodeTasks `encodes`
     ((pooling, length) pairs, uids 100 + i) interleaved with the first of
@@ -1725,7 +1932,11 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
     kernel path, the unfused kernel path and the plain path.  The engine
     captures its decode step once, at construction; every decode step of
     the run must be a replay of that one graph, and the first profile
-    holds a replay to the eager step (`check_graph_vs_eager`)."""
+    holds a replay to the eager step (`check_graph_vs_eager`).
+    `weight_dtype` / `kv_dtype`: the engine's int8 knobs; with int8
+    weights the teacher-forced paths run on the engine's quantized
+    weights, and every GEMM launch must be an int8 form (with int8 KV,
+    every paged launch)."""
     from repro_torch.core.precision import BF16, FP32
     from repro_torch.models import lm
     from repro_torch.serving import (EncodeTask, InferenceEngine, Request,
@@ -1745,9 +1956,12 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = InferenceEngine(cfg, params, batch_size=4, max_seq=max_seq,
-                          block_size=16, policy=BF16, device=DEVICE)
+                          block_size=16, policy=BF16, device=DEVICE,
+                          weight_dtype=weight_dtype, kv_dtype=kv_dtype)
     torch.cuda.synchronize()
     step = eng.runner.decode_step
+    tag = (f"{cfg.name} int8" if weight_dtype == "int8" or kv_dtype == "int8"
+           else cfg.name)
     build_s = time.perf_counter() - t0
     cache_gb = sum(t.numel() * t.element_size()
                    for t in _leaves(eng.runner.caches)) / 1e9
@@ -1773,7 +1987,7 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
             eng.submit(enc_tasks[-1])
     t0 = time.perf_counter()
     replays = step.fn.replays
-    done, launches = drive(f"{cfg.name} serve", eng.run,
+    done, launches = drive(f"{tag} serve", eng.run,
                            path_kernels(cfg, "serve", max_seq=max_seq,
                                         encode=bool(encodes)))
     wall = time.perf_counter() - t0
@@ -1784,8 +1998,15 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
     if eng.runner.decode_step is not step or replays != st.decode_steps:
         raise AssertionError(f"{cfg.name}: {st.decode_steps} decode steps "
                              f"but {replays} replays of its graph")
-    check_serve_counts(cfg, launches, st, max_seq)
-    check_gemm_templates(cfg, st, TEMPLATE_LAUNCHES[f"{cfg.name} serve"])
+    check_serve_counts(cfg, launches, st, max_seq,
+                       by=TEMPLATE_LAUNCHES[f"{tag} serve"],
+                       kv_int8=st.kv_dtype == "int8")
+    check_gemm_templates(cfg, st, TEMPLATE_LAUNCHES[f"{tag} serve"],
+                         int8=weight_dtype == "int8")
+    if (st.weight_dtype, st.kv_dtype) != (weight_dtype, kv_dtype
+                                          or "bfloat16"):
+        raise AssertionError(f"{tag}: the stats report {st.weight_dtype} / "
+                             f"{st.kv_dtype}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     enc_log = ""
     if encodes:
@@ -1795,7 +2016,9 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
         f"{st.nar_tok_s:.1f} tok/s | AR {st.ar_tok_s:.1f} tok/s | TTFT p50 "
         f"{st.ttft_p50_ms:.1f} ms | decode step p50 "
         f"{st.decode_step_p50_ms:.2f} ms p95 {st.decode_step_p95_ms:.2f} ms |"
-        f" peak memory {peak_gb:.2f} GB{enc_log}")
+        f" peak memory {peak_gb:.2f} GB | weights {st.weight_dtype} "
+        f"{st.weight_bytes_per_device / 1e9:.3f} GB, KV {st.kv_dtype} "
+        f"{st.kv_pool_bytes / 1e9:.3f} GB{enc_log}")
     if len(done) != len(lengths) + len(encodes):
         raise AssertionError(f"{len(done)} of {len(lengths) + len(encodes)} "
                              f"finished")
@@ -1810,7 +2033,7 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
     if eng.allocator.num_free != eng.allocator.num_blocks:
         raise AssertionError("KV blocks leaked")
     report = {"launches": {"serve": launches},
-              "gemm_templates": TEMPLATE_LAUNCHES[f"{cfg.name} serve"],
+              "gemm_templates": TEMPLATE_LAUNCHES[f"{tag} serve"],
               "stats": st.to_dict(),
               "wall_s": wall, "peak_memory_gb": peak_gb, "params": n_params,
               "engine_build_s": build_s, "caches_gb": cache_gb,
@@ -1821,6 +2044,7 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
                   eng, cfg, rng, graph_check=True),
               "decode_profile_split": profile_decode(eng, cfg, rng,
                                                      prompt_len=300)}
+    served = eng.runner.params       # the engine's weights (int8: quantized)
     del eng
     torch.cuda.empty_cache()
     if encodes:
@@ -1835,30 +2059,33 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
     # those two is the rounding floor the gates scale with
     prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, 96),
                                        dtype=np.int32), device=DEVICE)
-    z_ref = teacher_forced(cfg, params, prompt, mode="ref", fused=True,
+    z_ref = teacher_forced(cfg, served, prompt, mode="ref", fused=True,
                            max_seq=max_seq)
-    z_fp32 = teacher_forced(cfg, params, prompt, mode="ref", fused=True,
+    z_fp32 = teacher_forced(cfg, served, prompt, mode="ref", fused=True,
                             policy=FP32, max_seq=max_seq)
     floor = _gap(z_ref, z_fp32)
-    log(f"  teacher-forced {cfg.name} plain bf16 vs plain fp32 (floor): rel "
+    log(f"  teacher-forced {tag} plain bf16 vs plain fp32 (floor): rel "
         f"{floor[0]:.2e}, cosine {np.cos(floor[1]):.6f}")
     tf = report["teacher_forced"]
     tf["floor"] = {"rel": floor[0], "cosine": float(np.cos(floor[1]))}
     for path, fused in (("fused", True), ("unfused", False)):
         z, report["launches"][f"teacher_forced_{path}"] = drive(
-            f"{cfg.name} teacher-forced {path}",
-            lambda: teacher_forced(cfg, params, prompt, mode="auto",
+            f"{tag} teacher-forced {path}",
+            lambda: teacher_forced(cfg, served, prompt, mode="auto",
                                    fused=fused, max_seq=max_seq),
             path_kernels(cfg, path))
         # two paths each within the floor of fp32 lie within twice the
         # floor of each other
         tf[f"{path}_vs_plain_bf16"] = _logit_gate(
-            f"{cfg.name} {path} kernel path vs plain bf16", z, z_ref, floor,
+            f"{tag} {path} kernel path vs plain bf16", z, z_ref, floor,
             2.0)
         tf[f"{path}_vs_plain_fp32"] = _logit_gate(
-            f"{cfg.name} {path} kernel path vs plain fp32", z, z_fp32, floor,
+            f"{tag} {path} kernel path vs plain fp32", z, z_fp32, floor,
             1.5)
-    del params
+    if weight_dtype == "int8" or kv_dtype == "int8":
+        report["int8"] = int8_decode_checks(cfg, params, served, seed=seed,
+                                            kv_dtype=kv_dtype)
+    del params, served
     torch.cuda.empty_cache()
     return report
 
@@ -1896,6 +2123,43 @@ def phase_serve():
     return out
 
 
+def phase_serve_int8(bf16):
+    """GPT-J (LayerNorm + GELU: the plain GEMM's int8 form) and
+    phi4-mini-3.8b (RMSNorm + SwiGLU + GQA 24 / 8: the gated GEMM's int8
+    form) at full width and depth with `weight_dtype="int8",
+    kv_dtype="int8"`, the bf16 serve runs' batch (4), max_seq (512) and
+    8 requests, then the int8 decode checks (`int8_decode_checks`).  Each
+    run's weight and KV bytes, AR / NAR tok/s, decode-step device time
+    and peak memory are printed beside the same config's bf16 run
+    (`bf16`: phase_serve's reports)."""
+    from repro_torch.configs import GPT_J, PHI4_MINI
+    out = {}
+    for seed, cfg in ((0, GPT_J), (1, PHI4_MINI)):
+        r = serve_model(cfg, seed=seed, weight_dtype="int8", kv_dtype="int8")
+        b = bf16[cfg.name]
+        rows = {}
+        for key, (st, rep) in {"bf16": (b["stats"], b),
+                               "int8": (r["stats"], r)}.items():
+            prof = rep["decode_profile"]
+            rows[key] = {
+                "weight_gb": st["weight_bytes_per_device"] / 1e9,
+                "kv_gb": st["kv_pool_bytes"] / 1e9,
+                "ar_tok_s": st["ar_tok_s"], "nar_tok_s": st["nar_tok_s"],
+                "step_ms": prof["step_ms"],
+                "device_busy_ms": prof.get("device_busy_ms"),
+                "busy_share": prof.get("busy_share"),
+                "peak_gb": rep["peak_memory_gb"]}
+        for key, v in rows.items():
+            log(f"  [{cfg.name} {key}] weights {v['weight_gb']:.3f} GB, KV "
+                f"{v['kv_gb']:.3f} GB | AR {v['ar_tok_s']:.1f} tok/s, NAR "
+                f"{v['nar_tok_s']:.1f} tok/s | decode step (200-token "
+                f"prompts) {v['step_ms']:.2f} ms, device busy "
+                f"{_ms(v['device_busy_ms'])} | peak {v['peak_gb']:.2f} GB")
+        r["vs_bf16"] = rows
+        out[cfg.name] = r
+    return out
+
+
 SERVE_CLI = ["--arch", "gpt-j", "--requests", "6", "--batch", "4",
              "--prompt-len", "160", "--min-prompt-len", "40", "--max-new",
              "12", "--max-seq", "256", "--seed", "11"]
@@ -1906,16 +2170,21 @@ def phase_serve_cli():
     this process), at GPT-J's full width and depth: 6 sampled generate
     requests, then 6 encode requests (pooling `last`).  Each run's kernels
     must launch (the generate run decoding through its captured graph) and
-    its summary lines print."""
+    its summary lines print; then the int8 run (`--weight-dtype int8
+    --kv-dtype int8`), whose summary must show its QUANT part and whose
+    GEMM and paged launches must all be int8 forms."""
     import contextlib
     import io
 
     from repro_torch.configs import GPT_J
     from repro_torch.launch import serve
-    runs = {"generate": (SERVE_CLI + ["--temperature", "0.8", "--top-k",
-                                      "40"],
-                         path_kernels(GPT_J, "serve", max_seq=256),
+    sampled = SERVE_CLI + ["--temperature", "0.8", "--top-k", "40"]
+    runs = {"generate": (sampled, path_kernels(GPT_J, "serve", max_seq=256),
                          "decode step captured"),
+            "int8": (sampled + ["--weight-dtype", "int8", "--kv-dtype",
+                                "int8"],
+                     path_kernels(GPT_J, "serve", max_seq=256),
+                     "QUANT w=int8 kv=int8"),
             "encode": (SERVE_CLI + ["--task", "encode", "--pooling", "last"],
                        ("flash_attention", "fused_matmul", "layernorm"),
                        "ENC")}
@@ -1937,6 +2206,13 @@ def phase_serve_cli():
         if rc != 0 or "served 6 requests" not in text or marker not in text:
             raise AssertionError(f"serve CLI ({task}) did not serve its "
                                  f"trace")
+        by = TEMPLATE_LAUNCHES[f"serve CLI gpt-j {task}"]
+        bf16_forms = (sum(by[k][t] for k in GEMM_WRAPPERS
+                          for t in ("stream", "wgmma"))
+                      + by["paged_decode_attention"]["bf16"])
+        if task == "int8" and bf16_forms:
+            raise AssertionError(f"serve CLI (int8) launched {bf16_forms} "
+                                 f"bf16 GEMM / paged forms: {by}")
         out[task] = {"argv": argv, "seconds": seconds, "stdout": text,
                      "launches": launches}
         torch.cuda.empty_cache()
@@ -1971,10 +2247,10 @@ def check_vit_counts(cfg, path, launches, fused):
     want = dict.fromkeys(launches, 0)
     want.update(flash_attention=L, fused_matmul=6 * L + 2,
                 layernorm=0 if fused else 2 * L + 1)
-    want_by = {"fused_matmul": {"fma32": 0, "stream": 1, "wgmma": 6 * L + 1},
-               "fused_matmul_swiglu": {"fma32": 0, "stream": 0, "wgmma": 0},
-               "flash_attention": {"simt": 0, "wgmma": L}}
     by = TEMPLATE_LAUNCHES[path]
+    want_by = {k: dict.fromkeys(forms, 0) for k, forms in by.items()}
+    want_by["fused_matmul"].update(stream=1, wgmma=6 * L + 1)
+    want_by["flash_attention"].update(wgmma=L)
     if launches != want or by != want_by:
         raise AssertionError(f"{path}: launches {launches} by template {by},"
                              f" expected {want} by template {want_by}")
@@ -2148,12 +2424,13 @@ def depth_witness(cfg, *, layers, seed):
 # --------------------------------------------------------------------------
 
 def decode_logits(cfg, params, tokens, prompt_len, *, mode, fused, policy,
-                  max_seq, block_size=16):
+                  max_seq, block_size=16, kv_dtype=None):
     """Teacher-forced decode logits [steps, vocab] fp32 of one sequence:
     `tokens[:prompt_len]` prefilled into the engine's decode caches
     (`cache_layout` / `prefill_scatter`, paged global layers, ring local
-    ones), then one step per remaining token through the decode stack that
-    `forward_decode` runs, and the logits head."""
+    ones; `kv_dtype="int8"`: int8 pools quantized on write), then one step
+    per remaining token through the decode stack that `forward_decode`
+    runs, and the logits head."""
     from repro_torch.core.embedding import embed_token
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import cache_layout, make_paged_layout
@@ -2168,7 +2445,7 @@ def decode_logits(cfg, params, tokens, prompt_len, *, mode, fused, policy,
     out = []
     with ops.kernel_mode(mode), torch.no_grad():
         caches = cache_layout(cfg, layout, batch_size=1, policy=policy,
-                              device=dev)
+                              device=dev, kv_dtype=kv_dtype)
         x = lm._embed_sequence(params, tok[None, :prompt_len], policy=policy)
         _, group = lm._run_segments_prefill(
             params, x, cfg=cfg, policy=policy, max_seq=max_seq, fused=fused,
@@ -2187,6 +2464,127 @@ def decode_logits(cfg, params, tokens, prompt_len, *, mode, fused, policy,
                 paged_segments=layout.segments)
             out.append(_head(params, cfg, xd, fused=fused, policy=policy))
     return torch.cat(out)
+
+
+# the noise-floor rule for greedy flips (the reference's quant benchmark):
+# the int8 logits move by less than 1% of their span, and the argmax flips
+# of int8 against bf16 are none, or under 1% of the positions, or at most
+# 2x + 2 those of the control (bf16 weights perturbed by uniform noise of
+# half a quantization step: an unbiased perturbation of int8's size).  At
+# full depth with random weights and bf16 compute the logits move by more
+# than 1% of their span under any perturbation (plain bf16 is 1-5% of
+# max|z| from plain fp32 here), so the span bound is the larger of 1% and
+# twice the control's own max|dz|; the strict 1% verdict is reported too.
+FLIP_LOGIT_SPAN = 0.01
+FLIP_FRAC = 0.01
+
+
+def noise_params(params, qparams, seed):
+    """The noise-floor control: `params` with every weight that int8
+    serving quantizes perturbed by independent uniform noise of +- half
+    its column's quantization step (scale / 2), in fp32, cast back."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def walk(p, q):
+        if isinstance(q, dict) and set(q) == {"q", "scale"}:
+            amp = 0.5 * q["scale"].unsqueeze(-2)
+            u = torch.rand(p.shape, generator=g, device=p.device) * 2 - 1
+            return (p.float() + u * amp).to(p.dtype)
+        if isinstance(p, dict):
+            return {k: walk(p[k], q[k]) for k in p}
+        if isinstance(p, tuple):
+            return tuple(walk(a, b) for a, b in zip(p, q))
+        return p
+    return walk(params, qparams)
+
+
+def flip_rule(z, z16, zn):
+    """The noise-floor rule on teacher-forced logits [steps, vocab]: `z`
+    (int8) and `zn` (the control) against `z16` (bf16)."""
+    c16 = z16.argmax(-1)
+    flips = int((z.argmax(-1) != c16).sum())
+    noise_flips = int((zn.argmax(-1) != c16).sum())
+    span = float(z16.max() - z16.min())
+    err = float((z - z16).abs().max())
+    noise_err = float((zn - z16).abs().max())
+    bound = max(FLIP_LOGIT_SPAN * span, 2 * noise_err)
+    flips_ok = (flips == 0 or flips / len(z) < FLIP_FRAC
+                or flips <= 2 * noise_flips + 2)
+    return {"flips": flips, "noise_flips": noise_flips, "steps": len(z),
+            "logit_err": err, "noise_logit_err": noise_err,
+            "logit_span": span, "logit_bound": bound,
+            "strict_span_ok": err < FLIP_LOGIT_SPAN * span,
+            "ok": err < bound and flips_ok}
+
+
+def int8_decode_checks(cfg, params, qparams, *, seed, kv_dtype,
+                       prompt_len=64, steps=48, gated_steps=8,
+                       max_seq=512):
+    """Teacher-forced decode of one sequence (a `prompt_len`-token prompt,
+    then `steps` forced tokens) through the engine's int8 configuration
+    (`qparams`, int8 KV with `kv_dtype="int8"`):
+    (a) the int8 kernel path's logits at the first `gated_steps` steps
+        held to the int8 plain path (`ref` mode, the same quantized
+        weights and KV layout) under the floor-scaled gate (k = 2), the
+        floor being plain int8 bf16 vs plain int8 fp32 over those steps;
+    (b) greedy flips of int8 weights (bf16 KV, as the reference's rule
+        counts them) against bf16 weights at every step, beside the
+        noise-floor control's, under the rule above (`flip_rule`); the
+        flips of the served configuration (int8 weights and KV) are
+        counted beside them, against the same control."""
+    from repro_torch.core.precision import BF16, FP32
+    rng = np.random.default_rng(seed + 50)
+    tokens = rng.integers(0, cfg.vocab, prompt_len + steps, dtype=np.int32)
+    short = tokens[:prompt_len + gated_steps]
+    kw = dict(max_seq=max_seq, fused=True)
+    name = f"{cfg.name} int8 decode, prompt {prompt_len}"
+    z_ref = decode_logits(cfg, qparams, short, prompt_len, mode="ref",
+                          policy=BF16, kv_dtype=kv_dtype, **kw)
+    z_fp32 = decode_logits(cfg, qparams, short, prompt_len, mode="ref",
+                           policy=FP32, kv_dtype=kv_dtype, **kw)
+    gaps = [_gap(z_ref[i:i + 1], z_fp32[i:i + 1]) for i in range(gated_steps)]
+    floor = (max(g[0] for g in gaps), max(g[1] for g in gaps))
+    z8, launches = drive(
+        f"{name} kernel path",
+        lambda: decode_logits(cfg, qparams, tokens, prompt_len, mode="auto",
+                              policy=BF16, kv_dtype=kv_dtype, **kw),
+        ("fused_matmul", "paged_decode_attention", "flash_attention"))
+    worst = {"rel": 0.0, "cosine": 1.0}
+    for i in range(gated_steps):
+        g = _logit_gate(f"{name} kernel vs plain at step {i}", z8[i:i + 1],
+                        z_ref[i:i + 1], floor, 2.0, quiet=True)
+        worst = {"rel": max(worst["rel"], g["rel"]),
+                 "cosine": min(worst["cosine"], g["cosine"]),
+                 "tol": g["tol"], "cos_min": g["cos_min"]}
+    log(f"  {name}: int8 kernel path vs int8 plain path over {gated_steps} "
+        f"steps: worst rel {worst['rel']:.2e} (tol {worst['tol']:.2e}), "
+        f"cosine {worst['cosine']:.6f} (min {worst['cos_min']:.6f}); floor "
+        f"rel {floor[0]:.2e}")
+    z16 = decode_logits(cfg, params, tokens, prompt_len, mode="auto",
+                        policy=BF16, **kw)
+    z8w = decode_logits(cfg, qparams, tokens, prompt_len, mode="auto",
+                        policy=BF16, **kw)
+    noisy = noise_params(params, qparams, seed + 17)
+    zn = decode_logits(cfg, noisy, tokens, prompt_len, mode="auto",
+                       policy=BF16, **kw)
+    del noisy
+    top2 = torch.topk(z16, 2, dim=-1).values
+    margin = float((top2[:, 0] - top2[:, 1]).median())
+    rules = {"int8 weights": flip_rule(z8w, z16, zn),
+             "int8 weights + KV": flip_rule(z8, z16, zn)}
+    for label, r in rules.items():
+        log(f"  {name}: {label}: greedy flips vs bf16 {r['flips']}/{steps}, "
+            f"noise-floor control {r['noise_flips']}/{steps}; max |dz| "
+            f"{r['logit_err']:.4f} (control {r['noise_logit_err']:.4f}, "
+            f"bound {r['logit_bound']:.4f}) of span {r['logit_span']:.2f} "
+            f"(under 1% of it: {r['strict_span_ok']}), median top-2 margin "
+            f"{margin:.4f}: {'pass' if r['ok'] else 'FAIL'}")
+    if not rules["int8 weights"]["ok"]:
+        raise AssertionError(f"{name}: int8 weights fail the noise-floor "
+                             f"rule: {rules['int8 weights']}")
+    return {"vs_plain": worst, "floor": {"rel": floor[0],
+                                         "cosine": float(np.cos(floor[1]))},
+            "launches": launches, "median_margin": margin, "flips": rules}
 
 
 def ring_witness(cfg, *, seed, prompt_len=1000, steps=40, max_seq=2048,
@@ -2288,6 +2686,18 @@ KERNELS = {   # name -> (source, TPU kernel replaced, case in the line)
     "fused_matmul_swiglu": (CSRC + "fused_swiglu.cu",
                             "src/repro/kernels/matmul.py:329",
                             "M=4 rmsnorm"),
+    # the int8-weight / int8-pool forms of the same sources
+    "fused_matmul_int8": (CSRC + "fused_matmul.cu",
+                          "src/repro/kernels/matmul.py:161", "mlp_up M=4"),
+    "fused_matmul_swiglu_int8": (CSRC + "fused_swiglu.cu",
+                                 "src/repro/kernels/matmul.py:329",
+                                 "M=4 rmsnorm"),
+    "paged_decode_partials_int8": (
+        CSRC + "paged_decode.cu", "src/repro/kernels/flash_decode.py:321",
+        "B=4 H=24/KV=8 D=128 BS=16 len 1/137/300/512"),
+    "paged_decode_attention_int8": (
+        CSRC + "paged_decode.cu", "src/repro/kernels/flash_decode.py:297",
+        "B=4 H=24/KV=8 D=128 BS=16 len 1/137/300/512"),
     "flash_attention": (CSRC + "flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:94",
                         "phi4 S=512 H24/KV8 D=128"),
@@ -2321,13 +2731,27 @@ SSD_CONFIG = {"ssd_multihead": "hymba-1.5b", "ssd": "mamba2-2.7b"}
 
 # the partials kernel runs on the served paths as the first pass of the one
 # paged route's C entry (csrc/paged_decode.cu), once a route launch; its
-# own wrapper serves the kernels phase only
-PASS_OF = {"paged_decode_partials": "paged_decode_attention"}
+# own wrapper serves the kernels phase only.  Line entries with forms:
+# (wrapper counted, its forms) — the bf16 entries count the bf16 / fp32
+# forms, the int8 entries the int8 ones
+FORMS_OF = {
+    "fused_matmul": ("fused_matmul", ("fma32", "stream", "wgmma")),
+    "fused_matmul_swiglu": ("fused_matmul_swiglu",
+                            ("fma32", "stream", "wgmma")),
+    "fused_matmul_int8": ("fused_matmul", ("stream_int8", "wgmma_int8")),
+    "fused_matmul_swiglu_int8": ("fused_matmul_swiglu",
+                                 ("stream_int8", "wgmma_int8")),
+    "paged_decode_partials": ("paged_decode_attention", ("bf16", "fp32")),
+    "paged_decode_attention": ("paged_decode_attention", ("bf16", "fp32")),
+    "paged_decode_partials_int8": ("paged_decode_attention", ("int8",)),
+    "paged_decode_attention_int8": ("paged_decode_attention", ("int8",)),
+}
 
 
 def _launches(name, serve):
-    if name in PASS_OF:
-        return TOTAL_LAUNCHES.get(PASS_OF[name], 0)
+    if name in FORMS_OF:
+        wrapper, forms = FORMS_OF[name]
+        return sum(TOTAL_BY.get(wrapper, {}).get(t, 0) for t in forms)
     if name not in SSD_CONFIG:
         return TOTAL_LAUNCHES.get(name, 0)
     paths = serve[SSD_CONFIG[name]]["launches"].values()
@@ -2347,9 +2771,12 @@ def main():
     check_flash(rows)
     check_paged(rows)
     check_decode_attention(rows)
+    check_gemm_int8(rows)
+    check_paged_int8(rows)
     report["kernels"] = rows
     report["sampling"] = phase_sampling()
     report["serve"] = phase_serve()
+    report["serve_int8"] = phase_serve_int8(report["serve"])
     report["serve_cli"] = phase_serve_cli()
     report["vit"] = phase_vit(info["nvidia_smi"])
     from repro_torch.configs import GEMMA3_27B, MAMBA2_2_7B

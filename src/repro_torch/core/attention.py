@@ -13,7 +13,9 @@ ring cache of a sliding-window layer whose window W is shorter than max_seq
 Paged pools are [NB + 1, BS, KV, hd]: the trailing block is a write sink
 that absorbs the writes the reference drops (`mode="drop"`) — absent table
 entries — so the in-place scatter needs no host round trip.  The block
-allocator never hands it out.
+allocator never hands it out.  Int8 pools (`kv_dtype="int8"`) carry fp32
+scales "ks" / "vs" [NB + 1, KV], one a block and kv head, sink row
+included, and quantize on write (`_append_quantized`).
 """
 from __future__ import annotations
 
@@ -24,6 +26,18 @@ from repro_torch.core.precision import Policy
 from repro_torch.core.rope import apply_rope
 from repro_torch.kernels import ops
 from repro_torch.kernels.epilogue import Epilogue
+
+SCALE_EPS = 1e-30      # guards zero-amax blocks and unwritten scale slots
+# the reference quantizes the pools inside jitted programs, where XLA
+# turns the division by 127 into a product with the fp32 reciprocal; the
+# port takes the same product, so that its scales are the reference's bit
+# for bit (`quantize_int8_axiswise`, run eagerly there, divides)
+INV_127 = 1.0 / 127.0
+
+
+def kv_scale(amax):
+    """The int8 pools' scale of a block and kv head from its amax."""
+    return torch.clamp(amax, min=SCALE_EPS) * INV_127
 
 
 def attention_param_shapes(cfg) -> dict:
@@ -126,17 +140,56 @@ def _decode_out_proj(p, merged, *, policy: Policy, residual=None):
     return pdot(o, p["wo"], policy, out_dtype=torch.float32).to(ad)
 
 
+def _quantized_kv(cache) -> bool:
+    """True when the paged pools store int8 K / V with per-block-per-head
+    fp32 scales ("ks" / "vs" [NB + 1, KV] beside "k" / "v")."""
+    return "ks" in cache
+
+
+def _append_quantized(pools, scales, x_new, blk, off, owned):
+    """Quantize-on-write of one token a row into int8 pools [NB + 1, BS,
+    KV, hd] (K and V: `pools`, with their scales [NB + 1, KV], `scales`),
+    in place: the reference's `_append_quantized` for each pool, the pools
+    quantized together to halve the step's launches.  x_new: the new rows
+    [B, KV, hd], one a pool; blk [B] pool block (the sink for rows that
+    own no block: `owned` False); off [B] in-block offset.  Blocks fill
+    front to back, so a token at offset 0 is its block's first (re)use:
+    it sets the block's scale from its own amax (which resets a reused
+    block's stale scale).  Later offsets reuse the stored scale and clip;
+    entries already in a block never move.
+
+    Pure device work with a fixed launch sequence (no host index, no branch
+    on whether a row is fresh), so a CUDA graph can hold it: the rows that
+    write no scale (not fresh, or not owned) and the K / V of rows that own
+    no block go to the sink as zeros, so that its duplicate writes agree."""
+    xf = torch.stack(x_new).float()                          # [P, B, KV, hd]
+    s_new = kv_scale(xf.abs().amax(-1))                       # [P, B, KV]
+    fresh = off == 0
+    s_old = torch.stack([sc[blk] for sc in scales])
+    s = torch.where(fresh[:, None], s_new, torch.clamp(s_old, min=SCALE_EPS))
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    q = torch.where(owned[:, None, None], q, 0).to(torch.int8)
+    write = fresh & owned
+    slot = torch.where(write, blk, pools[0].shape[0] - 1)
+    s_write = torch.where(write[:, None], s_new, 0)
+    for i, (pool, sc) in enumerate(zip(pools, scales)):
+        pool[blk, off] = q[i]
+        sc[slot] = s_write[i]
+
+
 def attn_decode_paged(p, x, pos, cache, block_tables, *, cfg,
                       policy: Policy, norm=None, residual=None):
     """One decode step against the block-paged KV pools.
 
     x: [B, E]; pos: [B] position of the token being written; cache:
-    {"k", "v"} pools [NB + 1, BS, KV, hd] (trailing sink block); block_tables:
+    {"k", "v"} pools [NB + 1, BS, KV, hd] (trailing sink block), and for
+    int8 pools their scales {"ks", "vs"} [NB + 1, KV]; block_tables:
     [B, MB] pool indices (< 0 unallocated).  The new token's K/V is written
     IN PLACE into block table[pos // BS] at offset pos % BS (absent blocks
-    go to the sink), then attention runs over length pos + 1 through the
-    one paged route, `ops.paged_decode_attention`, whose split count
-    depends on the shapes alone.  Returns (y [B, E], cache)."""
+    go to the sink; int8 pools quantize it, `_append_quantized`), then
+    attention runs over length pos + 1 through the one paged route,
+    `ops.paged_decode_attention`, whose split count depends on the shapes
+    alone.  Returns (y [B, E], cache)."""
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
     ad = act_dtype(policy)
@@ -153,16 +206,23 @@ def attn_decode_paged(p, x, pos, cache, block_tables, *, cfg,
     entry = torch.clamp(pos // BS, max=MB - 1)
     gb = block_tables.to(torch.int64).gather(1, entry[:, None])[:, 0]
     owned = (gb >= 0) & (gb < sink) & (pos // BS < MB)
-    flat = torch.where(owned, gb * BS + pos % BS,
-                       torch.full_like(gb, sink * BS))
-    k_pool.view(-1, KV, hd)[flat] = k_new.to(k_pool.dtype)
-    v_pool.view(-1, KV, hd)[flat] = v_new.to(v_pool.dtype)
+    if _quantized_kv(cache):
+        _append_quantized((k_pool, v_pool), (cache["ks"], cache["vs"]),
+                          (k_new, v_new), torch.where(owned, gb, sink),
+                          torch.where(owned, pos % BS, 0), owned)
+    else:
+        flat = torch.where(owned, gb * BS + pos % BS,
+                           torch.full_like(gb, sink * BS))
+        k_pool.view(-1, KV, hd)[flat] = k_new.to(k_pool.dtype)
+        v_pool.view(-1, KV, hd)[flat] = v_new.to(v_pool.dtype)
 
     length = (pos + 1).to(torch.int32)
     tab = torch.where((block_tables >= 0) & (block_tables < sink),
                       block_tables, torch.full_like(block_tables, -1))
     out = ops.paged_decode_attention(q.to(ad), k_pool, v_pool,
-                                     tab.to(torch.int32), length)
+                                     tab.to(torch.int32), length,
+                                     k_scale=cache.get("ks"),
+                                     v_scale=cache.get("vs"))
     merged = out.reshape(B, H * hd)
     return _decode_out_proj(p, merged, policy=policy,
                             residual=residual), cache

@@ -24,14 +24,20 @@ def mlp_param_shapes(cfg) -> dict:
     return {"w1": (E, F), "w2": (F, E)}
 
 
+def _wcast(w, cd):
+    """A weight at the compute dtype; a weight-only int8 dict as it is (the
+    GEMM entry points take it, `ops.split_quantized`)."""
+    return w if isinstance(w, dict) else w.to(cd)
+
+
 def _first_gemm(xt, p, cfg, policy, *, norm=None):
     """xt [T, E] -> h [T, F] at the activation dtype."""
     ad = act_dtype(policy)
     cd = policy.compute_dtype
     if cfg.mlp_act == "swiglu":
         if norm is None:
-            return ops.matmul_swiglu(xt.to(cd), p["wg"].to(cd),
-                                     p["wu"].to(cd), out_dtype=ad)
+            return ops.matmul_swiglu(xt.to(cd), _wcast(p["wg"], cd),
+                                     _wcast(p["wu"], cd), out_dtype=ad)
         return ops.fused_matmul_swiglu(xt, p["wg"], p["wu"], prologue=norm,
                                        compute_dtype=cd, out_dtype=ad)
     if norm is None:

@@ -31,7 +31,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}   # bound entry points
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # common.cuh DTypeCode
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1,
+                torch.int8: 2}                         # common.cuh DTypeCode
 _raw_stream = None   # torch's current-raw-stream binding, found at first use
 
 
@@ -126,8 +127,8 @@ def dtype_code(t) -> int:
     """Element-type code the kernels take (common.cuh DTypeCode)."""
     code = _DTYPE_CODES.get(t.dtype)
     if code is None:
-        raise TypeError(f"the CUDA kernels take float32 or bfloat16, not "
-                        f"{t.dtype}")
+        raise TypeError(f"the CUDA kernels take float32, bfloat16 or int8, "
+                        f"not {t.dtype}")
     return code
 
 
@@ -144,6 +145,12 @@ def require_cuda(what: str, *tensors) -> None:
 
 def aligned16(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def ptr(t):
+    """A tensor's device address for a C entry point; None (NULL) for an
+    absent operand."""
+    return None if t is None else t.data_ptr()
 
 
 def stream_of(t) -> int:

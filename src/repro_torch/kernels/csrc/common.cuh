@@ -5,8 +5,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// element-type codes passed from the Python wrappers
-enum DTypeCode { DT_F32 = 0, DT_BF16 = 1 };
+#include <type_traits>
+
+// element-type codes passed from the Python wrappers (int8: quantized
+// weights and KV pools, which come with fp32 scales)
+enum DTypeCode { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2 };
 
 #define NEG_INF_F (-1e30f)
 
@@ -62,6 +65,23 @@ __device__ __forceinline__ void unpack8(const uint4 u, float w[8]) {
   w[5] = __uint_as_float(u.z & 0xffff0000u);
   w[6] = __uint_as_float(u.w << 16);
   w[7] = __uint_as_float(u.w & 0xffff0000u);
+}
+
+// Byte j of x (an int8) as a float, exactly and without a conversion
+// instruction: the byte, its sign bit flipped (s + 128), is placed in the
+// mantissa of 2^23 (0x4B000000), and 2^23 + 128 is subtracted.
+__device__ __forceinline__ float i8_to_f32(uint32_t x, int j) {
+  const uint32_t u = __byte_perm(x ^ 0x80808080u, 0x4B000000u, 0x7540 + j);
+  return __uint_as_float(u) - 8388736.f;
+}
+
+// Eight int8 values of an 8-byte load, element 0 in the low byte of u.x.
+__device__ __forceinline__ void unpack8_i8(const uint2 u, float w[8]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    w[j] = i8_to_f32(u.x, j);
+    w[4 + j] = i8_to_f32(u.y, j);
+  }
 }
 
 __device__ __forceinline__ float2 unpack2(uint32_t u) {

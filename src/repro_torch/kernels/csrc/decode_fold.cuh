@@ -26,6 +26,14 @@
 // (o unnormalized, m, l) of its split; dec_merge_kernel folds the splits'
 // partials into the normalized output at q's dtype (the online-softmax
 // merge of the reference's core/attention.py:merge_partials).
+//
+// Int8 pools (T = int8_t, paged only): the rows are staged at one byte an
+// element, and each pool block carries one fp32 scale a kv head for K and
+// one for V (`ks`, `vs` [NB, KV]), the TPU kernel's quantized fold
+// (src/repro/kernels/flash_decode.py:_online_merge): a page's scores are
+// (q . k_int8) * sm_scale * ks[block, h] in fp32, P stays fp32, and the
+// page's P.V (on the widened int8 values, in fp32) is multiplied by
+// vs[block, h] before it joins the rescaled accumulator.
 #pragma once
 
 #include "common.cuh"
@@ -87,6 +95,9 @@ struct DecFold {
   float* l;
   int B, H, KV, D;
   float sm_scale;
+  const float* ks;  // int8 pools: the scales [NB, KV] of K and V
+  const float* vs;
+  int q_dt;         // int8 pools: q's dtype (otherwise the pools')
 };
 
 // Block tables: the live entries of table entries [e0, e1) of one slot, in
@@ -121,6 +132,7 @@ struct PagedRows {
   }
   __device__ __forceinline__ int count() const { return *nlive; }
   __device__ __forceinline__ int64_t row0(int i) const { return (int64_t)blks[i] * bs(); }
+  __device__ __forceinline__ int blk(int i) const { return blks[i]; }
   __device__ __forceinline__ void span(int i, int& lo, int& hi) const {
     lo = 0;
     hi = min(bs(), len - ents[i] * bs());
@@ -142,6 +154,7 @@ struct DenseRows {
   __device__ __forceinline__ int64_t row0(int i) const {
     return slot_row + p0 + i * DF_STAGE_TOKENS;
   }
+  __device__ __forceinline__ int blk(int) const { return 0; }  // no scales
   __device__ __forceinline__ void span(int i, int& lo, int& hi) const {
     const int s = p0 + i * DF_STAGE_TOKENS;
     lo = max(0, first - s);
@@ -151,7 +164,11 @@ struct DenseRows {
 
 template <typename T>
 __device__ __forceinline__ void df_unpack(const uint4 u, float (&w)[16 / sizeof(T)]) {
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 1) {
+    const uint32_t x[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) w[j] = i8_to_f32(x[j >> 2], j & 3);
+  } else if constexpr (sizeof(T) == 2) {
     unpack8(u, w);
   } else {
     w[0] = __uint_as_float(u.x);
@@ -163,8 +180,14 @@ __device__ __forceinline__ void df_unpack(const uint4 u, float (&w)[16 / sizeof(
 
 template <typename T>
 __device__ __forceinline__ float2 df_pair(const T* p) {
-  if constexpr (sizeof(T) == 2) return unpack2(*reinterpret_cast<const uint32_t*>(p));
-  else return *reinterpret_cast<const float2*>(p);
+  if constexpr (sizeof(T) == 1) {
+    const uint32_t u = *reinterpret_cast<const uint16_t*>(p);
+    return make_float2(i8_to_f32(u, 0), i8_to_f32(u, 1));
+  } else if constexpr (sizeof(T) == 2) {
+    return unpack2(*reinterpret_cast<const uint32_t*>(p));
+  } else {
+    return *reinterpret_cast<const float2*>(p);
+  }
 }
 
 // The block's partials of split z: m, l of its G heads and o of its G * D
@@ -202,6 +225,8 @@ template <typename T, class Rows>
 __device__ __forceinline__ void dec_fold(const DecFold& f, Rows& rows, uint8_t* smem,
                                          int kvh, int b, int z) {
   constexpr int EPC = 16 / sizeof(T);  // elements of a 16-byte chunk
+  constexpr bool kQuant = sizeof(T) == 1;   // int8 pools, with scales
+  const int q_dt = kQuant ? f.q_dt : (sizeof(T) == 2 ? DT_BF16 : DT_F32);
   const int G = f.H / f.KV, D = f.D;
   const int BS = rows.bs(), P = rows.pages(), TOK = P * BS;
   const int CR = D / EPC;                          // 16-byte chunks of a row
@@ -247,15 +272,14 @@ __device__ __forceinline__ void dec_fold(const DecFold& f, Rows& rows, uint8_t* 
 
   if constexpr (Rows::kKnown) {
     first_stages();
-    for (int i = tid; i < G * D; i += DF_THREADS)
-      Qs[i] = ld_elem(f.q, head0 * D + i, sizeof(T) == 2 ? DT_BF16 : DT_F32);
+    for (int i = tid; i < G * D; i += DF_THREADS) Qs[i] = ld_elem(f.q, head0 * D + i, q_dt);
     __syncthreads();
   } else {
     if (warp == 0) {
       rows.prepare(lane);
     } else {
       for (int i = tid - 32; i < G * D; i += DF_THREADS - 32)
-        Qs[i] = ld_elem(f.q, head0 * D + i, sizeof(T) == 2 ? DT_BF16 : DT_F32);
+        Qs[i] = ld_elem(f.q, head0 * D + i, q_dt);
     }
     __syncthreads();
     npages = rows.count();
@@ -303,6 +327,8 @@ __device__ __forceinline__ void dec_fold(const DecFold& f, Rows& rows, uint8_t* 
           }
         }
       }
+      // int8: the page's K scale, after sm_scale (the TPU kernel's order)
+      const float ksc = (kQuant && valid) ? f.ks[(int64_t)rows.blk(i0 + pi) * f.KV + kvh] : 1.f;
 #pragma unroll
       for (int g = 0; g < DF_MAXG; ++g) {
         if (g >= G) break;
@@ -310,7 +336,8 @@ __device__ __forceinline__ void dec_fold(const DecFold& f, Rows& rows, uint8_t* 
         d += __shfl_xor_sync(0xffffffffu, d, 4);
         d += __shfl_xor_sync(0xffffffffu, d, 2);
         d += __shfl_xor_sync(0xffffffffu, d, 1);
-        if (sub == 0 && u < TOK) Ss[g * TOK + u] = valid ? d * f.sm_scale : NEG_INF_F;
+        if (sub == 0 && u < TOK)
+          Ss[g * TOK + u] = !valid ? NEG_INF_F : kQuant ? d * f.sm_scale * ksc : d * f.sm_scale;
       }
     }
     __syncthreads();
@@ -330,7 +357,7 @@ __device__ __forceinline__ void dec_fold(const DecFold& f, Rows& rows, uint8_t* 
         for (int t = lo + lane; t < hi; t += 32) {
           const float pw = expf(sp[t] - m_new);
           ps += pw;
-          sp[t] = sizeof(T) == 2 ? round_bf16(pw) : pw;
+          sp[t] = sizeof(T) == 2 ? round_bf16(pw) : pw;  // int8 and fp32: P in fp32
         }
         ps = warp_sum(ps);
         const float corr = expf(m_r - m_new);
@@ -356,25 +383,34 @@ __device__ __forceinline__ void dec_fold(const DecFold& f, Rows& rows, uint8_t* 
         a1 *= c;
         const float* pg = Ss + g * TOK + pi * BS;
         const T* vrow = kv + ((size_t)(pi * 2 + 1) * BS) * D + d;
-        // even and odd tokens in two chains: half the dependent FMAs
-        float b0 = 0.f, b1 = 0.f;
+        // even and odd tokens in two chains: half the dependent FMAs; int8
+        // sums the page apart, then scales it by the page's V scale
+        float e0 = 0.f, e1 = 0.f, b0 = 0.f, b1 = 0.f;
+        float& s0 = kQuant ? e0 : a0;
+        float& s1 = kQuant ? e1 : a1;
         int t = lo;
 #pragma unroll 4
         for (; t + 1 < hi; t += 2) {
           const float2 va = df_pair<T>(vrow + (size_t)t * D);
           const float2 vb = df_pair<T>(vrow + (size_t)(t + 1) * D);
-          a0 = fmaf(pg[t], va.x, a0);
-          a1 = fmaf(pg[t], va.y, a1);
+          s0 = fmaf(pg[t], va.x, s0);
+          s1 = fmaf(pg[t], va.y, s1);
           b0 = fmaf(pg[t + 1], vb.x, b0);
           b1 = fmaf(pg[t + 1], vb.y, b1);
         }
         if (t < hi) {
           const float2 va = df_pair<T>(vrow + (size_t)t * D);
-          a0 = fmaf(pg[t], va.x, a0);
-          a1 = fmaf(pg[t], va.y, a1);
+          s0 = fmaf(pg[t], va.x, s0);
+          s1 = fmaf(pg[t], va.y, s1);
         }
-        a0 += b0;
-        a1 += b1;
+        if constexpr (kQuant) {
+          const float vsc = f.vs[(int64_t)rows.blk(i0 + pi) * f.KV + kvh];
+          a0 = fmaf(e0 + b0, vsc, a0);
+          a1 = fmaf(e1 + b1, vsc, a1);
+        } else {
+          a0 += b0;
+          a1 += b1;
+        }
       }
       acc[2 * i] = a0;
       acc[2 * i + 1] = a1;

@@ -35,6 +35,14 @@
 //   producer warpgroup's three spare warps run CUDA-core fp32 FMA over the
 //   B tiles already in shared memory.  When the tiles cannot fill the card
 //   (small M or N), K is split as in the stream template.
+// int8 W (weight-only quantization, `scale` [N] fp32 a column): both
+//   templates take it (gemm.cuh, I8).  stream: the bound halves to K*N bytes;
+//   a lane reads 8 bytes (8 columns) of a row, twice the rows in flight,
+//   and turns them into fp32 without a conversion instruction.  wgmma: TMA
+//   brings int8 tiles, widened to bf16 in shared memory (exact) by the
+//   producer warpgroup's spare warps.  The scale multiplies the finalized
+//   fp32 accumulator before bias, activation and residual (the TPU kernel's
+//   order), once, in splitk_finish when K is split.
 // fma32 (fp32 W: an fp32 policy in `auto` mode; no served path).  The
 //   port's first design, kept as is: the K loop in one block, tiles staged
 //   through shared memory with a one-tile register prefetch, fp32 FMA;
@@ -237,8 +245,8 @@ __global__ void __launch_bounds__(256) fused_mm_kernel(const MMParams p) {
   }
 }
 
-extern "C" int repro_fused_matmul(const void* a, const void* b, const void* gamma,
-                                  const void* beta, const void* bias,
+extern "C" int repro_fused_matmul(const void* a, const void* b, const float* scale,
+                                  const void* gamma, const void* beta, const void* bias,
                                   const void* residual, void* out, void* part, int M,
                                   int N, int K, int a_dt, int b_dt, int vec_dt,
                                   int res_dt, int out_dt, int norm, int act, float eps,
@@ -249,10 +257,12 @@ extern "C" int repro_fused_matmul(const void* a, const void* b, const void* gamm
     GemmParams g{a, b, nullptr, gamma, beta, bias, residual, out,
                  reinterpret_cast<float*>(part), M, N, K, a_dt, b_dt, vec_dt, res_dt,
                  out_dt, norm, act, eps, kchunk, splits};
-    if (tpl == TPL_STREAM) return (int)launch_stream<false>(g, s);
-    if (tpl == TPL_WGMMA) return (int)launch_wgmma<false>(g, s);
+    const GemmScales sc{scale, nullptr};
+    if (tpl == TPL_STREAM) return (int)launch_stream<false>(g, sc, s);
+    if (tpl == TPL_WGMMA) return (int)launch_wgmma<false>(g, sc, s);
     return (int)cudaErrorInvalidValue;
   }
+  if (b_dt == DT_I8 || scale) return (int)cudaErrorInvalidValue;  // fp32 / bf16 W only
   MMParams p{a, b, gamma, beta, bias, residual, out, M, N, K, a_dt, b_dt,
              vec_dt, res_dt, out_dt, norm, act, eps, a_vec, b_vec};
   if (M <= 16) {
@@ -265,4 +275,6 @@ extern "C" int repro_fused_matmul(const void* a, const void* b, const void* gamm
   return (int)cudaGetLastError();
 }
 
-extern "C" int repro_fused_matmul_stream_occupancy(int M) { return stream_occupancy<false>(M); }
+extern "C" int repro_fused_matmul_stream_occupancy(int M, int i8) {
+  return stream_occupancy<false>(M, i8);
+}

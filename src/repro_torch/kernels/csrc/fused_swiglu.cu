@@ -22,6 +22,9 @@
 //   width), so one warpgroup's m64n256k16 accumulator holds g and u of the
 //   same outputs and the epilogue pairs them.  Rounding, the LayerNorm
 //   column sums and the split of K as in fused_matmul.cu.
+// int8 Bg / Bu (phi4-mini's int8 serving; `sg` / `su` [N] fp32 column
+//   scales): both templates as in fused_matmul.cu, the gate's scale on g
+//   and the up's on u after the norm's finalize, before silu(g) * u.
 // fma32 (fp32 W; no served path): the first design, kept as is — the K loop
 //   in one block, a one-tile register prefetch, fp32 FMA; 16 x 16 x 128
 //   tiles at M <= 16 and 64 x 32 x 16 above.
@@ -246,21 +249,23 @@ __global__ void __launch_bounds__(256) fused_swiglu_kernel(const SGParams p) {
 }
 
 extern "C" int repro_fused_swiglu(const void* a, const void* bg, const void* bu,
-                                  const void* gamma, const void* beta,
-                                  const void* residual, void* out, void* part, int M,
-                                  int N, int K, int a_dt, int b_dt, int vec_dt,
-                                  int res_dt, int out_dt, int norm, float eps, int a_vec,
-                                  int b_vec, int tpl, int kchunk, int splits,
+                                  const float* sg, const float* su, const void* gamma,
+                                  const void* beta, const void* residual, void* out,
+                                  void* part, int M, int N, int K, int a_dt, int b_dt,
+                                  int vec_dt, int res_dt, int out_dt, int norm, float eps,
+                                  int a_vec, int b_vec, int tpl, int kchunk, int splits,
                                   void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (tpl != TPL_FMA32) {
     GemmParams g{a, bg, bu, gamma, beta, nullptr, residual, out,
                  reinterpret_cast<float*>(part), M, N, K, a_dt, b_dt, vec_dt, res_dt,
                  out_dt, norm, ACT_NONE, eps, kchunk, splits};
-    if (tpl == TPL_STREAM) return (int)launch_stream<true>(g, s);
-    if (tpl == TPL_WGMMA) return (int)launch_wgmma<true>(g, s);
+    const GemmScales sc{sg, su};
+    if (tpl == TPL_STREAM) return (int)launch_stream<true>(g, sc, s);
+    if (tpl == TPL_WGMMA) return (int)launch_wgmma<true>(g, sc, s);
     return (int)cudaErrorInvalidValue;
   }
+  if (b_dt == DT_I8 || sg || su) return (int)cudaErrorInvalidValue;  // fp32 / bf16 W only
   SGParams p{a, bg, bu, gamma, beta, residual, out, M, N, K, a_dt, b_dt,
              vec_dt, res_dt, out_dt, norm, eps, a_vec, b_vec};
   if (M <= 16) {
@@ -273,4 +278,6 @@ extern "C" int repro_fused_swiglu(const void* a, const void* bg, const void* bu,
   return (int)cudaGetLastError();
 }
 
-extern "C" int repro_fused_swiglu_stream_occupancy(int M) { return stream_occupancy<true>(M); }
+extern "C" int repro_fused_swiglu_stream_occupancy(int M, int i8) {
+  return stream_occupancy<true>(M, i8);
+}

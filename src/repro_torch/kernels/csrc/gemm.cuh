@@ -17,6 +17,16 @@
 // bias, activation, residual and the one store.  GATED = the SwiGLU kernel:
 // two weights (gate, up) share A, the row statistics and the K loop, and the
 // finish is silu(g) * u.
+//
+// I8 = int8 weights (weight-only quantization), each with one fp32 scale an
+// output column: |q| <= 127 is exact in fp32 and in bf16, so the products
+// run on q itself, and the scale multiplies the finalized accumulator, before
+// the bias, the activation (or silu(g) * u) and the residual, where the TPU
+// kernel applies b_scale (every accumulated term is linear in W).  The stream
+// template reads 8 bytes (8 columns) of a weight row a lane, twice the rows
+// in flight; the wgmma template's TMA brings int8 tiles, and the producer
+// warpgroup's three spare warps widen them to bf16 in place, in the layout
+// the B descriptors read.
 #pragma once
 
 #include "hopper.cuh"
@@ -88,6 +98,22 @@ __device__ __forceinline__ float finalize(float acc, int norm, float rstd, float
   return acc;
 }
 
+// The int8 weights' column scales, [N] each (null for bf16 / fp32 weights):
+// a kernel parameter of their own.  With them as two more pointers in
+// GemmParams (144 bytes, not 128), the bf16 stream kernel compiled to 130
+// registers instead of 168 and ran 10-20% slower on an H100.
+struct GemmScales {
+  const float* s0;  // W, or the gate weight when GATED
+  const float* s1;  // the up weight when GATED
+};
+
+// An int8 weight's column scale on a finalized output (weight b: 0 = W or
+// the gate, 1 = the up weight); other weights pass y through.
+__device__ __forceinline__ float dequant(const GemmScales& sc, int b, int c, float y) {
+  const float* s = b ? sc.s1 : sc.s0;
+  return s ? y * s[c] : y;
+}
+
 // The epilogue of one finalized output (y0; GATED: gate y0, up y1) at
 // column c, flat index o: bias + activation (plain) or silu(g) * u (gated),
 // then the residual.
@@ -110,13 +136,13 @@ __device__ __forceinline__ float epilogue(const GemmParams& p, int c, int64_t o,
 // stream template (decode, M <= STREAM_MAX_M)
 //
 // Grid (strips, splits).  A block of 4 warps owns one strip of 256 output
-// columns (each lane 8 of them, one 16-byte load of a weight row) and one
-// range of K rows.  It stages its rows of x * gamma in fp32 in shared
-// memory, M values per row, read back as broadcasts, and sums x and x^2 of
-// each row over its range.  Each warp walks groups of R consecutive weight
-// rows (warp w: groups w, w + 4, ...), the next group's loads in flight
-// while this group's FMAs run; a warp's load instruction reads 512
-// contiguous bytes of one row.  The 4 warps' sums are added in warp order
+// columns (each lane 8 of them, one 16-byte load of a bf16 weight row or an
+// 8-byte load of an int8 one) and one range of K rows.  It stages its rows
+// of x * gamma in fp32 in shared memory, M values per row, read back as
+// broadcasts, and sums x and x^2 of each row over its range.  Each warp
+// walks groups of R consecutive weight rows (warp w: groups w, w + 4, ...),
+// the next group's loads in flight while this group's FMAs run; a warp's
+// load instruction reads 512 (int8: 256) contiguous bytes of one row.  The 4 warps' sums are added in warp order
 // in shared memory by all threads, one output column each.  One split
 // finalizes in place; several write fp32 partials (acc, gamma@W, beta@W per
 // column, sum x and sum x^2 per row) and splitk_finish adds them in split
@@ -129,16 +155,24 @@ constexpr int ST_WARPS = ST_THREADS / 32;
 constexpr int ST_COLS = 256;
 constexpr int ST_SMEM_MAX = 96 * 1024;  // dynamic shared memory a stream block may take
 
-__host__ __device__ constexpr int stream_rows_per_group(int MT, bool gated) {
-  return gated ? (MT >= 8 ? 2 : 4) : 8;
+// Weight rows a warp has in flight per group: an int8 row's load is half a
+// bf16 row's, so int8 keeps twice the rows (the same registers and bytes).
+__host__ __device__ constexpr int stream_rows_per_group(int MT, bool gated, bool i8) {
+  return (gated ? (MT >= 8 ? 2 : 4) : 8) * (i8 ? 2 : 1);
 }
 
 __host__ __device__ inline int round8(int x) { return (x + 7) & ~7; }
+__host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
+
+// Staged rows of a split of `len` K rows: whole groups of rows (8 or 16).
+__host__ __device__ inline int stream_rows(int len, bool i8) {
+  return i8 ? round16(len) : round8(len);
+}
 
 // Dynamic shared memory of one stream block: the staged rows (x * gamma,
 // then gamma and beta for LayerNorm), later reused for the cross-warp sums.
-__host__ __device__ inline size_t stream_smem_bytes(int MT, bool gated, int kchunk) {
-  const size_t rows = round8(kchunk);
+__host__ __device__ inline size_t stream_smem_bytes(int MT, bool gated, bool i8, int kchunk) {
+  const size_t rows = stream_rows(kchunk, i8);
   const size_t stage = rows * MT * 4 + 2 * rows * 4;
   const size_t red = (size_t)ST_WARPS * (gated ? 2 : 1) * (MT + 2) * ST_COLS * 4;
   return stage > red ? stage : red;
@@ -161,10 +195,13 @@ __device__ __forceinline__ void load_arow(const float* p, float (&v)[MT]) {
   }
 }
 
-template <int MT, bool GATED>
-__global__ void __launch_bounds__(ST_THREADS) stream_kernel(const GemmParams p) {
+template <int MT, bool GATED, bool I8>
+__global__ void __launch_bounds__(ST_THREADS) stream_kernel(const GemmParams p,
+                                                             const GemmScales sc) {
   constexpr int NB = GATED ? 2 : 1;
-  constexpr int R = stream_rows_per_group(MT, GATED);
+  constexpr int R = stream_rows_per_group(MT, GATED, I8);
+  using WT = std::conditional_t<I8, int8_t, __nv_bfloat16>;  // a weight element
+  using WV = std::conditional_t<I8, uint2, uint4>;           // a lane's 8 of them
   extern __shared__ float4 st_smem4[];
   float* sm = reinterpret_cast<float*>(st_smem4);
   __shared__ float st_part[ST_WARPS][MT][2];
@@ -175,7 +212,7 @@ __global__ void __launch_bounds__(ST_THREADS) stream_kernel(const GemmParams p) 
   const int kb = z * p.kchunk;
   const int ke = min(p.K, kb + p.kchunk);
   const int len = ke - kb;
-  const int rows = round8(len);
+  const int rows = stream_rows(len, I8);
   const bool has_norm = p.norm != NORM_NONE;
   const bool ln = p.norm == NORM_LN;
   float* As = sm;                  // [rows][MT]
@@ -185,9 +222,9 @@ __global__ void __launch_bounds__(ST_THREADS) stream_kernel(const GemmParams p) 
   // the weight stream's first loads go out before the staging below
   const int n = blockIdx.x * ST_COLS + lane * 8;
   const bool col_ok = n < p.N;  // N % 8 == 0: a lane's 8 columns are all in or out
-  const __nv_bfloat16* wp[NB];
-  wp[0] = reinterpret_cast<const __nv_bfloat16*>(p.b0) + n;
-  if (GATED) wp[NB - 1] = reinterpret_cast<const __nv_bfloat16*>(p.b1) + n;
+  const WT* wp[NB];
+  wp[0] = reinterpret_cast<const WT*>(p.b0) + n;
+  if (GATED) wp[NB - 1] = reinterpret_cast<const WT*>(p.b1) + n;
   float acc[NB][MT][8], gacc[NB][8], bacc[NB][8];
 #pragma unroll
   for (int b = 0; b < NB; ++b)
@@ -198,17 +235,16 @@ __global__ void __launch_bounds__(ST_THREADS) stream_kernel(const GemmParams p) 
       for (int m = 0; m < MT; ++m) acc[b][m][j] = 0.f;
     }
   const int ngroups = rows / R;
-  uint4 bufa[NB][R], bufb[NB][R];
+  WV bufa[NB][R], bufb[NB][R];
 
-  auto load = [&](uint4 (&buf)[NB][R], int grp) {
+  auto load = [&](WV (&buf)[NB][R], int grp) {
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const int k = kb + grp * R + i;
       const bool ok = col_ok && grp < ngroups && k < ke;
 #pragma unroll
       for (int b = 0; b < NB; ++b)
-        buf[b][i] = ok ? __ldg(reinterpret_cast<const uint4*>(wp[b] + (int64_t)k * p.N))
-                       : make_uint4(0u, 0u, 0u, 0u);
+        buf[b][i] = ok ? __ldg(reinterpret_cast<const WV*>(wp[b] + (int64_t)k * p.N)) : WV{};
     }
   };
   int grp = warp;
@@ -257,7 +293,7 @@ __global__ void __launch_bounds__(ST_THREADS) stream_kernel(const GemmParams p) 
   }
 
   // 2. the weight stream
-  auto compute = [&](const uint4 (&buf)[NB][R], int grp) {
+  auto compute = [&](const WV (&buf)[NB][R], int grp) {
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const int kk = grp * R + i;
@@ -267,7 +303,10 @@ __global__ void __launch_bounds__(ST_THREADS) stream_kernel(const GemmParams p) 
 #pragma unroll
       for (int b = 0; b < NB; ++b) {
         float w[8];
-        unpack8(buf[b][i], w);
+        if constexpr (I8)
+          unpack8_i8(buf[b][i], w);
+        else
+          unpack8(buf[b][i], w);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -340,7 +379,7 @@ __global__ void __launch_bounds__(ST_THREADS) stream_kernel(const GemmParams p) 
         }
       }
       if (p.splits == 1) {
-        y[b] = finalize(v[0], p.norm, rstd, mu, v[1], v[2]);
+        y[b] = dequant(sc, b, c, finalize(v[0], p.norm, rstd, mu, v[1], v[2]));
       } else {
         pacc[((size_t)(z * NB + b) * p.M + m) * p.N + c] = v[0];
         if (ln && m == 0) {
@@ -357,9 +396,10 @@ __global__ void __launch_bounds__(ST_THREADS) stream_kernel(const GemmParams p) 
 }
 
 // Second pass of a split-K GEMM (either template): one thread per output
-// element adds the splits' partials in split order, then finalizes once.
+// element adds the splits' partials in split order, then finalizes once (and
+// applies an int8 weight's column scale).
 template <bool GATED>
-__global__ void __launch_bounds__(256) splitk_finish(const GemmParams p) {
+__global__ void __launch_bounds__(256) splitk_finish(const GemmParams p, const GemmScales sc) {
   constexpr int NB = GATED ? 2 : 1;
   const int64_t i = (int64_t)blockIdx.x * 256 + threadIdx.x;
   if (i >= (int64_t)p.M * p.N) return;
@@ -390,73 +430,87 @@ __global__ void __launch_bounds__(256) splitk_finish(const GemmParams p) {
         bw += pcol[((size_t)(z * NB + b) * 2 + 1) * p.N + n];
       }
     }
-    y[b] = finalize(acc, p.norm, rstd, mu, gw, bw);
+    y[b] = dequant(sc, b, n, finalize(acc, p.norm, rstd, mu, gw, bw));
   }
   st_elem(p.out, i, p.out_dt, epilogue<GATED>(p, n, i, y[0], y[NB - 1]));
 }
 
 // Opt the stream kernel into its dynamic shared memory past 48 KB, once.
-template <int MT, bool GATED>
+template <int MT, bool GATED, bool I8>
 inline cudaError_t stream_prepare() {
   static bool done = false;
   if (done) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute((const void*)stream_kernel<MT, GATED>,
+  const cudaError_t e = cudaFuncSetAttribute((const void*)stream_kernel<MT, GATED, I8>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              ST_SMEM_MAX);
   done = e == cudaSuccess;
   return e;
 }
 
-template <int MT, bool GATED>
-inline cudaError_t launch_stream_mt(const GemmParams& p, cudaStream_t s) {
-  const cudaError_t e = stream_prepare<MT, GATED>();
+template <int MT, bool GATED, bool I8>
+inline cudaError_t launch_stream_mt(const GemmParams& p, const GemmScales& sc, cudaStream_t s) {
+  const cudaError_t e = stream_prepare<MT, GATED, I8>();
   if (e != cudaSuccess) return e;
-  const size_t smem = stream_smem_bytes(MT, GATED, p.kchunk);
+  const size_t smem = stream_smem_bytes(MT, GATED, I8, p.kchunk);
   if (smem > ST_SMEM_MAX) return cudaErrorInvalidValue;
   dim3 grid((p.N + ST_COLS - 1) / ST_COLS, p.splits);
-  stream_kernel<MT, GATED><<<grid, ST_THREADS, smem, s>>>(p);
+  stream_kernel<MT, GATED, I8><<<grid, ST_THREADS, smem, s>>>(p, sc);
   return cudaGetLastError();
+}
+
+template <bool GATED, bool I8>
+inline cudaError_t launch_stream_w(const GemmParams& p, const GemmScales& sc, cudaStream_t s) {
+  if (p.M <= 1) return launch_stream_mt<1, GATED, I8>(p, sc, s);
+  if (p.M <= 2) return launch_stream_mt<2, GATED, I8>(p, sc, s);
+  if (p.M <= 4) return launch_stream_mt<4, GATED, I8>(p, sc, s);
+  return launch_stream_mt<8, GATED, I8>(p, sc, s);
 }
 
 // Resident stream blocks per SM at M rows, with the shared memory of the
 // largest split the planner makes (32 KB of staged rows): the planner sizes
 // the grid to whole waves of these.  -1 on a CUDA error.
-template <int MT, bool GATED>
+template <int MT, bool GATED, bool I8>
 inline int stream_occupancy_mt() {
-  if (stream_prepare<MT, GATED>() != cudaSuccess) return -1;
+  if (stream_prepare<MT, GATED, I8>() != cudaSuccess) return -1;
   int blocks = 0;
-  const size_t smem = stream_smem_bytes(MT, GATED, 32 * 1024 / (4 * (MT + 2)));
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, stream_kernel<MT, GATED>,
+  const size_t smem = stream_smem_bytes(MT, GATED, I8, 32 * 1024 / (4 * (MT + 2)));
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, stream_kernel<MT, GATED, I8>,
                                                     ST_THREADS, smem) != cudaSuccess)
     return -1;
   return blocks;
 }
 
-template <bool GATED>
-inline int stream_occupancy(int M) {
-  if (M <= 1) return stream_occupancy_mt<1, GATED>();
-  if (M <= 2) return stream_occupancy_mt<2, GATED>();
-  if (M <= 4) return stream_occupancy_mt<4, GATED>();
-  return stream_occupancy_mt<8, GATED>();
+template <bool GATED, bool I8>
+inline int stream_occupancy_w(int M) {
+  if (M <= 1) return stream_occupancy_mt<1, GATED, I8>();
+  if (M <= 2) return stream_occupancy_mt<2, GATED, I8>();
+  if (M <= 4) return stream_occupancy_mt<4, GATED, I8>();
+  return stream_occupancy_mt<8, GATED, I8>();
 }
 
 template <bool GATED>
-inline cudaError_t launch_stream(const GemmParams& p, cudaStream_t s) {
-  if (p.M < 1 || p.M > STREAM_MAX_M || p.b_dt != DT_BF16 || p.N % 8 || p.kchunk < 1 ||
+inline int stream_occupancy(int M, int i8) {
+  return i8 ? stream_occupancy_w<GATED, true>(M) : stream_occupancy_w<GATED, false>(M);
+}
+
+// int8 weights come with their scales (both weights when GATED), other
+// weights without
+inline bool scales_ok(const GemmParams& p, const GemmScales& sc, bool gated) {
+  const bool i8 = p.b_dt == DT_I8;
+  return i8 == (sc.s0 != nullptr) && (!gated || i8 == (sc.s1 != nullptr));
+}
+
+template <bool GATED>
+inline cudaError_t launch_stream(const GemmParams& p, const GemmScales& sc, cudaStream_t s) {
+  if (p.M < 1 || p.M > STREAM_MAX_M || (p.b_dt != DT_BF16 && p.b_dt != DT_I8) ||
+      !scales_ok(p, sc, GATED) || p.N % 8 || p.kchunk < 1 ||
       p.splits != (p.K + p.kchunk - 1) / p.kchunk || (p.splits > 1 && !p.part))
     return cudaErrorInvalidValue;
-  cudaError_t e;
-  if (p.M <= 1)
-    e = launch_stream_mt<1, GATED>(p, s);
-  else if (p.M <= 2)
-    e = launch_stream_mt<2, GATED>(p, s);
-  else if (p.M <= 4)
-    e = launch_stream_mt<4, GATED>(p, s);
-  else
-    e = launch_stream_mt<8, GATED>(p, s);
+  const cudaError_t e = p.b_dt == DT_I8 ? launch_stream_w<GATED, true>(p, sc, s)
+                                        : launch_stream_w<GATED, false>(p, sc, s);
   if (e != cudaSuccess || p.splits == 1) return e;
   const int64_t total = (int64_t)p.M * p.N;
-  splitk_finish<GATED><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(p);
+  splitk_finish<GATED><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(p, sc);
   return cudaGetLastError();
 }
 
@@ -481,6 +535,16 @@ inline cudaError_t launch_stream(const GemmParams& p, cudaStream_t s) {
 // while this stage's prologue does (wait_group 1).  The epilogue stages the
 // accumulators in the drained ring, then all consumer threads finalize and
 // store the tile row by row (coalesced), or write a split's partials.
+//
+// I8: per stage TMA brings two int8 boxes B [64 x 128] (128-byte rows, the
+// same swizzle) into the upper half of the stage's B region, and warps 1-3
+// widen them in place to the four bf16 boxes the consumers' descriptors
+// read: a group of 8 lanes owns a row, reads its 16 int8 chunks (both
+// boxes), syncs its warp and writes the row's 32 bf16 chunks; bf16 boxes 2
+// and 3 of row r overwrite exactly the int8 row r it read, so no other row
+// is in the way.  They fence the writes to the async proxy and arrive on the
+// stage's `ready` barrier, which the consumers wait on after `full`; for
+// LayerNorm they then sum gamma@W and beta@W from the widened tile.
 // ---------------------------------------------------------------------------
 
 constexpr int WG_BM = 128;
@@ -494,13 +558,18 @@ constexpr int WG_THREADS = 384;
 constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;
 constexpr int WG_B_BYTES = WG_BK * WG_BOX * 2;
 constexpr int WG_STAGE_BYTES = WG_A_BYTES + WG_BOXES * WG_B_BYTES;  // what TMA fills
+constexpr int WG_B8_BOX = 128;  // columns of one int8 B box: 128 bytes
+constexpr int WG_B8_BYTES = WG_BK * WG_B8_BOX;
+constexpr int WG_B8_BOXES = WG_COLS / WG_B8_BOX;
+constexpr int WG_B8_OFF = WG_BOXES * WG_B_BYTES - WG_B8_BOXES * WG_B8_BYTES;  // in B region
+constexpr int WG_STAGE_BYTES_I8 = WG_A_BYTES + WG_B8_BOXES * WG_B8_BYTES;    // what TMA fills
 constexpr int WG_VEC_BYTES = 256;      // one stage's gamma or beta: 64 entries <= 4 bytes
 constexpr int WG_CPAD = WG_COLS + 4;   // row stride (floats) of the staged tile
 constexpr int WG_HELPERS = 96;         // LayerNorm helper threads (warps 1-3)
 constexpr int WG_CHUNKS = WG_COLS / 8;  // 16-byte column chunks of a B row
 constexpr int WG_HELPER_GROUPS = WG_HELPERS / WG_CHUNKS;  // row groups (one per warp)
 constexpr int WG_SMEM = 1024 + WG_STAGES * WG_STAGE_BYTES + WG_LO * WG_A_BYTES +
-                        WG_STAGES * 2 * WG_VEC_BYTES + 2 * WG_STAGES * 8 +
+                        WG_STAGES * 2 * WG_VEC_BYTES + 3 * WG_STAGES * 8 +
                         (2 * WG_HELPER_GROUPS + 2) * WG_COLS * 4 + WG_BM * 2 * 4;
 static_assert(WG_BM * WG_CPAD * 4 <= WG_STAGES * WG_STAGE_BYTES, "staged tile fits the ring");
 static_assert(WG_HELPER_GROUPS * WG_CHUNKS == WG_HELPERS, "helpers cover the chunks");
@@ -519,13 +588,46 @@ __device__ __forceinline__ float2 ld_pair(const uint8_t* v, int k, int dt) {
   return *reinterpret_cast<const float2*>(v + 4 * k);
 }
 
-template <bool GATED>
+// Widen one stage's int8 B tile (WG_B8_BOXES boxes at b + WG_B8_OFF) in place
+// into the bf16 boxes at b, as warps 1-3 of the producer warpgroup (thread
+// ht of 96): a group of 8 lanes a row, lane c the 16-byte chunk c of the
+// row in each int8 box.  Int8 box j's chunk c (columns 16c .. 16c + 15 of
+// the box) becomes bf16 chunks 2(c % 4), 2(c % 4) + 1 of bf16 box 2j + c / 4.
+__device__ __forceinline__ void widen_b_tile(uint8_t* b, int ht) {
+  const int lane = ht & 31, c = lane & 7;
+  const int grp = (ht >> 5) * 4 + (lane >> 3);  // 12 row groups
+  for (int r = grp; r < WG_BK; r += WG_HELPERS / 8) {
+    uint4 src[WG_B8_BOXES];
+#pragma unroll
+    for (int j = 0; j < WG_B8_BOXES; ++j)
+      src[j] = *reinterpret_cast<const uint4*>(b + WG_B8_OFF + j * WG_B8_BYTES + r * 128 +
+                                               ((c ^ (r & 7)) << 4));
+    __syncwarp();  // the row is read by its 8 lanes before any lane writes it
+#pragma unroll
+    for (int j = 0; j < WG_B8_BOXES; ++j) {
+      const uint32_t w[4] = {src[j].x, src[j].y, src[j].z, src[j].w};
+      uint32_t h[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        h[q] = pack2(i8_to_f32(w[q >> 1], 2 * (q & 1)), i8_to_f32(w[q >> 1], 2 * (q & 1) + 1));
+      uint8_t* dst = b + (2 * j + (c >> 2)) * WG_B_BYTES + r * 128;
+      const int j0 = 2 * (c & 3);
+      *reinterpret_cast<uint4*>(dst + ((j0 ^ (r & 7)) << 4)) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(dst + (((j0 + 1) ^ (r & 7)) << 4)) =
+          make_uint4(h[4], h[5], h[6], h[7]);
+    }
+    __syncwarp();
+  }
+}
+
+template <bool GATED, bool I8>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
                  const __grid_constant__ CUtensorMap tma_b0,
                  const __grid_constant__ CUtensorMap tma_b1,
                  const __grid_constant__ CUtensorMap tma_gamma,
-                 const __grid_constant__ CUtensorMap tma_beta, const GemmParams p) {
+                 const __grid_constant__ CUtensorMap tma_beta, const GemmParams p,
+                 const GemmScales sc) {
   extern __shared__ uint8_t wg_smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~(uintptr_t)1023);
@@ -533,7 +635,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   uint8_t* vring = lo_ring + WG_LO * WG_A_BYTES;           // [stage][gamma, beta][256 B]
   uint64_t* full = reinterpret_cast<uint64_t*>(vring + WG_STAGES * 2 * WG_VEC_BYTES);
   uint64_t* empty = full + WG_STAGES;
-  float* colpart = reinterpret_cast<float*>(empty + WG_STAGES);  // [2][groups][WG_COLS]
+  uint64_t* ready = empty + WG_STAGES;  // I8: the stage's B tile is widened
+  float* colpart = reinterpret_cast<float*>(ready + WG_STAGES);  // [2][groups][WG_COLS]
   float* colsum = colpart + 2 * WG_HELPER_GROUPS * WG_COLS;        // [2][WG_COLS]
   float* rowscale = colsum + 2 * WG_COLS;                          // [WG_BM][rstd, mu]
 
@@ -550,6 +653,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     for (int s = 0; s < WG_STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8 + (ln ? WG_HELPERS / 32 : 0));  // consumer (+ LN helper) warps
+      mbar_init(&ready[s], WG_HELPERS / 32);                 // the widening warps
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -560,7 +664,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     if (warp == 0) {
       if (lane == 0) {  // the producer
         const uint32_t vbytes = (p.vec_dt == DT_BF16 ? 2 : 4) * WG_BK;
-        const uint32_t tx = WG_STAGE_BYTES + (has_norm ? vbytes : 0) + (ln ? vbytes : 0);
+        const uint32_t tx = (I8 ? WG_STAGE_BYTES_I8 : WG_STAGE_BYTES) + (has_norm ? vbytes : 0) +
+                            (ln ? vbytes : 0);
         int stage = 0;
         uint32_t phase = 0;
         for (int kt = 0; kt < ktiles; ++kt) {
@@ -570,12 +675,23 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
           const int k0 = kbase + kt * WG_BK;
           mbar_expect_tx(&full[stage], tx);
           tma_load_2d(st, &tma_a, k0, m0, &full[stage]);
+          if constexpr (I8) {
 #pragma unroll
-          for (int b = 0; b < WG_BOXES; ++b) {
-            // plain: W at columns ncol0 + 64 b; gated: Wg, then Wu, 128 columns each
-            const CUtensorMap* map = (GATED && b >= WG_BOXES / 2) ? &tma_b1 : &tma_b0;
-            const int col = ncol0 + (GATED ? (b % (WG_BOXES / 2)) : b) * WG_BOX;
-            tma_load_2d(st + WG_A_BYTES + b * WG_B_BYTES, map, col, k0, &full[stage]);
+            for (int b = 0; b < WG_B8_BOXES; ++b) {
+              // plain: W at columns ncol0 + 128 b; gated: Wg, then Wu
+              const CUtensorMap* map = (GATED && b == 1) ? &tma_b1 : &tma_b0;
+              const int col = ncol0 + (GATED ? 0 : b) * WG_B8_BOX;
+              tma_load_2d(st + WG_A_BYTES + WG_B8_OFF + b * WG_B8_BYTES, map, col, k0,
+                          &full[stage]);
+            }
+          } else {
+#pragma unroll
+            for (int b = 0; b < WG_BOXES; ++b) {
+              // plain: W at columns ncol0 + 64 b; gated: Wg, then Wu, 128 columns each
+              const CUtensorMap* map = (GATED && b >= WG_BOXES / 2) ? &tma_b1 : &tma_b0;
+              const int col = ncol0 + (GATED ? (b % (WG_BOXES / 2)) : b) * WG_BOX;
+              tma_load_2d(st + WG_A_BYTES + b * WG_B_BYTES, map, col, k0, &full[stage]);
+            }
           }
           if (has_norm) tma_load_1d(vt, &tma_gamma, k0, &full[stage]);
           if (ln) tma_load_1d(vt + WG_VEC_BYTES, &tma_beta, k0, &full[stage]);
@@ -585,9 +701,10 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
           }
         }
       }
-    } else if (ln) {
-      // LayerNorm helpers, warps 1-3: thread ht owns one 16-byte column
-      // chunk (8 B columns) and rows kg, kg + 3, ... of every stage
+    } else if (ln || I8) {
+      // warps 1-3.  I8: widen each stage's B tile.  LayerNorm: thread ht
+      // owns one 16-byte column chunk (8 B columns) and rows kg, kg + 3, ...
+      // of every stage, for gamma@W and beta@W
       const int ht = tid - 32;
       const int chunk = ht % WG_CHUNKS, kg = ht / WG_CHUNKS;
       float ga[8], ba[8];
@@ -597,6 +714,20 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       uint32_t phase = 0;
       for (int kt = 0; kt < ktiles; ++kt) {
         mbar_wait(&full[stage], phase);
+        if constexpr (I8) {
+          widen_b_tile(smem + stage * WG_STAGE_BYTES + WG_A_BYTES, ht);
+          fence_proxy_async();  // the bf16 tile is read by wgmma (async proxy)
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&ready[stage]);
+          if (!ln) {
+            if (++stage == WG_STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
+            continue;
+          }
+          named_sync(6, WG_HELPERS);  // every row widened before gamma@W reads it
+        }
         const uint8_t* bt =
             smem + stage * WG_STAGE_BYTES + WG_A_BYTES + (chunk >> 3) * WG_B_BYTES;
         const uint8_t* vt = vring + stage * 2 * WG_VEC_BYTES;
@@ -621,6 +752,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
           phase ^= 1;
         }
       }
+      if (!ln) return;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         colpart[(0 * WG_HELPER_GROUPS + kg) * WG_COLS + chunk * 8 + j] = ga[j];
@@ -658,6 +790,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   uint32_t phase = 0;
   for (int kt = 0; kt < ktiles; ++kt) {
     mbar_wait(&full[stage], phase);
+    if constexpr (I8) mbar_wait(&ready[stage], phase);
     const uint32_t a_base = smem_u32(smem + stage * WG_STAGE_BYTES);
     const uint32_t b_base = a_base + WG_A_BYTES;
     const uint32_t lo_base = smem_u32(lo_ring + (kt % WG_LO) * WG_A_BYTES);
@@ -811,8 +944,9 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       float f[NB];
 #pragma unroll
       for (int b = 0; b < NB; ++b)
-        f[b] = finalize(v[b][e], p.norm, rstd, mu, ln ? colsum[b * OCOLS + lc + e] : 0.f,
-                        ln ? colsum[WG_COLS + b * OCOLS + lc + e] : 0.f);
+        f[b] = dequant(sc, b, c + e,
+                       finalize(v[b][e], p.norm, rstd, mu, ln ? colsum[b * OCOLS + lc + e] : 0.f,
+                                ln ? colsum[WG_COLS + b * OCOLS + lc + e] : 0.f));
       y[e] = epilogue<GATED>(p, c + e, o + e, f[0], f[NB - 1]);
     }
     if (p.out_dt == DT_BF16) {
@@ -827,17 +961,20 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
-// A row-major bf16 [rows, cols] matrix read in [box_rows, 64] boxes with
-// the 128-byte swizzle; boxes past the edge are zero-filled.
-inline bool encode_bf16_2d(CUtensorMap* map, const void* ptr, int rows, int cols,
-                           int box_rows) {
+// A row-major bf16 [rows, cols] matrix read in [box_rows, 64] boxes (int8:
+// [box_rows, 128]), 128-byte rows with the 128-byte swizzle; boxes past the
+// edge are zero-filled.
+inline bool encode_tile_2d(CUtensorMap* map, const void* ptr, int rows, int cols,
+                           int box_rows, bool i8) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (!fn) return false;
+  const int esize = i8 ? 1 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64u, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / esize), (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1u, 1u};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+  return fn(map, i8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(ptr), dims, strides,
             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -857,41 +994,52 @@ inline bool encode_vec(CUtensorMap* map, const void* ptr, int n, int dt) {
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool GATED>
-inline cudaError_t launch_wgmma(const GemmParams& p, cudaStream_t s) {
-  const uintptr_t align = reinterpret_cast<uintptr_t>(p.a) | reinterpret_cast<uintptr_t>(p.b0) |
-                          reinterpret_cast<uintptr_t>(p.b1) |
-                          reinterpret_cast<uintptr_t>(p.gamma) |
-                          reinterpret_cast<uintptr_t>(p.beta);
-  if (p.M < 1 || p.a_dt != DT_BF16 || p.b_dt != DT_BF16 || p.N % 8 || p.K % 8 || align % 16 ||
-      (p.norm != NORM_NONE && !p.gamma) || (p.norm == NORM_LN && !p.beta) ||
-      p.kchunk < 1 || (p.kchunk % WG_BK && p.kchunk < p.K) ||
-      p.splits != (p.K + p.kchunk - 1) / p.kchunk || (p.splits > 1 && !p.part))
-    return cudaErrorInvalidValue;
-  CUtensorMap ma, mb0, mb1, mg, mbt;
-  if (!encode_bf16_2d(&ma, p.a, p.M, p.K, WG_BM) ||
-      !encode_bf16_2d(&mb0, p.b0, p.K, p.N, WG_BK) ||
-      !encode_bf16_2d(&mb1, GATED ? p.b1 : p.b0, p.K, p.N, WG_BK))
-    return cudaErrorInvalidValue;
-  mg = mbt = ma;  // unread without a norm
-  if (p.norm != NORM_NONE && !encode_vec(&mg, p.gamma, p.K, p.vec_dt))
-    return cudaErrorInvalidValue;
-  if (p.norm == NORM_LN && !encode_vec(&mbt, p.beta, p.K, p.vec_dt))
-    return cudaErrorInvalidValue;
+template <bool GATED, bool I8>
+inline cudaError_t launch_wgmma_w(const CUtensorMap& ma, const CUtensorMap& mb0,
+                                  const CUtensorMap& mb1, const CUtensorMap& mg,
+                                  const CUtensorMap& mbt, const GemmParams& p,
+                                  const GemmScales& sc, cudaStream_t s) {
   static bool attr = false;
   if (!attr) {
     const cudaError_t e =
-        cudaFuncSetAttribute((const void*)wgmma_kernel<GATED>,
+        cudaFuncSetAttribute((const void*)wgmma_kernel<GATED, I8>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
     if (e != cudaSuccess) return e;
     attr = true;
   }
   const int bn = GATED ? WG_COLS / 2 : WG_COLS;
   dim3 grid((p.M + WG_BM - 1) / WG_BM, (p.N + bn - 1) / bn, p.splits);
-  wgmma_kernel<GATED><<<grid, WG_THREADS, WG_SMEM, s>>>(ma, mb0, mb1, mg, mbt, p);
-  cudaError_t e = cudaGetLastError();
+  wgmma_kernel<GATED, I8><<<grid, WG_THREADS, WG_SMEM, s>>>(ma, mb0, mb1, mg, mbt, p, sc);
+  return cudaGetLastError();
+}
+
+template <bool GATED>
+inline cudaError_t launch_wgmma(const GemmParams& p, const GemmScales& sc, cudaStream_t s) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(p.a) | reinterpret_cast<uintptr_t>(p.b0) |
+                          reinterpret_cast<uintptr_t>(p.b1) |
+                          reinterpret_cast<uintptr_t>(p.gamma) |
+                          reinterpret_cast<uintptr_t>(p.beta);
+  const bool i8 = p.b_dt == DT_I8;
+  if (p.M < 1 || p.a_dt != DT_BF16 || (p.b_dt != DT_BF16 && !i8) || !scales_ok(p, sc, GATED) ||
+      p.N % (i8 ? 16 : 8) || p.K % 8 || align % 16 ||
+      (p.norm != NORM_NONE && !p.gamma) || (p.norm == NORM_LN && !p.beta) ||
+      p.kchunk < 1 || (p.kchunk % WG_BK && p.kchunk < p.K) ||
+      p.splits != (p.K + p.kchunk - 1) / p.kchunk || (p.splits > 1 && !p.part))
+    return cudaErrorInvalidValue;
+  CUtensorMap ma, mb0, mb1, mg, mbt;
+  if (!encode_tile_2d(&ma, p.a, p.M, p.K, WG_BM, false) ||
+      !encode_tile_2d(&mb0, p.b0, p.K, p.N, WG_BK, i8) ||
+      !encode_tile_2d(&mb1, GATED ? p.b1 : p.b0, p.K, p.N, WG_BK, i8))
+    return cudaErrorInvalidValue;
+  mg = mbt = ma;  // unread without a norm
+  if (p.norm != NORM_NONE && !encode_vec(&mg, p.gamma, p.K, p.vec_dt))
+    return cudaErrorInvalidValue;
+  if (p.norm == NORM_LN && !encode_vec(&mbt, p.beta, p.K, p.vec_dt))
+    return cudaErrorInvalidValue;
+  cudaError_t e = i8 ? launch_wgmma_w<GATED, true>(ma, mb0, mb1, mg, mbt, p, sc, s)
+                     : launch_wgmma_w<GATED, false>(ma, mb0, mb1, mg, mbt, p, sc, s);
   if (e != cudaSuccess || p.splits == 1) return e;
   const int64_t total = (int64_t)p.M * p.N;
-  splitk_finish<GATED><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(p);
+  splitk_finish<GATED><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(p, sc);
   return cudaGetLastError();
 }

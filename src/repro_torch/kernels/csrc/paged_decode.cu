@@ -1,4 +1,5 @@
 // Paged single-token decode attention: one fold kernel and one merge kernel.
+// Pools of bf16 or fp32 (q's dtype), or of int8 with fp32 scales (below).
 //
 // Replaces the TPU kernels src/repro/kernels/flash_decode.py:
 //   paged_decode_partials  (_paged_partials_kernel, _online_merge) -> paged_decode_kernel:
@@ -11,13 +12,16 @@
 // < 0 absent); lengths [B].  Token t of table entry e holds position
 // e*BS + t and is masked at or past the slot's length.  Per pool block (the
 // TPU kernel's fold, and the plain version's): scores = (q . k) / sqrt(D) in
-// fp32, the online-softmax rescale, P cast to V's dtype for P.V.  Absent
+// fp32, the online-softmax rescale, P cast to V's dtype for P.V (int8
+// pools, the TPU kernel's `quantized` fold: k_scale[block, h] on the scores
+// after sm_scale, P in fp32, v_scale[block, h] on the page's P.V).  Absent
 // entries and entries wholly past the length are skipped, as the TPU kernel
 // skips their fold.  Split z walks the contiguous entry range
 // [z * per, (z + 1) * per), per = ceil(MB / S).
 //
 // What bounds it on an H100: bytes — every live K and V row is read once
-// (2 * len * KV * D * 2 bytes per slot) against a handful of FLOPs per byte.
+// (2 * len * KV * D * 2 bytes per slot; int8 pools half that, plus a scale
+// a block and kv head) against a handful of FLOPs per byte.
 // Design: grid (kv head, slot, split), 256 threads, through the stage ring
 // of decode_fold.cuh: the block first compacts its range's live entries
 // (one warp ballot per 32 entries) into a list in shared memory, then keeps
@@ -86,48 +90,56 @@ static cudaError_t launch_paged_bs(const PDParams& p, int splits, size_t smem,
                                 : launch_paged_t<T, 0>(p, splits, smem, s);
 }
 
-static int launch_paged(const PDParams& p, int splits, int dt, void* stream) {
-  const int esize = dt == DT_BF16 ? 2 : 4;
-  if (!df_shape_ok(p.f.H, p.f.KV, p.f.D, esize, p.f.k, p.f.v, p.f.o) || splits < 1 ||
-      p.per < 1 || (int64_t)p.per * splits < p.MB)
+// dt: the pools' dtype; q_dt: q's (and the normalized output's).  bf16 and
+// fp32 pools are at q's dtype; int8 pools take their scales ks / vs.
+static int launch_paged(const PDParams& p, int splits, int dt, int q_dt, void* stream) {
+  const int esize = dt == DT_I8 ? 1 : dt == DT_BF16 ? 2 : 4;
+  const bool pools_ok = dt == DT_I8 ? (p.f.ks && p.f.vs && q_dt != DT_I8)
+                                    : (!p.f.ks && !p.f.vs && q_dt == dt);
+  if (!pools_ok || !df_shape_ok(p.f.H, p.f.KV, p.f.D, esize, p.f.k, p.f.v, p.f.o) ||
+      splits < 1 || p.per < 1 || (int64_t)p.per * splits < p.MB)
     return (int)cudaErrorInvalidValue;
   const size_t smem = pd_smem_bytes(p.f.H / p.f.KV, p.f.D, p.BS, p.per, esize);
   if (smem > DF_SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (dt == DT_I8) return (int)launch_paged_bs<int8_t>(p, splits, smem, s);
   return (int)(dt == DT_BF16 ? launch_paged_bs<__nv_bfloat16>(p, splits, smem, s)
                              : launch_paged_bs<float>(p, splits, smem, s));
 }
 
 extern "C" int repro_paged_decode_partials(const void* q, const void* k_pool,
-                                           const void* v_pool, const int* tables,
+                                           const void* v_pool, const float* ks,
+                                           const float* vs, const int* tables,
                                            const int* lengths, float* o, float* m,
                                            float* l, int B, int H, int KV, int D,
-                                           int BS, int MB, int splits, int dt,
+                                           int BS, int MB, int splits, int dt, int q_dt,
                                            float sm_scale, void* stream) {
   if (splits < 1) return (int)cudaErrorInvalidValue;
   const int per = (MB + splits - 1) / splits;
-  PDParams p{{q, k_pool, v_pool, o, m, l, B, H, KV, D, sm_scale}, tables, lengths,
-             BS, MB, per};
-  return launch_paged(p, splits, dt, stream);
+  PDParams p{{q, k_pool, v_pool, o, m, l, B, H, KV, D, sm_scale, ks, vs, q_dt}, tables,
+             lengths, BS, MB, per};
+  return launch_paged(p, splits, dt, q_dt, stream);
 }
 
 // The normalized entry point: the partials of `splits` ranges (one or more)
 // go to the caller's scratch (o_part [S, B, H, D], m_part / l_part [S, B, H])
 // and the merge kernel normalizes them into o at q's dtype.
 extern "C" int repro_paged_decode_attention(const void* q, const void* k_pool,
-                                            const void* v_pool, const int* tables,
+                                            const void* v_pool, const float* ks,
+                                            const float* vs, const int* tables,
                                             const int* lengths, void* o, float* o_part,
                                             float* m_part, float* l_part, int B, int H,
                                             int KV, int D, int BS, int MB, int splits,
-                                            int dt, float sm_scale, void* stream) {
+                                            int dt, int q_dt, float sm_scale,
+                                            void* stream) {
   if (!o_part || !m_part || !l_part || splits < 1 || splits > DF_MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
-  const int e = repro_paged_decode_partials(q, k_pool, v_pool, tables, lengths, o_part,
-                                            m_part, l_part, B, H, KV, D, BS, MB, splits,
-                                            dt, sm_scale, stream);
+  const int e = repro_paged_decode_partials(q, k_pool, v_pool, ks, vs, tables, lengths,
+                                            o_part, m_part, l_part, B, H, KV, D, BS, MB,
+                                            splits, dt, q_dt, sm_scale, stream);
   if (e != 0) return e;
   dec_merge_kernel<<<B * H, DF_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      o_part, m_part, l_part, o, splits, B * H, D, dt);
+      o_part, m_part, l_part, o, splits, B * H, D, q_dt);
   return (int)cudaGetLastError();
 }
 extern "C" int repro_paged_decode_merge(const float* o, const float* m, const float* l,

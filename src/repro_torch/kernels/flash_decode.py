@@ -12,7 +12,9 @@ kernel cuts the cache's positions into ranges (`dense_splits`,
 `split_ranges`), and a merge kernel folds the splits' partials into the
 normalized output (`paged_decode_merge` alone; the normalized wrappers
 always run it, at one split too).  The sources' notes say what bounds them
-on an H100 and how the design answers it.
+on an H100 and how the design answers it.  The paged wrappers also take
+int8 pools with their per-(block, kv head) fp32 scales `k_scale` /
+`v_scale` [NB, KV] (the TPU kernels' `quantized` form).
 
 The plain versions are the kernels' arithmetic in plain PyTorch: per chunk
 of positions (dense: 512, the TPU kernel's walk, or with `splits` the
@@ -20,8 +22,10 @@ kernel's own 32-position stages in each split's range; paged: one pool
 block), fp32 scores q.k / sqrt(D), -1e30 masks, the online-softmax
 rescale, P cast to V's dtype for P.V; chunks that are wholly masked
 (dense), absent (< 0) or wholly past the slot's length (paged) are
-skipped.  A split is the plain fold over its range, the splits merged by
-the online-softmax rule (`paged_decode_merge_plain`).  The wrappers launch
+skipped; int8 pools: the page's scores times its k_scale after
+1 / sqrt(D), P kept in fp32, the page's P.V times its v_scale.  A split is
+the plain fold over its range, the splits merged by the online-softmax rule
+(`paged_decode_merge_plain`).  The wrappers launch
 the kernel for CUDA tensors and take the plain version for CPU tensors.
 """
 from __future__ import annotations
@@ -36,8 +40,8 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_PARTIALS_ARGTYPES = [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P]
-_ATTENTION_ARGTYPES = [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P]
+_PARTIALS_ARGTYPES = [_P] * 10 + [_I] * 9 + [ctypes.c_float, _P]
+_ATTENTION_ARGTYPES = [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P]
 _DENSE_ARGTYPES = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P]
 _MERGE_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
 MAX_MERGE_SPLITS = 64   # csrc/decode_fold.cuh DF_MAX_SPLITS
@@ -211,20 +215,27 @@ def split_ranges(MB: int, splits: int):
     return [(z * per, min(MB, (z + 1) * per)) for z in range(splits)]
 
 
-def paged_decode_plain(q, k_pool, v_pool, block_tables, lengths, splits=1):
+def paged_decode_plain(q, k_pool, v_pool, block_tables, lengths, splits=1,
+                       *, k_scale=None, v_scale=None):
     """-> (o unnormalized fp32 [B, H, D], m [B, H], l [B, H]); with
     `splits` > 1, one set per split of the table (`split_ranges`):
-    [splits, B, H, D] and [splits, B, H]."""
+    [splits, B, H, D] and [splits, B, H].  `k_scale` / `v_scale`: the
+    scales of int8 pools."""
+    sc = (k_scale, v_scale)
     if splits > 1:
-        parts = [_paged_fold(q, k_pool, v_pool, block_tables, lengths, e0, e1)
+        parts = [_paged_fold(q, k_pool, v_pool, block_tables, lengths, e0, e1,
+                             *sc)
                  for e0, e1 in split_ranges(block_tables.shape[1], splits)]
         return tuple(torch.stack(x) for x in zip(*parts))
     return _paged_fold(q, k_pool, v_pool, block_tables, lengths, 0,
-                       block_tables.shape[1])
+                       block_tables.shape[1], *sc)
 
 
-def _paged_fold(q, k_pool, v_pool, block_tables, lengths, e0, e1):
-    """The page-by-page fold over table entries [e0, e1)."""
+def _paged_fold(q, k_pool, v_pool, block_tables, lengths, e0, e1,
+                k_scale=None, v_scale=None):
+    """The page-by-page fold over table entries [e0, e1) (int8 pools: each
+    page's K and V scales; absent entries read block 0's, and their fold is
+    dead)."""
     B, H, D = q.shape
     _, BS, KV, _ = k_pool.shape
     G = H // KV
@@ -243,14 +254,21 @@ def _paged_fold(q, k_pool, v_pool, block_tables, lengths, e0, e1):
         kb = k_pool[blk].float()                                  # [B,BS,KV,D]
         vb = v_pool[blk].float()
         s = torch.einsum("bkgd,bskd->bkgs", qf, kb) * sm_scale
+        if k_scale is not None:
+            s = s * k_scale[blk].float()[:, :, None, None]
         ok = (e * BS + tok)[None, :] < lengths[:, None]           # [B, BS]
         s = s.masked_fill(~ok[:, None, None], NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l_new = l * corr + p.sum(-1)
-        acc_new = acc * corr[..., None] + torch.einsum(
-            "bkgs,bskd->bkgd", p.to(v_pool.dtype).float(), vb)
+        if v_scale is None:
+            pv = torch.einsum("bkgs,bskd->bkgd", p.to(v_pool.dtype).float(),
+                              vb)
+        else:
+            pv = (torch.einsum("bkgs,bskd->bkgd", p, vb)
+                  * v_scale[blk].float()[:, :, None, None])
+        acc_new = acc * corr[..., None] + pv
         lv = live[:, None, None]
         m = torch.where(lv, m_new, m)
         l = torch.where(lv, l_new, l)
@@ -268,35 +286,52 @@ def _fold_shape_ok(H, KV, D, esize) -> bool:
             and FOLD_THREADS % (2 * cols) == 0)
 
 
-def _check(what, q, k_pool, v_pool, block_tables, lengths):
-    build.require_cuda(what, q, k_pool, v_pool, block_tables, lengths)
+def _check(what, q, k_pool, v_pool, block_tables, lengths, k_scale=None,
+           v_scale=None):
+    """Raise on operands the kernel does not take: pools at q's dtype, or
+    int8 pools with fp32-castable scales [NB, KV] each.  -> the operands
+    laid out for the launch, scales as fp32 (None for unquantized pools)."""
+    build.require_cuda(what, q, k_pool, v_pool, block_tables, lengths,
+                       k_scale, v_scale)
     B, H, D = q.shape
-    _, BS, KV, Dk = k_pool.shape
-    if (Dk != D or v_pool.shape != k_pool.shape
-            or not _fold_shape_ok(H, KV, D, q.element_size())
-            or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype
+    NB, BS, KV, Dk = k_pool.shape
+    int8 = k_pool.dtype == torch.int8
+    pools_ok = (v_pool.dtype == k_pool.dtype
+                and (k_scale is None) == (v_scale is None) == (not int8)
+                and (k_pool.dtype == q.dtype or int8)
+                and (not int8 or (k_scale.shape == v_scale.shape == (NB, KV)
+                                  and q.dtype != torch.int8)))
+    if (Dk != D or v_pool.shape != k_pool.shape or not pools_ok
+            or not _fold_shape_ok(H, KV, D, k_pool.element_size())
             or block_tables.shape[0] != B or lengths.shape != (B,)
             or not build.aligned16(k_pool, v_pool)):
         raise ValueError(f"{what}: unsupported operands q {tuple(q.shape)} "
                          f"{q.dtype}, pools {tuple(k_pool.shape)} "
-                         f"{k_pool.dtype}, tables {tuple(block_tables.shape)}")
+                         f"{k_pool.dtype}, tables {tuple(block_tables.shape)}"
+                         f", scales {k_scale is not None}")
+    if int8:
+        k_scale = k_scale.float().contiguous()
+        v_scale = v_scale.float().contiguous()
     return (q.contiguous(), k_pool.contiguous(), v_pool.contiguous(),
-            block_tables.to(torch.int32).contiguous(),
+            k_scale, v_scale, block_tables.to(torch.int32).contiguous(),
             lengths.to(torch.int32).contiguous())
 
 
+
 def paged_decode_partials(q, k_pool, v_pool, block_tables, lengths,
-                          splits=1):
+                          splits=1, *, k_scale=None, v_scale=None):
     """q: [B, H, D]; k/v_pool: [NB, BS, KV, D]; block_tables: [B, MB]
     (< 0 absent); lengths: [B] -> (o fp32 [B, H, D] unnormalized, m [B, H],
     l [B, H]); with `splits` > 1 the table's entries are cut into that many
     contiguous ranges (`split_ranges`), one grid slice each, and every
-    output gains a leading [splits] dimension."""
+    output gains a leading [splits] dimension.  Int8 pools take their
+    [NB, KV] fp32 scales `k_scale` / `v_scale`."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, block_tables, lengths,
-                                  splits)
-    q, k_pool, v_pool, tab, ln = _check("paged_decode_partials", q, k_pool,
-                                        v_pool, block_tables, lengths)
+                                  splits, k_scale=k_scale, v_scale=v_scale)
+    q, k_pool, v_pool, ks, vs, tab, ln = _check(
+        "paged_decode_partials", q, k_pool, v_pool, block_tables, lengths,
+        k_scale, v_scale)
     B, H, D = q.shape
     _, BS, KV, _ = k_pool.shape
     lead = (splits,) if splits > 1 else ()
@@ -306,16 +341,18 @@ def paged_decode_partials(q, k_pool, v_pool, block_tables, lengths,
     l = torch.empty((*lead, B, H), **f32)
     fn = build.bind("paged_decode", "repro_paged_decode_partials",
                     _PARTIALS_ARGTYPES)
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             tab.data_ptr(), ln.data_ptr(), o.data_ptr(), m.data_ptr(),
-             l.data_ptr(), B, H, KV, D, BS, tab.shape[1], int(splits),
-             build.dtype_code(q), 1.0 / math.sqrt(D), build.stream_of(q))
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), build.ptr(ks),
+             build.ptr(vs), tab.data_ptr(), ln.data_ptr(), o.data_ptr(),
+             m.data_ptr(), l.data_ptr(), B, H, KV, D, BS, tab.shape[1],
+             int(splits), build.dtype_code(k_pool), build.dtype_code(q),
+             1.0 / math.sqrt(D), build.stream_of(q))
     build.check(err, "paged_decode_partials launch")
-    paged_decode_partials.launches += 1
+    _count(paged_decode_partials, k_pool)
     return o, m, l
 
 
-def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
+                           k_scale=None, v_scale=None):
     """As `paged_decode_partials`, normalized: -> [B, H, D] at q's dtype.
     The grid splits the table as `paged_splits` says for the device, at
     least `paged_min_splits` of the table (one split or more), and the same
@@ -328,12 +365,14 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
                          sms=sm_count(q.device),
                          at_least=paged_min_splits(MB, k_pool.shape[1]))
         o, m, l = paged_decode_plain(q, k_pool, v_pool, block_tables,
-                                     lengths, S)
+                                     lengths, S, k_scale=k_scale,
+                                     v_scale=v_scale)
         if S == 1:
             o, m, l = o[None], m[None], l[None]
         return paged_decode_merge_plain(o, m, l, out_dtype=q.dtype)
-    q, k_pool, v_pool, tab, ln = _check("paged_decode_attention", q, k_pool,
-                                        v_pool, block_tables, lengths)
+    q, k_pool, v_pool, ks, vs, tab, ln = _check(
+        "paged_decode_attention", q, k_pool, v_pool, block_tables, lengths,
+        k_scale, v_scale)
     B, H, D = q.shape
     _, BS, KV, _ = k_pool.shape
     S = paged_splits(B, KV, tab.shape[1], sms=sm_count(q.device),
@@ -344,13 +383,13 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
              torch.empty((S, B, H), **f32), torch.empty((S, B, H), **f32))
     fn = build.bind("paged_decode", "repro_paged_decode_attention",
                     _ATTENTION_ARGTYPES)
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             tab.data_ptr(), ln.data_ptr(), out.data_ptr(),
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), build.ptr(ks),
+             build.ptr(vs), tab.data_ptr(), ln.data_ptr(), out.data_ptr(),
              *(t.data_ptr() for t in parts),
-             B, H, KV, D, BS, tab.shape[1], S, build.dtype_code(q),
-             1.0 / math.sqrt(D), build.stream_of(q))
+             B, H, KV, D, BS, tab.shape[1], S, build.dtype_code(k_pool),
+             build.dtype_code(q), 1.0 / math.sqrt(D), build.stream_of(q))
     build.check(err, "paged_decode_attention launch")
-    paged_decode_attention.launches += 1
+    _count(paged_decode_attention, k_pool)
     return out
 
 
@@ -390,7 +429,17 @@ def paged_decode_merge(o, m, l, *, out_dtype):
     return out
 
 
+def _count(wrapper, k_pool) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by[POOL_FORMS[k_pool.dtype]] += 1
+
+
+# the paged wrappers' launch counts by pool form
+POOL_FORMS = {torch.bfloat16: "bf16", torch.float32: "fp32",
+              torch.int8: "int8"}
 decode_attention.launches = 0
 paged_decode_partials.launches = 0
 paged_decode_attention.launches = 0
 paged_decode_merge.launches = 0
+for _w in (paged_decode_partials, paged_decode_attention):
+    _w.launches_by = dict.fromkeys(POOL_FORMS.values(), 0)

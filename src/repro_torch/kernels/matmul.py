@@ -7,14 +7,24 @@ silu(norm(A) @ Bg) * (norm(A) @ Bu) + residual in one pass, CUDA source
 `csrc/fused_swiglu.cu`.  Both sources share the templates of `csrc/gemm.cuh`;
 `gemm_plan` picks one per call:
 
-  ``stream``  bf16 weights, M <= 8 (decode): a weight stream on CUDA cores in
-              exact fp32, K split across blocks, the splits' partials added
-              in split order by a second kernel before the norm is applied;
-  ``wgmma``   bf16 A and weights, M > 8 (prefill): TMA and tensor cores;
+  ``stream``  bf16 or int8 weights, M <= 8 (decode): a weight stream on CUDA
+              cores in exact fp32, K split across blocks, the splits'
+              partials added in split order by a second kernel before the
+              norm is applied;
+  ``wgmma``   bf16 A, bf16 or int8 weights, M > 8 (prefill): TMA and tensor
+              cores (int8 tiles widened to bf16 in shared memory, exact);
               x * gamma is rounded once to bf16 for a bf16 output, split into
               bf16 hi + lo (two products) for an fp32 output;
   ``fma32``   fp32 weights (an fp32 policy in `auto` mode): the first design's
               fp32 FMA loop.
+
+Int8 weights (`models/quantize.py`) come with one fp32 scale per output
+column (`b_scale`; the gated kernel: `bg_scale`, `bu_scale`), applied to
+the fp32 accumulator after the norm's finalize and before the bias, the
+activation (or silu(g) * u) and the residual: the TPU kernel's order
+(`src/repro/kernels/matmul.py:_fused_mm_kernel`).  The unfused reference
+(`ref.fused_matmul_ref`) rounds the dot to the output dtype before it
+scales; the kernels scale the fp32 accumulator and round once.
 
 `matmul_plain` is the function's definition in plain PyTorch: fp32
 operands (the prologue scales A by gamma in fp32 and the weight is upcast),
@@ -46,9 +56,11 @@ from repro_torch.kernels.epilogue import RMS_EPS
 _NORM = {"none": 0, "rmsnorm": 1, "layernorm": 2}
 _ACT = {"none": 0, "gelu": 1, "gelu_exact": 2, "i_gelu": 3, "silu": 4}
 _TEMPLATES = {"fma32": 0, "stream": 1, "wgmma": 2}    # gemm.cuh TemplateCode
+# the wrappers' launch counts by template and weight form
+FORMS = ("fma32", "stream", "wgmma", "stream_int8", "wgmma_int8")
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 8 + [_I] * 10 + [ctypes.c_float] + [_I] * 5 + [_P]
-_SWIGLU_ARGTYPES = [_P] * 8 + [_I] * 9 + [ctypes.c_float] + [_I] * 5 + [_P]
+_ARGTYPES = [_P] * 9 + [_I] * 10 + [ctypes.c_float] + [_I] * 5 + [_P]
+_SWIGLU_ARGTYPES = [_P] * 10 + [_I] * 9 + [ctypes.c_float] + [_I] * 5 + [_P]
 
 SM_COUNT = 132              # H100 SXM
 STREAM_MAX_M = 8            # gemm.cuh STREAM_MAX_M
@@ -90,18 +102,22 @@ def gemm_plan(M: int, K: int, N: int, *, w_dtype=torch.bfloat16,
     each of two weights).  Stream template: the K split is chosen so that
     the grid fills whole waves of `sm_count * blocks_per_sm` resident
     blocks, the fewest waves that reach 90%; `kchunk` overrides it (tests).
-    Raises on bf16 shapes no template takes."""
+    Raises on bf16 and int8 shapes no template takes: the wgmma template
+    reads int8 rows by TMA, which needs N % 16 == 0 (16-byte rows)."""
     if w_dtype == torch.float32:
         tile = ((16, 16 if gated else 32, 128) if M <= 16
                 else (64, 32 if gated else 64, 16))
         return GemmPlan("fma32", tile, K, 1,
                         (_cdiv(N, tile[1]), _cdiv(M, tile[0])))
-    if w_dtype != torch.bfloat16:
-        raise TypeError(f"fused GEMM: weights must be bfloat16 or float32, "
-                        f"not {w_dtype}")
+    if w_dtype not in (torch.bfloat16, torch.int8):
+        raise TypeError(f"fused GEMM: weights must be bfloat16, int8 or "
+                        f"float32, not {w_dtype}")
     if M < 1 or N % 8 or K % 8:
-        raise ValueError(f"fused GEMM: a bf16 [{M}, {K}] @ [{K}, {N}] needs "
-                         f"M >= 1 and N, K multiples of 8 (16-byte rows)")
+        raise ValueError(f"fused GEMM: a {w_dtype} [{M}, {K}] @ [{K}, {N}] "
+                         f"needs M >= 1 and N, K multiples of 8")
+    if w_dtype == torch.int8 and M > STREAM_MAX_M and N % 16:
+        raise ValueError(f"fused GEMM: the wgmma template reads int8 rows "
+                         f"of N % 16 == 0 bytes, not N = {N}")
     if M <= STREAM_MAX_M:
         mt = next(t for t in (1, 2, 4, 8) if M <= t)
         strips = _cdiv(N, STREAM_COLS)
@@ -157,9 +173,10 @@ def _part_numel(plan: GemmPlan, M: int, N: int, nb: int) -> int:
     return S * nb * M * N + S * nb * 2 * N + S * M * 2
 
 
-def _normed_product(a, b, norm, gamma, nbeta, eps):
+def _normed_product(a, b, norm, gamma, nbeta, eps, scale=None):
     """norm(A) @ B in fp32: A scaled by gamma in fp32, the weight upcast,
-    the norm statistics applied after the product."""
+    the norm statistics applied after the product; an int8 weight's column
+    scale after them."""
     af, bf = a.float(), b.float()
     K = a.shape[-1]
     if norm == "none":
@@ -175,6 +192,8 @@ def _normed_product(a, b, norm, gamma, nbeta, eps):
             var = s2 / K - mu * mu
             y = (y - mu * (g @ bf)) * torch.rsqrt(var + eps)
             y = y + nbeta.float() @ bf
+    if scale is not None:
+        y = y * scale.float()
     return y
 
 
@@ -200,21 +219,24 @@ def _epilogue(ys, bias, residual, activation, out_dtype):
 
 def matmul_plain(a, b, *, norm="none", gamma=None, nbeta=None, bias=None,
                  residual=None, activation="none", eps=RMS_EPS,
-                 out_dtype=None):
-    """act(norm(A) @ B + bias) + residual in fp32.  A: [M, K], B: [K, N]."""
+                 out_dtype=None, b_scale=None):
+    """act(norm(A) @ B * b_scale + bias) + residual in fp32.  A: [M, K],
+    B: [K, N] (int8 with its [N] `b_scale`, or bf16 / fp32)."""
     out_dtype = _out_dtype(a, residual, out_dtype)
-    y = _normed_product(a, b, norm, gamma, nbeta, eps)
+    y = _normed_product(a, b, norm, gamma, nbeta, eps, b_scale)
     return _epilogue([y], bias, residual, activation, out_dtype)
 
 
 def gemm_emulate(a, b, b_up=None, *, plan: GemmPlan, norm="none", gamma=None,
                  nbeta=None, bias=None, residual=None, activation="none",
-                 eps=RMS_EPS, out_dtype=None):
+                 eps=RMS_EPS, out_dtype=None, scales=None):
     """A template's arithmetic in plain PyTorch (tests only): `plan`'s K
     ranges each give fp32 partials of x*gamma @ W, sum x, sum x^2, gamma @ W
     and beta @ W, added in split order before the norm is applied once; the
     wgmma template rounds x * gamma to bf16 (bf16 output) or splits it into
-    bf16 hi + lo (fp32 output).  `b_up`: the gated kernel, silu(g) * u."""
+    bf16 hi + lo (fp32 output).  `b_up`: the gated kernel, silu(g) * u.
+    `scales`: int8 weights' column scales (one a weight), applied after
+    the norm."""
     out_dtype = _out_dtype(a, residual, out_dtype)
     af = a.float()
     K = a.shape[1]
@@ -251,35 +273,37 @@ def gemm_emulate(a, b, b_up=None, *, plan: GemmPlan, norm="none", gamma=None,
             gws[i] = gws[i] + g[k0:k1] @ wk
             bws[i] = bws[i] + bt[k0:k1] @ wk
     ys = []
-    for acc, gw, bw in zip(accs, gws, bws):
+    for i, (acc, gw, bw) in enumerate(zip(accs, gws, bws)):
         if norm == "rmsnorm":
             acc = acc * torch.rsqrt(s2 / K + eps)
         elif norm == "layernorm":
             mu = s1 / K
             rstd = torch.rsqrt(s2 / K - mu * mu + eps)
             acc = (acc - mu * gw) * rstd + bw
+        if scales is not None:
+            acc = acc * scales[i].float()
         ys.append(acc)
     return _epilogue(ys, bias, residual, activation, out_dtype)
 
 
-def _count(wrapper, plan: GemmPlan) -> None:
+def _count(wrapper, plan: GemmPlan, int8: bool) -> None:
     wrapper.launches += 1
-    wrapper.launches_by[plan.template] += 1
+    wrapper.launches_by[plan.template + ("_int8" if int8 else "")] += 1
 
 
 _OCCUPANCY = {}
 
 
-def _stream_slots(device, M, gated):
+def _stream_slots(device, M, gated, int8):
     """(SMs, resident stream blocks per SM) of the card at M rows, queried
-    from the built kernel once."""
+    from the built kernel (of bf16 or int8 weights) once."""
     mt = next(t for t in (1, 2, 4, 8) if M <= t)
-    key = (device.index, mt, gated)
+    key = (device.index, mt, gated, int8)
     if key not in _OCCUPANCY:
         lib, sym = (("fused_swiglu", "repro_fused_swiglu_stream_occupancy")
                     if gated else
                     ("fused_matmul", "repro_fused_matmul_stream_occupancy"))
-        blocks = build.bind(lib, sym, [_I])(mt)
+        blocks = build.bind(lib, sym, [_I, _I])(mt, int(int8))
         if blocks < 1:
             raise RuntimeError(f"{lib}: stream occupancy query failed "
                                f"({blocks})")
@@ -289,13 +313,20 @@ def _stream_slots(device, M, gated):
 
 
 def _launch_operands(what, a, weights, vecs, residual, M, N, out_dtype,
-                     gated):
-    """Plan, check and lay out one launch: (plan, a, weights, vecs,
-    residual, out, part)."""
+                     gated, scales=None):
+    """Plan, check and lay out one launch: (plan, a, weights, scales, vecs,
+    residual, out, part).  `scales`: the int8 weights' [N] fp32 column
+    scales (None for bf16 / fp32 weights)."""
     K = a.shape[1]
+    int8 = weights[0].dtype == torch.int8
+    if int8 != (scales is not None) or (int8 and any(
+            s is None or s.shape != (N,) for s in scales)):
+        raise ValueError(f"{what}: int8 weights take an [{N}] scale each, "
+                         f"other weights none")
     slots = {}
-    if weights[0].dtype == torch.bfloat16 and M <= STREAM_MAX_M:
-        sms, blocks = _stream_slots(a.device, M, gated)
+    if weights[0].dtype in (torch.bfloat16, torch.int8) and \
+            M <= STREAM_MAX_M:
+        sms, blocks = _stream_slots(a.device, M, gated, int8)
         slots = dict(sm_count=sms, blocks_per_sm=blocks)
     plan = gemm_plan(M, K, N, w_dtype=weights[0].dtype, gated=gated, **slots)
     if plan.template == "wgmma" and a.dtype != torch.bfloat16:
@@ -312,6 +343,8 @@ def _launch_operands(what, a, weights, vecs, residual, M, N, out_dtype,
     weights = [w.contiguous() for w in weights]
     if plan.template != "fma32" and not build.aligned16(*weights):
         raise ValueError(f"{what}: weights must be 16-byte aligned")
+    if int8:
+        scales = [s.float().contiguous() for s in scales]
     vec_dtype = next((v.dtype for v in vecs if v is not None), torch.float32)
     vecs = [None if v is None else v.to(vec_dtype).contiguous()
             for v in vecs]
@@ -325,37 +358,37 @@ def _launch_operands(what, a, weights, vecs, residual, M, N, out_dtype,
     if plan.splits > 1:
         part = torch.empty(_part_numel(plan, M, N, 2 if gated else 1),
                            dtype=torch.float32, device=a.device)
-    return plan, a, weights, vecs, residual, out, part
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+    return plan, a, weights, scales, vecs, residual, out, part
 
 
 def fused_matmul(a, b, *, norm="none", gamma=None, nbeta=None, bias=None,
                  residual=None, activation="none", eps=RMS_EPS,
-                 out_dtype=None):
+                 out_dtype=None, b_scale=None):
     """The fused GEMM.  A: [M, K], B: [K, N] -> [M, N] at `out_dtype`
-    (default: the residual's dtype, else A's)."""
+    (default: the residual's dtype, else A's).  An int8 B takes its [N]
+    fp32 column scale `b_scale`."""
     if a.device.type == "cpu":
         return matmul_plain(a, b, norm=norm, gamma=gamma, nbeta=nbeta,
                             bias=bias, residual=residual,
                             activation=activation, eps=eps,
-                            out_dtype=out_dtype)
+                            out_dtype=out_dtype, b_scale=b_scale)
     out_dtype = _out_dtype(a, residual, out_dtype)
-    build.require_cuda("fused_matmul", a, b, gamma, nbeta, bias, residual)
+    build.require_cuda("fused_matmul", a, b, gamma, nbeta, bias, residual,
+                       b_scale)
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"fused_matmul: bad shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
     M, K = a.shape
     N = b.shape[1]
-    plan, a, (b,), (gamma, nbeta, bias), residual, out, part = \
+    plan, a, (b,), scales, (gamma, nbeta, bias), residual, out, part = \
         _launch_operands("fused_matmul", a, [b], [gamma, nbeta, bias],
-                         residual, M, N, out_dtype, gated=False)
+                         residual, M, N, out_dtype, gated=False,
+                         scales=None if b_scale is None else [b_scale])
+    scale = scales[0] if scales else None
     vec = next((v for v in (gamma, nbeta, bias) if v is not None), None)
     fn = build.bind("fused_matmul", "repro_fused_matmul", _ARGTYPES)
-    err = fn(_ptr(a), _ptr(b), _ptr(gamma), _ptr(nbeta), _ptr(bias),
-             _ptr(residual), _ptr(out), _ptr(part), M, N, K,
+    err = fn(*map(build.ptr, (a, b, scale, gamma, nbeta, bias, residual, out,
+                              part)), M, N, K,
              build.dtype_code(a), build.dtype_code(b),
              build.dtype_code(vec) if vec is not None else 0,
              build.dtype_code(residual) if residual is not None else 0,
@@ -365,22 +398,23 @@ def fused_matmul(a, b, *, norm="none", gamma=None, nbeta=None, bias=None,
              _TEMPLATES[plan.template], plan.kchunk, plan.splits,
              build.stream_of(a))
     build.check(err, f"fused_matmul launch ({plan.template})")
-    _count(fused_matmul, plan)
+    _count(fused_matmul, plan, scale is not None)
     return out
 
 
 fused_matmul.launches = 0
-fused_matmul.launches_by = dict.fromkeys(_TEMPLATES, 0)
+fused_matmul.launches_by = dict.fromkeys(FORMS, 0)
 
 
 def matmul_swiglu_plain(a, b_gate, b_up, *, norm="none", gamma=None,
                         nbeta=None, residual=None, eps=RMS_EPS,
-                        out_dtype=None):
-    """silu(norm(A) @ Bg) * (norm(A) @ Bu) + residual in fp32.
-    A: [M, K]; Bg, Bu: [K, N]."""
+                        out_dtype=None, bg_scale=None, bu_scale=None):
+    """silu(norm(A) @ Bg * bg_scale) * (norm(A) @ Bu * bu_scale) + residual
+    in fp32.  A: [M, K]; Bg, Bu: [K, N] (int8 with their scales, or bf16 /
+    fp32)."""
     out_dtype = _out_dtype(a, residual, out_dtype)
-    g = _normed_product(a, b_gate, norm, gamma, nbeta, eps)
-    u = _normed_product(a, b_up, norm, gamma, nbeta, eps)
+    g = _normed_product(a, b_gate, norm, gamma, nbeta, eps, bg_scale)
+    u = _normed_product(a, b_up, norm, gamma, nbeta, eps, bu_scale)
     return _epilogue([g, u], None, residual, "none", out_dtype)
 
 
@@ -403,23 +437,32 @@ def _check_swiglu(a, b_gate, b_up, norm, gamma, nbeta, residual):
 
 
 def matmul_swiglu(a, b_gate, b_up, *, norm="none", gamma=None, nbeta=None,
-                  residual=None, eps=RMS_EPS, out_dtype=None):
+                  residual=None, eps=RMS_EPS, out_dtype=None, bg_scale=None,
+                  bu_scale=None):
     """The fused gated GEMM.  A: [M, K]; Bg, Bu: [K, N] -> [M, N] at
-    `out_dtype` (default: the residual's dtype, else A's)."""
+    `out_dtype` (default: the residual's dtype, else A's).  Int8 Bg / Bu
+    take their [N] fp32 column scales `bg_scale` / `bu_scale`."""
     if a.device.type == "cpu":
         return matmul_swiglu_plain(a, b_gate, b_up, norm=norm, gamma=gamma,
                                    nbeta=nbeta, residual=residual, eps=eps,
-                                   out_dtype=out_dtype)
+                                   out_dtype=out_dtype, bg_scale=bg_scale,
+                                   bu_scale=bu_scale)
     out_dtype = _out_dtype(a, residual, out_dtype)
     _check_swiglu(a, b_gate, b_up, norm, gamma, nbeta, residual)
+    if (bg_scale is None) != (bu_scale is None):
+        raise ValueError("matmul_swiglu: both int8 weights take a scale")
+    build.require_cuda("matmul_swiglu", a, bg_scale, bu_scale)
     M, K = a.shape
     N = b_gate.shape[1]
-    plan, a, (b_gate, b_up), (gamma, nbeta), residual, out, part = \
+    plan, a, (b_gate, b_up), scales, (gamma, nbeta), residual, out, part = \
         _launch_operands("matmul_swiglu", a, [b_gate, b_up], [gamma, nbeta],
-                         residual, M, N, out_dtype, gated=True)
+                         residual, M, N, out_dtype, gated=True,
+                         scales=None if bg_scale is None
+                         else [bg_scale, bu_scale])
+    sg, su = scales if scales else (None, None)
     fn = build.bind("fused_swiglu", "repro_fused_swiglu", _SWIGLU_ARGTYPES)
-    err = fn(_ptr(a), _ptr(b_gate), _ptr(b_up), _ptr(gamma), _ptr(nbeta),
-             _ptr(residual), _ptr(out), _ptr(part), M, N, K,
+    err = fn(*map(build.ptr, (a, b_gate, b_up, sg, su, gamma, nbeta, residual,
+                              out, part)), M, N, K,
              build.dtype_code(a), build.dtype_code(b_gate),
              build.dtype_code(gamma) if gamma is not None else 0,
              build.dtype_code(residual) if residual is not None else 0,
@@ -429,9 +472,9 @@ def matmul_swiglu(a, b_gate, b_up, *, norm="none", gamma=None, nbeta=None,
              _TEMPLATES[plan.template], plan.kchunk, plan.splits,
              build.stream_of(a))
     build.check(err, f"matmul_swiglu launch ({plan.template})")
-    _count(matmul_swiglu, plan)
+    _count(matmul_swiglu, plan, sg is not None)
     return out
 
 
 matmul_swiglu.launches = 0
-matmul_swiglu.launches_by = dict.fromkeys(_TEMPLATES, 0)
+matmul_swiglu.launches_by = dict.fromkeys(FORMS, 0)

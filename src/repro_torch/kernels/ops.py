@@ -85,9 +85,10 @@ def _use_kernel(x) -> bool:
 
 def launch_counters() -> dict:
     """The hand-written kernels' wrappers by name.  Each adds one to its
-    `launches` (and to `launches_by[template]`, where it has templates)
-    where it launches its kernel; a replayed CUDA graph adds the counts of
-    its capture (`launch/steps.py`)."""
+    `launches` (and to `launches_by[form]`, where it has several: the
+    GEMMs' template and weight form, flash's template, the paged decode's
+    pool dtype) where it launches its kernel; a replayed CUDA graph adds
+    the counts of its capture (`launch/steps.py`)."""
     return {"fused_matmul": _mm.fused_matmul,
             "fused_matmul_swiglu": _mm.matmul_swiglu,
             "flash_attention": _fa.flash_attention,
@@ -127,34 +128,39 @@ def decode_attention(q, k_cache, v_cache, length, *, window=0):
                                      window=window)
 
 
-def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
+                           k_scale=None, v_scale=None):
     """Block-paged decode, normalized.  q: [B, H, D]; k/v_pool:
-    [NB, BS, KV, D]; block_tables: [B, MB] (< 0 absent); lengths: [B]."""
+    [NB, BS, KV, D]; block_tables: [B, MB] (< 0 absent); lengths: [B].
+    `k_scale` / `v_scale` ([NB, KV] fp32): the scales of int8 pools."""
+    sc = dict(k_scale=k_scale, v_scale=v_scale)
     if _use_kernel(q):
         return _fd.paged_decode_attention(q, k_pool, v_pool, block_tables,
-                                          lengths)
+                                          lengths, **sc)
     return _ref.paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
-                                           lengths)
+                                           lengths, **sc)
 
 
 def paged_decode_partials(q, k_pool, v_pool, block_tables, lengths,
-                          splits=1):
+                          splits=1, *, k_scale=None, v_scale=None):
     """Block-paged decode partials -> (o unnormalized fp32 [B, H, D],
     m [B, H], l [B, H]) for the online-softmax merge; with `splits` > 1 the
     table's entries are cut into that many contiguous ranges and each
     output gains a leading [splits] dimension.  `ref` mode runs the oracle
-    once per range, with the entries outside it absent."""
+    once per range, with the entries outside it absent.  `k_scale` /
+    `v_scale`: the scales of int8 pools."""
+    sc = dict(k_scale=k_scale, v_scale=v_scale)
     if _use_kernel(q):
         return _fd.paged_decode_partials(q, k_pool, v_pool, block_tables,
-                                         lengths, splits)
+                                         lengths, splits, **sc)
     if splits <= 1:
         return _ref.paged_decode_partials_ref(q, k_pool, v_pool,
-                                              block_tables, lengths)
+                                              block_tables, lengths, **sc)
     entry = torch.arange(block_tables.shape[1], device=block_tables.device)
     parts = [_ref.paged_decode_partials_ref(
         q, k_pool, v_pool,
         torch.where((entry >= e0) & (entry < e1), block_tables,
-                    torch.full_like(block_tables, -1)), lengths)
+                    torch.full_like(block_tables, -1)), lengths, **sc)
         for e0, e1 in _fd.split_ranges(block_tables.shape[1], splits)]
     return tuple(torch.stack(x) for x in zip(*parts))
 
@@ -173,23 +179,37 @@ def paged_decode_merge(o, m, l, *, out_dtype):
 # --------------------------------------------------------------------------
 
 def split_quantized(w):
-    """{"q", "scale"} weight-only-int8 dict -> (q, scale); a plain tensor
-    passes through as (w, None).  The port serves bf16 weights only, so a
-    quantized dict is refused here."""
+    """A weight-only int8 leaf ({"q": int8 [K, N], "scale": fp32 [N]},
+    `models/quantize.quantize_params`) -> (q, scale); a plain tensor passes
+    through as (w, None).  Every GEMM entry point takes either: on the card
+    an int8 q runs the kernels' int8 form (never a widened bf16 copy), in
+    `ref` mode and on the CPU the plain form."""
     if isinstance(w, dict):
-        raise NotImplementedError(
-            "weight-only int8 serving is not ported yet")
+        return w["q"], w["scale"]
     return w, None
 
 
+def _wcast(w, scale, cd):
+    """The weight the contraction reads: an int8 q as it is (with its
+    scale), any other weight at the compute dtype."""
+    return w if scale is not None else w.to(cd)
+
+
 def matmul(a, b, *, activation="none", out_dtype=None):
-    """C = act(A @ B); A: [..., K], B: [K, N]."""
-    b, _ = split_quantized(b)
+    """C = act(A @ B); A: [..., K], B: [K, N] (or an int8 dict)."""
+    b, b_scale = split_quantized(b)
     if _use_kernel(a):
         lead = a.shape[:-1]
         y = _mm.fused_matmul(a.reshape(-1, a.shape[-1]), b,
-                             activation=activation, out_dtype=out_dtype)
+                             activation=activation, out_dtype=out_dtype,
+                             b_scale=b_scale)
         return y.reshape(*lead, b.shape[-1])
+    if b_scale is not None:
+        return _ref.fused_matmul_ref(a, b, w_scale=b_scale,
+                                     activation=activation,
+                                     compute_dtype=a.dtype,
+                                     dot_dtype=out_dtype,
+                                     out_dtype=out_dtype or a.dtype)
     return _ref.matmul_ref(a, b, activation=activation, out_dtype=out_dtype)
 
 
@@ -206,13 +226,21 @@ def pdot(x, w, *, compute_dtype, out_dtype):
     XLA dot with preferred_element_type fp32).  A bf16 product on the card
     runs the hand GEMM with no prologue and no epilogue: exact bf16
     products summed in fp32, the same function.  The CPU, `ref` mode and
-    an fp32 compute dtype keep the fp32 product `_dot`."""
-    w, _ = split_quantized(w)
+    an fp32 compute dtype keep the fp32 product `_dot`.
+
+    An int8 weight dict: on the card the hand GEMM's int8 form (the scale
+    on the fp32 accumulator, one rounding); elsewhere the reference's
+    order, a dot at `out_dtype` on q at the compute dtype (exact: |q| <=
+    127), then the scale in fp32, then a cast."""
+    q, scale = split_quantized(w)
     if (_use_kernel(x) and x.device.type != "cpu"
             and compute_dtype == torch.bfloat16):
         return fused_matmul(x, w, compute_dtype=compute_dtype,
                             dot_dtype=out_dtype)
-    return _ref._dot(x.to(compute_dtype), w.to(compute_dtype), out_dtype)
+    y = _ref._dot(x.to(compute_dtype), q.to(compute_dtype), out_dtype)
+    if scale is not None:
+        y = (y.float() * scale.float()).to(out_dtype)
+    return y
 
 
 def fused_matmul(x, w, *, prologue=None, epilogue=None, compute_dtype=None,
@@ -222,8 +250,10 @@ def fused_matmul(x, w, *, prologue=None, epilogue=None, compute_dtype=None,
     `compute_dtype`: operand dtype of the contraction; `dot_dtype`: what
     the unfused `pdot` would emit (the output dtype when the epilogue names
     none).  The kernel keeps a normalized operand in fp32, as the TPU
-    kernel does; only an un-normalized x is cast to the compute dtype."""
-    w, _ = split_quantized(w)
+    kernel does; only an un-normalized x is cast to the compute dtype.  An
+    int8 weight dict runs the kernel's int8 form (plain: `fused_matmul_ref`
+    with its scale)."""
+    w, w_scale = split_quantized(w)
     ep = epilogue or Epilogue()
     out_dtype = ep.out_dtype or dot_dtype or x.dtype
     pf = _prologue_fields(prologue)
@@ -236,33 +266,38 @@ def fused_matmul(x, w, *, prologue=None, epilogue=None, compute_dtype=None,
             x2 = x2.to(cd)
         res2 = (ep.residual.reshape(-1, N) if ep.residual is not None
                 else None)
-        out = _mm.fused_matmul(x2, w.to(cd), bias=ep.bias, residual=res2,
-                               activation=ep.activation, out_dtype=out_dtype,
-                               **pf)
+        out = _mm.fused_matmul(x2, _wcast(w, w_scale, cd), bias=ep.bias,
+                               residual=res2, activation=ep.activation,
+                               out_dtype=out_dtype, b_scale=w_scale, **pf)
         return out.reshape(*lead, N)
     return _ref.fused_matmul_ref(
-        x, w, bias=ep.bias, residual=ep.residual, activation=ep.activation,
-        compute_dtype=compute_dtype, dot_dtype=dot_dtype, out_dtype=out_dtype,
-        **pf)
+        x, w, w_scale=w_scale, bias=ep.bias, residual=ep.residual,
+        activation=ep.activation, compute_dtype=compute_dtype,
+        dot_dtype=dot_dtype, out_dtype=out_dtype, **pf)
 
 
 def matmul_swiglu(a, b_gate, b_up, *, out_dtype=None):
-    """o = silu(A @ Bg) * (A @ Bu), single fused pass; A: [M, K]."""
-    b_gate, _ = split_quantized(b_gate)
-    b_up, _ = split_quantized(b_up)
+    """o = silu(A @ Bg) * (A @ Bu), single fused pass; A: [M, K]; Bg / Bu
+    tensors or int8 dicts."""
+    b_gate, g_scale = split_quantized(b_gate)
+    b_up, u_scale = split_quantized(b_up)
     if _use_kernel(a):
-        return _mm.matmul_swiglu(a, b_gate, b_up, out_dtype=out_dtype)
-    return _ref.fused_matmul_swiglu_ref(a, b_gate, b_up, out_dtype=out_dtype)
+        return _mm.matmul_swiglu(a, b_gate, b_up, out_dtype=out_dtype,
+                                 bg_scale=g_scale, bu_scale=u_scale)
+    return _ref.fused_matmul_swiglu_ref(a, b_gate, b_up, wg_scale=g_scale,
+                                        wu_scale=u_scale,
+                                        compute_dtype=a.dtype,
+                                        out_dtype=out_dtype or a.dtype)
 
 
 def fused_matmul_swiglu(x, wg, wu, *, prologue=None, residual=None,
                         compute_dtype=None, out_dtype=None):
     """y = silu(norm(x) @ wg) * (norm(x) @ wu) [+ residual];
-    x: [..., K], wg / wu: [K, N] -> [..., N].  As in `fused_matmul`, a
-    normalized operand stays fp32 in the kernel; only an un-normalized x is
-    cast to the compute dtype."""
-    wg, _ = split_quantized(wg)
-    wu, _ = split_quantized(wu)
+    x: [..., K], wg / wu: [K, N] (or int8 dicts) -> [..., N].  As in
+    `fused_matmul`, a normalized operand stays fp32 in the kernel; only an
+    un-normalized x is cast to the compute dtype."""
+    wg, g_scale = split_quantized(wg)
+    wu, u_scale = split_quantized(wu)
     pf = _prologue_fields(prologue)
     if _use_kernel(x):
         lead = x.shape[:-1]
@@ -272,12 +307,14 @@ def fused_matmul_swiglu(x, wg, wu, *, prologue=None, residual=None,
         if prologue is None:
             x2 = x2.to(cd)
         res2 = residual.reshape(-1, N) if residual is not None else None
-        out = _mm.matmul_swiglu(x2, wg.to(cd), wu.to(cd), residual=res2,
-                                out_dtype=out_dtype, **pf)
+        out = _mm.matmul_swiglu(x2, _wcast(wg, g_scale, cd),
+                                _wcast(wu, u_scale, cd), residual=res2,
+                                out_dtype=out_dtype, bg_scale=g_scale,
+                                bu_scale=u_scale, **pf)
         return out.reshape(*lead, N)
     return _ref.fused_matmul_swiglu_ref(
-        x, wg, wu, residual=residual, compute_dtype=compute_dtype,
-        out_dtype=out_dtype, **pf)
+        x, wg, wu, wg_scale=g_scale, wu_scale=u_scale, residual=residual,
+        compute_dtype=compute_dtype, out_dtype=out_dtype, **pf)
 
 
 def residual_norm(x, y, params, kind: str):

@@ -139,17 +139,26 @@ def decode_attention_ref(q, k_cache, v_cache, length, *, window=0,
     return out.reshape(B, H, D).to(out_dtype)
 
 
-def _paged_gather(k_pool, v_pool, block_tables, lengths):
+def _paged_gather(k_pool, v_pool, block_tables, lengths, k_scale=None,
+                  v_scale=None):
     """Dereference block tables into a dense [B, MB*BS, KV, D] fp32 view
     plus a [B, MB*BS] validity mask (token t of entry e holds absolute
-    position e*BS + t; entries < 0 are absent)."""
+    position e*BS + t; entries < 0 are absent).  `k_scale` / `v_scale`
+    ([NB, KV] fp32): the per-block-per-head scales of int8 pools, applied
+    here (absent entries read block 0's)."""
     _, BS, KV, D = k_pool.shape
     B, MB = block_tables.shape
     present = block_tables >= 0
     tab = torch.where(present, block_tables, torch.zeros_like(block_tables))
     tab = tab.long()
-    k = k_pool.float()[tab].reshape(B, MB * BS, KV, D)
-    v = v_pool.float()[tab].reshape(B, MB * BS, KV, D)
+    k = k_pool.float()[tab]                          # [B, MB, BS, KV, D]
+    v = v_pool.float()[tab]
+    if k_scale is not None:
+        k = k * k_scale.float()[tab][:, :, None, :, None]
+    if v_scale is not None:
+        v = v * v_scale.float()[tab][:, :, None, :, None]
+    k = k.reshape(B, MB * BS, KV, D)
+    v = v.reshape(B, MB * BS, KV, D)
     pos = torch.arange(MB * BS, device=k_pool.device)[None, :]
     msk = pos < lengths.to(torch.int32)[:, None]
     msk &= torch.repeat_interleave(present, BS, dim=1)
@@ -168,23 +177,27 @@ def _paged_scores(q, k, msk):
 
 
 def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
-                               out_dtype=None):
+                               k_scale=None, v_scale=None, out_dtype=None):
     """Paged single-token decode oracle: gathers the table into a dense
-    cache and defers to the dense softmax.  -> [B, H, D]."""
+    cache and defers to the dense softmax.  `k_scale` / `v_scale`: the
+    scales of int8 pools.  -> [B, H, D]."""
     out_dtype = out_dtype or q.dtype
     B, H, D = q.shape
-    k, v, msk = _paged_gather(k_pool, v_pool, block_tables, lengths)
+    k, v, msk = _paged_gather(k_pool, v_pool, block_tables, lengths,
+                              k_scale, v_scale)
     s = _paged_scores(q, k, msk)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v)
     return out.reshape(B, H, D).to(out_dtype)
 
 
-def paged_decode_partials_ref(q, k_pool, v_pool, block_tables, lengths):
+def paged_decode_partials_ref(q, k_pool, v_pool, block_tables, lengths, *,
+                              k_scale=None, v_scale=None):
     """Paged decode oracle emitting unnormalized online-softmax partials
     -> (o [B, H, D] fp32, m [B, H], l [B, H])."""
     B, H, D = q.shape
-    k, v, msk = _paged_gather(k_pool, v_pool, block_tables, lengths)
+    k, v, msk = _paged_gather(k_pool, v_pool, block_tables, lengths,
+                              k_scale, v_scale)
     s = _paged_scores(q, k, msk)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
@@ -228,7 +241,9 @@ def fused_matmul_ref(x, w, *, norm="none", gamma=None, nbeta=None,
                      dot_dtype=None, out_dtype=None):
     """act(norm(x) @ w + bias) cast to out_dtype, + residual — the exact op
     chain of the unfused path (normalize, cast to the compute dtype, dot
-    emitting `dot_dtype`, bias, activation, cast, residual add)."""
+    emitting `dot_dtype`, bias, activation, cast, residual add).
+    `w_scale` ([N] fp32): the per-output-channel scale of an int8 `w`,
+    applied to the dot's output in fp32 before the bias."""
     from repro_torch.core.activations import get_activation
     h = norm_prologue_ref(x, norm=norm, gamma=gamma, nbeta=nbeta, eps=eps)
     cd = compute_dtype or h.dtype
@@ -248,18 +263,25 @@ def fused_matmul_ref(x, w, *, norm="none", gamma=None, nbeta=None,
 
 
 def fused_matmul_swiglu_ref(x, w_gate, w_up, *, norm="none", gamma=None,
-                            nbeta=None, residual=None, eps=RMS_EPS,
-                            compute_dtype=None, out_dtype=None):
+                            nbeta=None, wg_scale=None, wu_scale=None,
+                            residual=None, eps=RMS_EPS, compute_dtype=None,
+                            out_dtype=None):
     """silu(norm(x) @ wg) * (norm(x) @ wu) [+ residual] — the exact op
     chain of the unfused gated MLP (normalize, cast to the compute dtype,
-    two dots emitting `out_dtype`, fp32 silu-mul, cast, residual add)."""
+    two dots emitting `out_dtype`, fp32 silu-mul, cast, residual add).
+    `wg_scale` / `wu_scale`: the per-output-channel scales of int8
+    weights, applied in fp32 before the silu gate."""
     h = norm_prologue_ref(x, norm=norm, gamma=gamma, nbeta=nbeta, eps=eps)
     cd = compute_dtype or h.dtype
     od = out_dtype or h.dtype
     a = h.to(cd)
     g = matmul_ref(a, w_gate.to(cd), activation="none", out_dtype=od)
     u = matmul_ref(a, w_up.to(cd), activation="none", out_dtype=od)
-    y = (torch.nn.functional.silu(g.float()) * u.float()).to(od)
+    gf, uf = g.float(), u.float()
+    if wg_scale is not None:
+        gf = gf * wg_scale.float()
+        uf = uf * wu_scale.float()
+    y = (torch.nn.functional.silu(gf) * uf).to(od)
     if residual is not None:
         y = residual + y
     return y

@@ -13,10 +13,13 @@ occupancy, the KV pool's peak use and prefill bucket hits; `--task encode`
 sends EncodeTasks (pooled embeddings) instead.
 
 Only what the port serves has a flag: the FCFS synchronous loop, greedy
-and sampled decoding, the paged KV pool and the encode mode.  The
-reference's flags for unported features (speculation, the prefix cache,
-int8 weights and KV, the overlapped loop, other scheduling policies,
-tracing and metrics export) do not exist here, and argparse refuses them.
+and sampled decoding, the paged KV pool, the encode mode and int8 serving
+(`--weight-dtype int8`: the dense GEMM weights quantized once per output
+channel; `--kv-dtype int8`: the paged KV pools quantized on write, a scale
+a block and kv head; the summary then adds a QUANT part).  The reference's
+flags for unported features (speculation, the prefix cache, the overlapped
+loop, other scheduling policies, tracing and metrics export) do not exist
+here, and argparse refuses them.
 """
 from __future__ import annotations
 
@@ -84,6 +87,17 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-pool-blocks", type=int, default=0,
                     help="KV pool capacity in blocks (0 => engine default); "
                          "undersize it to exercise preemption")
+    ap.add_argument("--weight-dtype", choices=("bfloat16", "int8"),
+                    default="bfloat16",
+                    help="GEMM weight storage: int8 quantizes per output "
+                         "channel once at startup (models/quantize.py) and "
+                         "applies the scale in the fused GEMMs' fp32 "
+                         "accumulator")
+    ap.add_argument("--kv-dtype", choices=("bfloat16", "int8"),
+                    default="bfloat16",
+                    help="paged KV pool storage: int8 quantizes on write "
+                         "with per-block-per-head scales (ring caches keep "
+                         "the activation dtype)")
     ap.add_argument("--no-fuse", action="store_true",
                     help="disable the fused prologue/epilogue GEMM "
                          "pipeline (A/B parity baseline)")
@@ -106,7 +120,8 @@ def run(args):
         cfg, params, batch_size=args.batch, max_seq=args.max_seq,
         block_size=args.block_size,
         kv_pool_blocks=args.kv_pool_blocks or None,
-        fuse_epilogues=not args.no_fuse, device=args.device)
+        fuse_epilogues=not args.no_fuse, weight_dtype=args.weight_dtype,
+        kv_dtype=args.kv_dtype, device=args.device)
     for req in build_trace(cfg, args):
         engine.submit(req)
     t0 = time.perf_counter()

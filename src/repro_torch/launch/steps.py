@@ -59,13 +59,19 @@ def make_paged_layout(cfg, max_seq: int, num_blocks: int,
 
 
 def cache_layout(cfg, layout: PagedLayout, *, batch_size: int, policy,
-                 device):
+                 device, kv_dtype=None):
     """Zeroed decode caches, one dict per segment: paged attention kinds
     get {"k", "v"} block pools; window layers shorter than max_seq get
     dense per-slot ring caches "k" / "v" [count, B, window, KV, hd]; both
-    in the activation dtype.  SSM kinds get per-slot dense state, "h"
-    [count, B, Hp, P, N] fp32 and the conv tails "cx" [count, B, cw - 1,
-    d_inner] / "cbc" [count, B, cw - 1, 2N] in the activation dtype."""
+    in the activation dtype.  `kv_dtype="int8"`: the pools are int8, with
+    fp32 scales "ks" / "vs" [count, NB + 1, KV] (sink row included); ring
+    caches keep the activation dtype, as the reference's dense layouts do.
+    SSM kinds get per-slot dense state, "h" [count, B, Hp, P, N] fp32 and
+    the conv tails "cx" [count, B, cw - 1, d_inner] / "cbc" [count, B,
+    cw - 1, 2N] in the activation dtype."""
+    if kv_dtype not in (None, "bfloat16", "int8"):
+        raise ValueError(f"kv_dtype {kv_dtype!r} not in (None, 'bfloat16', "
+                         f"'int8')")
     KV, hd = cfg.n_kv_heads, cfg.head_dim
     Hp, P, N = cfg.padded_ssm_heads(), cfg.ssm_head_dim, cfg.ssm_state
     cw, dip = cfg.conv_width, cfg.padded_d_inner()
@@ -78,8 +84,14 @@ def cache_layout(cfg, layout: PagedLayout, *, batch_size: int, policy,
             rows = ((layout.num_blocks + 1, layout.block_size) if paged
                     else (B, blocks.kind_window(kind, cfg)))
             shape = (count, *rows, KV, hd)
-            d["k"] = torch.zeros(shape, dtype=ad, device=device)
-            d["v"] = torch.zeros(shape, dtype=ad, device=device)
+            int8 = paged and kv_dtype == "int8"
+            d["k"] = torch.zeros(shape, dtype=torch.int8 if int8 else ad,
+                                 device=device)
+            d["v"] = torch.zeros_like(d["k"])
+            if int8:
+                d["ks"] = torch.zeros((count, layout.num_blocks + 1, KV),
+                                      dtype=torch.float32, device=device)
+                d["vs"] = torch.zeros_like(d["ks"])
         if kind in SSM_KINDS:
             d["h"] = torch.zeros((count, B, Hp, P, N), dtype=torch.float32,
                                  device=device)

@@ -64,8 +64,10 @@ def init_lm(cfg, *, dtype=torch.bfloat16, device=None, seed: int = 0):
 def params_from_numpy(tree, cfg, *, dtype=torch.float32, device=None):
     """The reference's parameter tree (leaves as numpy arrays, e.g.
     `jax.tree.map(np.asarray, lm.init_lm(...))`) -> the port's parameters.
-    bf16 leaves pass through float32, which is exact.  Raises on a missing
-    leaf or a shape that does not match `cfg`."""
+    bf16 leaves pass through float32, which is exact; the {"q", "scale"}
+    leaves of a quantized tree (`quantize_params`) keep int8 q and fp32
+    scales.  Raises on a missing leaf or a shape that does not match
+    `cfg`."""
     return tree_from_numpy(tree, lm_param_shapes(cfg), dtype=dtype,
                            device=device)
 

@@ -12,7 +12,8 @@ from repro_torch.device import resolve_device
 def tree_from_numpy(tree, shapes, *, dtype=torch.float32, device=None):
     """A parameter tree of numpy leaves -> torch tensors at `dtype`, checked
     leaf for leaf against the shape tree `shapes` (dicts, tuples of segment
-    dicts, shape tuples)."""
+    dicts, shape tuples).  A weight-only int8 leaf ({"q", "scale"},
+    `models/quantize.py`) keeps its int8 q and fp32 scale."""
     dev = resolve_device(device)
 
     def conv(node, shape_node, path):
@@ -31,11 +32,28 @@ def tree_from_numpy(tree, shapes, *, dtype=torch.float32, device=None):
                                  f"{len(shape_node)}")
             return tuple(conv(n, s, f"{path}[{i}]")
                          for i, (n, s) in enumerate(zip(node, shape_node)))
+        if isinstance(node, dict):
+            return quantized(node, tuple(shape_node), path)
         arr = np.asarray(node, np.float32)
         if arr.shape != tuple(shape_node):
             raise ValueError(f"params_from_numpy: {path} has shape "
                              f"{arr.shape}, expected {tuple(shape_node)}")
         return torch.tensor(arr, device=dev).to(dtype)
+
+    def quantized(node, shape, path):
+        # a weight-only int8 leaf: q stays int8, the scale fp32 [.., N]
+        if set(node) != {"q", "scale"}:
+            raise ValueError(f"params_from_numpy: {path} has keys "
+                             f"{sorted(node)}, expected a weight or "
+                             f"['q', 'scale']")
+        q, scale = np.asarray(node["q"]), np.asarray(node["scale"])
+        want = (shape, shape[:-2] + shape[-1:])
+        if q.dtype != np.int8 or (q.shape, scale.shape) != want:
+            raise ValueError(f"params_from_numpy: {path} is int8 {q.dtype} "
+                             f"{q.shape} / scale {scale.shape}, expected "
+                             f"int8 {want[0]} / {want[1]}")
+        return {"q": torch.tensor(q, device=dev),
+                "scale": torch.tensor(scale.astype(np.float32), device=dev)}
 
     return conv(tree, shapes, "")
 

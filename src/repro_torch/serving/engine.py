@@ -10,6 +10,9 @@ EncodeTasks (one pooled, cache-free pass each, the paper's encoder
 topology) take no slot and no block: each engine step first runs one
 same-bucket, same-pooling batch of them, then admits generate traffic.
 The engine runs on the GPU unless `device="cpu"` is passed.
+`weight_dtype="int8"` quantizes the dense GEMM weights per output channel
+once, at construction; `kv_dtype="int8"` stores the paged KV pools in int8
+with per-block-per-head scales (`serving/runner.py`).
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ class InferenceEngine:
                  max_seq: int = 256, policy=None, min_bucket: int = 8,
                  block_size: int = 16, kv_pool_blocks: Optional[int] = None,
                  scheduler: Optional[SchedulerPolicy] = None,
-                 fuse_epilogues: bool = True, device=None):
+                 fuse_epilogues: bool = True, weight_dtype: str = "bfloat16",
+                 kv_dtype: Optional[str] = None, device=None):
         # `policy` is the PRECISION policy (the reference's name); the
         # scheduling policy is `scheduler`
         self.runner = ModelRunner(cfg, params, batch_size=batch_size,
@@ -38,7 +42,8 @@ class InferenceEngine:
                                   block_size=block_size,
                                   kv_pool_blocks=kv_pool_blocks,
                                   fuse_epilogues=fuse_epilogues,
-                                  device=device)
+                                  weight_dtype=weight_dtype,
+                                  kv_dtype=kv_dtype, device=device)
         self.scheduler = scheduler or FCFSPolicy()
         self.queue: List[GenerateTask] = []
         self.encode_queue: List[EncodeTask] = []
@@ -58,6 +63,10 @@ class InferenceEngine:
         st = EngineStats(batch_size=self.runner.B)
         st.kv_pool_blocks = self.runner.layout.num_blocks
         st.kv_block_size = self.runner.layout.block_size
+        st.weight_dtype = self.runner.weight_dtype
+        st.kv_dtype = self.runner.kv_dtype
+        st.weight_bytes_per_device = self.runner.weight_bytes_per_device()
+        st.kv_pool_bytes = self.runner.kv_pool_bytes()
         return st
 
     # -- admission -----------------------------------------------------

@@ -4,16 +4,18 @@ serving/kv_cache.py: `BlockAllocator` and the admission scatter).
   BlockAllocator  refcounted free list over a global pool of fixed-size KV
                   blocks; the engine keeps a per-slot block table.
   prefill_scatter a freshly prefilled group's compact KV goes straight into
-                  its assigned pool blocks, and its ring caches and SSM
-                  state into its slots' rows, IN PLACE (the reference
-                  donates the caches to a jitted scatter; the port writes
-                  them).
+                  its assigned pool blocks (int8 pools: quantized on
+                  admission), and its ring caches and SSM state into its
+                  slots' rows, IN PLACE (the reference donates the caches
+                  to a jitted scatter; the port writes them).
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
 import torch
+
+from repro_torch.core.attention import kv_scale
 
 
 class BlockAllocator:
@@ -89,9 +91,10 @@ def prefill_scatter(caches, group_caches, slots, tables, *, block_size: int,
     """Write a prefilled group's caches into the live decode caches in place.
 
     caches          live decode caches, per segment: {"k", "v"} pools
-                    [count, NB + 1, BS, KV, hd] (trailing sink block) or
-                    ring caches [count, B, W, KV, hd], and / or per-slot SSM
-                    state {"h", "cx", "cbc"} [count, B, ...]
+                    [count, NB + 1, BS, KV, hd] (trailing sink block; int8
+                    pools with their scales {"ks", "vs"} [count, NB + 1,
+                    KV]) or ring caches [count, B, W, KV, hd], and / or
+                    per-slot SSM state {"h", "cx", "cbc"} [count, B, ...]
     group_caches    the group's caches: k / v [count, n, S, KV, hd] (rings:
                     S = W), SSM state [count, n, ...]
     slots           [n] int tensor: the decode slot of each group row
@@ -101,10 +104,17 @@ def prefill_scatter(caches, group_caches, slots, tables, *, block_size: int,
                     `segments`); None: every segment's are
 
     Pool leaves scatter per assigned block; every other leaf — ring caches
-    included, though they too are named k / v — scatters per slot row."""
+    included, though they too are named k / v — scatters per slot row.
+    An int8 pool is quantized on admission, as the reference's scatter
+    does: admission writes every block from offset 0, so each block's scale
+    is the per-head amax of the tokens that land in it (the bucket's pad
+    rows included, the pad to a whole block zero), and a reused block's
+    stale scale is replaced."""
     paged_segments = paged_segments or (True,) * len(caches)
     for seg, new, paged in zip(caches, group_caches, paged_segments):
         for key, leaf in seg.items():
+            if key in ("ks", "vs"):
+                continue                 # written beside their pools
             val = new[key]
             if not (paged and key in ("k", "v")):
                 leaf[:, slots.to(torch.int64)] = val.to(leaf.dtype)
@@ -118,5 +128,14 @@ def prefill_scatter(caches, group_caches, slots, tables, *, block_size: int,
             val = val.reshape(count, n * ne, block_size, *val.shape[3:])
             ids = tables[:, :ne].to(torch.int64)
             ids = torch.where(ids >= 0, ids, torch.full_like(ids, sink))
-            leaf[:, ids.reshape(-1)] = val.to(leaf.dtype)
+            ids = ids.reshape(-1)
+            if leaf.dtype == torch.int8:
+                xf = val.float()                  # [count, n*ne, BS, KV, hd]
+                s = kv_scale(xf.abs().amax(dim=(2, 4)))
+                q = torch.clamp(torch.round(xf / s[:, :, None, :, None]),
+                                -127, 127)
+                leaf[:, ids] = q.to(torch.int8)
+                seg[key + "s"][:, ids] = s
+            else:
+                leaf[:, ids] = val.to(leaf.dtype)
     return caches

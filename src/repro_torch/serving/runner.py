@@ -15,6 +15,12 @@ card: captured in one CUDA graph) at construction, before any slot is
 seated; prefill and encode steps are built per (bucket, group) and
 (bucket, group, pooling) at first use and kept.
 
+Int8 serving: `weight_dtype="int8"` quantizes the dense GEMM weights once,
+at construction (`models/quantize.py`: one fp32 scale an output channel);
+`kv_dtype="int8"` stores the paged KV pools in int8 with a scale a block
+and kv head, quantized on write (admission and decode append).  Ring
+caches and SSM state keep the activation dtype.
+
 Host mirrors (`tokens`, `pos`, `block_tables`, lanes) are numpy arrays that
 the runner mutates; every transfer to the device copies (the decode step
 copies them into its static buffers, the other steps take `torch.tensor`
@@ -33,11 +39,23 @@ from repro_torch.core import blocks
 from repro_torch.core.precision import BF16
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_mod
+from repro_torch.models.quantize import quantize_params
 from repro_torch.serving.kv_cache import BlockAllocator, prefill_scatter
 from repro_torch.serving.sampling import (device_lane, set_lane,
                                           stack_lanes, zero_lane)
 from repro_torch.serving.stats import EngineStats
 from repro_torch.serving.tasks import EncodeTask, GenerateTask, Task
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 class ModelRunner:
@@ -46,15 +64,27 @@ class ModelRunner:
     def __init__(self, cfg, params, *, batch_size: int = 4,
                  max_seq: int = 256, policy=None, min_bucket: int = 8,
                  block_size: int = 16, kv_pool_blocks: Optional[int] = None,
-                 fuse_epilogues: bool = True, device=None):
+                 fuse_epilogues: bool = True, weight_dtype: str = "bfloat16",
+                 kv_dtype: Optional[str] = None, device=None):
         if min_bucket < 1:
             raise ValueError(f"min_bucket must be >= 1: {min_bucket}")
+        if weight_dtype not in ("bfloat16", "int8"):
+            raise ValueError(f"weight_dtype {weight_dtype!r} not in "
+                             f"('bfloat16', 'int8')")
+        if kv_dtype not in (None, "bfloat16", "int8"):
+            raise ValueError(f"kv_dtype {kv_dtype!r} not in (None, "
+                             f"'bfloat16', 'int8')")
         self.device = resolve_device(device)
         first = params["embedding"]["embed"]
         if first.device.type != self.device.type:
             raise ValueError(f"params live on {first.device}, the engine "
                              f"runs on {self.device}")
         self.cfg = cfg
+        # the dense GEMM weights are quantized once, here; every step then
+        # reads the int8 tensors and their scales
+        self.weight_dtype = weight_dtype
+        if weight_dtype == "int8":
+            params = quantize_params(params)
         self.params = params
         self.B = batch_size
         self.max_seq = max_seq
@@ -74,9 +104,13 @@ class ModelRunner:
         default_blocks = batch_size * (-(-max_seq // block_size))
         self.layout = steps_mod.make_paged_layout(
             cfg, max_seq, kv_pool_blocks or default_blocks, block_size)
+        # int8 KV needs a block pool to hang its scales on: a config whose
+        # every attention layer keeps a ring stays unquantized
+        self.kv_dtype = ("int8" if kv_dtype == "int8"
+                         and any(self.layout.segments) else "bfloat16")
         self.caches = steps_mod.cache_layout(
             cfg, self.layout, batch_size=batch_size, policy=self.policy,
-            device=self.device)
+            device=self.device, kv_dtype=self.kv_dtype)
         self.decode_step = steps_mod.make_decode_step(
             cfg, params, self.caches, policy=self.policy, layout=self.layout,
             batch_size=batch_size, fuse_epilogues=fuse_epilogues,
@@ -92,6 +126,17 @@ class ModelRunner:
         self.pos = np.zeros((batch_size,), np.int32)
         self.lane = zero_lane(batch_size)
         self.slots: List[Optional[GenerateTask]] = [None] * batch_size
+
+    def weight_bytes_per_device(self) -> int:
+        """Resident bytes of the parameters (int8 q leaves one byte an
+        element, their fp32 scales beside them)."""
+        return sum(t.numel() * t.element_size() for t in _leaves(self.params))
+
+    def kv_pool_bytes(self) -> int:
+        """Resident bytes of the decode caches: the paged pools with their
+        scales, the ring caches and the SSM state (the sink blocks
+        included)."""
+        return sum(t.numel() * t.element_size() for t in _leaves(self.caches))
 
     # -- capacity / bucket geometry ------------------------------------
     @property

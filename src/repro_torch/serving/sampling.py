@@ -11,6 +11,10 @@ import torch
 
 from repro_torch.core.embedding import TOP_K_CAP
 
+# the lanes hold int32 seeds, as the reference's do: a wider seed would
+# alias another (7 and 2**32 + 7 would draw the same noise)
+SEED_MIN, SEED_MAX = -2**31, 2**31 - 1
+
 
 def validate_sampling(params: "SamplingParams") -> None:
     """Reject unservable sampling parameters with a clear ValueError."""
@@ -23,6 +27,9 @@ def validate_sampling(params: "SamplingParams") -> None:
     if params.top_k > TOP_K_CAP:
         raise ValueError(f"top_k {params.top_k} exceeds TOP_K_CAP="
                          f"{TOP_K_CAP}; pass top_k <= {TOP_K_CAP}, or 0")
+    if not SEED_MIN <= params.seed <= SEED_MAX:
+        raise ValueError(f"seed {params.seed} is outside the int32 lane "
+                         f"[{SEED_MIN}, {SEED_MAX}]")
 
 
 @dataclass(frozen=True)
@@ -46,7 +53,7 @@ def zero_lane(batch_size: int) -> dict:
     """Fresh per-slot lane arrays (all slots greedy)."""
     return {"temperature": np.zeros((batch_size,), np.float32),
             "top_k": np.zeros((batch_size,), np.int32),
-            "seed": np.zeros((batch_size,), np.int64)}
+            "seed": np.zeros((batch_size,), np.int32)}
 
 
 def set_lane(lane: dict, slot: int, params: SamplingParams) -> dict:
@@ -70,4 +77,4 @@ def stack_lanes(params_list) -> dict:
     return {"temperature": np.asarray([p.temperature for p in params_list],
                                       np.float32),
             "top_k": np.asarray([p.top_k for p in params_list], np.int32),
-            "seed": np.asarray([p.seed for p in params_list], np.int64)}
+            "seed": np.asarray([p.seed for p in params_list], np.int32)}

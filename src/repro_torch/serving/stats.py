@@ -1,7 +1,9 @@
 """Serving telemetry (subset of the reference's serving/stats.py): the
 paper's NAR / AR split, the encode (EncodeTask) side, TTFT, decode-step and
 encode latency percentiles, length bucket hits, preemptions and KV pool
-use, and the step builds.  The port's prefill and encode steps run eagerly
+use, the storage dtypes and resident bytes of the weights and KV caches
+(the `QUANT` part of the summary under int8), and the step builds.  The
+port's prefill and encode steps run eagerly
 (`launch/steps.py`); `prefill_compiles` / `encode_compiles` count the
 distinct step callables built, as the reference counts its compiled steps.
 The decode step is built once per runner, and on a card captured in one
@@ -91,6 +93,11 @@ class EngineStats:
     preemptions: int = 0
     recompute_tokens: int = 0
     recompute_time_s: float = 0.0
+    # -- storage --------------------------------------------------------------
+    weight_dtype: str = "bfloat16"  # GEMM weight storage ("int8" = quantized)
+    kv_dtype: str = "bfloat16"      # paged-pool storage ("int8" = quantized)
+    weight_bytes_per_device: int = 0  # resident parameter bytes
+    kv_pool_bytes: int = 0            # resident decode-cache bytes
 
     def add_ttft_ms(self, v: float) -> None:
         self.ttft_ms.add(v)
@@ -213,6 +220,10 @@ class EngineStats:
             "preemptions": self.preemptions,
             "recompute_tokens": self.recompute_tokens,
             "recompute_time_s": self.recompute_time_s,
+            "weight_dtype": self.weight_dtype,
+            "kv_dtype": self.kv_dtype,
+            "weight_bytes_per_device": self.weight_bytes_per_device,
+            "kv_pool_bytes": self.kv_pool_bytes,
         }
 
     def summary(self) -> str:
@@ -221,6 +232,11 @@ class EngineStats:
             enc = (f" | ENC {self.encode_tok_s:8.1f} tok/s "
                    f"({self.encode_completed} reqs, p95 "
                    f"{self.encode_latency_p95_ms:.0f}ms)")
+        quant = ""
+        if self.weight_dtype != "bfloat16" or self.kv_dtype != "bfloat16":
+            quant = (f" | QUANT w={self.weight_dtype} kv={self.kv_dtype}, "
+                     f"params {self.weight_bytes_per_device / 2**20:.1f}MiB, "
+                     f"pool {self.kv_pool_bytes / 2**20:.1f}MiB")
         return (f"NAR {self.nar_tok_s:8.1f} tok/s ({self.nar_tokens} prompt "
                 f"tokens, {self.padding_overhead:.0%} pad) | "
                 f"AR {self.ar_tok_s:8.1f} tok/s ({self.ar_tokens} tokens, "
@@ -229,4 +245,4 @@ class EngineStats:
                 f"{self.ttft_p95_ms:.0f}ms | KV pool peak "
                 f"{self.pool_utilization:.0%} ({self.peak_blocks_used}/"
                 f"{self.kv_pool_blocks} x {self.kv_block_size}-token blocks, "
-                f"{self.preemptions} preempt)" + enc)
+                f"{self.preemptions} preempt)" + enc + quant)
