@@ -94,7 +94,26 @@ non-zero):
      cli      `python -m repro_torch.launch.serve` (its `main`) at GPT-J
               full width: 6 sampled generate requests, 6 encodes, and the
               generate run again with `--weight-dtype int8 --kv-dtype
-              int8` (int8 forms only);
+              int8` (int8 forms only) and with `--policy chunked
+              --prefill-chunk 32` (the prefix cache on in every run, the
+              CLI's default);
+     chunk    GPT-J at full width and depth (`phase_chunk_prefix`): the
+              serve trace under ChunkedPrefillPolicy(32) and under FCFS
+              (exact launch counts with the chunk passes by width, the
+              chunk partials once a layer a pass; the graph replay held to
+              the eager step with a slot parked mid-prefill), a 300-token
+              prompt teacher-forced in 32-token pieces against whole-prompt
+              prefill; 8 requests sharing a 200-token prefix with the
+              prefix cache on (hit rate >= 7/8, >= 7 x 192 reused tokens,
+              copy-on-write of the shared tail block, the index's
+              invariants, no leak after clear(), the replay held to the
+              eager step after copies, a warm suffix pass teacher-forced
+              against a cold prefill) and off, then with int8 weights and
+              KV (int8 forms only, copies bit-equal with their scales);
+              NAR tok/s, TTFT, decode-step and decode-stall p95 of each
+              run; one chunk pass's wall, busy time and launches; the
+              chunk partials op (torch on the device, no TPU kernel)
+              against SDPA and its byte bound;
   6. vit      ViT-B, ViT-L and ViT-H at full width and depth, a batch of 8
               seeded images: the fused and unfused kernel paths with exact
               launch counts, logits held to the plain path in bf16 and
@@ -1456,31 +1475,50 @@ def gemms_per_pass(cfg):
     return fused, gated
 
 
-def check_gemm_templates(cfg, st, by, *, int8=False):
+def chunk_passes(eng):
+    """{width: passes run} of an engine's chunk steps (one step a width;
+    `launch/steps.py:make_chunk_prefill_step` counts its calls)."""
+    return {w: s.aux["calls"] for w, s in eng.runner._chunk_steps.items()}
+
+
+def check_gemm_templates(cfg, st, by, *, int8=False, chunks=None):
     """Prefill GEMMs run the wgmma template and decode GEMMs the stream
     template: each GEMM of the layers (`gemms_per_pass`, the plain `pdot`
     products included) launches wgmma once a prefill pass and stream once
     a decode step; the logits head (M = the pass's sequences, <= 4)
     streams in both.  An encode batch runs the layers' GEMMs once at M =
     its tasks x its bucket rows, which the served encodes keep above 8
-    (wgmma), and no head.  `int8`: every one of them runs the template's
-    int8-weight form, and no bf16 form launches at all (no int8 weight is
-    widened to a bf16 copy)."""
+    (wgmma), and no head.  A chunk pass of width C (`chunks`: {C: passes},
+    summing to the stats' prefill_chunks) runs the layers' GEMMs at M = C
+    (wgmma above 8 rows, stream at 8) and its head on one row (stream).
+    `int8`: every one of them runs the template's int8-weight form, and no
+    bf16 form launches at all (no int8 weight is widened to a bf16
+    copy)."""
     P, D, E = st.prefill_batches, st.decode_steps, st.encode_batches
+    chunks = chunks or {}
+    if sum(chunks.values()) != st.prefill_chunks:
+        raise AssertionError(f"{cfg.name}: chunk passes {chunks} != "
+                             f"{st.prefill_chunks} in the stats")
+    Cw = sum(n for w, n in chunks.items() if w > 8)     # wgmma chunk passes
+    Cs = sum(n for w, n in chunks.items() if w <= 8)    # stream chunk passes
     mm, sw = by["fused_matmul"], by["fused_matmul_swiglu"]
     per_layer, per_swiglu = gemms_per_pass(cfg)
     sfx = "_int8" if int8 else ""
-    want = {"fused_matmul": {"stream" + sfx: P + D * (per_layer + 1),
-                             "wgmma" + sfx: (P + E) * per_layer},
-            "fused_matmul_swiglu": {"stream" + sfx: D * per_swiglu,
-                                    "wgmma" + sfx: (P + E) * per_swiglu}}
+    want = {"fused_matmul": {"stream" + sfx: (P + Cw + (D + Cs)
+                                              * (per_layer + 1)),
+                             "wgmma" + sfx: (P + E + Cw) * per_layer},
+            "fused_matmul_swiglu": {"stream" + sfx: (D + Cs) * per_swiglu,
+                                    "wgmma" + sfx: (P + E + Cw)
+                                    * per_swiglu}}
     for forms in want.values():
         for t in ("fma32", "stream", "wgmma", "stream_int8", "wgmma_int8"):
             forms.setdefault(t, 0)
     got = {k: by[k] for k in GEMM_WRAPPERS}
     log(f"  [{cfg.name} serve] GEMM templates: {per_layer} fused GEMMs and "
-        f"{per_swiglu} gated GEMMs of the layers per pass, {P} prefill and "
-        f"{E} encode passes; launches {got}, expected {want} (observed "
+        f"{per_swiglu} gated GEMMs of the layers per pass, {P} prefill, "
+        f"{E} encode and {sum(chunks.values())} chunk passes (by width "
+        f"{dict(sorted(chunks.items()))}); launches {got}, expected {want} "
+        f"(observed "
         f"{mm['wgmma' + sfx] / max(P + E, 1):.1f} and "
         f"{sw['wgmma' + sfx] / max(P + E, 1):.1f} wgmma a pass)")
     if got != want:
@@ -1594,7 +1632,9 @@ def check_serve_counts(cfg, launches, st, max_seq, by=None, kv_int8=False):
     SSM layer per prefill pass, the residual RMSNorm once per hybrid layer
     per prefill pass and decode step; in a LayerNorm config the plain
     LayerNorm only as an encode batch's pooling norm, once a batch (the
-    fused engine folds every other norm into a GEMM)."""
+    fused engine folds every other norm into a GEMM); the chunk partials
+    (device torch ops, no hand kernel) once per attention layer per chunk
+    pass, and never without one."""
     from repro_torch.configs.base import ATTN_KINDS
     attn_layers = sum(c for k, c in cfg.schedule if k in ATTN_KINDS)
     rings = ring_layers(cfg, max_seq)
@@ -1602,7 +1642,8 @@ def check_serve_counts(cfg, launches, st, max_seq, by=None, kv_int8=False):
             "paged_decode_attention": (attn_layers - rings) * st.decode_steps,
             "paged_decode_partials": 0, "paged_decode_merge": 0,
             "flash_attention": attn_layers * (st.prefill_batches
-                                              + st.encode_batches)}
+                                              + st.encode_batches),
+            "paged_chunk_partials": attn_layers * st.prefill_chunks}
     if cfg.norm == "layernorm":
         want["layernorm"] = st.encode_batches
     if cfg.has_ssm:
@@ -1621,8 +1662,9 @@ def check_serve_counts(cfg, launches, st, max_seq, by=None, kv_int8=False):
             "int8": paged if kv_int8 else 0}
         got["paged_decode_attention by form"] = by["paged_decode_attention"]
     log(f"  [{cfg.name} serve] {st.prefill_batches} prefill passes, "
-        f"{st.encode_batches} encode passes, {st.decode_steps} decode "
-        f"steps: launches {got}, expected {want}")
+        f"{st.encode_batches} encode passes, {st.prefill_chunks} chunk "
+        f"passes, {st.decode_steps} decode steps: launches {got}, expected "
+        f"{want}")
     if got != want:
         raise AssertionError(f"{cfg.name} serve: launches {got} != {want}")
 
@@ -2172,31 +2214,48 @@ def phase_serve_cli():
     must launch (the generate run decoding through its captured graph) and
     its summary lines print; then the int8 run (`--weight-dtype int8
     --kv-dtype int8`), whose summary must show its QUANT part and whose
-    GEMM and paged launches must all be int8 forms."""
+    GEMM and paged launches must all be int8 forms, and the chunked run
+    (`--policy chunked --prefill-chunk 32`, the prefix cache at its
+    default, on), whose prompts over 32 tokens prefill in pieces, at
+    GPT-J's, GPT3-XL's and phi4-mini's full width and depth.  Every run
+    has the prefix cache on, the CLI's default."""
     import contextlib
     import io
 
-    from repro_torch.configs import GPT_J
+    from repro_torch.configs import GPT3_XL, GPT_J, PHI4_MINI
     from repro_torch.launch import serve
     sampled = SERVE_CLI + ["--temperature", "0.8", "--top-k", "40"]
+    chunked = sampled + ["--policy", "chunked", "--prefill-chunk", str(CHUNK)]
+
+    def chunk_need(cfg):
+        # every prompt (40-160 tokens) is over the budget: no whole-prompt
+        # pass, so no flash launch
+        return tuple(k for k in path_kernels(cfg, "serve", max_seq=256)
+                     if k != "flash_attention") + ("paged_chunk_partials",)
     runs = {"generate": (sampled, path_kernels(GPT_J, "serve", max_seq=256),
                          "decode step captured"),
             "int8": (sampled + ["--weight-dtype", "int8", "--kv-dtype",
                                 "int8"],
                      path_kernels(GPT_J, "serve", max_seq=256),
                      "QUANT w=int8 kv=int8"),
+            "chunked": (chunked, chunk_need(GPT_J), "chunks, decode-stall"),
+            **{f"chunked {c.name}": (
+                ["--arch", c.name] + chunked[2:], chunk_need(c),
+                "chunks, decode-stall") for c in (GPT3_XL, PHI4_MINI)},
             "encode": (SERVE_CLI + ["--task", "encode", "--pooling", "last"],
                        ("flash_attention", "fused_matmul", "layernorm"),
                        "ENC")}
     out = {}
     for task, (argv, need, marker) in runs.items():
         buf = io.StringIO()
+        label = (f"serve CLI {task}" if argv[1] != "gpt-j"
+                 else f"serve CLI gpt-j {task}")
 
         def main():
             with contextlib.redirect_stdout(buf):
                 return serve.main(argv)
         t0 = time.perf_counter()
-        rc, launches = drive(f"serve CLI gpt-j {task}", main, need)
+        rc, launches = drive(label, main, need)
         seconds = time.perf_counter() - t0
         text = buf.getvalue()
         log(f"serve CLI ({task}): python -m repro_torch.launch.serve "
@@ -2206,7 +2265,7 @@ def phase_serve_cli():
         if rc != 0 or "served 6 requests" not in text or marker not in text:
             raise AssertionError(f"serve CLI ({task}) did not serve its "
                                  f"trace")
-        by = TEMPLATE_LAUNCHES[f"serve CLI gpt-j {task}"]
+        by = TEMPLATE_LAUNCHES[label]
         bf16_forms = (sum(by[k][t] for k in GEMM_WRAPPERS
                           for t in ("stream", "wgmma"))
                       + by["paged_decode_attention"]["bf16"])
@@ -2216,6 +2275,577 @@ def phase_serve_cli():
         out[task] = {"argv": argv, "seconds": seconds, "stdout": text,
                      "launches": launches}
         torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# 5b. chunked prefill, the prefix cache and the scheduler policies
+# --------------------------------------------------------------------------
+
+CHUNK = 32                      # ChunkedPrefillPolicy's budget (the CLI's)
+FORCED_LEN = 300                # the teacher-forced chunked prompt
+PREFIX_LEN = 200                # shared prefix: ends inside block 13
+PREFIX_TAILS = (16, 48, 24, 40, 32, 20, 44, 28)   # unique tokens a request
+PREFIX_SAMPLED = (2, 5)
+PREFIX_SUFFIX = 40              # the teacher-forced warm suffix (width 48)
+
+
+def _serve_requests(cfg, lengths=SERVE_LENGTHS, *, seed=0, uid0=0):
+    """serve_model's trace: 32 new tokens each, uids 1 and 6 sampled."""
+    from repro_torch.serving import Request, SamplingParams
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i, n in enumerate(lengths):
+        sp = (SamplingParams(temperature=0.8, top_k=40, seed=100 + i)
+              if i in (1, 6) else SamplingParams())
+        reqs.append(Request(uid=uid0 + i, prompt=rng.integers(
+            0, cfg.vocab, n, dtype=np.int32), max_new_tokens=32,
+            sampling=sp))
+    return reqs
+
+
+def _prefix_requests(cfg, *, uid0=0, seed=21):
+    """8 requests sharing a PREFIX_LEN-token prefix, each with its own
+    tail of PREFIX_TAILS tokens; 24 new tokens; PREFIX_SAMPLED sample.
+    A copy with other uids draws the same tokens (seed = index)."""
+    from repro_torch.serving import Request, SamplingParams
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, cfg.vocab, PREFIX_LEN, dtype=np.int32)
+    return [Request(uid=uid0 + i, prompt=np.concatenate(
+        [shared, rng.integers(0, cfg.vocab, n, dtype=np.int32)]),
+        max_new_tokens=24,
+        sampling=(SamplingParams(temperature=0.8, top_k=40, seed=200 + i)
+                  if i in PREFIX_SAMPLED else SamplingParams()))
+        for i, n in enumerate(PREFIX_TAILS)]
+
+
+def _serve_numbers(st):
+    """The metrics the chunk / prefix runs are compared by."""
+    return {"nar_tok_s": st.nar_tok_s, "ar_tok_s": st.ar_tok_s,
+            "ttft_p50_ms": st.ttft_p50_ms, "ttft_p95_ms": st.ttft_p95_ms,
+            "decode_step_p50_ms": st.decode_step_p50_ms,
+            "decode_step_p95_ms": st.decode_step_p95_ms,
+            "decode_stall_p95_ms": st.decode_stall_p95_ms,
+            "decode_stall_max_ms": max(st.decode_stall_ms, default=0.0),
+            "decode_stall_total_ms": sum(st.decode_stall_ms),
+            "prefill_batches": st.prefill_batches,
+            "prefill_chunks": st.prefill_chunks,
+            "decode_steps": st.decode_steps,
+            "blocks_per_token": st.blocks_per_token}
+
+
+def _log_numbers(label, n):
+    log(f"  [{label}] NAR {n['nar_tok_s']:.1f} tok/s | AR "
+        f"{n['ar_tok_s']:.1f} tok/s | TTFT p50 {n['ttft_p50_ms']:.1f} ms "
+        f"p95 {n['ttft_p95_ms']:.1f} ms | decode step p50 "
+        f"{n['decode_step_p50_ms']:.2f} ms p95 "
+        f"{n['decode_step_p95_ms']:.2f} ms | decode stall p95 "
+        f"{n['decode_stall_p95_ms']:.2f} ms max "
+        f"{n['decode_stall_max_ms']:.2f} ms total "
+        f"{n['decode_stall_total_ms']:.1f} ms | {n['prefill_batches']} "
+        f"prefill passes, {n['prefill_chunks']} chunk passes, "
+        f"{n['decode_steps']} decode steps, "
+        f"{n['blocks_per_token']:.2f} pool positions a live token")
+
+
+def _check_served(eng, done, n, new_tokens, label):
+    """Every request finished with its tokens, inside the vocabulary, and
+    no block leaked (the prefix cache's own blocks apart)."""
+    cfg = eng.runner.cfg
+    if len(done) != n:
+        raise AssertionError(f"{label}: {len(done)} of {n} finished")
+    for r in done:
+        if len(r.output) != new_tokens or not all(
+                0 <= t < cfg.vocab for t in r.output):
+            raise AssertionError(f"{label}: request {r.uid} gave "
+                                 f"{r.output}")
+    held = eng.prefix_cache.cached_blocks if eng.prefix_cache else 0
+    if eng.allocator.num_free != eng.allocator.num_blocks - held:
+        raise AssertionError(f"{label}: KV blocks leaked")
+
+
+def _graph_mid_flight(eng, cfg, reqs, want, label):
+    """Submit `reqs`, step the engine until `want(runner)` holds (a slot
+    parked mid-prefill beside decoding slots; decoding slots after a
+    copy-on-write), hold the captured decode step to the eager one there
+    (`check_graph_vs_eager`), then drain the engine."""
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(200):
+        eng.step()
+        if eng.runner.decoding_slots() and want(eng.runner):
+            break
+    else:
+        raise AssertionError(f"{label}: the state to check never came")
+    torch.cuda.synchronize()
+    out = check_graph_vs_eager(eng, cfg)
+    out["parked_slots"] = int(sum(eng.runner.prefilling))
+    eng.run()
+    return out
+
+
+def _staggered(eng, cfg, label):
+    """The trace chunked prefill is for: three short requests (prompts of
+    20, 30 and 25 tokens) decoding, then a FORCED_LEN-token prompt
+    admitted beside them.  -> the numbers of that run alone (the stats
+    reset first), the late request's TTFT among them."""
+    short = _serve_requests(cfg, (20, 30, 25), uid0=80)
+    late = _serve_requests(cfg, (FORCED_LEN,), seed=3, uid0=90)[0]
+    eng.reset_stats()
+    for r in short:
+        eng.submit(r)
+    for _ in range(50):
+        if all(r.output for r in short):
+            break
+        eng.step()
+    else:
+        raise AssertionError(f"{label}: the short requests never decoded")
+    eng.submit(late)
+    eng.run()
+    _check_served(eng, eng.completed[-4:], 4, 32, label)
+    nums = _serve_numbers(eng.stats())
+    nums["late_ttft_ms"] = late.ttft_ms
+    _log_numbers(label, nums)
+    return nums
+
+
+def prefill_logits(cfg, params, tokens, ends, *, mode, policy,
+                   max_seq=512):
+    """Logits [len(ends), vocab] fp32 of one prompt's whole-prompt prefill
+    stack (fused) at the positions `ends`, under a kernel mode."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    tok = torch.tensor(tokens[None], device=DEVICE)
+    with ops.kernel_mode(mode), torch.no_grad():
+        x = lm._embed_sequence(params, tok, policy=policy)
+        x, _ = lm._run_segments_prefill(params, x, cfg=cfg, policy=policy,
+                                        max_seq=max_seq, fused=True,
+                                        compact_kv=True)
+        return _head(params, cfg, x[0, list(ends)], fused=True,
+                     policy=policy)
+
+
+def chunk_logits(cfg, params, tokens, *, chunk, prefix_len=0, policy,
+                 kv_dtype=None, max_seq=512, block_size=16):
+    """Teacher-forced chunk stack (fused, `auto` kernels): the first
+    `prefix_len` tokens prefilled whole and scattered into the decode
+    caches' pools (a cold admission; int8 pools quantized on write), the
+    block the prefix ends inside copied on write into a spare block (as a
+    warm admission does), then the rest in pieces of `chunk` through the
+    chunk stack.  -> (logits [pieces, vocab] fp32 at each piece's last
+    position, those positions, and a callable that runs the last piece
+    again through the chunk step: the same writes, so the caches keep
+    their values)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.serving.kv_cache import block_copy, prefill_scatter
+    dev = torch.device(DEVICE)
+    MB = -(-max_seq // block_size)
+    layout = steps.make_paged_layout(cfg, max_seq, MB + 1, block_size)
+    table = torch.arange(MB, dtype=torch.int32, device=dev)[None]
+    caches = steps.cache_layout(cfg, layout, batch_size=1, policy=policy,
+                                device=dev, kv_dtype=kv_dtype)
+    step = steps.make_chunk_prefill_step(cfg, policy=policy, layout=layout,
+                                         chunk_tokens=chunk)
+    tok = torch.tensor(tokens, device=dev)
+    rows, ends = [], []
+    with torch.no_grad():
+        if prefix_len:
+            x = lm._embed_sequence(params, tok[None, :prefix_len],
+                                   policy=policy)
+            _, group = lm._run_segments_prefill(
+                params, x, cfg=cfg, policy=policy, max_seq=max_seq,
+                fused=True, compact_kv=True)
+            prefill_scatter(caches, group, torch.zeros(
+                1, dtype=torch.int64, device=dev), table,
+                block_size=block_size, paged_segments=layout.segments)
+            del group
+            if prefix_len % block_size:
+                e = prefix_len // block_size
+                block_copy(caches, int(table[0, e]), MB, layout.segments)
+                table[0, e] = MB
+        for start in range(prefix_len, len(tokens), chunk):
+            take = min(chunk, len(tokens) - start)
+            piece = torch.zeros((1, chunk), dtype=torch.int32, device=dev)
+            piece[0, :take] = tok[start:start + take]
+            args = (piece, torch.tensor([start], device=dev),
+                    torch.tensor([take], device=dev))
+            x, _, _ = lm._run_chunk_stack(params, *args, caches, table,
+                                          cfg=cfg, policy=policy,
+                                          paged_segments=layout.segments)
+            rows.append(_head(params, cfg, x[:, take - 1], fused=True,
+                              policy=policy))
+            ends.append(start + take - 1)
+
+    @torch.no_grad()
+    def again():
+        return step.fn(params, *args, caches, table, None)
+    return torch.cat(rows), ends, again
+
+
+def profile_chunk_pass(cfg, one, width, pos0):
+    """One chunk pass (`one`): its wall time (host clock, 5 passes), the
+    device's busy time and events a pass (torch.profiler, 3 passes), and
+    the hand kernels it launches (counters)."""
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        one()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 5
+    dev_k = device_kernels(one, iters=3)
+    busy = sum(ms for ms, _ in dev_k.values()) if dev_k else None
+    _, launches = drive(f"{cfg.name} one chunk pass", one,
+                        ("fused_matmul", "paged_chunk_partials"))
+    prof = {"width": width, "pos0": pos0, "wall_ms": wall,
+            "device_busy_ms": busy,
+            "device_events": sum(n for _, n in dev_k.values()),
+            "hand_launches": {k: n for k, n in launches.items() if n},
+            "top": sorted(((k, ms, n) for k, (ms, n) in dev_k.items()),
+                          key=lambda r: -r[1])[:6]}
+    log(f"  one chunk pass (width {width}, pos0 {pos0}): wall "
+        f"{wall:.2f} ms, device busy {_ms(busy)}"
+        f"{f' ({busy / wall:.1%})' if busy else ''}, "
+        f"{prof['device_events']} device events, hand-kernel launches "
+        f"{prof['hand_launches']}")
+    for k_, ms, n_ in prof["top"]:
+        log(f"    device {ms:8.3f} ms  x{n_:<4d} {k_[:80]}")
+    return prof
+
+
+def check_chunk_partials_op():
+    """`ops.paged_chunk_partials` (the oracle's device torch ops; the
+    reference has no Pallas kernel for it) at GPT-J's heads, C = 32
+    queries at positions 268..299 over 300 pooled positions (19 of 32
+    table entries, BS 16): its result, normalized, against SDPA on the
+    same gathered K / V; its time with the wrapper (CUDA events) and on
+    the device (profiler), the device events of a call, SDPA's time, and
+    the byte bound (q, the 300 positions' K / V, o / m / l once)."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(12)
+    H, KV, D, BS, C, L = 16, 16, 256, 16, 32, FORCED_LEN
+    MB, NB = 512 // BS, 64
+    dev = torch.device(DEVICE)
+    q = torch.randn((1, C, H, D), generator=g, device=dev).bfloat16()
+    kp, vp = (torch.randn((NB, BS, KV, D), generator=g,
+                          device=dev).bfloat16() for _ in range(2))
+    tab = torch.full((1, MB), -1, dtype=torch.int32, device=dev)
+    n = -(-L // BS)
+    tab[0, :n] = torch.randperm(NB, generator=g, device=dev)[:n].int()
+    q_pos = (L - C + torch.arange(C, device=dev))[None]
+    lengths = torch.tensor([L], dtype=torch.int32, device=dev)
+    args = (q, kp, vp, tab, q_pos, lengths)
+    op = lambda: ops.paged_chunk_partials(*args)
+    o, m, l = op()
+    k = kp[tab[0, :n].long()].reshape(1, n * BS, KV, D)[:, :L].transpose(
+        1, 2).contiguous()
+    v = vp[tab[0, :n].long()].reshape(1, n * BS, KV, D)[:, :L].transpose(
+        1, 2).contiguous()
+    mask = torch.arange(L, device=dev)[None, :] <= q_pos[0][:, None]
+    qs = q.transpose(1, 2)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, k, v, attn_mask=mask)
+    y = sdpa().transpose(1, 2).float()
+    sdpa_err = rel_err(o / l[..., None], y)[1]
+    ms, lib = time_ms(op), time_ms(sdpa)
+    dev_ms, lib_dev = device_ms([op]), device_ms([sdpa])
+    events = device_events(op)
+    nbytes = (q.numel() * 2 + 2 * L * KV * D * 2 + o.numel() * 4
+              + 2 * m.numel() * 4)
+    flops = 4 * C * H * L * D
+    b_ms, b_by = bound_ms(nbytes, flops)
+    out = {"case": f"C={C} over {L} positions, {H}x{D}, BS {BS}",
+           "rel_err_vs_sdpa": sdpa_err,
+           "ms": ms, "device_ms": dev_ms, "device_events": events,
+           "library_ms": lib, "library_device_ms": lib_dev,
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"  ops.paged_chunk_partials {out['case']}: rel err, "
+        f"normalized, vs SDPA {sdpa_err:.2e}; {ms:.4f} ms with "
+        f"the wrapper, device {_ms(dev_ms)} in {events:.0f} device events a"
+        f" call | SDPA {lib:.4f} ms (device {_ms(lib_dev)}) | bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    if not sdpa_err <= ATTN_TOL:
+        raise AssertionError("ops.paged_chunk_partials disagrees")
+    return out
+
+
+def phase_chunk_prefix():
+    """GPT-J at full width and depth (28 layers, E 4096, bf16, batch 4,
+    max_seq 512, block 16):
+      chunked  SERVE_LENGTHS under ChunkedPrefillPolicy(32), then under
+               FCFS (all at t = 0: chunking's throughput cost), then a
+               staggered trace (a 300-token prompt admitted while three
+               slots decode: the stall chunking bounds), each: every
+               request served, no leak; SERVE_LENGTHS: exact launch counts
+               (chunk passes by width: GEMMs per pass and form, the chunk
+               partials once a layer a pass, flash only in whole-prompt
+               passes); the captured decode step held to the eager one with
+               a slot parked mid-prefill; a 300-token prompt teacher-forced
+               through the chunk stack in 32-token pieces, each piece's
+               last-position logits held to whole-prompt prefill's by the
+               floor-scaled gate (k = 2 of the plain bf16 / fp32 gap);
+      prefix   8 requests sharing a 200-token prefix (the first served
+               before the rest arrive): hit rate >= 7/8, >= 7 x 192 cached
+               tokens, >= 1 copy-on-write, the index's invariants, no leak
+               after clear(); the graph held to the eager step after
+               copies; a warm suffix pass (prefix prefilled whole, its
+               tail block copied, 40 tokens at width 48) held to the cold
+               whole-prompt prefill by the same gate; the trace again with
+               the cache off;
+      int8     the prefix trace with int8 weights and KV: int8 GEMM and
+               paged forms only, each copy's k / v / ks / vs bit-equal to
+               its source, and the int8 warm suffix pass held to the int8
+               whole-prompt prefill;
+      others   GPT3-XL and phi4-mini at full width and depth, the prefix
+               trace under ChunkedPrefillPolicy(32) with the cache on, bf16
+               and int8 KV: the serve, count and prefix gates above;
+    then one chunk pass profiled (wall, device busy, events, hand-kernel
+    launches) and `ops.paged_chunk_partials` timed against SDPA and its
+    bound (`check_chunk_partials_op`)."""
+    from repro_torch.configs import GPT_J
+    from repro_torch.core.precision import BF16, FP32
+    from repro_torch.models import lm
+    from repro_torch.serving import ChunkedPrefillPolicy, InferenceEngine
+    from repro_torch.serving import runner as runner_mod
+    cfg = GPT_J
+    t_phase = time.perf_counter()
+    params = lm.init_lm(cfg, dtype=torch.bfloat16, device=DEVICE, seed=0)
+    out = {"chunked": {}, "prefix": {}}
+    engine = lambda **kw: InferenceEngine(
+        cfg, params, batch_size=4, max_seq=512, block_size=16, policy=BF16,
+        device=DEVICE, **kw)
+
+    def served(label, eng, run, n, new_tokens, need):
+        done, launches = drive(label, run, need)
+        st = eng.stats()
+        by = TEMPLATE_LAUNCHES[label]
+        cfg_ = eng.runner.cfg
+        _check_served(eng, done, n, new_tokens, label)
+        check_serve_counts(cfg_, launches, st, 512, by=by,
+                           kv_int8=st.kv_dtype == "int8")
+        check_gemm_templates(cfg_, st, by, int8=st.weight_dtype == "int8",
+                             chunks=chunk_passes(eng))
+        nums = _serve_numbers(st)
+        _log_numbers(label, nums)
+        return {"numbers": nums, "stats": st.to_dict(),
+                "chunk_passes": chunk_passes(eng), "launches": launches,
+                "outputs": {r.uid: r.output for r in done}}
+
+    # -- chunked prefill against FCFS ----------------------------------
+    need = path_kernels(cfg, "serve")
+    for name, sched in (("chunked", ChunkedPrefillPolicy(CHUNK)),
+                        ("fcfs", None)):
+        eng = engine(scheduler=sched)
+        for r in _serve_requests(cfg):
+            eng.submit(r)
+        label = f"gpt-j {name} serve"
+        out["chunked"][name] = served(
+            label, eng, eng.run, len(SERVE_LENGTHS), 32,
+            need + (("paged_chunk_partials",) if name == "chunked" else ()))
+        if name == "chunked":
+            # one slot parked (the sink's one writer: rows without a block
+            # write their K / V there, and two writers' order is not
+            # fixed), three decoding
+            out["chunked"]["graph_vs_eager_parked"] = _graph_mid_flight(
+                eng, cfg, _serve_requests(cfg, (300, 20, 30, 25),
+                                          uid0=50),
+                lambda r: any(r.prefilling), "gpt-j chunked")
+            _check_served(eng, eng.completed[-4:], 4, 32,
+                          "gpt-j chunked, parked check")
+        out["chunked"][name]["staggered"] = _staggered(
+            eng, cfg, f"gpt-j {name} staggered")
+        del eng
+        torch.cuda.empty_cache()
+    a, b = out["chunked"]["chunked"], out["chunked"]["fcfs"]
+    same = sum(a["outputs"][u] == b["outputs"][u] for u in a["outputs"])
+    log(f"  [gpt-j] chunked vs fcfs: {same} of {len(a['outputs'])} "
+        f"requests with identical tokens (bf16; not gated); the "
+        f"SERVE_LENGTHS runs admit every request at t = 0, so FCFS never "
+        f"admits while others decode: their numbers show chunking's "
+        f"throughput cost only")
+    sa, sb = a["staggered"], b["staggered"]
+    log(f"  [gpt-j] staggered ({FORCED_LEN}-token prompt admitted while 3 "
+        f"slots decode), chunked vs fcfs: decode stall p95 "
+        f"{sa['decode_stall_p95_ms']:.2f} vs {sb['decode_stall_p95_ms']:.2f}"
+        f" ms, max {sa['decode_stall_max_ms']:.2f} vs "
+        f"{sb['decode_stall_max_ms']:.2f} ms, total "
+        f"{sa['decode_stall_total_ms']:.1f} vs "
+        f"{sb['decode_stall_total_ms']:.1f} ms; the late prompt's TTFT "
+        f"{sa['late_ttft_ms']:.1f} vs {sb['late_ttft_ms']:.1f} ms")
+
+    # teacher-forced: a 300-token prompt in 32-token pieces vs prefill
+    rng = np.random.default_rng(31)
+    prompt = rng.integers(0, cfg.vocab, FORCED_LEN, dtype=np.int32)
+    (z_chunk, ends, again), launches = drive(
+        "gpt-j teacher-forced chunks",
+        lambda: chunk_logits(cfg, params, prompt, chunk=CHUNK, policy=BF16),
+        ("fused_matmul", "paged_chunk_partials"))
+    prof = profile_chunk_pass(cfg, again, CHUNK, ends[-1] // CHUNK * CHUNK)
+    del again
+    z_pref = prefill_logits(cfg, params, prompt, ends, mode="auto",
+                            policy=BF16)
+    z_ref = prefill_logits(cfg, params, prompt, ends, mode="ref",
+                           policy=BF16)
+    z_fp32 = prefill_logits(cfg, params, prompt, ends, mode="ref",
+                            policy=FP32)
+    gaps = [_gap(z_ref[i:i + 1], z_fp32[i:i + 1]) for i in range(len(ends))]
+    floor = (max(g[0] for g in gaps), max(g[1] for g in gaps))
+    log(f"  teacher-forced gpt-j chunks: plain bf16 vs plain fp32 (floor, "
+        f"worst of {len(ends)} positions) rel {floor[0]:.2e}, cosine "
+        f"{np.cos(floor[1]):.6f}")
+    worst = {"rel": 0.0, "cosine": 1.0}
+    for i, e in enumerate(ends):
+        g_ = _logit_gate(f"gpt-j chunk ending at {e} vs prefill",
+                         z_chunk[i:i + 1], z_pref[i:i + 1], floor, 2.0,
+                         quiet=True)
+        worst = {"rel": max(worst["rel"], g_["rel"]),
+                 "cosine": min(worst["cosine"], g_["cosine"]),
+                 "tol": g_["tol"], "cos_min": g_["cos_min"]}
+    log(f"  teacher-forced gpt-j: {len(ends)} pieces of {CHUNK} vs "
+        f"whole-prompt prefill at {ends}: worst rel {worst['rel']:.2e} "
+        f"(tol {worst['tol']:.2e}), cosine {worst['cosine']:.6f} (min "
+        f"{worst['cos_min']:.6f})")
+    out["chunked"]["teacher_forced"] = {
+        "ends": ends, "floor": {"rel": floor[0],
+                                "cosine": float(np.cos(floor[1]))},
+        "worst": worst, "launches": launches}
+    out["chunked"]["chunk_pass"] = prof
+
+    # -- prefix cache: warm against cold, bf16 and int8; GPT3-XL and
+    # phi4-mini chunked with the cache on, bf16 and int8 KV -------------
+    from repro_torch.configs import GPT3_XL, PHI4_MINI
+    copies = []
+
+    def spy(caches, src, dst, segments):
+        res = block_copy(caches, src, dst, segments)
+        copies.append(all(torch.equal(t[:, dst], t[:, src])
+                          for seg in caches for t in seg.values()))
+        return res
+
+    def prefix_run(label, eng, graph=False):
+        """The prefix trace: the first request served to its first token
+        before the rest arrive; the cache's gates when it is on."""
+        cfg_ = eng.runner.cfg
+        reqs = _prefix_requests(cfg_)
+
+        def run():
+            eng.submit(reqs[0])
+            while not reqs[0].output:
+                eng.step()
+            for r in reqs[1:]:
+                eng.submit(r)
+            eng.run()
+            return list(eng.completed)
+        need = path_kernels(cfg_, "serve")
+        if eng.scheduler.chunk_tokens is not None:
+            # every prompt is over the budget: no whole-prompt pass, so no
+            # flash launch
+            need = tuple(k for k in need if k != "flash_attention")
+        if eng.prefix_cache is not None or eng.scheduler.chunk_tokens:
+            need += ("paged_chunk_partials",)
+        n0 = len(copies)
+        rep_ = served(label, eng, run, len(reqs), 24, need)
+        st = eng.stats()
+        rep_["copies_bit_equal"] = copies[n0:]
+        if eng.prefix_cache is None:
+            return rep_
+        eng.prefix_cache.check()
+        if not (st.prefix_cache_hit_rate >= 7 / 8
+                and st.cached_prefix_tokens >= 7 * 192
+                and st.cow_copies >= 1 and all(copies[n0:])):
+            raise AssertionError(
+                f"{label}: hit rate {st.prefix_cache_hit_rate}, "
+                f"{st.cached_prefix_tokens} cached tokens, {st.cow_copies} "
+                f"copies, bit-equal {copies[n0:]}")
+        if graph:
+            rep_["graph_vs_eager_after_cow"] = _graph_mid_flight(
+                eng, cfg_, _prefix_requests(cfg_, uid0=100)[:4],
+                lambda r: r.cow_copies > st.cow_copies,
+                f"{label}, after copies")
+            eng.prefix_cache.check()
+        eng.prefix_cache.clear()
+        if eng.allocator.num_free != eng.allocator.num_blocks:
+            raise AssertionError(f"{label}: blocks leaked after clear()")
+        log(f"  [{label}] hit rate {st.prefix_cache_hit_rate:.3f}, "
+            f"{st.cached_prefix_tokens} cached prompt tokens, "
+            f"{st.cow_copies} copies on write (every copy bit-equal, ks / "
+            f"vs included), {st.evicted_blocks} evicted; index clean; no "
+            f"leak after clear()")
+        return rep_
+
+    block_copy = runner_mod.block_copy
+    runner_mod.block_copy = spy
+    try:
+        for name, kw in (("warm", dict(prefix_cache=True)),
+                         ("cold", dict(prefix_cache=False)),
+                         ("int8 warm", dict(prefix_cache=True,
+                                            weight_dtype="int8",
+                                            kv_dtype="int8"))):
+            eng = engine(**kw)
+            out["prefix"][name] = prefix_run(f"gpt-j prefix {name}", eng,
+                                             graph=kw["prefix_cache"])
+            if name == "int8 warm":
+                served_params = eng.runner.params
+            del eng
+            torch.cuda.empty_cache()
+        for cfg_x, seed in ((GPT3_XL, 7), (PHI4_MINI, 1)):
+            params_x = lm.init_lm(cfg_x, dtype=torch.bfloat16,
+                                  device=DEVICE, seed=seed)
+            for kv in (None, "int8"):
+                eng = InferenceEngine(
+                    cfg_x, params_x, batch_size=4, max_seq=512,
+                    block_size=16, policy=BF16, device=DEVICE,
+                    scheduler=ChunkedPrefillPolicy(CHUNK), prefix_cache=True,
+                    kv_dtype=kv)
+                name = f"{cfg_x.name} chunked prefix{' int8 KV' if kv else ''}"
+                out["prefix"][name] = prefix_run(name, eng)
+                del eng
+                torch.cuda.empty_cache()
+            del params_x
+    finally:
+        runner_mod.block_copy = block_copy
+    w, c = out["prefix"]["warm"], out["prefix"]["cold"]
+    same = sum(w["outputs"][u] == c["outputs"][u] for u in w["outputs"])
+    log(f"  [gpt-j] prefix warm vs cold: {same} of {len(w['outputs'])} "
+        f"requests with identical tokens (bf16; not gated)")
+
+    # teacher-forced warm suffix passes against whole-prompt prefill
+    shared = _prefix_requests(cfg)[1].prompt[:PREFIX_LEN]
+    prompt = np.concatenate([shared, rng.integers(
+        0, cfg.vocab, PREFIX_SUFFIX, dtype=np.int32)])
+    end = [len(prompt) - 1]
+    tf = {}
+    for name, p_, kv in (("bf16", params, None),
+                         ("int8", served_params, "int8")):
+        z_ref = prefill_logits(cfg, p_, prompt, end, mode="ref",
+                               policy=BF16)
+        z_fp32 = prefill_logits(cfg, p_, prompt, end, mode="ref",
+                                policy=FP32)
+        floor = _gap(z_ref, z_fp32)
+        (z_warm, _, _), launches = drive(
+            f"gpt-j warm suffix {name}",
+            lambda: chunk_logits(cfg, p_, prompt, chunk=48,
+                                 prefix_len=PREFIX_LEN, policy=BF16,
+                                 kv_dtype=kv),
+            ("fused_matmul", "flash_attention", "paged_chunk_partials"))
+        z_cold = prefill_logits(cfg, p_, prompt, end, mode="auto",
+                                policy=BF16)
+        log(f"  teacher-forced gpt-j warm suffix ({name} weights"
+            f"{' and KV' if kv else ''}): floor rel {floor[0]:.2e}")
+        tf[name] = {"floor": {"rel": floor[0],
+                              "cosine": float(np.cos(floor[1]))},
+                    "launches": launches,
+                    "warm_vs_cold": _logit_gate(
+                        f"gpt-j warm suffix ({name}) vs cold prefill",
+                        z_warm, z_cold, floor, 2.0)}
+    out["prefix"]["teacher_forced"] = tf
+    del served_params, params
+    torch.cuda.empty_cache()
+    out["chunk_partials_op"] = check_chunk_partials_op()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"chunk / prefix phase: {out['seconds']:.1f} s")
     return out
 
 
@@ -2778,6 +3408,7 @@ def main():
     report["serve"] = phase_serve()
     report["serve_int8"] = phase_serve_int8(report["serve"])
     report["serve_cli"] = phase_serve_cli()
+    report["chunk_prefix"] = phase_chunk_prefix()
     report["vit"] = phase_vit(info["nvidia_smi"])
     from repro_torch.configs import GEMMA3_27B, MAMBA2_2_7B
     report["witness"] = depth_witness(MAMBA2_2_7B, layers=8, seed=3)

@@ -15,7 +15,10 @@ that absorbs the writes the reference drops (`mode="drop"`) — absent table
 entries — so the in-place scatter needs no host round trip.  The block
 allocator never hands it out.  Int8 pools (`kv_dtype="int8"`) carry fp32
 scales "ks" / "vs" [NB + 1, KV], one a block and kv head, sink row
-included, and quantize on write (`_append_quantized`).
+included, and quantize on write (`_append_quantized`).  A chunked-prefill
+piece (`attn_chunk_paged`) writes C tokens a row into the pools the same
+way (`_scatter_quantized` for int8 pools) and attends them with the
+prefix already there.
 """
 from __future__ import annotations
 
@@ -175,6 +178,89 @@ def _append_quantized(pools, scales, x_new, blk, off, owned):
     for i, (pool, sc) in enumerate(zip(pools, scales)):
         pool[blk, off] = q[i]
         sc[slot] = s_write[i]
+
+
+def _scatter_quantized(pool, scales, x_new, blk, off, fresh):
+    """Quantize-on-write of a multi-token chunk into an int8 pool [NB + 1,
+    BS, KV, hd] and its scales [NB + 1, KV], in place (the reference's
+    `_scatter_quantized`).  x_new: [N, KV, hd]; blk [N] pool block (the
+    sink for pad tokens and tokens that own no block); off [N] in-block
+    offset; `fresh` [N]: the token's block has its offset 0 inside this
+    write.  A fresh block's scale is reset, then takes the scatter-max of
+    the per-token scales of what lands in it (the per-block amax); a block
+    that was already started keeps its scale and this write's tokens clip
+    against it: entries already in a block never move."""
+    xf = x_new.float()
+    s_tok = kv_scale(xf.abs().amax(-1))                       # [N, KV]
+    sink = pool.shape[0] - 1
+    KV = scales.shape[1]
+    zero = torch.where(fresh & (off == 0), blk, sink)
+    scales[zero] = 0.0
+    rows = torch.where(fresh, blk, sink)
+    scales.scatter_reduce_(0, rows[:, None].expand(-1, KV), s_tok,
+                           reduce="amax")
+    s = torch.clamp(scales[blk], min=SCALE_EPS)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    pool[blk, off] = q.to(torch.int8)
+
+
+def attn_chunk_paged(p, x, pos0, chunk_len, cache, block_tables, *, cfg,
+                     policy: Policy, norm=None, residual=None):
+    """One chunked-prefill piece against the block-paged KV pools.
+
+    x: [B, C, E], C consecutive prompt tokens a row from absolute position
+    `pos0` [B]; `chunk_len` [B] of them are real (the tail is padding);
+    cache: {"k", "v"} pools [NB + 1, BS, KV, hd] (trailing sink block) and
+    for int8 pools {"ks", "vs"} [NB + 1, KV]; block_tables: [B, MB] (< 0
+    unallocated).  The chunk's K/V rows are written IN PLACE into their
+    blocks first (pad tokens and tokens with no owned block go to the
+    sink, where the reference drops them; int8 pools quantize them,
+    `_scatter_quantized`), then the chunk's queries attend the pool, prefix
+    and chunk, under a per-query causal mask (`ops.paged_chunk_partials`).
+    The projections are the decode helpers on the flattened [B * C] rows.
+    -> (y [B, C, E], cache)."""
+    B, C, E = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    k_pool, v_pool = cache["k"], cache["v"]
+    sink = k_pool.shape[0] - 1
+    BS = k_pool.shape[1]
+    MB = block_tables.shape[1]
+    pos0 = pos0.to(torch.int64)
+    pos = pos0[:, None] + torch.arange(C, device=x.device)[None, :]
+
+    flat, pflat = x.reshape(B * C, E), pos.reshape(B * C)
+    q = _decode_q(p, flat, pflat, cfg=cfg, policy=policy,
+                  norm=norm).reshape(B, C, H, hd)
+    k_new, v_new = _decode_kv_new(p, flat, pflat, cfg=cfg, policy=policy,
+                                  norm=norm)
+
+    real = (torch.arange(C, device=x.device)[None, :]
+            < chunk_len.to(torch.int64)[:, None])
+    entry = torch.clamp(pos // BS, max=MB - 1)
+    gb = block_tables.to(torch.int64).gather(1, entry)
+    owned = real & (gb >= 0) & (gb < sink) & (pos // BS < MB)
+    blk = torch.where(owned, gb, torch.full_like(gb, sink)).reshape(-1)
+    off = (pos % BS).reshape(-1)
+    if _quantized_kv(cache):
+        fresh = ((pos - pos % BS) >= pos0[:, None]).reshape(-1)
+        _scatter_quantized(k_pool, cache["ks"], k_new, blk, off, fresh)
+        _scatter_quantized(v_pool, cache["vs"], v_new, blk, off, fresh)
+    else:
+        k_pool[blk, off] = k_new.to(k_pool.dtype)
+        v_pool[blk, off] = v_new.to(v_pool.dtype)
+
+    length = (pos0 + chunk_len.to(torch.int64)).to(torch.int32)
+    tab = torch.where((block_tables >= 0) & (block_tables < sink),
+                      block_tables, torch.full_like(block_tables, -1))
+    o, m, l = ops.paged_chunk_partials(
+        q.to(act_dtype(policy)), k_pool, v_pool, tab.to(torch.int32), pos,
+        length, k_scale=cache.get("ks"), v_scale=cache.get("vs"))
+    merged = (o / torch.clamp(l, min=1e-30)[..., None]).reshape(B * C,
+                                                                H * hd)
+    y = _decode_out_proj(p, merged, policy=policy,
+                         residual=(residual.reshape(B * C, E)
+                                   if residual is not None else None))
+    return y.reshape(B, C, E), cache
 
 
 def attn_decode_paged(p, x, pos, cache, block_tables, *, cfg,

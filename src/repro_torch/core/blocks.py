@@ -14,9 +14,10 @@ it) or unfused (the discrete norm -> GEMM -> add chain):
                     only, no decode step
 
 Full-context attention layers keep their KV in the block pool
-(`kind_paged`); a window shorter than max_seq keeps a dense per-slot ring
-cache of `window` slots instead.  The other kinds of the reference (MoE,
-encoder / decoder) raise NotImplementedError."""
+(`kind_paged`) and can prefill in chunks (`block_chunk`); a window shorter
+than max_seq keeps a dense per-slot ring cache of `window` slots instead.
+The other kinds of the reference (MoE, encoder / decoder) raise
+NotImplementedError."""
 from __future__ import annotations
 
 import torch
@@ -189,6 +190,43 @@ def block_full(kind: str, p, x, *, cfg, policy, fused: bool = True,
         h2 = ops.norm(x, p["ln2"], cfg.norm)
         x = x + mlp_mod.mlp_full(p["mlp"], h2, cfg=cfg, policy=policy)
     return x, cache
+
+
+def block_chunk(kind: str, p, x, pos0, chunk_len, cache, block_tables, *,
+                cfg, policy, fused: bool = True):
+    """One chunked-prefill piece through a block whose KV is paged.
+
+    x: [B, C, E], C consecutive prompt tokens from absolute position `pos0`
+    [B] (`chunk_len` [B] of them real); cache: this layer's pool views,
+    written in place.  Only full-context attention kinds chunk (their KV
+    lives in the pool, which carries the chunk state between engine
+    steps); SSM, ring and bidirectional kinds raise.  The MLP runs the
+    decode path on the flattened [B * C, E] rows; only attention needs the
+    chunk structure.  -> (x', cache)."""
+    _require_ported(kind)
+    if kind not in ATTN_KINDS or kind in SSM_KINDS or kind in BIDIR_KINDS:
+        raise ValueError(f"chunked prefill unsupported for kind {kind!r}")
+    B, C, E = x.shape
+    kv_in = {k: cache[k] for k in ("k", "v", "ks", "vs") if k in cache}
+    kw = dict(cfg=cfg, policy=policy)
+    if fused:
+        x, _ = attn.attn_chunk_paged(p["attn"], x, pos0, chunk_len, kv_in,
+                                     block_tables,
+                                     norm=ops.norm_prologue(p["ln1"],
+                                                            cfg.norm),
+                                     residual=x, **kw)
+        x = mlp_mod.mlp_decode(p["mlp"], x.reshape(B * C, E), cfg=cfg,
+                               policy=policy,
+                               norm=ops.norm_prologue(p["ln2"], cfg.norm),
+                               residual=x.reshape(B * C, E))
+        return x.reshape(B, C, E), cache
+    h = ops.norm(x, p["ln1"], cfg.norm)
+    y, _ = attn.attn_chunk_paged(p["attn"], h, pos0, chunk_len, kv_in,
+                                 block_tables, **kw)
+    x = x + y
+    h2 = ops.norm(x, p["ln2"], cfg.norm).reshape(B * C, E)
+    y2 = mlp_mod.mlp_decode(p["mlp"], h2, cfg=cfg, policy=policy)
+    return x + y2.reshape(B, C, E), cache
 
 
 def _attn_decode(p, x, pos, cache, *, kind, cfg, policy, paged,

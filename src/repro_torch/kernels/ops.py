@@ -32,7 +32,7 @@ __all__ = [
     "Epilogue", "Prologue", "norm_prologue", "get_mode", "set_mode",
     "kernel_mode", "flash_attention", "decode_attention",
     "paged_decode_attention",
-    "paged_decode_partials", "paged_decode_merge",
+    "paged_decode_partials", "paged_decode_merge", "paged_chunk_partials",
     "split_quantized", "matmul", "pdot", "fused_matmul",
     "matmul_swiglu", "fused_matmul_swiglu", "residual_norm", "rmsnorm",
     "layernorm", "norm", "ssd", "ssd_decode", "launch_counters",
@@ -88,7 +88,9 @@ def launch_counters() -> dict:
     `launches` (and to `launches_by[form]`, where it has several: the
     GEMMs' template and weight form, flash's template, the paged decode's
     pool dtype) where it launches its kernel; a replayed CUDA graph adds
-    the counts of its capture (`launch/steps.py`)."""
+    the counts of its capture (`launch/steps.py`).  `paged_chunk_partials`
+    is no hand kernel (the reference has no Pallas kernel for it either):
+    it counts its calls of the oracle's device torch ops."""
     return {"fused_matmul": _mm.fused_matmul,
             "fused_matmul_swiglu": _mm.matmul_swiglu,
             "flash_attention": _fa.flash_attention,
@@ -100,7 +102,8 @@ def launch_counters() -> dict:
             "layernorm": _norm.layernorm,
             "residual_rmsnorm": _norm.residual_rmsnorm,
             "residual_layernorm": _norm.residual_layernorm,
-            "ssd": _ssd.ssd}
+            "ssd": _ssd.ssd,
+            "paged_chunk_partials": paged_chunk_partials}
 
 
 # --------------------------------------------------------------------------
@@ -163,6 +166,26 @@ def paged_decode_partials(q, k_pool, v_pool, block_tables, lengths,
                     torch.full_like(block_tables, -1)), lengths, **sc)
         for e0, e1 in _fd.split_ranges(block_tables.shape[1], splits)]
     return tuple(torch.stack(x) for x in zip(*parts))
+
+
+def paged_chunk_partials(q, k_pool, v_pool, block_tables, q_pos, lengths, *,
+                         k_scale=None, v_scale=None, tree_mask=None):
+    """Chunked-prefill partials -> (o unnormalized fp32 [B, C, H, D],
+    m [B, C, H], l [B, C, H]); q: [B, C, H, D]; q_pos [B, C] each query's
+    absolute position for the causal mask; lengths [B] valid positions
+    incl. the chunk.  `tree_mask` ([B, C, C] bool): the in-chunk mask as
+    an ancestor matrix.  `k_scale` / `v_scale`: the scales of int8 pools.
+    The reference has no Pallas kernel here and runs its oracle; so does
+    the port, as device torch ops on the pool.  `launches` counts the
+    calls outside `ref` mode."""
+    if _use_kernel(q):
+        paged_chunk_partials.launches += 1
+    return _ref.paged_chunk_partials_ref(
+        q, k_pool, v_pool, block_tables, q_pos, lengths, k_scale=k_scale,
+        v_scale=v_scale, tree_mask=tree_mask)
+
+
+paged_chunk_partials.launches = 0
 
 
 def paged_decode_merge(o, m, l, *, out_dtype):

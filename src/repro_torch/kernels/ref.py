@@ -145,18 +145,19 @@ def _paged_gather(k_pool, v_pool, block_tables, lengths, k_scale=None,
     plus a [B, MB*BS] validity mask (token t of entry e holds absolute
     position e*BS + t; entries < 0 are absent).  `k_scale` / `v_scale`
     ([NB, KV] fp32): the per-block-per-head scales of int8 pools, applied
-    here (absent entries read block 0's)."""
+    here (absent entries read block 0's).  Only the table's blocks are
+    widened: widening the pool first would copy every block of it."""
     _, BS, KV, D = k_pool.shape
     B, MB = block_tables.shape
     present = block_tables >= 0
     tab = torch.where(present, block_tables, torch.zeros_like(block_tables))
     tab = tab.long()
-    k = k_pool.float()[tab]                          # [B, MB, BS, KV, D]
-    v = v_pool.float()[tab]
+    k = k_pool[tab].float()                          # [B, MB, BS, KV, D]
+    v = v_pool[tab].float()
     if k_scale is not None:
-        k = k * k_scale.float()[tab][:, :, None, :, None]
+        k = k * k_scale[tab].float()[:, :, None, :, None]
     if v_scale is not None:
-        v = v * v_scale.float()[tab][:, :, None, :, None]
+        v = v * v_scale[tab].float()[:, :, None, :, None]
     k = k.reshape(B, MB * BS, KV, D)
     v = v.reshape(B, MB * BS, KV, D)
     pos = torch.arange(MB * BS, device=k_pool.device)[None, :]
@@ -204,6 +205,54 @@ def paged_decode_partials_ref(q, k_pool, v_pool, block_tables, lengths, *,
     l = p.sum(dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v)
     return o.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H)
+
+
+def paged_chunk_partials_ref(q, k_pool, v_pool, block_tables, q_pos,
+                             lengths, *, k_scale=None, v_scale=None,
+                             tree_mask=None):
+    """Chunked-prefill partials: C query tokens a row against the paged
+    pool (which already holds this chunk's own KV rows), causal-masked per
+    query position.
+
+    q: [B, C, H, D]; k/v_pool: [NB, BS, KV, D]; block_tables: [B, MB]
+    (entries < 0 absent); q_pos: [B, C] absolute position of each query
+    (pad queries may point past `lengths`: their outputs are garbage the
+    caller discards); lengths: [B] valid tokens incl. this chunk.
+    -> (o [B, C, H, D] fp32 unnormalized, m [B, C, H], l [B, C, H]), the
+    contract of `paged_decode_partials_ref`.
+
+    tree_mask: optional [B, C, C] bool ancestor matrix: query node i
+    attends the committed prefix (< pos0) plus in-chunk node j iff
+    tree_mask[b, i, j].  A lower-triangular tree_mask reproduces the
+    causal `pos <= q_pos` mask exactly."""
+    B, C, H, D = q.shape
+    k, v, msk = _paged_gather(k_pool, v_pool, block_tables, lengths,
+                              k_scale, v_scale)
+    KV = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    qf = (q.float() * scale).reshape(B, C, KV, H // KV, D)
+    s = torch.einsum("bckgd,bskd->bckgs", qf, k)               # [B,C,KV,G,S]
+    pos = torch.arange(k.shape[1], device=q.device)[None, None, :]
+    if tree_mask is not None:
+        pos0 = q_pos[:, :1]                                    # [B, 1]
+        s_pos = pos[0]                                         # [1, S]
+        prefix = s_pos < pos0                                  # [B, S]
+        in_chunk = (s_pos >= pos0) & (s_pos < pos0 + C)
+        rel = torch.clamp(s_pos - pos0, 0, C - 1)              # [B, S]
+        anc = torch.gather(tree_mask, 2, rel[:, None, :].expand(
+            B, C, s_pos.shape[1]).long())
+        keep = msk[:, None, :] & (prefix[:, None, :]
+                                  | (in_chunk[:, None, :] & anc))
+    else:
+        keep = msk[:, None, :] & (pos <= q_pos[:, :, None])    # [B, C, S]
+    s = torch.where(keep[:, :, None, None, :], s,
+                    torch.tensor(NEG_INF, device=q.device))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bckgs,bskd->bckgd", p, v)
+    return (o.reshape(B, C, H, D), m.reshape(B, C, H),
+            l.reshape(B, C, H))
 
 
 def rmsnorm_ref(x, gamma, *, eps=RMS_EPS, out_dtype=None):

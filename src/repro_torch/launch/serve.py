@@ -12,14 +12,18 @@ lengths, not padded buckets), plus TTFT percentiles, decode-slot
 occupancy, the KV pool's peak use and prefill bucket hits; `--task encode`
 sends EncodeTasks (pooled embeddings) instead.
 
-Only what the port serves has a flag: the FCFS synchronous loop, greedy
-and sampled decoding, the paged KV pool, the encode mode and int8 serving
+Only what the port serves has a flag: the synchronous loop under the
+FCFS, priority or chunked-prefill policy (`--policy`, `--prefill-chunk`),
+the prefix cache (on by default, as in the reference: `--no-prefix-cache`
+turns it off, `--cache-blocks` caps its index), greedy and sampled
+decoding, the paged KV pool, the encode mode and int8 serving
 (`--weight-dtype int8`: the dense GEMM weights quantized once per output
 channel; `--kv-dtype int8`: the paged KV pools quantized on write, a scale
-a block and kv head; the summary then adds a QUANT part).  The reference's
-flags for unported features (speculation, the prefix cache, the overlapped
-loop, other scheduling policies, tracing and metrics export) do not exist
-here, and argparse refuses them.
+a block and kv head; the summary then adds a QUANT part).  A config that
+cannot chunk or cache (SSM state, ring caches) prefills whole prompts and
+the CLI prints why.  The reference's flags for unported features
+(speculation, the overlapped loop, the deadline policy, tracing and
+metrics export) do not exist here, and argparse refuses them.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.models import lm
 from repro_torch.serving import (EncodeTask, InferenceEngine, Request,
-                                 SamplingParams)
+                                 SamplingParams, make_policy)
 
 
 def build_trace(cfg, args) -> list:
@@ -76,6 +80,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 => greedy")
     ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--policy", choices=("fcfs", "priority", "chunked"),
+                    default="fcfs", help="scheduling policy")
+    ap.add_argument("--prefill-chunk", type=int, default=32,
+                    help="chunked prefill token budget (--policy chunked)")
     ap.add_argument("--task", choices=("generate", "encode"),
                     default="generate",
                     help="generate: AR decode requests; encode: "
@@ -87,6 +95,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-pool-blocks", type=int, default=0,
                     help="KV pool capacity in blocks (0 => engine default); "
                          "undersize it to exercise preemption")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="share cached prompt-prefix KV blocks across "
+                         "requests (serving/prefix_cache.py); "
+                         "--no-prefix-cache restores cold prefills")
+    ap.add_argument("--cache-blocks", type=int, default=0,
+                    help="cap on pool blocks the prefix-cache index may "
+                         "hold (0 => bounded by pool pressure alone)")
     ap.add_argument("--weight-dtype", choices=("bfloat16", "int8"),
                     default="bfloat16",
                     help="GEMM weight storage: int8 quantizes per output "
@@ -120,8 +136,18 @@ def run(args):
         cfg, params, batch_size=args.batch, max_seq=args.max_seq,
         block_size=args.block_size,
         kv_pool_blocks=args.kv_pool_blocks or None,
+        scheduler=make_policy(args.policy, chunk_tokens=args.prefill_chunk,
+                              cache_aware=args.prefix_cache),
         fuse_epilogues=not args.no_fuse, weight_dtype=args.weight_dtype,
-        kv_dtype=args.kv_dtype, device=args.device)
+        kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
+        cache_blocks=args.cache_blocks or None, device=args.device)
+    if args.policy == "chunked" and not engine.runner.supports_chunked:
+        print(f"note: {cfg.name} cannot chunk prefills "
+              f"(recurrent/ring/cross-attn cache state) — "
+              f"falling back to whole-prompt admission")
+    if args.prefix_cache and engine.prefix_cache is None:
+        print(f"note: prefix cache disabled for {cfg.name} — "
+              f"{engine.runner.prefix_cache_reason}")
     for req in build_trace(cfg, args):
         engine.submit(req)
     t0 = time.perf_counter()
@@ -139,7 +165,7 @@ def main(argv=None) -> int:
     stats = engine.stats()
     step = engine.runner.decode_step
     print(f"served {len(done)} requests in {wall:.2f}s over "
-          f"{stats.decode_steps} AR steps [policy=fcfs, device="
+          f"{stats.decode_steps} AR steps [policy={args.policy}, device="
           f"{engine.runner.device}, decode step "
           f"{'captured' if step.aux['captured'] else 'eager'}] "
           f"({stats.prefill_compiles} prefill buckets compiled: "

@@ -15,6 +15,10 @@ caches donated.  Here:
   make_prefill_step  one NAR pass of a (bucket, group) batch, eager.
   make_encode_step   one pooled encode pass of a (bucket, group, pooling)
                      batch, eager.
+  make_chunk_prefill_step
+                     one chunked-prefill piece of C tokens a row into the
+                     decode caches in place, eager (`chunk_support_reason`
+                     says which configs can chunk).
 
 `PagedLayout`, `make_paged_layout` and `cache_layout` give the paged
 layout: block pools for full-context attention, dense ring caches for
@@ -23,7 +27,7 @@ window layers shorter than max_seq, per-slot SSM state.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -47,6 +51,10 @@ class PagedLayout:
     block_size: int
     max_blocks: int                     # table width: ceil(max_seq / bs)
     segments: tuple                     # per-segment bool: k/v are pools
+
+    @property
+    def any_paged(self) -> bool:
+        return any(self.segments)
 
 
 def make_paged_layout(cfg, max_seq: int, num_blocks: int,
@@ -158,6 +166,63 @@ def make_encode_step(cfg, *, policy, bucket: int, group: int,
     return StepBundle(fn=fn, policy=policy, cfg=cfg,
                       aux={"bucket": bucket, "group": group,
                            "pooling": pooling})
+
+
+# --------------------------------------------------------------------------
+# chunked-prefill step, eager
+# --------------------------------------------------------------------------
+
+def chunk_support_reason(cfg, layout: Optional[PagedLayout]) -> Optional[str]:
+    """Why this (cfg, layout) cannot run the chunk stack, None when it can
+    (the reference's reasons, word for word).  Chunked prefill and the
+    prefix cache's suffix-only prefill both resume encoding at an
+    arbitrary `pos0` against the paged decode caches, so both consult
+    this one predicate."""
+    if layout is None or not layout.any_paged or not all(layout.segments):
+        return ("every KV segment must be block-paged (dense, ring, and SSM "
+                "caches cannot carry resumable chunk state)")
+    if cfg.has_ssm:
+        return "recurrent SSM state absorbs chunk boundaries"
+    if cfg.enc_schedule:
+        return "cross-attention memory is not paged"
+    if cfg.n_patches:
+        return "patch prefixes occupy unpaged cache positions"
+    if cfg.rope_theta <= 0:
+        return "the chunk stack requires rotary positions"
+    return None
+
+
+def make_chunk_prefill_step(cfg, *, policy, layout: PagedLayout,
+                            chunk_tokens: int,
+                            fuse_epilogues: bool = True) -> StepBundle:
+    """One chunked-prefill piece over the decode caches' layout:
+    fn(params, tokens [n, C], pos0 [n], chunk_len [n], caches,
+    tables [n, MB], lane) -> (token [n], caches, pos [n]), C =
+    `chunk_tokens`, every operand on the caches' device; `lane` holds the
+    rows' sampling tensors, or is None to decode greedily.  The caches
+    are the runner's, written in place (the captured decode step holds
+    their addresses): the returned caches are the same tensors.  The token
+    is meaningful only for a row whose chunk completes its prompt (then it
+    equals the whole-prompt prefill's sample).  `pos0` is any start: a
+    chunk of a long prompt, or the uncached suffix of a prefix-cache hit.
+    Eager; the runner keeps one per width, and `aux["calls"]` counts the
+    passes run."""
+    reason = chunk_support_reason(cfg, layout)
+    if reason is not None:
+        raise ValueError(f"chunked prefill unsupported for {cfg.name}: "
+                         f"{reason}")
+    aux = {"layout": layout, "chunk_tokens": chunk_tokens, "calls": 0}
+
+    def fn(params, tokens, pos0, chunk_len, caches, tables, lane):
+        if tokens.shape[1] != chunk_tokens:
+            raise ValueError(f"chunk step ({chunk_tokens}): tokens "
+                             f"{tuple(tokens.shape)}")
+        aux["calls"] += 1
+        return lm.forward_chunk(params, tokens, pos0, chunk_len, caches,
+                                tables, cfg=cfg, policy=policy, lane=lane,
+                                fused=fuse_epilogues,
+                                paged_segments=layout.segments)
+    return StepBundle(fn=fn, policy=policy, cfg=cfg, aux=aux)
 
 
 # --------------------------------------------------------------------------

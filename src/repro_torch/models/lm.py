@@ -15,7 +15,10 @@ length bucket — exact only without SSM state or ring caches — and compact
 KV for paged admission), `forward_encode` (the same stack with no cache,
 pooled to one fp32 vector a row) and `forward_decode` (one AR step against
 the paged pools, the per-slot ring caches of window layers and the
-per-slot SSM state, which it updates in place).
+per-slot SSM state, which it updates in place) and `forward_chunk` (one
+chunked-prefill piece written into the paged pools in place, from any
+start position: a chunk of a long prompt, or the uncached suffix of a
+prefix-cache hit).
 """
 from __future__ import annotations
 
@@ -120,6 +123,33 @@ def _run_segments_decode(params, x, pos, caches, *, cfg, policy,
                                        block_tables=block_tables,
                                        fused=fused, paged=paged)
     return x, caches
+
+
+def _run_chunk_stack(params, tokens, pos0, chunk_len, caches, block_tables,
+                     *, cfg, policy, fused=True, paged_segments=None):
+    """The chunk body: embed C consecutive tokens a row, run every layer's
+    `block_chunk` (KV written into the pools in place), then the final
+    norm unless the fused head folds it.  Chunked prefill
+    (`forward_chunk`) sits on it, as the reference's speculative verify
+    passes do.  -> (x [B, C, E], caches, head_norm or None)."""
+    B, C = tokens.shape
+    x = embed_token(params["embedding"]["embed"], tokens.reshape(B * C),
+                    policy=policy).reshape(B, C, -1)
+    paged_segments = paged_segments or (True,) * len(cfg.schedule)
+    for (kind, count), p_seg, c_seg, paged in zip(
+            cfg.schedule, params["segments"], caches, paged_segments):
+        if not paged:
+            raise ValueError(f"chunk forward requires paged segments: "
+                             f"{kind}")
+        for i in range(count):
+            x, _ = blocks.block_chunk(kind, layer(p_seg, i), x, pos0,
+                                      chunk_len, layer(c_seg, i),
+                                      block_tables, cfg=cfg, policy=policy,
+                                      fused=fused)
+    head_norm = _head_norm(params, cfg, fused)
+    if head_norm is None:
+        x = ops.norm(x, params["final_norm"], cfg.norm)
+    return x, caches, head_norm
 
 
 def _head_norm(params, cfg, fused: bool):
@@ -243,3 +273,30 @@ def forward_decode(params, token, pos, caches, *, cfg, policy,
     tok = _choose(x, params, lane, pos + 1, cfg=cfg, policy=policy,
                   norm=head_norm)
     return tok, caches
+
+
+def forward_chunk(params, tokens, pos0, chunk_len, caches, block_tables, *,
+                  cfg, policy, lane=None, fused: bool = True,
+                  paged_segments=None):
+    """One chunked-prefill piece: C consecutive prompt tokens a row into
+    the paged pools, in place.  tokens: [B, C]; pos0: [B] absolute start
+    position; chunk_len: [B] real tokens (<= C; the tail is padding); all
+    device tensors.  -> (next_token [B], caches, pos [B] = pos0 +
+    chunk_len).
+
+    Every call samples a token at each row's last real position, at step
+    pos0 + chunk_len; the caller uses it only when the chunk completes the
+    prompt, where it is what `forward_prefill` samples (same residual, same
+    (seed, step) draw).  Every segment must be paged
+    (`launch/steps.py:chunk_support_reason`); `lane` as in forward_prefill,
+    greedy when None."""
+    B, C = tokens.shape
+    x, caches, head_norm = _run_chunk_stack(
+        params, tokens, pos0, chunk_len, caches, block_tables, cfg=cfg,
+        policy=policy, fused=fused, paged_segments=paged_segments)
+    n = chunk_len.to(torch.int64)
+    pos = pos0.to(torch.int64) + n
+    x_last = _residual_at(x, torch.clamp(n - 1, 0, C - 1))
+    tok = _choose(x_last, params, lane, pos, cfg=cfg, policy=policy,
+                  norm=head_norm)
+    return tok, caches, pos.to(torch.int32)

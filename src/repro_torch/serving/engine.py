@@ -13,6 +13,16 @@ The engine runs on the GPU unless `device="cpu"` is passed.
 `weight_dtype="int8"` quantizes the dense GEMM weights per output channel
 once, at construction; `kv_dtype="int8"` stores the paged KV pools in int8
 with per-block-per-head scales (`serving/runner.py`).
+
+`scheduler=` takes any SchedulerPolicy (FCFS by default; priority with
+aging; `ChunkedPrefillPolicy(n)`: prompts longer than n tokens prefill in
+n-token pieces, one piece a step between decode steps, so a long admission
+never stalls the running slots for its whole prefill).  `prefix_cache=True`
+shares the KV blocks of cached prompt prefixes across requests: a warm
+admission prefills only its uncached suffix; `cache_blocks` caps the blocks
+the index may hold.  Both need a config whose every KV segment is paged
+(`runner.supports_chunked`); the others prefill whole prompts and say why
+(`runner.chunk_unsupported_reason`, `runner.prefix_cache_reason`).
 """
 from __future__ import annotations
 
@@ -33,7 +43,8 @@ class InferenceEngine:
                  block_size: int = 16, kv_pool_blocks: Optional[int] = None,
                  scheduler: Optional[SchedulerPolicy] = None,
                  fuse_epilogues: bool = True, weight_dtype: str = "bfloat16",
-                 kv_dtype: Optional[str] = None, device=None):
+                 kv_dtype: Optional[str] = None, prefix_cache: bool = False,
+                 cache_blocks: Optional[int] = None, device=None):
         # `policy` is the PRECISION policy (the reference's name); the
         # scheduling policy is `scheduler`
         self.runner = ModelRunner(cfg, params, batch_size=batch_size,
@@ -43,12 +54,16 @@ class InferenceEngine:
                                   kv_pool_blocks=kv_pool_blocks,
                                   fuse_epilogues=fuse_epilogues,
                                   weight_dtype=weight_dtype,
-                                  kv_dtype=kv_dtype, device=device)
+                                  kv_dtype=kv_dtype,
+                                  prefix_cache=prefix_cache,
+                                  cache_blocks=cache_blocks, device=device)
         self.scheduler = scheduler or FCFSPolicy()
         self.queue: List[GenerateTask] = []
         self.encode_queue: List[EncodeTask] = []
         self.completed: List[Task] = []
         self._stats = self._fresh_stats()
+        self._prefix_base = self._prefix_snapshot()
+        self._t_last_decode: Optional[float] = None
 
     # -- delegated runner state ----------------------------------------
     @property
@@ -58,6 +73,10 @@ class InferenceEngine:
     @property
     def slots(self):
         return self.runner.slots
+
+    @property
+    def prefix_cache(self):
+        return self.runner.prefix_cache
 
     def _fresh_stats(self) -> EngineStats:
         st = EngineStats(batch_size=self.runner.B)
@@ -95,6 +114,16 @@ class InferenceEngine:
         task.queue_wait_ms = (time.perf_counter() - task._t_submit) * 1e3
         self._stats.add_queue_wait_ms(task.queue_wait_ms)
 
+    def _chunk_budget(self) -> Optional[int]:
+        """The chunked-prefill token budget of an engine step (None:
+        whole-prompt prefill)."""
+        return self.scheduler.effective_chunk_tokens(0)
+
+    def _chunkable(self, task: GenerateTask) -> bool:
+        ct = self._chunk_budget()
+        return (ct is not None and self.runner.supports_chunked
+                and self.runner.full_len(task) > ct)
+
     def _next_group(self, order: List[GenerateTask], max_n: int):
         """Up to `max_n` tasks sharing the policy head's length bucket, each
         with its pool blocks allocated (all-or-nothing per task)."""
@@ -124,8 +153,11 @@ class InferenceEngine:
             f"free) and no running request can be preempted to free more")
 
     def _admit(self, fresh: List) -> int:
-        """Admit queued tasks into free slots, one same-bucket group per
-        prefill pass, in the scheduler's order."""
+        """Admit queued tasks into free slots in the scheduler's order: a
+        prefix-cache hit seats with the shared blocks and prefills only its
+        suffix; a prompt over the chunk budget parks in its slot and
+        advances a piece a step (`_advance_chunks`); the rest prefill in
+        same-bucket groups, one pass a group."""
         runner = self.runner
         admitted = 0
         while True:
@@ -134,6 +166,47 @@ class InferenceEngine:
                 return admitted
             order = self.scheduler.admission_order(self.queue,
                                                    time.perf_counter())
+            if runner.prefix_cache is not None:
+                order = self.scheduler.cached_order(
+                    order, runner.cached_tokens_for)
+            head = order[0]
+            if runner.prefix_cache is not None:
+                res = runner.admit_cached(head, free[0])
+                if res is False:
+                    if runner.has_running():
+                        return admitted    # retirement will free blocks
+                    # nothing runs and the warm layout does not fit (the
+                    # copy-on-write duplicate when the pool exactly fits
+                    # the request): flush the cache and admit cold
+                    runner.prefix_cache.clear()
+                    res = None
+                if res:
+                    self.queue.remove(head)
+                    if not head.output:
+                        self._first_admission(head)
+                    admitted += 1
+                    ct = self._chunk_budget()
+                    suffix = runner.full_len(head) - head.prefilled
+                    if ct is not None and suffix > ct:
+                        continue           # parked: _advance_chunks
+                    # the whole suffix now, in one bucketed chunk pass
+                    width = runner.bucket_for(suffix)
+                    while runner.prefilling[free[0]]:
+                        ev = runner.chunk_step(head, width, self._stats)
+                        if ev is not None:
+                            fresh.append(ev)
+                    continue
+            if self._chunkable(head):
+                blk = runner.alloc_for(head)
+                if blk is None:
+                    self._pool_too_small_check(head)
+                    return admitted
+                self.queue.remove(head)
+                if not head.output:
+                    self._first_admission(head)
+                runner.begin_chunked(head, blk, free[0])
+                admitted += 1
+                continue
             group = self._next_group(order, len(free))
             if not group:
                 return admitted
@@ -171,7 +244,7 @@ class InferenceEngine:
     def _retire(self):
         runner = self.runner
         for b, task in enumerate(runner.slots):
-            if task is None:
+            if task is None or runner.prefilling[b]:
                 continue
             tok = task.output[-1]
             if (len(task.output) >= task.max_new_tokens
@@ -189,10 +262,31 @@ class InferenceEngine:
                 runner.release_slot(b)
 
     # -- engine loop ------------------------------------------------------
+    def _advance_chunks(self, fresh: List):
+        """Chunked-prefill advancement under a per-step token budget shared
+        by the prefilling slots (oldest admitted first): several long
+        admissions in flight still cost about one budget of prefill work
+        between two decode steps.  Every call is one full-width pass (a
+        short last piece is padded), so the budget is spent per call."""
+        runner = self.runner
+        ct = self._chunk_budget()
+        budget = ct or 0
+        for task in sorted((runner.slots[b] for b in range(runner.B)
+                            if runner.slots[b] is not None
+                            and runner.prefilling[b]),
+                           key=lambda t: t._seq):
+            if budget <= 0:
+                break
+            ev = runner.chunk_step(task, ct, self._stats)
+            budget -= ct
+            if ev is not None:
+                fresh.append(ev)
+
     def step(self) -> List[TokenEvent]:
-        """One engine iteration: one encode batch -> admit -> retire -> AR
-        step -> retire.  Returns the TokenEvents produced (EncodeTasks
-        carry their result in `.embedding`)."""
+        """One engine iteration: one encode batch -> admit -> retire ->
+        chunk advance -> retire -> AR step -> retire.  Returns the
+        TokenEvents produced (EncodeTasks carry their result in
+        `.embedding`)."""
         runner = self.runner
         fresh: List = []
         self._run_encode()
@@ -204,14 +298,26 @@ class InferenceEngine:
                 break
             if not admitted and len(self.completed) == n_done:
                 break
+        self._advance_chunks(fresh)
+        self._retire()         # a last piece's token may end its request
         if runner.decoding_slots():
             victim = lambda running: self.scheduler.select_victim(
                 running, time.perf_counter())
             for task in runner.ensure_decode_blocks(victim, self._stats):
                 self.queue.insert(0, task)
             if runner.decoding_slots():
+                t0 = time.perf_counter()
+                if self._t_last_decode is not None:
+                    # the time decoding slots sat idle since the last AR
+                    # step: admission work between decode steps (chunked
+                    # prefill exists to bound it)
+                    self._stats.add_decode_stall_ms(
+                        (t0 - self._t_last_decode) * 1e3)
                 fresh.extend(runner.decode(self._stats))
+                self._t_last_decode = time.perf_counter()
                 self._retire()
+        if not runner.decoding_slots():
+            self._t_last_decode = None    # idle gaps are not decode stalls
         return [TokenEvent(task.uid, task.output[i],
                            task.done and i == len(task.output) - 1)
                 for task, i in fresh]
@@ -236,13 +342,35 @@ class InferenceEngine:
         return self.completed[start:]
 
     # -- telemetry --------------------------------------------------------
+    def _prefix_snapshot(self):
+        """The prefix cache's counters are cumulative on the cache and the
+        runner; `stats()` reports them since the last reset."""
+        pc = self.runner.prefix_cache
+        if pc is None:
+            return None
+        return (pc.lookups, pc.hits, pc.hit_tokens, pc.evicted_blocks,
+                self.runner.cow_copies)
+
     def stats(self) -> EngineStats:
         self._stats.peak_blocks_used = self.runner.allocator.peak_used
+        pc = self.runner.prefix_cache
+        if pc is not None:
+            base = self._prefix_base
+            self._stats.prefix_lookups = pc.lookups - base[0]
+            self._stats.prefix_hits = pc.hits - base[1]
+            self._stats.cached_prefix_tokens = pc.hit_tokens - base[2]
+            self._stats.evicted_blocks = pc.evicted_blocks - base[3]
+            self._stats.cow_copies = self.runner.cow_copies - base[4]
+            self._stats.cached_blocks = pc.cached_blocks
         return self._stats
 
     def reset_stats(self):
+        """Drop the accumulated telemetry, keeping the built steps and the
+        prefix cache's contents."""
         self.runner.allocator.peak_used = self.runner.allocator.num_used
         self._stats = self._fresh_stats()
+        self._prefix_base = self._prefix_snapshot()
+        self._t_last_decode = None    # a stall never spans a reset
 
 
 __all__ = ["InferenceEngine", "Request", "GenerateTask", "EncodeTask",

@@ -8,10 +8,13 @@ serving/kv_cache.py: `BlockAllocator` and the admission scatter).
                   admission), and its ring caches and SSM state into its
                   slots' rows, IN PLACE (the reference donates the caches
                   to a jitted scatter; the port writes them).
+  block_copy      copy-on-write of one pool block (k / v, and the scales of
+                  int8 pools) into another, IN PLACE: the captured decode
+                  step holds the pools' addresses, so no pool is rebound.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -22,8 +25,10 @@ class BlockAllocator:
     """Host-side refcounted free list over `num_blocks` KV blocks of
     `block_size` tokens.  `alloc` hands out blocks at refcount 1, `retain`
     adds a holder, `free` drops one; a block returns to the free list when
-    its last holder lets go.  Invariant guards raise RuntimeError so a
-    double free stays fatal under `python -O`."""
+    its last holder lets go.  When the free list cannot satisfy an
+    `alloc`, the optional `reclaim` hook (the prefix cache's LRU evictor)
+    is asked to release index-only blocks first.  Invariant guards raise
+    RuntimeError so a double free stays fatal under `python -O`."""
 
     def __init__(self, num_blocks: int, block_size: int):
         if num_blocks < 1 or block_size < 1:
@@ -36,6 +41,10 @@ class BlockAllocator:
         self._free_set = set(self._free)
         self._ref: List[int] = [0] * num_blocks
         self.peak_used = 0
+        # lazy-reclaim hook: called with the shortfall when alloc() would
+        # otherwise fail; returns how many blocks it freed
+        # (serving/prefix_cache.py registers its LRU evictor)
+        self.reclaim: Optional[Callable[[int], int]] = None
 
     @property
     def num_free(self) -> int:
@@ -52,9 +61,13 @@ class BlockAllocator:
         return -(-tokens // self.block_size)
 
     def alloc(self, n: int) -> Optional[List[int]]:
-        """Pop `n` blocks at refcount 1, or None (all-or-nothing)."""
+        """Pop `n` blocks at refcount 1, or None (all-or-nothing) when the
+        pool cannot satisfy it even after asking `reclaim` to evict cached
+        blocks."""
         if n < 0:
             raise ValueError(f"alloc({n})")
+        if n > len(self._free) and self.reclaim is not None:
+            self.reclaim(n - len(self._free))
         if n > len(self._free):
             return None
         out = []
@@ -138,4 +151,24 @@ def prefill_scatter(caches, group_caches, slots, tables, *, block_size: int,
                 seg[key + "s"][:, ids] = s
             else:
                 leaf[:, ids] = val.to(leaf.dtype)
+    return caches
+
+
+@torch.no_grad()
+def block_copy(caches, src: int, dst: int, paged_segments=None):
+    """Copy pool block `src` into pool block `dst` in every paged segment's
+    k / v pools and, for int8 pools, their scales ks / vs, in place (the
+    reference's `make_block_copy`; pools [count, NB + 1, BS, KV, hd],
+    scales [count, NB + 1, KV]: dim 1 is the block for both).  The prefix
+    cache copies a shared, partly filled block before a slot writes into
+    it, so the writer mutates its private duplicate.  Dense leaves (ring
+    caches, SSM state) are untouched.  `paged_segments`: the layout's
+    `segments`; None: every segment's k / v are pools."""
+    paged_segments = paged_segments or (True,) * len(caches)
+    for seg, paged in zip(caches, paged_segments):
+        if not paged:
+            continue
+        for key in ("k", "v", "ks", "vs"):
+            if key in seg:
+                seg[key][:, dst].copy_(seg[key][:, src])
     return caches

@@ -1,19 +1,34 @@
 """ModelRunner: policy-free model execution for the serving engine (port of
-the reference's serving/runner.py, synchronous whole-prompt path).
+the reference's serving/runner.py, synchronous path).
 
 Owns the device state — parameters, the paged KV pools, the per-slot ring
 caches of window layers and SSM state, the block allocator and block
-tables, the sampling lanes and the per-slot token/pos mirrors — and exposes
-three execution verbs:
+tables, the prefix cache, the sampling lanes and the per-slot token/pos
+mirrors — and exposes four execution verbs:
 `prefill(group)` (one batched NAR pass admitting a group into free slots),
+`chunk_step(task)` (one chunked-prefill piece of a task parked in its
+slot: `begin_chunked`, or a prefix-cache hit's suffix: `admit_cached`),
 `decode()` (one AR step over every decoding slot) and `encode(group)` (one
 pooled, cache-free NAR pass for a batch of EncodeTasks; no slot, no
 block).  Scheduling decisions live in the engine's policy.
 
 The steps come from `launch/steps.py`: the decode step is built (on a
 card: captured in one CUDA graph) at construction, before any slot is
-seated; prefill and encode steps are built per (bucket, group) and
-(bucket, group, pooling) at first use and kept.
+seated; prefill, chunk and encode steps are built per (bucket, group),
+width and (bucket, group, pooling) at first use and kept.
+
+Chunked prefill and the prefix cache (configs whose every KV segment is
+paged and whose stack can resume at any position:
+`steps.chunk_support_reason`).  A slot still prefilling is parked: it is
+seated with its blocks, but its row of the decode tables stays -1 until
+its last chunk lands, so the captured decode step, which runs every row,
+writes that row's K/V to the sink block, and its sampled token is never
+read.  The prefix cache (`serving/prefix_cache.py`) indexes the KV that
+has landed; a warm admission shares the cached blocks and prefills only
+the suffix, after copying a shared, partly filled tail block on write
+(`kv_cache.block_copy`).  Every write to the caches — chunk scatter,
+copy-on-write, int8 scale reset and scatter-max — happens in place: the
+decode graph holds the pools' addresses.
 
 Int8 serving: `weight_dtype="int8"` quantizes the dense GEMM weights once,
 at construction (`models/quantize.py`: one fp32 scale an output channel);
@@ -40,7 +55,9 @@ from repro_torch.core.precision import BF16
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models.quantize import quantize_params
-from repro_torch.serving.kv_cache import BlockAllocator, prefill_scatter
+from repro_torch.serving.kv_cache import (BlockAllocator, block_copy,
+                                          prefill_scatter)
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampling import (device_lane, set_lane,
                                           stack_lanes, zero_lane)
 from repro_torch.serving.stats import EngineStats
@@ -65,7 +82,8 @@ class ModelRunner:
                  max_seq: int = 256, policy=None, min_bucket: int = 8,
                  block_size: int = 16, kv_pool_blocks: Optional[int] = None,
                  fuse_epilogues: bool = True, weight_dtype: str = "bfloat16",
-                 kv_dtype: Optional[str] = None, device=None):
+                 kv_dtype: Optional[str] = None, prefix_cache: bool = False,
+                 cache_blocks: Optional[int] = None, device=None):
         if min_bucket < 1:
             raise ValueError(f"min_bucket must be >= 1: {min_bucket}")
         if weight_dtype not in ("bfloat16", "int8"):
@@ -117,7 +135,23 @@ class ModelRunner:
             device=self.device)
         self._prefill_steps: Dict[tuple, steps_mod.StepBundle] = {}
         self._encode_steps: Dict[tuple, steps_mod.StepBundle] = {}
+        self._chunk_steps: Dict[int, steps_mod.StepBundle] = {}
         self.allocator = BlockAllocator(self.layout.num_blocks, block_size)
+        # the chunk stack needs every segment's KV in the pool (the tables
+        # are the chunk state); the prefix cache's suffix prefill is a
+        # chunk at pos0 > 0, so it needs the same
+        self.chunk_unsupported_reason = steps_mod.chunk_support_reason(
+            cfg, self.layout)
+        self.supports_chunked = self.chunk_unsupported_reason is None
+        self.prefix_cache: Optional[PrefixCache] = None
+        self.prefix_cache_reason: Optional[str] = None
+        self.cow_copies = 0
+        if prefix_cache:
+            if self.supports_chunked:
+                self.prefix_cache = PrefixCache(self.allocator, block_size,
+                                                max_blocks=cache_blocks)
+            else:
+                self.prefix_cache_reason = self.chunk_unsupported_reason
         self.block_tables = np.full((batch_size, self.layout.max_blocks), -1,
                                     np.int32)
         self._slot_blocks: List[List[int]] = [[] for _ in range(batch_size)]
@@ -126,6 +160,9 @@ class ModelRunner:
         self.pos = np.zeros((batch_size,), np.int32)
         self.lane = zero_lane(batch_size)
         self.slots: List[Optional[GenerateTask]] = [None] * batch_size
+        # slots whose task is still chunk-prefilling: out of the decode
+        # tables, their token / pos rows meaningless until the last chunk
+        self.prefilling: List[bool] = [False] * batch_size
 
     def weight_bytes_per_device(self) -> int:
         """Resident bytes of the parameters (int8 q leaves one byte an
@@ -179,7 +216,8 @@ class ModelRunner:
         return any(s is not None for s in self.slots)
 
     def decoding_slots(self) -> List[int]:
-        return [b for b in range(self.B) if self.slots[b] is not None]
+        return [b for b in range(self.B)
+                if self.slots[b] is not None and not self.prefilling[b]]
 
     def full_prompt(self, task: GenerateTask) -> np.ndarray:
         """What a (re-)prefill encodes: the prompt plus any tokens generated
@@ -201,18 +239,107 @@ class ModelRunner:
 
     def release_slot(self, b: int):
         if self._slot_blocks[b]:
+            if self.prefix_cache is not None:
+                self._index_slot(b)
             self.allocator.free(self._slot_blocks[b])
         self._slot_blocks[b] = []
         self.block_tables[b, :] = -1
         self.slots[b] = None
+        self.prefilling[b] = False
 
     def evict(self, b: int) -> GenerateTask:
         """Pull the task out of slot `b`, releasing its blocks (recompute
-        preemption: the engine re-queues it)."""
+        preemption: the engine re-queues it; a chunked prefill restarts
+        from scratch.  With the prefix cache on, the released blocks stay
+        indexed, so the recompute is a warm admission while the pool keeps
+        them)."""
         task = self.slots[b]
-        self.release_slot(b)
+        self.release_slot(b)      # indexes [0, prefilled / pos) first
         task.prefilled = 0
         return task
+
+    # -- prefix cache ------------------------------------------------------
+    def cached_tokens_for(self, task: GenerateTask) -> int:
+        """The cached-prefix length of `task` (no LRU touch, no hit-rate
+        count): the scheduler's cache-aware admission probe."""
+        if self.prefix_cache is None:
+            return 0
+        return self.prefix_cache.lookup(
+            self.full_prompt(task), limit=self.full_len(task) - 1,
+            touch=False, record=False)[1]
+
+    def admit_cached(self, task: GenerateTask, b: int) -> Optional[bool]:
+        """Warm admission: look up the longest cached prefix of the (re-)
+        prefill sequence, share those blocks into slot `b`'s table and park
+        the task prefilling with `prefilled = hit`, so only the suffix is
+        encoded (`chunk_step` at pos0 = hit).  The hit is capped at
+        full_len - 1: the last position is prefilled live for its logits.
+        A hit ending inside a block copies that shared tail on write before
+        the suffix overwrites its later positions.
+
+        Returns None on a miss (the caller admits cold), False when the
+        pool cannot supply the uncached blocks, True when seated."""
+        pc = self.prefix_cache
+        full = self.full_prompt(task)
+        hit_blocks, hit = pc.lookup(full, limit=len(full) - 1)
+        if hit <= 0:
+            return None
+        # pin the shared blocks before anything that could evict them
+        self.allocator.retain(hit_blocks)
+        bs = self.layout.block_size
+        n_hit = len(hit_blocks)
+        partial = hit % bs != 0
+        need = self.blocks_needed(task) - n_hit + (1 if partial else 0)
+        new = self.allocator.alloc(need)
+        if new is None:
+            self.allocator.free(hit_blocks)     # drop the pins
+            return False
+        table = list(hit_blocks)
+        if partial:
+            # the suffix writes positions [hit, ...) of a tail block other
+            # holders depend on: duplicate it and take the private copy
+            src, dst = table[n_hit - 1], new[0]
+            block_copy(self.caches, src, dst, self.layout.segments)
+            self.allocator.free([src])          # un-pin the shared original
+            table[n_hit - 1] = dst
+            new = new[1:]
+            self.cow_copies += 1
+        table.extend(new)
+        self._seat(task, b, table)
+        self.prefilling[b] = True
+        task.prefilled = hit
+        task.cached_prefix = hit
+        return True
+
+    def _index_slot(self, b: int):
+        """Index slot `b`'s committed tokens before its blocks are
+        released: KV covers [0, pos) for a slot that reached decode, the
+        prefix landed so far for a slot still prefilling.  Newly indexed
+        blocks gain an allocator reference and outlive the slot until the
+        pool reclaims them."""
+        task = self.slots[b]
+        if task is None:
+            return
+        n_kv = task.prefilled if self.prefilling[b] else int(self.pos[b])
+        if n_kv <= 0:
+            return
+        nb = self.allocator.blocks_for(n_kv)
+        self.prefix_cache.insert(self.full_prompt(task)[:n_kv],
+                                 self._slot_blocks[b][:nb])
+
+    def _index_prompt_blocks(self, task: GenerateTask, blk: List[int]):
+        """Index the full blocks of a freshly prefilled prompt the moment
+        its KV lands.  Called after the first token joined `task.output`,
+        so the landed KV covers full_len - 1 positions: the last token's KV
+        is written by the next decode step, and a block straddling it is
+        not published.  The partial tail joins the index at release."""
+        if self.prefix_cache is None:
+            return
+        bs = self.layout.block_size
+        n_full = ((self.full_len(task) - 1) // bs) * bs
+        if n_full > 0:
+            self.prefix_cache.insert(self.full_prompt(task)[:n_full],
+                                     blk[:n_full // bs])
 
     # -- step caches -----------------------------------------------------
     def _prefill_for(self, bucket: int, group: int,
@@ -225,6 +352,15 @@ class ModelRunner:
                 fuse_epilogues=self.fuse_epilogues)
             self._prefill_steps[(bucket, group)] = step
             stats.prefill_compiles += 1
+        return step
+
+    def _chunk_for(self, width: int) -> steps_mod.StepBundle:
+        step = self._chunk_steps.get(width)
+        if step is None:
+            step = steps_mod.make_chunk_prefill_step(
+                self.cfg, policy=self.policy, layout=self.layout,
+                chunk_tokens=width, fuse_epilogues=self.fuse_epilogues)
+            self._chunk_steps[width] = step
         return step
 
     def _encode_for(self, bucket: int, group: int, pooling: str,
@@ -242,13 +378,14 @@ class ModelRunner:
             self, select_victim: Callable[[Sequence[Task]], Task],
             stats: EngineStats) -> List[GenerateTask]:
         """Before a decode step every decoding slot must own the block its
-        next token lands in (pos // block_size).  Allocation failure evicts
-        `select_victim(running)` until it succeeds; returns the evicted
-        tasks (the engine re-queues them)."""
+        next token lands in (pos // block_size), and, under prefix sharing,
+        own it alone (a shared block is copied on write first).  Allocation
+        failure evicts `select_victim(running)` until it succeeds; returns
+        the evicted tasks (the engine re-queues them)."""
         evicted: List[GenerateTask] = []
         bs = self.layout.block_size
         for b in range(self.B):
-            if self.slots[b] is None:
+            if self.slots[b] is None or self.prefilling[b]:
                 continue
             need = int(self.pos[b]) // bs + 1
             if need > self.allocator.num_blocks:
@@ -270,6 +407,31 @@ class ModelRunner:
                 victim = select_victim(cand)
                 evicted.append(self.evict(self.slots.index(victim)))
                 stats.preemptions += 1
+            # the block the next token lands in must be private to this
+            # slot; warm admission already copies the shared tail, so this
+            # guards any other sharing path
+            while (self.prefix_cache is not None
+                   and self.slots[b] is not None):
+                e = int(self.pos[b]) // bs
+                blk = self._slot_blocks[b][e]
+                if self.allocator.refcount(blk) <= 1:
+                    break
+                got = self.allocator.alloc(1)
+                if got is not None:
+                    block_copy(self.caches, blk, got[0],
+                               self.layout.segments)
+                    self._slot_blocks[b][e] = got[0]
+                    self.block_tables[b, e] = got[0]
+                    self.allocator.free([blk])
+                    self.cow_copies += 1
+                    break
+                cand = self.running()
+                if not cand:
+                    raise RuntimeError("KV pool exhausted with no running "
+                                       "request to preempt")
+                victim = select_victim(cand)
+                evicted.append(self.evict(self.slots.index(victim)))
+                stats.preemptions += 1
         return evicted
 
     def _seat(self, task: GenerateTask, b: int, blk: List[int]):
@@ -277,6 +439,7 @@ class ModelRunner:
         self._admit_seq += 1
         self.lane = set_lane(self.lane, b, task.sampling)
         self.slots[b] = task
+        self.prefilling[b] = False
         self._slot_blocks[b] = list(blk)
 
     # -- execution -----------------------------------------------------
@@ -331,6 +494,7 @@ class ModelRunner:
             task.output.append(int(tok_np[j]))
             self._seat(task, b, blk)
             self.block_tables[b] = tables[j]
+            self._index_prompt_blocks(task, blk)
             fresh.append((task, len(task.output) - 1))
             stats.bucket_hits[bucket] = stats.bucket_hits.get(bucket, 0) + 1
             if first_admit:
@@ -346,12 +510,89 @@ class ModelRunner:
         stats.prefill_batches += 1
         return fresh
 
+    # -- chunked prefill -------------------------------------------------
+    def begin_chunked(self, task: GenerateTask, blk: List[int], b: int):
+        """Park `task` in slot `b` with its full block allocation, in the
+        prefilling state: its decode-table row stays -1 (the decode step
+        writes that row to the sink) until the last chunk lands in
+        `chunk_step`."""
+        if not self.supports_chunked:
+            raise ValueError(f"chunked prefill unsupported for "
+                             f"{self.cfg.name}: "
+                             f"{self.chunk_unsupported_reason}")
+        self._seat(task, b, blk)
+        self.prefilling[b] = True
+        task.prefilled = 0
+
+    @torch.no_grad()
+    def chunk_step(self, task: GenerateTask, chunk_tokens: int,
+                   stats: EngineStats) -> Optional[Tuple[GenerateTask, int]]:
+        """Advance one piece of at most `chunk_tokens` prompt tokens for a
+        parked `task` (one pass of width `chunk_tokens`, the tail padded).
+        Returns the (task, output index) first-token event when this piece
+        completes the prompt (the slot then joins decode), else None."""
+        b = self.slots.index(task)
+        if not self.prefilling[b]:
+            raise RuntimeError(f"request {task.uid} is not prefilling")
+        full = self.full_prompt(task)
+        start = task.prefilled
+        step = self._chunk_for(chunk_tokens)
+        dev = self.device
+        t0 = time.perf_counter()
+        C = chunk_tokens
+        take = min(C, len(full) - start)
+        chunk = np.zeros((1, C), np.int32)
+        chunk[0, :take] = full[start:start + take]
+        row_table = np.full((1, self.layout.max_blocks), -1, np.int32)
+        row_table[0, :len(self._slot_blocks[b])] = self._slot_blocks[b]
+        # a greedy row draws no noise, as a greedy prefill group
+        lane = (None if task.sampling.is_greedy else
+                device_lane(stack_lanes([task.sampling]), dev))
+        tok, _, pos_end = step.fn(
+            self.params, torch.tensor(chunk, device=dev),
+            torch.tensor([start], device=dev),
+            torch.tensor([take], device=dev), self.caches,
+            torch.tensor(row_table, device=dev), lane)
+        tok_np = int(tok.cpu()[0])                 # waits: honest timing
+        pos_np = int(pos_end.cpu()[0])
+        now = time.perf_counter()
+        task.prefilled = start + take
+        task.prefill_ms += (now - t0) * 1e3
+        first_admit = not task.output
+        if first_admit:
+            stats.nar_tokens += take
+            stats.padded_nar_tokens += C
+            stats.nar_time_s += now - t0
+        else:
+            stats.recompute_tokens += take
+            stats.recompute_time_s += now - t0
+        stats.prefill_chunks += 1
+        stats.chunked_prefill_tokens += take
+        if task.prefilled < len(full):
+            return None
+        # the last piece: its token is the prompt's first output, and the
+        # slot joins the decode batch
+        task.bucket = -(-len(full) // chunk_tokens) * chunk_tokens
+        task.output.append(tok_np)
+        self.tokens[b] = tok_np
+        self.pos[b] = pos_np
+        self.prefilling[b] = False
+        self.block_tables[b] = row_table[0]
+        self._index_prompt_blocks(task, self._slot_blocks[b])
+        if first_admit:
+            task.ttft_ms = (now - task._t_submit) * 1e3
+            stats.add_ttft_ms(task.ttft_ms)
+        return (task, len(task.output) - 1)
+
+    # -- decode ----------------------------------------------------------
     @torch.no_grad()
     def decode(self, stats: EngineStats) -> List[Tuple[GenerateTask, int]]:
-        """One lockstep AR step over every decoding slot.  Returns the
-        (task, output index) token events."""
+        """One lockstep AR step over every decoding slot (the captured step
+        runs every row; a parked or free row writes to the sink).  Returns
+        the (task, output index) token events."""
         t0 = time.perf_counter()
         decoding = [(b, self.slots[b]) for b in self.decoding_slots()]
+        blocks_used = self.allocator.num_used
         tok, _, _ = self.decode_step.fn(self.tokens, self.pos,
                                         self.block_tables, self.lane)
         toks = tok.cpu().numpy()                   # waits: honest timing
@@ -370,6 +611,8 @@ class ModelRunner:
         stats.ar_time_s += dt
         stats.add_decode_step_ms(dt * 1e3)
         stats.occupied_slot_steps += len(decoding)
+        stats.block_slot_steps += blocks_used
+        stats.token_slot_steps += sum(int(self.pos[b]) for b, _ in decoding)
         return fresh
 
     @torch.no_grad()

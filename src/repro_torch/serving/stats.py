@@ -1,8 +1,11 @@
 """Serving telemetry (subset of the reference's serving/stats.py): the
-paper's NAR / AR split, the encode (EncodeTask) side, TTFT, decode-step and
-encode latency percentiles, length bucket hits, preemptions and KV pool
-use, the storage dtypes and resident bytes of the weights and KV caches
-(the `QUANT` part of the summary under int8), and the step builds.  The
+paper's NAR / AR split, the encode (EncodeTask) side, TTFT, decode-step,
+decode-stall and encode latency percentiles, length bucket hits, the
+chunked-prefill counters, preemptions and KV pool use (blocks and live
+tokens a decode step: `blocks_per_token`), the prefix cache's lookups,
+hits, reused tokens and copy-on-write copies, the storage dtypes and
+resident bytes of the weights and KV caches (the `QUANT` part of the
+summary under int8), and the step builds.  The
 port's prefill and encode steps run eagerly
 (`launch/steps.py`); `prefill_compiles` / `encode_compiles` count the
 distinct step callables built, as the reference counts its compiled steps.
@@ -81,9 +84,15 @@ class EngineStats:
     encode_batches: int = 0        # batched pooled passes run
     encode_compiles: int = 0       # distinct (bucket, group, pooling) steps
     encode_latency_ms: List[float] = field(default_factory=Reservoir)
+    # -- chunked prefill ----------------------------------------------------
+    prefill_chunks: int = 0        # chunk passes run
+    chunked_prefill_tokens: int = 0  # true prompt tokens through chunks
     # -- serving-level ------------------------------------------------------
     ttft_ms: List[float] = field(default_factory=Reservoir)
     queue_wait_ms: List[float] = field(default_factory=Reservoir)
+    # gap between consecutive decode steps while slots were decoding: the
+    # time running requests sat stalled behind admission work
+    decode_stall_ms: List[float] = field(default_factory=Reservoir)
     tpot_ms_samples: List[float] = field(default_factory=Reservoir)
     bucket_hits: Dict[int, int] = field(default_factory=dict)
     # -- paged KV pool ------------------------------------------------------
@@ -93,6 +102,15 @@ class EngineStats:
     preemptions: int = 0
     recompute_tokens: int = 0
     recompute_time_s: float = 0.0
+    block_slot_steps: int = 0      # sum over decode steps of blocks in use
+    token_slot_steps: int = 0      # sum over decode steps of live tokens
+    # -- prefix cache (serving/prefix_cache.py) -----------------------------
+    prefix_lookups: int = 0        # admission-time cache lookups
+    prefix_hits: int = 0           # of those, lookups matching >= 1 token
+    cached_prefix_tokens: int = 0  # prompt tokens served from cached blocks
+    cached_blocks: int = 0         # blocks the index holds now (gauge)
+    evicted_blocks: int = 0        # index blocks LRU-reclaimed by the pool
+    cow_copies: int = 0            # shared blocks duplicated before a write
     # -- storage --------------------------------------------------------------
     weight_dtype: str = "bfloat16"  # GEMM weight storage ("int8" = quantized)
     kv_dtype: str = "bfloat16"      # paged-pool storage ("int8" = quantized)
@@ -107,6 +125,9 @@ class EngineStats:
 
     def add_queue_wait_ms(self, v: float) -> None:
         self.queue_wait_ms.add(v)
+
+    def add_decode_stall_ms(self, v: float) -> None:
+        self.decode_stall_ms.add(v)
 
     def add_tpot_ms(self, v: float) -> None:
         self.tpot_ms_samples.add(v)
@@ -161,6 +182,14 @@ class EngineStats:
         return percentile(self.decode_step_ms, 95)
 
     @property
+    def decode_stall_p50_ms(self) -> float:
+        return percentile(self.decode_stall_ms, 50)
+
+    @property
+    def decode_stall_p95_ms(self) -> float:
+        return percentile(self.decode_stall_ms, 95)
+
+    @property
     def encode_latency_p50_ms(self) -> float:
         return percentile(self.encode_latency_ms, 50)
 
@@ -173,10 +202,27 @@ class EngineStats:
         return percentile(self.encode_latency_ms, 99)
 
     @property
+    def prefix_cache_hit_rate(self) -> float:
+        """Fraction of admission lookups that matched a cached prefix."""
+        if not self.prefix_lookups:
+            return 0.0
+        return self.prefix_hits / self.prefix_lookups
+
+    @property
     def pool_utilization(self) -> float:
         if not self.kv_pool_blocks:
             return 0.0
         return self.peak_blocks_used / self.kv_pool_blocks
+
+    @property
+    def blocks_per_token(self) -> float:
+        """Mean pool positions held per live token across decode steps
+        (>= 1.0 without sharing; the excess is partial-tail-block waste,
+        shared prefix blocks pull it down)."""
+        if not self.token_slot_steps:
+            return 0.0
+        return (self.block_slot_steps * self.kv_block_size
+                / self.token_slot_steps)
 
     def to_dict(self) -> dict:
         return {
@@ -204,9 +250,13 @@ class EngineStats:
             "encode_completed": self.encode_completed,
             **{f"encode_latency_{k}_ms": v
                for k, v in percentiles(self.encode_latency_ms).items()},
+            "prefill_chunks": self.prefill_chunks,
+            "chunked_prefill_tokens": self.chunked_prefill_tokens,
             **{f"ttft_{k}_ms": v for k, v in percentiles(self.ttft_ms).items()},
             **{f"decode_step_{k}_ms": v
                for k, v in percentiles(self.decode_step_ms).items()},
+            **{f"decode_stall_{k}_ms": v
+               for k, v in percentiles(self.decode_stall_ms).items()},
             **{f"queue_wait_{k}_ms": v
                for k, v in percentiles(self.queue_wait_ms).items()},
             **{f"tpot_{k}_ms": v
@@ -217,9 +267,17 @@ class EngineStats:
             "kv_block_size": self.kv_block_size,
             "peak_blocks_used": self.peak_blocks_used,
             "pool_utilization": self.pool_utilization,
+            "blocks_per_token": self.blocks_per_token,
             "preemptions": self.preemptions,
             "recompute_tokens": self.recompute_tokens,
             "recompute_time_s": self.recompute_time_s,
+            "prefix_lookups": self.prefix_lookups,
+            "prefix_hits": self.prefix_hits,
+            "prefix_cache_hit_rate": self.prefix_cache_hit_rate,
+            "cached_prefix_tokens": self.cached_prefix_tokens,
+            "cached_blocks": self.cached_blocks,
+            "evicted_blocks": self.evicted_blocks,
+            "cow_copies": self.cow_copies,
             "weight_dtype": self.weight_dtype,
             "kv_dtype": self.kv_dtype,
             "weight_bytes_per_device": self.weight_bytes_per_device,
@@ -232,6 +290,17 @@ class EngineStats:
             enc = (f" | ENC {self.encode_tok_s:8.1f} tok/s "
                    f"({self.encode_completed} reqs, p95 "
                    f"{self.encode_latency_p95_ms:.0f}ms)")
+        chunk = ""
+        if self.prefill_chunks:
+            chunk = (f" | chunked {self.chunked_prefill_tokens} tok in "
+                     f"{self.prefill_chunks} chunks, decode-stall p95 "
+                     f"{self.decode_stall_p95_ms:.0f}ms")
+        prefix = ""
+        if self.prefix_lookups:
+            prefix = (f" | PREFIX {self.prefix_cache_hit_rate:.0%} hit, "
+                      f"{self.cached_prefix_tokens} tok reused, "
+                      f"{self.cow_copies} COW, "
+                      f"{self.evicted_blocks} evicted")
         quant = ""
         if self.weight_dtype != "bfloat16" or self.kv_dtype != "bfloat16":
             quant = (f" | QUANT w={self.weight_dtype} kv={self.kv_dtype}, "
@@ -245,4 +314,6 @@ class EngineStats:
                 f"{self.ttft_p95_ms:.0f}ms | KV pool peak "
                 f"{self.pool_utilization:.0%} ({self.peak_blocks_used}/"
                 f"{self.kv_pool_blocks} x {self.kv_block_size}-token blocks, "
-                f"{self.preemptions} preempt)" + enc + quant)
+                f"{self.blocks_per_token:.2f} positions a live token, "
+                f"{self.preemptions} preempt)" + enc + chunk + prefix
+                + quant)

@@ -6,6 +6,7 @@ what a client wants, the scheduler decides when they run, the runner how.
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -60,6 +61,11 @@ class Task:
     _t_submit: float = field(default=0.0, repr=False)
     _seq: int = field(default=0, repr=False)   # admission order (preemption)
 
+    def age_s(self, now: Optional[float] = None) -> float:
+        """Seconds since submission."""
+        return max(0.0, (now if now is not None else time.perf_counter())
+                   - self._t_submit)
+
 
 @dataclass
 class GenerateTask(Task):
@@ -77,7 +83,12 @@ class GenerateTask(Task):
     ttft_ms: float = 0.0
     latency_ms: float = 0.0
     tpot_ms: float = 0.0
+    # prompt tokens whose KV is in the cache (chunked prefill progress;
+    # the full length once the first token is sampled)
     prefilled: int = 0
+    # prompt tokens served from the prefix cache at the latest admission
+    # (0 = cold)
+    cached_prefix: int = 0
 
     def __post_init__(self):
         _require_keyword_prompt(self)

@@ -2,7 +2,9 @@
 CPU at reduced GPT-J: generate traffic (greedy and sampled), int8 serving
 (`--weight-dtype int8 --kv-dtype int8`) and encode traffic run and print
 the summary; the served tokens and embeddings equal an engine built
-directly from the same seeds; flags of unported features are refused.
+directly from the same seeds (the CLI's prefix cache is on by default);
+flags of unported features (speculation, the deadline policy, the
+overlapped loop, tracing) are refused.
 Sampling seeds are int32, as the reference's lanes: a seed outside
 [-2**31, 2**31) is refused instead of aliasing another."""
 import numpy as np
@@ -66,8 +68,8 @@ def test_serve_cli_runs_and_matches_a_direct_engine(case, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--spec-draft", "self"],
-                                  ["--no-prefix-cache"], ["--overlap"],
-                                  ["--policy", "chunked"],
+                                  ["--deadline-ms", "50"], ["--overlap"],
+                                  ["--policy", "deadline"],
                                   ["--trace-out", "trace.json"]])
 def test_serve_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit) as exc:
