@@ -22,9 +22,11 @@ non-zero):
               2048 for GPT3-XL's encode pooling), a causal chunk with a
               query offset, and gemma3-27b (flash attention with a 1024 window;
               dense decode over 1024-slot rings at GQA 32 / 16 and hymba's
-              25 / 5, and over a linear 2048 cache with the window, each
-              held to the plain version at the kernel's split count and to
-              the TPU kernel's walk); the paged decode's partials at 1, 2
+              25 / 5, over a linear 2048 cache with the window, and over
+              the speculative drafts' linear 512-row caches at GPT-J's
+              16 x 256 and phi4-mini's 24 / 8 x 128, each held to the
+              plain version at the kernel's split count and to the TPU
+              kernel's walk); the paged decode's partials at 1, 2
               and 4 splits of the table, also over GPT-J's serving batch
               (lengths 200-332) and over 17 slots, where the normalized
               wrapper runs one split; the plain norms at widths 3072, 2560
@@ -94,8 +96,9 @@ non-zero):
      cli      `python -m repro_torch.launch.serve` (its `main`) at GPT-J
               full width: 6 sampled generate requests, 6 encodes, and the
               generate run again with `--weight-dtype int8 --kv-dtype
-              int8` (int8 forms only) and with `--policy chunked
-              --prefill-chunk 32` (the prefix cache on in every run, the
+              int8` (int8 forms only), with `--policy chunked
+              --prefill-chunk 32` and with `--spec-draft auto --spec-k 4
+              --spec-branches 3` (the prefix cache on in every run, the
               CLI's default);
      chunk    GPT-J at full width and depth (`phase_chunk_prefix`): the
               serve trace under ChunkedPrefillPolicy(32) and under FCFS
@@ -114,6 +117,32 @@ non-zero):
               run; one chunk pass's wall, busy time and launches; the
               chunk partials op (torch on the device, no TPU kernel)
               against SDPA and its byte bound;
+     spec     speculative decoding at full width and depth
+              (`phase_spec`): a teacher-forced verify pass (k + 1 = 5 at
+              pos0 200) held to five eager decode steps and to the plain
+              path in bf16 / fp32 (floor-scaled gate and flip rule), its
+              tree form on a width-3 tree bit-equal at the chain nodes,
+              `sample_topn` card vs CPU with exact ties; engines on the
+              serve trace: GPT-J draft="self" k 4, GPT-J with the
+              mid-range draft (the target's first 2 layers, embedding
+              and head mixed with 10% of another init) as a chain (k 4)
+              and as a tree (k 3, width 3), GPT-J with int8 KV and width 3
+              (falls back to the chain), phi4-mini with its mid-range
+              draft: each served and drained, with exact launches (one
+              chunk partials a layer a verify pass, its GEMMs on the
+              template of M = B x C; each draft step one replay of the
+              draft's captured graph, one dense decode a draft layer; no
+              paged decode), each request's tokens against the same trace
+              without speculation (a first divergence must be a near tie:
+              the two tokens within 2 bf16 floors), the draft's replay
+              held to its eager step, one verify pass and one draft step
+              profiled; acceptance, tokens a target pass, verify
+              positions, draft p50 / p95, branch utilization, AR tok/s
+              beside the plain runs; then a forced sibling (a round's
+              depth-1 chain token made wrong, the draft's token moved to a
+              sibling): the sibling accepted, its KV row moved with
+              row_copy, and the slot's next step held to a teacher-forced
+              prefill of the committed tokens;
   6. vit      ViT-B, ViT-L and ViT-H at full width and depth, a batch of 8
               seeded images: the fused and unfused kernel paths with exact
               launch counts, logits held to the plain path in bf16 and
@@ -1279,13 +1308,21 @@ DECODE_CASES = (   # label, H, KV, D, S, lengths, window, dtype
     # the fp32 instantiation (the served paths' fp32 policy)
     ("fp32 linear B=4 H32/KV16 D=128 S=2048 window 1024 len 1/700/1500/2048",
      32, 16, 128, 2048, (1, 700, 1500, 2048), 1024, torch.float32),
+    # a speculative draft's step: linear caches of max_seq 512 rows, no
+    # window, at the widths of GPT-J's and phi4-mini's drafts
+    ("draft linear B=4 H16/KV16 D=256 S=512 len 1/137/300/512", 16, 16,
+     256, 512, (1, 137, 300, 512), 0, torch.bfloat16),
+    ("draft linear B=4 H24/KV8 D=128 S=512 len 1/137/300/512", 24, 8,
+     128, 512, (1, 137, 300, 512), 0, torch.bfloat16),
 )
 
 
 def check_decode_attention(rows):
     """The dense decode kernel on gemma3's and hymba's ring caches (the
-    valid slots are a prefix of the ring) and on a linear cache with
-    gemma3's window (in bf16, and in fp32), each batch row held to its own scale against the
+    valid slots are a prefix of the ring), on a linear cache with gemma3's
+    window (in bf16, and in fp32) and on the speculative drafts' linear
+    512-row caches (no window, GPT-J's and phi4-mini's widths), each
+    batch row held to its own scale against the
     plain version at the kernel's split count (`splits=`: the same ranges,
     32-position stages and merge) and against the TPU kernel's walk (one
     pass of 512-position chunks).  Yardstick: SDPA with a boolean mask.
@@ -2217,8 +2254,10 @@ def phase_serve_cli():
     GEMM and paged launches must all be int8 forms, and the chunked run
     (`--policy chunked --prefill-chunk 32`, the prefix cache at its
     default, on), whose prompts over 32 tokens prefill in pieces, at
-    GPT-J's, GPT3-XL's and phi4-mini's full width and depth.  Every run
-    has the prefix cache on, the CLI's default."""
+    GPT-J's, GPT3-XL's and phi4-mini's full width and depth, and the
+    token-tree speculative run (`--spec-draft auto --spec-k 4
+    --spec-branches 3`), whose summary must print its spec line.  Every
+    run has the prefix cache on, the CLI's default."""
     import contextlib
     import io
 
@@ -2239,6 +2278,12 @@ def phase_serve_cli():
                      path_kernels(GPT_J, "serve", max_seq=256),
                      "QUANT w=int8 kv=int8"),
             "chunked": (chunked, chunk_need(GPT_J), "chunks, decode-stall"),
+            # speculation never runs the paged decode: draft steps run the
+            # dense kernel, verify passes the chunk partials
+            "spec": (sampled + ["--spec-draft", "auto", "--spec-k", "4",
+                                "--spec-branches", "3"],
+                     ("decode_attention", "flash_attention", "fused_matmul",
+                      "paged_chunk_partials"), "spec: draft=gpt-j-draft"),
             **{f"chunked {c.name}": (
                 ["--arch", c.name] + chunked[2:], chunk_need(c),
                 "chunks, decode-stall") for c in (GPT3_XL, PHI4_MINI)},
@@ -2483,8 +2528,9 @@ def chunk_logits(cfg, params, tokens, *, chunk, prefix_len=0, policy,
     return torch.cat(rows), ends, again
 
 
-def profile_chunk_pass(cfg, one, width, pos0):
-    """One chunk pass (`one`): its wall time (host clock, 5 passes), the
+def profile_chunk_pass(cfg, one, width, pos0, what="chunk"):
+    """One chunk pass (`one`; `what`: "verify" for a speculative verify
+    pass on the same stack): its wall time (host clock, 5 passes), the
     device's busy time and events a pass (torch.profiler, 3 passes), and
     the hand kernels it launches (counters)."""
     one()
@@ -2496,7 +2542,7 @@ def profile_chunk_pass(cfg, one, width, pos0):
     wall = (time.perf_counter() - t0) * 1e3 / 5
     dev_k = device_kernels(one, iters=3)
     busy = sum(ms for ms, _ in dev_k.values()) if dev_k else None
-    _, launches = drive(f"{cfg.name} one chunk pass", one,
+    _, launches = drive(f"{cfg.name} one {what} pass", one,
                         ("fused_matmul", "paged_chunk_partials"))
     prof = {"width": width, "pos0": pos0, "wall_ms": wall,
             "device_busy_ms": busy,
@@ -2504,7 +2550,7 @@ def profile_chunk_pass(cfg, one, width, pos0):
             "hand_launches": {k: n for k, n in launches.items() if n},
             "top": sorted(((k, ms, n) for k, (ms, n) in dev_k.items()),
                           key=lambda r: -r[1])[:6]}
-    log(f"  one chunk pass (width {width}, pos0 {pos0}): wall "
+    log(f"  one {what} pass (width {width}, pos0 {pos0}): wall "
         f"{wall:.2f} ms, device busy {_ms(busy)}"
         f"{f' ({busy / wall:.1%})' if busy else ''}, "
         f"{prof['device_events']} device events, hand-kernel launches "
@@ -2846,6 +2892,766 @@ def phase_chunk_prefix():
     out["chunk_partials_op"] = check_chunk_partials_op()
     out["seconds"] = time.perf_counter() - t_phase
     log(f"chunk / prefix phase: {out['seconds']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# 5c. speculative decoding
+# --------------------------------------------------------------------------
+
+SPEC_K = 4                      # draft tokens a chain round
+SPEC_TREE = (3, 3)              # the tree runs: depth k, branches
+SPEC_ALPHA = 0.1                # the mid-range draft's share of noise
+SPEC_TF_PROMPT = 200            # the teacher-forced verify's prompt ...
+SPEC_TF_CONT = 8                # ... and its known continuation
+NEAR_TIE_K = 2.0                # a divergence's margin, in bf16 floors
+
+
+def midrange_draft(cfg, params, alpha=SPEC_ALPHA, seed=1234):
+    """The tree gate's draft (the reference's construction,
+    tests/test_tree_spec.py, written out for the port): the target's
+    embedding, head, final norm and first DRAFT_LAYERS layers, mixed
+    (1 - alpha) with alpha of a draft init at another seed (in fp32, cast
+    back).  Its top-1 is wrong often enough to reject, while its
+    runners-up still carry the target's choice."""
+    from repro_torch.models import lm
+    from repro_torch.serving.spec import SpecConfig, resolve_draft
+    dcfg = resolve_draft(SpecConfig(draft="auto"), cfg)
+    other = lm.init_lm(dcfg, dtype=torch.bfloat16, device=DEVICE, seed=seed)
+    n = dcfg.n_layers
+
+    def cut(tree):
+        return {k: cut(v) if isinstance(v, dict) else v[:n]
+                for k, v in tree.items()}
+
+    def mix(a, b):
+        if isinstance(a, dict):
+            return {k: mix(a[k], b[k]) for k in a}
+        if isinstance(a, tuple):
+            return tuple(mix(x, y) for x, y in zip(a, b))
+        return ((1 - alpha) * a.float() + alpha * b.float()).to(a.dtype)
+    return mix({"embedding": params["embedding"],
+                "final_norm": params["final_norm"],
+                "segments": (cut(params["segments"][0]),)}, other)
+
+
+def draft_agreement(cfg, params, alphas=(0.0, SPEC_ALPHA), n=200):
+    """How near the mid-range construction is to the target at full
+    depth: one teacher-forced n-token sequence through the target and
+    through the draft at each alpha (whole-prompt prefill, kernel path,
+    bf16): the share of positions where the draft's top-1 is the target's
+    top-1 (what a chain can accept) and where the target's top-1 is among
+    the draft's top 3 (what a width-3 tree can)."""
+    from repro_torch.core.precision import BF16
+    from repro_torch.serving.spec import SpecConfig, resolve_draft
+    rng = np.random.default_rng(47)
+    seq = rng.integers(0, cfg.vocab, n, dtype=np.int32)
+    ends = list(range(n))
+    want = prefill_logits(cfg, params, seq, ends, mode="auto",
+                          policy=BF16).argmax(-1)
+    dcfg = resolve_draft(SpecConfig(draft="auto"), cfg)
+    out = {}
+    for alpha in alphas:
+        z = prefill_logits(dcfg, midrange_draft(cfg, params, alpha), seq,
+                           ends, mode="auto", policy=BF16)
+        top1 = float((z.argmax(-1) == want).float().mean())
+        top3 = float((torch.topk(z, 3, dim=-1).indices == want[:, None])
+                     .any(-1).float().mean())
+        out[alpha] = {"top1": top1, "top3": top3}
+        log(f"  [{cfg.name} mid-range draft, alpha {alpha}] over {n} "
+            f"teacher-forced positions: draft top-1 = target top-1 at "
+            f"{top1:.3f}, target top-1 in the draft's top 3 at {top3:.3f}")
+    return out
+
+
+def verify_logits(cfg, params, prompt, chunk, *, mode, policy, tree=None,
+                  rows=4, max_seq=512, block_size=16):
+    """Logits [C, vocab] fp32 of one teacher-forced verify pass: `prompt`
+    prefilled into the pools of `rows` identical slots (so the pass's
+    GEMMs run at M = rows x C, as an engine's do), then `chunk` (C tokens,
+    or a tree's nodes with `tree` = (depth [C], anc [C, C])) through the
+    chunk stack at pos0 = len(prompt), the head at every position of row
+    0."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.serving.kv_cache import prefill_scatter
+    dev = torch.device(DEVICE)
+    MB = -(-max_seq // block_size)
+    layout = steps.make_paged_layout(cfg, max_seq, rows * MB, block_size)
+    table = torch.arange(rows * MB, dtype=torch.int32,
+                         device=dev).reshape(rows, MB)
+    n, C = len(prompt), len(chunk)
+    with ops.kernel_mode(mode), torch.no_grad():
+        caches = steps.cache_layout(cfg, layout, batch_size=rows,
+                                    policy=policy, device=dev)
+        tok = torch.tensor(np.tile(prompt, (rows, 1)), device=dev)
+        x = lm._embed_sequence(params, tok, policy=policy)
+        _, group = lm._run_segments_prefill(
+            params, x, cfg=cfg, policy=policy, max_seq=max_seq, fused=True,
+            compact_kv=True)
+        prefill_scatter(caches, group, torch.arange(rows, device=dev), table,
+                        block_size=block_size,
+                        paged_segments=layout.segments)
+        del group
+        kw = {}
+        if tree is not None:
+            depth, anc = tree
+            kw = dict(rope_pos=n + torch.tensor(np.tile(depth, (rows, 1)),
+                                                device=dev),
+                      tree_mask=torch.tensor(np.tile(anc, (rows, 1, 1)),
+                                             device=dev))
+        xc, _, _ = lm._run_chunk_stack(
+            params, torch.tensor(np.tile(chunk, (rows, 1)), device=dev),
+            torch.full((rows,), n, device=dev),
+            torch.full((rows,), C, device=dev), caches, table, cfg=cfg,
+            policy=policy, paged_segments=layout.segments, **kw)
+        return _head(params, cfg, xc[0], fused=True, policy=policy)
+
+
+def spec_teacher_forced(cfg, params):
+    """A SPEC_TF_PROMPT-token prompt and SPEC_TF_CONT known continuation
+    tokens: `forward_verify`'s stack over a k + 1 = 5 chunk at pos0 =
+    SPEC_TF_PROMPT on the kernel path, its logits at each position held to
+    (a) five eager decode steps on the kernel path (`decode_logits`) and
+    (b) the plain (`ref`) verify pass in bf16, both by the floor-scaled
+    gate (k = 2 of plain bf16 vs plain fp32, worst position) and by
+    `flip_rule` (argmax flips against plain fp32, with plain bf16's own as
+    the control); then the tree pass on a width-3 tree whose chain is the
+    continuation: its chain nodes' logits bit-equal to the chain pass's,
+    or within the same gate."""
+    from repro_torch.core.precision import BF16, FP32
+    from repro_torch.serving.spec import build_tree
+    rng = np.random.default_rng(41)
+    seq = rng.integers(0, cfg.vocab, SPEC_TF_PROMPT + SPEC_TF_CONT,
+                       dtype=np.int32)
+    prompt, C = seq[:SPEC_TF_PROMPT], SPEC_K + 1
+    chunk = seq[SPEC_TF_PROMPT:SPEC_TF_PROMPT + C]
+    name = f"{cfg.name} verify, pos0 {SPEC_TF_PROMPT}"
+    z_v, launches = drive(f"{name} kernel path",
+                          lambda: verify_logits(cfg, params, prompt, chunk,
+                                                mode="auto", policy=BF16),
+                          ("fused_matmul", "paged_chunk_partials"))
+    z_ref = verify_logits(cfg, params, prompt, chunk, mode="ref",
+                          policy=BF16)
+    z_32 = verify_logits(cfg, params, prompt, chunk, mode="ref", policy=FP32)
+    z_dec = decode_logits(cfg, params, seq[:SPEC_TF_PROMPT + C],
+                          SPEC_TF_PROMPT, mode="auto", fused=True,
+                          policy=BF16, max_seq=512)
+    gaps = [_gap(z_ref[i:i + 1], z_32[i:i + 1]) for i in range(C)]
+    floor = (max(g[0] for g in gaps), max(g[1] for g in gaps))
+    out = {"floor": {"rel": floor[0], "cosine": float(np.cos(floor[1]))},
+           "launches": launches}
+    for ref_name, want in (("eager decode steps", z_dec),
+                           ("plain bf16 verify", z_ref)):
+        worst = {"rel": 0.0, "cosine": 1.0}
+        for i in range(C):
+            g = _logit_gate(f"{name} position {i} vs {ref_name}",
+                            z_v[i:i + 1], want[i:i + 1], floor, 2.0,
+                            quiet=True)
+            worst = {"rel": max(worst["rel"], g["rel"]),
+                     "cosine": min(worst["cosine"], g["cosine"]),
+                     "tol": g["tol"], "cos_min": g["cos_min"]}
+        log(f"  teacher-forced {name}: {C} positions vs {ref_name}: worst "
+            f"rel {worst['rel']:.2e} (tol {worst['tol']:.2e}), cosine "
+            f"{worst['cosine']:.6f} (min {worst['cos_min']:.6f})")
+        out[ref_name] = worst
+    flips = flip_rule(z_v, z_32, z_ref)
+    log(f"  {name}: argmax flips vs plain fp32 {flips['flips']}/{C}, plain "
+        f"bf16's {flips['noise_flips']}/{C}: "
+        f"{'pass' if flips['ok'] else 'FAIL'}")
+    if not flips["ok"]:
+        raise AssertionError(f"{name}: flip rule {flips}")
+    out["flips"] = flips
+    # the tree: chain = the continuation, two random siblings a depth
+    levels = [[int(chunk[d])] + [int(t) for t in rng.integers(
+        0, cfg.vocab, 2)] for d in range(1, C)]
+    tree = build_tree(int(chunk[0]), levels)
+    z_t, _ = drive(f"{name} tree kernel path",
+                   lambda: verify_logits(cfg, params, prompt, tree.tokens,
+                                         mode="auto", policy=BF16,
+                                         tree=(tree.depth, tree.anc)),
+                   ("fused_matmul", "paged_chunk_partials"))
+    chain = np.flatnonzero(tree.chain)
+    bit_equal = bool(torch.equal(z_t[chain], z_v))
+    worst = {"rel": 0.0, "cosine": 1.0}
+    for i, node in enumerate(chain):
+        g = _logit_gate(f"{name} tree node {node} vs chain position {i}",
+                        z_t[node:node + 1], z_v[i:i + 1], floor, 2.0,
+                        quiet=True)
+        worst = {"rel": max(worst["rel"], g["rel"]),
+                 "cosine": min(worst["cosine"], g["cosine"])}
+    log(f"  teacher-forced {name}: width-3 tree ({tree.n_nodes} nodes) at "
+        f"its chain nodes {chain.tolist()} vs the chain pass: bit-equal "
+        f"{bit_equal}, worst rel {worst['rel']:.2e}, cosine "
+        f"{worst['cosine']:.6f}")
+    out["tree"] = {"nodes": tree.n_nodes, "bit_equal": bit_equal, **worst}
+    return out
+
+
+def check_sample_topn():
+    """`sample_topn` on the card against the CPU on the same logits:
+    integer-valued x and unembedding (every logit exact in both), so the
+    greedy rows hold exact ties (row 0's top value five ways), at GPT-J's
+    vocabulary; rows greedy, sampled top-k 40, sampled top-k 2 (fewer kept
+    ids than n) and sampled full vocabulary.  Ids identical."""
+    from repro_torch.configs import GPT_J
+    from repro_torch.core.embedding import sample_topn
+    from repro_torch.core.precision import FP32
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(43)
+    E, V, n = 256, GPT_J.padded_vocab, 4
+    x = rng.integers(-2, 3, (5, E)).astype(np.float32)
+    unemb = rng.integers(-1, 2, (E, V)).astype(np.float32)
+    unemb[:, 7] = np.sign(x[0])
+    unemb[:, 40:44] = unemb[:, 7:8]
+    lane = {"temperature": np.array([0, 0, 0.8, 1.3, 0.7], np.float32),
+            "top_k": np.array([0, 5, 40, 2, 0], np.int32),
+            "seed": np.array([3, 4, 5, 6, 7], np.int32),
+            "step": np.array([9, 10, 11, 12, 13], np.int32)}
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        with ops.kernel_mode("ref"), torch.no_grad():
+            got[dev] = [t.cpu() for t in sample_topn(
+                torch.tensor(x, device=dev), torch.tensor(unemb, device=dev),
+                {k: torch.tensor(v, device=dev) for k, v in lane.items()},
+                n, cfg=GPT_J, policy=FP32)]
+    same = all(torch.equal(a, b) for a, b in zip(got[DEVICE], got["cpu"]))
+    ties = got[DEVICE][1][0].tolist()
+    log(f"  sample_topn card vs CPU (exact ties in row 0: {ties}): ids "
+        f"identical {same}")
+    if not same or ties != [7, 40, 41, 42]:
+        raise AssertionError(f"sample_topn differs: {got}")
+    return {"identical": same, "tied_row": ties}
+
+
+def check_spec_counts(eng, launches, by, *, replays, verify_passes,
+                      draft_prefills):
+    """A spec engine's exact launches: the target's prefill passes and the
+    draft's (flash once an attention layer a pass, the layers' GEMMs on
+    wgmma, the head streaming at M <= 4); each verify pass the chunk
+    partials once a target layer and every GEMM, the head included, at
+    M = B x C on the template the planner takes for it; each draft step
+    one replay of the draft's captured graph: the dense decode kernel once
+    a draft layer, its GEMMs and head streaming; and no paged decode
+    launch at all (a spec engine never runs `decode()`)."""
+    from repro_torch.configs.base import ATTN_KINDS
+    from repro_torch.kernels.matmul import gemm_plan
+    r = eng.runner
+    st = eng.stats()
+    cfg, dcfg = r.cfg, r.draft_cfg
+    L = sum(c for k, c in cfg.schedule if k in ATTN_KINDS)
+    Ld = sum(c for k, c in dcfg.schedule if k in ATTN_KINDS)
+    P, Pd, V, D = st.prefill_batches, draft_prefills, verify_passes, replays
+    want = {"decode_attention": Ld * D, "paged_decode_attention": 0,
+            "paged_decode_partials": 0, "paged_decode_merge": 0,
+            "flash_attention": L * P + Ld * Pd,
+            "paged_chunk_partials": L * V,
+            "rmsnorm": 0, "layernorm": 0}
+    got = {k: launches[k] for k in want}
+    pl, pg = gemms_per_pass(cfg)
+    dpl, dpg = gemms_per_pass(dcfg)
+    step = r.verify_step or r.tree_verify_step
+    M = r.B * step.aux["num_tokens"]
+    vt = gemm_plan(M, cfg.d_model, cfg.padded_vocab).template
+    forms = {"fused_matmul": {"stream": P + Pd + D * (dpl + 1),
+                              "wgmma": P * pl + Pd * dpl},
+             "fused_matmul_swiglu": {"stream": D * dpg,
+                                     "wgmma": (P + V) * pg + Pd * dpg}}
+    forms["fused_matmul"][vt] += V * (pl + 1)
+    for f in forms.values():
+        for t in ("fma32", "stream_int8", "wgmma_int8"):
+            f.setdefault(t, 0)
+    want.update(forms)
+    got.update({k: by[k] for k in GEMM_WRAPPERS})
+    log(f"  [{cfg.name} spec] {P} target and {Pd} draft prefill passes, "
+        f"{V} verify passes (M = {M}: {vt}), {D} draft replays: launches "
+        f"{got}, expected {want}")
+    if got != want:
+        raise AssertionError(f"{cfg.name} spec: launches {got} != {want}")
+    return want
+
+
+def check_draft_graph_vs_eager(eng):
+    """The draft's captured step, replayed at the runner's state (its
+    slots' draft positions, clamped inside the cache), against an eager
+    `forward_decode` (`forward_decode_topk` for a tree draft) on clones of
+    the draft's caches: tokens (and runners-up) identical, every cache
+    leaf bit-equal.  The caches are restored afterwards."""
+    from repro_torch.models import lm
+    from repro_torch.serving.sampling import device_lane
+    r = eng.runner
+    bundle = r.draft_topk_step or r.draft_decode_step
+    step = bundle.fn
+    if step.graph is None:
+        raise AssertionError(f"{r.cfg.name}: the draft step is not captured")
+    dev = torch.device(DEVICE)
+    pos = np.array([min(ds.pos, r.max_seq - 1) if ds else 0
+                    for ds in r.draft_states], np.int32)
+    tok = r.tokens.copy()
+    saved = _clone_caches(r.draft_caches)
+    eager = _clone_caches(r.draft_caches)
+    kw = dict(cfg=r.draft_cfg, policy=r.policy,
+              block_tables=torch.zeros((r.B, 0), dtype=torch.int32,
+                                       device=dev),
+              lane=device_lane(r.lane, dev), fused=r.fuse_epilogues,
+              paged_segments=r.draft_layout.segments)
+    with torch.no_grad():
+        res = [t.clone() for t in step(tok, pos, None, r.lane)[:-1]]
+        args = (r.draft_params, torch.tensor(tok, device=dev),
+                torch.tensor(pos, device=dev), eager)
+        if r.draft_topk_step is not None:
+            t_e, alts_e, _ = lm.forward_decode_topk(*args,
+                                                    n=r.tree_branches, **kw)
+            want = [t_e, alts_e]
+        else:
+            t_e, _ = lm.forward_decode(*args, **kw)
+            want = [t_e]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b.to(torch.int32)) for a, b in zip(res, want))
+    diffs = [f"segment {i} {k}"
+             for i, (sg, se) in enumerate(zip(r.draft_caches, eager))
+             for k in sg if not torch.equal(sg[k], se[k])]
+    for seg, seg_s in zip(r.draft_caches, saved):
+        for k in seg:
+            seg[k].copy_(seg_s[k])
+    del saved, eager
+    log(f"  [{r.cfg.name} draft {r.draft_cfg.name}] captured draft step vs "
+        f"eager at draft positions {pos.tolist()}: tokens"
+        f"{' and runners-up' if len(res) > 2 else ''} identical {same}, "
+        f"cache leaves differing {diffs or 'none'}")
+    if not same or diffs:
+        raise AssertionError(f"{r.cfg.name}: the draft replay differs from "
+                             f"the eager draft step")
+    return {"identical": same, "leaves_differing": diffs}
+
+
+def near_ties(cfg, params, reqs, plain, got, label, *, kv_int8=False):
+    """Each request whose spec tokens differ from the plain run's: at the
+    first output index i where they differ, the logits of prompt + the
+    plain tokens before i (whole-prompt prefill, kernel path, bf16) must
+    hold the two tokens within NEAR_TIE_K floors of each other, the floor
+    being the largest |dz| of plain bf16 against plain fp32 there (with
+    int8 KV, or the int8-KV decode path against the bf16-KV one,
+    teacher-forced, if that is larger); a sampled request compares its
+    scores (z / T + its Gumbel noise there, top-k kept), times T, or, the
+    other near tie of a sampled row, has one of the two tokens' logits
+    within NEAR_TIE_K floors of its top-k threshold (the k-th largest
+    logit: which ids the mask keeps is then a rounding matter).  Every
+    divergence, its kind and its margin are reported; any other fails the
+    run."""
+    from repro_torch.core.embedding import _lane_scores
+    from repro_torch.core.precision import BF16, FP32
+    rows = []
+    for r in reqs:
+        a, b = plain[r.uid], got[r.uid]
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            if len(a) != len(b):
+                raise AssertionError(f"{label}: request {r.uid} lengths "
+                                     f"{len(a)} vs {len(b)}")
+            continue
+        seq = np.concatenate([np.asarray(r.prompt, np.int32),
+                              np.asarray(a[:i], np.int32)])
+        end = [len(seq) - 1]
+        z = prefill_logits(cfg, params, seq, end, mode="auto", policy=BF16)
+        zr = prefill_logits(cfg, params, seq, end, mode="ref", policy=BF16)
+        z32 = prefill_logits(cfg, params, seq, end, mode="ref", policy=FP32)
+        floor = float((zr - z32).abs().max())
+        if kv_int8:
+            n0 = len(r.prompt)
+            z8, z16 = (decode_logits(cfg, params, seq, n0, mode="auto",
+                                     fused=True, policy=BF16, max_seq=512,
+                                     kv_dtype=kv)[-1:]
+                       for kv in ("int8", None))
+            floor = max(floor, float((z8 - z16).abs().max()))
+        sp = r.sampling
+        t = sp.temperature if sp.temperature > 0 else 1.0
+        if sp.temperature > 0:
+            dev = z.device
+            lane = {"temperature": torch.tensor([sp.temperature], device=dev),
+                    "top_k": torch.tensor([sp.top_k], device=dev),
+                    "seed": torch.tensor([sp.seed], device=dev),
+                    "step": torch.tensor([len(seq)], device=dev)}
+            pad = torch.full((1, cfg.padded_vocab - cfg.vocab), -1e30,
+                             device=dev)
+            s = _lane_scores(torch.cat([z, pad], 1), lane)[0]
+        else:
+            s = z[0]
+        margin = float(abs(s[a[i]] - s[b[i]])) * t
+        kind = "scores" if sp.temperature > 0 else "logits"
+        ok = margin <= NEAR_TIE_K * floor
+        if not ok and sp.temperature > 0 and sp.top_k > 0:
+            kth = torch.topk(z[0], sp.top_k).values[-1]
+            edge = min(float(abs(z[0, a[i]] - kth)),
+                       float(abs(z[0, b[i]] - kth)))
+            if edge <= NEAR_TIE_K * floor:
+                ok, margin, kind = True, edge, "top-k threshold"
+        rows.append({"uid": r.uid, "index": i, "plain": int(a[i]),
+                     "spec": int(b[i]), "margin": margin, "kind": kind,
+                     "floor": floor, "sampled": sp.temperature > 0,
+                     "near_tie": ok})
+        log(f"  [{label}] request {r.uid} first differs at output {i}: "
+            f"plain {a[i]} vs spec {b[i]}, margin {margin:.4f} ({kind}), "
+            f"bf16 floor {floor:.4f}: "
+            f"{'near tie' if ok else 'NOT a near tie'}")
+        if not ok:
+            raise AssertionError(f"{label}: request {r.uid} diverges at "
+                                 f"output {i} with margin {margin} > "
+                                 f"{NEAR_TIE_K} x {floor}")
+    log(f"  [{label}] {len(reqs) - len(rows)} of {len(reqs)} requests "
+        f"token-identical to plain decode, {len(rows)} diverging at a near "
+        f"tie")
+    return rows
+
+
+def _spec_numbers(st, wall):
+    return {"acceptance_rate": st.spec_acceptance_rate,
+            "tokens_per_target_step": st.spec_tokens_per_step,
+            "verify_positions": st.verify_positions,
+            "spec_rounds": st.spec_rounds,
+            "draft_p50_ms": st.draft_time_ms_p50,
+            "draft_p95_ms": st.draft_time_ms_p95,
+            "branch_utilization": st.spec_branch_utilization,
+            "branch_hits": st.spec_branch_hits,
+            "tree_nodes": st.spec_tree_nodes,
+            "verify_p50_ms": st.decode_step_p50_ms,
+            "ar_tok_s": st.ar_tok_s, "ar_tokens": st.ar_tokens,
+            "draft_time_s": st.spec_draft_time_s,
+            "wall_s": wall, "tokens_per_wall_s": st.ar_tokens / wall}
+
+
+def spec_engine_run(label, cfg, params, plain, *, spec, draft_params=None,
+                    kv_dtype=None, mid_flight=False):
+    """One spec engine over SERVE_LENGTHS (32 new tokens, two requests
+    sampled): served, drained, exact launches (`check_spec_counts`), each
+    request against the plain run (`near_ties`), the round statistics;
+    with `mid_flight`, then a second trace stepped until every slot
+    decodes, where the draft's replay is held to its eager step and one
+    verify pass and one draft step are profiled."""
+    from repro_torch.core.precision import BF16
+    from repro_torch.serving import InferenceEngine
+    from repro_torch.serving import runner as runner_mod
+    torch.cuda.reset_peak_memory_stats()
+    eng = InferenceEngine(cfg, params, batch_size=4, max_seq=512,
+                          block_size=16, policy=BF16, device=DEVICE,
+                          spec=spec, draft_params=draft_params,
+                          kv_dtype=kv_dtype)
+    r = eng.runner
+    bundle = r.draft_topk_step or r.draft_decode_step
+    if not bundle.aux["captured"]:
+        raise AssertionError(f"{label}: the draft step is not captured")
+    reqs = _serve_requests(cfg)
+    for q in reqs:
+        eng.submit(q)
+    accepts = []
+    accept_length = runner_mod.accept_length
+
+    def spy(proposed, target):
+        j = accept_length(proposed, target)
+        accepts.append((j, len(proposed)))
+        return j
+    runner_mod.accept_length = spy
+    replays0 = bundle.fn.replays
+    step = r.verify_step or r.tree_verify_step
+    verify0 = step.aux["calls"]
+    t0 = time.perf_counter()
+    try:
+        done, launches = drive(label, eng.run,
+                               ("fused_matmul", "flash_attention",
+                                "decode_attention", "paged_chunk_partials"))
+    finally:
+        runner_mod.accept_length = accept_length
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    _check_served(eng, done, len(reqs), 32, label)
+    counts = check_spec_counts(
+        eng, launches, TEMPLATE_LAUNCHES[label],
+        replays=bundle.fn.replays - replays0,
+        verify_passes=step.aux["calls"] - verify0,
+        draft_prefills=st.prefill_batches)
+    got = {q.uid: q.output for q in done}
+    ties = near_ties(cfg, params, reqs, plain["outputs"], got, label,
+                     kv_int8=kv_dtype == "int8")
+    nums = _spec_numbers(st, wall)
+    partial = sum(1 for j, k in accepts if 0 < j < k)
+    nums["partial_rounds"] = partial
+    nums["slot_rounds"] = len(accepts) or st.spec_slot_steps
+    out = {"numbers": nums, "stats": st.to_dict(), "counts": counts,
+           "launches": launches, "divergences": ties,
+           "tree_branches": r.tree_branches,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    pn = plain["numbers"]
+    log(f"  [{label}] acceptance {nums['acceptance_rate']:.3f}, "
+        f"{nums['tokens_per_target_step']:.2f} tokens a target pass a slot, "
+        f"{nums['verify_positions']} verify positions in "
+        f"{nums['spec_rounds']} rounds, draft p50 {nums['draft_p50_ms']:.2f}"
+        f" ms p95 {nums['draft_p95_ms']:.2f} ms a round, verify p50 "
+        f"{nums['verify_p50_ms']:.2f} ms, branch utilization "
+        f"{nums['branch_utilization']:.3f} ({nums['branch_hits']} hits), "
+        f"chain slot-rounds accepting 0 < j < k: {partial}; AR "
+        f"{nums['ar_tok_s']:.1f} tok/s (verify time only) vs plain "
+        f"{pn['ar_tok_s']:.1f}; decode wall {nums['tokens_per_wall_s']:.1f} "
+        f"tok/s (run {wall:.2f} s) vs plain {pn['tokens_per_wall_s']:.1f} "
+        f"({pn['wall_s']:.2f} s); peak {out['peak_memory_gb']:.2f} GB")
+    if mid_flight:
+        reqs2 = _serve_requests(cfg, (120, 150, 90, 200), seed=5, uid0=40)
+        for q in reqs2:
+            eng.submit(q)
+        for _ in range(200):
+            eng.step()
+            if len(r.decoding_slots()) == r.B:
+                break
+        else:
+            raise AssertionError(f"{label}: the slots never all decoded")
+        out["draft_graph_vs_eager"] = check_draft_graph_vs_eager(eng)
+        # one verify pass at the slots' state: it writes KV past each
+        # committed pos only, which no later pass reads before rewriting
+        B, C = r.B, step.aux["num_tokens"]
+        chunk = np.tile(r.tokens[:, None], (1, C)).astype(np.int32)
+        clen = np.full((B,), C, np.int32)
+        pos0 = r.pos.copy()
+        tree = ()
+        if step.fn.tree:
+            from repro_torch.serving.spec import build_tree
+            t = build_tree(0, [[0] * r.tree_branches] * spec.k)
+            tree = (np.tile(t.depth, (B, 1)), np.tile(t.anc, (B, 1, 1)))
+        one = lambda: step.fn(r.params, chunk, pos0, clen, *tree, r.caches,
+                              r.block_tables, r.lane)
+        out["verify_pass"] = profile_chunk_pass(cfg, one, B * C,
+                                                int(pos0.max()),
+                                                what="verify")
+        dpos = np.array([min(ds.pos, r.max_seq - 1) if ds else 0
+                         for ds in r.draft_states], np.int32)
+        dstep = lambda: bundle.fn(r.tokens, dpos, None, r.lane)
+        dstep()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(20):
+            dstep()[0].cpu()
+        d_ms = (time.perf_counter() - t1) * 1e3 / 20
+        dk = device_kernels(dstep, iters=5)
+        busy = sum(ms for ms, _ in dk.values()) if dk else None
+        out["draft_step"] = {"wall_ms": d_ms, "device_busy_ms": busy,
+                             "device_events": sum(n for _, n in dk.values())}
+        log(f"  [{label}] one draft step (graph replay, host copy and "
+            f"token read): wall {d_ms:.3f} ms, device busy {_ms(busy)}, "
+            f"{out['draft_step']['device_events']} device events")
+        eng.run()
+        _check_served(eng, eng.completed[-4:], 4, 32, f"{label} mid-flight")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def plain_engine_run(label, cfg, params, *, kv_dtype=None):
+    """The same trace without speculation: the outputs and numbers the
+    spec runs are held to."""
+    from repro_torch.core.precision import BF16
+    from repro_torch.serving import InferenceEngine
+    torch.cuda.reset_peak_memory_stats()
+    eng = InferenceEngine(cfg, params, batch_size=4, max_seq=512,
+                          block_size=16, policy=BF16, device=DEVICE,
+                          kv_dtype=kv_dtype)
+    reqs = _serve_requests(cfg)
+    for q in reqs:
+        eng.submit(q)
+    t0 = time.perf_counter()
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    _check_served(eng, done, len(reqs), 32, label)
+    st = eng.stats()
+    nums = {"ar_tok_s": st.ar_tok_s, "ar_tokens": st.ar_tokens,
+            "decode_step_p50_ms": st.decode_step_p50_ms, "wall_s": wall,
+            "tokens_per_wall_s": st.ar_tokens / wall,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  [{label}] AR {nums['ar_tok_s']:.1f} tok/s, decode step p50 "
+        f"{nums['decode_step_p50_ms']:.2f} ms, run {wall:.2f} s, peak "
+        f"{nums['peak_memory_gb']:.2f} GB")
+    out = {"numbers": nums, "outputs": {q.uid: q.output for q in done}}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def forced_sibling(cfg, params):
+    """Tree compaction on the card: GPT-J with draft="self", k 3, width 3.
+    Once every slot decodes, one round's first slot gets its depth-1
+    chain token replaced by a wrong one and its draft's own token moved to
+    the first sibling: the round must accept that sibling (a branch hit),
+    move its KV row onto the committed position with `row_copy`, and the
+    slot's next step (its decode stack at the committed pos, on clones of
+    the pools) must give the logits of a teacher-forced whole-prompt
+    prefill of the committed tokens, within the floor-scaled gate."""
+    from repro_torch.core.embedding import embed_token
+    from repro_torch.core.precision import BF16, FP32
+    from repro_torch.models import lm
+    from repro_torch.serving import InferenceEngine, SpecConfig
+    from repro_torch.serving import runner as runner_mod
+    eng = InferenceEngine(cfg, params, batch_size=4, max_seq=512,
+                          block_size=16, policy=BF16, device=DEVICE,
+                          spec=SpecConfig(draft="self", k=3, branches=3))
+    r = eng.runner
+    reqs = _serve_requests(cfg, (60, 90, 40, 120), seed=9, uid0=60)
+    for q in reqs:
+        q.max_new_tokens = 64
+        eng.submit(q)
+    for _ in range(50):
+        eng.step()
+        if len(r.decoding_slots()) == r.B:
+            break
+    else:
+        raise AssertionError("forced sibling: the slots never all decoded")
+    build_tree, row_copy = runner_mod.build_tree, runner_mod.row_copy
+    state = {"forced": None, "copies": []}
+
+    def forcing(pending, levels):
+        # the round's first tree is the first decoding slot's
+        if state["forced"] is None and levels:
+            chain = levels[0][0]
+            levels = [[(chain + 1) % cfg.vocab, chain] + levels[0][2:]] \
+                + levels[1:]
+            state["forced"] = chain
+        return build_tree(pending, levels)
+
+    def recording(caches, src_blk, src_off, dst_blk, dst_off, segments):
+        state["copies"].append((src_blk, src_off, dst_blk, dst_off))
+        return row_copy(caches, src_blk, src_off, dst_blk, dst_off,
+                        segments)
+    bs = r.layout.block_size
+    runner_mod.build_tree, runner_mod.row_copy = forcing, recording
+    try:
+        for attempt in range(8):
+            b = r.decoding_slots()[0]
+            task = r.slots[b]
+            n_out, pos0 = len(task.output), int(r.pos[b])
+            state["forced"], state["copies"] = None, []
+            eng.step()
+            committed = task.output[n_out:]
+            blocks = r._slot_blocks[b]
+            dst = (blocks[(pos0 + 1) // bs]
+                   if (pos0 + 1) // bs < len(blocks) else None,
+                   (pos0 + 1) % bs)
+            # the sibling was the target's choice: the round accepted it
+            # and moved its row (node 2, at pos0 + 2) onto pos0 + 1
+            if (len(committed) >= 2 and committed[0] == state["forced"]
+                    and any(c[2:] == dst for c in state["copies"])):
+                break
+        else:
+            raise AssertionError("forced sibling: no round accepted the "
+                                 "sibling")
+    finally:
+        runner_mod.build_tree, runner_mod.row_copy = build_tree, row_copy
+    if r.slots[b] is not task:
+        raise AssertionError("forced sibling: the slot retired")
+    log(f"  [forced sibling] slot {b}, attempt {attempt + 1}: chain token "
+        f"{state['forced']} moved to the first sibling; the round "
+        f"committed {committed} with row copies {state['copies']}")
+    dev = torch.device(DEVICE)
+    pools = _clone_caches(r.caches)
+    with torch.no_grad():
+        xd = embed_token(params["embedding"]["embed"],
+                         torch.tensor(r.tokens[b:b + 1], device=dev),
+                         policy=BF16)
+        xd, _ = lm._run_segments_decode(
+            params, xd, torch.tensor(r.pos[b:b + 1], device=dev), pools,
+            cfg=cfg, policy=BF16,
+            block_tables=torch.tensor(r.block_tables[b:b + 1], device=dev),
+            fused=True, paged_segments=r.layout.segments)
+        z_next = _head(params, cfg, xd, fused=True, policy=BF16)
+    del pools
+    seq = np.concatenate([np.asarray(task.prompt, np.int32),
+                          np.asarray(task.output, np.int32)])
+    end = [len(seq) - 1]
+    if len(seq) - 1 != int(r.pos[b]):
+        raise AssertionError("forced sibling: pos and committed tokens "
+                             "disagree")
+    z_pref = prefill_logits(cfg, params, seq, end, mode="auto", policy=BF16)
+    z_ref = prefill_logits(cfg, params, seq, end, mode="ref", policy=BF16)
+    z_32 = prefill_logits(cfg, params, seq, end, mode="ref", policy=FP32)
+    gate = _logit_gate("forced sibling: next step after compaction vs "
+                       "prefill of the committed tokens", z_next, z_pref,
+                       _gap(z_ref, z_32), 2.0)
+    eng.run()
+    _check_served(eng, eng.completed[-4:], 4, 64, "forced sibling")
+    del eng
+    torch.cuda.empty_cache()
+    return {"slot": b, "attempts": attempt + 1, "committed": committed,
+            "row_copies": state["copies"], "gate": gate}
+
+
+def phase_spec():
+    """Speculative decoding at full width and depth (batch 4, max_seq 512,
+    block 16, SERVE_LENGTHS, 32 new tokens, two requests sampled):
+      verify   the teacher-forced verify pass (`spec_teacher_forced`) and
+               `sample_topn` card vs CPU;
+      engines  GPT-J draft="self" k 4; GPT-J with the mid-range draft
+               (alpha SPEC_ALPHA) k 4, chain, then as a tree (k 3, width
+               3); phi4-mini with its mid-range draft k 4; GPT-J with int8
+               KV pools and width 3, which must fall back to the chain;
+               each beside the same trace without speculation: served,
+               drained, exact launches, near-tie divergences only, the
+               round numbers; the draft's replay held to its eager step,
+               one verify pass and one draft step profiled;
+      sibling  the forced-sibling compaction (`forced_sibling`).
+    Each engine is freed before the next; its peak memory is reported."""
+    from repro_torch.configs import GPT_J, PHI4_MINI
+    from repro_torch.models import lm
+    from repro_torch.serving import SpecConfig
+    t_phase = time.perf_counter()
+    out = {"alpha": SPEC_ALPHA, "k": SPEC_K}
+    params = lm.init_lm(GPT_J, dtype=torch.bfloat16, device=DEVICE, seed=0)
+    out["teacher_forced"] = spec_teacher_forced(GPT_J, params)
+    out["draft_agreement"] = draft_agreement(GPT_J, params)
+    out["sample_topn"] = check_sample_topn()
+    plain = plain_engine_run("gpt-j plain", GPT_J, params)
+    plain8 = plain_engine_run("gpt-j plain int8 KV", GPT_J, params,
+                              kv_dtype="int8")
+    mid = midrange_draft(GPT_J, params)
+    k_t, b_t = SPEC_TREE
+    runs = {
+        "gpt-j self": dict(spec=SpecConfig(draft="self", k=SPEC_K)),
+        "gpt-j mid-range chain": dict(spec=SpecConfig(draft="auto",
+                                                      k=SPEC_K),
+                                      draft_params=mid, mid_flight=True),
+        "gpt-j mid-range tree": dict(spec=SpecConfig(draft="auto", k=k_t,
+                                                     branches=b_t),
+                                     draft_params=mid, mid_flight=True),
+        "gpt-j int8 KV tree -> chain": dict(
+            spec=SpecConfig(draft="auto", k=SPEC_K, branches=b_t),
+            draft_params=mid, kv_dtype="int8")}
+    out["plain"] = {"gpt-j": plain["numbers"],
+                    "gpt-j int8 KV": plain8["numbers"]}
+    for label, kw in runs.items():
+        base = plain8 if kw.get("kv_dtype") else plain
+        out[label] = spec_engine_run(label, GPT_J, params, base, **kw)
+    if out["gpt-j int8 KV tree -> chain"]["tree_branches"] != 1:
+        raise AssertionError("int8 KV: the tree did not fall back to the "
+                             "chain")
+    chain, tree = out["gpt-j mid-range chain"], out["gpt-j mid-range tree"]
+    out["alpha_regime"] = {
+        "chain_partial_rounds": chain["numbers"]["partial_rounds"],
+        "tree_branch_hits": tree["numbers"]["branch_hits"]}
+    log(f"  mid-range draft alpha {SPEC_ALPHA}: chain slot-rounds with "
+        f"0 < j < {SPEC_K}: {chain['numbers']['partial_rounds']}, tree "
+        f"branch hits: {tree['numbers']['branch_hits']}; draft=\"self\": "
+        f"{out['gpt-j self']['numbers']['partial_rounds']} slot-rounds "
+        f"with 0 < j < {SPEC_K} (the forced-sibling check below holds the "
+        f"compaction either way)")
+    out["forced_sibling"] = forced_sibling(GPT_J, params)
+    del params, mid
+    torch.cuda.empty_cache()
+    p4 = lm.init_lm(PHI4_MINI, dtype=torch.bfloat16, device=DEVICE, seed=1)
+    plain4 = plain_engine_run("phi4-mini plain", PHI4_MINI, p4)
+    out["plain"]["phi4-mini"] = plain4["numbers"]
+    out["phi4-mini mid-range chain"] = spec_engine_run(
+        "phi4-mini mid-range chain", PHI4_MINI, p4, plain4,
+        spec=SpecConfig(draft="auto", k=SPEC_K),
+        draft_params=midrange_draft(PHI4_MINI, p4))
+    del p4
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"spec phase: {out['seconds']:.1f} s")
     return out
 
 
@@ -3409,6 +4215,7 @@ def main():
     report["serve_int8"] = phase_serve_int8(report["serve"])
     report["serve_cli"] = phase_serve_cli()
     report["chunk_prefix"] = phase_chunk_prefix()
+    report["spec"] = phase_spec()
     report["vit"] = phase_vit(info["nvidia_smi"])
     from repro_torch.configs import GEMMA3_27B, MAMBA2_2_7B
     report["witness"] = depth_witness(MAMBA2_2_7B, layers=8, seed=3)

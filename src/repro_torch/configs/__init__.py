@@ -2,8 +2,10 @@
 (`models.vit`) and decoder-only models,
 phi4-mini (SwiGLU, RMSNorm, GQA), hymba-1.5b (parallel attention + Mamba2
 heads), mamba2-2.7b (attention-free SSD) and gemma3-27b (5:1 sliding-window
-/ global attention, GELU MLP)."""
+/ global attention, GELU MLP), and the 2-layer speculative-decoding drafts
+of the decoder targets (`configs/drafts.py`: `<target>-draft`)."""
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.drafts import DRAFTS, make_draft
 from repro_torch.configs.gemma3_27b import CONFIG as GEMMA3_27B
 from repro_torch.configs.hymba_1_5b import CONFIG as HYMBA_1_5B
 from repro_torch.configs.mamba2_2_7b import CONFIG as MAMBA2_2_7B
@@ -14,6 +16,7 @@ from repro_torch.configs.phi4_mini_3_8b import CONFIG as PHI4_MINI
 REGISTRY = dict(PAPER_MODELS)
 for _cfg in (PHI4_MINI, HYMBA_1_5B, MAMBA2_2_7B, GEMMA3_27B):
     REGISTRY[_cfg.name] = _cfg
+REGISTRY.update(DRAFTS)
 
 
 def get_config(name: str) -> ModelConfig:
@@ -25,4 +28,4 @@ def get_config(name: str) -> ModelConfig:
 
 __all__ = ["ModelConfig", "VIT_B", "VIT_L", "VIT_H", "GPT_J", "GPT3_XL",
            "PHI4_MINI", "HYMBA_1_5B", "MAMBA2_2_7B", "GEMMA3_27B",
-           "PAPER_MODELS", "get_config"]
+           "PAPER_MODELS", "DRAFTS", "make_draft", "get_config"]

@@ -205,7 +205,8 @@ def _scatter_quantized(pool, scales, x_new, blk, off, fresh):
 
 
 def attn_chunk_paged(p, x, pos0, chunk_len, cache, block_tables, *, cfg,
-                     policy: Policy, norm=None, residual=None):
+                     policy: Policy, norm=None, residual=None,
+                     rope_pos=None, tree_mask=None):
     """One chunked-prefill piece against the block-paged KV pools.
 
     x: [B, C, E], C consecutive prompt tokens a row from absolute position
@@ -218,7 +219,15 @@ def attn_chunk_paged(p, x, pos0, chunk_len, cache, block_tables, *, cfg,
     `_scatter_quantized`), then the chunk's queries attend the pool, prefix
     and chunk, under a per-query causal mask (`ops.paged_chunk_partials`).
     The projections are the decode helpers on the flattened [B * C] rows.
-    -> (y [B, C, E], cache)."""
+    -> (y [B, C, E], cache).
+
+    Tree-speculative verify takes the same path with two overrides: the
+    chunk is a token tree whose node i is still written at pos0 + i, but
+    `rope_pos` [B, C] rotates q and k at each node's logical position
+    (pos0 + depth, shared by siblings), so the accepted path's KV is
+    rotated for where it is committed, and `tree_mask` [B, C, C] (the
+    ancestor matrix) replaces the in-chunk causal mask.  Both None: the
+    chunked-prefill path, unchanged."""
     B, C, E = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     k_pool, v_pool = cache["k"], cache["v"]
@@ -228,7 +237,9 @@ def attn_chunk_paged(p, x, pos0, chunk_len, cache, block_tables, *, cfg,
     pos0 = pos0.to(torch.int64)
     pos = pos0[:, None] + torch.arange(C, device=x.device)[None, :]
 
-    flat, pflat = x.reshape(B * C, E), pos.reshape(B * C)
+    flat = x.reshape(B * C, E)
+    pflat = (pos if rope_pos is None else rope_pos.to(torch.int64)).reshape(
+        B * C)
     q = _decode_q(p, flat, pflat, cfg=cfg, policy=policy,
                   norm=norm).reshape(B, C, H, hd)
     k_new, v_new = _decode_kv_new(p, flat, pflat, cfg=cfg, policy=policy,
@@ -254,7 +265,8 @@ def attn_chunk_paged(p, x, pos0, chunk_len, cache, block_tables, *, cfg,
                       block_tables, torch.full_like(block_tables, -1))
     o, m, l = ops.paged_chunk_partials(
         q.to(act_dtype(policy)), k_pool, v_pool, tab.to(torch.int32), pos,
-        length, k_scale=cache.get("ks"), v_scale=cache.get("vs"))
+        length, k_scale=cache.get("ks"), v_scale=cache.get("vs"),
+        tree_mask=tree_mask)
     merged = (o / torch.clamp(l, min=1e-30)[..., None]).reshape(B * C,
                                                                 H * hd)
     y = _decode_out_proj(p, merged, policy=policy,
@@ -325,9 +337,10 @@ def attn_decode(p, x, pos, cache, *, cfg, policy: Policy, window: int,
     pos - ((pos - s) mod W)); softmax does not depend on slot order, so that
     prefix is all the kernel needs.  Otherwise the cache is linear (pos <
     W): slot pos, and positions (pos - window, pos] attend.  As in the
-    reference, the cache's shape picks the branch; every dense cache the
-    port builds is a ring (`blocks._attn_decode` asserts it), and only the
-    tests reach the linear branch, which mirrors the reference's mask.
+    reference, the cache's shape picks the branch: the paged layout's
+    dense caches are rings, and the dense layout of a speculative draft
+    (`launch/steps.make_dense_layout`) gives every layer a linear cache
+    of max_seq rows, which each draft step reads through this branch.
     Returns (y [B, E], cache)."""
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim

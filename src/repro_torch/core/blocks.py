@@ -193,7 +193,8 @@ def block_full(kind: str, p, x, *, cfg, policy, fused: bool = True,
 
 
 def block_chunk(kind: str, p, x, pos0, chunk_len, cache, block_tables, *,
-                cfg, policy, fused: bool = True):
+                cfg, policy, fused: bool = True, rope_pos=None,
+                tree_mask=None):
     """One chunked-prefill piece through a block whose KV is paged.
 
     x: [B, C, E], C consecutive prompt tokens from absolute position `pos0`
@@ -202,13 +203,18 @@ def block_chunk(kind: str, p, x, pos0, chunk_len, cache, block_tables, *,
     lives in the pool, which carries the chunk state between engine
     steps); SSM, ring and bidirectional kinds raise.  The MLP runs the
     decode path on the flattened [B * C, E] rows; only attention needs the
-    chunk structure.  -> (x', cache)."""
+    chunk structure.  -> (x', cache).
+
+    `rope_pos` / `tree_mask` go to `attn_chunk_paged` for tree-speculative
+    verify (rotation at each node's depth, the ancestor mask); both None on
+    the chunked-prefill path."""
     _require_ported(kind)
     if kind not in ATTN_KINDS or kind in SSM_KINDS or kind in BIDIR_KINDS:
         raise ValueError(f"chunked prefill unsupported for kind {kind!r}")
     B, C, E = x.shape
     kv_in = {k: cache[k] for k in ("k", "v", "ks", "vs") if k in cache}
-    kw = dict(cfg=cfg, policy=policy)
+    kw = dict(cfg=cfg, policy=policy, rope_pos=rope_pos,
+              tree_mask=tree_mask)
     if fused:
         x, _ = attn.attn_chunk_paged(p["attn"], x, pos0, chunk_len, kv_in,
                                      block_tables,
@@ -231,16 +237,23 @@ def block_chunk(kind: str, p, x, pos0, chunk_len, cache, block_tables, *,
 
 def _attn_decode(p, x, pos, cache, *, kind, cfg, policy, paged,
                  block_tables, norm=None, residual=None):
-    """The layer's decode attention: the block pools when `paged`, else the
-    dense per-slot ring cache of `window` slots (`kind_paged`)."""
+    """The layer's decode attention: the block pools when `paged`, else a
+    dense per-slot cache, whose shape picks the branch as in the
+    reference: a ring of exactly `window` slots (a window layer of the
+    paged layout), or a linear cache of the layout's max_seq rows — any
+    row count for a full-context kind (the dense layout of a speculative
+    draft), fewer rows than the window for a window kind (a window that
+    spans the whole sequence).  A window kind's dense cache longer than
+    its window is neither, and raises."""
     if paged:
         return attn.attn_decode_paged(p, x, pos, cache, block_tables,
                                       cfg=cfg, policy=policy, norm=norm,
                                       residual=residual)
     window = kind_window(kind, cfg)
-    if cache["k"].shape[1] != window:
+    if window > 0 and cache["k"].shape[1] > window:
         raise ValueError(f"{kind}: a dense decode cache is a ring of "
-                         f"{window} slots, not {cache['k'].shape[1]}")
+                         f"{window} slots or a linear cache of fewer rows, "
+                         f"not {cache['k'].shape[1]}")
     return attn.attn_decode(p, x, pos, cache, cfg=cfg, policy=policy,
                             window=window, norm=norm, residual=residual)
 

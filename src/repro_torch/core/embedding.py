@@ -9,7 +9,8 @@ own draw — threefry keyed by fold_in(fold_in(key(seed), step), shard 0)
 over the padded vocabulary (`core/prng.py`), bit-equal uniforms — so one
 (seed, position) pair samples the same token in both packages, whatever
 the batch slot.  `_lane_scores(noise=)` takes the noise from the caller
-instead.
+instead.  `sample_topn` (the tree-speculation proposer) ranks the same
+score for the runners-up.
 """
 from __future__ import annotations
 
@@ -97,3 +98,27 @@ def _lane_scores(z, lane, *, noise=None):
                          torch.ones_like(t))
     masked = z.masked_fill(~keep, NEG_INF)
     return torch.where(sampled[:, None], masked / t_safe[:, None] + g, z)
+
+
+def sample_topn(x, unemb, lane, n: int, *, cfg, policy, norm=None):
+    """`sample_token` plus the score's runners-up: the tree-speculation
+    proposer.  x: [B, E] -> (tok [B], alts [B, n]) int32, alts[:, 0] ==
+    tok (bit for bit the `sample_token` choice) and alts[:, 1:] the next
+    best ids of the same `_lane_scores` score, value-descending with the
+    lowest id first on ties (the reference's top_k + lexsort order; a
+    stable sort of the negated score gives it, where `torch.topk` promises
+    no order for ties).  As in the reference, the chosen id is masked to
+    NEG_INF before the runners-up are ranked, so a row whose top-k
+    truncation keeps fewer than n ids pads with NEG_INF-scored ids.  No
+    host value reaches the device: the draft step that calls it is
+    captured."""
+    z = logits_local(x, unemb, cfg=cfg, policy=policy, norm=norm)
+    score = _lane_scores(z, lane)
+    tok = torch.argmax(score, dim=-1)
+    if n == 1:
+        return tok.to(torch.int32), tok.to(torch.int32)[:, None]
+    ids = torch.arange(score.shape[1], device=score.device)[None, :]
+    rest = score.masked_fill(ids == tok[:, None], NEG_INF)
+    order = torch.sort(-rest, dim=-1, stable=True).indices[:, :n - 1]
+    alts = torch.cat([tok[:, None], order], dim=1)
+    return tok.to(torch.int32), alts.to(torch.int32)

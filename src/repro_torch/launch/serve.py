@@ -16,14 +16,17 @@ Only what the port serves has a flag: the synchronous loop under the
 FCFS, priority or chunked-prefill policy (`--policy`, `--prefill-chunk`),
 the prefix cache (on by default, as in the reference: `--no-prefix-cache`
 turns it off, `--cache-blocks` caps its index), greedy and sampled
-decoding, the paged KV pool, the encode mode and int8 serving
+decoding, the paged KV pool, the encode mode, int8 serving
 (`--weight-dtype int8`: the dense GEMM weights quantized once per output
 channel; `--kv-dtype int8`: the paged KV pools quantized on write, a scale
-a block and kv head; the summary then adds a QUANT part).  A config that
-cannot chunk or cache (SSM state, ring caches) prefills whole prompts and
-the CLI prints why.  The reference's flags for unported features
-(speculation, the overlapped loop, the deadline policy, tracing and
-metrics export) do not exist here, and argparse refuses them.
+a block and kv head; the summary then adds a QUANT part) and speculative
+decoding (`--spec-draft self | auto | <config>-draft`, `--spec-k`, and
+`--spec-branches` > 1 for token trees; the summary adds a SPEC part and
+two spec lines follow it).  A config that cannot chunk or cache (SSM
+state, ring caches) prefills whole prompts and the CLI prints why.  The
+reference's flags for unported features (`--draft-checkpoint`, the
+overlapped loop, the deadline policy, tracing and metrics export) do not
+exist here, and argparse refuses them.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.models import lm
 from repro_torch.serving import (EncodeTask, InferenceEngine, Request,
-                                 SamplingParams, make_policy)
+                                 SamplingParams, SpecConfig, make_policy)
 
 
 def build_trace(cfg, args) -> list:
@@ -90,6 +93,15 @@ def parser() -> argparse.ArgumentParser:
                          "encoder-only pooled-embedding requests")
     ap.add_argument("--pooling", choices=("last", "mean"), default="last",
                     help="EncodeTask pooling (--task encode)")
+    ap.add_argument("--spec-draft", default="",
+                    help="speculative decoding draft: 'self', 'auto', or a "
+                         "registered draft config name (empty = off)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="speculation length: draft tokens proposed per "
+                         "verify step (--spec-draft)")
+    ap.add_argument("--spec-branches", type=int, default=1,
+                    help="token-tree width: candidates proposed per "
+                         "speculation depth (1 = single-chain rounds)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="KV pool block size (tokens)")
     ap.add_argument("--kv-pool-blocks", type=int, default=0,
@@ -132,6 +144,9 @@ def run(args):
         cfg = cfg.reduced()
     params = lm.init_lm(cfg, dtype=torch.bfloat16, device=args.device,
                         seed=args.seed)
+    spec = (SpecConfig(draft=args.spec_draft, k=args.spec_k,
+                       branches=args.spec_branches)
+            if args.spec_draft else None)
     engine = InferenceEngine(
         cfg, params, batch_size=args.batch, max_seq=args.max_seq,
         block_size=args.block_size,
@@ -140,7 +155,8 @@ def run(args):
                               cache_aware=args.prefix_cache),
         fuse_epilogues=not args.no_fuse, weight_dtype=args.weight_dtype,
         kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
-        cache_blocks=args.cache_blocks or None, device=args.device)
+        cache_blocks=args.cache_blocks or None, spec=spec,
+        device=args.device)
     if args.policy == "chunked" and not engine.runner.supports_chunked:
         print(f"note: {cfg.name} cannot chunk prefills "
               f"(recurrent/ring/cross-attn cache state) — "
@@ -171,6 +187,20 @@ def main(argv=None) -> int:
           f"({stats.prefill_compiles} prefill buckets compiled: "
           f"{sorted(stats.bucket_hits)})")
     print(stats.summary())
+    runner = engine.runner
+    if runner.spec is not None:
+        print(f"  spec: draft={runner.draft_cfg.name} k={runner.spec.k}"
+              f" | {stats.spec_acceptance_rate:.0%} of "
+              f"{stats.spec_proposed_tokens} proposals accepted, "
+              f"{stats.spec_tokens_per_step:.2f} tokens/target-step, "
+              f"draft p50 {stats.draft_time_ms_p50:.1f}ms p95 "
+              f"{stats.draft_time_ms_p95:.1f}ms")
+        if runner.tree_branches > 1:
+            print(f"  tree: b={runner.tree_branches} | "
+                  f"{stats.spec_tree_nodes} nodes verified, accepted-path "
+                  f"depth p50 {stats.spec_path_depth_p50:.1f} p95 "
+                  f"{stats.spec_path_depth_p95:.1f}, branch utilization "
+                  f"{stats.spec_branch_utilization:.0%}")
     for r in sorted(done, key=lambda r: r.uid)[:3]:
         if isinstance(r, EncodeTask):
             e = np.asarray(r.embedding)

@@ -19,10 +19,21 @@ caches donated.  Here:
                      one chunked-prefill piece of C tokens a row into the
                      decode caches in place, eager (`chunk_support_reason`
                      says which configs can chunk).
+  make_decode_step on the dense layout, and make_draft_topk_step
+                     a speculative draft's decode step (the second with the
+                     runners-up of its choice, `lm.forward_decode_topk`),
+                     captured like the target's.
+  make_verify_step, make_tree_verify_step
+                     one speculative verify pass of C tokens (or tree
+                     nodes) a row into the target's pools in place, eager;
+                     the host operands reach the device as one copy of one
+                     buffer, as the decode step's do.
 
 `PagedLayout`, `make_paged_layout` and `cache_layout` give the paged
 layout: block pools for full-context attention, dense ring caches for
 window layers shorter than max_seq, per-slot SSM state.
+`make_dense_layout` gives the reference's `paged=None` layout, a linear
+cache of max_seq rows a slot for every full-context layer: a draft's.
 """
 from __future__ import annotations
 
@@ -51,6 +62,7 @@ class PagedLayout:
     block_size: int
     max_blocks: int                     # table width: ceil(max_seq / bs)
     segments: tuple                     # per-segment bool: k/v are pools
+    max_seq: int = 0                    # rows of a linear dense cache
 
     @property
     def any_paged(self) -> bool:
@@ -63,17 +75,30 @@ def make_paged_layout(cfg, max_seq: int, num_blocks: int,
         num_blocks=num_blocks, block_size=block_size,
         max_blocks=-(-max_seq // block_size),
         segments=tuple(blocks.kind_paged(kind, cfg, max_seq)
-                       for kind, _ in cfg.schedule))
+                       for kind, _ in cfg.schedule),
+        max_seq=max_seq)
+
+
+def make_dense_layout(cfg, max_seq: int) -> PagedLayout:
+    """The reference's `paged=None` layout: no pool and no table (zero
+    blocks, zero table entries); every attention layer keeps a dense cache
+    a slot, linear [B, max_seq, KV, hd] for a full-context layer (a ring
+    for a window shorter than max_seq).  A speculative draft's caches."""
+    return PagedLayout(num_blocks=0, block_size=1, max_blocks=0,
+                       segments=(False,) * len(cfg.schedule),
+                       max_seq=max_seq)
 
 
 def cache_layout(cfg, layout: PagedLayout, *, batch_size: int, policy,
                  device, kv_dtype=None):
     """Zeroed decode caches, one dict per segment: paged attention kinds
     get {"k", "v"} block pools; window layers shorter than max_seq get
-    dense per-slot ring caches "k" / "v" [count, B, window, KV, hd]; both
-    in the activation dtype.  `kv_dtype="int8"`: the pools are int8, with
-    fp32 scales "ks" / "vs" [count, NB + 1, KV] (sink row included); ring
-    caches keep the activation dtype, as the reference's dense layouts do.
+    dense per-slot ring caches "k" / "v" [count, B, window, KV, hd], and
+    full-context layers of the dense layout linear ones [count, B,
+    max_seq, KV, hd]; all in the activation dtype.  `kv_dtype="int8"`:
+    the pools are int8, with fp32 scales "ks" / "vs" [count, NB + 1, KV]
+    (sink row included); dense caches keep the activation dtype, as the
+    reference's dense layouts do.
     SSM kinds get per-slot dense state, "h" [count, B, Hp, P, N] fp32 and
     the conv tails "cx" [count, B, cw - 1, d_inner] / "cbc" [count, B,
     cw - 1, 2N] in the activation dtype."""
@@ -90,7 +115,9 @@ def cache_layout(cfg, layout: PagedLayout, *, batch_size: int, policy,
         d = {}
         if kind in ATTN_KINDS:
             rows = ((layout.num_blocks + 1, layout.block_size) if paged
-                    else (B, blocks.kind_window(kind, cfg)))
+                    else (B, blocks.kind_cache_len(kind, cfg, layout.max_seq)
+                          if layout.max_seq
+                          else blocks.kind_window(kind, cfg)))
             shape = (count, *rows, KV, hd)
             int8 = paged and kv_dtype == "int8"
             d["k"] = torch.zeros(shape, dtype=torch.int8 if int8 else ad,
@@ -271,7 +298,8 @@ class DecodeStep:
         h[3 * B:4 * B] = lane["seed"]         # int32, as the reference's
         h[4 * B:5 * B] = np.asarray(lane["temperature"],
                                     np.float32).view(np.int32)
-        h[5 * B:] = np.asarray(tables).reshape(-1)
+        if tables is not None:          # the dense layout has no table
+            h[5 * B:] = np.asarray(tables).reshape(-1)
         self.inp.copy_(self._host)
 
     @torch.no_grad()
@@ -314,20 +342,63 @@ class DecodeStep:
                 w.launches_by[t] = m
         self.graph = graph
 
-    def __call__(self, token, pos, tables, lane):
-        """-> (next_token [B], pos + 1 [B], caches): the static outputs."""
+    def run(self, token, pos, tables, lane):
+        """Load the inputs and run the step: replay the graph when there is
+        one (adding the launches recorded at capture), else the body."""
         self.load(token, pos, tables, lane)
         if self.graph is None:
             self.body()
-        else:
-            self.graph.replay()
-            self.replays += 1
-            counters = ops.launch_counters()
-            for k, (n, by) in self.launches.items():
-                counters[k].launches += n
-                for t, m in by.items():
-                    counters[k].launches_by[t] += m
+            return
+        self.graph.replay()
+        self.replays += 1
+        counters = ops.launch_counters()
+        for k, (n, by) in self.launches.items():
+            counters[k].launches += n
+            for t, m in by.items():
+                counters[k].launches_by[t] += m
+
+    def __call__(self, token, pos, tables, lane):
+        """-> (next_token [B], pos + 1 [B], caches): the static outputs."""
+        self.run(token, pos, tables, lane)
         return self.out[0], self.out[1], self.caches
+
+
+class TopkDecodeStep(DecodeStep):
+    """The tree draft's decode step: `DecodeStep` running
+    `lm.forward_decode_topk`, with one more static output, alts [B, n]."""
+
+    def __init__(self, *args, branches, **kw):
+        super().__init__(*args, **kw)
+        self.branches = branches
+        self.alts = torch.zeros((self.B, branches), dtype=torch.int32,
+                                device=self.inp.device)
+
+    @torch.no_grad()
+    def body(self):
+        tok, alts, _ = lm.forward_decode_topk(
+            self.params, self.token, self.pos, self.caches,
+            n=self.branches, cfg=self.cfg, policy=self.policy,
+            lane=self.lane, block_tables=self.tables, fused=self.fused,
+            paged_segments=self.layout.segments)
+        self.out[0].copy_(tok)
+        self.out[1].copy_(self.pos + 1)
+        self.alts.copy_(alts)
+
+    def __call__(self, token, pos, tables, lane):
+        """-> (next_token [B], alts [B, n], pos + 1 [B], caches)."""
+        self.run(token, pos, tables, lane)
+        return self.out[0], self.alts, self.out[1], self.caches
+
+
+def _built(step, caches, cfg, policy, layout) -> StepBundle:
+    if step.inp.device.type == "cuda":
+        step.capture()
+        for seg in caches:
+            for leaf in seg.values():
+                leaf.zero_()
+    return StepBundle(fn=step, policy=policy, cfg=cfg,
+                      aux={"layout": layout,
+                           "captured": step.graph is not None})
 
 
 def make_decode_step(cfg, params, caches, *, policy, layout: PagedLayout,
@@ -338,17 +409,153 @@ def make_decode_step(cfg, params, caches, *, policy, layout: PagedLayout,
     tables, lane) takes host arrays ([B], [B], [B, MB] and the lane's
     temperature / top_k / seed [B]) and returns (next_token, pos + 1,
     caches) as the reference's step does, sampling each row at step
-    pos + 1.  On a CUDA device the step is captured here: the warm-up
-    really runs (it writes the sink block, the ring caches and the SSM
-    state), so the caches are zeroed after capture."""
+    pos + 1.  On the dense layout (`make_dense_layout`: a draft's linear
+    caches) there is no table and `tables` is None.  On a CUDA device the
+    step is captured here: the warm-up really runs (it writes the sink
+    block, the ring and linear caches and the SSM state), so the caches
+    are zeroed after capture.  A failed capture raises."""
     step = DecodeStep(cfg, params, caches, policy=policy, layout=layout,
                       batch_size=batch_size, fused=fuse_epilogues,
                       device=device)
-    if step.inp.device.type == "cuda":
-        step.capture()
-        for seg in caches:
-            for leaf in seg.values():
-                leaf.zero_()
-    return StepBundle(fn=step, policy=policy, cfg=cfg,
-                      aux={"layout": layout,
-                           "captured": step.graph is not None})
+    return _built(step, caches, cfg, policy, layout)
+
+
+def make_draft_topk_step(cfg, params, caches, *, branches: int, policy,
+                         layout: PagedLayout, batch_size: int,
+                         fuse_epilogues: bool = True,
+                         device) -> StepBundle:
+    """The tree draft's step: `make_decode_step`'s, returning also the
+    runners-up of each row's choice.  fn(token, pos, tables, lane) ->
+    (next_token [B], alts [B, branches], pos + 1 [B], caches), alts[:, 0]
+    == next_token; captured on a CUDA device the same way."""
+    step = TopkDecodeStep(cfg, params, caches, policy=policy, layout=layout,
+                          batch_size=batch_size, fused=fuse_epilogues,
+                          device=device, branches=branches)
+    return _built(step, caches, cfg, policy, layout)
+
+
+# --------------------------------------------------------------------------
+# speculative verify steps, eager
+# --------------------------------------------------------------------------
+
+class VerifyStep:
+    """One verify pass over the runner's caches.  Its host operands reach
+    the device in one copy, into one int32 buffer whose views the pass
+    reads: tokens [B, C], pos0 and chunk_len [B], the lane's top_k, seed
+    and temperature (fp32 bits) [B], the block tables [B, MB], and for a
+    tree its depth [B, C] and ancestor matrix [B, C, C] (0 / 1).  The
+    pass is eager; nothing in it reads a device value back, so a CUDA
+    graph could hold it with these operands unchanged."""
+
+    def __init__(self, cfg, *, policy, layout, batch_size, num_tokens,
+                 tree, fused, device, aux):
+        reason = chunk_support_reason(cfg, layout)
+        if reason is not None:
+            raise ValueError(f"speculative verify unsupported for "
+                             f"{cfg.name}: {reason}")
+        self.cfg, self.policy, self.layout = cfg, policy, layout
+        self.fused, self.tree, self.aux = fused, tree, aux
+        B, C, MB = batch_size, num_tokens, layout.max_blocks
+        self.B, self.C = B, C
+        sizes = [("tokens", B * C), ("pos0", B), ("chunk_len", B),
+                 ("top_k", B), ("seed", B), ("temperature", B),
+                 ("tables", B * MB)]
+        if tree:
+            sizes += [("depth", B * C), ("anc", B * C * C)]
+        n = sum(m for _, m in sizes)
+        self._host = torch.zeros(n, dtype=torch.int32)
+        self._host_np = self._host.numpy()
+        self.inp = torch.zeros(n, dtype=torch.int32, device=device)
+        self._at = {}
+        at = 0
+        for name, m in sizes:
+            self._at[name] = (at, at + m)
+            at += m
+        v = {name: self.inp[a:b] for name, (a, b) in self._at.items()}
+        self.tokens = v["tokens"].view(B, C)
+        self.pos0, self.chunk_len = v["pos0"], v["chunk_len"]
+        self.lane = {"top_k": v["top_k"], "seed": v["seed"],
+                     "temperature": v["temperature"].view(torch.float32)}
+        self.tables = v["tables"].view(B, MB)
+        if tree:
+            self.depth = v["depth"].view(B, C)
+            self.anc = v["anc"].view(B, C, C)
+
+    def _put(self, name, value, dtype=np.int32):
+        a, b = self._at[name]
+        self._host_np[a:b] = np.asarray(value, dtype).reshape(-1).view(
+            np.int32)
+
+    def load(self, tokens, pos0, chunk_len, tables, lane, depth=None,
+             anc=None):
+        """Copy the host operands into the buffer (one copy)."""
+        self._put("tokens", tokens)
+        self._put("pos0", pos0)
+        self._put("chunk_len", chunk_len)
+        self._put("top_k", lane["top_k"])
+        self._put("seed", lane["seed"])
+        self._put("temperature", lane["temperature"], np.float32)
+        self._put("tables", tables)
+        if self.tree:
+            self._put("depth", depth)
+            self._put("anc", anc)
+        self.inp.copy_(self._host)
+
+    @torch.no_grad()
+    def __call__(self, params, tokens, pos0, chunk_len, *rest):
+        if self.tree:
+            depth, anc, caches, tables, lane = rest
+        else:
+            (caches, tables, lane), depth, anc = rest, None, None
+        if np.shape(tokens) != (self.B, self.C):
+            raise ValueError(f"verify step ({self.B}x{self.C}): tokens "
+                             f"{np.shape(tokens)}")
+        self.load(tokens, pos0, chunk_len, tables, lane, depth, anc)
+        self.aux["calls"] += 1
+        kw = dict(cfg=self.cfg, policy=self.policy, lane=self.lane,
+                  fused=self.fused, paged_segments=self.layout.segments)
+        if self.tree:
+            return lm.forward_verify_tree(
+                params, self.tokens, self.pos0, self.chunk_len, self.depth,
+                self.anc != 0, caches, self.tables, **kw)
+        return lm.forward_verify(params, self.tokens, self.pos0,
+                                 self.chunk_len, caches, self.tables, **kw)
+
+
+def _verify_bundle(cfg, *, policy, layout, batch_size, num_tokens, tree,
+                   fuse_epilogues, device) -> StepBundle:
+    aux = {"layout": layout, "num_tokens": num_tokens, "calls": 0}
+    step = VerifyStep(cfg, policy=policy, layout=layout,
+                      batch_size=batch_size, num_tokens=num_tokens,
+                      tree=tree, fused=fuse_epilogues, device=device, aux=aux)
+    return StepBundle(fn=step, policy=policy, cfg=cfg, aux=aux)
+
+
+def make_verify_step(cfg, *, policy, layout: PagedLayout, batch_size: int,
+                     num_tokens: int, fuse_epilogues: bool = True,
+                     device) -> StepBundle:
+    """The chain verify pass (`lm.forward_verify`), C = `num_tokens` = k +
+    1: fn(params, tokens [B, C], pos0 [B], chunk_len [B], caches,
+    tables [B, MB], lane) -> (choices [B, C], caches, pos [B]), every
+    operand but params and caches a host array.  The caches are the
+    runner's, written in place (the target's captured decode step holds
+    their addresses).  Eager, one per engine; `aux["calls"]` counts the
+    passes."""
+    return _verify_bundle(cfg, policy=policy, layout=layout,
+                          batch_size=batch_size, num_tokens=num_tokens,
+                          tree=False, fuse_epilogues=fuse_epilogues,
+                          device=device)
+
+
+def make_tree_verify_step(cfg, *, policy, layout: PagedLayout,
+                          batch_size: int, num_tokens: int,
+                          fuse_epilogues: bool = True,
+                          device) -> StepBundle:
+    """The tree verify pass (`lm.forward_verify_tree`), C = `num_tokens` =
+    1 + k * branches nodes: fn(params, tokens [B, C], pos0, chunk_len,
+    depth [B, C], anc [B, C, C] bool, caches, tables, lane) -> (choices
+    [B, C], caches, pos [B]); otherwise as `make_verify_step`."""
+    return _verify_bundle(cfg, policy=policy, layout=layout,
+                          batch_size=batch_size, num_tokens=num_tokens,
+                          tree=True, fuse_epilogues=fuse_epilogues,
+                          device=device)

@@ -18,7 +18,10 @@ the paged pools, the per-slot ring caches of window layers and the
 per-slot SSM state, which it updates in place) and `forward_chunk` (one
 chunked-prefill piece written into the paged pools in place, from any
 start position: a chunk of a long prompt, or the uncached suffix of a
-prefix-cache hit).
+prefix-cache hit).  Speculative decoding adds `forward_verify` and
+`forward_verify_tree` (the target's choice at every position of a chunk of
+proposals, on the chunk stack) and `forward_decode_topk` (the tree draft's
+step: the decode step's choice and its runners-up).
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ import torch
 from repro_torch.core import blocks
 from repro_torch.core.embedding import (embed_sequence, embed_token,
                                         embedding_param_shapes, greedy_token,
-                                        init_embedding, sample_token)
+                                        init_embedding, sample_token,
+                                        sample_topn)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.params import layer, tree_from_numpy
@@ -126,12 +130,16 @@ def _run_segments_decode(params, x, pos, caches, *, cfg, policy,
 
 
 def _run_chunk_stack(params, tokens, pos0, chunk_len, caches, block_tables,
-                     *, cfg, policy, fused=True, paged_segments=None):
+                     *, cfg, policy, fused=True, paged_segments=None,
+                     rope_pos=None, tree_mask=None):
     """The chunk body: embed C consecutive tokens a row, run every layer's
     `block_chunk` (KV written into the pools in place), then the final
     norm unless the fused head folds it.  Chunked prefill
-    (`forward_chunk`) sits on it, as the reference's speculative verify
-    passes do.  -> (x [B, C, E], caches, head_norm or None)."""
+    (`forward_chunk`: sample the last position), speculative verify
+    (`forward_verify`: sample every position) and tree verify
+    (`forward_verify_tree`: the `rope_pos` / `tree_mask` overrides) all
+    sit on it; the verify passes' exactness rests on sharing one body.
+    -> (x [B, C, E], caches, head_norm or None)."""
     B, C = tokens.shape
     x = embed_token(params["embedding"]["embed"], tokens.reshape(B * C),
                     policy=policy).reshape(B, C, -1)
@@ -145,7 +153,8 @@ def _run_chunk_stack(params, tokens, pos0, chunk_len, caches, block_tables,
             x, _ = blocks.block_chunk(kind, layer(p_seg, i), x, pos0,
                                       chunk_len, layer(c_seg, i),
                                       block_tables, cfg=cfg, policy=policy,
-                                      fused=fused)
+                                      fused=fused, rope_pos=rope_pos,
+                                      tree_mask=tree_mask)
     head_norm = _head_norm(params, cfg, fused)
     if head_norm is None:
         x = ops.norm(x, params["final_norm"], cfg.norm)
@@ -300,3 +309,101 @@ def forward_chunk(params, tokens, pos0, chunk_len, caches, block_tables, *,
     tok = _choose(x_last, params, lane, pos, cfg=cfg, policy=policy,
                   norm=head_norm)
     return tok, caches, pos.to(torch.int32)
+
+
+def _choose_all(x, params, lane, steps, *, cfg, policy, norm):
+    """The choice at every chunk position: x [B, C, E], steps [B, C] (the
+    step each position's token is drawn at) -> [B, C] int32.  The lane's
+    rows repeat C times, so position (b, j) draws with row b's seed."""
+    B, C, E = x.shape
+    flat = None if lane is None else {
+        k: v.repeat_interleave(C) for k, v in lane.items()}
+    tok = _choose(x.reshape(B * C, E), params, flat, steps.reshape(B * C),
+                  cfg=cfg, policy=policy, norm=norm)
+    return tok.reshape(B, C)
+
+
+def forward_verify(params, tokens, pos0, chunk_len, caches, block_tables, *,
+                   cfg, policy, lane=None, fused: bool = True,
+                   paged_segments=None):
+    """Multi-token verification for speculative decoding: one target pass
+    over C = k + 1 consecutive tokens a row (the pending token and k draft
+    proposals) into the paged pools, in place, returning the target's OWN
+    choice at every position.  tokens: [B, C]; pos0: [B] the slot's
+    decode position; chunk_len: [B] real tokens (<= C; the tail is
+    padding); all device tensors.  -> (choices [B, C], caches, pos [B] =
+    pos0 + chunk_len).
+
+    choices[b, j] is what a decode step would emit after the prefix ending
+    at position pos0 + j: greedy rows the argmax, sampled rows the (seed,
+    step)-keyed Gumbel-max draw at step pos0 + j + 1, as `forward_decode`
+    draws at pos + 1.  Rejected positions' KV sits beyond the committed
+    pos: the rollback rewinds the fill count.  Nothing is read back on
+    the host here.  Every segment must be paged (the chunk stack's
+    gate)."""
+    B, C = tokens.shape
+    x, caches, head_norm = _run_chunk_stack(
+        params, tokens, pos0, chunk_len, caches, block_tables, cfg=cfg,
+        policy=policy, fused=fused, paged_segments=paged_segments)
+    pos0 = pos0.to(torch.int64)
+    steps = pos0[:, None] + 1 + torch.arange(C, device=tokens.device)[None]
+    tok = _choose_all(x, params, lane, steps, cfg=cfg, policy=policy,
+                      norm=head_norm)
+    return tok, caches, (pos0 + chunk_len.to(torch.int64)).to(torch.int32)
+
+
+def forward_verify_tree(params, tokens, pos0, chunk_len, depth, anc, caches,
+                        block_tables, *, cfg, policy, lane=None,
+                        fused: bool = True, paged_segments=None):
+    """Tree-speculative verification: one target pass over C flattened
+    token-tree nodes a row (node 0 the pending token, then the draft's
+    branches in an ancestor-closed order), returning the target's own
+    choice after every node.  tokens: [B, C]; pos0: [B]; chunk_len: [B]
+    real nodes; depth: [B, C] each node's tree depth (node 0: 0); anc:
+    [B, C, C] bool, anc[b, i, j] when node j is on node i's root path.
+    -> (choices [B, C], caches, pos [B]).
+
+    Node i's KV is written at pos0 + i (one position a node, as in
+    `forward_verify`), while rope and the sampling step use its logical
+    position pos0 + depth[i]: siblings at one depth share a rotation and
+    a (seed, step) key, the state a step-by-step decode would have after
+    committing that node's root path, so choices[b, i] is what plain
+    decode (or `forward_verify` on the same chain) emits there, and the
+    accepted path's KV is already rotated for its committed positions
+    (the commit moves bytes only: `kv_cache.row_copy`).  The ancestor mask
+    keeps each node blind to its sibling branches.  A single-branch chain
+    (depth == node index, anc lower-triangular) reduces every override to
+    `forward_verify`'s math."""
+    pos0 = pos0.to(torch.int64)
+    rope_pos = pos0[:, None] + depth.to(torch.int64)
+    x, caches, head_norm = _run_chunk_stack(
+        params, tokens, pos0, chunk_len, caches, block_tables, cfg=cfg,
+        policy=policy, fused=fused, paged_segments=paged_segments,
+        rope_pos=rope_pos, tree_mask=anc)
+    tok = _choose_all(x, params, lane, rope_pos + 1, cfg=cfg, policy=policy,
+                      norm=head_norm)
+    return tok, caches, (pos0 + chunk_len.to(torch.int64)).to(torch.int32)
+
+
+def forward_decode_topk(params, token, pos, caches, *, n: int, cfg, policy,
+                        lane, block_tables, fused: bool = True,
+                        paged_segments=None):
+    """One AR step that also returns the sampler's runners-up: the tree
+    proposer's draft step.  -> (next_token [B], alts [B, n], caches) with
+    alts[:, 0] == next_token (the `forward_decode` choice, bit for bit)
+    and alts[:, 1:] the next best ids of the same score
+    (`core.embedding.sample_topn`).  The draft's cache advances one
+    position; only the chain token is fed back.  Captured like
+    `forward_decode`: no host value reaches the device."""
+    x = embed_token(params["embedding"]["embed"], token, policy=policy)
+    x, caches = _run_segments_decode(params, x, pos, caches, cfg=cfg,
+                                     policy=policy, block_tables=block_tables,
+                                     fused=fused,
+                                     paged_segments=paged_segments)
+    head_norm = _head_norm(params, cfg, fused)
+    if head_norm is None:
+        x = ops.norm(x, params["final_norm"], cfg.norm)
+    tok, alts = sample_topn(x, params["embedding"]["unemb"],
+                            dict(lane, step=pos + 1), n, cfg=cfg,
+                            policy=policy, norm=head_norm)
+    return tok, alts, caches

@@ -23,6 +23,14 @@ admission prefills only its uncached suffix; `cache_blocks` caps the blocks
 the index may hold.  Both need a config whose every KV segment is paged
 (`runner.supports_chunked`); the others prefill whole prompts and say why
 (`runner.chunk_unsupported_reason`, `runner.prefix_cache_reason`).
+
+`spec=SpecConfig(draft=..., k=..., branches=...)` turns on speculative
+decoding (`serving/spec.py`): a draft LM (`draft_params`, the target itself
+for draft="self", else a seeded init) proposes k tokens a round and one
+target verify pass commits 1 to k + 1 of them a slot, chain or token tree;
+`decode()` is replaced by `runner.spec_decode()`.  The reference's
+`draft_checkpoint=` (draft params from a checkpoint directory) waits for
+the port's checkpointer and is not an argument here.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from typing import Iterator, List, Optional
 from repro_torch.serving.runner import ModelRunner
 from repro_torch.serving.sampling import validate_sampling
 from repro_torch.serving.scheduler import FCFSPolicy, SchedulerPolicy
+from repro_torch.serving.spec import SpecConfig
 from repro_torch.serving.stats import EngineStats
 from repro_torch.serving.tasks import (EncodeTask, GenerateTask, Request,
                                        Task, TokenEvent, validate_task)
@@ -44,7 +53,9 @@ class InferenceEngine:
                  scheduler: Optional[SchedulerPolicy] = None,
                  fuse_epilogues: bool = True, weight_dtype: str = "bfloat16",
                  kv_dtype: Optional[str] = None, prefix_cache: bool = False,
-                 cache_blocks: Optional[int] = None, device=None):
+                 cache_blocks: Optional[int] = None,
+                 spec: Optional[SpecConfig] = None, draft_params=None,
+                 device=None):
         # `policy` is the PRECISION policy (the reference's name); the
         # scheduling policy is `scheduler`
         self.runner = ModelRunner(cfg, params, batch_size=batch_size,
@@ -56,7 +67,8 @@ class InferenceEngine:
                                   weight_dtype=weight_dtype,
                                   kv_dtype=kv_dtype,
                                   prefix_cache=prefix_cache,
-                                  cache_blocks=cache_blocks, device=device)
+                                  cache_blocks=cache_blocks, spec=spec,
+                                  draft_params=draft_params, device=device)
         self.scheduler = scheduler or FCFSPolicy()
         self.queue: List[GenerateTask] = []
         self.encode_queue: List[EncodeTask] = []
@@ -105,6 +117,15 @@ class InferenceEngine:
                                  f"emits the first token): "
                                  f"{task.max_new_tokens}")
             validate_sampling(task.sampling)
+            spec = self.runner.spec
+            if (spec is not None and spec.acceptance == "greedy"
+                    and not task.sampling.is_greedy):
+                raise ValueError(
+                    f"request {task.uid} samples (temperature="
+                    f"{task.sampling.temperature}) but SpecConfig "
+                    f"acceptance='greedy' serves greedy traffic only; "
+                    f"use acceptance='lossless' for exact sampled "
+                    f"speculation")
         task.prompt_len = n
         task._t_submit = time.perf_counter()
         (self.encode_queue if encode else self.queue).append(task)
@@ -303,7 +324,11 @@ class InferenceEngine:
         if runner.decoding_slots():
             victim = lambda running: self.scheduler.select_victim(
                 running, time.perf_counter())
-            for task in runner.ensure_decode_blocks(victim, self._stats):
+            # speculation needs the verify chunk's blocks up front: the
+            # lookahead extends each slot's need to pos + its depth
+            la = runner.spec_lookahead() if runner.spec else None
+            for task in runner.ensure_decode_blocks(victim, self._stats,
+                                                    lookahead=la):
                 self.queue.insert(0, task)
             if runner.decoding_slots():
                 t0 = time.perf_counter()
@@ -313,7 +338,8 @@ class InferenceEngine:
                     # prefill exists to bound it)
                     self._stats.add_decode_stall_ms(
                         (t0 - self._t_last_decode) * 1e3)
-                fresh.extend(runner.decode(self._stats))
+                fresh.extend(runner.spec_decode(self._stats) if runner.spec
+                             else runner.decode(self._stats))
                 self._t_last_decode = time.perf_counter()
                 self._retire()
         if not runner.decoding_slots():

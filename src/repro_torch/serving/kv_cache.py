@@ -11,6 +11,9 @@ serving/kv_cache.py: `BlockAllocator` and the admission scatter).
   block_copy      copy-on-write of one pool block (k / v, and the scales of
                   int8 pools) into another, IN PLACE: the captured decode
                   step holds the pools' addresses, so no pool is rebound.
+  row_copy        one position's k / v moved across every paged pool, IN
+                  PLACE: the tree-speculative commit compacts the accepted
+                  path into the slot's committed positions.
 """
 from __future__ import annotations
 
@@ -106,18 +109,25 @@ def prefill_scatter(caches, group_caches, slots, tables, *, block_size: int,
     caches          live decode caches, per segment: {"k", "v"} pools
                     [count, NB + 1, BS, KV, hd] (trailing sink block; int8
                     pools with their scales {"ks", "vs"} [count, NB + 1,
-                    KV]) or ring caches [count, B, W, KV, hd], and / or
-                    per-slot SSM state {"h", "cx", "cbc"} [count, B, ...]
+                    KV]) or dense caches [count, B, W, KV, hd] (rings of a
+                    window, or the dense layout's linear max_seq rows),
+                    and / or per-slot SSM state {"h", "cx", "cbc"} [count,
+                    B, ...]
     group_caches    the group's caches: k / v [count, n, S, KV, hd] (rings:
-                    S = W), SSM state [count, n, ...]
+                    S = W; linear caches: S <= W, the bucket), SSM state
+                    [count, n, ...]
     slots           [n] int tensor: the decode slot of each group row
     tables          [n, MB] int tensor of assigned blocks (-1 beyond the
-                    allocation: written to the sink)
+                    allocation: written to the sink); None when no segment
+                    is paged
     paged_segments  per segment, whether its k / v are pools (the layout's
                     `segments`); None: every segment's are
 
-    Pool leaves scatter per assigned block; every other leaf — ring caches
-    included, though they too are named k / v — scatters per slot row.
+    Pool leaves scatter per assigned block; every other leaf — dense
+    caches included, though they too are named k / v — scatters per slot
+    row, a linear cache into its rows [0, S) (a speculative draft's
+    prefill: the reference's dense scatter of a max_seq-row group, whose
+    rows past S are zeros the draft never attends).
     An int8 pool is quantized on admission, as the reference's scatter
     does: admission writes every block from offset 0, so each block's scale
     is the per-head amax of the tokens that land in it (the bucket's pad
@@ -130,7 +140,11 @@ def prefill_scatter(caches, group_caches, slots, tables, *, block_size: int,
                 continue                 # written beside their pools
             val = new[key]
             if not (paged and key in ("k", "v")):
-                leaf[:, slots.to(torch.int64)] = val.to(leaf.dtype)
+                rows = slots.to(torch.int64)
+                if key in ("k", "v") and val.shape[2] < leaf.shape[2]:
+                    leaf[:, rows, :val.shape[2]] = val.to(leaf.dtype)
+                else:
+                    leaf[:, rows] = val.to(leaf.dtype)
                 continue
             sink = leaf.shape[1] - 1
             count, n, S = val.shape[:3]
@@ -171,4 +185,28 @@ def block_copy(caches, src: int, dst: int, paged_segments=None):
         for key in ("k", "v", "ks", "vs"):
             if key in seg:
                 seg[key][:, dst].copy_(seg[key][:, src])
+    return caches
+
+
+@torch.no_grad()
+def row_copy(caches, src_blk: int, src_off: int, dst_blk: int, dst_off: int,
+             paged_segments=None):
+    """Copy ONE cache position, (block, in-block offset), onto another
+    across every paged k / v pool, in place (the reference's
+    `make_row_copy`).  The tree-speculative commit compacts the accepted
+    root path: tree nodes write their KV at pos0 + node index, the
+    committed sequence needs depth d's KV at pos0 + d, and rope was
+    applied at the node's logical position, so the move is bytes only.
+    Sources sit above their destinations in flatten order and the moves
+    run in increasing depth, so no move clobbers a pending source.  The
+    int8 pools' scales stay (a block's scale cannot follow one row): the
+    runner keeps int8 pools to the chain.  Dense leaves are untouched."""
+    paged_segments = paged_segments or (True,) * len(caches)
+    for seg, paged in zip(caches, paged_segments):
+        if not paged:
+            continue
+        for key in ("k", "v"):
+            if key in seg:
+                seg[key][:, dst_blk, dst_off].copy_(
+                    seg[key][:, src_blk, src_off])
     return caches

@@ -8,9 +8,10 @@ mirrors — and exposes four execution verbs:
 `prefill(group)` (one batched NAR pass admitting a group into free slots),
 `chunk_step(task)` (one chunked-prefill piece of a task parked in its
 slot: `begin_chunked`, or a prefix-cache hit's suffix: `admit_cached`),
-`decode()` (one AR step over every decoding slot) and `encode(group)` (one
-pooled, cache-free NAR pass for a batch of EncodeTasks; no slot, no
-block).  Scheduling decisions live in the engine's policy.
+`decode()` (one AR step over every decoding slot; `spec_decode()` in its
+place when speculation is on) and `encode(group)` (one pooled, cache-free
+NAR pass for a batch of EncodeTasks; no slot, no block).  Scheduling
+decisions live in the engine's policy.
 
 The steps come from `launch/steps.py`: the decode step is built (on a
 card: captured in one CUDA graph) at construction, before any slot is
@@ -29,6 +30,15 @@ the suffix, after copying a shared, partly filled tail block on write
 (`kv_cache.block_copy`).  Every write to the caches — chunk scatter,
 copy-on-write, int8 scale reset and scatter-max — happens in place: the
 decode graph holds the pools' addresses.
+
+Speculative decoding (`spec=SpecConfig(...)`, `serving/spec.py`): a draft
+LM keeps a dense linear cache a slot (`steps.make_dense_layout`) and its
+own decode step, captured like the target's (the tree form returns the
+runners-up too); each round runs the draft's steps, then one eager verify
+pass of the target over the chunk stack (`steps.make_verify_step` /
+`make_tree_verify_step`), then the host's acceptance, commit and
+rollback.  The draft prefills whole, in one pass, after each target
+admission lands (`_draft_prefill`).
 
 Int8 serving: `weight_dtype="int8"` quantizes the dense GEMM weights once,
 at construction (`models/quantize.py`: one fp32 scale an output channel);
@@ -54,12 +64,17 @@ from repro_torch.core import blocks
 from repro_torch.core.precision import BF16
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_mod
+from repro_torch.models import lm
 from repro_torch.models.quantize import quantize_params
 from repro_torch.serving.kv_cache import (BlockAllocator, block_copy,
-                                          prefill_scatter)
+                                          prefill_scatter, row_copy)
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampling import (device_lane, set_lane,
                                           stack_lanes, zero_lane)
+from repro_torch.serving.spec import (DraftState, SpecConfig, accept_length,
+                                      accept_tree_path, build_tree,
+                                      resolve_draft, spec_support_reason,
+                                      trim_emitted)
 from repro_torch.serving.stats import EngineStats
 from repro_torch.serving.tasks import EncodeTask, GenerateTask, Task
 
@@ -83,7 +98,9 @@ class ModelRunner:
                  block_size: int = 16, kv_pool_blocks: Optional[int] = None,
                  fuse_epilogues: bool = True, weight_dtype: str = "bfloat16",
                  kv_dtype: Optional[str] = None, prefix_cache: bool = False,
-                 cache_blocks: Optional[int] = None, device=None):
+                 cache_blocks: Optional[int] = None,
+                 spec: Optional[SpecConfig] = None, draft_params=None,
+                 device=None):
         if min_bucket < 1:
             raise ValueError(f"min_bucket must be >= 1: {min_bucket}")
         if weight_dtype not in ("bfloat16", "int8"):
@@ -101,6 +118,7 @@ class ModelRunner:
         # the dense GEMM weights are quantized once, here; every step then
         # reads the int8 tensors and their scales
         self.weight_dtype = weight_dtype
+        self._param_dtype = first.dtype
         if weight_dtype == "int8":
             params = quantize_params(params)
         self.params = params
@@ -163,6 +181,73 @@ class ModelRunner:
         # slots whose task is still chunk-prefilling: out of the decode
         # tables, their token / pos rows meaningless until the last chunk
         self.prefilling: List[bool] = [False] * batch_size
+        # -- speculative decoding ------------------------------------------
+        self.spec = spec
+        self.draft_cfg = None
+        self.tree_branches = 1
+        self.draft_states: List[Optional[DraftState]] = [None] * batch_size
+        self.draft_decode_step = self.draft_topk_step = None
+        self.verify_step = self.tree_verify_step = None
+        if spec is not None:
+            self._init_spec(spec, draft_params)
+
+    def _init_spec(self, spec: SpecConfig, draft_params):
+        """The draft LM (its params, dense linear caches and captured
+        decode step) and the target's verify step (the reference's spec
+        set-up)."""
+        cfg = self.cfg
+        reason = spec_support_reason(cfg)
+        if reason is None and not self.supports_chunked:
+            reason = ("engine layout cannot carry multi-token verify "
+                      "state (paged KV cache with every segment paged "
+                      "and dp == 1 required)")
+        if reason is not None:
+            raise ValueError(f"speculative decoding unsupported for "
+                             f"{cfg.name}: {reason}")
+        self.draft_cfg = resolve_draft(spec, cfg)
+        # the draft stays bf16, being small, unless it IS the target, whose
+        # params are quantized above
+        if spec.draft == "self":
+            self.draft_params = self.params
+        elif draft_params is not None:
+            self.draft_params = draft_params
+        else:
+            self.draft_params = lm.init_lm(self.draft_cfg,
+                                           dtype=self._param_dtype,
+                                           device=self.device,
+                                           seed=spec.draft_seed)
+        first = self.draft_params["embedding"]["embed"]
+        if first.device.type != self.device.type:
+            raise ValueError(f"draft params live on {first.device}, the "
+                             f"engine runs on {self.device}")
+        # token trees: the draft's top-b candidates a depth become sibling
+        # leaves verified in one tree-masked pass.  int8 pools keep the
+        # chain: the accepted path's compaction moves KV rows across
+        # blocks, which a block's quantization scale cannot follow
+        self.tree_branches = 1 if self.kv_dtype == "int8" else spec.branches
+        self._round_depth: Optional[np.ndarray] = None
+        self._round_width: Optional[np.ndarray] = None
+        self.draft_layout = steps_mod.make_dense_layout(self.draft_cfg,
+                                                        self.max_seq)
+        self.draft_caches = steps_mod.cache_layout(
+            self.draft_cfg, self.draft_layout, batch_size=self.B,
+            policy=self.policy, device=self.device)
+        kw = dict(policy=self.policy, batch_size=self.B,
+                  fuse_epilogues=self.fuse_epilogues, device=self.device)
+        if self.tree_branches > 1:
+            self.draft_topk_step = steps_mod.make_draft_topk_step(
+                self.draft_cfg, self.draft_params, self.draft_caches,
+                branches=self.tree_branches, layout=self.draft_layout, **kw)
+            self.tree_verify_step = steps_mod.make_tree_verify_step(
+                cfg, layout=self.layout,
+                num_tokens=1 + spec.k * self.tree_branches, **kw)
+        else:
+            self.draft_decode_step = steps_mod.make_decode_step(
+                self.draft_cfg, self.draft_params, self.draft_caches,
+                layout=self.draft_layout, **kw)
+            self.verify_step = steps_mod.make_verify_step(
+                cfg, layout=self.layout, num_tokens=spec.k + 1, **kw)
+        self._draft_prefill_steps: Dict[tuple, steps_mod.StepBundle] = {}
 
     def weight_bytes_per_device(self) -> int:
         """Resident bytes of the parameters (int8 q leaves one byte an
@@ -246,6 +331,7 @@ class ModelRunner:
         self.block_tables[b, :] = -1
         self.slots[b] = None
         self.prefilling[b] = False
+        self.draft_states[b] = None
 
     def evict(self, b: int) -> GenerateTask:
         """Pull the task out of slot `b`, releasing its blocks (recompute
@@ -376,18 +462,23 @@ class ModelRunner:
 
     def ensure_decode_blocks(
             self, select_victim: Callable[[Sequence[Task]], Task],
-            stats: EngineStats) -> List[GenerateTask]:
+            stats: EngineStats,
+            lookahead: Optional[np.ndarray] = None) -> List[GenerateTask]:
         """Before a decode step every decoding slot must own the block its
-        next token lands in (pos // block_size), and, under prefix sharing,
-        own it alone (a shared block is copied on write first).  Allocation
-        failure evicts `select_victim(running)` until it succeeds; returns
-        the evicted tasks (the engine re-queues them)."""
+        next token lands in (pos // block_size), and, under speculation,
+        the blocks the verify chunk's `lookahead[b]` further positions
+        write (`spec_lookahead` caps each row so the need fits the pool);
+        under prefix sharing it must own the first of them alone (a shared
+        block is copied on write first).  Allocation failure evicts
+        `select_victim(running)` until it succeeds; returns the evicted
+        tasks (the engine re-queues them)."""
         evicted: List[GenerateTask] = []
         bs = self.layout.block_size
         for b in range(self.B):
             if self.slots[b] is None or self.prefilling[b]:
                 continue
-            need = int(self.pos[b]) // bs + 1
+            la = int(lookahead[b]) if lookahead is not None else 0
+            need = (int(self.pos[b]) + la) // bs + 1
             if need > self.allocator.num_blocks:
                 raise RuntimeError(
                     f"KV pool too small: request {self.slots[b].uid} needs "
@@ -508,7 +599,47 @@ class ModelRunner:
         stats.nar_time_s += (now - t0) * n_first / n
         stats.recompute_time_s += (now - t0) * (n - n_first) / n
         stats.prefill_batches += 1
+        if self.spec is not None:
+            self._draft_prefill(fulls, slots, stats)
         return fresh
+
+    @torch.no_grad()
+    def _draft_prefill(self, fulls: List[np.ndarray], slots: List[int],
+                       stats: EngineStats):
+        """The draft's cache rows for freshly (re-)admitted tasks: one
+        batched draft prefill over the sequences the target encoded, in
+        their length bucket, written into rows [0, bucket) of the slots'
+        linear caches.  Pad rows past a sequence's length hold KV the
+        draft never attends (its decode masks by pos) and overwrites as it
+        advances.  The sampled token is discarded: the draft is only ever
+        fed committed tokens."""
+        n = len(fulls)
+        bucket = self.bucket_for(max(len(f) for f in fulls))
+        step = self._draft_prefill_steps.get((bucket, n))
+        if step is None:
+            step = steps_mod.make_prefill_step(
+                self.draft_cfg, policy=self.policy, max_seq=self.max_seq,
+                bucket=bucket, group=n, compact_kv=True,
+                fuse_epilogues=self.fuse_epilogues)
+            self._draft_prefill_steps[(bucket, n)] = step
+        t0 = time.perf_counter()
+        padded = np.zeros((n, bucket), np.int32)
+        for j, seq in enumerate(fulls):
+            padded[j, :len(seq)] = seq
+        lens = np.asarray([len(f) for f in fulls], np.int64)
+        _, dcaches, _ = step.fn(self.draft_params,
+                                torch.tensor(padded, device=self.device),
+                                device_lane({"prompt_len": lens},
+                                            self.device))
+        prefill_scatter(self.draft_caches, dcaches,
+                        torch.tensor(slots, device=self.device), None,
+                        block_size=1,
+                        paged_segments=self.draft_layout.segments)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)    # honest timing
+        for j, b in enumerate(slots):
+            self.draft_states[b] = DraftState(pos=len(fulls[j]))
+        stats.spec_draft_time_s += time.perf_counter() - t0
 
     # -- chunked prefill -------------------------------------------------
     def begin_chunked(self, task: GenerateTask, blk: List[int], b: int):
@@ -582,6 +713,10 @@ class ModelRunner:
         if first_admit:
             task.ttft_ms = (now - task._t_submit) * 1e3
             stats.add_ttft_ms(task.ttft_ms)
+        if self.spec is not None:
+            # the draft, being small, prefills whole even when the target
+            # chunked (or a warm admission prefilled only its suffix)
+            self._draft_prefill([full], [b], stats)
         return (task, len(task.output) - 1)
 
     # -- decode ----------------------------------------------------------
@@ -613,6 +748,325 @@ class ModelRunner:
         stats.occupied_slot_steps += len(decoding)
         stats.block_slot_steps += blocks_used
         stats.token_slot_steps += sum(int(self.pos[b]) for b, _ in decoding)
+        return fresh
+
+    # -- speculative decode (propose -> verify -> commit) ----------------
+    def spec_lookahead(self) -> np.ndarray:
+        """Per-slot speculation depth for the next round: `spec.k` capped so
+        the verify chunk's writes stay inside the sequence horizon
+        (committing past max_seq - 1 would emit tokens a step-by-step
+        decode never reaches), inside the pool's capacity (so
+        `ensure_decode_blocks` can always meet the lookahead, by
+        preemption if need be), and inside the request's remaining
+        max_new_tokens budget (a round commits at most that many; the cap
+        cannot change outputs, each position's verify choice being
+        independent of how many proposals follow it).
+
+        Token trees (tree_branches > 1) reserve NODE capacity: a depth-d,
+        width-w tree writes d * w node positions past pos.  Each row takes
+        the deepest tree whose node count fits the same caps (at least
+        depth 1), else the chain for the round; and when the trees'
+        extra blocks together exceed the pool's FREE blocks, every row
+        shrinks to its chain (sibling scratch never preempts a
+        neighbour; the chain lookahead may, as at width 1).  The per-row
+        (depth, width) lands in _round_depth / _round_width for the round
+        that follows.
+
+        The reference also reads `task.degraded` (a request admitted
+        degraded proposes nothing) and `_tree_chain_only` (the tree forced
+        to its chain): both are rungs of DeadlinePolicy's degrade ladder,
+        which the port does not have yet, so no task is degraded and the
+        tree is never forced to a chain here."""
+        la = np.zeros((self.B,), np.int64)
+        chain_la = np.zeros((self.B,), np.int64)
+        cap_tokens = self.allocator.num_blocks * self.layout.block_size
+        w = self.tree_branches
+        depths = np.zeros((self.B,), np.int64)
+        widths = np.ones((self.B,), np.int64)
+        for b in self.decoding_slots():
+            p = int(self.pos[b])
+            task = self.slots[b]
+            room = task.max_new_tokens - len(task.output)
+            la_c = max(0, min(self.spec.k, self.max_seq - 1 - p,
+                              cap_tokens - 1 - p, room - 1))
+            chain_la[b] = la_c
+            if w > 1:
+                la_t = min(la_c, (self.max_seq - 1 - p) // w,
+                           (cap_tokens - 1 - p) // w)
+                if la_t >= 1:
+                    depths[b], widths[b], la[b] = la_t, w, la_t * w
+                    continue
+            depths[b], la[b] = la_c, la_c
+        if w > 1 and bool(np.any(widths > 1)):
+            bs = self.layout.block_size
+            need = sum(
+                max(0, (int(self.pos[b]) + int(la[b])) // bs + 1
+                    - len(self._slot_blocks[b]))
+                for b in self.decoding_slots())
+            if need > self.allocator.num_free:
+                for b in self.decoding_slots():
+                    if widths[b] > 1:
+                        depths[b], widths[b] = chain_la[b], 1
+                        la[b] = chain_la[b]
+        self._round_depth = depths
+        self._round_width = widths
+        return la
+
+    def _token_at(self, task: GenerateTask, p: int) -> int:
+        """The committed token at absolute position `p` (prompt, then the
+        output history)."""
+        if p < task.prompt_len:
+            return int(task.prompt[p])
+        return int(task.output[p - task.prompt_len])
+
+    def _propose(self, active: List[int], pos0: np.ndarray,
+                 depth: np.ndarray, width: Optional[np.ndarray],
+                 stats: EngineStats):
+        """The round's draft steps, lockstep over the batch.  The draft may
+        lag the committed sequence (by one position after an all-accept
+        round: the bonus token's predecessor never went through it), so
+        each row first replays the committed tokens from its draft pos,
+        then feeds its own proposals, `depth[b]` of them.  Each step is
+        one replay of the draft's captured step.  Rows past their need
+        (and free or parked rows) compute junk the round never reads; their
+        position is clamped inside the linear cache.  -> (starts [B],
+        steps run, {b: proposals}: chain tokens, or with `width` (the
+        tree) the levels of top-`width[b]` candidates, the chain token
+        first)."""
+        starts = np.zeros((self.B,), np.int64)
+        known: Dict[int, List[int]] = {}
+        for b in active:
+            ds = self.draft_states[b]
+            starts[b] = ds.pos
+            known[b] = [self._token_at(self.slots[b], p)
+                        for p in range(ds.pos, int(pos0[b]) + 1)]
+        n_steps = max(max(len(known[b]) - 1 + int(depth[b])
+                          for b in active), 1)
+        t0 = time.perf_counter()
+        feed = np.zeros((self.B,), np.int32)
+        props: Dict[int, list] = {b: [] for b in active}
+        last = np.zeros((self.B,), np.int32)
+        for s in range(n_steps):
+            for b in active:
+                feed[b] = known[b][s] if s < len(known[b]) else int(last[b])
+            at = np.minimum(starts + s, self.max_seq - 1).astype(np.int32)
+            if width is None:
+                out, _, _ = self.draft_decode_step.fn(feed, at, None,
+                                                      self.lane)
+            else:
+                out, alts, _, _ = self.draft_topk_step.fn(feed, at, None,
+                                                          self.lane)
+                alts = alts.cpu().numpy()
+            last = out.cpu().numpy()
+            for b in active:
+                if (s >= len(known[b]) - 1
+                        and len(props[b]) < int(depth[b])):
+                    # alts[b, 0] is the chain token fed next step
+                    props[b].append(int(last[b]) if width is None else
+                                    [int(t) for t in alts[b, :int(width[b])]])
+        t_draft = time.perf_counter() - t0
+        stats.spec_draft_time_s += t_draft
+        stats.add_draft_time_ms(t_draft * 1e3)
+        return starts, n_steps, props
+
+    def _commit(self, b: int, task: GenerateTask, cand: List[int],
+                pos0: int, dt: float, fresh: list) -> int:
+        """Commit a round's candidates for slot `b` (trimmed to plain
+        decode's retirement: the max_new / max_seq budget, cut at the
+        first EOS), then roll back: blocks holding only rejected positions
+        are freed and their table entries set to -1 (the garbage beyond
+        pos in kept blocks is masked, then overwritten).  -> the new
+        pos."""
+        room = min(task.max_new_tokens - len(task.output),
+                   self.max_seq - 1 - pos0)
+        emitted = trim_emitted(cand, room=room, eos_id=task.eos_id)
+        for tok in emitted:
+            task.output.append(tok)
+            fresh.append((task, len(task.output) - 1))
+        pos_new = pos0 + len(emitted)
+        self.tokens[b] = emitted[-1]
+        self.pos[b] = pos_new
+        task.decode_ms += dt * 1e3
+        keep = self.allocator.blocks_for(pos_new)
+        if len(self._slot_blocks[b]) > keep:
+            extra = self._slot_blocks[b][keep:]
+            del self._slot_blocks[b][keep:]
+            self.allocator.free(extra)
+            self.block_tables[b, keep:] = -1
+        return pos_new
+
+    def _round_stats(self, stats: EngineStats, occupied: int, emitted: int,
+                     live_tokens: int, executed: int, dt: float):
+        stats.decode_steps += 1
+        stats.spec_rounds += 1
+        stats.spec_slot_steps += occupied
+        stats.spec_emitted_tokens += emitted
+        stats.ar_tokens += emitted
+        stats.ar_time_s += dt
+        stats.add_decode_step_ms(dt * 1e3)
+        stats.occupied_slot_steps += occupied
+        stats.block_slot_steps += self.allocator.num_used
+        stats.token_slot_steps += live_tokens
+        stats.verify_positions += executed
+
+    @torch.no_grad()
+    def spec_decode(self, stats: EngineStats
+                    ) -> List[Tuple[GenerateTask, int]]:
+        """One speculative round over every decoding slot: the draft's
+        proposal steps, ONE verify pass of the target (the round's whole
+        target weight read), then host-side longest-prefix acceptance with
+        rollback; the draft's pos rewinds with the target's.  Returns the
+        committed (task, output index) events, 1 to k + 1 a slot: the
+        target's own choices, as `decode()` run step by step would give
+        them, greedy and sampled (`serving/spec.py`).  With
+        tree_branches > 1 the round is the token-tree one
+        (`_spec_decode_tree`)."""
+        if self.tree_branches > 1:
+            return self._spec_decode_tree(stats)
+        active = self.decoding_slots()
+        if not active:
+            return []
+        C = self.spec.k + 1
+        la = self.spec_lookahead()
+        pos0 = self.pos.astype(np.int64)
+        starts, n_steps, proposals = self._propose(active, pos0, la, None,
+                                                   stats)
+        # -- verify: the target forwards [pending, d_1..d_ke] into the
+        # slot's blocks and returns its own choice at every position
+        chunk = np.zeros((self.B, C), np.int32)
+        chunk_len = np.zeros((self.B,), np.int32)
+        for b in active:
+            chunk[b, 0] = self.tokens[b]
+            chunk[b, 1:1 + len(proposals[b])] = proposals[b]
+            chunk_len[b] = 1 + len(proposals[b])
+        t1 = time.perf_counter()
+        choices_d, _, _ = self.verify_step.fn(
+            self.params, chunk, pos0, chunk_len, self.caches,
+            self.block_tables, self.lane)
+        choices = choices_d.cpu().numpy()          # waits: honest timing
+        dt = time.perf_counter() - t1
+        # -- commit + rollback
+        fresh: List[Tuple[GenerateTask, int]] = []
+        live_tokens = emitted = proposed = accepted = 0
+        for b in active:
+            task = self.slots[b]
+            ke = len(proposals[b])
+            cand = [int(c) for c in choices[b, :ke + 1]]
+            j = accept_length(proposals[b], cand)
+            proposed += ke
+            accepted += j
+            pos_new = self._commit(b, task, cand[:j + 1], int(pos0[b]), dt,
+                                   fresh)
+            emitted += pos_new - int(pos0[b])
+            live_tokens += pos_new
+            # the draft rewinds to the last position whose fed token is
+            # committed (never past the committed horizon)
+            self.draft_states[b].pos = min(int(starts[b]) + n_steps,
+                                           int(pos0[b]) + j + 1, pos_new)
+        stats.spec_proposed_tokens += proposed
+        stats.spec_accepted_tokens += accepted
+        self._round_stats(stats, len(active), emitted, live_tokens,
+                          int(chunk_len.sum()), dt)
+        return fresh
+
+    @torch.no_grad()
+    def _spec_decode_tree(self, stats: EngineStats
+                          ) -> List[Tuple[GenerateTask, int]]:
+        """One token-tree round (tree_branches > 1).  Propose: the chain
+        round's draft steps through the top-k step, whose runners-up give
+        (b - 1) siblings a depth while the draft's cache advances along
+        its chain only.  Verify: each slot's caterpillar tree
+        (`spec.build_tree`) flattened into one [B, 1 + k * b] chunk, one
+        tree-masked target pass (KV at pos0 + node index, rope and the
+        sampling step at pos0 + depth, attention to each node's ancestors
+        only).  Commit: the deepest root path whose nodes all match their
+        parent's choice (`spec.accept_tree_path`); its KV rows move to the
+        slot's committed positions pos0 + d (`kv_cache.row_copy`, bytes
+        only), then the chain round's trim, rollback and draft rewind,
+        the draft rewinding to the path's leading chain prefix (siblings
+        never entered its cache).  The acceptance test is the chain's
+        (seed, position)-keyed equality: outputs stay the target's own."""
+        active = self.decoding_slots()
+        if not active:
+            return []
+        C = 1 + self.spec.k * self.tree_branches
+        if self._round_depth is None:
+            self.spec_lookahead()
+        depth_la, width = self._round_depth, self._round_width
+        pos0 = self.pos.astype(np.int64)
+        starts, n_steps, levels = self._propose(active, pos0, depth_la,
+                                                width, stats)
+        # -- verify: one tree-masked target pass over every slot's tree
+        chunk = np.zeros((self.B, C), np.int32)
+        chunk_len = np.zeros((self.B,), np.int32)
+        depth_op = np.zeros((self.B, C), np.int32)
+        anc_op = np.zeros((self.B, C, C), bool)
+        trees = {}
+        for b in active:
+            tree = build_tree(int(self.tokens[b]), levels[b])
+            trees[b] = tree
+            n = tree.n_nodes
+            chunk[b, :n] = tree.tokens
+            depth_op[b, :n] = tree.depth
+            anc_op[b, :n, :n] = tree.anc
+            chunk_len[b] = n
+        t1 = time.perf_counter()
+        choices_d, _, _ = self.tree_verify_step.fn(
+            self.params, chunk, pos0, chunk_len, depth_op, anc_op,
+            self.caches, self.block_tables, self.lane)
+        choices = choices_d.cpu().numpy()          # waits: honest timing
+        dt = time.perf_counter() - t1
+        # -- commit + compact + rollback
+        fresh: List[Tuple[GenerateTask, int]] = []
+        live_tokens = emitted = proposed = accepted = nodes = hits = 0
+        bs = self.layout.block_size
+        for b in active:
+            task = self.slots[b]
+            tree = trees[b]
+            n = tree.n_nodes
+            path = accept_tree_path(tree.tokens, tree.parent, choices[b], n)
+            proposed += n - 1
+            accepted += len(path)
+            nodes += n
+            stats.add_spec_path_depth(len(path))
+            if any(not tree.chain[i] for i in path):
+                hits += 1
+            full = [0] + path
+            cand = [int(choices[b, i]) for i in full]
+            # compact: committed position pos0 + d takes the KV node
+            # full[d] wrote at pos0 + full[d] (roped at pos0 + d already);
+            # full[] rises with full[d] >= d, so ascending moves never
+            # clobber a pending source.  Only what is committed moves.
+            room = min(task.max_new_tokens - len(task.output),
+                       self.max_seq - 1 - int(pos0[b]))
+            m = len(trim_emitted(cand, room=room, eos_id=task.eos_id))
+            blks = self._slot_blocks[b]
+            for d in range(1, m):
+                if full[d] == d:
+                    continue
+                src, dst = int(pos0[b]) + full[d], int(pos0[b]) + d
+                row_copy(self.caches, blks[src // bs], src % bs,
+                         blks[dst // bs], dst % bs, self.layout.segments)
+            pos_new = self._commit(b, task, cand, int(pos0[b]), dt, fresh)
+            emitted += pos_new - int(pos0[b])
+            live_tokens += pos_new
+            # the draft's cache followed the CHAIN: it stays valid through
+            # the path's leading chain prefix only
+            j_chain = 0
+            for i in path:
+                if not tree.chain[i]:
+                    break
+                j_chain += 1
+            self.draft_states[b].pos = min(int(starts[b]) + n_steps,
+                                           int(pos0[b]) + j_chain + 1,
+                                           pos_new)
+        self._round_depth = self._round_width = None
+        stats.spec_proposed_tokens += proposed
+        stats.spec_accepted_tokens += accepted
+        stats.spec_tree_nodes += nodes
+        stats.spec_branch_hits += hits
+        self._round_stats(stats, len(active), emitted, live_tokens,
+                          int(chunk_len.sum()), dt)
         return fresh
 
     @torch.no_grad()

@@ -5,7 +5,9 @@ chunked-prefill counters, preemptions and KV pool use (blocks and live
 tokens a decode step: `blocks_per_token`), the prefix cache's lookups,
 hits, reused tokens and copy-on-write copies, the storage dtypes and
 resident bytes of the weights and KV caches (the `QUANT` part of the
-summary under int8), and the step builds.  The
+summary under int8), the speculative-decoding counters (rounds, proposals,
+acceptance, verify positions, draft time, token-tree nodes, accepted path
+depths and branch hits: the `SPEC` part), and the step builds.  The
 port's prefill and encode steps run eagerly
 (`launch/steps.py`); `prefill_compiles` / `encode_compiles` count the
 distinct step callables built, as the reference counts its compiled steps.
@@ -87,6 +89,24 @@ class EngineStats:
     # -- chunked prefill ----------------------------------------------------
     prefill_chunks: int = 0        # chunk passes run
     chunked_prefill_tokens: int = 0  # true prompt tokens through chunks
+    # -- speculative decoding -----------------------------------------------
+    spec_rounds: int = 0           # propose->verify->commit rounds run
+    spec_slot_steps: int = 0       # decoding slots summed over rounds
+    spec_proposed_tokens: int = 0  # draft tokens proposed
+    spec_accepted_tokens: int = 0  # of those, accepted by the target
+    spec_emitted_tokens: int = 0   # tokens committed by verify passes
+    verify_positions: int = 0      # target positions run by verify passes
+    #                                (chain: the chunk lengths; tree: the
+    #                                nodes, root included, a slot-round)
+    spec_draft_time_s: float = 0.0  # wall time of draft steps and prefills
+    draft_time_ms: List[float] = field(default_factory=Reservoir)  # a
+    #                                round's draft steps
+    # token-tree speculation (zero under chain rounds)
+    spec_tree_nodes: int = 0       # tree nodes verified (root included)
+    spec_branch_hits: int = 0      # slot-rounds whose accepted path left
+    #                                the draft's sampled chain
+    spec_path_depth: List[float] = field(default_factory=Reservoir)  # the
+    #                                accepted root path's depth a slot-round
     # -- serving-level ------------------------------------------------------
     ttft_ms: List[float] = field(default_factory=Reservoir)
     queue_wait_ms: List[float] = field(default_factory=Reservoir)
@@ -134,6 +154,12 @@ class EngineStats:
 
     def add_encode_latency_ms(self, v: float) -> None:
         self.encode_latency_ms.add(v)
+
+    def add_draft_time_ms(self, v: float) -> None:
+        self.draft_time_ms.add(v)
+
+    def add_spec_path_depth(self, v: float) -> None:
+        self.spec_path_depth.add(v)
 
     @property
     def nar_tok_s(self) -> float:
@@ -202,6 +228,55 @@ class EngineStats:
         return percentile(self.encode_latency_ms, 99)
 
     @property
+    def spec_acceptance_rate(self) -> float:
+        """Fraction of draft-proposed tokens the target accepted."""
+        if not self.spec_proposed_tokens:
+            return 0.0
+        return self.spec_accepted_tokens / self.spec_proposed_tokens
+
+    @property
+    def spec_tokens_per_step(self) -> float:
+        """Mean tokens committed a target pass a decoding slot (plain
+        decode: 1.0; the all-accept round: k + 1)."""
+        if not self.spec_slot_steps:
+            return 0.0
+        return self.spec_emitted_tokens / self.spec_slot_steps
+
+    @property
+    def draft_time_ms_p50(self) -> float:
+        return percentile(self.draft_time_ms, 50)
+
+    @property
+    def draft_time_ms_p95(self) -> float:
+        return percentile(self.draft_time_ms, 95)
+
+    @property
+    def draft_time_ms_p99(self) -> float:
+        return percentile(self.draft_time_ms, 99)
+
+    @property
+    def spec_path_depth_p50(self) -> float:
+        return percentile(self.spec_path_depth, 50)
+
+    @property
+    def spec_path_depth_p95(self) -> float:
+        return percentile(self.spec_path_depth, 95)
+
+    @property
+    def spec_path_depth_p99(self) -> float:
+        return percentile(self.spec_path_depth, 99)
+
+    @property
+    def spec_branch_utilization(self) -> float:
+        """Fraction of slot-rounds whose accepted path used a sibling
+        branch (left the draft's sampled chain): the rounds where the tree
+        beat what the chain alone would have accepted.  0.0 under chain
+        rounds."""
+        if not self.spec_slot_steps:
+            return 0.0
+        return self.spec_branch_hits / self.spec_slot_steps
+
+    @property
     def prefix_cache_hit_rate(self) -> float:
         """Fraction of admission lookups that matched a cached prefix."""
         if not self.prefix_lookups:
@@ -252,6 +327,21 @@ class EngineStats:
                for k, v in percentiles(self.encode_latency_ms).items()},
             "prefill_chunks": self.prefill_chunks,
             "chunked_prefill_tokens": self.chunked_prefill_tokens,
+            "spec_rounds": self.spec_rounds,
+            "spec_proposed_tokens": self.spec_proposed_tokens,
+            "spec_accepted_tokens": self.spec_accepted_tokens,
+            "spec_emitted_tokens": self.spec_emitted_tokens,
+            "spec_acceptance_rate": self.spec_acceptance_rate,
+            "spec_tokens_per_step": self.spec_tokens_per_step,
+            "spec_draft_time_s": self.spec_draft_time_s,
+            "verify_positions": self.verify_positions,
+            **{f"draft_time_ms_{k}": v
+               for k, v in percentiles(self.draft_time_ms).items()},
+            "spec_tree_nodes": self.spec_tree_nodes,
+            "spec_branch_hits": self.spec_branch_hits,
+            "spec_branch_utilization": self.spec_branch_utilization,
+            **{f"spec_path_depth_{k}": v
+               for k, v in percentiles(self.spec_path_depth).items()},
             **{f"ttft_{k}_ms": v for k, v in percentiles(self.ttft_ms).items()},
             **{f"decode_step_{k}_ms": v
                for k, v in percentiles(self.decode_step_ms).items()},
@@ -301,6 +391,17 @@ class EngineStats:
                       f"{self.cached_prefix_tokens} tok reused, "
                       f"{self.cow_copies} COW, "
                       f"{self.evicted_blocks} evicted")
+        spec = ""
+        if self.spec_rounds:
+            tree = ""
+            if self.spec_tree_nodes:
+                tree = (f", tree {self.spec_tree_nodes} nodes, path p50 "
+                        f"{self.spec_path_depth_p50:.1f} p95 "
+                        f"{self.spec_path_depth_p95:.1f}, branch "
+                        f"{self.spec_branch_utilization:.0%}")
+            spec = (f" | SPEC {self.spec_acceptance_rate:.0%} accept, "
+                    f"{self.spec_tokens_per_step:.2f} tok/step, draft p95 "
+                    f"{self.draft_time_ms_p95:.1f}ms" + tree)
         quant = ""
         if self.weight_dtype != "bfloat16" or self.kv_dtype != "bfloat16":
             quant = (f" | QUANT w={self.weight_dtype} kv={self.kv_dtype}, "
@@ -315,5 +416,5 @@ class EngineStats:
                 f"{self.pool_utilization:.0%} ({self.peak_blocks_used}/"
                 f"{self.kv_pool_blocks} x {self.kv_block_size}-token blocks, "
                 f"{self.blocks_per_token:.2f} positions a live token, "
-                f"{self.preemptions} preempt)" + enc + chunk + prefix
-                + quant)
+                f"{self.preemptions} preempt)" + enc + chunk + spec
+                + prefix + quant)

@@ -67,7 +67,7 @@ def test_serve_cli_runs_and_matches_a_direct_engine(case, capsys):
             assert len(t.output) == 5 and t.output == want[t.uid].output
 
 
-@pytest.mark.parametrize("flag", [["--spec-draft", "self"],
+@pytest.mark.parametrize("flag", [["--draft-checkpoint", "d"],
                                   ["--deadline-ms", "50"], ["--overlap"],
                                   ["--policy", "deadline"],
                                   ["--trace-out", "trace.json"]])
