@@ -158,7 +158,21 @@ non-zero):
               position 1024, where the rings wrap; the kernel paths' logits
               at every step held to plain bf16 and fp32, and plain fp32
               decode (fp32 caches) held to exact-length prefill within 1e-4
-              at positions 1010, 1023, 1024 and 1039.
+              at positions 1010, 1023, 1024 and 1039;
+  9. moe      mixtral-8x7b at full width cut to 16 of its 32 layers (46.9
+              GB of bf16; the whole model's 93.4 GB do not fit), seeded:
+              the serve trace through the fused engine (exact launches,
+              the gated GEMM's expert form on the template each pass's
+              expert capacity takes, the graph replay bit-equal to the
+              eager step, decode profiles with the expert form's and the
+              experts' cuBLAS down-projection's share), a shared-prefix
+              trace chunked with the prefix cache, chain speculation (k 4)
+              with mixtral-8x7b-draft; then a 4-layer witness, its routing
+              pinned to the plain bf16 path's: logits held to plain bf16 /
+              fp32, every routing disagreement a near tie.  The expert
+              form itself is checked in the kernels phase (mixtral-8x7b
+              decode C 2, prefill C 640, C 37; 8x22b decode), beside the
+              router GEMM at N = 8 on both templates.
 Every driven path zeroes the launch counters just before it and reads them
 just after; a kernel of the path that never launched fails the run, and so
 does a GEMM that ran the fp32-weight template (fma32) or a flash launch
@@ -559,6 +573,83 @@ def check_swiglu(rows):
         _gemm_row("fused_matmul_swiglu", label, M, K, N, norm, "none", False,
                   torch.bfloat16, gated=True, g=g)
         for label, M, K, N, norm in cases]
+
+
+# the expert form of the gated GEMM (an MoE layer's experts, one launch):
+# (label, experts, rows an expert C, K, N).  mixtral-8x7b at a decode step
+# of batch 4 (C = ceil(4 x 2 / 8 x 1.25) = 2, the stream template) and at a
+# 2048-token prefill (C = 640, wgmma), mixtral-8x22b's decode, and a C that
+# is no multiple of any tile (37: one wgmma row tile, 91 rows of it the
+# next expert's, never stored)
+EXPERT_CASES = (("8x7b decode C=2", 8, 2, 4096, 14336),
+                ("8x7b prefill C=640", 8, 640, 4096, 14336),
+                ("8x22b decode C=2", 8, 2, 6144, 16384),
+                ("8x7b C=37", 8, 37, 4096, 14336))
+# the MoE router, E -> 8 experts with an fp32 output (`pdot`): N = 8 is the
+# narrowest N a served GEMM runs, one 32-byte fp32 row a token, on both
+# templates (decode batch 4, a 2048-token prefill)
+ROUTER_CASES = (("router 8x7b M=4", 4, 4096, 8, "none", "none", False,
+                 torch.float32),
+                ("router 8x7b M=2048", 2048, 4096, 8, "none", "none", False,
+                 torch.float32))
+
+
+def check_expert_swiglu(rows):
+    """The gated kernel's expert form (`EXPERT_CASES`) against its plain
+    version (`expert_swiglu_plain`, fp32 products) on the same bf16
+    operands, one launch a call; the library yardstick is two calls, two
+    torch.bmm and silu * mul.  Then the router GEMM's cases
+    (`ROUTER_CASES`) through the fused GEMM, added to its rows."""
+    from repro_torch.kernels import matmul as mm
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(24)
+    out = []
+    for label, NE, C, K, N in EXPERT_CASES:
+        xe = torch.randn((NE, C, K), generator=g, device=dev).bfloat16()
+        wg, wu = ((torch.randn((NE, K, N), generator=g, device=dev) * 0.02
+                   ).bfloat16() for _ in range(2))
+        kern = lambda: mm.expert_swiglu(xe, wg, wu)
+        plain = lambda: mm.expert_swiglu_plain(xe, wg, wu)
+        lib = lambda: (torch.nn.functional.silu(torch.bmm(xe, wg))
+                       * torch.bmm(xe, wu))
+        before = dict(mm.expert_swiglu.launches_by)
+        n0 = mm.expert_swiglu.launches
+        got = kern()
+        torch.cuda.synchronize()
+        if mm.expert_swiglu.launches != n0 + 1:
+            raise AssertionError(f"expert_swiglu {label}: "
+                                 f"{mm.expert_swiglu.launches - n0} launches "
+                                 f"a call, not one")
+        template = next(k for k, n in mm.expert_swiglu.launches_by.items()
+                        if n != before[k])
+        want = plain()
+        if got.shape != (NE, C, N) or not torch.isfinite(got).all():
+            raise AssertionError(f"expert_swiglu {label}: shape "
+                                 f"{tuple(got.shape)} or non-finite values")
+        err, rel = rel_err(got, want)
+        nbytes = NE * C * K * 2 + 2 * NE * K * N * 2 + NE * C * N * 2
+        r = _row(label, err, rel, GEMM_TOL["bf16"], time_ms(kern),
+                 time_ms(plain, iters=3), time_ms(lib, iters=10), nbytes,
+                 2 * 2 * NE * C * N * K)
+        slots = {}
+        if C <= mm.STREAM_MAX_M:
+            sms, blocks = mm._stream_slots(dev, C, True, False)
+            slots = dict(sm_count=sms, blocks_per_sm=blocks)
+        plan = mm.gemm_plan(C, K, N, gated=True, experts=NE, **slots)
+        r.update(device_ms=device_ms([kern]), library_device_ms=device_ms(
+            [lib]), template=template, splits=plan.splits,
+            grid=list(plan.grid))
+        _report("expert_swiglu", r, "2 x torch.bmm + silu*mul")
+        out.append(r)
+        del xe, wg, wu, got, want
+        torch.cuda.empty_cache()
+    if {r["template"] for r in out} != {"stream", "wgmma"}:
+        raise AssertionError("expert_swiglu: the cases did not run both "
+                             "templates")
+    rows["expert_swiglu"] = out
+    rows.setdefault("fused_matmul", []).extend(
+        _gemm_row("fused_matmul", *case, gated=False, g=g)
+        for case in ROUTER_CASES)
 
 
 # the int8-weight forms (weight-only int8 serving of GPT-J and phi4-mini):
@@ -1444,7 +1535,7 @@ def _counters():
 
 TOTAL_LAUNCHES = {}            # kernel -> launches over every driven path
 TOTAL_BY = {}                  # kernel -> form -> launches over every path
-GEMM_WRAPPERS = ("fused_matmul", "fused_matmul_swiglu")
+GEMM_WRAPPERS = ("fused_matmul", "fused_matmul_swiglu", "expert_swiglu")
 PAGED_WRAPPERS = ("paged_decode_attention", "paged_decode_partials")
 # wrappers with launches_by: the GEMMs by template and weight form, flash
 # by template, the paged decode by pool dtype
@@ -1492,24 +1583,81 @@ def drive(path, fn, need):
     return out, launches
 
 
+def moe_layers(cfg):
+    from repro_torch.configs.base import MOE_KINDS
+    return sum(c for k, c in cfg.schedule if k in MOE_KINDS)
+
+
 def gemms_per_pass(cfg):
     """(fused GEMMs, gated GEMMs) the layers of `cfg` launch in one pass of
     the fused chain: q / k / v / o per attention layer, the five SSM
     projections (x, z, B|C, dt, out: `pdot`, the hand GEMM with no
-    prologue) per SSM layer, and per MLP the down-projection plus the
-    up-projection (gated for SwiGLU); pure SSM layers have no MLP."""
-    from repro_torch.configs.base import ATTN_KINDS
+    prologue) per SSM layer, per MLP the down-projection plus the
+    up-projection (gated for SwiGLU), and per MoE layer the router
+    (`pdot`) alone: its experts run the gated kernel's expert form
+    (`expert_forms`) and their down-projection a cuBLAS bmm; pure SSM
+    layers have no MLP."""
+    from repro_torch.configs.base import ATTN_KINDS, MOE_KINDS
     fused = gated = 0
     for kind, count in cfg.schedule:
         if kind in ATTN_KINDS:
             fused += 4 * count
         if kind in ("ssm", "hybrid_attn", "hybrid_local"):
             fused += 5 * count
-        if kind != "ssm":
+        if kind in MOE_KINDS:
+            fused += count
+        elif kind != "ssm":
             swiglu = cfg.mlp_act == "swiglu"
             fused += (1 if swiglu else 2) * count
             gated += (1 if swiglu else 0) * count
     return fused, gated
+
+
+def track_prefill_rows(eng):
+    """A list that collects the rows (bucket x group) of every prefill
+    pass the engine's runner runs from now on: an MoE layer's dispatch,
+    and so the expert form's template, depends on them.  The wrapper holds
+    the runner weakly: a cycle through it would keep the engine and its
+    weights alive until the next garbage collection."""
+    import weakref
+    rows = []
+    runner = weakref.ref(eng.runner)
+    step_for = type(eng.runner)._prefill_for
+
+    def tracked(bucket, group, stats):
+        rows.append(bucket * group)
+        return step_for(runner(), bucket, group, stats)
+    eng.runner._prefill_for = tracked
+    return rows
+
+
+def expert_forms(cfg, *, prefill_rows=(), rows_decode=()):
+    """{form: launches} of the expert form over a run: per MoE layer, each
+    prefill pass of T rows dispatches `mlp._chunks(T)` chunks (capacity
+    ceil(Tc K / NE x 1.25) each), and each pass of the decode path (a
+    decode step, a chunk or a verify pass) of R rows one chunk (capacity
+    max(1, ceil(R K / NE x 1.25))): one launch each, on the template
+    `gemm_plan` takes for that capacity."""
+    import math
+    from repro_torch.core import mlp
+    from repro_torch.kernels.matmul import FORMS, gemm_plan
+    forms = dict.fromkeys(FORMS, 0)
+    n = moe_layers(cfg)
+    if not n:
+        return forms
+    caps = []
+    for T in prefill_rows:
+        nc = mlp._chunks(T)
+        caps += [int(math.ceil(T // nc * cfg.top_k / cfg.n_experts
+                               * cfg.capacity_factor))] * nc
+    caps += [max(1, int(math.ceil(R * cfg.top_k / cfg.n_experts
+                                  * cfg.capacity_factor)))
+             for R in rows_decode]
+    for c in caps:
+        t = gemm_plan(c, cfg.d_model, cfg.d_ff, gated=True,
+                      experts=cfg.n_experts).template
+        forms[t] += n
+    return forms
 
 
 def chunk_passes(eng):
@@ -1518,7 +1666,8 @@ def chunk_passes(eng):
     return {w: s.aux["calls"] for w, s in eng.runner._chunk_steps.items()}
 
 
-def check_gemm_templates(cfg, st, by, *, int8=False, chunks=None):
+def check_gemm_templates(cfg, st, by, *, int8=False, chunks=None,
+                         prefill_rows=None, batch=4):
     """Prefill GEMMs run the wgmma template and decode GEMMs the stream
     template: each GEMM of the layers (`gemms_per_pass`, the plain `pdot`
     products included) launches wgmma once a prefill pass and stream once
@@ -1530,7 +1679,9 @@ def check_gemm_templates(cfg, st, by, *, int8=False, chunks=None):
     (wgmma above 8 rows, stream at 8) and its head on one row (stream).
     `int8`: every one of them runs the template's int8-weight form, and no
     bf16 form launches at all (no int8 weight is widened to a bf16
-    copy)."""
+    copy).  An MoE config's expert form launches as `expert_forms` says
+    for the prefill passes' rows (`prefill_rows`, one entry a pass), the
+    decode steps' `batch` rows and the chunk passes' widths."""
     P, D, E = st.prefill_batches, st.decode_steps, st.encode_batches
     chunks = chunks or {}
     if sum(chunks.values()) != st.prefill_chunks:
@@ -1547,6 +1698,14 @@ def check_gemm_templates(cfg, st, by, *, int8=False, chunks=None):
             "fused_matmul_swiglu": {"stream" + sfx: (D + Cs) * per_swiglu,
                                     "wgmma" + sfx: (P + E + Cw)
                                     * per_swiglu}}
+    if moe_layers(cfg) and (prefill_rows is None
+                            or len(prefill_rows) != P):
+        raise AssertionError(f"{cfg.name}: {P} prefill passes but rows of "
+                             f"{prefill_rows}")
+    want["expert_swiglu"] = expert_forms(
+        cfg, prefill_rows=prefill_rows or (),
+        rows_decode=[batch] * D + [w for w, n in chunks.items()
+                                   for _ in range(n)])
     for forms in want.values():
         for t in ("fma32", "stream", "wgmma", "stream_int8", "wgmma_int8"):
             forms.setdefault(t, 0)
@@ -1648,8 +1807,11 @@ def path_kernels(cfg, path, *, max_seq=512, encode=False):
         need.add("paged_decode_attention")
         if ring_layers(cfg, max_seq):
             need.add("decode_attention")
-    if cfg.mlp_act == "swiglu" and kinds - {"ssm"}:
+    if cfg.mlp_act == "swiglu" and kinds - {"ssm", "moe", "moe_local"}:
         need.add("fused_matmul_swiglu")
+    if kinds & {"moe", "moe_local"} and path != "unfused":
+        # the experts (unfused: two bmm and the silu-mul) and the MoE ln2
+        need |= {"expert_swiglu", "residual_rmsnorm"}
     if cfg.has_ssm:
         need |= {"ssd", "rmsnorm"}               # SSM and hybrid ln1
     if hybrid and path != "unfused":
@@ -1667,7 +1829,9 @@ def check_serve_counts(cfg, launches, st, max_seq, by=None, kv_int8=False):
     form otherwise (`by`: the path's launches by form); flash once per
     attention layer per prefill or encode pass; the SSD kernel once per
     SSM layer per prefill pass, the residual RMSNorm once per hybrid layer
-    per prefill pass and decode step; in a LayerNorm config the plain
+    per prefill pass and decode step, and once per MoE layer per prefill
+    pass, chunk pass and decode step (the fused ln2); in a LayerNorm config
+    the plain
     LayerNorm only as an encode batch's pooling norm, once a batch (the
     fused engine folds every other norm into a GEMM); the chunk partials
     (device torch ops, no hand kernel) once per attention layer per chunk
@@ -1691,6 +1855,9 @@ def check_serve_counts(cfg, launches, st, max_seq, by=None, kv_int8=False):
         want.update(ssd=ssm_layers * st.prefill_batches,
                     residual_rmsnorm=hybrid_layers * (st.prefill_batches
                                                       + st.decode_steps))
+    if moe_layers(cfg):
+        want["residual_rmsnorm"] = moe_layers(cfg) * (
+            st.prefill_batches + st.decode_steps + st.prefill_chunks)
     got = {k: launches[k] for k in want}
     if by is not None:
         paged = want["paged_decode_attention"]
@@ -1768,19 +1935,22 @@ def check_graph_vs_eager(eng, cfg):
             "cache_leaves": leaves, "leaves_bit_equal": leaves - len(diffs)}
 
 
-def _gated_kernel(name):
-    """Whether a GEMM kernel of a profile is the gated (SwiGLU) one: its
-    GATED template argument (stream_kernel<MT, GATED, I8>,
-    wgmma_kernel<GATED, I8>, splitk_finish<GATED>) or the fp32 template's
-    own kernel."""
+def _gemm_key(name):
+    """The wrapper a GEMM kernel of a profile belongs to: its GATED and EX
+    template arguments (stream_kernel<MT, GATED, I8, EX>,
+    wgmma_kernel<GATED, I8, EX>, splitk_finish<GATED, EX>) or the fp32
+    template's own kernels."""
     if "fused_swiglu_kernel" in name:
-        return True
+        return "fused_matmul_swiglu"
     m = re.search(r"(stream_kernel|wgmma_kernel|splitk_finish)<([^>]*)>",
                   name)
     if m is None:
-        return False
+        return "fused_matmul"
     args = [a.strip() for a in m.group(2).split(",")]
-    return args[1 if m.group(1) == "stream_kernel" else 0] == "true"
+    if args[-1] == "true":
+        return "expert_swiglu"
+    gated = args[1 if m.group(1) == "stream_kernel" else 0] == "true"
+    return "fused_matmul_swiglu" if gated else "fused_matmul"
 
 
 def profile_decode(eng, cfg, rng, steps=4, prompt_len=200,
@@ -1847,11 +2017,10 @@ def profile_decode(eng, cfg, rng, steps=4, prompt_len=200,
         return out
     busy = sum(ms for ms, _ in dev.values())
     # the GEMM templates' kernels (gemm.cuh; GATED = the SwiGLU kernel)
-    gemm = {"fused_matmul": [0.0, 0], "fused_matmul_swiglu": [0.0, 0]}
+    gemm = {k: [0.0, 0] for k in GEMM_WRAPPERS}
     for name, (ms, n) in dev.items():
         if any(k in name for k in GEMM_KERNELS):
-            key = ("fused_matmul_swiglu" if _gated_kernel(name)
-                   else "fused_matmul")
+            key = _gemm_key(name)
             gemm[key][0] += ms
             gemm[key][1] += n
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]
@@ -1862,8 +2031,9 @@ def profile_decode(eng, cfg, rng, steps=4, prompt_len=200,
         return (sum(ms for ms, _ in hits), sum(n for _, n in hits))
 
     # the decode kernels and their merges, the norm kernels; library GEMMs
-    # (cuBLAS / CUTLASS: none of the port's projections should reach one);
-    # copies and casts
+    # (cuBLAS / CUTLASS: none of the port's projections should reach one
+    # but an MoE layer's expert down-projection, the reference's own
+    # dot_general, a torch.bmm); copies and casts
     shares = {
         "paged_decode": _share(lambda k: "paged_decode_kernel" in k),
         "decode_attention": _share(lambda k: "decode_attention_kernel" in k),
@@ -1873,7 +2043,7 @@ def profile_decode(eng, cfg, rng, steps=4, prompt_len=200,
                        is not None),
         "residual_norm": _share(lambda k: "res_norm_kernel" in k),
         "library_gemm": _share(lambda k: re.search(
-            r"gemm|gemv|xmma|cutlass", k, re.I) is not None and not any(
+            r"gemm|gemv|xmma|cutlass|nvjet", k, re.I) is not None and not any(
                 g in k for g in GEMM_KERNELS)),
         "copy": _share(lambda k: "copy" in k.lower()),
     }
@@ -2002,7 +2172,7 @@ def check_encodes(cfg, params, tasks, max_seq):
 
 def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
                 prefill_profile=False, encodes=(), weight_dtype="bfloat16",
-                kv_dtype=None):
+                kv_dtype=None, params=None, teacher=True):
     """Serve len(lengths) requests of 32 new tokens (uids 1 and 6 sampled)
     through InferenceEngine at full width, the EncodeTasks `encodes`
     ((pooling, length) pairs, uids 100 + i) interleaved with the first of
@@ -2015,14 +2185,18 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
     `weight_dtype` / `kv_dtype`: the engine's int8 knobs; with int8
     weights the teacher-forced paths run on the engine's quantized
     weights, and every GEMM launch must be an int8 form (with int8 KV,
-    every paged launch)."""
+    every paged launch).  `params`: the caller's bf16 weights (else drawn
+    from `seed`); `teacher=False` leaves out the teacher-forced gates (the
+    MoE phase runs them on its own witness)."""
     from repro_torch.core.precision import BF16, FP32
     from repro_torch.models import lm
     from repro_torch.serving import (EncodeTask, InferenceEngine, Request,
                                      SamplingParams)
 
     t0 = time.perf_counter()
-    params = lm.init_lm(cfg, dtype=torch.bfloat16, device=DEVICE, seed=seed)
+    if params is None:
+        params = lm.init_lm(cfg, dtype=torch.bfloat16, device=DEVICE,
+                            seed=seed)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     ssm = (f" SSM {cfg.ssm_heads}->{cfg.padded_ssm_heads()} heads x "
@@ -2052,6 +2226,7 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
         f"{peak_build:.2f} GB")
     if not step.aux["captured"]:
         raise AssertionError(f"{cfg.name}: the decode step is not captured")
+    prefill_rows = track_prefill_rows(eng)
     rng = np.random.default_rng(0)
     enc_tasks = []
     for uid, n in enumerate(lengths):
@@ -2081,7 +2256,8 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
                        by=TEMPLATE_LAUNCHES[f"{tag} serve"],
                        kv_int8=st.kv_dtype == "int8")
     check_gemm_templates(cfg, st, TEMPLATE_LAUNCHES[f"{tag} serve"],
-                         int8=weight_dtype == "int8")
+                         int8=weight_dtype == "int8",
+                         prefill_rows=list(prefill_rows))
     if (st.weight_dtype, st.kv_dtype) != (weight_dtype, kv_dtype
                                           or "bfloat16"):
         raise AssertionError(f"{tag}: the stats report {st.weight_dtype} / "
@@ -2133,6 +2309,10 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
             cfg, params, np.random.default_rng(1), prompt_len=max_seq,
             max_seq=max_seq)
 
+    if not teacher:
+        del params, served
+        torch.cuda.empty_cache()
+        return report
     # teacher-forced: one prompt through the two kernel paths, held to the
     # plain bf16 path (`ref` mode) and the plain fp32 path; the gap between
     # those two is the rounding floor the gates scale with
@@ -3126,7 +3306,7 @@ def check_sample_topn():
 
 
 def check_spec_counts(eng, launches, by, *, replays, verify_passes,
-                      draft_prefills):
+                      draft_prefills, prefill_rows=()):
     """A spec engine's exact launches: the target's prefill passes and the
     draft's (flash once an attention layer a pass, the layers' GEMMs on
     wgmma, the head streaming at M <= 4); each verify pass the chunk
@@ -3134,7 +3314,9 @@ def check_spec_counts(eng, launches, by, *, replays, verify_passes,
     M = B x C on the template the planner takes for it; each draft step
     one replay of the draft's captured graph: the dense decode kernel once
     a draft layer, its GEMMs and head streaming; and no paged decode
-    launch at all (a spec engine never runs `decode()`)."""
+    launch at all (a spec engine never runs `decode()`).  An MoE
+    target's expert form: `expert_forms` of its prefill passes' rows
+    (`prefill_rows`) and of each verify pass's B x C rows."""
     from repro_torch.configs.base import ATTN_KINDS
     from repro_torch.kernels.matmul import gemm_plan
     r = eng.runner
@@ -3148,6 +3330,8 @@ def check_spec_counts(eng, launches, by, *, replays, verify_passes,
             "flash_attention": L * P + Ld * Pd,
             "paged_chunk_partials": L * V,
             "rmsnorm": 0, "layernorm": 0}
+    if moe_layers(cfg):
+        want["residual_rmsnorm"] = moe_layers(cfg) * (P + V)
     got = {k: launches[k] for k in want}
     pl, pg = gemms_per_pass(cfg)
     dpl, dpg = gemms_per_pass(dcfg)
@@ -3159,6 +3343,11 @@ def check_spec_counts(eng, launches, by, *, replays, verify_passes,
              "fused_matmul_swiglu": {"stream": D * dpg,
                                      "wgmma": (P + V) * pg + Pd * dpg}}
     forms["fused_matmul"][vt] += V * (pl + 1)
+    if moe_layers(dcfg):
+        raise ValueError(f"check_spec_counts: the MoE draft {dcfg.name} "
+                         f"is not counted")
+    forms["expert_swiglu"] = expert_forms(cfg, prefill_rows=prefill_rows,
+                                          rows_decode=[M] * V)
     for f in forms.values():
         for t in ("fma32", "stream_int8", "wgmma_int8"):
             f.setdefault(t, 0)
@@ -4104,6 +4293,313 @@ def ring_witness(cfg, *, seed, prompt_len=1000, steps=40, max_seq=2048,
     return out
 
 
+# --------------------------------------------------------------------------
+# 9. the MoE family: mixtral-8x7b at full width
+# --------------------------------------------------------------------------
+
+# mixtral-8x7b holds 2.90 GB a layer in bf16 (experts 2.82, attention
+# 0.084) and 0.52 GB of embedding and head: 93.4 GB at its 32 layers, past
+# the 80 GB card.  Served at full width cut to 16 layers (46.9 GB); the
+# teacher-forced gates run on a 4-layer witness (12.1 GB in bf16).
+MOE_SERVE_LAYERS = 16
+MOE_WITNESS_LAYERS = 4
+MOE_PREFIX_REQUESTS = 4
+
+
+def moe_cut(layers, **kw):
+    """mixtral-8x7b at full width cut to `layers` `moe_local` layers."""
+    import dataclasses
+
+    from repro_torch.configs import MIXTRAL_8X7B
+    return dataclasses.replace(MIXTRAL_8X7B, n_layers=layers,
+                               schedule=(("moe_local", layers),), **kw)
+
+
+def moe_prefix_run(cfg, params):
+    """MOE_PREFIX_REQUESTS requests sharing a PREFIX_LEN-token prefix (the
+    first served to its first token before the rest arrive) under
+    ChunkedPrefillPolicy(CHUNK) with the prefix cache: every prompt chunks
+    through `block_chunk`'s MoE branch (no whole-prompt pass, so no flash
+    launch), the warm ones from their cached prefix; served, exact counts
+    (the expert form by each chunk pass's capacity), the cache hit, the
+    index clean, no leak after clear()."""
+    from repro_torch.core.precision import BF16
+    from repro_torch.serving import ChunkedPrefillPolicy, InferenceEngine
+    eng = InferenceEngine(cfg, params, batch_size=4, max_seq=512,
+                          block_size=16, policy=BF16, device=DEVICE,
+                          scheduler=ChunkedPrefillPolicy(CHUNK),
+                          prefix_cache=True)
+    rows = track_prefill_rows(eng)
+    reqs = _prefix_requests(cfg)[:MOE_PREFIX_REQUESTS]
+
+    def run():
+        eng.submit(reqs[0])
+        while not reqs[0].output:
+            eng.step()
+        for r in reqs[1:]:
+            eng.submit(r)
+        eng.run()
+        return list(eng.completed)
+    label = f"{cfg.name} chunked prefix serve"
+    need = tuple(k for k in path_kernels(cfg, "serve")
+                 if k != "flash_attention") + ("paged_chunk_partials",)
+    done, launches = drive(label, run, need)
+    st = eng.stats()
+    by = TEMPLATE_LAUNCHES[label]
+    _check_served(eng, done, len(reqs), 24, label)
+    check_serve_counts(cfg, launches, st, 512, by=by)
+    check_gemm_templates(cfg, st, by, chunks=chunk_passes(eng),
+                         prefill_rows=list(rows))
+    eng.prefix_cache.check()
+    if not (st.prefill_chunks > 0 and st.prefix_cache_hit_rate > 0
+            and st.cached_prefix_tokens >= (len(reqs) - 1) * 192):
+        raise AssertionError(f"{label}: {st.prefill_chunks} chunk passes, "
+                             f"hit rate {st.prefix_cache_hit_rate}, "
+                             f"{st.cached_prefix_tokens} cached tokens")
+    eng.prefix_cache.clear()
+    if eng.allocator.num_free != eng.allocator.num_blocks:
+        raise AssertionError(f"{label}: blocks leaked after clear()")
+    nums = _serve_numbers(st)
+    _log_numbers(label, nums)
+    log(f"  [{label}] hit rate {st.prefix_cache_hit_rate:.3f}, "
+        f"{st.cached_prefix_tokens} cached prompt tokens, chunk passes by "
+        f"width {chunk_passes(eng)}; index clean; no leak after clear()")
+    out = {"numbers": nums, "stats": st.to_dict(), "launches": launches,
+           "chunk_passes": chunk_passes(eng)}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_spec_run(cfg, params):
+    """Chain speculation (k SPEC_K) with `mixtral-8x7b-draft` (a dense
+    2-layer SwiGLU draft at the target's widths, seeded weights) over the
+    first 4 requests of the serve trace.  The spec gate refuses any
+    window (the reference's rule), so the target runs with its window off:
+    at max_seq 512 the 4096 window never binds, the same function.  Served
+    and drained, the draft's step captured, exact launches (the verify
+    passes' expert form at their B x (k + 1) rows); each request's first
+    token (its prefill's) equal to the plain run's.  Later tokens are
+    reported, not gated: an MoE layer's capacity follows the rows a pass
+    routes (2 an expert at a decode step of 4, 7 at a verify pass of 20),
+    so where a pair drops in one and not the other the tokens differ by
+    design, in the reference too."""
+    import dataclasses
+
+    from repro_torch.core.precision import BF16
+    from repro_torch.serving import InferenceEngine, SpecConfig
+    scfg = dataclasses.replace(cfg, sliding_window=0)
+    lengths = SERVE_LENGTHS[:4]
+    engine = lambda **kw: InferenceEngine(
+        scfg, params, batch_size=4, max_seq=512, block_size=16, policy=BF16,
+        device=DEVICE, **kw)
+    eng = engine()
+    for q in _serve_requests(scfg, lengths):
+        eng.submit(q)
+    plain = {q.uid: q.output for q in eng.run()}
+    del eng
+    eng = engine(spec=SpecConfig(draft="mixtral-8x7b-draft", k=SPEC_K))
+    r = eng.runner
+    rows = track_prefill_rows(eng)
+    bundle = r.draft_decode_step
+    if not bundle.aux["captured"]:
+        raise AssertionError("mixtral spec: the draft step is not captured")
+    reqs = _serve_requests(scfg, lengths)
+    for q in reqs:
+        eng.submit(q)
+    label = f"{cfg.name} spec"
+    replays0, verify0 = bundle.fn.replays, r.verify_step.aux["calls"]
+    t0 = time.perf_counter()
+    done, launches = drive(label, eng.run,
+                           ("fused_matmul", "flash_attention",
+                            "decode_attention", "paged_chunk_partials",
+                            "expert_swiglu", "residual_rmsnorm"))
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    _check_served(eng, done, len(reqs), 32, label)
+    counts = check_spec_counts(
+        eng, launches, TEMPLATE_LAUNCHES[label],
+        replays=bundle.fn.replays - replays0,
+        verify_passes=r.verify_step.aux["calls"] - verify0,
+        draft_prefills=st.prefill_batches, prefill_rows=list(rows))
+    got = {q.uid: q.output for q in done}
+    first = [u for u in got if got[u][0] != plain[u][0]]
+    if first:
+        raise AssertionError(f"{label}: first tokens differ from the plain "
+                             f"run's for requests {first}")
+    same = sum(got[u] == plain[u] for u in got)
+    nums = _spec_numbers(st, wall)
+    log(f"  [{label}] acceptance {nums['acceptance_rate']:.3f}, "
+        f"{nums['tokens_per_target_step']:.2f} tokens a target pass a slot, "
+        f"{nums['verify_positions']} verify positions in "
+        f"{nums['spec_rounds']} rounds, draft p50 {nums['draft_p50_ms']:.2f}"
+        f" ms a round, verify p50 {nums['verify_p50_ms']:.2f} ms; "
+        f"{same} of {len(got)} requests token-identical to plain decode, "
+        f"every first token equal")
+    out = {"numbers": nums, "stats": st.to_dict(), "counts": counts,
+           "launches": launches, "identical_to_plain": same,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_witness(*, layers, seed):
+    """mixtral-8x7b at full width cut to `layers` layers, one 96-token
+    prompt teacher-forced through the plain bf16 and fp32 paths and the
+    fused and unfused kernel paths.  Routing is discontinuous: a token
+    whose top-2 differs between two paths swaps a whole FFN, so paths run
+    freely differ by far more than rounding (their gaps are reported, not
+    gated).  So every path also runs with its routing pinned to the plain
+    bf16 path's choices (each layer's experts; the weights from its own
+    router's probabilities), and there: the kernel paths' final-position
+    logits are held to plain bf16 (k = 2) and plain fp32 (k = 1.5) by the
+    floor-scaled gate, the floor being the pinned plain paths' gap; and at
+    every layer the experts each kernel path's own router would choose are
+    compared with plain bf16's for every token: each disagreement must be
+    a near tie, the plain bf16 probabilities of the swapped experts within
+    NEAR_TIE_K router floors of each other (that layer's largest |p_bf16 -
+    p_fp32| under the pin: what rounding alone moves the router by)."""
+    from repro_torch.core import mlp
+    from repro_torch.core.precision import FP32
+    from repro_torch.models import lm
+    cfg = moe_cut(layers)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_lm(cfg, dtype=torch.bfloat16, device=DEVICE, seed=seed)
+    rng = np.random.default_rng(2)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, 96),
+                                       dtype=np.int32), device=DEVICE)
+    route = mlp._route
+
+    def routed(fn, pin=None):
+        """fn() with every layer's router recorded (its probabilities and
+        its own top-k) and, with `pin`, the top-k replaced by pin's."""
+        rec = []
+
+        def spy(xc, wr, *, cfg, policy):
+            probs, w, i = route(xc, wr, cfg=cfg, policy=policy)
+            rec.append((probs.float(), i))
+            if pin is not None:
+                i = pin[len(rec) - 1][1]
+                w = probs.gather(1, i)
+                w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+            return probs, w, i
+        mlp._route = spy
+        try:
+            z = fn()
+        finally:
+            mlp._route = route
+        if len(rec) != layers:
+            raise AssertionError(f"moe witness: {len(rec)} routings, not "
+                                 f"{layers}")
+        return z, rec
+
+    run = lambda mode, fused=True, policy=None: lambda: teacher_forced(
+        cfg, params, prompt, mode=mode, fused=fused, policy=policy)
+    name = f"{cfg.name} at {layers} layers"
+    z_ref, r_ref = routed(run("ref"))
+    z_fp32_free, r_fp32_free = routed(run("ref", policy=FP32))
+    free = {"plain_fp32": {"gap": _gap(z_fp32_free, z_ref),
+                           "flips": _route_flips(r_fp32_free, r_ref)}}
+    for path, fused in (("fused", True), ("unfused", False)):
+        z, rec = routed(run("auto", fused))
+        free[path] = {"gap": _gap(z, z_ref), "flips": _route_flips(rec,
+                                                                 r_ref)}
+    log(f"moe witness: {name}, run freely against plain bf16 (not gated): "
+        + "; ".join(f"{k} rel {v['gap'][0]:.2e} cosine "
+                    f"{np.cos(v['gap'][1]):.6f}, {v['flips']} (token, "
+                    f"layer) routing disagreements" for k, v in free.items()))
+    z_fp32, r_fp32 = routed(run("ref", policy=FP32), pin=r_ref)
+    floor = _gap(z_ref, z_fp32)
+    rfloor = [float((a[0] - b[0]).abs().max()) for a, b in zip(r_ref, r_fp32)]
+    log(f"  [{name}] routing pinned to plain bf16's: plain bf16 vs plain "
+        f"fp32 (floor) rel {floor[0]:.2e}, cosine {np.cos(floor[1]):.6f}; "
+        f"router floors by layer {[f'{f:.2e}' for f in rfloor]}, plain "
+        f"fp32's own choices differing at {_route_flips(r_fp32, r_ref)} "
+        f"(token, layer)")
+    out = {"layers": layers, "free_running": free,
+           "floor": {"rel": floor[0], "cosine": float(np.cos(floor[1]))},
+           "router_floor": rfloor,
+           "plain_fp32_routing": _routing_gate(f"{name} plain fp32", r_fp32,
+                                               r_ref, rfloor)}
+    for path, fused in (("fused", True), ("unfused", False)):
+        (z, rec), out[f"launches_{path}"] = drive(
+            f"{name} teacher-forced {path}",
+            lambda: routed(run("auto", fused), pin=r_ref),
+            path_kernels(cfg, path))
+        out[f"{path}_vs_plain_bf16"] = _logit_gate(
+            f"{name} {path} kernel path vs plain bf16", z, z_ref, floor, 2.0)
+        out[f"{path}_vs_plain_fp32"] = _logit_gate(
+            f"{name} {path} kernel path vs plain fp32", z, z_fp32, floor, 1.5)
+        out[f"{path}_routing"] = _routing_gate(f"{name} {path}", rec, r_ref,
+                                               rfloor)
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  [{name}] peak memory {out['peak_memory_gb']:.2f} GB")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _route_flips(rec, ref):
+    """(token, layer) pairs whose chosen expert sets differ."""
+    return sum(int((torch.sort(a[1], -1).values
+                    != torch.sort(b[1], -1).values).any(-1).sum())
+               for a, b in zip(rec, ref))
+
+
+def _routing_gate(label, rec, ref, rfloor):
+    """Every (token, layer) whose own top-k set differs from the plain
+    bf16 path's: the margin (the largest gap, in the plain bf16 path's
+    probabilities, between an expert only one side chose and one only the
+    other chose) within NEAR_TIE_K x that layer's router floor."""
+    rows = []
+    for layer, ((_, i_k), (p_r, i_r)) in enumerate(zip(rec, ref)):
+        for t in range(i_r.shape[0]):
+            a, b = set(i_k[t].tolist()), set(i_r[t].tolist())
+            if a == b:
+                continue
+            margin = max(abs(float(p_r[t, e]) - float(p_r[t, f]))
+                         for e in a - b for f in b - a)
+            rows.append({"token": t, "layer": layer, "own": sorted(a),
+                         "plain": sorted(b), "margin": margin,
+                         "floor": rfloor[layer],
+                         "near_tie": margin <= NEAR_TIE_K * rfloor[layer]})
+    log(f"  [{label}] routing vs plain bf16 (pinned): {len(rows)} (token, "
+        f"layer) disagreements, largest margin / floor "
+        f"{max((r['margin'] / r['floor'] for r in rows), default=0.0):.2f}"
+        f" (near tie <= {NEAR_TIE_K})")
+    bad = [r for r in rows if not r["near_tie"]]
+    if bad:
+        raise AssertionError(f"{label}: routing disagreements that are no "
+                             f"near tie: {bad}")
+    return {"disagreements": len(rows), "rows": rows}
+
+
+def phase_moe():
+    """mixtral-8x7b at full width (E 4096, 8 experts x F 14336, top-2, GQA
+    32 / 8) cut to MOE_SERVE_LAYERS layers, seeded bf16 weights: the serve
+    trace through the fused engine (`serve_model`: exact launches, the
+    expert form by each pass's capacity, the graph replay bit-equal to the
+    eager step, the decode profiles with the expert form's and the expert
+    down-projection's (cuBLAS bmm) share), the chunked prefix run and the
+    chain speculation run on the same weights; then, the 16 layers freed,
+    the MOE_WITNESS_LAYERS-layer witness."""
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cfg = moe_cut(MOE_SERVE_LAYERS)
+    params = lm.init_lm(cfg, dtype=torch.bfloat16, device=DEVICE, seed=8)
+    out = {"layers": MOE_SERVE_LAYERS,
+           "serve": serve_model(cfg, seed=8, params=params, teacher=False),
+           "chunk_prefix": moe_prefix_run(cfg, params),
+           "spec": moe_spec_run(cfg, params)}
+    del params
+    torch.cuda.empty_cache()
+    out["witness"] = moe_witness(layers=MOE_WITNESS_LAYERS, seed=9)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"moe phase: {out['seconds']:.1f} s")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4122,6 +4618,10 @@ KERNELS = {   # name -> (source, TPU kernel replaced, case in the line)
     "fused_matmul_swiglu": (CSRC + "fused_swiglu.cu",
                             "src/repro/kernels/matmul.py:329",
                             "M=4 rmsnorm"),
+    # its expert form: the TPU kernel vmapped over an MoE layer's experts
+    # (src/repro/kernels/ops.py:350 expert_swiglu)
+    "expert_swiglu": (CSRC + "fused_swiglu.cu",
+                      "src/repro/kernels/matmul.py:329", "8x7b decode C=2"),
     # the int8-weight / int8-pool forms of the same sources
     "fused_matmul_int8": (CSRC + "fused_matmul.cu",
                           "src/repro/kernels/matmul.py:161", "mlp_up M=4"),
@@ -4201,6 +4701,7 @@ def main():
     log("kernels vs plain versions (bf16, on the card):")
     check_gemm(rows)
     check_swiglu(rows)
+    check_expert_swiglu(rows)
     check_norms(rows)
     check_residual_norms(rows)
     check_ssd(rows)
@@ -4220,6 +4721,7 @@ def main():
     from repro_torch.configs import GEMMA3_27B, MAMBA2_2_7B
     report["witness"] = depth_witness(MAMBA2_2_7B, layers=8, seed=3)
     report["ring_witness"] = ring_witness(GEMMA3_27B, seed=6)
+    report["moe"] = phase_moe()
     report["launches_total"] = dict(TOTAL_LAUNCHES)
     report["gemm_templates"] = dict(TEMPLATE_LAUNCHES)
     line = []

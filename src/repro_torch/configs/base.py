@@ -18,6 +18,7 @@ ATTN_KINDS = ("attn", "local", "moe", "moe_local", "hybrid_attn",
               "hybrid_local", "enc", "dec", "vit")
 LOCAL_KINDS = ("local", "moe_local", "hybrid_local")
 SSM_KINDS = ("ssm", "hybrid_attn", "hybrid_local")
+MOE_KINDS = ("moe", "moe_local")
 
 
 @dataclass(frozen=True)
@@ -92,10 +93,11 @@ class ModelConfig:
     def n_params(self) -> int:
         """Parameter count (embedding, blocks, unembedding) as the
         reference counts it, for the kinds the port serves: attention and
-        SSM heads with a dense MLP, and the attention-free `ssm` block; a
-        ViT counts its positions and classifier head instead of the
-        vocabulary (as the reference does, not the patchify weight, the cls
-        token or the head bias)."""
+        SSM heads with a dense MLP or (`moe`, `moe_local`) a router and
+        `n_experts` experts, and the attention-free `ssm` block; a ViT
+        counts its positions and classifier head instead of the vocabulary
+        (as the reference does, not the patchify weight, the cls token or
+        the head bias)."""
         E, F, V = self.d_model, self.d_ff, self.vocab
         hd, H, KV = self.head_dim, self.n_heads, self.n_kv_heads
         total = V * E + (0 if self.tie_embeddings else E * V)
@@ -111,7 +113,9 @@ class ModelConfig:
                 nh = di // self.ssm_head_dim
                 p += E * (2 * di + 2 * self.ssm_state + nh)
                 p += di * self.conv_width + 2 * nh + di * E
-            if kind != "ssm":
+            if kind in MOE_KINDS:
+                p += E * self.n_experts + self.n_experts * gated * E * F
+            elif kind != "ssm":
                 p += gated * E * F
             total += p * count
         return total

@@ -9,6 +9,12 @@ it) or unfused (the discrete norm -> GEMM -> add chain):
   ``hybrid_attn``   attention and SSM heads in parallel on one normalized
                     input, outputs averaged, then a dense MLP
   ``hybrid_local``  the same with sliding-window attention
+  ``moe``           pre-norm attention + a Mixture-of-Experts FFN
+                    (`mlp.moe_full` / `moe_decode`); fused, the attention
+                    output skips the residual epilogue and one
+                    `ops.residual_norm` pass does the add and ln2, since no
+                    GEMM epilogue can absorb the experts' dispatch
+  ``moe_local``     the same with sliding-window attention
   ``vit``           the ``attn`` block with bidirectional attention (the
                     paper's encoder-only topology): full-sequence passes
                     only, no decode step
@@ -16,20 +22,21 @@ it) or unfused (the discrete norm -> GEMM -> add chain):
 Full-context attention layers keep their KV in the block pool
 (`kind_paged`) and can prefill in chunks (`block_chunk`); a window shorter
 than max_seq keeps a dense per-slot ring cache of `window` slots instead.
-The other kinds of the reference (MoE, encoder / decoder) raise
+The other kinds of the reference (encoder / decoder) raise
 NotImplementedError."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN_KINDS, LOCAL_KINDS, SSM_KINDS
+from repro_torch.configs.base import (ATTN_KINDS, LOCAL_KINDS, MOE_KINDS,
+                                     SSM_KINDS)
 from repro_torch.core import attention as attn
 from repro_torch.core import mlp as mlp_mod
 from repro_torch.core import ssm as ssm_mod
 from repro_torch.kernels import ops
 
 PORTED_KINDS = ("attn", "local", "ssm", "hybrid_attn", "hybrid_local",
-                "vit")
+                "moe", "moe_local", "vit")
 HYBRID_KINDS = ("hybrid_attn", "hybrid_local")
 BIDIR_KINDS = ("enc", "vit")
 SSM_STATE = ("h", "cx", "cbc")
@@ -64,7 +71,10 @@ def block_param_shapes(kind: str, cfg) -> dict:
         out["attn"] = attn.attention_param_shapes(cfg)
     if kind in SSM_KINDS:
         out["ssm"] = ssm_mod.ssm_param_shapes(cfg)
-    if kind != "ssm":
+    if kind in MOE_KINDS:
+        out["ln2"] = norm_shapes(cfg)
+        out["moe"] = mlp_mod.moe_param_shapes(cfg)
+    elif kind != "ssm":
         out["ln2"] = norm_shapes(cfg)
         out["mlp"] = mlp_mod.mlp_param_shapes(cfg)
     return out
@@ -83,8 +93,8 @@ def _init_normal(generator, shapes, dtype, device, count):
 
 def init_block(generator, kind: str, cfg, dtype, device, count: int):
     """`count` stacked layers of `kind` (leading layer dim), drawn layer by
-    layer from `generator`: N(0, 0.02) attention / MLP weights, unit norms,
-    SSM leaves as `ssm.init_ssm` draws them."""
+    layer from `generator`: N(0, 0.02) attention / MLP / router and expert
+    weights, unit norms, SSM leaves as `ssm.init_ssm` draws them."""
     _require_ported(kind)
     out = {"ln1": init_norm(cfg, dtype, device, count)}
     if kind in ATTN_KINDS:
@@ -95,7 +105,11 @@ def init_block(generator, kind: str, cfg, dtype, device, count: int):
                   for _ in range(count)]
         out["ssm"] = {k: torch.stack([lp[k] for lp in layers])
                       for k in layers[0]}
-    if kind != "ssm":
+    if kind in MOE_KINDS:
+        out["ln2"] = init_norm(cfg, dtype, device, count)
+        out["moe"] = _init_normal(generator, mlp_mod.moe_param_shapes(cfg),
+                                  dtype, device, count)
+    elif kind != "ssm":
         out["ln2"] = init_norm(cfg, dtype, device, count)
         out["mlp"] = _init_normal(generator, mlp_mod.mlp_param_shapes(cfg),
                                   dtype, device, count)
@@ -139,6 +153,17 @@ def _store_state(cache, new):
         cache[k].copy_(new[k])
 
 
+def _moe_boundary(x, y, p, *, cfg, fused):
+    """The ln2 boundary of an MoE block, attention output y pending:
+    -> (h2 = ln2(x + y), x + y).  Fused, one `ops.residual_norm` pass (no
+    GEMM epilogue can absorb the experts' dispatch); unfused, the add and
+    the norm."""
+    if fused:
+        return ops.residual_norm(x, y, p["ln2"], cfg.norm)
+    x = x + y
+    return ops.norm(x, p["ln2"], cfg.norm), x
+
+
 def block_full(kind: str, p, x, *, cfg, policy, fused: bool = True,
                with_cache: bool = False, max_seq: int = 0,
                compact_kv: bool = False):
@@ -162,7 +187,13 @@ def block_full(kind: str, p, x, *, cfg, policy, fused: bool = True,
     kv_kw = dict(causal=causal, window=window, with_cache=with_cache,
                  cache_len=cache_len, cache_window=cache_window)
     hybrid = kind in HYBRID_KINDS
-    if fused and not hybrid:
+    moe = kind in MOE_KINDS
+    if fused and moe:
+        # keep the sub-layer output: its residual add fuses with ln2 below
+        y, kv = attn.attn_full(p["attn"], x, cfg=cfg, policy=policy,
+                               norm=ops.norm_prologue(p["ln1"], cfg.norm),
+                               **kv_kw)
+    elif fused and not hybrid:
         x, kv = attn.attn_full(p["attn"], x, cfg=cfg, policy=policy,
                                norm=ops.norm_prologue(p["ln1"], cfg.norm),
                                residual=x, **kv_kw)
@@ -177,7 +208,11 @@ def block_full(kind: str, p, x, *, cfg, policy, fused: bool = True,
         y = (y + s) * 0.5
         if with_cache:
             cache.update(sc)
-    if fused and hybrid:
+    if moe:
+        h2, x = _moe_boundary(x, y, p, cfg=cfg, fused=fused)
+        x = x + mlp_mod.moe_full(p["moe"], h2, cfg=cfg, policy=policy,
+                                 fused=fused)
+    elif fused and hybrid:
         h2, x = ops.residual_norm(x, y, p["ln2"], cfg.norm)
         x = mlp_mod.mlp_full(p["mlp"], h2, cfg=cfg, policy=policy,
                              residual=x)
@@ -201,9 +236,10 @@ def block_chunk(kind: str, p, x, pos0, chunk_len, cache, block_tables, *,
     [B] (`chunk_len` [B] of them real); cache: this layer's pool views,
     written in place.  Only full-context attention kinds chunk (their KV
     lives in the pool, which carries the chunk state between engine
-    steps); SSM, ring and bidirectional kinds raise.  The MLP runs the
-    decode path on the flattened [B * C, E] rows; only attention needs the
-    chunk structure.  -> (x', cache).
+    steps); SSM, ring and bidirectional kinds raise.  The MLP (or the MoE
+    FFN) runs the decode path on the flattened [B * C, E] rows, which all
+    route and take capacity; only attention needs the chunk structure.
+    -> (x', cache).
 
     `rope_pos` / `tree_mask` go to `attn_chunk_paged` for tree-speculative
     verify (rotation at each node's depth, the ancestor mask); both None on
@@ -215,6 +251,20 @@ def block_chunk(kind: str, p, x, pos0, chunk_len, cache, block_tables, *,
     kv_in = {k: cache[k] for k in ("k", "v", "ks", "vs") if k in cache}
     kw = dict(cfg=cfg, policy=policy, rope_pos=rope_pos,
               tree_mask=tree_mask)
+    if kind in MOE_KINDS:
+        if fused:
+            y, _ = attn.attn_chunk_paged(
+                p["attn"], x, pos0, chunk_len, kv_in, block_tables,
+                norm=ops.norm_prologue(p["ln1"], cfg.norm), **kw)
+        else:
+            y, _ = attn.attn_chunk_paged(p["attn"],
+                                         ops.norm(x, p["ln1"], cfg.norm),
+                                         pos0, chunk_len, kv_in,
+                                         block_tables, **kw)
+        h2, x = _moe_boundary(x, y, p, cfg=cfg, fused=fused)
+        y2 = mlp_mod.moe_decode(p["moe"], h2.reshape(B * C, E), cfg=cfg,
+                                policy=policy, fused=fused)
+        return x + y2.reshape(B, C, E), cache
     if fused:
         x, _ = attn.attn_chunk_paged(p["attn"], x, pos0, chunk_len, kv_in,
                                      block_tables,
@@ -278,6 +328,17 @@ def block_decode(kind: str, p, x, pos, cache, *, cfg, policy,
     hybrid = kind in HYBRID_KINDS
     kv_kw = dict(kind=kind, cfg=cfg, policy=policy, paged=paged,
                  block_tables=block_tables)
+    if kind in MOE_KINDS:
+        if fused:
+            y, _ = _attn_decode(p["attn"], x, pos, cache,
+                                norm=ops.norm_prologue(p["ln1"], cfg.norm),
+                                **kv_kw)
+        else:
+            y, _ = _attn_decode(p["attn"], ops.norm(x, p["ln1"], cfg.norm),
+                                pos, cache, **kv_kw)
+        h2, x = _moe_boundary(x, y, p, cfg=cfg, fused=fused)
+        return x + mlp_mod.moe_decode(p["moe"], h2, cfg=cfg, policy=policy,
+                                      fused=fused), cache
     if fused and not hybrid:
         x, _ = _attn_decode(p["attn"], x, pos, cache,
                             norm=ops.norm_prologue(p["ln1"], cfg.norm),

@@ -25,6 +25,18 @@
 // int8 Bg / Bu (phi4-mini's int8 serving; `sg` / `su` [N] fp32 column
 //   scales): both templates as in fused_matmul.cu, the gate's scale on g
 //   and the up's on u after the norm's finalize, before silu(g) * u.
+// The expert form (repro_expert_swiglu, kernels/matmul.py:expert_swiglu;
+//   replaces the reference's ops.expert_swiglu, which vmaps the TPU kernel
+//   over the experts of an MoE layer): xe [NE, C, K] @ wg / wu [NE, K, N]
+//   -> silu(g) * u [NE, C, N], bf16 operands, no norm, no residual, in one
+//   launch of the stream template (C <= 8: a decode step's expert buffers)
+//   or the wgmma template (prefill), the expert an outer grid index
+//   (gemm.cuh, EX = true).  Bound: the stream template reads both weights of
+//   every expert, 2*NE*K*N*2 bytes over 3.35 TB/s (mixtral-8x7b: 1.88 GB,
+//   0.56 ms); the wgmma template's operations, 2*2*NE*C*N*K over 989
+//   TFLOP/s.  An expert's rows are C whatever the tokens routed to it: an
+//   expert left empty still streams its weights (a later change may skip
+//   it: its output rows are unread).
 // fma32 (fp32 W; no served path): the first design, kept as is — the K loop
 //   in one block, a one-tile register prefetch, fp32 FMA; 16 x 16 x 128
 //   tiles at M <= 16 and 64 x 32 x 16 above.
@@ -280,4 +292,21 @@ extern "C" int repro_fused_swiglu(const void* a, const void* bg, const void* bu,
 
 extern "C" int repro_fused_swiglu_stream_occupancy(int M, int i8) {
   return stream_occupancy<true>(M, i8);
+}
+
+// The expert form: `experts` gated GEMMs of [M, K] @ [K, N] over
+// expert-major bf16 operands (a [experts, M, K], bg / bu [experts, K, N]),
+// out [experts, M, N] (bf16 or fp32), `part` the split partials of every
+// expert (kernels/matmul.py:_part_numel each).
+extern "C" int repro_expert_swiglu(const void* a, const void* bg, const void* bu, void* out,
+                                   void* part, int experts, int M, int N, int K, int out_dt,
+                                   int tpl, int kchunk, int splits, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  GemmParams g{a, bg, bu, nullptr, nullptr, nullptr, nullptr, out,
+               reinterpret_cast<float*>(part), M, N, K, DT_BF16, DT_BF16, DT_BF16, DT_BF16,
+               out_dt, NORM_NONE, ACT_NONE, 0.f, kchunk, splits};
+  const GemmScales sc{nullptr, nullptr};
+  if (tpl == TPL_STREAM) return (int)launch_stream<true, true>(g, sc, s, experts);
+  if (tpl == TPL_WGMMA) return (int)launch_wgmma<true, true>(g, sc, s, experts);
+  return (int)cudaErrorInvalidValue;
 }

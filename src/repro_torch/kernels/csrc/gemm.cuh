@@ -27,6 +27,21 @@
 // in flight; the wgmma template's TMA brings int8 tiles, and the producer
 // warpgroup's three spare warps widen them to bf16 in place, in the layout
 // the B descriptors read.
+//
+// EX = the gated kernel's expert form (fused_swiglu.cu:repro_expert_swiglu,
+// the reference's ops.expert_swiglu: the TPU kernel vmapped over the
+// experts of an MoE layer): NE gated GEMMs of one shape in one launch, the
+// expert an outer grid index (stream: blockIdx.z; wgmma: blockIdx.z =
+// expert * splits + split; splitk_finish: blockIdx.y).  Each block works on
+// its expert's view of the operands (expert_view) with the templates'
+// code unchanged.  To keep the wgmma template's TMA maps 2-D, A is read as
+// [NE * M, K] and each weight as [NE * K, N] (the other choice, 3-D maps,
+// would add a coordinate to every load): expert e's A tile starts at row
+// e * M and its K tiles at row e * K of the weights.  K % 64 == 0, so a K
+// tile never crosses into the next expert's weights; the rows of an A tile
+// past M belong to the next expert (or are zero-filled past NE * M), are
+// multiplied like the others and never stored (the epilogue's r < M guard).
+// bf16 A and weights, no norm, no residual: the MoE layer's form.
 #pragma once
 
 #include "hopper.cuh"
@@ -114,6 +129,33 @@ __device__ __forceinline__ float dequant(const GemmScales& sc, int b, int c, flo
   return s ? y * s[c] : y;
 }
 
+// fp32 floats of one GEMM's split partials (the stream and wgmma
+// templates' layout, read by splitk_finish): acc [S][NB][M][N], gamma@W and
+// beta@W [S][NB][2][N], the row sums [S][M][2].
+__host__ __device__ inline size_t part_floats(int splits, int nb, int M, int N) {
+  return (size_t)splits * nb * M * N + (size_t)splits * nb * 2 * N + (size_t)splits * M * 2;
+}
+
+// Expert e's view of an expert-form launch's parameters (EX; bf16 A and
+// weights): its A [M, K], weights [K, N], output [M, N] and split partials,
+// each the previous expert's followed by its own.  A plain launch (EX
+// false) is its own view.
+template <bool EX>
+__device__ __forceinline__ GemmParams expert_view(const GemmParams& p, int e) {
+  if constexpr (!EX) {
+    return p;
+  } else {
+    GemmParams q = p;
+    q.a = reinterpret_cast<const __nv_bfloat16*>(p.a) + (int64_t)e * p.M * p.K;
+    q.b0 = reinterpret_cast<const __nv_bfloat16*>(p.b0) + (int64_t)e * p.K * p.N;
+    q.b1 = reinterpret_cast<const __nv_bfloat16*>(p.b1) + (int64_t)e * p.K * p.N;
+    q.out = reinterpret_cast<uint8_t*>(p.out) +
+            (int64_t)e * p.M * p.N * (p.out_dt == DT_BF16 ? 2 : 4);
+    if (p.part) q.part = p.part + (size_t)e * part_floats(p.splits, 2, p.M, p.N);
+    return q;
+  }
+}
+
 // The epilogue of one finalized output (y0; GATED: gate y0, up y1) at
 // column c, flat index o: bias + activation (plain) or silu(g) * u (gated),
 // then the residual.
@@ -195,9 +237,10 @@ __device__ __forceinline__ void load_arow(const float* p, float (&v)[MT]) {
   }
 }
 
-template <int MT, bool GATED, bool I8>
-__global__ void __launch_bounds__(ST_THREADS) stream_kernel(const GemmParams p,
+template <int MT, bool GATED, bool I8, bool EX>
+__global__ void __launch_bounds__(ST_THREADS) stream_kernel(const GemmParams p0,
                                                              const GemmScales sc) {
+  const GemmParams p = expert_view<EX>(p0, blockIdx.z);
   constexpr int NB = GATED ? 2 : 1;
   constexpr int R = stream_rows_per_group(MT, GATED, I8);
   using WT = std::conditional_t<I8, int8_t, __nv_bfloat16>;  // a weight element
@@ -398,8 +441,9 @@ __global__ void __launch_bounds__(ST_THREADS) stream_kernel(const GemmParams p,
 // Second pass of a split-K GEMM (either template): one thread per output
 // element adds the splits' partials in split order, then finalizes once (and
 // applies an int8 weight's column scale).
-template <bool GATED>
-__global__ void __launch_bounds__(256) splitk_finish(const GemmParams p, const GemmScales sc) {
+template <bool GATED, bool EX>
+__global__ void __launch_bounds__(256) splitk_finish(const GemmParams p0, const GemmScales sc) {
+  const GemmParams p = expert_view<EX>(p0, blockIdx.y);  // EX: the grid's y is the expert
   constexpr int NB = GATED ? 2 : 1;
   const int64_t i = (int64_t)blockIdx.x * 256 + threadIdx.x;
   if (i >= (int64_t)p.M * p.N) return;
@@ -436,34 +480,36 @@ __global__ void __launch_bounds__(256) splitk_finish(const GemmParams p, const G
 }
 
 // Opt the stream kernel into its dynamic shared memory past 48 KB, once.
-template <int MT, bool GATED, bool I8>
+template <int MT, bool GATED, bool I8, bool EX = false>
 inline cudaError_t stream_prepare() {
   static bool done = false;
   if (done) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute((const void*)stream_kernel<MT, GATED, I8>,
+  const cudaError_t e = cudaFuncSetAttribute((const void*)stream_kernel<MT, GATED, I8, EX>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              ST_SMEM_MAX);
   done = e == cudaSuccess;
   return e;
 }
 
-template <int MT, bool GATED, bool I8>
-inline cudaError_t launch_stream_mt(const GemmParams& p, const GemmScales& sc, cudaStream_t s) {
-  const cudaError_t e = stream_prepare<MT, GATED, I8>();
+template <int MT, bool GATED, bool I8, bool EX>
+inline cudaError_t launch_stream_mt(const GemmParams& p, const GemmScales& sc, cudaStream_t s,
+                                    int experts) {
+  const cudaError_t e = stream_prepare<MT, GATED, I8, EX>();
   if (e != cudaSuccess) return e;
   const size_t smem = stream_smem_bytes(MT, GATED, I8, p.kchunk);
   if (smem > ST_SMEM_MAX) return cudaErrorInvalidValue;
-  dim3 grid((p.N + ST_COLS - 1) / ST_COLS, p.splits);
-  stream_kernel<MT, GATED, I8><<<grid, ST_THREADS, smem, s>>>(p, sc);
+  dim3 grid((p.N + ST_COLS - 1) / ST_COLS, p.splits, experts);
+  stream_kernel<MT, GATED, I8, EX><<<grid, ST_THREADS, smem, s>>>(p, sc);
   return cudaGetLastError();
 }
 
-template <bool GATED, bool I8>
-inline cudaError_t launch_stream_w(const GemmParams& p, const GemmScales& sc, cudaStream_t s) {
-  if (p.M <= 1) return launch_stream_mt<1, GATED, I8>(p, sc, s);
-  if (p.M <= 2) return launch_stream_mt<2, GATED, I8>(p, sc, s);
-  if (p.M <= 4) return launch_stream_mt<4, GATED, I8>(p, sc, s);
-  return launch_stream_mt<8, GATED, I8>(p, sc, s);
+template <bool GATED, bool I8, bool EX>
+inline cudaError_t launch_stream_w(const GemmParams& p, const GemmScales& sc, cudaStream_t s,
+                                   int experts) {
+  if (p.M <= 1) return launch_stream_mt<1, GATED, I8, EX>(p, sc, s, experts);
+  if (p.M <= 2) return launch_stream_mt<2, GATED, I8, EX>(p, sc, s, experts);
+  if (p.M <= 4) return launch_stream_mt<4, GATED, I8, EX>(p, sc, s, experts);
+  return launch_stream_mt<8, GATED, I8, EX>(p, sc, s, experts);
 }
 
 // Resident stream blocks per SM at M rows, with the shared memory of the
@@ -474,7 +520,7 @@ inline int stream_occupancy_mt() {
   if (stream_prepare<MT, GATED, I8>() != cudaSuccess) return -1;
   int blocks = 0;
   const size_t smem = stream_smem_bytes(MT, GATED, I8, 32 * 1024 / (4 * (MT + 2)));
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, stream_kernel<MT, GATED, I8>,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, stream_kernel<MT, GATED, I8, false>,
                                                     ST_THREADS, smem) != cudaSuccess)
     return -1;
   return blocks;
@@ -500,17 +546,30 @@ inline bool scales_ok(const GemmParams& p, const GemmScales& sc, bool gated) {
   return i8 == (sc.s0 != nullptr) && (!gated || i8 == (sc.s1 != nullptr));
 }
 
-template <bool GATED>
-inline cudaError_t launch_stream(const GemmParams& p, const GemmScales& sc, cudaStream_t s) {
+// The expert form's own checks: bf16 A and weights, no norm, no residual.
+inline bool expert_ok(const GemmParams& p, int experts) {
+  return experts >= 1 && p.a_dt == DT_BF16 && p.b_dt == DT_BF16 && p.norm == NORM_NONE &&
+         !p.residual;
+}
+
+// EX: `experts` GEMMs of p's shape over expert-major operands.
+template <bool GATED, bool EX = false>
+inline cudaError_t launch_stream(const GemmParams& p, const GemmScales& sc, cudaStream_t s,
+                                 int experts = 1) {
   if (p.M < 1 || p.M > STREAM_MAX_M || (p.b_dt != DT_BF16 && p.b_dt != DT_I8) ||
       !scales_ok(p, sc, GATED) || p.N % 8 || p.kchunk < 1 ||
-      p.splits != (p.K + p.kchunk - 1) / p.kchunk || (p.splits > 1 && !p.part))
+      p.splits != (p.K + p.kchunk - 1) / p.kchunk || (p.splits > 1 && !p.part) ||
+      (EX ? !expert_ok(p, experts) : experts != 1))
     return cudaErrorInvalidValue;
-  const cudaError_t e = p.b_dt == DT_I8 ? launch_stream_w<GATED, true>(p, sc, s)
-                                        : launch_stream_w<GATED, false>(p, sc, s);
+  cudaError_t e;
+  if constexpr (EX)
+    e = launch_stream_w<GATED, false, true>(p, sc, s, experts);
+  else
+    e = p.b_dt == DT_I8 ? launch_stream_w<GATED, true, false>(p, sc, s, 1)
+                        : launch_stream_w<GATED, false, false>(p, sc, s, 1);
   if (e != cudaSuccess || p.splits == 1) return e;
   const int64_t total = (int64_t)p.M * p.N;
-  splitk_finish<GATED><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(p, sc);
+  splitk_finish<GATED, EX><<<dim3((unsigned)((total + 255) / 256), experts), 256, 0, s>>>(p, sc);
   return cudaGetLastError();
 }
 
@@ -620,13 +679,13 @@ __device__ __forceinline__ void widen_b_tile(uint8_t* b, int ht) {
   }
 }
 
-template <bool GATED, bool I8>
+template <bool GATED, bool I8, bool EX>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
                  const __grid_constant__ CUtensorMap tma_b0,
                  const __grid_constant__ CUtensorMap tma_b1,
                  const __grid_constant__ CUtensorMap tma_gamma,
-                 const __grid_constant__ CUtensorMap tma_beta, const GemmParams p,
+                 const __grid_constant__ CUtensorMap tma_beta, const GemmParams p0,
                  const GemmScales sc) {
   extern __shared__ uint8_t wg_smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -643,7 +702,10 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.x * WG_BM;
   const int ncol0 = blockIdx.y * (GATED ? WG_COLS / 2 : WG_COLS);  // first output column
-  const int z = blockIdx.z;  // split: K rows [kbase, kbase + kchunk), kchunk % WG_BK == 0
+  // split z: K rows [kbase, kbase + kchunk), kchunk % WG_BK == 0; EX: expert ex
+  const int z = EX ? (int)blockIdx.z % p0.splits : (int)blockIdx.z;
+  const int ex = EX ? (int)blockIdx.z / p0.splits : 0;
+  const GemmParams p = expert_view<EX>(p0, ex);
   const int kbase = z * p.kchunk;
   const int ktiles = (min(p.K, kbase + p.kchunk) - kbase + WG_BK - 1) / WG_BK;
   const bool has_norm = p.norm != NORM_NONE;
@@ -674,15 +736,15 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
           uint8_t* vt = vring + stage * 2 * WG_VEC_BYTES;
           const int k0 = kbase + kt * WG_BK;
           mbar_expect_tx(&full[stage], tx);
-          tma_load_2d(st, &tma_a, k0, m0, &full[stage]);
+          tma_load_2d(st, &tma_a, k0, ex * p.M + m0, &full[stage]);
           if constexpr (I8) {
 #pragma unroll
             for (int b = 0; b < WG_B8_BOXES; ++b) {
               // plain: W at columns ncol0 + 128 b; gated: Wg, then Wu
               const CUtensorMap* map = (GATED && b == 1) ? &tma_b1 : &tma_b0;
               const int col = ncol0 + (GATED ? 0 : b) * WG_B8_BOX;
-              tma_load_2d(st + WG_A_BYTES + WG_B8_OFF + b * WG_B8_BYTES, map, col, k0,
-                          &full[stage]);
+              tma_load_2d(st + WG_A_BYTES + WG_B8_OFF + b * WG_B8_BYTES, map, col,
+                          ex * p.K + k0, &full[stage]);
             }
           } else {
 #pragma unroll
@@ -690,7 +752,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
               // plain: W at columns ncol0 + 64 b; gated: Wg, then Wu, 128 columns each
               const CUtensorMap* map = (GATED && b >= WG_BOXES / 2) ? &tma_b1 : &tma_b0;
               const int col = ncol0 + (GATED ? (b % (WG_BOXES / 2)) : b) * WG_BOX;
-              tma_load_2d(st + WG_A_BYTES + b * WG_B_BYTES, map, col, k0, &full[stage]);
+              tma_load_2d(st + WG_A_BYTES + b * WG_B_BYTES, map, col, ex * p.K + k0,
+                          &full[stage]);
             }
           }
           if (has_norm) tma_load_1d(vt, &tma_gamma, k0, &full[stage]);
@@ -994,27 +1057,30 @@ inline bool encode_vec(CUtensorMap* map, const void* ptr, int n, int dt) {
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool GATED, bool I8>
+template <bool GATED, bool I8, bool EX>
 inline cudaError_t launch_wgmma_w(const CUtensorMap& ma, const CUtensorMap& mb0,
                                   const CUtensorMap& mb1, const CUtensorMap& mg,
                                   const CUtensorMap& mbt, const GemmParams& p,
-                                  const GemmScales& sc, cudaStream_t s) {
+                                  const GemmScales& sc, cudaStream_t s, int experts) {
   static bool attr = false;
   if (!attr) {
     const cudaError_t e =
-        cudaFuncSetAttribute((const void*)wgmma_kernel<GATED, I8>,
+        cudaFuncSetAttribute((const void*)wgmma_kernel<GATED, I8, EX>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
     if (e != cudaSuccess) return e;
     attr = true;
   }
   const int bn = GATED ? WG_COLS / 2 : WG_COLS;
-  dim3 grid((p.M + WG_BM - 1) / WG_BM, (p.N + bn - 1) / bn, p.splits);
-  wgmma_kernel<GATED, I8><<<grid, WG_THREADS, WG_SMEM, s>>>(ma, mb0, mb1, mg, mbt, p, sc);
+  dim3 grid((p.M + WG_BM - 1) / WG_BM, (p.N + bn - 1) / bn, p.splits * experts);
+  wgmma_kernel<GATED, I8, EX><<<grid, WG_THREADS, WG_SMEM, s>>>(ma, mb0, mb1, mg, mbt, p, sc);
   return cudaGetLastError();
 }
 
-template <bool GATED>
-inline cudaError_t launch_wgmma(const GemmParams& p, const GemmScales& sc, cudaStream_t s) {
+// EX: `experts` GEMMs of p's shape over expert-major operands; the maps
+// cover the whole flattened tensors, [experts * M, K] and [experts * K, N].
+template <bool GATED, bool EX = false>
+inline cudaError_t launch_wgmma(const GemmParams& p, const GemmScales& sc, cudaStream_t s,
+                                int experts = 1) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(p.a) | reinterpret_cast<uintptr_t>(p.b0) |
                           reinterpret_cast<uintptr_t>(p.b1) |
                           reinterpret_cast<uintptr_t>(p.gamma) |
@@ -1024,22 +1090,27 @@ inline cudaError_t launch_wgmma(const GemmParams& p, const GemmScales& sc, cudaS
       p.N % (i8 ? 16 : 8) || p.K % 8 || align % 16 ||
       (p.norm != NORM_NONE && !p.gamma) || (p.norm == NORM_LN && !p.beta) ||
       p.kchunk < 1 || (p.kchunk % WG_BK && p.kchunk < p.K) ||
-      p.splits != (p.K + p.kchunk - 1) / p.kchunk || (p.splits > 1 && !p.part))
+      p.splits != (p.K + p.kchunk - 1) / p.kchunk || (p.splits > 1 && !p.part) ||
+      (EX ? !expert_ok(p, experts) || p.K % WG_BK : experts != 1))
     return cudaErrorInvalidValue;
   CUtensorMap ma, mb0, mb1, mg, mbt;
-  if (!encode_tile_2d(&ma, p.a, p.M, p.K, WG_BM, false) ||
-      !encode_tile_2d(&mb0, p.b0, p.K, p.N, WG_BK, i8) ||
-      !encode_tile_2d(&mb1, GATED ? p.b1 : p.b0, p.K, p.N, WG_BK, i8))
+  if (!encode_tile_2d(&ma, p.a, experts * p.M, p.K, WG_BM, false) ||
+      !encode_tile_2d(&mb0, p.b0, experts * p.K, p.N, WG_BK, i8) ||
+      !encode_tile_2d(&mb1, GATED ? p.b1 : p.b0, experts * p.K, p.N, WG_BK, i8))
     return cudaErrorInvalidValue;
   mg = mbt = ma;  // unread without a norm
   if (p.norm != NORM_NONE && !encode_vec(&mg, p.gamma, p.K, p.vec_dt))
     return cudaErrorInvalidValue;
   if (p.norm == NORM_LN && !encode_vec(&mbt, p.beta, p.K, p.vec_dt))
     return cudaErrorInvalidValue;
-  cudaError_t e = i8 ? launch_wgmma_w<GATED, true>(ma, mb0, mb1, mg, mbt, p, sc, s)
-                     : launch_wgmma_w<GATED, false>(ma, mb0, mb1, mg, mbt, p, sc, s);
+  cudaError_t e;
+  if constexpr (EX)
+    e = launch_wgmma_w<GATED, false, true>(ma, mb0, mb1, mg, mbt, p, sc, s, experts);
+  else
+    e = i8 ? launch_wgmma_w<GATED, true, false>(ma, mb0, mb1, mg, mbt, p, sc, s, 1)
+           : launch_wgmma_w<GATED, false, false>(ma, mb0, mb1, mg, mbt, p, sc, s, 1);
   if (e != cudaSuccess || p.splits == 1) return e;
   const int64_t total = (int64_t)p.M * p.N;
-  splitk_finish<GATED><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(p, sc);
+  splitk_finish<GATED, EX><<<dim3((unsigned)((total + 255) / 256), experts), 256, 0, s>>>(p, sc);
   return cudaGetLastError();
 }

@@ -4,8 +4,13 @@
 (`_fused_mm_kernel`); its CUDA source is `csrc/fused_matmul.cu`.
 `matmul_swiglu` replaces `matmul.py:matmul_swiglu` (`_fused_gated_kernel`):
 silu(norm(A) @ Bg) * (norm(A) @ Bu) + residual in one pass, CUDA source
-`csrc/fused_swiglu.cu`.  Both sources share the templates of `csrc/gemm.cuh`;
-`gemm_plan` picks one per call:
+`csrc/fused_swiglu.cu`.  `expert_swiglu` is the gated kernel's expert form,
+which replaces the reference's `ops.expert_swiglu` (the Pallas
+`matmul_swiglu` vmapped over the experts of an MoE layer): NE independent
+[C, K] @ [K, N] gated GEMMs, silu(xe[e] @ wg[e]) * (xe[e] @ wu[e]), in one
+launch of the same source with the expert as the outer grid index.  All
+three share the templates of `csrc/gemm.cuh`; `gemm_plan` picks one per
+call (for the expert form by C, the rows of one expert):
 
   ``stream``  bf16 or int8 weights, M <= 8 (decode): a weight stream on CUDA
               cores in exact fp32, K split across blocks, the splits'
@@ -61,6 +66,7 @@ FORMS = ("fma32", "stream", "wgmma", "stream_int8", "wgmma_int8")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 9 + [_I] * 10 + [ctypes.c_float] + [_I] * 5 + [_P]
 _SWIGLU_ARGTYPES = [_P] * 10 + [_I] * 9 + [ctypes.c_float] + [_I] * 5 + [_P]
+_EXPERT_ARGTYPES = [_P] * 5 + [_I] * 8 + [_P]
 
 SM_COUNT = 132              # H100 SXM
 STREAM_MAX_M = 8            # gemm.cuh STREAM_MAX_M
@@ -97,13 +103,18 @@ def _cdiv(a: int, b: int) -> int:
 def gemm_plan(M: int, K: int, N: int, *, w_dtype=torch.bfloat16,
               gated: bool = False, sm_count: int = SM_COUNT,
               blocks_per_sm: int = STREAM_BLOCKS_PER_SM,
-              kchunk: Optional[int] = None) -> GemmPlan:
+              kchunk: Optional[int] = None, experts: int = 1) -> GemmPlan:
     """The plan of an [M, K] @ [K, N] fused GEMM (gated: N output columns of
     each of two weights).  Stream template: the K split is chosen so that
     the grid fills whole waves of `sm_count * blocks_per_sm` resident
     blocks, the fewest waves that reach 90%; `kchunk` overrides it (tests).
+    `experts` > 1: the expert form, that many GEMMs of this shape in one
+    launch (the grid gains the expert dimension: the stream template's
+    third, the wgmma template's third beside the splits, split-major
+    within an expert), planned for the whole grid.
     Raises on bf16 and int8 shapes no template takes: the wgmma template
-    reads int8 rows by TMA, which needs N % 16 == 0 (16-byte rows)."""
+    reads int8 rows by TMA, which needs N % 16 == 0 (16-byte rows), and
+    the expert form's K tiles must not cross an expert (K % 64 == 0)."""
     if w_dtype == torch.float32:
         tile = ((16, 16 if gated else 32, 128) if M <= 16
                 else (64, 32 if gated else 64, 16))
@@ -118,18 +129,23 @@ def gemm_plan(M: int, K: int, N: int, *, w_dtype=torch.bfloat16,
     if w_dtype == torch.int8 and M > STREAM_MAX_M and N % 16:
         raise ValueError(f"fused GEMM: the wgmma template reads int8 rows "
                          f"of N % 16 == 0 bytes, not N = {N}")
+    if experts > 1 and K % WG_TILE[2]:
+        raise ValueError(f"expert GEMM: K = {K} is not a multiple of "
+                         f"{WG_TILE[2]}")
+    ex = (experts,) if experts > 1 else ()
     if M <= STREAM_MAX_M:
         mt = next(t for t in (1, 2, 4, 8) if M <= t)
         strips = _cdiv(N, STREAM_COLS)
         if kchunk is None:
-            kchunk = _stream_chunk(K, strips, mt, sm_count, blocks_per_sm)
+            kchunk = _stream_chunk(K, strips * experts, mt, sm_count,
+                                   blocks_per_sm)
         splits = _cdiv(K, kchunk)
         return GemmPlan("stream", (mt, STREAM_COLS), kchunk, splits,
-                        (strips, splits))
+                        (strips, splits) + ex)
     bm, bn, bk = WG_TILE
     if gated:
         bn //= 2
-    tiles = _cdiv(M, bm) * _cdiv(N, bn)
+    tiles = _cdiv(M, bm) * _cdiv(N, bn) * experts
     ktiles = _cdiv(K, bk)
     if kchunk is None:
         # too few tiles to fill the card: split K, each split at least
@@ -141,7 +157,7 @@ def gemm_plan(M: int, K: int, N: int, *, w_dtype=torch.bfloat16,
     kchunk = _cdiv(kchunk, bk) * bk
     splits = _cdiv(K, kchunk)
     return GemmPlan("wgmma", (bm, bn, bk), kchunk, splits,
-                    (_cdiv(M, bm), _cdiv(N, bn), splits))
+                    (_cdiv(M, bm), _cdiv(N, bn), splits * experts))
 
 
 def _stream_chunk(K: int, strips: int, mt: int, sm_count: int,
@@ -478,3 +494,82 @@ def matmul_swiglu(a, b_gate, b_up, *, norm="none", gamma=None, nbeta=None,
 
 matmul_swiglu.launches = 0
 matmul_swiglu.launches_by = dict.fromkeys(FORMS, 0)
+
+
+# --------------------------------------------------------------------------
+# the expert form: NE gated GEMMs in one launch
+# --------------------------------------------------------------------------
+
+def expert_swiglu_plain(xe, wg, wu, *, out_dtype=None):
+    """silu(xe[e] @ wg[e]) * (xe[e] @ wu[e]) for every expert e, in fp32
+    (the operands upcast, fp32 products and sums), one cast at the end:
+    what the expert form computes.  xe: [NE, C, K]; wg / wu: [NE, K, N]."""
+    out_dtype = out_dtype or xe.dtype
+    a = xe.float()
+    g = torch.bmm(a, wg.float())
+    u = torch.bmm(a, wu.float())
+    return (torch.nn.functional.silu(g) * u).to(out_dtype)
+
+
+def _check_expert_swiglu(xe, wg, wu, out_dtype):
+    """Raise on operands the expert form does not take: bf16 activations
+    and weights only (the reference never quantizes experts, so an int8
+    dict is refused), expert-major [NE, C, K] @ [NE, K, N], K a multiple
+    of 64 (the wgmma template's K tiles never cross an expert), N of 8,
+    a bf16 or fp32 output."""
+    if isinstance(wg, dict) or isinstance(wu, dict):
+        raise TypeError("expert_swiglu: the experts are bf16 only (the "
+                        "reference never quantizes them), not int8 dicts")
+    build.require_cuda("expert_swiglu", xe, wg, wu)
+    ok = (xe.ndim == 3 and wg.ndim == 3 and wg.shape == wu.shape
+          and xe.shape[0] == wg.shape[0] and xe.shape[2] == wg.shape[1]
+          and xe.shape[1] >= 1 and xe.shape[2] % WG_TILE[2] == 0
+          and wg.shape[2] % 8 == 0
+          and xe.dtype == wg.dtype == wu.dtype == torch.bfloat16
+          and out_dtype in (torch.bfloat16, torch.float32))
+    if not ok:
+        raise ValueError(f"expert_swiglu: unsupported operands "
+                         f"{xe.dtype} {tuple(xe.shape)} @ {wg.dtype} "
+                         f"{tuple(wg.shape)} / {tuple(wu.shape)} -> "
+                         f"{out_dtype}")
+
+
+def expert_swiglu(xe, wg, wu, *, out_dtype=None):
+    """The gated kernel's expert form.  xe: [NE, C, K]; wg / wu: [NE, K,
+    N] -> [NE, C, N] at `out_dtype` (default xe's): every expert's
+    silu(xe[e] @ wg[e]) * (xe[e] @ wu[e]) in one launch, planned by C
+    (stream at C <= 8, wgmma above).  CPU tensors take
+    `expert_swiglu_plain`."""
+    out_dtype = out_dtype or xe.dtype
+    if xe.device.type == "cpu" and not isinstance(wg, dict):
+        return expert_swiglu_plain(xe, wg, wu, out_dtype=out_dtype)
+    _check_expert_swiglu(xe, wg, wu, out_dtype)
+    NE, C, K = xe.shape
+    N = wg.shape[2]
+    slots = {}
+    if C <= STREAM_MAX_M:
+        sms, blocks = _stream_slots(xe.device, C, True, False)
+        slots = dict(sm_count=sms, blocks_per_sm=blocks)
+    plan = gemm_plan(C, K, N, gated=True, experts=NE, **slots)
+    xe = xe.contiguous()
+    if not build.aligned16(xe):
+        xe = xe.clone()
+    wg, wu = wg.contiguous(), wu.contiguous()
+    if not build.aligned16(wg, wu):
+        raise ValueError("expert_swiglu: weights must be 16-byte aligned")
+    out = torch.empty((NE, C, N), dtype=out_dtype, device=xe.device)
+    part = None
+    if plan.splits > 1:
+        part = torch.empty(NE * _part_numel(plan, C, N, 2),
+                           dtype=torch.float32, device=xe.device)
+    fn = build.bind("fused_swiglu", "repro_expert_swiglu", _EXPERT_ARGTYPES)
+    err = fn(*map(build.ptr, (xe, wg, wu, out, part)), NE, C, N, K,
+             build.dtype_code(out), _TEMPLATES[plan.template], plan.kchunk,
+             plan.splits, build.stream_of(xe))
+    build.check(err, f"expert_swiglu launch ({plan.template})")
+    _count(expert_swiglu, plan, False)
+    return out
+
+
+expert_swiglu.launches = 0
+expert_swiglu.launches_by = dict.fromkeys(FORMS, 0)

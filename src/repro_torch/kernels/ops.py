@@ -34,7 +34,8 @@ __all__ = [
     "paged_decode_attention",
     "paged_decode_partials", "paged_decode_merge", "paged_chunk_partials",
     "split_quantized", "matmul", "pdot", "fused_matmul",
-    "matmul_swiglu", "fused_matmul_swiglu", "residual_norm", "rmsnorm",
+    "matmul_swiglu", "fused_matmul_swiglu", "expert_swiglu",
+    "residual_norm", "rmsnorm",
     "layernorm", "norm", "ssd", "ssd_decode", "launch_counters",
 ]
 
@@ -93,6 +94,7 @@ def launch_counters() -> dict:
     it counts its calls of the oracle's device torch ops."""
     return {"fused_matmul": _mm.fused_matmul,
             "fused_matmul_swiglu": _mm.matmul_swiglu,
+            "expert_swiglu": _mm.expert_swiglu,
             "flash_attention": _fa.flash_attention,
             "paged_decode_partials": _fd.paged_decode_partials,
             "paged_decode_attention": _fd.paged_decode_attention,
@@ -258,6 +260,13 @@ def pdot(x, w, *, compute_dtype, out_dtype):
     q, scale = split_quantized(w)
     if (_use_kernel(x) and x.device.type != "cpu"
             and compute_dtype == torch.bfloat16):
+        pad = -q.shape[-1] % 8
+        if pad and scale is None:
+            # the hand GEMM takes N % 8 == 0 (a reduced config's 4-expert
+            # router): zero columns, cut off again
+            y = fused_matmul(x, torch.nn.functional.pad(q, (0, pad)),
+                             compute_dtype=compute_dtype, dot_dtype=out_dtype)
+            return y[..., :q.shape[-1]]
         return fused_matmul(x, w, compute_dtype=compute_dtype,
                             dot_dtype=out_dtype)
     y = _ref._dot(x.to(compute_dtype), q.to(compute_dtype), out_dtype)
@@ -338,6 +347,26 @@ def fused_matmul_swiglu(x, wg, wu, *, prologue=None, residual=None,
     return _ref.fused_matmul_swiglu_ref(
         x, wg, wu, wg_scale=g_scale, wu_scale=u_scale, residual=residual,
         compute_dtype=compute_dtype, out_dtype=out_dtype, **pf)
+
+
+def expert_swiglu(xe, wg, wu, *, compute_dtype=None, out_dtype=None):
+    """Batched per-expert gated FFN: xe [NE, C, E] @ wg / wu [NE, E, F] ->
+    silu(g) * u [NE, C, F] at `out_dtype` (default xe's).  The kernel path
+    runs the gated kernel's expert form on operands at the compute dtype
+    (g and u stay fp32 inside it); `ref` mode the reference's `ref` branch
+    (two batched dots emitted at `out_dtype`, then the silu-mul).  The
+    experts are bf16 or fp32 tensors: the reference never quantizes them,
+    and an int8 dict raises."""
+    if isinstance(wg, dict) or isinstance(wu, dict):
+        raise TypeError("expert_swiglu: expert weights are never int8 "
+                        "dicts (models/quantize.py leaves them as they are)")
+    out_dtype = out_dtype or xe.dtype
+    cd = compute_dtype or xe.dtype
+    if _use_kernel(xe):
+        return _mm.expert_swiglu(xe.to(cd), wg.to(cd), wu.to(cd),
+                                 out_dtype=out_dtype)
+    return _ref.expert_swiglu_ref(xe, wg, wu, compute_dtype=cd,
+                                  out_dtype=out_dtype)
 
 
 def residual_norm(x, y, params, kind: str):

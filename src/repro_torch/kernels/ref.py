@@ -336,6 +336,19 @@ def fused_matmul_swiglu_ref(x, w_gate, w_up, *, norm="none", gamma=None,
     return y
 
 
+def expert_swiglu_ref(xe, wg, wu, *, compute_dtype=None, out_dtype=None):
+    """silu(xe @ wg) * (xe @ wu) expert by expert — the reference's `ref`
+    branch of ops.expert_swiglu: xe [NE, C, K], wg / wu [NE, K, N]; two
+    batched dots at the compute dtype with fp32 accumulation, each emitted
+    at `out_dtype`, then the silu-mul in fp32 and one cast."""
+    out_dtype = out_dtype or xe.dtype
+    cd = compute_dtype or xe.dtype
+    a = xe.to(cd).float()
+    g = torch.matmul(a, wg.to(cd).float()).to(out_dtype)
+    u = torch.matmul(a, wu.to(cd).float()).to(out_dtype)
+    return (torch.nn.functional.silu(g.float()) * u.float()).to(out_dtype)
+
+
 def residual_norm_ref(x, y, *, norm, gamma, nbeta=None, eps=RMS_EPS):
     """r = x + y; h = norm(r) — same two ops as the unfused chain.
     -> (h, r)."""

@@ -23,7 +23,10 @@ a block and kv head; the summary then adds a QUANT part) and speculative
 decoding (`--spec-draft self | auto | <config>-draft`, `--spec-k`, and
 `--spec-branches` > 1 for token trees; the summary adds a SPEC part and
 two spec lines follow it).  A config that cannot chunk or cache (SSM
-state, ring caches) prefills whole prompts and the CLI prints why.  The
+state, ring caches) prefills whole prompts and the CLI prints why.  A
+config whose bf16 weights exceed the device's memory (mixtral-8x7b at
+full size: 93.4 GB against an 80 GB card) is refused before any weight is
+made; `--reduced` serves it.  The CLI serves whole configs only.  The
 reference's flags for unported features (`--draft-checkpoint`, the
 overlapped loop, the deadline policy, tracing and metrics export) do not
 exist here, and argparse refuses them.
@@ -31,6 +34,7 @@ exist here, and argparse refuses them.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.serving import (EncodeTask, InferenceEngine, Request,
                                  SamplingParams, SpecConfig, make_policy)
@@ -136,12 +141,35 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def config_of(args):
+    cfg = get_config(args.arch)
+    return cfg.reduced() if args.reduced else cfg
+
+
+def device_memory_bytes(device) -> int:
+    """Memory of the device the engine fills: the card's total memory, or
+    the host's physical memory for the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def fit_reason(cfg, device):
+    """Why `cfg`'s bf16 weights cannot be made on `device` (None when they
+    fit): their bytes against the device's memory, before any is made."""
+    need, have = 2 * cfg.n_params(), device_memory_bytes(device)
+    if need <= have:
+        return None
+    return (f"{cfg.name}: its bf16 weights are {need / 1e9:.1f} GB, more "
+            f"than the {have / 1e9:.1f} GB of {resolve_device(device)}; "
+            f"serve it with --reduced")
+
+
 def run(args):
     """Build the engine from `args` (seeded bf16 weights), serve the trace.
     -> (engine, completed tasks, wall seconds)."""
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    cfg = config_of(args)
     params = lm.init_lm(cfg, dtype=torch.bfloat16, device=args.device,
                         seed=args.seed)
     spec = (SpecConfig(draft=args.spec_draft, k=args.spec_k,
@@ -177,6 +205,9 @@ def main(argv=None) -> int:
     if args.min_prompt_len > args.prompt_len:
         ap.error(f"--min-prompt-len {args.min_prompt_len} exceeds "
                  f"--prompt-len {args.prompt_len}")
+    reason = fit_reason(config_of(args), args.device)
+    if reason:
+        ap.error(reason)
     engine, done, wall = run(args)
     stats = engine.stats()
     step = engine.runner.decode_step

@@ -4,8 +4,9 @@ reference's models/lm.py serving path).
 Parameters keep the reference's tree: `embedding/{embed, unemb}`,
 `final_norm/{scale, bias}`, and one dict per schedule segment whose leaves
 carry the layer dim first (`segments[i]/{ln1, ln2, attn/{wq, wk, wv, wo},
-mlp/{w1 | wg, wu, w2}, ssm/{w_x, w_z, w_bc, w_dt, dt_bias, a_log, d_skip,
-conv_x, conv_bc, norm_scale, w_out}}`, each group where the kind has it).
+mlp/{w1 | wg, wu, w2}, moe/{wr, wg, wu, w2}, ssm/{w_x, w_z, w_bc, w_dt,
+dt_bias, a_log, d_skip, conv_x, conv_bc, norm_scale, w_out}}`, each group
+where the kind has it; the experts stacked [L, NE, ., .]).
 The reference scans each segment with `lax.scan`; the port runs a Python
 loop over its layers (`launch/steps.py` captures the decode step's launches
 in one CUDA graph).
