@@ -172,7 +172,25 @@ non-zero):
               fp32, every routing disagreement a near tie.  The expert
               form itself is checked in the kernels phase (mixtral-8x7b
               decode C 2, prefill C 640, C 37; 8x22b decode), beside the
-              router GEMM at N = 8 on both templates.
+              router GEMM at N = 8 on both templates;
+ 10. dense    the remaining dense decoders at full width (`phase_dense`):
+              chatglm3-6b whole (28 layers, GQA 32 / 2: the decode
+              kernels' G = 16 form) through the serve checks above, a
+              shared-prefix trace chunked with the prefix cache (the chunk
+              stack at G = 16) and chain speculation (k 4) with
+              chatglm3-6b-draft (the dense decode's G = 16 form in the
+              draft's graph; a first divergence from plain decode must be
+              a near tie); deepseek-67b cut to 30 of its 95 layers (44.9
+              GB); internvl2-76b cut to 24 of its 80 layers (45.3 GB) at
+              max_seq 1024, its prompts behind zero patch rows (the prompt
+              cap and blocks count its 256-position prefix; the chunk
+              policy, the prefix cache and speculation refused with the
+              reference's reasons), its teacher-forced prompt behind
+              seeded patches.  The kernels phase holds both decode kernels'
+              G = 16 form (paged partials at 1, 2 and 4 splits, the
+              normalized wrapper, the int8-pool form, the dense decode over
+              the draft's 512-row cache), the fused GEMMs at these models'
+              widths (M 4 and 512) and flash at H 32 / KV 2 and H 64 / KV 8.
 Every driven path zeroes the launch counters just before it and reads them
 just after; a kernel of the path that never launched fails the run, and so
 does a GEMM that ran the fp32-weight template (fma32) or a flash launch
@@ -426,7 +444,35 @@ def _gemm_cases():
              torch.float32)]
     out += [(f"gemma3 q M={M}", M, 5376, 4096, "rmsnorm", "none", False,
              torch.bfloat16) for M in (9, 17, 1100)]
-    return out + _vit_gemm_cases()
+    return out + _dense_gemm_cases() + _vit_gemm_cases()
+
+
+# the remaining dense decoders' widths: (tag, E, KV heads x head_dim, F,
+# vocab) of chatglm3-6b, deepseek-67b and internvl2-76b
+DENSE_WIDTHS = (("glm", 4096, 2 * 128, 13696, 65024),
+                ("deepseek", 8192, 8 * 128, 22016, 102400),
+                ("internvl2", 8192, 8 * 128, 28672, 128256))
+
+
+def _dense_gemm_cases():
+    """The fused GEMM at the remaining dense decoders' widths, at decode
+    batch (M = 4, stream) and a 512-token prefill (wgmma): each MLP's
+    down-projection (residual epilogue) and logits head (RMSNorm prologue,
+    fp32 out), and deepseek-67b's q / o (E -> E) and k / v (E -> 1024)
+    projections; the gated up-projections are `check_swiglu`'s."""
+    out = []
+    for M in (4, 512):
+        for tag, E, kv, F, V in DENSE_WIDTHS:
+            if tag == "deepseek":
+                out += [(f"{tag} q/o M={M}", M, E, E, "rmsnorm", "none",
+                         False, torch.bfloat16),
+                        (f"{tag} k/v M={M}", M, E, kv, "rmsnorm", "none",
+                         False, torch.bfloat16)]
+            out += [(f"{tag} down M={M}", M, F, E, "none", "none", True,
+                     torch.bfloat16),
+                    (f"{tag} head M={M}", M, E, V, "rmsnorm", "none", False,
+                     torch.float32)]
+    return out
 
 
 def _vit_gemm_cases():
@@ -559,8 +605,10 @@ def check_swiglu(rows):
     (RMSNorm prologue) at decode batch, a 512-token prefill and ragged M (9,
     17, 1100), and the unfused chain's call (no prologue) at decode batch;
     hymba-1.5b's, 1600 -> 2 x 5504 with no prologue (its residual norm runs
-    before), at decode batch and a 512-token prefill.  Library yardstick:
-    one torch.matmul against the two weights side by side, no prologue."""
+    before), at decode batch and a 512-token prefill; chatglm3-6b's,
+    deepseek-67b's and internvl2-76b's (`DENSE_WIDTHS`) at both.  Library
+    yardstick: one torch.matmul against the two weights side by side, no
+    prologue."""
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(4)
     cases = [("M=4 rmsnorm", 4, 3072, 8192, "rmsnorm"),
@@ -569,6 +617,10 @@ def check_swiglu(rows):
     cases += [(f"M={M} rmsnorm", M, 3072, 8192, "rmsnorm")
               for M in (9, 17, 1100)]
     cases += [(f"hymba M={M}", M, 1600, 5504, "none") for M in (4, 512)]
+    # the remaining dense decoders' MLPs: chatglm3 4096 -> 2 x 13696,
+    # deepseek 8192 -> 2 x 22016, internvl2 8192 -> 2 x 28672
+    cases += [(f"{tag} M={M} rmsnorm", M, E, F, "rmsnorm")
+              for M in (4, 512) for tag, E, _, F, _ in DENSE_WIDTHS]
     rows["fused_matmul_swiglu"] = [
         _gemm_row("fused_matmul_swiglu", label, M, K, N, norm, "none", False,
                   torch.bfloat16, gated=True, g=g)
@@ -996,12 +1048,17 @@ FLASH_CASES = (   # label, S, H, KV, D, window, causal, q_offset
     ("q_offset 37 S=100 H4/KV2 D=128", 100, 4, 2, 128, 0, True, 37),
     ("gemma3 S=1100 H32/KV16 D=128 window 1024", 1100, 32, 16, 128, 1024,
      True, 0),
+    # chatglm3-6b (16 query heads a kv head) and deepseek-67b / internvl2-76b
+    ("chatglm3 S=512 H32/KV2 D=128", 512, 32, 2, 128, 0, True, 0),
+    ("deepseek S=512 H64/KV8 D=128", 512, 64, 8, 128, 0, True, 0),
 )
 
 
 def check_flash(rows):
     """Prefill attention at GPT-J / GPT3-XL / phi4-mini / hymba shapes
-    (causal), ViT-B's and ViT-H's (D = 80) bidirectional encoders, also
+    (causal), chatglm3-6b's (H 32 / KV 2) and deepseek-67b's (H 64 / KV
+    8, D 128: internvl2-76b's too), ViT-B's and ViT-H's (D = 80)
+    bidirectional encoders, also
     D = 80 at 257 tokens (a 1-row tail past four 64-row tiles), a
     causal chunk whose queries start 37 positions into the keys, and
     gemma3's local layers: window 1024 over an 1100-token prompt.  Every
@@ -1097,6 +1154,7 @@ def _dense_from_paged(q, kp, vp, tab, lengths):
 
 
 GPTJ_SERVE_LENS = (200, 250, 290, 332)   # GPT-J's serving batch
+GLM_PAGED = (32, 2, 128, (1, 137, 300, 512))   # H, KV, D, lengths
 PAGED_CASES = (   # H, KV, D, lengths
     (16, 16, 256, (1, 137, 300, 512)),
     (24, 8, 128, (1, 137, 300, 512)),
@@ -1105,6 +1163,8 @@ PAGED_CASES = (   # H, KV, D, lengths
     # normalized wrapper runs one split (`paged_splits` == 1)
     (16, 16, 256, (1, 137, 300, 512, 17, 33, 64, 65, 96, 128, 160, 200,
                    250, 290, 332, 400, 480)),
+    # chatglm3-6b: 16 query heads a kv head, the fold's G = 16 form
+    GLM_PAGED,
 )
 PAGED_SPLITS = (1, 2, 4)   # splits of the partials kernel's table
 
@@ -1146,7 +1206,8 @@ def device_events(fn, iters=5):
 
 
 def check_paged(rows):
-    """The paged decode kernel at GPT-J's and phi4-mini's widths over a
+    """The paged decode kernel at GPT-J's, phi4-mini's and chatglm3-6b's
+    (H 32 / KV 2: the fold's G = 16 form) widths over a
     mixed batch (lengths 1..512, a hole in the table), over GPT-J's
     serving batch (lengths 200-332) and over 17 slots: the partials kernel
     at 1, 2 and 4 splits of the table (each split's statistics and the
@@ -1257,7 +1318,7 @@ def check_paged(rows):
 
 # the int8-pool form at GPT-J's serving batch and at phi4-mini's GQA
 PAGED_INT8_CASES = ((16, 16, 256, GPTJ_SERVE_LENS),
-                    (24, 8, 128, (1, 137, 300, 512)))
+                    (24, 8, 128, (1, 137, 300, 512)), GLM_PAGED)
 
 
 def check_paged_int8(rows):
@@ -1265,7 +1326,8 @@ def check_paged_int8(rows):
     quantized per (block, kv head) as the cache scatters write them, the
     partials kernel at 1, 2 and 4 splits of the table (merged, and each
     split's m / l) and the normalized wrapper, each held row by row to the
-    plain int8 fold at the same split.  Yardstick: bf16 SDPA over dense
+    plain int8 fold at the same split (chatglm3-6b's heads included: the
+    G = 16 form over int8 pools).  Yardstick: bf16 SDPA over dense
     copies of the unquantized pools (no PyTorch call reads an int8 pool
     with scales).  Bound: q, the live int8 K / V rows, their blocks'
     scales and the outputs."""
@@ -1405,6 +1467,9 @@ DECODE_CASES = (   # label, H, KV, D, S, lengths, window, dtype
      256, 512, (1, 137, 300, 512), 0, torch.bfloat16),
     ("draft linear B=4 H24/KV8 D=128 S=512 len 1/137/300/512", 24, 8,
      128, 512, (1, 137, 300, 512), 0, torch.bfloat16),
+    # chatglm3-6b-draft: 16 query heads a kv head, the fold's G = 16 form
+    ("draft linear B=4 H32/KV2 D=128 S=512 len 1/137/300/512", 32, 2,
+     128, 512, (1, 137, 300, 512), 0, torch.bfloat16),
 )
 
 
@@ -1412,7 +1477,8 @@ def check_decode_attention(rows):
     """The dense decode kernel on gemma3's and hymba's ring caches (the
     valid slots are a prefix of the ring), on a linear cache with gemma3's
     window (in bf16, and in fp32) and on the speculative drafts' linear
-    512-row caches (no window, GPT-J's and phi4-mini's widths), each
+    512-row caches (no window, GPT-J's, phi4-mini's and chatglm3-6b's
+    widths: the last the fold's G = 16 form), each
     batch row held to its own scale against the
     plain version at the kernel's split count (`splits=`: the same ranges,
     32-position stages and merge) and against the TPU kernel's walk (one
@@ -1543,6 +1609,7 @@ TEMPLATED = GEMM_WRAPPERS + ("flash_attention",) + PAGED_WRAPPERS
 GEMM_KERNELS = ("stream_kernel", "splitk_finish", "wgmma_kernel",
                 "fused_mm_kernel", "fused_swiglu_kernel")
 TEMPLATE_LAUNCHES = {}         # path -> wrapper -> template -> launches
+PATH_LAUNCHES = {}             # path -> kernel -> launches
 
 
 def drive(path, fn, need):
@@ -1559,6 +1626,7 @@ def drive(path, fn, need):
     out = fn()
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in counters.items()}
+    PATH_LAUNCHES[path] = launches
     for k, n in launches.items():
         TOTAL_LAUNCHES[k] = TOTAL_LAUNCHES.get(k, 0) + n
     by = {k: dict(counters[k].launches_by) for k in TEMPLATED}
@@ -1736,16 +1804,18 @@ def _head(params, cfg, x, *, fused, policy):
 
 
 def teacher_forced(cfg, params, prompt, *, mode, fused, policy=None,
-                   max_seq=512):
+                   max_seq=512, patches=None):
     """Final-position logits [1, vocab] fp32 of one prompt through the
     prefill stack and the logits head, fused or unfused chain, under a
-    kernel mode and a precision policy (default bf16)."""
+    kernel mode and a precision policy (default bf16); a VLM config's
+    prompt behind its `patches`."""
     from repro_torch.core.precision import BF16
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     policy = policy or BF16
     with ops.kernel_mode(mode), torch.no_grad():
-        x = lm._embed_sequence(params, prompt, policy=policy)
+        x = lm._embed_sequence(params, prompt, cfg=cfg, policy=policy,
+                               patches=patches)
         x, _ = lm._run_segments_prefill(params, x, cfg=cfg, policy=policy,
                                         max_seq=max_seq, fused=fused,
                                         compact_kv=True)
@@ -2170,6 +2240,48 @@ def check_encodes(cfg, params, tasks, max_seq):
     return out
 
 
+def check_patch_prefix(eng, done):
+    """A VLM engine's patch prefix (zero patch rows ahead of every served
+    prompt): the prompt cap is max_seq - 1 - n_patches and a longer prompt
+    is refused naming the prefix; each served request's blocks count the
+    prefix; the chunk policy, the prefix cache and speculation are refused
+    with the reference's reasons, which are printed."""
+    from repro_torch.serving import Request
+    from repro_torch.serving.spec import spec_support_reason
+    r, cfg = eng.runner, eng.runner.cfg
+    n_p = cfg.n_patches
+    cap = r.max_seq - 1 - n_p
+    if r.prompt_cap != cap or r._n_prefix != n_p:
+        raise AssertionError(f"{cfg.name}: prompt cap {r.prompt_cap}, "
+                             f"prefix {r._n_prefix}; want {cap}, {n_p}")
+    try:
+        eng.submit(Request(uid=-1, prompt=np.zeros(cap + 1, np.int32),
+                           max_new_tokens=1))
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError(f"{cfg.name}: a {cap + 1}-token prompt was "
+                             f"admitted")
+    if f"patch prefix={n_p}" not in refusal:
+        raise AssertionError(f"{cfg.name}: refusal {refusal!r}")
+    bs = r.layout.block_size
+    blocks = {q.uid: r.blocks_needed(q) for q in done}
+    want = {q.uid: -(-(n_p + q.prompt_len + len(q.output)) // bs)
+            for q in done}
+    if blocks != want:
+        raise AssertionError(f"{cfg.name}: blocks {blocks} != {want}")
+    chunk, spec = r.chunk_unsupported_reason, spec_support_reason(cfg)
+    if (chunk != "patch prefixes occupy unpaged cache positions" or spec
+            != "VLM patch prefixes are not supported in verify chunks"):
+        raise AssertionError(f"{cfg.name}: refusals {chunk!r}, {spec!r}")
+    log(f"  [{cfg.name}] patch prefix {n_p}: prompt cap {cap} (a "
+        f"{cap + 1}-token prompt refused: {refusal}); blocks with the "
+        f"prefix {sorted(blocks.values())}; chunked prefill and the prefix "
+        f"cache refused: {chunk}; speculation refused: {spec}")
+    return {"prompt_cap": cap, "refusal": refusal, "blocks": blocks,
+            "chunk_refusal": chunk, "spec_refusal": spec}
+
+
 def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
                 prefill_profile=False, encodes=(), weight_dtype="bfloat16",
                 kv_dtype=None, params=None, teacher=True):
@@ -2182,7 +2294,9 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
     captures its decode step once, at construction; every decode step of
     the run must be a replay of that one graph, and the first profile
     holds a replay to the eager step (`check_graph_vs_eager`).
-    `weight_dtype` / `kv_dtype`: the engine's int8 knobs; with int8
+    A VLM config serves its prompts behind zero patch rows
+    (`check_patch_prefix`), and teacher-forces its prompt behind seeded
+    ones.  `weight_dtype` / `kv_dtype`: the engine's int8 knobs; with int8
     weights the teacher-forced paths run on the engine's quantized
     weights, and every GEMM launch must be an int8 form (with int8 KV,
     every paged launch).  `params`: the caller's bf16 weights (else drawn
@@ -2287,6 +2401,7 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
             raise AssertionError(f"request {r.uid}: token out of vocab")
     if eng.allocator.num_free != eng.allocator.num_blocks:
         raise AssertionError("KV blocks leaked")
+    prefix = check_patch_prefix(eng, done) if cfg.n_patches else None
     report = {"launches": {"serve": launches},
               "gemm_templates": TEMPLATE_LAUNCHES[f"{tag} serve"],
               "stats": st.to_dict(),
@@ -2299,6 +2414,8 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
                   eng, cfg, rng, graph_check=True),
               "decode_profile_split": profile_decode(eng, cfg, rng,
                                                      prompt_len=300)}
+    if prefix is not None:
+        report["patch_prefix"] = prefix
     served = eng.runner.params       # the engine's weights (int8: quantized)
     del eng
     torch.cuda.empty_cache()
@@ -2318,10 +2435,15 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
     # those two is the rounding floor the gates scale with
     prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, 96),
                                        dtype=np.int32), device=DEVICE)
-    z_ref = teacher_forced(cfg, served, prompt, mode="ref", fused=True,
-                           max_seq=max_seq)
+    # a VLM's prompt behind seeded patch rows (the serve trace's are zero)
+    pk = {"max_seq": max_seq}
+    if cfg.n_patches:
+        from repro_torch.models import frontends
+        pk["patches"] = frontends.make_batch(
+            cfg, 1, cfg.n_patches + 96, seed=seed, device=DEVICE)["patches"]
+    z_ref = teacher_forced(cfg, served, prompt, mode="ref", fused=True, **pk)
     z_fp32 = teacher_forced(cfg, served, prompt, mode="ref", fused=True,
-                            policy=FP32, max_seq=max_seq)
+                            policy=FP32, **pk)
     floor = _gap(z_ref, z_fp32)
     log(f"  teacher-forced {tag} plain bf16 vs plain fp32 (floor): rel "
         f"{floor[0]:.2e}, cosine {np.cos(floor[1]):.6f}")
@@ -2331,7 +2453,7 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
         z, report["launches"][f"teacher_forced_{path}"] = drive(
             f"{tag} teacher-forced {path}",
             lambda: teacher_forced(cfg, served, prompt, mode="auto",
-                                   fused=fused, max_seq=max_seq),
+                                   fused=fused, **pk),
             path_kernels(cfg, path))
         # two paths each within the floor of fp32 lie within twice the
         # floor of each other
@@ -4303,7 +4425,7 @@ def ring_witness(cfg, *, seed, prompt_len=1000, steps=40, max_seq=2048,
 # teacher-forced gates run on a 4-layer witness (12.1 GB in bf16).
 MOE_SERVE_LAYERS = 16
 MOE_WITNESS_LAYERS = 4
-MOE_PREFIX_REQUESTS = 4
+PREFIX_RUN_REQUESTS = 4
 
 
 def moe_cut(layers, **kw):
@@ -4315,14 +4437,14 @@ def moe_cut(layers, **kw):
                                schedule=(("moe_local", layers),), **kw)
 
 
-def moe_prefix_run(cfg, params):
-    """MOE_PREFIX_REQUESTS requests sharing a PREFIX_LEN-token prefix (the
+def prefix_chunk_run(cfg, params):
+    """PREFIX_RUN_REQUESTS requests sharing a PREFIX_LEN-token prefix (the
     first served to its first token before the rest arrive) under
     ChunkedPrefillPolicy(CHUNK) with the prefix cache: every prompt chunks
-    through `block_chunk`'s MoE branch (no whole-prompt pass, so no flash
-    launch), the warm ones from their cached prefix; served, exact counts
-    (the expert form by each chunk pass's capacity), the cache hit, the
-    index clean, no leak after clear()."""
+    through `block_chunk` (no whole-prompt pass, so no flash launch), the
+    warm ones from their cached prefix; served, exact counts (an MoE
+    config's expert form by each chunk pass's capacity), the cache hit,
+    the index clean, no leak after clear()."""
     from repro_torch.core.precision import BF16
     from repro_torch.serving import ChunkedPrefillPolicy, InferenceEngine
     eng = InferenceEngine(cfg, params, batch_size=4, max_seq=512,
@@ -4330,7 +4452,7 @@ def moe_prefix_run(cfg, params):
                           scheduler=ChunkedPrefillPolicy(CHUNK),
                           prefix_cache=True)
     rows = track_prefill_rows(eng)
-    reqs = _prefix_requests(cfg)[:MOE_PREFIX_REQUESTS]
+    reqs = _prefix_requests(cfg)[:PREFIX_RUN_REQUESTS]
 
     def run():
         eng.submit(reqs[0])
@@ -4371,19 +4493,21 @@ def moe_prefix_run(cfg, params):
     return out
 
 
-def moe_spec_run(cfg, params):
-    """Chain speculation (k SPEC_K) with `mixtral-8x7b-draft` (a dense
+def chain_spec_run(cfg, params, draft):
+    """Chain speculation (k SPEC_K) with the registered `draft` (a dense
     2-layer SwiGLU draft at the target's widths, seeded weights) over the
     first 4 requests of the serve trace.  The spec gate refuses any
     window (the reference's rule), so the target runs with its window off:
-    at max_seq 512 the 4096 window never binds, the same function.  Served
-    and drained, the draft's step captured, exact launches (the verify
-    passes' expert form at their B x (k + 1) rows); each request's first
-    token (its prefill's) equal to the plain run's.  Later tokens are
-    reported, not gated: an MoE layer's capacity follows the rows a pass
-    routes (2 an expert at a decode step of 4, 7 at a verify pass of 20),
-    so where a pair drops in one and not the other the tokens differ by
-    design, in the reference too."""
+    at max_seq 512 mixtral's 4096 window never binds, the same function.
+    Served and drained, the draft's step captured, exact launches (an MoE
+    target's verify passes' expert form at their B x (k + 1) rows); each
+    request's first token (its prefill's) equal to the plain run's.  A
+    dense target's first divergence from the plain run must be a near tie
+    (`near_ties`).  An MoE target's later tokens are reported, not gated:
+    an MoE layer's capacity follows the rows a pass routes (2 an expert at
+    a decode step of 4, 7 at a verify pass of 20), so where a pair drops
+    in one and not the other the tokens differ by design, in the
+    reference too."""
     import dataclasses
 
     from repro_torch.core.precision import BF16
@@ -4398,22 +4522,25 @@ def moe_spec_run(cfg, params):
         eng.submit(q)
     plain = {q.uid: q.output for q in eng.run()}
     del eng
-    eng = engine(spec=SpecConfig(draft="mixtral-8x7b-draft", k=SPEC_K))
+    eng = engine(spec=SpecConfig(draft=draft, k=SPEC_K))
     r = eng.runner
     rows = track_prefill_rows(eng)
     bundle = r.draft_decode_step
     if not bundle.aux["captured"]:
-        raise AssertionError("mixtral spec: the draft step is not captured")
+        raise AssertionError(f"{cfg.name} spec: the draft step is not "
+                             f"captured")
     reqs = _serve_requests(scfg, lengths)
     for q in reqs:
         eng.submit(q)
     label = f"{cfg.name} spec"
     replays0, verify0 = bundle.fn.replays, r.verify_step.aux["calls"]
     t0 = time.perf_counter()
+    moe = ("expert_swiglu", "residual_rmsnorm") if moe_layers(cfg) else (
+        "fused_matmul_swiglu",)
     done, launches = drive(label, eng.run,
                            ("fused_matmul", "flash_attention",
-                            "decode_attention", "paged_chunk_partials",
-                            "expert_swiglu", "residual_rmsnorm"))
+                            "decode_attention", "paged_chunk_partials")
+                           + moe)
     wall = time.perf_counter() - t0
     st = eng.stats()
     _check_served(eng, done, len(reqs), 32, label)
@@ -4428,6 +4555,8 @@ def moe_spec_run(cfg, params):
         raise AssertionError(f"{label}: first tokens differ from the plain "
                              f"run's for requests {first}")
     same = sum(got[u] == plain[u] for u in got)
+    ties = [] if moe_layers(cfg) else near_ties(scfg, params, reqs, plain,
+                                                got, label)
     nums = _spec_numbers(st, wall)
     log(f"  [{label}] acceptance {nums['acceptance_rate']:.3f}, "
         f"{nums['tokens_per_target_step']:.2f} tokens a target pass a slot, "
@@ -4438,6 +4567,7 @@ def moe_spec_run(cfg, params):
         f"every first token equal")
     out = {"numbers": nums, "stats": st.to_dict(), "counts": counts,
            "launches": launches, "identical_to_plain": same,
+           "divergences": ties,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     del eng
     torch.cuda.empty_cache()
@@ -4590,13 +4720,74 @@ def phase_moe():
     params = lm.init_lm(cfg, dtype=torch.bfloat16, device=DEVICE, seed=8)
     out = {"layers": MOE_SERVE_LAYERS,
            "serve": serve_model(cfg, seed=8, params=params, teacher=False),
-           "chunk_prefix": moe_prefix_run(cfg, params),
-           "spec": moe_spec_run(cfg, params)}
+           "chunk_prefix": prefix_chunk_run(cfg, params),
+           "spec": chain_spec_run(cfg, params, "mixtral-8x7b-draft")}
     del params
     torch.cuda.empty_cache()
     out["witness"] = moe_witness(layers=MOE_WITNESS_LAYERS, seed=9)
     out["seconds"] = time.perf_counter() - t0
     log(f"moe phase: {out['seconds']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# 10. the remaining dense decoders
+# --------------------------------------------------------------------------
+
+# chatglm3-6b holds 12.5 GB of bf16 at its 28 layers: served whole.
+# deepseek-67b holds 1.384 GB a layer (692.1 M params) and 3.36 GB of
+# embedding and head (`ModelConfig.n_params`): 134.9 GB at its 95 layers,
+# past the 80 GB card; served at full width cut to 30 layers (30 x 1.384 +
+# 3.36 = 44.9 GB).  internvl2-76b: 1.711 GB a layer (855.7 M) and 4.20 GB,
+# 141.1 GB at 80 layers; cut to 24 (24 x 1.711 + 4.20 = 45.3 GB) and served
+# at max_seq 1024, where its 256-position patch prefix leaves 767 prompt
+# positions (255 at max_seq 512).
+DEEPSEEK_LAYERS = 30
+INTERNVL2_LAYERS = 24
+VLM_MAX_SEQ = 1024
+GLM_TAG = "chatglm3-6b"        # every drive label of a chatglm3 path
+
+
+def dense_cut(cfg, layers):
+    """`cfg` at full width cut to `layers` `attn` layers."""
+    import dataclasses
+    return dataclasses.replace(cfg, n_layers=layers,
+                               schedule=(("attn", layers),))
+
+
+def phase_dense():
+    """The remaining dense decoders at full width, seeded bf16 weights,
+    each freed before the next is made: chatglm3-6b whole (GQA 32 / 2: the
+    paged decode's G = 16 form once a layer a decode step inside the
+    captured graph) through `serve_model` (exact launches, the replay
+    bit-equal to the eager step, no leak, the teacher-forced gates), the
+    shared-prefix trace chunked with the prefix cache (the chunk stack at
+    G = 16) and chain speculation (k 4) with `chatglm3-6b-draft` (the
+    dense decode's G = 16 form in the draft's graph); deepseek-67b cut to
+    DEEPSEEK_LAYERS layers through `serve_model`; internvl2-76b cut to
+    INTERNVL2_LAYERS layers at max_seq VLM_MAX_SEQ, its prompts behind
+    zero patch rows (`check_patch_prefix`), its teacher-forced prompt
+    behind seeded ones."""
+    from repro_torch.configs import CHATGLM3_6B, DEEPSEEK_67B, INTERNVL2_76B
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    glm = CHATGLM3_6B
+    params = lm.init_lm(glm, dtype=torch.bfloat16, device=DEVICE, seed=10)
+    out = {glm.name: {
+        "layers": glm.n_layers,
+        "serve": serve_model(glm, seed=10, params=params),
+        "chunk_prefix": prefix_chunk_run(glm, params),
+        "spec": chain_spec_run(glm, params, "chatglm3-6b-draft")}}
+    del params
+    torch.cuda.empty_cache()
+    for cfg, kw in ((dense_cut(DEEPSEEK_67B, DEEPSEEK_LAYERS), {"seed": 11}),
+                    (dense_cut(INTERNVL2_76B, INTERNVL2_LAYERS),
+                     {"seed": 12, "max_seq": VLM_MAX_SEQ})):
+        out[cfg.name] = {"layers": cfg.n_layers,
+                         "serve": serve_model(cfg, **kw)}
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"dense phase: {out['seconds']:.1f} s")
     return out
 
 
@@ -4658,7 +4849,32 @@ KERNELS = {   # name -> (source, TPU kernel replaced, case in the line)
                       "B=1 S=512 H=64 P=64 N=16"),
     "ssd": (CSRC + "ssd.cu", "src/repro/kernels/ssd.py:174",
             "B=1 S=512 H=80 P=64 N=128"),
+    # the fold's G = 16 form (chatglm3-6b: 32 query heads over 2 kv heads)
+    "paged_decode_partials_g16": (
+        CSRC + "paged_decode.cu", "src/repro/kernels/flash_decode.py:321",
+        "B=4 H=32/KV=2 D=128 BS=16 len 1/137/300/512"),
+    "paged_decode_attention_g16": (
+        CSRC + "paged_decode.cu", "src/repro/kernels/flash_decode.py:297",
+        "B=4 H=32/KV=2 D=128 BS=16 len 1/137/300/512"),
+    "paged_decode_attention_int8_g16": (
+        CSRC + "paged_decode.cu", "src/repro/kernels/flash_decode.py:297",
+        "B=4 H=32/KV=2 D=128 BS=16 len 1/137/300/512"),
+    "decode_attention_g16": (CSRC + "decode_attention.cu",
+                             "src/repro/kernels/flash_decode.py:116",
+                             DECODE_CASES[-1][0]),
 }
+# line entries whose kernels-phase rows sit under another name
+ROWS_OF = {"paged_decode_partials_g16": "paged_decode_partials",
+           "paged_decode_attention_g16": "paged_decode_attention",
+           "paged_decode_attention_int8_g16": "paged_decode_attention_int8",
+           "decode_attention_g16": "decode_attention"}
+# the G = 16 forms count the launches of chatglm3-6b's paths (GLM_TAG):
+# every decode launch there runs the G = 16 form (no served path runs
+# chatglm3 with int8 pools: None)
+G16_OF = {"paged_decode_partials_g16": "paged_decode_attention",
+          "paged_decode_attention_g16": "paged_decode_attention",
+          "paged_decode_attention_int8_g16": None,
+          "decode_attention_g16": "decode_attention"}
 # one CUDA kernel (the `ssd` wrapper) serves both TPU SSD kernels: its line
 # entries count its launches on the path of the config with that kernel's
 # shapes (the TPU runs ssd_multihead for hymba, ssd for mamba2)
@@ -4685,6 +4901,10 @@ FORMS_OF = {
 
 
 def _launches(name, serve):
+    if name in G16_OF:
+        wrapper = G16_OF[name]
+        return sum(n[wrapper] for p, n in PATH_LAUNCHES.items()
+                   if wrapper and p.startswith(GLM_TAG))
     if name in FORMS_OF:
         wrapper, forms = FORMS_OF[name]
         return sum(TOTAL_BY.get(wrapper, {}).get(t, 0) for t in forms)
@@ -4722,11 +4942,13 @@ def main():
     report["witness"] = depth_witness(MAMBA2_2_7B, layers=8, seed=3)
     report["ring_witness"] = ring_witness(GEMMA3_27B, seed=6)
     report["moe"] = phase_moe()
+    report["dense"] = phase_dense()
     report["launches_total"] = dict(TOTAL_LAUNCHES)
     report["gemm_templates"] = dict(TEMPLATE_LAUNCHES)
     line = []
     for name, (src, replaces, case) in KERNELS.items():
-        r = next(x for x in rows[name] if x["case"] == case)
+        r = next(x for x in rows[ROWS_OF.get(name, name)]
+                 if x["case"] == case)
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": _launches(name, report["serve"]),

@@ -1,14 +1,19 @@
 """Configurations the port runs: the paper's encoder-only ViT-B/L/H
 (`models.vit`) and decoder-only models,
-phi4-mini (SwiGLU, RMSNorm, GQA), hymba-1.5b (parallel attention + Mamba2
+phi4-mini (SwiGLU, RMSNorm, GQA), chatglm3-6b (GQA 32 / 2, rope on half
+of each head), deepseek-67b, internvl2-76b (a VLM backbone behind a
+256-position patch prefix), hymba-1.5b (parallel attention + Mamba2
 heads), mamba2-2.7b (attention-free SSD), gemma3-27b (5:1 sliding-window
 / global attention, GELU MLP), mixtral-8x7b and mixtral-8x22b (8 SwiGLU
 experts, top-2, a 4096 window), and the 2-layer speculative-decoding
 drafts of the decoder targets (`configs/drafts.py`: `<target>-draft`)."""
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.chatglm3_6b import CONFIG as CHATGLM3_6B
+from repro_torch.configs.deepseek_67b import CONFIG as DEEPSEEK_67B
 from repro_torch.configs.drafts import DRAFTS, make_draft
 from repro_torch.configs.gemma3_27b import CONFIG as GEMMA3_27B
 from repro_torch.configs.hymba_1_5b import CONFIG as HYMBA_1_5B
+from repro_torch.configs.internvl2_76b import CONFIG as INTERNVL2_76B
 from repro_torch.configs.mamba2_2_7b import CONFIG as MAMBA2_2_7B
 from repro_torch.configs.mixtral_8x7b import CONFIG as MIXTRAL_8X7B
 from repro_torch.configs.mixtral_8x22b import CONFIG as MIXTRAL_8X22B
@@ -17,7 +22,8 @@ from repro_torch.configs.paper_models import (GPT3_XL, GPT_J, PAPER_MODELS,
 from repro_torch.configs.phi4_mini_3_8b import CONFIG as PHI4_MINI
 
 REGISTRY = dict(PAPER_MODELS)
-for _cfg in (PHI4_MINI, HYMBA_1_5B, MAMBA2_2_7B, GEMMA3_27B, MIXTRAL_8X7B,
+for _cfg in (PHI4_MINI, CHATGLM3_6B, DEEPSEEK_67B, INTERNVL2_76B,
+             HYMBA_1_5B, MAMBA2_2_7B, GEMMA3_27B, MIXTRAL_8X7B,
              MIXTRAL_8X22B):
     REGISTRY[_cfg.name] = _cfg
 REGISTRY.update(DRAFTS)
@@ -31,6 +37,7 @@ def get_config(name: str) -> ModelConfig:
 
 
 __all__ = ["ModelConfig", "VIT_B", "VIT_L", "VIT_H", "GPT_J", "GPT3_XL",
-           "PHI4_MINI", "HYMBA_1_5B", "MAMBA2_2_7B", "GEMMA3_27B",
+           "PHI4_MINI", "CHATGLM3_6B", "DEEPSEEK_67B", "INTERNVL2_76B",
+           "HYMBA_1_5B", "MAMBA2_2_7B", "GEMMA3_27B",
            "MIXTRAL_8X7B", "MIXTRAL_8X22B",
            "PAPER_MODELS", "DRAFTS", "make_draft", "get_config"]

@@ -12,11 +12,11 @@ config: plain global-attention layers (no MoE / SSM / sliding window /
 encoder: those change the cache layout, and the draft keeps a dense linear
 cache a slot), the target's widths, and a reduced target derives a reduced
 draft.  Named drafts (`<target>-draft`) are registered in
-`repro_torch.configs.REGISTRY` for the decoder targets the port has
-configs for: GPT-J, GPT3-XL, phi4-mini and mixtral-8x7b (a dense SwiGLU
-`attn` draft: `make_draft` strips the experts).  The reference also
-registers drafts for chatglm3 and deepseek-67b; the port has no config
-for those targets yet, so their drafts wait for them.
+`repro_torch.configs.REGISTRY` for the reference's targets: GPT-J,
+GPT3-XL, phi4-mini, chatglm3-6b, deepseek-67b and mixtral-8x7b (a dense
+SwiGLU `attn` draft: `make_draft` strips the experts).  internvl2-76b has
+none, as in the reference: a VLM cannot speculate, and `make_draft` strips
+its patch prefix.
 """
 from __future__ import annotations
 
@@ -56,10 +56,13 @@ def make_draft(cfg: ModelConfig, n_layers: int = DRAFT_LAYERS) -> ModelConfig:
 
 
 def _paper_drafts() -> dict:
+    from repro_torch.configs.chatglm3_6b import CONFIG as CHATGLM3
+    from repro_torch.configs.deepseek_67b import CONFIG as DEEPSEEK67B
     from repro_torch.configs.mixtral_8x7b import CONFIG as MIXTRAL_8X7B
     from repro_torch.configs.paper_models import GPT3_XL, GPT_J
     from repro_torch.configs.phi4_mini_3_8b import CONFIG as PHI4_MINI
-    targets = (GPT_J, GPT3_XL, PHI4_MINI, MIXTRAL_8X7B)
+    targets = (GPT_J, GPT3_XL, PHI4_MINI, CHATGLM3, DEEPSEEK67B,
+               MIXTRAL_8X7B)
     return {d.name: d for d in (make_draft(t) for t in targets)}
 
 

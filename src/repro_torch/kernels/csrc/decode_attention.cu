@@ -23,9 +23,10 @@
 // grid (kv head, slot, split), 256 threads, DF_STAGES stages of 32
 // positions in flight with 16-byte cp.async, only valid rows copied; 8
 // lanes score a key row for all G heads, one warp a query head keeps its
-// statistics, and each thread accumulates a pair of output dimensions with
-// bf16x2 / float2 reads of V.  S is cut into `splits` ranges of `range`
-// positions, a multiple of the stage (kernels/flash_decode.py:dense_splits:
+// statistics (two heads a warp in the G = 16 form), and each thread
+// accumulates a pair of output dimensions with bf16x2 / float2 reads of V.
+// S is cut into `splits` ranges of `range` positions, a multiple of the
+// stage (kernels/flash_decode.py:dense_splits:
 // two blocks an SM over the (kv head, slot) grid, at most 64); each range
 // walks stages aligned to 32 positions from the window's lower bound
 // lo = max(0, length - window), and a block whose range lies outside
@@ -40,7 +41,7 @@ struct DAParams {
   int S, range, window;
 };
 
-template <typename T>
+template <typename T, int kG>
 __global__ void __launch_bounds__(DF_THREADS) decode_attention_kernel(const DAParams p) {
   extern __shared__ __align__(16) uint8_t da_smem[];
   const int kvh = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
@@ -48,27 +49,35 @@ __global__ void __launch_bounds__(DF_THREADS) decode_attention_kernel(const DAPa
   const int lo = p.window > 0 ? max(0, len - p.window) : 0;
   const int first = max(z * p.range, lo), end = min(z * p.range + p.range, len);
   if (first >= end) {
-    df_store_empty(p.f, kvh, b, z);
+    df_store_empty<kG>(p.f, kvh, b, z);
     return;
   }
   DenseRows rows{(int64_t)b * p.S, first - first % DF_STAGE_TOKENS, first, end};
-  dec_fold<T>(p.f, rows, da_smem, kvh, b, z);
+  dec_fold<T, kG>(p.f, rows, da_smem, kvh, b, z);
 }
 
-template <typename T>
+template <typename T, int kG>
 static cudaError_t launch_dense_t(const DAParams& p, int splits, size_t smem,
                                   cudaStream_t s) {
   static bool attr = false;
   if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<T>,
+    const cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<T, kG>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                DF_SMEM_MAX);
     if (e != cudaSuccess) return e;
     attr = true;
   }
   dim3 grid(p.f.KV, p.f.B, splits);
-  decode_attention_kernel<T><<<grid, DF_THREADS, smem, s>>>(p);
+  decode_attention_kernel<T, kG><<<grid, DF_THREADS, smem, s>>>(p);
   return cudaGetLastError();
+}
+
+// the head capacity G needs: 8, or 16 above 8 query heads a kv head
+template <typename T>
+static cudaError_t launch_dense_g(const DAParams& p, int splits, size_t smem,
+                                  cudaStream_t s) {
+  return df_wide(p.f.H, p.f.KV) ? launch_dense_t<T, DF_MAXG>(p, splits, smem, s)
+                                : launch_dense_t<T, DF_WARPS>(p, splits, smem, s);
 }
 
 // The partials of `splits` ranges of `range` positions go to the caller's
@@ -89,8 +98,8 @@ extern "C" int repro_decode_attention(const void* q, const void* k, const void* 
   DAParams p{{q, k, v, o_part, m_part, l_part, B, H, KV, D, sm_scale}, lengths, S, range,
              window};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const cudaError_t e = dt == DT_BF16 ? launch_dense_t<__nv_bfloat16>(p, splits, smem, s)
-                                      : launch_dense_t<float>(p, splits, smem, s);
+  const cudaError_t e = dt == DT_BF16 ? launch_dense_g<__nv_bfloat16>(p, splits, smem, s)
+                                      : launch_dense_g<float>(p, splits, smem, s);
   if (e != cudaSuccess) return (int)e;
   dec_merge_kernel<<<B * H, DF_THREADS, 0, s>>>(o_part, m_part, l_part, out, splits, B * H,
                                                 D, dt);

@@ -2,10 +2,14 @@
 // (paged_decode.cu) and the dense decode (decode_attention.cu).
 //
 // One block of DF_THREADS threads owns one (kv head, slot, split) triple and
-// the G = H / KV query heads of its kv head.  The KV rows it folds come in
-// pages: runs of at most BS consecutive rows of which rows [lo, hi) are
-// valid.  A row source says where page i starts and which of its rows are
-// valid:
+// the G = H / KV query heads of its kv head, G <= DF_MAXG = 16.  The head
+// capacity kG (8 or 16) is a template argument of the fold: G <= 8 runs
+// the kG = 8 form, one warp a query head; 8 < G <= 16 (chatglm3's 32 / 2)
+// the kG = 16 form, two query heads a warp in the (m, l) fold (warp w keeps
+// heads w and w + 8) and 16 score registers a lane.  The KV rows it folds
+// come in pages: runs of at most BS consecutive rows of which rows [lo, hi)
+// are valid.  A row source says where page i starts and which of its rows
+// are valid:
 //   PagedRows  page i is the i-th live entry of the block's range of the
 //              block table (compacted into shared memory first), BS the
 //              pool's block size (compiled in where the launcher knows
@@ -19,13 +23,13 @@
 // are in flight with 16-byte cp.async, only the valid rows copied.  Each
 // stage is folded with three barriers: 8 lanes a key row score it for all G
 // query heads (16-byte shared loads, a 3-step shuffle reduction), one warp a
-// query head folds the stage's pages into (m, l) in page order (a rescale
-// per page, P rounded to V's dtype after the running max), and each thread
-// accumulates a pair of output dimensions of one head with bf16x2 / float2
-// reads of V, applying each page's rescale.  The block writes fp32 partials
-// (o unnormalized, m, l) of its split; dec_merge_kernel folds the splits'
-// partials into the normalized output at q's dtype (the online-softmax
-// merge of the reference's core/attention.py:merge_partials).
+// query head (two at kG = 16) folds the stage's pages into (m, l) in page
+// order (a rescale per page, P rounded to V's dtype after the running max),
+// and each thread accumulates a pair of output dimensions of one head with
+// bf16x2 / float2 reads of V, applying each page's rescale.  The block
+// writes fp32 partials (o unnormalized, m, l) of its split; dec_merge_kernel
+// folds the splits' partials into the normalized output at q's dtype (the
+// online-softmax merge of the reference's core/attention.py:merge_partials).
 //
 // Int8 pools (T = int8_t, paged only): the rows are staged at one byte an
 // element, and each pool block carries one fp32 scale a kv head for K and
@@ -44,8 +48,7 @@ constexpr int DF_STAGES = 3;                // stages of pages in flight
 constexpr int DF_STAGE_TOKENS = 32;         // tokens a stage holds at least
 constexpr int DF_LPT = 8;                   // lanes scoring one key row
 constexpr int DF_ROWS = 32 / DF_LPT;        // key rows a warp scores at once
-constexpr int DF_MAXG = 8;                  // query heads per kv head
-static_assert(DF_WARPS >= DF_MAXG, "one warp a query head");
+constexpr int DF_MAXG = 2 * DF_WARPS;       // query heads per kv head: kG 8 or 16
 constexpr int DF_MAXPAIRS = 4;              // (G * D / 2) / DF_THREADS upper bound
 constexpr int DF_SMEM_MAX = 226 * 1024;     // dynamic shared memory (227 KB less static)
 constexpr int DF_MAX_SPLITS = 64;           // splits the merge kernel takes
@@ -190,16 +193,30 @@ __device__ __forceinline__ float2 df_pair(const T* p) {
   }
 }
 
-// The block's partials of split z: m, l of its G heads and o of its G * D
-// outputs (acc: this thread's pairs).
-__device__ __forceinline__ void df_store(const DecFold& f, int kvh, int b, int z, float m_r,
-                                         float l_r, const float (&acc)[2 * DF_MAXPAIRS]) {
+// Query heads a warp keeps statistics for in the kG form.
+template <int kG>
+__host__ __device__ constexpr int df_heads_per_warp() {
+  static_assert(kG == DF_WARPS || kG == DF_MAXG, "head capacity 8 or 16");
+  return kG / DF_WARPS;
+}
+
+// The block's partials of split z: m, l of its G heads (warp w's heads w +
+// j * DF_WARPS) and o of its G * D outputs (acc: this thread's pairs).
+template <int kG>
+__device__ __forceinline__ void df_store(const DecFold& f, int kvh, int b, int z,
+                                         const float (&m_r)[df_heads_per_warp<kG>()],
+                                         const float (&l_r)[df_heads_per_warp<kG>()],
+                                         const float (&acc)[2 * DF_MAXPAIRS]) {
   const int G = f.H / f.KV, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int64_t head0 = (int64_t)b * f.H + kvh * G;
   const int64_t split0 = (int64_t)z * f.B * f.H;
-  if (warp < G && lane == 0) {
-    f.m[split0 + head0 + warp] = m_r;
-    f.l[split0 + head0 + warp] = l_r;
+#pragma unroll
+  for (int j = 0; j < df_heads_per_warp<kG>(); ++j) {
+    const int g = warp + j * DF_WARPS;
+    if (g < G && lane == 0) {
+      f.m[split0 + head0 + g] = m_r[j];
+      f.l[split0 + head0 + g] = l_r[j];
+    }
   }
 #pragma unroll
   for (int i = 0; i < DF_MAXPAIRS; ++i) {
@@ -212,20 +229,29 @@ __device__ __forceinline__ void df_store(const DecFold& f, int kvh, int b, int z
 
 // The partials of a split with no valid row: m = -1e30, l = 0, o = 0 (the
 // merge weighs it by zero).
+template <int kG>
 __device__ __forceinline__ void df_store_empty(const DecFold& f, int kvh, int b, int z) {
-  float acc[2 * DF_MAXPAIRS];
+  constexpr int HPW = df_heads_per_warp<kG>();
+  float acc[2 * DF_MAXPAIRS], m_r[HPW], l_r[HPW];
 #pragma unroll
   for (int i = 0; i < 2 * DF_MAXPAIRS; ++i) acc[i] = 0.f;
-  df_store(f, kvh, b, z, NEG_INF_F, 0.f, acc);
+#pragma unroll
+  for (int j = 0; j < HPW; ++j) {
+    m_r[j] = NEG_INF_F;
+    l_r[j] = 0.f;
+  }
+  df_store<kG>(f, kvh, b, z, m_r, l_r, acc);
 }
 
 // Fold the rows `rows` gives into the partials of (kv head kvh, slot b,
-// split z).  `smem`: df_smem_bytes(G, D, rows.bs(), sizeof(T), extra).
-template <typename T, class Rows>
+// split z), G <= kG query heads.  `smem`: df_smem_bytes(G, D, rows.bs(),
+// sizeof(T), extra).
+template <typename T, int kG, class Rows>
 __device__ __forceinline__ void dec_fold(const DecFold& f, Rows& rows, uint8_t* smem,
                                          int kvh, int b, int z) {
   constexpr int EPC = 16 / sizeof(T);  // elements of a 16-byte chunk
   constexpr bool kQuant = sizeof(T) == 1;   // int8 pools, with scales
+  constexpr int HPW = df_heads_per_warp<kG>();  // heads a warp keeps (m, l) for
   const int q_dt = kQuant ? f.q_dt : (sizeof(T) == 2 ? DT_BF16 : DT_F32);
   const int G = f.H / f.KV, D = f.D;
   const int BS = rows.bs(), P = rows.pages(), TOK = P * BS;
@@ -287,8 +313,13 @@ __device__ __forceinline__ void dec_fold(const DecFold& f, Rows& rows, uint8_t* 
     first_stages();
   }
 
-  // warp g folds query head g (its m, l in registers)
-  float m_r = NEG_INF_F, l_r = 0.f;
+  // warp w folds query heads w + j * DF_WARPS (their m, l in registers)
+  float m_r[HPW], l_r[HPW];
+#pragma unroll
+  for (int j = 0; j < HPW; ++j) {
+    m_r[j] = NEG_INF_F;
+    l_r[j] = 0.f;
+  }
   float acc[2 * DF_MAXPAIRS];
 #pragma unroll
   for (int i = 0; i < 2 * DF_MAXPAIRS; ++i) acc[i] = 0.f;
@@ -310,16 +341,16 @@ __device__ __forceinline__ void dec_fold(const DecFold& f, Rows& rows, uint8_t* 
       int lo, hi;
       rows.span(i0 + min(pi, np - 1), lo, hi);
       const bool valid = u < TOK && pi < np && r >= lo && r < hi;
-      float dot[DF_MAXG];
+      float dot[kG];
 #pragma unroll
-      for (int g = 0; g < DF_MAXG; ++g) dot[g] = 0.f;
+      for (int g = 0; g < kG; ++g) dot[g] = 0.f;
       if (valid) {
         const T* krow = kv + ((size_t)(pi * 2) * BS + r) * D;
         for (int ch = sub; ch < CR; ch += DF_LPT) {
           float w[EPC];
           df_unpack<T>(*reinterpret_cast<const uint4*>(krow + ch * EPC), w);
 #pragma unroll
-          for (int g = 0; g < DF_MAXG; ++g) {
+          for (int g = 0; g < kG; ++g) {
             if (g >= G) break;
             const float* qg = Qs + g * D + ch * EPC;
 #pragma unroll
@@ -330,7 +361,7 @@ __device__ __forceinline__ void dec_fold(const DecFold& f, Rows& rows, uint8_t* 
       // int8: the page's K scale, after sm_scale (the TPU kernel's order)
       const float ksc = (kQuant && valid) ? f.ks[(int64_t)rows.blk(i0 + pi) * f.KV + kvh] : 1.f;
 #pragma unroll
-      for (int g = 0; g < DF_MAXG; ++g) {
+      for (int g = 0; g < kG; ++g) {
         if (g >= G) break;
         float d = dot[g];
         d += __shfl_xor_sync(0xffffffffu, d, 4);
@@ -342,9 +373,13 @@ __device__ __forceinline__ void dec_fold(const DecFold& f, Rows& rows, uint8_t* 
     }
     __syncthreads();
 
-    // statistics, page by page, warp g for head g; P replaces the scores
-    if (warp < G) {
-      float* sg = Ss + warp * TOK;
+    // statistics, page by page, warp w for heads w + j * DF_WARPS; P
+    // replaces the scores
+#pragma unroll
+    for (int j = 0; j < HPW; ++j) {
+      const int g = warp + j * DF_WARPS;
+      if (g >= G) break;
+      float* sg = Ss + g * TOK;
       for (int pi = 0; pi < np; ++pi) {
         int lo, hi;
         rows.span(i0 + pi, lo, hi);
@@ -352,7 +387,7 @@ __device__ __forceinline__ void dec_fold(const DecFold& f, Rows& rows, uint8_t* 
         float mb = NEG_INF_F;
         for (int t = lo + lane; t < hi; t += 32) mb = fmaxf(mb, sp[t]);
         mb = warp_max(mb);
-        const float m_new = fmaxf(m_r, mb);
+        const float m_new = fmaxf(m_r[j], mb);
         float ps = 0.f;
         for (int t = lo + lane; t < hi; t += 32) {
           const float pw = expf(sp[t] - m_new);
@@ -360,10 +395,10 @@ __device__ __forceinline__ void dec_fold(const DecFold& f, Rows& rows, uint8_t* 
           sp[t] = sizeof(T) == 2 ? round_bf16(pw) : pw;  // int8 and fp32: P in fp32
         }
         ps = warp_sum(ps);
-        const float corr = expf(m_r - m_new);
-        if (lane == 0) Cs[warp * P + pi] = corr;
-        l_r = l_r * corr + ps;
-        m_r = m_new;
+        const float corr = expf(m_r[j] - m_new);
+        if (lane == 0) Cs[g * P + pi] = corr;
+        l_r[j] = l_r[j] * corr + ps;
+        m_r[j] = m_new;
       }
     }
     __syncthreads();
@@ -417,7 +452,7 @@ __device__ __forceinline__ void dec_fold(const DecFold& f, Rows& rows, uint8_t* 
     }
   }
   cp_async_wait<0>();
-  df_store(f, kvh, b, z, m_r, l_r, acc);
+  df_store<kG>(f, kvh, b, z, m_r, l_r, acc);
 }
 
 // One block per (slot, query head): out = sum_s o_s e^(m_s - m) /
@@ -453,8 +488,9 @@ __global__ void __launch_bounds__(DF_THREADS)
 }
 
 // The checks both launchers share: G = H / KV query heads a kv head (at most
-// DF_MAXG), pairs of output dimensions for the block's threads, 16-byte rows
-// whose 2 CR columns divide the block, 16-byte aligned K / V / o.
+// DF_MAXG = 16), pairs of output dimensions for the block's threads (G * D
+// <= 2048), 16-byte rows whose 2 CR columns divide the block, 16-byte
+// aligned K / V / o.
 __host__ inline bool df_shape_ok(int H, int KV, int D, int esize, const void* k,
                                  const void* v, const void* o) {
   const int G = KV > 0 ? H / KV : 0;
@@ -464,3 +500,7 @@ __host__ inline bool df_shape_ok(int H, int KV, int D, int esize, const void* k,
   return G >= 1 && H % KV == 0 && G <= DF_MAXG && G * D <= 2 * DF_MAXPAIRS * DF_THREADS &&
          (D * esize) % 16 == 0 && cr >= 1 && DF_THREADS % (2 * cr) == 0 && align % 16 == 0;
 }
+
+// The fold's head capacity for G query heads a kv head: 8 (one warp a head:
+// every config but chatglm3) or 16.
+__host__ inline bool df_wide(int H, int KV) { return H / KV > DF_WARPS; }

@@ -54,7 +54,7 @@ __host__ __device__ inline size_t pd_smem_bytes(int G, int D, int BS, int per, i
   return df_smem_bytes(G, D, BS, esize, (size_t)2 * per * sizeof(int));
 }
 
-template <typename T, int kBS>
+template <typename T, int kBS, int kG>
 __global__ void __launch_bounds__(DF_THREADS) paged_decode_kernel(const PDParams p) {
   extern __shared__ __align__(16) uint8_t pd_smem[];
   __shared__ int nlive_sh;
@@ -64,30 +64,37 @@ __global__ void __launch_bounds__(DF_THREADS) paged_decode_kernel(const PDParams
       pd_smem + df_smem_bytes(p.f.H / p.f.KV, p.f.D, p.BS, sizeof(T), 0));
   PagedRows<kBS> rows{p.tables + (int64_t)b * p.MB, p.BS, p.lengths[b], e0,
                       min(p.MB, e0 + p.per), ents, ents + p.per, &nlive_sh};
-  dec_fold<T>(p.f, rows, pd_smem, kvh, b, z);
+  dec_fold<T, kG>(p.f, rows, pd_smem, kvh, b, z);
 }
 
-template <typename T, int kBS>
+template <typename T, int kBS, int kG>
 static cudaError_t launch_paged_t(const PDParams& p, int splits, size_t smem, cudaStream_t s) {
   static bool attr = false;
   if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T, kBS>,
+    const cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T, kBS, kG>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                DF_SMEM_MAX);
     if (e != cudaSuccess) return e;
     attr = true;
   }
   dim3 grid(p.f.KV, p.f.B, splits);
-  paged_decode_kernel<T, kBS><<<grid, DF_THREADS, smem, s>>>(p);
+  paged_decode_kernel<T, kBS, kG><<<grid, DF_THREADS, smem, s>>>(p);
   return cudaGetLastError();
 }
 
-// the serving engine's block size runs a fold with it compiled in
+// the serving engine's block size runs a fold with it compiled in; the
+// head capacity is 8, or 16 above 8 query heads a kv head
+template <typename T, int kG>
+static cudaError_t launch_paged_g(const PDParams& p, int splits, size_t smem,
+                                  cudaStream_t s) {
+  return p.BS == PD_COMPILED_BS ? launch_paged_t<T, PD_COMPILED_BS, kG>(p, splits, smem, s)
+                                : launch_paged_t<T, 0, kG>(p, splits, smem, s);
+}
 template <typename T>
 static cudaError_t launch_paged_bs(const PDParams& p, int splits, size_t smem,
                                    cudaStream_t s) {
-  return p.BS == PD_COMPILED_BS ? launch_paged_t<T, PD_COMPILED_BS>(p, splits, smem, s)
-                                : launch_paged_t<T, 0>(p, splits, smem, s);
+  return df_wide(p.f.H, p.f.KV) ? launch_paged_g<T, DF_MAXG>(p, splits, smem, s)
+                                : launch_paged_g<T, DF_WARPS>(p, splits, smem, s);
 }
 
 // dt: the pools' dtype; q_dt: q's (and the normalized output's).  bf16 and

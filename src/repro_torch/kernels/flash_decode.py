@@ -46,6 +46,7 @@ _DENSE_ARGTYPES = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P]
 _MERGE_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
 MAX_MERGE_SPLITS = 64   # csrc/decode_fold.cuh DF_MAX_SPLITS
 FOLD_THREADS = 256      # csrc/decode_fold.cuh DF_THREADS
+MAX_HEADS = 16          # csrc/decode_fold.cuh DF_MAXG: query heads a kv head
 STAGE = 32              # csrc/decode_fold.cuh DF_STAGE_TOKENS: dense stage
 PAGED_MIN_ENTRIES = 4   # table entries a split of the paged grid spans
 SPLIT_TOKENS = 512      # pool positions a split of a full table spans at most
@@ -153,9 +154,11 @@ def decode_attention(q, k_cache, v_cache, length, *, window=0):
     B, H, D = q.shape
     _, S, KV, _ = k_cache.shape if k_cache.ndim == 4 else (0,) * 4
     q, k_cache, v_cache = (t.contiguous() for t in (q, k_cache, v_cache))
+    if KV and not _fold_shape_ok(H, KV, D, q.element_size()):
+        raise ValueError(_shape_error("decode_attention", H, KV, D))
     if (k_cache.ndim != 4 or k_cache.shape[0] != B or k_cache.shape[3] != D
             or length.shape != (B,) or v_cache.shape != k_cache.shape
-            or not _fold_shape_ok(H, KV, D, q.element_size()) or window < 0
+            or window < 0
             or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype
             or not build.aligned16(k_cache, v_cache)):
         raise ValueError(f"decode_attention: unsupported operands q "
@@ -278,12 +281,23 @@ def _paged_fold(q, k_pool, v_pool, block_tables, lengths, e0, e1,
 
 def _fold_shape_ok(H, KV, D, esize) -> bool:
     """The stage ring's shapes (csrc/decode_fold.cuh df_shape_ok): at most
-    8 query heads a kv head, G * D <= 2048, rows of whole 16-byte columns,
-    twice their count dividing the block's FOLD_THREADS."""
+    MAX_HEADS = 16 query heads a kv head (the fold's two head capacities:
+    8, one warp a head, and 16, two heads a warp, chatglm3's 32 / 2), G * D
+    <= 2048 (four pairs of output dimensions a thread), rows of whole
+    16-byte columns, twice their count dividing the block's
+    FOLD_THREADS."""
     cols = D * esize // 16
-    return (KV >= 1 and H % KV == 0 and H // KV <= 8 and H // KV * D <= 2048
-            and (D * esize) % 16 == 0 and cols >= 1
+    return (KV >= 1 and H % KV == 0 and H // KV <= MAX_HEADS
+            and H // KV * D <= 2048 and (D * esize) % 16 == 0 and cols >= 1
             and FOLD_THREADS % (2 * cols) == 0)
+
+
+def _shape_error(what, H, KV, D) -> str:
+    """The part of a refusal that names the heads and width the fold does
+    not take."""
+    return (f"{what}: H {H} / KV {KV} at D {D} is outside the decode "
+            f"fold's shapes (at most {MAX_HEADS} query heads a kv head, "
+            f"G * D <= 2048, 16-byte rows)")
 
 
 def _check(what, q, k_pool, v_pool, block_tables, lengths, k_scale=None,
@@ -295,6 +309,8 @@ def _check(what, q, k_pool, v_pool, block_tables, lengths, k_scale=None,
                        k_scale, v_scale)
     B, H, D = q.shape
     NB, BS, KV, Dk = k_pool.shape
+    if not _fold_shape_ok(H, KV, D, k_pool.element_size()):
+        raise ValueError(_shape_error(what, H, KV, D))
     int8 = k_pool.dtype == torch.int8
     pools_ok = (v_pool.dtype == k_pool.dtype
                 and (k_scale is None) == (v_scale is None) == (not int8)
@@ -302,7 +318,6 @@ def _check(what, q, k_pool, v_pool, block_tables, lengths, k_scale=None,
                 and (not int8 or (k_scale.shape == v_scale.shape == (NB, KV)
                                   and q.dtype != torch.int8)))
     if (Dk != D or v_pool.shape != k_pool.shape or not pools_ok
-            or not _fold_shape_ok(H, KV, D, k_pool.element_size())
             or block_tables.shape[0] != B or lengths.shape != (B,)
             or not build.aligned16(k_pool, v_pool)):
         raise ValueError(f"{what}: unsupported operands q {tuple(q.shape)} "

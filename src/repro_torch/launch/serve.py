@@ -23,10 +23,15 @@ a block and kv head; the summary then adds a QUANT part) and speculative
 decoding (`--spec-draft self | auto | <config>-draft`, `--spec-k`, and
 `--spec-branches` > 1 for token trees; the summary adds a SPEC part and
 two spec lines follow it).  A config that cannot chunk or cache (SSM
-state, ring caches) prefills whole prompts and the CLI prints why.  A
-config whose bf16 weights exceed the device's memory (mixtral-8x7b at
-full size: 93.4 GB against an 80 GB card) is refused before any weight is
-made; `--reduced` serves it.  The CLI serves whole configs only.  The
+state, ring caches, a VLM's patch prefix) prefills whole prompts and the
+CLI prints why; one that cannot speculate (the same state, or a patch
+prefix) is refused with the reason before any weight is made.  A VLM
+(internvl2-76b) serves its backbone behind zero patch rows
+(`models/frontends.py`), which take n_patches positions of every
+sequence.  A config whose bf16 weights exceed the device's memory
+(mixtral-8x7b at full size: 93.4 GB, deepseek-67b 134.9 GB, internvl2-76b
+141.1 GB, against an 80 GB card) is refused before any weight is made;
+`--reduced` serves it.  The CLI serves whole configs only.  The
 reference's flags for unported features (`--draft-checkpoint`, the
 overlapped loop, the deadline policy, tracing and metrics export) do not
 exist here, and argparse refuses them.
@@ -46,6 +51,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.serving import (EncodeTask, InferenceEngine, Request,
                                  SamplingParams, SpecConfig, make_policy)
+from repro_torch.serving.spec import spec_support_reason
 
 
 def build_trace(cfg, args) -> list:
@@ -187,7 +193,7 @@ def run(args):
         device=args.device)
     if args.policy == "chunked" and not engine.runner.supports_chunked:
         print(f"note: {cfg.name} cannot chunk prefills "
-              f"(recurrent/ring/cross-attn cache state) — "
+              f"({engine.runner.chunk_unsupported_reason}) — "
               f"falling back to whole-prompt admission")
     if args.prefix_cache and engine.prefix_cache is None:
         print(f"note: prefix cache disabled for {cfg.name} — "
@@ -205,9 +211,13 @@ def main(argv=None) -> int:
     if args.min_prompt_len > args.prompt_len:
         ap.error(f"--min-prompt-len {args.min_prompt_len} exceeds "
                  f"--prompt-len {args.prompt_len}")
-    reason = fit_reason(config_of(args), args.device)
+    cfg = config_of(args)
+    reason = fit_reason(cfg, args.device)
     if reason:
         ap.error(reason)
+    if args.spec_draft and spec_support_reason(cfg):
+        ap.error(f"speculative decoding unsupported for {cfg.name}: "
+                 f"{spec_support_reason(cfg)}")
     engine, done, wall = run(args)
     stats = engine.stats()
     step = engine.runner.decode_step

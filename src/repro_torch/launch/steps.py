@@ -12,9 +12,10 @@ caches donated.  Here:
                      buffers and replays the graph; on the CPU the same body
                      runs eagerly.  Its launches depend on the shapes alone
                      (`lm.forward_decode`), so one graph serves every step.
-  make_prefill_step  one NAR pass of a (bucket, group) batch, eager.
+  make_prefill_step  one NAR pass of a (bucket, group) batch, eager (a VLM
+                     config's patch rows in front of the bucket).
   make_encode_step   one pooled encode pass of a (bucket, group, pooling)
-                     batch, eager.
+                     batch, eager (the same patch rows).
   make_chunk_prefill_step
                      one chunked-prefill piece of C tokens a row into the
                      decode caches in place, eager (`chunk_support_reason`
@@ -157,12 +158,16 @@ class StepBundle:
 def make_prefill_step(cfg, *, policy, max_seq: int, bucket: int, group: int,
                       compact_kv: bool = False,
                       fuse_epilogues: bool = True) -> StepBundle:
-    """fn(params, tokens [group, bucket], lane) -> (next_token [group],
-    caches, pos [group]): `lane` holds the rows' true lengths "prompt_len"
-    and their sampling tensors (`serving.sampling.device_lane`), on the
-    tokens' device; a lane of lengths alone decodes greedily.  Eager; the
-    runner keeps one per (bucket, group)."""
-    def fn(params, tokens, lane):
+    """fn(params, tokens [group, bucket], lane, patches=None) ->
+    (next_token [group], caches, pos [group]): `lane` holds the rows' true
+    lengths "prompt_len" and their sampling tensors
+    (`serving.sampling.device_lane`), on the tokens' device; a lane of
+    lengths alone decodes greedily.  `patches` [group, n_patches,
+    d_model]: a VLM config's patch rows (the runner's are zeros,
+    `models/frontends.py:serving_patches`), in front of the bucket, so the
+    pass runs bucket + n_patches positions.  Eager; the runner keeps one
+    per (bucket, group)."""
+    def fn(params, tokens, lane, patches=None):
         if tuple(tokens.shape) != (group, bucket):
             raise ValueError(f"prefill step ({bucket}x{group}): tokens "
                              f"{tuple(tokens.shape)}")
@@ -171,7 +176,7 @@ def make_prefill_step(cfg, *, policy, max_seq: int, bucket: int, group: int,
         return lm.forward_prefill(params, tokens, cfg=cfg, policy=policy,
                                   max_seq=max_seq, prompt_len=prompt_len,
                                   lane=lane or None, compact_kv=compact_kv,
-                                  fused=fuse_epilogues)
+                                  fused=fuse_epilogues, patches=patches)
     return StepBundle(fn=fn, policy=policy, cfg=cfg,
                       aux={"max_seq": max_seq, "bucket": bucket,
                            "group": group})
@@ -180,16 +185,17 @@ def make_prefill_step(cfg, *, policy, max_seq: int, bucket: int, group: int,
 def make_encode_step(cfg, *, policy, bucket: int, group: int,
                      pooling: str = "last",
                      fuse_epilogues: bool = True) -> StepBundle:
-    """fn(params, tokens [group, bucket], prompt_len [group]) -> pooled
-    [group, d_model] float32 (`lm.forward_encode`).  Eager; the runner
-    keeps one per (bucket, group, pooling)."""
-    def fn(params, tokens, prompt_len):
+    """fn(params, tokens [group, bucket], prompt_len [group],
+    patches=None) -> pooled [group, d_model] float32 (`lm.forward_encode`;
+    `patches` as in `make_prefill_step`).  Eager; the runner keeps one per
+    (bucket, group, pooling)."""
+    def fn(params, tokens, prompt_len, patches=None):
         if tuple(tokens.shape) != (group, bucket):
             raise ValueError(f"encode step ({bucket}x{group}): tokens "
                              f"{tuple(tokens.shape)}")
         return lm.forward_encode(params, tokens, cfg=cfg, policy=policy,
                                  prompt_len=prompt_len, pooling=pooling,
-                                 fused=fuse_epilogues)
+                                 fused=fuse_epilogues, patches=patches)
     return StepBundle(fn=fn, policy=policy, cfg=cfg,
                       aux={"bucket": bucket, "group": group,
                            "pooling": pooling})

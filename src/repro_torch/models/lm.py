@@ -13,10 +13,12 @@ in one CUDA graph).
 
 Modes: `forward_prefill` (NAR prompt pass, optional right-padding to a
 length bucket — exact only without SSM state or ring caches — and compact
-KV for paged admission), `forward_encode` (the same stack with no cache,
-pooled to one fp32 vector a row) and `forward_decode` (one AR step against
-the paged pools, the per-slot ring caches of window layers and the
-per-slot SSM state, which it updates in place) and `forward_chunk` (one
+KV for paged admission; a VLM config's patch prefix, `models/frontends.py`,
+occupies positions [0, n_patches) in front of the tokens), `forward_encode`
+(the same stack with no cache, pooled to one fp32 vector a row) and
+`forward_decode` (one AR step against the paged pools, the per-slot ring
+caches of window layers and the per-slot SSM state, which it updates in
+place) and `forward_chunk` (one
 chunked-prefill piece written into the paged pools in place, from any
 start position: a chunk of a long prompt, or the uncached suffix of a
 prefix-cache hit).  Speculative decoding adds `forward_verify` and
@@ -84,9 +86,38 @@ def params_from_numpy(tree, cfg, *, dtype=torch.float32, device=None):
 # segment runners
 # --------------------------------------------------------------------------
 
-def _embed_sequence(params, tokens, *, policy):
-    return embed_sequence(params["embedding"]["embed"], tokens,
-                          policy=policy)
+def total_seq(cfg, s_text: int) -> int:
+    """Positions of a sequence of `s_text` tokens behind the patch prefix."""
+    return s_text + (cfg.n_patches or 0)
+
+
+def _n_prefix(cfg, patches) -> int:
+    """Patch positions in front of the tokens: a VLM config's n_patches,
+    whose rows the caller must pass."""
+    if cfg is None or not cfg.n_patches:
+        return 0
+    if patches is None or tuple(patches.shape[1:]) != (cfg.n_patches,
+                                                       cfg.d_model):
+        got = None if patches is None else tuple(patches.shape)
+        raise ValueError(f"{cfg.name}: a pass behind a patch prefix needs "
+                         f"its patch rows [B, {cfg.n_patches}, "
+                         f"{cfg.d_model}], got {got}")
+    return cfg.n_patches
+
+
+def _embed_sequence(params, tokens, *, policy, cfg=None, patches=None):
+    """The residual stream [B, n_p + S, E]: the tokens behind a dummy id 0
+    at each of the n_p patch positions of a VLM `cfg`, whose rows the
+    patches then replace (the reference's `_embed_sequence`)."""
+    n_p = _n_prefix(cfg, patches)
+    if n_p:
+        tokens = torch.cat([torch.zeros((tokens.shape[0], n_p),
+                                        dtype=tokens.dtype,
+                                        device=tokens.device), tokens], 1)
+    x = embed_sequence(params["embedding"]["embed"], tokens, policy=policy)
+    if n_p:
+        x = torch.cat([patches.to(x.dtype), x[:, n_p:]], 1)
+    return x
 
 
 def _run_segments_prefill(params, x, *, cfg, policy, max_seq, fused=True,
@@ -199,7 +230,7 @@ def _choose(x, params, lane, step, *, cfg, policy, norm):
 
 def forward_prefill(params, tokens, *, cfg, policy, max_seq: int,
                     prompt_len=None, lane=None, compact_kv: bool = False,
-                    fused: bool = True):
+                    fused: bool = True, patches=None):
     """NAR prompt pass.  tokens: [B, S] -> (next_token [B], caches, pos [B]).
 
     `prompt_len` ([B] ints, a host array or a tensor on the tokens' device,
@@ -207,15 +238,20 @@ def forward_prefill(params, tokens, *, cfg, policy, max_seq: int,
     next token is read at each row's last true position.  `lane` (per-row
     sampling tensors on the tokens' device, see
     core.embedding._lane_scores, without "step": the sampled token's
-    position is each row's length): greedy when None."""
-    x = _embed_sequence(params, tokens, policy=policy)
+    position is each row's length): greedy when None.  `patches` [B,
+    n_patches, d_model]: a VLM config's patch rows, at positions [0, n_p)
+    in front of the tokens, so the caches hold n_p + S positions and pos
+    = n_p + prompt_len (the decode position that follows)."""
+    n_p = _n_prefix(cfg, patches)
+    x = _embed_sequence(params, tokens, cfg=cfg, policy=policy,
+                        patches=patches)
     x, caches = _run_segments_prefill(params, x, cfg=cfg, policy=policy,
                                       max_seq=max_seq, fused=fused,
                                       compact_kv=compact_kv)
     head_norm = _head_norm(params, cfg, fused)
     if head_norm is None:
         x = ops.norm(x, params["final_norm"], cfg.norm)
-    pos = _lengths(tokens, prompt_len)
+    pos = n_p + _lengths(tokens, prompt_len)
     x_last = _residual_at(x, pos - 1)
     tok = _choose(x_last, params, lane, pos, cfg=cfg, policy=policy,
                   norm=head_norm)
@@ -223,7 +259,7 @@ def forward_prefill(params, tokens, *, cfg, policy, max_seq: int,
 
 
 def forward_encode(params, tokens, *, cfg, policy, prompt_len=None,
-                   pooling: str = "last", fused: bool = True):
+                   pooling: str = "last", fused: bool = True, patches=None):
     """Encoder-only NAR pass: one full-sequence forward, no KV cache, no
     sampling.  tokens: [B, S] -> pooled [B, E] float32.
 
@@ -236,29 +272,32 @@ def forward_encode(params, tokens, *, cfg, policy, prompt_len=None,
     normalized rows over the true positions.  Fused "last" selects the raw
     row and normalizes only that row (the norm is row-wise); mean pooling
     normalizes every row first (the norm of a mean is not the mean of the
-    norms)."""
-    if cfg.n_patches or cfg.enc_schedule:
-        raise NotImplementedError(f"{cfg.name}: encode passes with a patch "
-                                  f"prefix or an encoder schedule are not "
-                                  f"ported")
+    norms).  `patches`: a VLM config's patch rows in front of the tokens
+    (as in `forward_prefill`); the last position is n_p + prompt_len - 1
+    and the mean covers the text positions alone."""
+    if cfg.enc_schedule:
+        raise NotImplementedError(f"{cfg.name}: encode passes with an "
+                                  f"encoder schedule are not ported")
     if pooling not in ("last", "mean"):
         raise ValueError(f"pooling must be 'last' or 'mean': {pooling!r}")
-    x = _embed_sequence(params, tokens, policy=policy)
+    n_p = _n_prefix(cfg, patches)
+    x = _embed_sequence(params, tokens, cfg=cfg, policy=policy,
+                        patches=patches)
     x, _ = _run_segments_prefill(params, x, cfg=cfg, policy=policy,
                                  max_seq=0, fused=fused, with_cache=False)
     fused_head = fused and pooling == "last"
     if not fused_head:
         x = ops.norm(x, params["final_norm"], cfg.norm)
-    S = tokens.shape[1]
-    pos = _lengths(tokens, prompt_len)
+    pos = n_p + _lengths(tokens, prompt_len)
     if pooling == "last":
         row = _residual_at(x, pos - 1)
         if fused_head:
             row = ops.norm(row, params["final_norm"], cfg.norm)
         return row.float()
-    keep = (torch.arange(S, device=x.device)[None, :] < pos[:, None])
+    at = torch.arange(x.shape[1], device=x.device)[None, :]
+    keep = (at >= n_p) & (at < pos[:, None])
     s = (x.float() * keep[..., None]).sum(1)
-    return s / pos.clamp(min=1).float()[:, None]
+    return s / (pos - n_p).clamp(min=1).float()[:, None]
 
 
 def forward_decode(params, token, pos, caches, *, cfg, policy,

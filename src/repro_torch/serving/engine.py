@@ -106,11 +106,14 @@ class InferenceEngine:
         validate_task(task)
         n = len(task.prompt)
         encode = isinstance(task, EncodeTask)
-        # an encode pass reserves no decode position
-        cap = self.runner.max_seq if encode else self.runner.prompt_cap
+        # an encode pass reserves no decode position; both reserve a VLM's
+        # patch prefix
+        cap = (self.runner.max_seq - self.runner._n_prefix if encode
+               else self.runner.prompt_cap)
         if not 0 < n <= cap:
             raise ValueError(f"prompt length {n} not in [1, {cap}] "
-                             f"(max_seq={self.runner.max_seq})")
+                             f"(max_seq={self.runner.max_seq}, "
+                             f"patch prefix={self.runner._n_prefix})")
         if not encode:
             if task.max_new_tokens < 1:
                 raise ValueError(f"max_new_tokens must be >= 1 (the prefill "

@@ -65,6 +65,7 @@ from repro_torch.core.precision import BF16
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import lm
+from repro_torch.models.frontends import serving_patches
 from repro_torch.models.quantize import quantize_params
 from repro_torch.serving.kv_cache import (BlockAllocator, block_copy,
                                           prefill_scatter, row_copy)
@@ -137,6 +138,9 @@ class ModelRunner:
         # a bidirectional kind attends its pads
         self._encode_pad = all(blocks.kind_causal(k, cfg)
                                for k, _ in cfg.schedule)
+        # a VLM's patch prefix rides along in every prefill and encode
+        # pass: it takes cache positions, shrinking a prompt's token budget
+        self._n_prefix = cfg.n_patches or 0
         default_blocks = batch_size * (-(-max_seq // block_size))
         self.layout = steps_mod.make_paged_layout(
             cfg, max_seq, kv_pool_blocks or default_blocks, block_size)
@@ -263,13 +267,15 @@ class ModelRunner:
     # -- capacity / bucket geometry ------------------------------------
     @property
     def prompt_cap(self) -> int:
-        """Longest admissible prompt (one decode position reserved)."""
-        return self.max_seq - 1
+        """Longest admissible prompt (one decode position and the patch
+        prefix reserved)."""
+        return self.max_seq - 1 - self._n_prefix
 
     def bucket_for(self, prompt_len: int) -> int:
         """Smallest rung of {m, 1.5m} x 2^k >= max(min_bucket, len), capped
-        at max_seq (8, 12, 16, 24, 32, ... for min_bucket 8); the exact
-        length for configs whose caches cannot absorb padding."""
+        at the token budget, max_seq less the patch prefix (8, 12, 16, 24,
+        32, ... for min_bucket 8); the exact length for configs whose
+        caches cannot absorb padding."""
         if not self._pad_buckets:
             return prompt_len
         return self._bucket(prompt_len)
@@ -282,7 +288,7 @@ class ModelRunner:
         return self._bucket(prompt_len)
 
     def _bucket(self, prompt_len: int) -> int:
-        cap = self.max_seq
+        cap = self.max_seq - self._n_prefix
         base = self.min_bucket
         while True:
             for cand in (base, base + base // 2):
@@ -316,7 +322,7 @@ class ModelRunner:
         return task.prompt_len + len(task.output)
 
     def blocks_needed(self, task: GenerateTask) -> int:
-        return self.allocator.blocks_for(self.full_len(task))
+        return self.allocator.blocks_for(self._n_prefix + self.full_len(task))
 
     def alloc_for(self, task: GenerateTask) -> Optional[List[int]]:
         """All-or-nothing block allocation for (re-)admitting `task`."""
@@ -558,7 +564,8 @@ class ModelRunner:
         step = self._prefill_for(bucket, n, stats)
         tok, caches_g, pos_g = step.fn(
             self.params, torch.tensor(padded, device=self.device),
-            device_lane(lane, self.device))
+            device_lane(lane, self.device),
+            serving_patches(self.cfg, n, device=self.device))
         slots = free_slots[:n]
         tables = np.full((n, self.layout.max_blocks), -1, np.int32)
         for j, (_, blk) in enumerate(group):
@@ -1086,7 +1093,8 @@ class ModelRunner:
             padded[j, :task.prompt_len] = np.asarray(task.prompt, np.int32)
         pooled = step.fn(self.params,
                          torch.tensor(padded, device=self.device),
-                         torch.tensor(lens, device=self.device))
+                         torch.tensor(lens, device=self.device),
+                         serving_patches(self.cfg, n, device=self.device))
         pooled_np = pooled.cpu().numpy()           # waits: honest timing
         now = time.perf_counter()
         dt = now - t0
