@@ -190,7 +190,28 @@ non-zero):
               G = 16 form (paged partials at 1, 2 and 4 splits, the
               normalized wrapper, the int8-pool form, the dense decode over
               the draft's 512-row cache), the fused GEMMs at these models'
-              widths (M 4 and 512) and flash at H 32 / KV 2 and H 64 / KV 8.
+              widths (M 4 and 512) and flash at H 32 / KV 2 and H 64 / KV 8;
+ 11. whisper  whisper-base at full size (6 encoder + 6 decoder layers,
+              `phase_whisper`): the serve trace with 4 EncodeTasks (last
+              and mean) through the fused engine, every prefill and encode
+              pass running the encoder over 4 x 1504 zero frames and the
+              decoder's cross-attention over its output (flash at Sq !=
+              Skv, no mask), every decode step's cross step on the dense
+              decode kernel over the cached 1504-row memory inside the
+              captured graph, the sinusoidal positions indexed on the
+              device; the serve gates above (exact launches, replay
+              bit-equal to eager, no leak, teacher-forced logits behind
+              seeded frames, encodes against the plain path); the
+              encoder's share of a prefill pass; the unfused engine on the
+              same trace; int8 weights and KV; the chunk policy, the
+              prefix cache and speculation refused in the reference's
+              words.  The kernels phase holds whisper's shapes: the fused
+              GEMM at K 512 (M 6016 wgmma, M 4 stream, the 51968-column
+              head), flash over 1504 frames and the cross call, the paged
+              decode at 8 x 64, the dense decode over 1504 rows, LayerNorm
+              at [6016, 512]; and times the norms' other dtype pairs and
+              looped path and the paged decode at block sizes 8 / 32 and
+              fp32 pools, each beside its library call and bound.
 Every driven path zeroes the launch counters just before it and reads them
 just after; a kernel of the path that never launched fails the run, and so
 does a GEMM that ran the fp32-weight template (fma32) or a flash launch
@@ -444,7 +465,8 @@ def _gemm_cases():
              torch.float32)]
     out += [(f"gemma3 q M={M}", M, 5376, 4096, "rmsnorm", "none", False,
              torch.bfloat16) for M in (9, 17, 1100)]
-    return out + _dense_gemm_cases() + _vit_gemm_cases()
+    return (out + _dense_gemm_cases() + _vit_gemm_cases()
+            + _whisper_gemm_cases())
 
 
 # the remaining dense decoders' widths: (tag, E, KV heads x head_dim, F,
@@ -473,6 +495,35 @@ def _dense_gemm_cases():
                     (f"{tag} head M={M}", M, E, V, "rmsnorm", "none", False,
                      torch.float32)]
     return out
+
+
+WHISPER_ROWS = 4 * 1504      # a batch-4 prefill's encoder (and memory) rows
+WHISPER_BUCKET_ROWS = 4 * 192   # a batch-4 prefill's decoder rows
+
+
+def _whisper_gemm_cases():
+    """whisper-base's GEMMs (K 512, the MLP's down-projection K 2048): a
+    batch-4 prefill's encoder q projection and MLP (LayerNorm prologue;
+    i_gelu; residual) and the memory's K / V projection (no prologue: the
+    memory is never normed) at M = 4 x 1504 rows, the decoder's q at a
+    192-token bucket, a decode step's q, MLP and 51968-column head at M =
+    4 (stream)."""
+    E, F, V, bf = 512, 2048, 51968, torch.bfloat16
+    out = []
+    for tag, M in (("enc", WHISPER_ROWS), ("dec", 4)):
+        out += [(f"whisper {tag} q M={M}", M, E, E, "layernorm", "none",
+                 False, bf),
+                (f"whisper {tag} up M={M}", M, E, F, "layernorm", "i_gelu",
+                 False, bf),
+                (f"whisper {tag} down M={M}", M, F, E, "none", "none", True,
+                 bf)]
+    return out + [
+        (f"whisper cross k/v M={WHISPER_ROWS}", WHISPER_ROWS, E, E, "none",
+         "none", False, bf),
+        (f"whisper dec q M={WHISPER_BUCKET_ROWS}", WHISPER_BUCKET_ROWS, E, E,
+         "layernorm", "none", False, bf),
+        ("whisper head M=4", 4, E, V, "layernorm", "none", False,
+         torch.float32)]
 
 
 def _vit_gemm_cases():
@@ -751,10 +802,12 @@ def check_gemm_int8(rows):
 NORM_SHAPES = ((4, 3072), (512, 3072), (4, 2560), (512, 2560), (4, 1600),
                (512, 1600))   # phi4 / gemma3-like, mamba2, hymba widths
 # LayerNorm alone: the unfused ViT pass's norms (8 x 197 rows at ViT-B /
-# L / H widths; the final norm of the cls rows), and GPT3-XL's encode
-# pooling norm (a `last` batch's rows, a `mean` batch's 256-token bucket)
+# L / H widths; the final norm of the cls rows), GPT3-XL's encode
+# pooling norm (a `last` batch's rows, a `mean` batch's 256-token bucket),
+# and whisper-base's encoder final norm over a batch-4 prefill's 4 x 1504
+# frames and an unfused decode step's norm
 LAYERNORM_SHAPES = ((1576, 768), (1576, 1024), (1576, 1280), (8, 1280),
-                    (2, 2048), (256, 2048))
+                    (2, 2048), (256, 2048), (4 * 1504, 512), (4, 512))
 # the norm kernel's other instantiations and its looped path, checked
 # against the plain version only: label, R, D, x dtype, gamma dtype,
 # elements between the buffer's start and the first row
@@ -820,11 +873,34 @@ def check_norms(rows):
     rows["norm_paths"] = check_norm_paths(g)
 
 
+def _path_timing(fn, plain_fn, lib_fn, nbytes, flops):
+    """Times of one NORM_PATHS / RES_NORM_PATHS case: the wrapper, the
+    plain version, the library call (its weights at the input's dtype),
+    device times of the kernel and the library call, and the bound."""
+    b_ms, b_by = bound_ms(nbytes, flops)
+    return dict(ms=time_ms(fn), plain_ms=time_ms(plain_fn, iters=5),
+                library_ms=time_ms(lib_fn), device_ms=device_ms([fn]),
+                library_device_ms=device_ms([lib_fn]), bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def _log_path(name, label, rel, t, extra=""):
+    log(f"  {name:9s} {label:42s} rel err {rel:.2e} (tol {NORM_TOL:.0e})"
+        f"{extra} | kernel {t['ms']:.4f} ms (device {_ms(t['device_ms'])}) "
+        f"plain {t['plain_ms']:.4f} ms library {t['library_ms']:.4f} ms "
+        f"(device {_ms(t['library_device_ms'])}) bound {t['bound_ms']:.4f} "
+        f"ms ({t['bound_by']})")
+
+
 def check_norm_paths(g):
     """Each NORM_PATHS case through both norm wrappers against the plain
     version: the dtype pairs the timed rows do not take, and rows that fit
-    no register tile (the looped path of the same kernel)."""
+    no register tile (the looped path of the same kernel); each timed
+    beside the plain version, F.rms_norm / F.layer_norm (gamma cast to x's
+    dtype) and the bound (x read, the output written, gamma and beta read
+    once)."""
     from repro_torch.kernels import rmsnorm as nm
+    F = torch.nn.functional
     dev = torch.device(DEVICE)
     results = []
     for label, R, D, xdt, gdt, off in NORM_PATHS:
@@ -832,19 +908,26 @@ def check_norm_paths(g):
         bet = (0.1 * torch.randn((D,), generator=g, device=dev)).to(gdt)
         buf = torch.randn((off + R * D,), generator=g, device=dev) * 2 + 0.3
         x = buf.to(xdt)[off:].view(R, D)
-        for name, got, want in (
-                ("rmsnorm", nm.rmsnorm(x, gam, eps=1e-6),
-                 nm.rmsnorm_plain(x, gam, eps=1e-6)),
-                ("layernorm", nm.layernorm(x, gam, bet, eps=1e-5),
-                 nm.layernorm_plain(x, gam, bet, eps=1e-5))):
-            err, rel = rel_err(got, want)
-            log(f"  {name:9s} {label:40s} rel err {rel:.2e} (tol "
-                f"{NORM_TOL:.0e})")
+        gx, bx = gam.to(xdt), bet.to(xdt)
+        for name, fn, plain_fn, lib_fn, nvec in (
+                ("rmsnorm", lambda: nm.rmsnorm(x, gam, eps=1e-6),
+                 lambda: nm.rmsnorm_plain(x, gam, eps=1e-6),
+                 lambda: F.rms_norm(x, (D,), gx, eps=1e-6), 1),
+                ("layernorm", lambda: nm.layernorm(x, gam, bet, eps=1e-5),
+                 lambda: nm.layernorm_plain(x, gam, bet, eps=1e-5),
+                 lambda: F.layer_norm(x, (D,), gx, bx, eps=1e-5), 2)):
+            got = fn()
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, plain_fn())
+            t = _path_timing(fn, plain_fn, lib_fn,
+                             R * D * (x.element_size() + got.element_size())
+                             + nvec * D * gam.element_size(), 4 * R * D)
+            _log_path(name, label, rel, t)
             if not rel <= NORM_TOL:
                 raise AssertionError(f"{name} {label}: rel err {rel} > "
                                      f"{NORM_TOL}")
             results.append(dict(name=name, case=label, max_abs_err=err,
-                                rel_err=rel, tol=NORM_TOL))
+                                rel_err=rel, tol=NORM_TOL, **t))
     return results
 
 
@@ -934,8 +1017,11 @@ def check_residual_norm_paths(g):
     """Each RES_NORM_PATHS case through both residual norm wrappers against
     the plain version: h within NORM_TOL and r bit-equal, on the dtype pairs
     the timed rows do not take and on rows that fit no register tile (the
-    looped path of the same kernel)."""
+    looped path of the same kernel); each timed beside the plain version,
+    F.rms_norm / F.layer_norm of x + y (gamma cast to the sum's dtype) and
+    the bound (x, y read; h, r written; gamma and beta read once)."""
     from repro_torch.kernels import rmsnorm as nm
+    F = torch.nn.functional
     dev = torch.device(DEVICE)
     results = []
     for label, R, D, xdt, ydt, gdt, off in RES_NORM_PATHS:
@@ -945,21 +1031,34 @@ def check_residual_norm_paths(g):
                 * s + 0.3 * s for s in (2, 1)]
         x = bufs[0].to(xdt)[off:].view(R, D)
         y = bufs[1].to(ydt)[off:].view(R, D)
-        for name, got, want in (
-                ("residual_rmsnorm", nm.residual_rmsnorm(x, y, gam, eps=1e-6),
-                 nm.residual_rmsnorm_plain(x, y, gam, eps=1e-6)),
+        sdt = torch.promote_types(xdt, ydt)
+        gx, bx = gam.to(sdt), bet.to(sdt)
+        for name, fn, plain_fn, lib_fn, nvec in (
+                ("residual_rmsnorm",
+                 lambda: nm.residual_rmsnorm(x, y, gam, eps=1e-6),
+                 lambda: nm.residual_rmsnorm_plain(x, y, gam, eps=1e-6),
+                 lambda: F.rms_norm(x + y, (D,), gx, eps=1e-6), 1),
                 ("residual_layernorm",
-                 nm.residual_layernorm(x, y, gam, bet, eps=1e-5),
-                 nm.residual_layernorm_plain(x, y, gam, bet, eps=1e-5))):
+                 lambda: nm.residual_layernorm(x, y, gam, bet, eps=1e-5),
+                 lambda: nm.residual_layernorm_plain(x, y, gam, bet,
+                                                     eps=1e-5),
+                 lambda: F.layer_norm(x + y, (D,), gx, bx, eps=1e-5), 2)):
+            got = fn()
+            torch.cuda.synchronize()
+            want = plain_fn()
             err, rel = rel_err(got[0], want[0])
             same_r = torch.equal(got[1], want[1])
-            log(f"  {name:18s} {label:42s} rel err h {rel:.2e} (tol "
-                f"{NORM_TOL:.0e}), r {'bit-equal' if same_r else 'DIFFERS'}")
+            t = _path_timing(fn, plain_fn, lib_fn, R * D * (
+                x.element_size() + y.element_size() + got[0].element_size()
+                + got[1].element_size()) + nvec * D * gam.element_size(),
+                6 * R * D)
+            _log_path(name, label, rel, t,
+                      f", r {'bit-equal' if same_r else 'DIFFERS'}")
             if not (rel <= NORM_TOL and same_r):
                 raise AssertionError(f"{name} {label}: rel err {rel}, r "
                                      f"bit-equal {same_r}")
             results.append(dict(name=name, case=label, max_abs_err=err,
-                                rel_err=rel, tol=NORM_TOL))
+                                rel_err=rel, tol=NORM_TOL, **t))
     return results
 
 
@@ -1036,7 +1135,7 @@ def check_ssd(rows):
         rows[name] = results
 
 
-FLASH_CASES = (   # label, S, H, KV, D, window, causal, q_offset
+FLASH_CASES = (   # label, S, H, KV, D, window, causal, q_offset[, Skv, B]
     ("gpt-j S=512 D=256", 512, 16, 16, 256, 0, True, 0),
     ("gpt3-xl S=512 D=128", 512, 16, 16, 128, 0, True, 0),
     ("phi4 S=512 H24/KV8 D=128", 512, 24, 8, 128, 0, True, 0),
@@ -1051,6 +1150,18 @@ FLASH_CASES = (   # label, S, H, KV, D, window, causal, q_offset
     # chatglm3-6b (16 query heads a kv head) and deepseek-67b / internvl2-76b
     ("chatglm3 S=512 H32/KV2 D=128", 512, 32, 2, 128, 0, True, 0),
     ("deepseek S=512 H64/KV8 D=128", 512, 64, 8, 128, 0, True, 0),
+    # whisper-base at batch 4: the encoder over 1504 frames, the decoder's
+    # causal self-attention over a 192-token bucket, its cross-attention
+    # (the bucket's queries over the 1504 memory rows, no mask: a 32-row
+    # tail tile of keys), and a ragged 37-query cross call
+    ("whisper enc S=1504 H8 D=64 bidirectional B=4", 1504, 8, 8, 64, 0,
+     False, 0, 1504, 4),
+    ("whisper dec S=192 causal H8 D=64 B=4", 192, 8, 8, 64, 0, True, 0,
+     192, 4),
+    ("whisper cross Sq=192 Skv=1504 H8 D=64 no mask B=4", 192, 8, 8, 64, 0,
+     False, 0, 1504, 4),
+    ("whisper cross Sq=37 Skv=1504 H8 D=64 no mask", 37, 8, 8, 64, 0, False,
+     0, 1504, 1),
 )
 
 
@@ -1061,7 +1172,9 @@ def check_flash(rows):
     bidirectional encoders, also
     D = 80 at 257 tokens (a 1-row tail past four 64-row tiles), a
     causal chunk whose queries start 37 positions into the keys, and
-    gemma3's local layers: window 1024 over an 1100-token prompt.  Every
+    gemma3's local layers: window 1024 over an 1100-token prompt, and
+    whisper-base's batch-4 calls (the encoder's 1504 frames, the decoder's
+    causal bucket, its cross-attention: Sq != Skv with no mask).  Every
     bf16 case must plan the wgmma template.  Yardstick: SDPA, causal or
     not, or with the window or the offset as a boolean mask; device times
     of the kernel and of SDPA from torch.profiler kernel events."""
@@ -1070,10 +1183,11 @@ def check_flash(rows):
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(2)
     results = []
-    for label, S, H, KV, D, win, causal, qo in FLASH_CASES:
-        Skv = S + qo
-        q = torch.randn((1, S, H, D), generator=g, device=dev).bfloat16()
-        k, v = (torch.randn((1, Skv, KV, D), generator=g, device=dev
+    for case in FLASH_CASES:
+        label, S, H, KV, D, win, causal, qo = case[:8]
+        Skv, B = case[8:] if len(case) > 8 else (S + qo, 1)
+        q = torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((B, Skv, KV, D), generator=g, device=dev
                             ).bfloat16() for _ in range(2))
         kw = dict(causal=causal, window=win, q_offset=qo)
         before = dict(fa.flash_attention.launches_by)
@@ -1103,9 +1217,9 @@ def check_flash(rows):
         else:
             lib_fn = lambda: sdpa(qt, kt, vt, is_causal=causal,
                                   enable_gqa=KV != H)
-            pairs = S * (S + 1) // 2 if causal else S * S
+            pairs = S * (S + 1) // 2 if causal else S * Skv
         r = _row(label, err, rel, ATTN_TOL, ms, plain, time_ms(lib_fn),
-                 2 * (S * H + Skv * KV) * D * 2, 4 * H * D * pairs)
+                 B * 2 * (S * H + Skv * KV) * D * 2, B * 4 * H * D * pairs)
         r.update(device_ms=device_ms([fn]), library_device_ms=device_ms(
             [lib_fn]), template=template,
             # the first design (the simt template) on the same bf16
@@ -1165,6 +1279,8 @@ PAGED_CASES = (   # H, KV, D, lengths
                    250, 290, 332, 400, 480)),
     # chatglm3-6b: 16 query heads a kv head, the fold's G = 16 form
     GLM_PAGED,
+    # whisper-base's decoder self-attention: 8 heads of 64
+    (8, 8, 64, (1, 137, 300, 512)),
 )
 PAGED_SPLITS = (1, 2, 4)   # splits of the partials kernel's table
 
@@ -1410,22 +1526,39 @@ def check_paged_block_sizes(g):
     """The partials kernel at 1 and 2 splits and the normalized wrapper at
     each PAGED_FOLDS block size and dtype (phi4-mini's heads, the mixed
     batch): split statistics and merged output held row by row to the
-    plain split grid and to the single pass."""
+    plain split grid and to the single pass; each call timed beside the
+    plain version (the single pass), SDPA over dense copies at the pools'
+    dtype, and the bound (q, the live K / V rows, the outputs)."""
     from repro_torch.kernels import flash_decode as fd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device(DEVICE)
     results = []
     for BS, dtype in PAGED_FOLDS:
-        q, kp, vp, tab, lengths, _ = _paged_inputs(g, dev, 24, 8, 128,
-                                                   BS=BS, dtype=dtype)
+        q, kp, vp, tab, lengths, live = _paged_inputs(g, dev, 24, 8, 128,
+                                                      BS=BS, dtype=dtype)
         po, _, pl = fd.paged_decode_plain(q, kp, vp, tab, lengths)
         one = po / pl.clamp(min=1e-30)[..., None]
+        B, H, D = q.shape
+        dq, dk, dv, mask = _dense_from_paged(q, kp, vp, tab, lengths)
+        lib_fn = lambda: sdpa(dq, dk, dv, attn_mask=mask, enable_gqa=True)
+        common = dict(
+            plain_ms=time_ms(lambda: fd.paged_decode_plain(
+                q, kp, vp, tab, lengths), iters=5),
+            library_ms=time_ms(lib_fn), library_device_ms=device_ms([lib_fn]))
+        esize = q.element_size()
+        in_bytes = q.numel() * esize + 2 * live * kp.shape[2] * D * esize
+
+        def timing(fn, out_bytes):
+            b_ms, b_by = bound_ms(in_bytes + out_bytes, 4 * H * D * live)
+            return dict(common, ms=time_ms(fn), device_ms=device_ms([fn]),
+                        bound_ms=b_ms, bound_by=b_by)
         for S in (1, 2):
             o, m, l = fd.paged_decode_partials(q, kp, vp, tab, lengths, S)
             so, sm, sl = fd.paged_decode_plain(q, kp, vp, tab, lengths, S)
             if S == 1:
                 o, m, l, so, sm, sl = (t[None] for t in (o, m, l, so, sm, sl))
-            live = sl > 0
-            if not torch.equal(l > 0, live):
+            live_rows = sl > 0
+            if not torch.equal(l > 0, live_rows):
                 raise AssertionError(f"paged_decode_partials BS={BS} "
                                      f"{dtype} splits {S}: live ranges "
                                      f"differ from the plain grid")
@@ -1434,17 +1567,28 @@ def check_paged_block_sizes(g):
             rel = max(row_rel_err(merged, fd.paged_decode_merge_plain(
                 so, sm, sl, out_dtype=torch.float32))[1],
                 row_rel_err(merged, one)[1],
-                rel_err(m[live], sm[live])[1], rel_err(l[live], sl[live])[1])
-            results.append(dict(name="paged_decode_partials", bs=BS,
-                                dtype=str(dtype), splits=S, rel_err=rel))
-        got = fd.paged_decode_attention(q, kp, vp, tab, lengths)
+                rel_err(m[live_rows], sm[live_rows])[1],
+                rel_err(l[live_rows], sl[live_rows])[1])
+            results.append(dict(
+                name="paged_decode_partials", bs=BS, dtype=str(dtype),
+                splits=S, rel_err=rel, **timing(
+                    lambda S=S: fd.paged_decode_partials(q, kp, vp, tab,
+                                                         lengths, S),
+                    S * B * H * (D + 2) * 4)))
+        fn = lambda: fd.paged_decode_attention(q, kp, vp, tab, lengths)
+        got = fn()
         results.append(dict(name="paged_decode_attention", bs=BS,
                             dtype=str(dtype), rel_err=row_rel_err(
-                                got, one.to(dtype))[1]))
+                                got, one.to(dtype))[1],
+                            **timing(fn, B * H * D * esize)))
     for r in results:
         label = (f"{r['name']} BS={r['bs']} {r['dtype']}"
                  + (f" splits {r['splits']}" if "splits" in r else ""))
-        log(f"  {label:50s} rel err {r['rel_err']:.2e} (tol {ATTN_TOL:.0e})")
+        log(f"  {label:50s} rel err {r['rel_err']:.2e} (tol {ATTN_TOL:.0e})"
+            f" | kernel {r['ms']:.4f} ms (device {_ms(r['device_ms'])}) "
+            f"plain {r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms "
+            f"(device {_ms(r['library_device_ms'])}) bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
         if not r["rel_err"] <= ATTN_TOL:
             raise AssertionError(f"{label}: rel err {r['rel_err']} > "
                                  f"{ATTN_TOL}")
@@ -1467,6 +1611,9 @@ DECODE_CASES = (   # label, H, KV, D, S, lengths, window, dtype
      256, 512, (1, 137, 300, 512), 0, torch.bfloat16),
     ("draft linear B=4 H24/KV8 D=128 S=512 len 1/137/300/512", 24, 8,
      128, 512, (1, 137, 300, 512), 0, torch.bfloat16),
+    # whisper-base's cross step: every row attends the memory's 1504 rows
+    ("whisper cross B=4 H8/KV8 D=64 S=1504 len 1504", 8, 8, 64, 1504,
+     (1504,) * 4, 0, torch.bfloat16),
     # chatglm3-6b-draft: 16 query heads a kv head, the fold's G = 16 form
     ("draft linear B=4 H32/KV2 D=128 S=512 len 1/137/300/512", 32, 2,
      128, 512, (1, 137, 300, 512), 0, torch.bfloat16),
@@ -1656,7 +1803,7 @@ def moe_layers(cfg):
     return sum(c for k, c in cfg.schedule if k in MOE_KINDS)
 
 
-def gemms_per_pass(cfg):
+def gemms_per_pass(cfg, *, decode=False):
     """(fused GEMMs, gated GEMMs) the layers of `cfg` launch in one pass of
     the fused chain: q / k / v / o per attention layer, the five SSM
     projections (x, z, B|C, dt, out: `pdot`, the hand GEMM with no
@@ -1664,10 +1811,16 @@ def gemms_per_pass(cfg):
     up-projection (gated for SwiGLU), and per MoE layer the router
     (`pdot`) alone: its experts run the gated kernel's expert form
     (`expert_forms`) and their down-projection a cuBLAS bmm; pure SSM
-    layers have no MLP."""
+    layers have no MLP.  An encoder-decoder's `dec` layer adds its
+    cross-attention's q / k / v / o in a full pass and q / o alone in a
+    decode step (`decode`: the memory's K / V are cached), and a full
+    pass runs the encoder's layers too (`enc`: the `attn` block)."""
     from repro_torch.configs.base import ATTN_KINDS, MOE_KINDS
     fused = gated = 0
-    for kind, count in cfg.schedule:
+    sched = cfg.schedule + (() if decode else cfg.enc_schedule)
+    for kind, count in sched:
+        if kind == "dec":
+            fused += (2 if decode else 4) * count
         if kind in ATTN_KINDS:
             fused += 4 * count
         if kind in ("ssm", "hybrid_attn", "hybrid_local"):
@@ -1759,9 +1912,10 @@ def check_gemm_templates(cfg, st, by, *, int8=False, chunks=None,
     Cs = sum(n for w, n in chunks.items() if w <= 8)    # stream chunk passes
     mm, sw = by["fused_matmul"], by["fused_matmul_swiglu"]
     per_layer, per_swiglu = gemms_per_pass(cfg)
+    per_step = gemms_per_pass(cfg, decode=True)[0]
     sfx = "_int8" if int8 else ""
     want = {"fused_matmul": {"stream" + sfx: (P + Cw + (D + Cs)
-                                              * (per_layer + 1)),
+                                              * (per_step + 1)),
                              "wgmma" + sfx: (P + E + Cw) * per_layer},
             "fused_matmul_swiglu": {"stream" + sfx: (D + Cs) * per_swiglu,
                                     "wgmma" + sfx: (P + E + Cw)
@@ -1804,21 +1958,24 @@ def _head(params, cfg, x, *, fused, policy):
 
 
 def teacher_forced(cfg, params, prompt, *, mode, fused, policy=None,
-                   max_seq=512, patches=None):
+                   max_seq=512, patches=None, frames=None):
     """Final-position logits [1, vocab] fp32 of one prompt through the
     prefill stack and the logits head, fused or unfused chain, under a
     kernel mode and a precision policy (default bf16); a VLM config's
-    prompt behind its `patches`."""
+    prompt behind its `patches`; an encoder-decoder's encoder over its
+    `frames` first, the decoder's layers over its output."""
     from repro_torch.core.precision import BF16
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     policy = policy or BF16
     with ops.kernel_mode(mode), torch.no_grad():
+        memory = lm._memory(params, frames, cfg=cfg, policy=policy,
+                            fused=fused)
         x = lm._embed_sequence(params, prompt, cfg=cfg, policy=policy,
                                patches=patches)
         x, _ = lm._run_segments_prefill(params, x, cfg=cfg, policy=policy,
                                         max_seq=max_seq, fused=fused,
-                                        compact_kv=True)
+                                        compact_kv=True, memory=memory)
         return _head(params, cfg, x[:, -1], fused=fused, policy=policy)
 
 
@@ -1850,6 +2007,29 @@ def _logit_gate(label, got, want, floor, k, *, minimum=True, quiet=False):
     return {"rel": rel, "cosine": cos, "tol": tol, "cos_min": cos_min}
 
 
+def cross_layers(cfg):
+    """Decoder layers with cross-attention over an encoder's memory."""
+    return sum(c for k, c in cfg.schedule if k == "dec")
+
+
+def norm_launches(cfg, fused):
+    """(a prefill pass, a decode step, an encode pass) launches of the
+    plain norm kernel of a LayerNorm config of `attn` / `dec` layers (and
+    an encoder of `enc` layers): fused, the encoder's final norm a full
+    pass and the pooling norm an encode pass, every other norm folded into
+    a GEMM; unfused, each block's norms (two, a `dec` block three) and the
+    final norm (the full-sequence one before a prefill's head, the head's
+    in a decode step, the pooling norm of an encode pass), and the
+    encoder's final norm a full pass."""
+    enc = 1 if cfg.enc_schedule else 0
+    if fused:
+        return enc, 0, enc + 1
+    per = lambda sched: sum((3 if k == "dec" else 2) * c for k, c in sched)
+    dec = per(cfg.schedule) + 1
+    full = dec + per(cfg.enc_schedule) + enc
+    return full, dec, full
+
+
 def ring_layers(cfg, max_seq):
     """Layers whose window is shorter than max_seq: dense ring caches."""
     from repro_torch.configs.base import ATTN_KINDS
@@ -1875,8 +2055,8 @@ def path_kernels(cfg, path, *, max_seq=512, encode=False):
         need.add("flash_attention")
     if attention and path == "serve":
         need.add("paged_decode_attention")
-        if ring_layers(cfg, max_seq):
-            need.add("decode_attention")
+        if ring_layers(cfg, max_seq) or cross_layers(cfg):
+            need.add("decode_attention")    # rings, and the cross step
     if cfg.mlp_act == "swiglu" and kinds - {"ssm", "moe", "moe_local"}:
         need.add("fused_matmul_swiglu")
     if kinds & {"moe", "moe_local"} and path != "unfused":
@@ -1886,12 +2066,13 @@ def path_kernels(cfg, path, *, max_seq=512, encode=False):
         need |= {"ssd", "rmsnorm"}               # SSM and hybrid ln1
     if hybrid and path != "unfused":
         need.add("residual_rmsnorm")             # the hybrid ln2
-    if path == "unfused" or encode:
-        need.add(cfg.norm)
+    if path == "unfused" or encode or cfg.enc_schedule:
+        need.add(cfg.norm)                  # an encoder's final norm too
     return tuple(sorted(need))
 
 
-def check_serve_counts(cfg, launches, st, max_seq, by=None, kv_int8=False):
+def check_serve_counts(cfg, launches, st, max_seq, by=None, kv_int8=False,
+                       fused=True):
     """The dense decode kernel runs once per ring layer per decode step and
     never in prefill, the paged route once per paged layer per decode step
     (its own wrappers for the partials and the merge never), every one of
@@ -1905,18 +2086,27 @@ def check_serve_counts(cfg, launches, st, max_seq, by=None, kv_int8=False):
     LayerNorm only as an encode batch's pooling norm, once a batch (the
     fused engine folds every other norm into a GEMM); the chunk partials
     (device torch ops, no hand kernel) once per attention layer per chunk
-    pass, and never without one."""
+    pass, and never without one.  An encoder-decoder adds, a full
+    (prefill or encode) pass, one flash launch per encoder layer and one
+    per `dec` layer (its cross-attention: the text over the memory's
+    rows), and a decode step one dense decode per `dec` layer (the cross
+    step over the cached memory); its encoder's final norm runs the plain
+    LayerNorm once a full pass (`norm_launches`, which also counts an
+    unfused engine's norms)."""
     from repro_torch.configs.base import ATTN_KINDS
     attn_layers = sum(c for k, c in cfg.schedule if k in ATTN_KINDS)
-    rings = ring_layers(cfg, max_seq)
-    want = {"decode_attention": rings * st.decode_steps,
+    enc_layers = sum(c for k, c in cfg.enc_schedule if k in ATTN_KINDS)
+    rings, cross = ring_layers(cfg, max_seq), cross_layers(cfg)
+    want = {"decode_attention": (rings + cross) * st.decode_steps,
             "paged_decode_attention": (attn_layers - rings) * st.decode_steps,
             "paged_decode_partials": 0, "paged_decode_merge": 0,
-            "flash_attention": attn_layers * (st.prefill_batches
-                                              + st.encode_batches),
+            "flash_attention": (attn_layers + cross + enc_layers) * (
+                st.prefill_batches + st.encode_batches),
             "paged_chunk_partials": attn_layers * st.prefill_chunks}
     if cfg.norm == "layernorm":
-        want["layernorm"] = st.encode_batches
+        pre, dec, enc = norm_launches(cfg, fused)
+        want["layernorm"] = (pre * st.prefill_batches + dec * st.decode_steps
+                             + enc * st.encode_batches)
     if cfg.has_ssm:
         ssm_layers = sum(c for k, c in cfg.schedule
                          if k in ("ssm", "hybrid_attn", "hybrid_local"))
@@ -2145,15 +2335,21 @@ def profile_decode(eng, cfg, rng, steps=4, prompt_len=200,
 def profile_prefill(cfg, params, rng, *, prompt_len=512, max_seq=512):
     """Where a prefill pass's time goes: one `prompt_len`-token prompt
     through the fused prefill stack and the logits head (`teacher_forced`,
-    `auto` mode), once to warm up, once timed on the host clock, then once
-    under torch.profiler (`device_kernels`).  Reports the device's busy time (kernel time)
-    against the pass, the device events, the SSD kernels' share (every
-    kernel of `csrc/ssd.cu`), the GEMM templates' share and the largest
-    kernels."""
+    `auto` mode; an encoder-decoder's encoder over zero frames first, as
+    served), once to warm up, once timed on the host clock, then once
+    under torch.profiler (`device_kernels`).  Reports the device's busy
+    time (kernel time) against the pass, the device events, the SSD
+    kernels' share (every kernel of `csrc/ssd.cu`), the GEMM templates'
+    share and the largest kernels; for an encoder-decoder also the
+    encoder's share of the pass (its own pass profiled alone, against the
+    whole pass's busy time)."""
+    from repro_torch.core.precision import BF16
+    from repro_torch.models import frontends, lm
     prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, prompt_len),
                                        dtype=np.int32), device=DEVICE)
+    frames = frontends.serving_frames(cfg, 1, device=DEVICE)
     run = lambda: teacher_forced(cfg, params, prompt, mode="auto",
-                                 fused=True, max_seq=max_seq)
+                                 fused=True, max_seq=max_seq, frames=frames)
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2193,6 +2389,15 @@ def profile_prefill(cfg, params, rng, *, prompt_len=512, max_seq=512):
                        for k, (ms, n) in shares.items()},
                device_top=[{"kernel": k, "ms": ms, "launches": n}
                            for k, (ms, n) in top])
+    if cfg.enc_schedule:
+        with torch.no_grad():
+            enc = device_kernels(lambda: lm._run_encoder(
+                params, frames, cfg=cfg, policy=BF16), iters=1)
+        enc_ms = sum(ms for ms, _ in enc.values())
+        log(f"    the encoder alone: device busy {enc_ms:.3f} ms "
+            f"({enc_ms / busy:.1%} of the pass's), "
+            f"{sum(n for _, n in enc.values())} device events")
+        out.update(encoder_busy_ms=enc_ms, encoder_share=enc_ms / busy)
     return out
 
 
@@ -2211,13 +2416,16 @@ def check_encodes(cfg, params, tasks, max_seq):
     floor-scaled gate, the floor being the gap between those two."""
     from repro_torch.core.precision import BF16, FP32
     from repro_torch.kernels import ops
-    from repro_torch.models import lm
+    from repro_torch.models import frontends, lm
     out = {}
+    # an encoder-decoder's encodes were served behind zero frames
+    frames = frontends.serving_frames(cfg, 1, device=DEVICE)
     for t in tasks:
         tok = torch.tensor(np.asarray(t.prompt)[None], device=DEVICE)
         with ops.kernel_mode("ref"), torch.no_grad():
             z_ref, z_fp32 = (lm.forward_encode(params, tok, cfg=cfg,
-                                               policy=pol, pooling=t.pooling)
+                                               policy=pol, pooling=t.pooling,
+                                               frames=frames)
                              for pol in (BF16, FP32))
         z = torch.tensor(t.embedding, device=DEVICE)[None]
         if z.shape != z_ref.shape:
@@ -2284,7 +2492,7 @@ def check_patch_prefix(eng, done):
 
 def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
                 prefill_profile=False, encodes=(), weight_dtype="bfloat16",
-                kv_dtype=None, params=None, teacher=True):
+                kv_dtype=None, params=None, teacher=True, fused=True):
     """Serve len(lengths) requests of 32 new tokens (uids 1 and 6 sampled)
     through InferenceEngine at full width, the EncodeTasks `encodes`
     ((pooling, length) pairs, uids 100 + i) interleaved with the first of
@@ -2296,12 +2504,15 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
     holds a replay to the eager step (`check_graph_vs_eager`).
     A VLM config serves its prompts behind zero patch rows
     (`check_patch_prefix`), and teacher-forces its prompt behind seeded
-    ones.  `weight_dtype` / `kv_dtype`: the engine's int8 knobs; with int8
-    weights the teacher-forced paths run on the engine's quantized
-    weights, and every GEMM launch must be an int8 form (with int8 KV,
-    every paged launch).  `params`: the caller's bf16 weights (else drawn
-    from `seed`); `teacher=False` leaves out the teacher-forced gates (the
-    MoE phase runs them on its own witness)."""
+    ones.  An encoder-decoder serves its prompts behind zero frames, and
+    teacher-forces its prompt behind seeded ones (so that the gates see
+    the encoder).  `weight_dtype` / `kv_dtype`: the engine's int8 knobs;
+    with int8 weights the teacher-forced paths run on the engine's
+    quantized weights, and every GEMM launch must be an int8 form (with
+    int8 KV, every paged launch).  `params`: the caller's bf16 weights
+    (else drawn from `seed`); `teacher=False` leaves out the
+    teacher-forced gates (the MoE phase runs them on its own witness);
+    `fused=False`: the engine runs the unfused chain (discrete norms)."""
     from repro_torch.core.precision import BF16, FP32
     from repro_torch.models import lm
     from repro_torch.serving import (EncodeTask, InferenceEngine, Request,
@@ -2315,7 +2526,9 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
     n_params = sum(t.numel() for t in _leaves(params))
     ssm = (f" SSM {cfg.ssm_heads}->{cfg.padded_ssm_heads()} heads x "
            f"{cfg.ssm_head_dim} state {cfg.ssm_state}" if cfg.has_ssm else "")
-    log(f"serve: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+    enc = (f" + {cfg.n_enc_layers} encoder layers over {cfg.enc_seq_padded} "
+           f"frames" if cfg.enc_schedule else "")
+    log(f"serve: {cfg.name} {cfg.n_layers} layers{enc} d_model {cfg.d_model} "
         f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} d_ff {cfg.d_ff}{ssm} "
         f"{cfg.mlp_act} {cfg.norm} vocab {cfg.vocab}->{cfg.padded_vocab}: "
         f"{n_params / 1e9:.3f} B params, init "
@@ -2324,11 +2537,12 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
     t0 = time.perf_counter()
     eng = InferenceEngine(cfg, params, batch_size=4, max_seq=max_seq,
                           block_size=16, policy=BF16, device=DEVICE,
-                          weight_dtype=weight_dtype, kv_dtype=kv_dtype)
+                          weight_dtype=weight_dtype, kv_dtype=kv_dtype,
+                          fuse_epilogues=fused)
     torch.cuda.synchronize()
     step = eng.runner.decode_step
     tag = (f"{cfg.name} int8" if weight_dtype == "int8" or kv_dtype == "int8"
-           else cfg.name)
+           else cfg.name) + ("" if fused else " unfused")
     build_s = time.perf_counter() - t0
     cache_gb = sum(t.numel() * t.element_size()
                    for t in _leaves(eng.runner.caches)) / 1e9
@@ -2368,7 +2582,7 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
                              f"but {replays} replays of its graph")
     check_serve_counts(cfg, launches, st, max_seq,
                        by=TEMPLATE_LAUNCHES[f"{tag} serve"],
-                       kv_int8=st.kv_dtype == "int8")
+                       kv_int8=st.kv_dtype == "int8", fused=fused)
     check_gemm_templates(cfg, st, TEMPLATE_LAUNCHES[f"{tag} serve"],
                          int8=weight_dtype == "int8",
                          prefill_rows=list(prefill_rows))
@@ -2435,12 +2649,14 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
     # those two is the rounding floor the gates scale with
     prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, 96),
                                        dtype=np.int32), device=DEVICE)
-    # a VLM's prompt behind seeded patch rows (the serve trace's are zero)
+    # a VLM's prompt behind seeded patch rows, an encoder-decoder's behind
+    # seeded frames (the serve trace's are zero)
     pk = {"max_seq": max_seq}
-    if cfg.n_patches:
+    if cfg.n_patches or cfg.enc_schedule:
         from repro_torch.models import frontends
-        pk["patches"] = frontends.make_batch(
-            cfg, 1, cfg.n_patches + 96, seed=seed, device=DEVICE)["patches"]
+        batch = frontends.make_batch(cfg, 1, (cfg.n_patches or 0) + 96,
+                                     seed=seed, device=DEVICE)
+        pk.update({k: batch[k] for k in ("patches", "frames") if k in batch})
     z_ref = teacher_forced(cfg, served, prompt, mode="ref", fused=True, **pk)
     z_fp32 = teacher_forced(cfg, served, prompt, mode="ref", fused=True,
                             policy=FP32, **pk)
@@ -2465,7 +2681,8 @@ def serve_model(cfg, *, seed, max_seq=512, lengths=SERVE_LENGTHS,
             1.5)
     if weight_dtype == "int8" or kv_dtype == "int8":
         report["int8"] = int8_decode_checks(cfg, params, served, seed=seed,
-                                            kv_dtype=kv_dtype)
+                                            kv_dtype=kv_dtype,
+                                            frames=pk.get("frames"))
     del params, served
     torch.cuda.empty_cache()
     return report
@@ -4171,14 +4388,15 @@ def depth_witness(cfg, *, layers, seed):
 # --------------------------------------------------------------------------
 
 def decode_logits(cfg, params, tokens, prompt_len, *, mode, fused, policy,
-                  max_seq, block_size=16, kv_dtype=None):
+                  max_seq, block_size=16, kv_dtype=None, frames=None):
     """Teacher-forced decode logits [steps, vocab] fp32 of one sequence:
     `tokens[:prompt_len]` prefilled into the engine's decode caches
     (`cache_layout` / `prefill_scatter`, paged global layers, ring local
-    ones; `kv_dtype="int8"`: int8 pools quantized on write), then one step
-    per remaining token through the decode stack that `forward_decode`
-    runs, and the logits head."""
-    from repro_torch.core.embedding import embed_token
+    ones; `kv_dtype="int8"`: int8 pools quantized on write; an
+    encoder-decoder's encoder over `frames` first, its cross caches into
+    the slot's rows), then one step per remaining token through the decode
+    stack that `forward_decode` runs (with its embedding step), and the
+    logits head."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import cache_layout, make_paged_layout
     from repro_torch.models import lm
@@ -4193,18 +4411,22 @@ def decode_logits(cfg, params, tokens, prompt_len, *, mode, fused, policy,
     with ops.kernel_mode(mode), torch.no_grad():
         caches = cache_layout(cfg, layout, batch_size=1, policy=policy,
                               device=dev, kv_dtype=kv_dtype)
-        x = lm._embed_sequence(params, tok[None, :prompt_len], policy=policy)
+        memory = lm._memory(params, frames, cfg=cfg, policy=policy,
+                            fused=fused)
+        x = lm._embed_sequence(params, tok[None, :prompt_len], cfg=cfg,
+                               policy=policy)
         _, group = lm._run_segments_prefill(
             params, x, cfg=cfg, policy=policy, max_seq=max_seq, fused=fused,
-            compact_kv=True)
+            compact_kv=True, memory=memory)
         prefill_scatter(caches, group, torch.zeros(1, dtype=torch.int64,
                                                    device=dev), table,
                         block_size=block_size,
                         paged_segments=layout.segments)
         del group
         for pos in range(prompt_len, len(tokens)):
-            xd = embed_token(params["embedding"]["embed"], tok[pos:pos + 1],
-                             policy=policy)
+            xd = lm._embed_step(params, tok[pos:pos + 1],
+                                torch.tensor([pos], device=dev), cfg=cfg,
+                                policy=policy)
             xd, _ = lm._run_segments_decode(
                 params, xd, torch.tensor([pos], device=dev), caches, cfg=cfg,
                 policy=policy, block_tables=table, fused=fused,
@@ -4266,7 +4488,7 @@ def flip_rule(z, z16, zn):
 
 def int8_decode_checks(cfg, params, qparams, *, seed, kv_dtype,
                        prompt_len=64, steps=48, gated_steps=8,
-                       max_seq=512):
+                       max_seq=512, frames=None):
     """Teacher-forced decode of one sequence (a `prompt_len`-token prompt,
     then `steps` forced tokens) through the engine's int8 configuration
     (`qparams`, int8 KV with `kv_dtype="int8"`):
@@ -4278,12 +4500,14 @@ def int8_decode_checks(cfg, params, qparams, *, seed, kv_dtype,
         counts them) against bf16 weights at every step, beside the
         noise-floor control's, under the rule above (`flip_rule`); the
         flips of the served configuration (int8 weights and KV) are
-        counted beside them, against the same control."""
+        counted beside them, against the same control.
+    An encoder-decoder's sequence runs behind `frames` (its encoder on
+    each path's weights)."""
     from repro_torch.core.precision import BF16, FP32
     rng = np.random.default_rng(seed + 50)
     tokens = rng.integers(0, cfg.vocab, prompt_len + steps, dtype=np.int32)
     short = tokens[:prompt_len + gated_steps]
-    kw = dict(max_seq=max_seq, fused=True)
+    kw = dict(max_seq=max_seq, fused=True, frames=frames)
     name = f"{cfg.name} int8 decode, prompt {prompt_len}"
     z_ref = decode_logits(cfg, qparams, short, prompt_len, mode="ref",
                           policy=BF16, kv_dtype=kv_dtype, **kw)
@@ -4791,6 +5015,105 @@ def phase_dense():
     return out
 
 
+WHISPER_SEED = 13
+
+
+def check_whisper_refusals(cfg, params):
+    """An encoder-decoder's cross-attention memory is not paged: an engine
+    asked for the prefix cache and the chunked policy gets neither, with
+    the reference's reason, and serves whole prompts; speculation is
+    refused with the reference's reason before any draft is made."""
+    from repro_torch.core.precision import BF16
+    from repro_torch.serving import (InferenceEngine, Request, SpecConfig,
+                                     make_policy)
+    from repro_torch.serving.spec import spec_support_reason
+    cross = "cross-attention memory is not paged"
+    spec = "encoder-decoder cross-attention memory is not paged"
+    eng = InferenceEngine(cfg, params, batch_size=4, max_seq=512,
+                          block_size=16, policy=BF16, device=DEVICE,
+                          prefix_cache=True,
+                          scheduler=make_policy("chunked", chunk_tokens=CHUNK,
+                                                cache_aware=True))
+    r = eng.runner
+    got = {"chunk": r.chunk_unsupported_reason,
+           "prefix_cache": r.prefix_cache_reason,
+           "spec": spec_support_reason(cfg)}
+    if (got != {"chunk": cross, "prefix_cache": cross, "spec": spec}
+            or r.supports_chunked or eng.prefix_cache is not None):
+        raise AssertionError(f"{cfg.name}: refusals {got}")
+    rng = np.random.default_rng(3)
+    for uid, n in enumerate((300, 40)):
+        eng.submit(Request(uid=uid, prompt=rng.integers(0, cfg.vocab, n,
+                                                        dtype=np.int32),
+                           max_new_tokens=4))
+    done = eng.run()
+    st = eng.stats()
+    if (len(done) != 2 or st.prefill_chunks != 0
+            or eng.allocator.num_free != eng.allocator.num_blocks):
+        raise AssertionError(f"{cfg.name}: the chunked policy served "
+                             f"{len(done)} requests, {st.prefill_chunks} "
+                             f"chunk passes")
+    del eng
+    try:
+        InferenceEngine(cfg, params, batch_size=4, max_seq=512,
+                        policy=BF16, device=DEVICE,
+                        spec=SpecConfig(draft="self", k=4))
+    except ValueError as e:
+        if spec not in str(e):
+            raise
+        got["spec_engine"] = str(e)
+    else:
+        raise AssertionError(f"{cfg.name}: a speculative engine was built")
+    log(f"  [{cfg.name}] refused in the reference's words: chunked prefill "
+        f"and the prefix cache ({cross}; the chunked policy served 2 "
+        f"requests whole), speculation ({got['spec_engine']})")
+    return got
+
+
+def phase_whisper():
+    """whisper-base at full size (6 encoder + 6 decoder layers, d_model
+    512, vocab 51865: 0.19 GB of bf16), seeded weights, behind
+    InferenceEngine(batch_size=4, max_seq=512, block_size=16): the serve
+    trace with SERVE_ENCODES mixed in through the fused engine, every
+    prefill and encode pass running the encoder over zero frames (4 x
+    1504 rows at batch 4), with `serve_model`'s gates: exact launches
+    (a full pass 96 wgmma GEMMs, 18 flash calls: 6 encoder, 6 causal, 6
+    cross, and the encoder's final LayerNorm; a decode step 49 stream
+    GEMMs, 6 paged decodes and 6 dense decodes of the cross step, all
+    in the captured graph), the replay bit-equal to the eager step, no
+    leak, the teacher-forced logits behind seeded frames held to plain
+    bf16 / fp32, the encodes to the plain path; a prefill profile with
+    the encoder's share; the same trace through the unfused engine; int8
+    weights and int8 KV (int8 forms only; `int8_decode_checks`); the
+    refusals (`check_whisper_refusals`)."""
+    from repro_torch.configs import WHISPER_BASE
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cfg = WHISPER_BASE
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = fd.dense_splits(4, cfg.n_kv_heads, cfg.enc_seq_padded, sms)
+    log(f"whisper: the cross step's dense decode at B 4, KV "
+        f"{cfg.n_kv_heads}, S {cfg.enc_seq_padded}: {splits} splits of "
+        f"{fd.dense_range(cfg.enc_seq_padded, splits)} positions")
+    params = lm.init_lm(cfg, dtype=torch.bfloat16, device=DEVICE,
+                        seed=WHISPER_SEED)
+    out = {"dense_splits": splits,
+           "fused": serve_model(cfg, seed=WHISPER_SEED, params=params,
+                                encodes=SERVE_ENCODES, prefill_profile=True),
+           "unfused": serve_model(cfg, seed=WHISPER_SEED, params=params,
+                                  encodes=SERVE_ENCODES, fused=False,
+                                  teacher=False),
+           "int8": serve_model(cfg, seed=WHISPER_SEED, params=params,
+                               weight_dtype="int8", kv_dtype="int8"),
+           "refusals": check_whisper_refusals(cfg, params)}
+    del params
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"whisper phase: {out['seconds']:.1f} s")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4943,6 +5266,7 @@ def main():
     report["ring_witness"] = ring_witness(GEMMA3_27B, seed=6)
     report["moe"] = phase_moe()
     report["dense"] = phase_dense()
+    report["whisper"] = phase_whisper()
     report["launches_total"] = dict(TOTAL_LAUNCHES)
     report["gemm_templates"] = dict(TEMPLATE_LAUNCHES)
     line = []

@@ -87,6 +87,13 @@ class ModelConfig:
         return self.padded_ssm_heads(tp) * self.ssm_head_dim
 
     @property
+    def enc_seq_padded(self) -> int:
+        """Encoder frames padded to a multiple of 16 (whisper: 1500 ->
+        1504); the pad frames are zero embeddings, attended like real
+        ones."""
+        return -(-self.enc_seq // 16) * 16 if self.enc_seq else 0
+
+    @property
     def has_ssm(self) -> bool:
         return any(k in SSM_KINDS for k, _ in self.schedule)
 
@@ -94,20 +101,24 @@ class ModelConfig:
         """Parameter count (embedding, blocks, unembedding) as the
         reference counts it, for the kinds the port serves: attention and
         SSM heads with a dense MLP or (`moe`, `moe_local`) a router and
-        `n_experts` experts, and the attention-free `ssm` block; a ViT
-        counts its positions and classifier head instead of the vocabulary
-        (as the reference does, not the patchify weight, the cls token or
-        the head bias)."""
+        `n_experts` experts, and the attention-free `ssm` block; the
+        encoder schedule's layers too, a `dec` layer with its
+        cross-attention and the norm before it (the norm's scale only, and
+        no final norm, as the reference counts); a ViT counts its positions
+        and classifier head instead of the vocabulary (as the reference
+        does, not the patchify weight, the cls token or the head bias)."""
         E, F, V = self.d_model, self.d_ff, self.vocab
         hd, H, KV = self.head_dim, self.n_heads, self.n_kv_heads
         total = V * E + (0 if self.tie_embeddings else E * V)
         if self.n_classes:
             total = self.image_seq * E + E * self.n_classes
         gated = 3 if self.mlp_act == "swiglu" else 2
-        for kind, count in self.schedule:
+        for kind, count in self.schedule + self.enc_schedule:
             p = 2 * E
             if kind in ATTN_KINDS:
                 p += E * (H * hd) + 2 * E * (KV * hd) + (H * hd) * E
+            if kind == "dec":
+                p += E * (H * hd) + 2 * E * (KV * hd) + (H * hd) * E + E
             if kind in SSM_KINDS:
                 di = self.d_inner or 2 * E
                 nh = di // self.ssm_head_dim

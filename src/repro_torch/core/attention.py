@@ -10,6 +10,13 @@ layers), `attn_decode` against a dense per-slot cache [B, W, KV, hd] — the
 ring cache of a sliding-window layer whose window W is shorter than max_seq
 (slot = position % W), or a linear cache.
 
+Cross-attention (whisper's decoder): `attn_full(memory=)` projects K / V
+from the encoder's output, which is never normalized (the norm prologue
+fuses into the Q projection only) nor rotated, and attends it whole with no
+mask (Sq = the text, Skv = the memory's rows); its cache is the memory's K
+/ V at the memory's length.  `attn_decode(cross=True)` writes nothing and
+attends the first `memory_len` rows of that dense cache for every row.
+
 Paged pools are [NB + 1, BS, KV, hd]: the trailing block is a write sink
 that absorbs the writes the reference drops (`mode="drop"`) — absent table
 entries — so the in-place scatter needs no host round trip.  The block
@@ -77,14 +84,16 @@ def build_cache(k_full, v_full, *, cache_len: int, window: int = 0,
 
 def attn_full(p, x, *, cfg, policy: Policy, causal: bool, window: int = 0,
               with_cache: bool = False, cache_len: int = 0,
-              cache_window: int = 0, norm=None, residual=None):
+              cache_window: int = 0, memory=None, norm=None, residual=None):
     """x: [B, S, E] -> (y [B, S, E], cache | None).  `cache_window` > 0:
     the cache is a ring of that many slots (else `cache_len` rows in
     position order), stored at the activation dtype (bf16 caches under the
-    bf16 policy, fp32 under fp32).  `norm`: fused pre-norm prologue on the
-    Q/K/V GEMMs (x arrives un-normalized); `residual`:
-    folded into the out-projection epilogue, and y is then the updated
-    residual stream."""
+    bf16 policy, fp32 under fp32).  `memory` [B, Sm, E]: cross-attention
+    over it (K / V projected from it, un-normalized and unrotated).
+    `norm`: fused pre-norm prologue on the Q/K/V GEMMs (x arrives
+    un-normalized; the Q GEMM's alone with `memory`); `residual`: folded
+    into the out-projection epilogue, and y is then the updated residual
+    stream."""
     B, S, E = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ad = act_dtype(policy)
@@ -93,10 +102,16 @@ def attn_full(p, x, *, cfg, policy: Policy, causal: bool, window: int = 0,
     q = fused_pdot(x, p["wq"], policy, prologue=norm).reshape(B, S, H, hd)
     q = apply_rope(q, positions, theta=cfg.rope_theta,
                    fraction=cfg.rope_fraction)
-    k = fused_pdot(x, p["wk"], policy, prologue=norm).reshape(B, S, KV, hd)
-    v = fused_pdot(x, p["wv"], policy, prologue=norm).reshape(B, S, KV, hd)
-    k = apply_rope(k, positions, theta=cfg.rope_theta,
-                   fraction=cfg.rope_fraction)
+    src = x if memory is None else memory
+    src_norm = norm if memory is None else None     # memory is never normed
+    Sm = src.shape[1]
+    k = fused_pdot(src, p["wk"], policy, prologue=src_norm).reshape(
+        B, Sm, KV, hd)
+    v = fused_pdot(src, p["wv"], policy, prologue=src_norm).reshape(
+        B, Sm, KV, hd)
+    if memory is None:
+        k = apply_rope(k, positions, theta=cfg.rope_theta,
+                       fraction=cfg.rope_fraction)
 
     out = ops.flash_attention(q.to(ad), k.to(ad), v.to(ad), causal=causal,
                               window=window, q_offset=0)
@@ -327,7 +342,8 @@ def attn_decode_paged(p, x, pos, cache, block_tables, *, cfg,
 
 
 def attn_decode(p, x, pos, cache, *, cfg, policy: Policy, window: int,
-                norm=None, residual=None):
+                cross: bool = False, memory_len: int = 0, norm=None,
+                residual=None):
     """One decode step against a dense per-slot cache.
 
     x: [B, E]; pos: [B] position of the token being written; cache: {"k",
@@ -341,6 +357,9 @@ def attn_decode(p, x, pos, cache, *, cfg, policy: Policy, window: int,
     dense caches are rings, and the dense layout of a speculative draft
     (`launch/steps.make_dense_layout`) gives every layer a linear cache
     of max_seq rows, which each draft step reads through this branch.
+    `cross`: the cache is an encoder memory's K / V (whisper's `ck` /
+    `cv`); nothing is written, and every row attends its first
+    `memory_len` rows (<= W; pad frames attended like real ones).
     Returns (y [B, E], cache)."""
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
@@ -350,6 +369,16 @@ def attn_decode(p, x, pos, cache, *, cfg, policy: Policy, window: int,
     ring = window > 0 and W == window
 
     q = _decode_q(p, x, pos, cfg=cfg, policy=policy, norm=norm)
+    if cross:
+        if not 0 < memory_len <= W:
+            raise ValueError(f"cross-attention decode: memory_len "
+                             f"{memory_len} outside (0, {W}]")
+        length = torch.full((B,), memory_len, dtype=torch.int32,
+                            device=x.device)
+        out = ops.decode_attention(q.to(ad), k_cache.to(ad),
+                                   v_cache.to(ad), length, window=0)
+        return _decode_out_proj(p, out.reshape(B, H * hd), policy=policy,
+                                residual=residual), cache
     k_new, v_new = _decode_kv_new(p, x, pos, cfg=cfg, policy=policy,
                                   norm=norm)
     pos = pos.to(torch.int64)

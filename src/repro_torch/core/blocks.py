@@ -18,12 +18,19 @@ it) or unfused (the discrete norm -> GEMM -> add chain):
   ``vit``           the ``attn`` block with bidirectional attention (the
                     paper's encoder-only topology): full-sequence passes
                     only, no decode step
+  ``enc``           the same, an encoder-decoder's encoder layer (whisper)
+  ``dec``           an encoder-decoder's decoder layer: causal
+                    self-attention, then cross-attention over the encoder's
+                    output (`memory`) behind its own norm ``lnx``, then the
+                    MLP; with a cache it keeps the memory's K / V as
+                    ``ck`` / ``cv`` [B, Sm, KV, hd] beside its self-attention
+                    K / V, and a decode step attends them (`memory_len`
+                    rows) without writing
 
 Full-context attention layers keep their KV in the block pool
 (`kind_paged`) and can prefill in chunks (`block_chunk`); a window shorter
 than max_seq keeps a dense per-slot ring cache of `window` slots instead.
-The other kinds of the reference (encoder / decoder) raise
-NotImplementedError."""
+A ``dec`` layer's cross cache is dense and per slot under every layout."""
 from __future__ import annotations
 
 import torch
@@ -36,7 +43,7 @@ from repro_torch.core import ssm as ssm_mod
 from repro_torch.kernels import ops
 
 PORTED_KINDS = ("attn", "local", "ssm", "hybrid_attn", "hybrid_local",
-                "moe", "moe_local", "vit")
+                "moe", "moe_local", "vit", "enc", "dec")
 HYBRID_KINDS = ("hybrid_attn", "hybrid_local")
 BIDIR_KINDS = ("enc", "vit")
 SSM_STATE = ("h", "cx", "cbc")
@@ -44,7 +51,8 @@ SSM_STATE = ("h", "cx", "cbc")
 
 def _require_ported(kind: str):
     if kind not in PORTED_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+        raise ValueError(f"unknown block kind {kind!r}; the port runs "
+                         f"{PORTED_KINDS}")
 
 
 def norm_shapes(cfg):
@@ -71,6 +79,9 @@ def block_param_shapes(kind: str, cfg) -> dict:
         out["attn"] = attn.attention_param_shapes(cfg)
     if kind in SSM_KINDS:
         out["ssm"] = ssm_mod.ssm_param_shapes(cfg)
+    if kind == "dec":
+        out["lnx"] = norm_shapes(cfg)
+        out["xattn"] = attn.attention_param_shapes(cfg)
     if kind in MOE_KINDS:
         out["ln2"] = norm_shapes(cfg)
         out["moe"] = mlp_mod.moe_param_shapes(cfg)
@@ -93,8 +104,9 @@ def _init_normal(generator, shapes, dtype, device, count):
 
 def init_block(generator, kind: str, cfg, dtype, device, count: int):
     """`count` stacked layers of `kind` (leading layer dim), drawn layer by
-    layer from `generator`: N(0, 0.02) attention / MLP / router and expert
-    weights, unit norms, SSM leaves as `ssm.init_ssm` draws them."""
+    layer from `generator`: N(0, 0.02) attention (and cross-attention) /
+    MLP / router and expert weights, unit norms, SSM leaves as
+    `ssm.init_ssm` draws them."""
     _require_ported(kind)
     out = {"ln1": init_norm(cfg, dtype, device, count)}
     if kind in ATTN_KINDS:
@@ -105,6 +117,11 @@ def init_block(generator, kind: str, cfg, dtype, device, count: int):
                   for _ in range(count)]
         out["ssm"] = {k: torch.stack([lp[k] for lp in layers])
                       for k in layers[0]}
+    if kind == "dec":
+        out["lnx"] = init_norm(cfg, dtype, device, count)
+        out["xattn"] = _init_normal(generator,
+                                    attn.attention_param_shapes(cfg), dtype,
+                                    device, count)
     if kind in MOE_KINDS:
         out["ln2"] = init_norm(cfg, dtype, device, count)
         out["moe"] = _init_normal(generator, mlp_mod.moe_param_shapes(cfg),
@@ -164,14 +181,38 @@ def _moe_boundary(x, y, p, *, cfg, fused):
     return ops.norm(x, p["ln2"], cfg.norm), x
 
 
+def _cross_full(p, x, y, memory, *, cfg, policy, fused, with_cache):
+    """A ``dec`` layer's cross-attention sub-layer after its
+    self-attention (output y, pending unless None: the fused chain has
+    already added it): -> (x', cross cache or None).  K / V come from the
+    un-normalized `memory`; fused, lnx folds into the Q projection and the
+    residual into the out-projection's epilogue."""
+    kw = dict(cfg=cfg, policy=policy, causal=False, window=0,
+              with_cache=with_cache, cache_len=memory.shape[1],
+              memory=memory)
+    if fused:
+        x, xkv = attn.attn_full(p["xattn"], x, norm=ops.norm_prologue(
+            p["lnx"], cfg.norm), residual=x, **kw)
+    else:
+        x = x + y
+        yx, xkv = attn.attn_full(p["xattn"], ops.norm(x, p["lnx"], cfg.norm),
+                                 **kw)
+        x = x + yx
+    return x, ({"ck": xkv["k"], "cv": xkv["v"]} if with_cache else None)
+
+
 def block_full(kind: str, p, x, *, cfg, policy, fused: bool = True,
                with_cache: bool = False, max_seq: int = 0,
-               compact_kv: bool = False):
+               compact_kv: bool = False, memory=None):
     """x: [B, S, E] -> (x', cache | None).  A paged layer's KV cache has
     `max_seq` rows, or with `compact_kv` the sequence's own length (paged
     admission scatters it into pool blocks); a ring layer's is always its
-    `window` slots, so that admission overwrites the whole slot row."""
+    `window` slots, so that admission overwrites the whole slot row.
+    `memory` [B, Sm, E]: the encoder's output, which a ``dec`` layer's
+    cross-attention reads (its cache then holds ck / cv at Sm rows)."""
     _require_ported(kind)
+    if kind == "dec" and memory is None:
+        raise ValueError("a dec layer needs the encoder's memory")
     if kind == "ssm":
         h = ops.norm(x, p["ln1"], cfg.norm)
         y, sc = ssm_mod.ssm_full(p["ssm"], h, cfg=cfg, policy=policy,
@@ -208,6 +249,13 @@ def block_full(kind: str, p, x, *, cfg, policy, fused: bool = True,
         y = (y + s) * 0.5
         if with_cache:
             cache.update(sc)
+    if kind == "dec":
+        x, xc = _cross_full(p, x, None if fused else y, memory, cfg=cfg,
+                            policy=policy, fused=fused,
+                            with_cache=with_cache)
+        if with_cache:
+            cache.update(xc)
+        y = None                    # the self-attention output is in x
     if moe:
         h2, x = _moe_boundary(x, y, p, cfg=cfg, fused=fused)
         x = x + mlp_mod.moe_full(p["moe"], h2, cfg=cfg, policy=policy,
@@ -221,7 +269,8 @@ def block_full(kind: str, p, x, *, cfg, policy, fused: bool = True,
                              norm=ops.norm_prologue(p["ln2"], cfg.norm),
                              residual=x)
     else:
-        x = x + y
+        if y is not None:
+            x = x + y
         h2 = ops.norm(x, p["ln2"], cfg.norm)
         x = x + mlp_mod.mlp_full(p["mlp"], h2, cfg=cfg, policy=policy)
     return x, cache
@@ -236,16 +285,18 @@ def block_chunk(kind: str, p, x, pos0, chunk_len, cache, block_tables, *,
     [B] (`chunk_len` [B] of them real); cache: this layer's pool views,
     written in place.  Only full-context attention kinds chunk (their KV
     lives in the pool, which carries the chunk state between engine
-    steps); SSM, ring and bidirectional kinds raise.  The MLP (or the MoE
-    FFN) runs the decode path on the flattened [B * C, E] rows, which all
-    route and take capacity; only attention needs the chunk structure.
+    steps); SSM, ring, bidirectional and cross-attention kinds raise.
+    The MLP (or the MoE FFN) runs the decode path on the flattened
+    [B * C, E] rows, which all route and take capacity; only attention
+    needs the chunk structure.
     -> (x', cache).
 
     `rope_pos` / `tree_mask` go to `attn_chunk_paged` for tree-speculative
     verify (rotation at each node's depth, the ancestor mask); both None on
     the chunked-prefill path."""
     _require_ported(kind)
-    if kind not in ATTN_KINDS or kind in SSM_KINDS or kind in BIDIR_KINDS:
+    if (kind not in ATTN_KINDS or kind in SSM_KINDS or kind in BIDIR_KINDS
+            or kind == "dec"):
         raise ValueError(f"chunked prefill unsupported for kind {kind!r}")
     B, C, E = x.shape
     kv_in = {k: cache[k] for k in ("k", "v", "ks", "vs") if k in cache}
@@ -309,10 +360,13 @@ def _attn_decode(p, x, pos, cache, *, kind, cfg, policy, paged,
 
 
 def block_decode(kind: str, p, x, pos, cache, *, cfg, policy,
-                 block_tables, fused: bool = True, paged: bool = True):
+                 block_tables, fused: bool = True, paged: bool = True,
+                 memory_len: int = 0):
     """x: [B, E]; pos: [B]; cache: this layer's cache views — {"k", "v"}
     block pools (`paged`) or dense per-slot [B, W, KV, hd] ring caches, and
-    / or the SSM state {"h", "cx", "cbc"} — updated in place.
+    / or the SSM state {"h", "cx", "cbc"} — updated in place; a ``dec``
+    layer's also its cross cache {"ck", "cv"} [B, Sm, KV, hd], read only,
+    of which every row attends the first `memory_len` rows.
     -> (x', cache).  A bidirectional (encoder) kind has no decode step and
     raises."""
     _require_ported(kind)
@@ -346,6 +400,21 @@ def block_decode(kind: str, p, x, pos, cache, *, cfg, policy,
     else:
         h = ops.norm(x, p["ln1"], cfg.norm)
         y, _ = _attn_decode(p["attn"], h, pos, cache, **kv_kw)
+    if kind == "dec":
+        xkw = dict(cfg=cfg, policy=policy, window=0, cross=True,
+                   memory_len=memory_len)
+        mem = {"k": cache["ck"], "v": cache["cv"]}
+        if fused:
+            x, _ = attn.attn_decode(p["xattn"], x, pos, mem,
+                                    norm=ops.norm_prologue(p["lnx"],
+                                                           cfg.norm),
+                                    residual=x, **xkw)
+        else:
+            x = x + y
+            yx, _ = attn.attn_decode(p["xattn"],
+                                     ops.norm(x, p["lnx"], cfg.norm), pos,
+                                     mem, **xkw)
+            x, y = x + yx, None
     if hybrid:
         s, sc = ssm_mod.ssm_decode(p["ssm"], h, cache, cfg=cfg,
                                    policy=policy)
@@ -360,7 +429,8 @@ def block_decode(kind: str, p, x, pos, cache, *, cfg, policy,
                                norm=ops.norm_prologue(p["ln2"], cfg.norm),
                                residual=x)
     else:
-        x = x + y
+        if y is not None:
+            x = x + y
         h2 = ops.norm(x, p["ln2"], cfg.norm)
         x = x + mlp_mod.mlp_decode(p["mlp"], h2, cfg=cfg, policy=policy)
     return x, cache

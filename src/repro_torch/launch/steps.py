@@ -13,9 +13,11 @@ caches donated.  Here:
                      runs eagerly.  Its launches depend on the shapes alone
                      (`lm.forward_decode`), so one graph serves every step.
   make_prefill_step  one NAR pass of a (bucket, group) batch, eager (a VLM
-                     config's patch rows in front of the bucket).
+                     config's patch rows in front of the bucket; an
+                     encoder-decoder's frame rows, which its encoder
+                     reads first).
   make_encode_step   one pooled encode pass of a (bucket, group, pooling)
-                     batch, eager (the same patch rows).
+                     batch, eager (the same patch and frame rows).
   make_chunk_prefill_step
                      one chunked-prefill piece of C tokens a row into the
                      decode caches in place, eager (`chunk_support_reason`
@@ -32,7 +34,9 @@ caches donated.  Here:
 
 `PagedLayout`, `make_paged_layout` and `cache_layout` give the paged
 layout: block pools for full-context attention, dense ring caches for
-window layers shorter than max_seq, per-slot SSM state.
+window layers shorter than max_seq, per-slot SSM state, and per-slot dense
+cross caches of an encoder-decoder's decoder layers (the captured decode
+step reads them as static buffers).
 `make_dense_layout` gives the reference's `paged=None` layout, a linear
 cache of max_seq rows a slot for every full-context layer: a draft's.
 """
@@ -100,6 +104,10 @@ def cache_layout(cfg, layout: PagedLayout, *, batch_size: int, policy,
     the pools are int8, with fp32 scales "ks" / "vs" [count, NB + 1, KV]
     (sink row included); dense caches keep the activation dtype, as the
     reference's dense layouts do.
+    A `dec` segment (an encoder-decoder's decoder) gets per-slot dense
+    cross caches "ck" / "cv" [count, B, enc_seq_padded, KV, hd] at the
+    activation dtype under every layout and kv_dtype (the reference's
+    dense_dtype: int8 KV quantizes the pools alone).
     SSM kinds get per-slot dense state, "h" [count, B, Hp, P, N] fp32 and
     the conv tails "cx" [count, B, cw - 1, d_inner] / "cbc" [count, B,
     cw - 1, 2N] in the activation dtype."""
@@ -128,6 +136,10 @@ def cache_layout(cfg, layout: PagedLayout, *, batch_size: int, policy,
                 d["ks"] = torch.zeros((count, layout.num_blocks + 1, KV),
                                       dtype=torch.float32, device=device)
                 d["vs"] = torch.zeros_like(d["ks"])
+        if kind == "dec":
+            d["ck"] = torch.zeros((count, B, cfg.enc_seq_padded, KV, hd),
+                                  dtype=ad, device=device)
+            d["cv"] = torch.zeros_like(d["ck"])
         if kind in SSM_KINDS:
             d["h"] = torch.zeros((count, B, Hp, P, N), dtype=torch.float32,
                                  device=device)
@@ -158,16 +170,18 @@ class StepBundle:
 def make_prefill_step(cfg, *, policy, max_seq: int, bucket: int, group: int,
                       compact_kv: bool = False,
                       fuse_epilogues: bool = True) -> StepBundle:
-    """fn(params, tokens [group, bucket], lane, patches=None) ->
-    (next_token [group], caches, pos [group]): `lane` holds the rows' true
-    lengths "prompt_len" and their sampling tensors
+    """fn(params, tokens [group, bucket], lane, patches=None,
+    frames=None) -> (next_token [group], caches, pos [group]): `lane`
+    holds the rows' true lengths "prompt_len" and their sampling tensors
     (`serving.sampling.device_lane`), on the tokens' device; a lane of
     lengths alone decodes greedily.  `patches` [group, n_patches,
     d_model]: a VLM config's patch rows (the runner's are zeros,
     `models/frontends.py:serving_patches`), in front of the bucket, so the
-    pass runs bucket + n_patches positions.  Eager; the runner keeps one
-    per (bucket, group)."""
-    def fn(params, tokens, lane, patches=None):
+    pass runs bucket + n_patches positions.  `frames` [group,
+    enc_seq_padded, d_model]: an encoder-decoder's frame rows (the
+    runner's are zeros, `serving_frames`); the caches then hold the
+    memory's ck / cv.  Eager; the runner keeps one per (bucket, group)."""
+    def fn(params, tokens, lane, patches=None, frames=None):
         if tuple(tokens.shape) != (group, bucket):
             raise ValueError(f"prefill step ({bucket}x{group}): tokens "
                              f"{tuple(tokens.shape)}")
@@ -176,7 +190,8 @@ def make_prefill_step(cfg, *, policy, max_seq: int, bucket: int, group: int,
         return lm.forward_prefill(params, tokens, cfg=cfg, policy=policy,
                                   max_seq=max_seq, prompt_len=prompt_len,
                                   lane=lane or None, compact_kv=compact_kv,
-                                  fused=fuse_epilogues, patches=patches)
+                                  fused=fuse_epilogues, patches=patches,
+                                  frames=frames)
     return StepBundle(fn=fn, policy=policy, cfg=cfg,
                       aux={"max_seq": max_seq, "bucket": bucket,
                            "group": group})
@@ -186,16 +201,18 @@ def make_encode_step(cfg, *, policy, bucket: int, group: int,
                      pooling: str = "last",
                      fuse_epilogues: bool = True) -> StepBundle:
     """fn(params, tokens [group, bucket], prompt_len [group],
-    patches=None) -> pooled [group, d_model] float32 (`lm.forward_encode`;
-    `patches` as in `make_prefill_step`).  Eager; the runner keeps one per
-    (bucket, group, pooling)."""
-    def fn(params, tokens, prompt_len, patches=None):
+    patches=None, frames=None) -> pooled [group, d_model] float32
+    (`lm.forward_encode`; `patches` and `frames` as in
+    `make_prefill_step`).  Eager; the runner keeps one per (bucket, group,
+    pooling)."""
+    def fn(params, tokens, prompt_len, patches=None, frames=None):
         if tuple(tokens.shape) != (group, bucket):
             raise ValueError(f"encode step ({bucket}x{group}): tokens "
                              f"{tuple(tokens.shape)}")
         return lm.forward_encode(params, tokens, cfg=cfg, policy=policy,
                                  prompt_len=prompt_len, pooling=pooling,
-                                 fused=fuse_epilogues, patches=patches)
+                                 fused=fuse_epilogues, patches=patches,
+                                 frames=frames)
     return StepBundle(fn=fn, policy=policy, cfg=cfg,
                       aux={"bucket": bucket, "group": group,
                            "pooling": pooling})

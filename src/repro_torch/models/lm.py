@@ -1,12 +1,14 @@
-"""Decoder-only language model over the segment schedule (port of the
-reference's models/lm.py serving path).
+"""Decoder-only / encoder-decoder language model over the segment schedule
+(port of the reference's models/lm.py serving path).
 
 Parameters keep the reference's tree: `embedding/{embed, unemb}`,
 `final_norm/{scale, bias}`, and one dict per schedule segment whose leaves
 carry the layer dim first (`segments[i]/{ln1, ln2, attn/{wq, wk, wv, wo},
 mlp/{w1 | wg, wu, w2}, moe/{wr, wg, wu, w2}, ssm/{w_x, w_z, w_bc, w_dt,
 dt_bias, a_log, d_skip, conv_x, conv_bc, norm_scale, w_out}}`, each group
-where the kind has it; the experts stacked [L, NE, ., .]).
+where the kind has it, and a `dec` layer's `lnx` / `xattn` too; the
+experts stacked [L, NE, ., .]); an encoder-decoder (whisper) adds
+`enc_segments` (one dict per encoder segment) and `enc_final_norm`.
 The reference scans each segment with `lax.scan`; the port runs a Python
 loop over its layers (`launch/steps.py` captures the decode step's launches
 in one CUDA graph).
@@ -25,8 +27,21 @@ prefix-cache hit).  Speculative decoding adds `forward_verify` and
 `forward_verify_tree` (the target's choice at every position of a chunk of
 proposals, on the chunk stack) and `forward_decode_topk` (the tree draft's
 step: the decode step's choice and its runners-up).
+
+An encoder-decoder (`cfg.enc_schedule`: whisper-base) runs its encoder in
+every prefill and encode pass (`_run_encoder`: the stub frames
+[B, enc_seq_padded, E] plus the sinusoidal table, the bidirectional `enc`
+layers, `enc_final_norm`), and its `dec` layers read that memory: prefill
+builds each layer's cross cache (ck / cv) from it, and a decode step
+attends the cache's `enc_seq_padded` rows.  A config without rope
+(rope_theta == 0) adds the sinusoidal table to its token embeddings at
+their positions, in prefill and in every decode step, the table built once
+a device (`_pos_table`) and indexed with the device positions, so that a
+captured step reads a static buffer.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -35,6 +50,8 @@ from repro_torch.core.embedding import (embed_sequence, embed_token,
                                         embedding_param_shapes, greedy_token,
                                         init_embedding, sample_token,
                                         sample_topn)
+from repro_torch.core.nn import act_dtype
+from repro_torch.core.rope import sinusoidal_positions
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.params import layer, tree_from_numpy
@@ -50,25 +67,39 @@ def lm_param_shapes(cfg) -> dict:
     def stack(tree, count):
         return {k: (stack(v, count) if isinstance(v, dict)
                     else (count,) + tuple(v)) for k, v in tree.items()}
-    return {
+    out = {
         "embedding": embedding_param_shapes(cfg),
         "final_norm": blocks.norm_shapes(cfg),
         "segments": tuple(stack(blocks.block_param_shapes(kind, cfg), count)
                           for kind, count in cfg.schedule),
     }
+    if cfg.enc_schedule:
+        out["enc_segments"] = tuple(
+            stack(blocks.block_param_shapes(kind, cfg), count)
+            for kind, count in cfg.enc_schedule)
+        out["enc_final_norm"] = blocks.norm_shapes(cfg)
+    return out
 
 
 def init_lm(cfg, *, dtype=torch.bfloat16, device=None, seed: int = 0):
     """Random N(0, 0.02) weights (unit / zero norms) from a seeded
-    `torch.Generator`, made on the device (the GPU unless device="cpu")."""
+    `torch.Generator`, made on the device (the GPU unless device="cpu"):
+    the decoder's segments, the embeddings, then an encoder-decoder's
+    encoder segments."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     segs = tuple(blocks.init_block(gen, kind, cfg, dtype, dev, count)
                  for kind, count in cfg.schedule)
-    return {"embedding": init_embedding(gen, cfg, dtype, dev),
-            "final_norm": blocks.init_norm(cfg, dtype, dev),
-            "segments": segs}
+    out = {"embedding": init_embedding(gen, cfg, dtype, dev),
+           "final_norm": blocks.init_norm(cfg, dtype, dev),
+           "segments": segs}
+    if cfg.enc_schedule:
+        out["enc_segments"] = tuple(
+            blocks.init_block(gen, kind, cfg, dtype, dev, count)
+            for kind, count in cfg.enc_schedule)
+        out["enc_final_norm"] = blocks.init_norm(cfg, dtype, dev)
+    return out
 
 
 def params_from_numpy(tree, cfg, *, dtype=torch.float32, device=None):
@@ -105,10 +136,34 @@ def _n_prefix(cfg, patches) -> int:
     return cfg.n_patches
 
 
+@functools.lru_cache(maxsize=8)
+def _table(n: int, d: int, device: torch.device):
+    return sinusoidal_positions(n, d, device=device)
+
+
+def _pos_table(cfg, device, rows: int = 0):
+    """The sinusoidal table [n, d_model] fp32 of a config without rope, n
+    the largest of cfg.max_seq, the encoder's frames and `rows`, built once
+    a (size, device) and kept.  Row p does not depend on n: the
+    reference's decode step indexes a table of cfg.max_seq rows, its
+    prefill and its encoder tables of their own lengths, and those are the
+    first rows of this one."""
+    n = max(cfg.max_seq, cfg.enc_seq_padded, rows)
+    return _table(n, cfg.d_model, torch.device(device))
+
+
+def _positions_at(cfg, pos, dtype):
+    """A decode step's table rows at `pos` ([B] device ints, clipped to
+    cfg.max_seq - 1 as the reference clips), cast to `dtype`."""
+    tab = _pos_table(cfg, pos.device)
+    return tab[torch.clamp(pos.long(), 0, cfg.max_seq - 1)].to(dtype)
+
+
 def _embed_sequence(params, tokens, *, policy, cfg=None, patches=None):
     """The residual stream [B, n_p + S, E]: the tokens behind a dummy id 0
     at each of the n_p patch positions of a VLM `cfg`, whose rows the
-    patches then replace (the reference's `_embed_sequence`)."""
+    patches then replace, plus the sinusoidal table at every position for
+    a config without rope (the reference's `_embed_sequence`)."""
     n_p = _n_prefix(cfg, patches)
     if n_p:
         tokens = torch.cat([torch.zeros((tokens.shape[0], n_p),
@@ -117,17 +172,59 @@ def _embed_sequence(params, tokens, *, policy, cfg=None, patches=None):
     x = embed_sequence(params["embedding"]["embed"], tokens, policy=policy)
     if n_p:
         x = torch.cat([patches.to(x.dtype), x[:, n_p:]], 1)
+    if cfg is not None and cfg.rope_theta == 0:
+        S = x.shape[1]
+        x = x + _pos_table(cfg, x.device, S)[:S].to(x.dtype)[None]
     return x
 
 
+def _check_frames(cfg, frames):
+    """An encoder-decoder pass needs its frame rows [B, enc_seq_padded,
+    d_model] (the stub frontend's output)."""
+    want = (cfg.enc_seq_padded, cfg.d_model)
+    if frames is None or frames.ndim != 3 or tuple(frames.shape[1:]) != want:
+        got = None if frames is None else tuple(frames.shape)
+        raise ValueError(f"{cfg.name}: an encoder-decoder pass needs its "
+                         f"frames [B, {want[0]}, {want[1]}], got {got}")
+
+
+def _run_encoder(params, frames, *, cfg, policy, fused=True):
+    """The encoder over stub frame embeddings (the reference's
+    `_run_encoder`): frames [B, enc_seq_padded, E] plus the sinusoidal
+    table at the activation dtype, every `enc` layer (bidirectional, no
+    cache), then `enc_final_norm` -> the memory [B, enc_seq_padded, E]."""
+    _check_frames(cfg, frames)
+    S = frames.shape[1]
+    x = (frames + _pos_table(cfg, frames.device)[:S][None]).to(
+        act_dtype(policy))
+    for (kind, count), p_seg in zip(cfg.enc_schedule, params["enc_segments"]):
+        for i in range(count):
+            x, _ = blocks.block_full(kind, layer(p_seg, i), x, cfg=cfg,
+                                     policy=policy, fused=fused)
+    return ops.norm(x, params["enc_final_norm"], cfg.norm)
+
+
+def _memory(params, frames, *, cfg, policy, fused):
+    """The encoder's memory of an encoder-decoder pass (None for a config
+    without an encoder schedule, whose `frames` must be None)."""
+    if not cfg.enc_schedule:
+        if frames is not None:
+            raise ValueError(f"{cfg.name}: frames given to a config without "
+                             f"an encoder")
+        return None
+    return _run_encoder(params, frames, cfg=cfg, policy=policy, fused=fused)
+
+
 def _run_segments_prefill(params, x, *, cfg, policy, max_seq, fused=True,
-                          compact_kv=False, with_cache=True):
+                          compact_kv=False, with_cache=True, memory=None):
     """-> (x [B, S, E], caches): one dict per segment of stacked leaves —
     k / v [count, B, S_cache, KV, hd] at the activation dtype for attention
     kinds (ring layers: S_cache = window, in slot order), the SSM state
     h [count, B, Hp, P, N] and conv tails cx / cbc [count, B, cw - 1, .]
-    for SSM kinds.  `with_cache=False` runs the same stack and builds no
-    cache (the encode pass); caches is then None."""
+    for SSM kinds, and a `dec` segment's cross caches ck / cv [count, B,
+    Sm, KV, hd] of the encoder's `memory` [B, Sm, E].  `with_cache=False`
+    runs the same stack and builds no cache (the encode pass); caches is
+    then None."""
     caches = []
     for (kind, count), p_seg in zip(cfg.schedule, params["segments"]):
         layers = []
@@ -136,7 +233,8 @@ def _run_segments_prefill(params, x, *, cfg, policy, max_seq, fused=True,
                                          policy=policy, fused=fused,
                                          with_cache=with_cache,
                                          max_seq=max_seq,
-                                         compact_kv=compact_kv)
+                                         compact_kv=compact_kv,
+                                         memory=memory)
             layers.append(cache)
         if with_cache:
             caches.append({k: torch.stack([c[k] for c in layers])
@@ -147,9 +245,12 @@ def _run_segments_prefill(params, x, *, cfg, policy, max_seq, fused=True,
 def _run_segments_decode(params, x, pos, caches, *, cfg, policy,
                          block_tables, fused=True, paged_segments=None):
     """Every layer's decode step; pool, ring-cache and SSM-state leaves are
-    updated in place.  `paged_segments`: per segment, whether its k / v are
-    block pools (the layout's `segments`); None: every segment's are."""
+    updated in place (a `dec` layer's cross caches are read: every row
+    attends the memory's enc_seq_padded rows).  `paged_segments`: per
+    segment, whether its k / v are block pools (the layout's `segments`);
+    None: every segment's are."""
     paged_segments = paged_segments or (True,) * len(cfg.schedule)
+    memory_len = cfg.enc_seq_padded if cfg.enc_schedule else 0
     for (kind, count), p_seg, c_seg, paged in zip(
             cfg.schedule, params["segments"], caches, paged_segments):
         for i in range(count):
@@ -157,8 +258,18 @@ def _run_segments_decode(params, x, pos, caches, *, cfg, policy,
                                        layer(c_seg, i), cfg=cfg,
                                        policy=policy,
                                        block_tables=block_tables,
-                                       fused=fused, paged=paged)
+                                       fused=fused, paged=paged,
+                                       memory_len=memory_len)
     return x, caches
+
+
+def _embed_step(params, token, pos, *, cfg, policy):
+    """A decode step's residual rows [B, E]: the tokens' embeddings, plus
+    the sinusoidal table's rows at `pos` for a config without rope."""
+    x = embed_token(params["embedding"]["embed"], token, policy=policy)
+    if cfg.rope_theta == 0:
+        x = x + _positions_at(cfg, pos, x.dtype)
+    return x
 
 
 def _run_chunk_stack(params, tokens, pos0, chunk_len, caches, block_tables,
@@ -230,7 +341,7 @@ def _choose(x, params, lane, step, *, cfg, policy, norm):
 
 def forward_prefill(params, tokens, *, cfg, policy, max_seq: int,
                     prompt_len=None, lane=None, compact_kv: bool = False,
-                    fused: bool = True, patches=None):
+                    fused: bool = True, patches=None, frames=None):
     """NAR prompt pass.  tokens: [B, S] -> (next_token [B], caches, pos [B]).
 
     `prompt_len` ([B] ints, a host array or a tensor on the tokens' device,
@@ -241,13 +352,17 @@ def forward_prefill(params, tokens, *, cfg, policy, max_seq: int,
     position is each row's length): greedy when None.  `patches` [B,
     n_patches, d_model]: a VLM config's patch rows, at positions [0, n_p)
     in front of the tokens, so the caches hold n_p + S positions and pos
-    = n_p + prompt_len (the decode position that follows)."""
+    = n_p + prompt_len (the decode position that follows).  `frames` [B,
+    enc_seq_padded, d_model]: an encoder-decoder's frame rows, which the
+    encoder reads first; each `dec` segment's caches then hold the
+    memory's K / V too (ck / cv)."""
     n_p = _n_prefix(cfg, patches)
+    memory = _memory(params, frames, cfg=cfg, policy=policy, fused=fused)
     x = _embed_sequence(params, tokens, cfg=cfg, policy=policy,
                         patches=patches)
     x, caches = _run_segments_prefill(params, x, cfg=cfg, policy=policy,
                                       max_seq=max_seq, fused=fused,
-                                      compact_kv=compact_kv)
+                                      compact_kv=compact_kv, memory=memory)
     head_norm = _head_norm(params, cfg, fused)
     if head_norm is None:
         x = ops.norm(x, params["final_norm"], cfg.norm)
@@ -259,7 +374,8 @@ def forward_prefill(params, tokens, *, cfg, policy, max_seq: int,
 
 
 def forward_encode(params, tokens, *, cfg, policy, prompt_len=None,
-                   pooling: str = "last", fused: bool = True, patches=None):
+                   pooling: str = "last", fused: bool = True, patches=None,
+                   frames=None):
     """Encoder-only NAR pass: one full-sequence forward, no KV cache, no
     sampling.  tokens: [B, S] -> pooled [B, E] float32.
 
@@ -274,17 +390,18 @@ def forward_encode(params, tokens, *, cfg, policy, prompt_len=None,
     normalizes every row first (the norm of a mean is not the mean of the
     norms).  `patches`: a VLM config's patch rows in front of the tokens
     (as in `forward_prefill`); the last position is n_p + prompt_len - 1
-    and the mean covers the text positions alone."""
-    if cfg.enc_schedule:
-        raise NotImplementedError(f"{cfg.name}: encode passes with an "
-                                  f"encoder schedule are not ported")
+    and the mean covers the text positions alone.  `frames`: an
+    encoder-decoder's frame rows (as in `forward_prefill`): the encoder
+    runs first, and the decoder's layers attend its output."""
     if pooling not in ("last", "mean"):
         raise ValueError(f"pooling must be 'last' or 'mean': {pooling!r}")
     n_p = _n_prefix(cfg, patches)
+    memory = _memory(params, frames, cfg=cfg, policy=policy, fused=fused)
     x = _embed_sequence(params, tokens, cfg=cfg, policy=policy,
                         patches=patches)
     x, _ = _run_segments_prefill(params, x, cfg=cfg, policy=policy,
-                                 max_seq=0, fused=fused, with_cache=False)
+                                 max_seq=0, fused=fused, with_cache=False,
+                                 memory=memory)
     fused_head = fused and pooling == "last"
     if not fused_head:
         x = ops.norm(x, params["final_norm"], cfg.norm)
@@ -310,8 +427,10 @@ def forward_decode(params, token, pos, caches, *, cfg, policy,
     `paged_segments`: per segment, pools or ring caches (the layout's
     `segments`; None: pools everywhere).  No host value reaches the device
     and every launch depends on the shapes alone: `launch/steps.py`
-    captures this function in a CUDA graph."""
-    x = embed_token(params["embedding"]["embed"], token, policy=policy)
+    captures this function in a CUDA graph.  A config without rope adds
+    the sinusoidal table's row at each pos; an encoder-decoder's `dec`
+    layers attend their cross caches."""
+    x = _embed_step(params, token, pos, cfg=cfg, policy=policy)
     x, caches = _run_segments_decode(params, x, pos, caches, cfg=cfg,
                                      policy=policy, block_tables=block_tables,
                                      fused=fused,
@@ -435,7 +554,7 @@ def forward_decode_topk(params, token, pos, caches, *, n: int, cfg, policy,
     (`core.embedding.sample_topn`).  The draft's cache advances one
     position; only the chain token is fed back.  Captured like
     `forward_decode`: no host value reaches the device."""
-    x = embed_token(params["embedding"]["embed"], token, policy=policy)
+    x = _embed_step(params, token, pos, cfg=cfg, policy=policy)
     x, caches = _run_segments_decode(params, x, pos, caches, cfg=cfg,
                                      policy=policy, block_tables=block_tables,
                                      fused=fused,

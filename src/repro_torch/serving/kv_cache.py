@@ -112,10 +112,12 @@ def prefill_scatter(caches, group_caches, slots, tables, *, block_size: int,
                     KV]) or dense caches [count, B, W, KV, hd] (rings of a
                     window, or the dense layout's linear max_seq rows),
                     and / or per-slot SSM state {"h", "cx", "cbc"} [count,
-                    B, ...]
+                    B, ...], and / or a decoder layer's dense cross caches
+                    {"ck", "cv"} [count, B, enc_seq_padded, KV, hd]
     group_caches    the group's caches: k / v [count, n, S, KV, hd] (rings:
                     S = W; linear caches: S <= W, the bucket), SSM state
-                    [count, n, ...]
+                    [count, n, ...], ck / cv [count, n, enc_seq_padded,
+                    KV, hd]
     slots           [n] int tensor: the decode slot of each group row
     tables          [n, MB] int tensor of assigned blocks (-1 beyond the
                     allocation: written to the sink); None when no segment
@@ -124,10 +126,11 @@ def prefill_scatter(caches, group_caches, slots, tables, *, block_size: int,
                     `segments`); None: every segment's are
 
     Pool leaves scatter per assigned block; every other leaf — dense
-    caches included, though they too are named k / v — scatters per slot
-    row, a linear cache into its rows [0, S) (a speculative draft's
-    prefill: the reference's dense scatter of a max_seq-row group, whose
-    rows past S are zeros the draft never attends).
+    caches included, though they too are named k / v, and the cross
+    caches whole — scatters per slot row, a linear cache into its rows
+    [0, S) (a speculative draft's prefill: the reference's dense scatter
+    of a max_seq-row group, whose rows past S are zeros the draft never
+    attends).
     An int8 pool is quantized on admission, as the reference's scatter
     does: admission writes every block from offset 0, so each block's scale
     is the per-head amax of the tokens that land in it (the bucket's pad
@@ -176,8 +179,8 @@ def block_copy(caches, src: int, dst: int, paged_segments=None):
     scales [count, NB + 1, KV]: dim 1 is the block for both).  The prefix
     cache copies a shared, partly filled block before a slot writes into
     it, so the writer mutates its private duplicate.  Dense leaves (ring
-    caches, SSM state) are untouched.  `paged_segments`: the layout's
-    `segments`; None: every segment's k / v are pools."""
+    caches, cross caches, SSM state) are untouched.  `paged_segments`: the
+    layout's `segments`; None: every segment's k / v are pools."""
     paged_segments = paged_segments or (True,) * len(caches)
     for seg, paged in zip(caches, paged_segments):
         if not paged:

@@ -44,7 +44,15 @@ Int8 serving: `weight_dtype="int8"` quantizes the dense GEMM weights once,
 at construction (`models/quantize.py`: one fp32 scale an output channel);
 `kv_dtype="int8"` stores the paged KV pools in int8 with a scale a block
 and kv head, quantized on write (admission and decode append).  Ring
-caches and SSM state keep the activation dtype.
+caches, cross caches and SSM state keep the activation dtype.
+
+An encoder-decoder (whisper-base) runs its encoder in every prefill and
+encode pass over zero frame rows (`models/frontends.py:serving_frames`,
+as the reference's runner passes them); no encoder output is kept across
+passes.  Admission scatters each decoder layer's cross cache (ck / cv,
+enc_seq_padded rows) into the slot's rows, and `kv_pool_bytes` counts it.
+It cannot chunk, cache prefixes or speculate (`chunk_support_reason`,
+`spec_support_reason`: the cross-attention memory is not paged).
 
 Host mirrors (`tokens`, `pos`, `block_tables`, lanes) are numpy arrays that
 the runner mutates; every transfer to the device copies (the decode step
@@ -65,7 +73,7 @@ from repro_torch.core.precision import BF16
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import lm
-from repro_torch.models.frontends import serving_patches
+from repro_torch.models.frontends import serving_frames, serving_patches
 from repro_torch.models.quantize import quantize_params
 from repro_torch.serving.kv_cache import (BlockAllocator, block_copy,
                                           prefill_scatter, row_copy)
@@ -260,8 +268,8 @@ class ModelRunner:
 
     def kv_pool_bytes(self) -> int:
         """Resident bytes of the decode caches: the paged pools with their
-        scales, the ring caches and the SSM state (the sink blocks
-        included)."""
+        scales, the ring caches, the cross caches and the SSM state (the
+        sink blocks included)."""
         return sum(t.numel() * t.element_size() for t in _leaves(self.caches))
 
     # -- capacity / bucket geometry ------------------------------------
@@ -546,8 +554,9 @@ class ModelRunner:
                 ) -> List[Tuple[GenerateTask, int]]:
         """One batched NAR pass for an admission group (all in one length
         bucket), scattering its KV into the assigned blocks and its ring
-        caches and SSM state into its slots' rows.  Returns (task, output
-        index) pairs for the freshly sampled first tokens."""
+        caches, cross caches and SSM state into its slots' rows.  Returns
+        (task, output index) pairs for the freshly sampled first
+        tokens."""
         tasks = [t for t, _ in group]
         fulls = [self.full_prompt(t) for t in tasks]
         bucket = self.bucket_for(len(fulls[0]))
@@ -565,7 +574,8 @@ class ModelRunner:
         tok, caches_g, pos_g = step.fn(
             self.params, torch.tensor(padded, device=self.device),
             device_lane(lane, self.device),
-            serving_patches(self.cfg, n, device=self.device))
+            serving_patches(self.cfg, n, device=self.device),
+            serving_frames(self.cfg, n, device=self.device))
         slots = free_slots[:n]
         tables = np.full((n, self.layout.max_blocks), -1, np.int32)
         for j, (_, blk) in enumerate(group):
@@ -1094,7 +1104,8 @@ class ModelRunner:
         pooled = step.fn(self.params,
                          torch.tensor(padded, device=self.device),
                          torch.tensor(lens, device=self.device),
-                         serving_patches(self.cfg, n, device=self.device))
+                         serving_patches(self.cfg, n, device=self.device),
+                         serving_frames(self.cfg, n, device=self.device))
         pooled_np = pooled.cpu().numpy()           # waits: honest timing
         now = time.perf_counter()
         dt = now - t0

@@ -112,14 +112,15 @@ def test_forward_encode_refuses_prefix_configs_and_bad_pooling(gptj):
     _, tcfg, _, tp = gptj
     tokens = torch.zeros((1, 4), dtype=torch.int32)
     # a patch prefix is served (tests/test_torch_dense.py); its pass needs
-    # the patch rows, and an encoder schedule is still refused
+    # the patch rows, and an encoder schedule's pass its frame rows
+    # (tests/test_torch_whisper.py)
     with pytest.raises(ValueError, match="patch rows"):
         tlm.forward_encode(tp, tokens, policy=FP32,
                            cfg=dataclasses.replace(tcfg, n_patches=4))
-    with pytest.raises(NotImplementedError, match="encoder schedule"):
+    with pytest.raises(ValueError, match="needs its frames"):
         tlm.forward_encode(tp, tokens, policy=FP32,
                            cfg=dataclasses.replace(
-                               tcfg, enc_schedule=(("enc", 1),)))
+                               tcfg, enc_schedule=(("enc", 1),), enc_seq=12))
     with pytest.raises(ValueError, match="pooling"):
         tlm.forward_encode(tp, tokens, cfg=tcfg, policy=FP32, pooling="max")
 
