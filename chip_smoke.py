@@ -211,7 +211,27 @@ non-zero):
               decode at 8 x 64, the dense decode over 1504 rows, LayerNorm
               at [6016, 512]; and times the norms' other dtype pairs and
               looped path and the paged decode at block sizes 8 / 32 and
-              fp32 pools, each beside its library call and bound.
+              fp32 pools, each beside its library call and bound;
+ 12. goodput  GPT-J at full width and depth (`phase_goodput`): the serve
+              trace synchronous, overlapped (DeadlinePolicy) and overlapped
+              with the tracer (the slice's path): per-uid tokens and
+              launches (by kernel and template) identical, overlapped steps
+              and fast-path dispatches above 0, the host overlap ratio; a
+              chained replay of the captured step bit-equal to a loaded
+              one; the sync and overlapped engines' decode profiles (step
+              wall against device busy); the trace written to
+              chiprun_out/goodput_trace.json, read back schema-clean, its
+              MFU / MBU (the H100's peaks) within 1% of the counters' and
+              at most 1.05; an open-loop loadgen trace (64 requests at
+              twice the sync run's req/s, a TTFT SLO of 24 requests' wait
+              at that rate) through the
+              overlapped engine under DeadlinePolicy, speculating with the
+              2-layer mid-range draft: requests shed (each typed
+              slo_unattainable) and degraded, every served request held to
+              plain decode (`near_ties`); the CLI with --overlap --policy
+              deadline --deadline-ms --trace-out --metrics-out, its trace
+              validated by `python -m repro_torch.serving.trace` in a child
+              process and its Prometheus text parsed.
 Every driven path zeroes the launch counters just before it and reads them
 just after; a kernel of the path that never launched fails the run, and so
 does a GEMM that ran the fp32-weight template (fma32) or a flash launch
@@ -5114,6 +5134,418 @@ def phase_whisper():
     return out
 
 
+# --------------------------------------------------------------------------
+# 12. the overlapped loop, DeadlinePolicy, the load generator, tracing
+# --------------------------------------------------------------------------
+
+GOODPUT_REQUESTS = 64           # the open-loop trace's requests
+GOODPUT_NEW = 16                # new tokens a request of that trace
+GOODPUT_RATE_X = 2.0            # its arrival rate / the sync run's req/s
+# its TTFT SLO: the wait of this many queued requests at the arrival rate,
+# 3x the degrade ladder's first threshold (DeadlinePolicy's degrade_depth
+# 2 x 4 slots), so that the unexpired backlog can pass both rungs before
+# requests expire
+GOODPUT_SLO_DEPTH = 24
+GOODPUT_PROFILE_STEPS = 16      # decode profile steps: the pipeline's fill
+#                                 is one step's launch in the timed window
+PHASE_UTIL_TOL = 0.01           # trace-derived vs counter MFU / MBU
+UTIL_MAX = 1.05                 # MFU / MBU above this: a timing fault
+
+
+def goodput_serve(label, cfg, params, *, overlap, scheduler=None,
+                  tracer=None):
+    """The serve trace (SERVE_LENGTHS, 32 new tokens, uids 1 and 6
+    sampled) through a fresh GPT-J engine (batch 4, max_seq 512, block
+    16), synchronous or overlapped, with `scheduler` and `tracer`: exact
+    launches (`check_serve_counts`, `check_gemm_templates`), every decode
+    step one replay of the captured graph, no leak.  -> (engine, {uid:
+    tokens}, numbers, launches)."""
+    from repro_torch.core.precision import BF16
+    from repro_torch.serving import InferenceEngine
+    eng = InferenceEngine(cfg, params, batch_size=4, max_seq=512,
+                          block_size=16, policy=BF16, device=DEVICE,
+                          overlap=overlap, scheduler=scheduler,
+                          tracer=tracer)
+    step = eng.runner.decode_step
+    if not step.aux["captured"]:
+        raise AssertionError(f"{label}: the decode step is not captured")
+    reqs = _serve_requests(cfg)
+    for q in reqs:
+        eng.submit(q)
+    replays0 = step.fn.replays
+    t0 = time.perf_counter()
+    done, launches = drive(label, eng.run,
+                           path_kernels(cfg, "serve", max_seq=512))
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    replays = step.fn.replays - replays0
+    if replays != st.decode_steps:
+        raise AssertionError(f"{label}: {st.decode_steps} decode steps but "
+                             f"{replays} replays of its graph")
+    _check_served(eng, done, len(reqs), 32, label)
+    check_serve_counts(cfg, launches, st, 512, by=TEMPLATE_LAUNCHES[label])
+    check_gemm_templates(cfg, st, TEMPLATE_LAUNCHES[label])
+    nums = _serve_numbers(st)
+    nums.update(wall_s=wall, requests_per_s=len(done) / wall,
+                overlapped_steps=st.overlapped_steps,
+                fast_dispatches=eng.fast_dispatches,
+                host_overlap_ratio=st.host_overlap_ratio)
+    _log_numbers(label, nums)
+    log(f"  [{label}] {len(done)} requests in {wall:.3f} s "
+        f"({nums['requests_per_s']:.2f} req/s); {st.overlapped_steps} "
+        f"overlapped steps, {eng.fast_dispatches} fast-path dispatches, "
+        f"host overlap ratio {st.host_overlap_ratio:.3f}")
+    return eng, {q.uid: q.output for q in done}, nums, launches
+
+
+def check_chained_vs_loaded(eng, label):
+    """One chained dispatch of the captured step (token and pos copied on
+    the device from the previous step's outputs) against one fed the same
+    values through `load()`, from the same caches: next tokens, pos + 1
+    and every cache leaf bit-equal.  The caches are restored and the
+    chain broken afterwards, so the engine goes on as if neither ran."""
+    r = eng.runner
+    step = r.decode_step.fn
+    if not step.chainable or step.graph is None:
+        raise AssertionError(f"{label}: no captured step to chain on")
+    token, pos = (t.cpu().numpy().copy() for t in step.out)
+    saved = _clone_caches(r.caches)
+    with torch.no_grad():
+        chained = step.dispatch(None, None, None, None, chained=True).wait()
+        out_c, caches_c = step.out.clone(), _clone_caches(r.caches)
+        for seg, seg_s in zip(r.caches, saved):
+            for k in seg:
+                seg[k].copy_(seg_s[k])
+        loaded = step.dispatch(token, pos, r.block_tables, r.lane).wait()
+    torch.cuda.synchronize()
+    diffs = [f"segment {i} {k}" for i, (a, b) in enumerate(zip(caches_c,
+                                                                r.caches))
+             for k in a if not torch.equal(a[k], b[k])]
+    same = (np.array_equal(chained, loaded) and torch.equal(out_c, step.out)
+            and not diffs)
+    for seg, seg_s in zip(r.caches, saved):
+        for k in seg:
+            seg[k].copy_(seg_s[k])
+    step.chainable = False
+    leaves = sum(len(seg) for seg in r.caches)
+    log(f"  [{label}] a chained replay vs a loaded one ({len(r.decoding_slots())}"
+        f" live slots, pos {pos.tolist()}): tokens {chained.tolist()} vs "
+        f"{loaded.tolist()}, {leaves - len(diffs)} of {leaves} cache leaves "
+        f"bit-equal{f', differing: {diffs}' if diffs else ''}")
+    if not same:
+        raise AssertionError(f"{label}: the chained replay differs from the "
+                             f"loaded one")
+    return {"tokens_equal": bool(np.array_equal(chained, loaded)),
+            "cache_leaves": leaves, "leaves_bit_equal": leaves - len(diffs)}
+
+
+def check_trace(label, tracer, st, path):
+    """The traced run's artifact: written to `path`, read back schema-clean
+    (`validate_chrome_trace`), its per-phase MFU / MBU
+    (`derive_phase_metrics`, the H100's peaks) within PHASE_UTIL_TOL of
+    the counters' (`stats.phase_util()`), every MFU / MBU at most
+    UTIL_MAX."""
+    from repro_torch.serving import (derive_phase_metrics, percentiles,
+                                     validate_chrome_trace)
+    n_ev = tracer.write(str(path))
+    doc = json.loads(path.read_text())
+    problems = validate_chrome_trace(doc)
+    pu = st.phase_util()
+    derived = derive_phase_metrics(
+        tracer.events, flops_per_token=st.model_flops_per_token,
+        weight_bytes=st.weight_bytes_per_device,
+        kv_bytes_per_token=st.kv_bytes_per_token)
+    # the decode steps by path: one whose successor was dispatched before
+    # its own fetch ran pipelined (the fast path); its busy_ms is the wall
+    # from the previous commit to its own
+    evs = sorted(tracer.events, key=lambda e: e["ts"])
+    disp = [e["ts"] for e in evs if e["name"] == "decode_dispatch"]
+    by_path = {"pipelined": [], "regular": []}
+    for e in evs:
+        if e["name"] != "decode_step":
+            continue
+        end = e["ts"] + e["dur"]
+        nxt = any(e["ts"] < t < end for t in disp)
+        by_path["pipelined" if nxt else "regular"].append(
+            e["args"]["busy_ms"])
+    steps = {k: {"steps": len(v), "busy_ms": percentiles(v)}
+             for k, v in by_path.items()}
+    for k, v in steps.items():
+        log(f"  [{label}] {k} decode steps: {v['steps']}, step wall (the "
+            f"span's busy_ms) p50 {v['busy_ms']['p50']:.3f} ms p95 "
+            f"{v['busy_ms']['p95']:.3f} ms")
+    rows = {}
+    for phase, row in pu.items():
+        d = derived.get(phase, {})
+        rows[phase] = {k: {"stats": row[k], "trace": d.get(k)}
+                       for k in ("time_s", "mfu", "mbu")}
+        log(f"  [{label}] {phase}: MFU {row['mfu']:.4f} (trace "
+            f"{d.get('mfu', float('nan')):.4f}), MBU {row['mbu']:.4f} "
+            f"(trace {d.get('mbu', float('nan')):.4f}) over "
+            f"{row['time_s'] * 1e3:.1f} ms of busy wall")
+    log(f"  [{label}] trace: {n_ev} events ({tracer.dropped} dropped) -> "
+        f"{path.relative_to(ROOT)}; schema problems: {problems or 'none'}")
+    if problems or tracer.dropped:
+        raise AssertionError(f"{label}: the trace is not clean: {problems}, "
+                             f"{tracer.dropped} dropped")
+    if set(pu) != set(derived) or not {"prefill", "decode"} <= set(pu):
+        raise AssertionError(f"{label}: phases {sorted(pu)} vs trace "
+                             f"{sorted(derived)}")
+    for phase, row in pu.items():
+        for k in ("mfu", "mbu"):
+            a, b = row[k], derived[phase][k]
+            if not (abs(a - b) <= PHASE_UTIL_TOL * max(abs(a), 1e-30)):
+                raise AssertionError(f"{label}: {phase} {k} {a} (stats) vs "
+                                     f"{b} (trace)")
+            if not 0 < a <= UTIL_MAX:
+                raise AssertionError(f"{label}: {phase} {k} {a} outside "
+                                     f"(0, {UTIL_MAX}]")
+    return {"events": n_ev, "phases": rows, "phase_util": pu,
+            "decode_steps_by_path": steps}
+
+
+def goodput_loadgen(cfg, params, rate_rps):
+    """An open-loop loadgen trace (GOODPUT_REQUESTS Poisson arrivals at
+    `rate_rps`, prompts 20-300 tokens, a quarter sampled, GOODPUT_NEW new
+    tokens, a TTFT SLO of GOODPUT_SLO_DEPTH / `rate_rps`) replayed on the
+    wall clock
+    through the overlapped engine under DeadlinePolicy, speculating with
+    GPT-J's 2-layer draft (`midrange_draft`, chain k SPEC_K).  Gates: some
+    requests shed, every one typed `slo_unattainable`, some served
+    degraded, and every served request's tokens held to plain decode of
+    the same tasks (FCFS, no speculation) by `near_ties`."""
+    from repro_torch.core.precision import BF16
+    from repro_torch.serving import (ArrivalSpec, DeadlinePolicy,
+                                     InferenceEngine, LoadSpec, PromptSpec,
+                                     SLOSpec, SpecConfig, make_trace, replay)
+    load = LoadSpec(requests=GOODPUT_REQUESTS, vocab=cfg.vocab,
+                    arrival=ArrivalSpec(rate_rps=rate_rps),
+                    prompts=PromptSpec(min_len=20, max_len=300,
+                                       sampled_frac=0.25),
+                    slo=SLOSpec(ttft_ms=1e3 * GOODPUT_SLO_DEPTH / rate_rps),
+                    max_new=GOODPUT_NEW)
+    trace = make_trace(load, arrival_seed=1, prompt_seed=2)
+    label = "gpt-j goodput loadgen"
+    eng = InferenceEngine(cfg, params, batch_size=4, max_seq=512,
+                          block_size=16, policy=BF16, device=DEVICE,
+                          overlap=True, scheduler=DeadlinePolicy(),
+                          spec=SpecConfig(draft="auto", k=SPEC_K),
+                          draft_params=midrange_draft(cfg, params))
+    (done, wall), launches = drive(
+        label, lambda: replay(eng, trace),
+        ("fused_matmul", "flash_attention", "decode_attention",
+         "paged_chunk_partials"))
+    st = eng.stats()
+    shed = [t for t in done if t.rejection is not None]
+    served = [t for t in done if t.rejection is None]
+    kinds = sorted({t.rejection.kind for t in shed})
+    nums = {"requests": len(trace), "rate_rps": rate_rps, "wall_s": wall,
+            "served": len(served), "shed": st.requests_shed,
+            "degraded": st.requests_degraded,
+            "slo_attainment": st.slo_attainment, "slo_met": st.slo_met,
+            "goodput_rps": st.slo_met / wall,
+            "ttft_p50_ms": st.ttft_p50_ms, "ttft_p99_ms": st.ttft_p99_ms,
+            "queue_wait_p99_ms": st.queue_wait_p99_ms,
+            "spec_rounds": st.spec_rounds,
+            "acceptance_rate": st.spec_acceptance_rate,
+            "ar_tok_s": st.ar_tok_s}
+    nums["ttft_slo_ms"] = load.slo.ttft_ms
+    log(f"  [{label}] {len(trace)} requests at {rate_rps:.2f} req/s (TTFT "
+        f"SLO {load.slo.ttft_ms:.1f} ms) over {wall:.2f} s: "
+        f"{len(served)} served, {st.requests_shed} shed "
+        f"({kinds}), {st.requests_degraded} degraded; SLO attainment "
+        f"{st.slo_attainment:.3f} ({st.slo_met}/{st.slo_requests}), goodput "
+        f"{nums['goodput_rps']:.2f} req/s; TTFT p50 {st.ttft_p50_ms:.1f} ms "
+        f"p99 {st.ttft_p99_ms:.1f} ms; {st.spec_rounds} spec rounds, "
+        f"acceptance {st.spec_acceptance_rate:.3f}")
+    if len(done) != len(trace) or eng.has_work():
+        raise AssertionError(f"{label}: {len(done)} of {len(trace)} "
+                             f"resolved")
+    if not (st.requests_shed > 0 and st.requests_degraded > 0):
+        raise AssertionError(f"{label}: shed {st.requests_shed}, degraded "
+                             f"{st.requests_degraded}: the trace did not "
+                             f"reach both rungs")
+    if kinds != ["slo_unattainable"] or len(shed) != st.requests_shed:
+        raise AssertionError(f"{label}: shed requests typed {kinds}")
+    if any(t.output for t in shed) or any(
+            len(t.output) != GOODPUT_NEW for t in served):
+        raise AssertionError(f"{label}: a shed request has tokens or a "
+                             f"served one lacks some")
+    held = eng.prefix_cache.cached_blocks if eng.prefix_cache else 0
+    if eng.allocator.num_free != eng.allocator.num_blocks - held:
+        raise AssertionError(f"{label}: KV blocks leaked")
+    del eng
+    torch.cuda.empty_cache()
+    # the same tasks (a second make_trace: the same seeds give the same
+    # trace), served tasks only, through plain FCFS decode
+    again = {tt.task.uid: tt.task
+             for tt in make_trace(load, arrival_seed=1, prompt_seed=2)}
+    plain = InferenceEngine(cfg, params, batch_size=4, max_seq=512,
+                            block_size=16, policy=BF16, device=DEVICE)
+    for t in served:
+        plain.submit(again[t.uid])
+    want = {t.uid: t.output for t in plain.run()}
+    del plain
+    torch.cuda.empty_cache()
+    ties = near_ties(cfg, params, served, want, {t.uid: t.output
+                                                 for t in served}, label)
+    return {"numbers": nums, "stats": st.to_dict(), "launches": launches,
+            "divergences": ties}
+
+
+GOODPUT_CLI = SERVE_CLI + ["--temperature", "0.8", "--top-k", "40",
+                           "--overlap", "--policy", "deadline",
+                           "--deadline-ms", "60000"]
+
+
+def goodput_cli():
+    """`python -m repro_torch.launch.serve` (its `main`) with `--overlap
+    --policy deadline --deadline-ms 60000 --trace-out --metrics-out` at
+    GPT-J's full width: exit 0 with its SLO and OVERLAP parts; its trace
+    validated by `python -m repro_torch.serving.trace` in a child
+    process; its Prometheus text snapshot parsed line by line.  The
+    deadline policy takes the CLI's chunk budget (32, as the reference's
+    does): every prompt of 40-160 tokens prefills in chunks."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch.configs import GPT_J
+    from repro_torch.launch import serve
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    trace_path = out_dir / "goodput_cli_trace.json"
+    prom = out_dir / "goodput_cli_metrics.prom"
+    argv = GOODPUT_CLI + ["--trace-out", str(trace_path), "--metrics-out",
+                          str(prom)]
+    need = tuple(k for k in path_kernels(GPT_J, "serve", max_seq=256)
+                 if k != "flash_attention") + ("paged_chunk_partials",)
+    buf = io.StringIO()
+
+    def main():
+        with contextlib.redirect_stdout(buf):
+            return serve.main(argv)
+    rc, launches = drive("serve CLI gpt-j goodput", main, need)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  | {line}")
+    if rc != 0 or "served 6 requests" not in text or not all(
+            m in text for m in ("overlap", "SLO", "OVERLAP", "util:",
+                                "trace:", "metrics:")):
+        raise AssertionError("serve CLI (goodput) did not serve its trace")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    chk = subprocess.run([sys.executable, "-m", "repro_torch.serving.trace",
+                          str(trace_path)], capture_output=True, text=True,
+                         env=env, cwd=str(ROOT), timeout=300)
+    log(f"  python -m repro_torch.serving.trace: exit {chk.returncode}: "
+        f"{chk.stdout.strip()} {chk.stderr.strip()}")
+    if chk.returncode != 0:
+        raise AssertionError("the CLI's trace does not validate")
+    samples = {}
+    for line in prom.read_text().splitlines():
+        name, val = line.rsplit(" ", 1)
+        samples[name] = float(val)
+    if (samples.get("serving_requests_completed") != 6
+            or samples.get("serving_overlapped_steps", 0) <= 0):
+        raise AssertionError(f"the CLI's metrics: {samples}")
+    log(f"  the CLI's metrics: {len(samples)} samples parsed, SLO "
+        f"attainment {samples['serving_slo_attainment']}, "
+        f"{samples['serving_overlapped_steps']:.0f} overlapped steps")
+    return {"argv": argv, "stdout": text, "launches": launches,
+            "trace_check": chk.stdout, "metrics_samples": len(samples)}
+
+
+def phase_goodput():
+    """GPT-J at full width and depth (seeded bf16) behind the overlapped
+    loop, DeadlinePolicy and the tracer: the serve trace synchronous
+    (FCFS) and overlapped (DeadlinePolicy, no deadline: FCFS order), then
+    overlapped and traced (the slice's path): per-uid tokens identical,
+    launches identical by kernel and template, overlapped steps and
+    fast-path dispatches above 0; a chained replay bit-equal to a loaded
+    one; each engine's decode profile (`profile_decode`: the step's wall
+    against its busy time); the trace validated and its MFU / MBU against
+    the counters' (`check_trace`); an open-loop loadgen trace at
+    GOODPUT_RATE_X the sync run's req/s (`goodput_loadgen`: shed and
+    degrade); the CLI (`goodput_cli`)."""
+    from repro_torch.configs import GPT_J
+    from repro_torch.models import lm
+    from repro_torch.serving import DeadlinePolicy, Tracer
+    t0 = time.perf_counter()
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    cfg = GPT_J
+    params = lm.init_lm(cfg, dtype=torch.bfloat16, device=DEVICE, seed=0)
+    out = {}
+    runs = {}
+    for key, kw in (("sync", dict(overlap=False)),
+                    ("overlap", dict(overlap=True,
+                                     scheduler=DeadlinePolicy())),
+                    ("traced", dict(overlap=True,
+                                    scheduler=DeadlinePolicy(),
+                                    tracer=Tracer(capacity=1 << 20)))):
+        label = f"gpt-j goodput {key}"
+        eng, toks, nums, launches = goodput_serve(label, cfg, params, **kw)
+        runs[key] = (toks, launches, TEMPLATE_LAUNCHES[label])
+        out[key] = {"numbers": nums, "stats": eng.stats().to_dict(),
+                    "launches": launches}
+        if key == "traced":
+            out[key]["trace"] = check_trace(
+                label, eng.tracer, eng.stats(),
+                ROOT / "chiprun_out" / "goodput_trace.json")
+        else:
+            out[key]["decode_profile"] = profile_decode(
+                eng, cfg, np.random.default_rng(0),
+                steps=GOODPUT_PROFILE_STEPS)
+        if key == "sync":
+            # a mid-flight batch: every slot decoding, the chain valid
+            for q in _serve_requests(cfg, (120, 150, 90, 200), seed=5,
+                                     uid0=40):
+                eng.submit(q)
+            for _ in range(50):
+                eng.step()
+                if len(eng.runner.decoding_slots()) == eng.runner.B:
+                    break
+            eng.step()
+            out["chained_vs_loaded"] = check_chained_vs_loaded(eng, label)
+            eng.run()
+            _check_served(eng, eng.completed[-4:], 4, 32, f"{label} chain")
+        del eng
+        torch.cuda.empty_cache()
+    base_toks, base_launches, base_by = runs["sync"]
+    for key in ("overlap", "traced"):
+        toks, launches, by = runs[key]
+        if toks != base_toks:
+            bad = sorted(u for u in toks if toks[u] != base_toks[u])
+            raise AssertionError(f"goodput {key}: tokens differ from the "
+                                 f"sync run's for uids {bad}")
+        if launches != base_launches or by != base_by:
+            raise AssertionError(f"goodput {key}: launches {launches} / "
+                                 f"{by} != sync {base_launches} / "
+                                 f"{base_by}")
+        n = out[key]["numbers"]
+        if not (n["overlapped_steps"] > 0 and n["fast_dispatches"] > 0):
+            raise AssertionError(f"goodput {key}: {n['overlapped_steps']} "
+                                 f"overlapped steps, "
+                                 f"{n['fast_dispatches']} fast dispatches")
+    log("  [gpt-j goodput] overlapped and traced runs: tokens and launches "
+        "(by kernel and template) identical to the sync run's")
+    for key in ("sync", "overlap"):
+        prof = out[key]["decode_profile"]
+        n = out[key]["numbers"]
+        log(f"  [gpt-j goodput {key}] AR {n['ar_tok_s']:.1f} tok/s, decode "
+            f"step p50 {n['decode_step_p50_ms']:.2f} ms p95 "
+            f"{n['decode_step_p95_ms']:.2f} ms; profiled step wall "
+            f"{prof['step_ms']:.2f} ms vs device busy "
+            f"{_ms(prof.get('device_busy_ms'))}")
+    rate = GOODPUT_RATE_X * out["sync"]["numbers"]["requests_per_s"]
+    out["loadgen"] = goodput_loadgen(cfg, params, rate)
+    del params
+    torch.cuda.empty_cache()
+    out["cli"] = goodput_cli()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"goodput phase: {out['seconds']:.1f} s")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5267,6 +5699,7 @@ def main():
     report["moe"] = phase_moe()
     report["dense"] = phase_dense()
     report["whisper"] = phase_whisper()
+    report["goodput"] = phase_goodput()
     report["launches_total"] = dict(TOTAL_LAUNCHES)
     report["gemm_templates"] = dict(TEMPLATE_LAUNCHES)
     line = []

@@ -131,6 +131,16 @@ class ModelConfig:
             total += p * count
         return total
 
+    def n_active_params(self) -> int:
+        """Active parameters a token (MoE: only top_k experts count)."""
+        if not self.n_experts:
+            return self.n_params()
+        E, F = self.d_model, self.d_ff
+        gated = 3 if self.mlp_act == "swiglu" else 2
+        n_moe_layers = sum(c for k, c in self.schedule if k in MOE_KINDS)
+        inactive = (self.n_experts - self.top_k) * gated * E * F * n_moe_layers
+        return self.n_params() - inactive
+
     def reduced(self) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the reference's shrink)."""
         def shrink(sched: Schedule, cap: int = 2) -> Schedule:
@@ -164,6 +174,17 @@ class ModelConfig:
             image_seq=min(self.image_seq, 17) if self.image_seq else 0,
             max_seq=128,
         )
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """A step's shape: `kind` train | prefill | decode, sequence length and
+    global batch (the reference's; `analysis.roofline.model_flops` reads
+    it)."""
+    name: str
+    kind: str
+    seq_len: int
+    global_batch: int
 
 
 def uniform_schedule(kind: str, n: int) -> Schedule:

@@ -12,8 +12,12 @@ lengths, not padded buckets), plus TTFT percentiles, decode-slot
 occupancy, the KV pool's peak use and prefill bucket hits; `--task encode`
 sends EncodeTasks (pooled embeddings) instead.
 
-Only what the port serves has a flag: the synchronous loop under the
-FCFS, priority or chunked-prefill policy (`--policy`, `--prefill-chunk`),
+Only what the port serves has a flag: the synchronous or overlapped loop
+(`--overlap`: the next decode step dispatched before the previous step's
+tokens are fetched; token-identical) under the FCFS, priority,
+chunked-prefill or deadline policy (`--policy`, `--prefill-chunk`;
+`--deadline-ms` stamps a TTFT budget on every request, which the deadline
+policy schedules on, sheds by and scores SLO attainment against),
 the prefix cache (on by default, as in the reference: `--no-prefix-cache`
 turns it off, `--cache-blocks` caps its index), greedy and sampled
 decoding, the paged KV pool, the encode mode, int8 serving
@@ -31,14 +35,18 @@ prefix) is refused with the reason before any weight is made.  A VLM
 sequence.  A config whose bf16 weights exceed the device's memory
 (mixtral-8x7b at full size: 93.4 GB, deepseek-67b 134.9 GB, internvl2-76b
 141.1 GB, against an 80 GB card) is refused before any weight is made;
-`--reduced` serves it.  The CLI serves whole configs only.  The
-reference's flags for unported features (`--draft-checkpoint`, the
-overlapped loop, the deadline policy, tracing and metrics export) do not
-exist here, and argparse refuses them.
+`--reduced` serves it.  The CLI serves whole configs only.
+Observability: `--trace-out PATH` records a Chrome trace-event JSON of the
+run (`serving/trace.py`; `--trace-buffer` events at most, the oldest
+dropped), `--metrics-out PATH` writes a Prometheus text snapshot of the
+final stats; the summary adds a `util:` line of each phase's MFU / MBU
+against the H100's peaks.  The reference's `--draft-checkpoint` waits for
+the port's checkpointer: it does not exist here, and argparse refuses it.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import sys
 import time
@@ -50,29 +58,34 @@ from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.serving import (EncodeTask, InferenceEngine, Request,
-                                 SamplingParams, SpecConfig, make_policy)
+                                 SamplingParams, SpecConfig, Tracer,
+                                 make_policy, prometheus_text)
 from repro_torch.serving.spec import spec_support_reason
 
 
 def build_trace(cfg, args) -> list:
     """Mixed-length request trace; lengths uniform in
     [min_prompt_len, prompt_len] (fixed-length when min == max).
-    --task encode emits EncodeTasks (pooled embeddings) instead."""
+    --task encode emits EncodeTasks (pooled embeddings) instead.  Every
+    request carries the --deadline-ms budget (0: none)."""
     rng = np.random.default_rng(args.seed)
     lo = args.min_prompt_len or args.prompt_len
+    deadline = args.deadline_ms or None
     reqs = []
     for uid in range(args.requests):
         n = int(rng.integers(lo, args.prompt_len + 1))
         prompt = rng.integers(0, cfg.vocab, n, dtype=np.int32)
         if args.task == "encode":
             reqs.append(EncodeTask(uid=uid, prompt=prompt,
-                                   pooling=args.pooling))
+                                   pooling=args.pooling,
+                                   deadline_ms=deadline))
             continue
         sampling = (SamplingParams(temperature=args.temperature,
                                    top_k=args.top_k, seed=uid)
                     if args.temperature > 0 else SamplingParams())
         reqs.append(Request(uid=uid, prompt=prompt,
-                            max_new_tokens=args.max_new, sampling=sampling))
+                            max_new_tokens=args.max_new,
+                            deadline_ms=deadline, sampling=sampling))
     return reqs
 
 
@@ -94,8 +107,16 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 => greedy")
     ap.add_argument("--top-k", type=int, default=0)
-    ap.add_argument("--policy", choices=("fcfs", "priority", "chunked"),
+    ap.add_argument("--policy",
+                    choices=("fcfs", "priority", "chunked", "deadline"),
                     default="fcfs", help="scheduling policy")
+    ap.add_argument("--overlap", action="store_true",
+                    help="overlapped host loop: dispatch the next decode "
+                         "step before fetching the previous step's tokens "
+                         "(token-identical to the sync loop)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request TTFT SLO budget in ms (0 = no "
+                         "deadline); pairs with --policy deadline")
     ap.add_argument("--prefill-chunk", type=int, default=32,
                     help="chunked prefill token budget (--policy chunked)")
     ap.add_argument("--task", choices=("generate", "encode"),
@@ -137,6 +158,15 @@ def parser() -> argparse.ArgumentParser:
                     help="paged KV pool storage: int8 quantizes on write "
                          "with per-block-per-head scales (ring caches keep "
                          "the activation dtype)")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome trace-event JSON of the run "
+                         "(Perfetto-viewable); empty = tracing off")
+    ap.add_argument("--trace-buffer", type=int, default=65536,
+                    help="tracer ring-buffer capacity in events "
+                         "(oldest dropped beyond it)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write a Prometheus-style text snapshot of the "
+                         "final stats (empty = off)")
     ap.add_argument("--no-fuse", action="store_true",
                     help="disable the fused prologue/epilogue GEMM "
                          "pipeline (A/B parity baseline)")
@@ -181,6 +211,7 @@ def run(args):
     spec = (SpecConfig(draft=args.spec_draft, k=args.spec_k,
                        branches=args.spec_branches)
             if args.spec_draft else None)
+    tracer = Tracer(capacity=args.trace_buffer) if args.trace_out else None
     engine = InferenceEngine(
         cfg, params, batch_size=args.batch, max_seq=args.max_seq,
         block_size=args.block_size,
@@ -190,7 +221,7 @@ def run(args):
         fuse_epilogues=not args.no_fuse, weight_dtype=args.weight_dtype,
         kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
         cache_blocks=args.cache_blocks or None, spec=spec,
-        device=args.device)
+        device=args.device, overlap=args.overlap, tracer=tracer)
     if args.policy == "chunked" and not engine.runner.supports_chunked:
         print(f"note: {cfg.name} cannot chunk prefills "
               f"({engine.runner.chunk_unsupported_reason}) — "
@@ -211,6 +242,11 @@ def main(argv=None) -> int:
     if args.min_prompt_len > args.prompt_len:
         ap.error(f"--min-prompt-len {args.min_prompt_len} exceeds "
                  f"--prompt-len {args.prompt_len}")
+    if not (math.isfinite(args.deadline_ms) and args.deadline_ms >= 0):
+        ap.error(f"--deadline-ms must be a finite budget >= 0 (0: none): "
+                 f"{args.deadline_ms}")
+    if args.trace_buffer < 1:
+        ap.error(f"--trace-buffer must be >= 1: {args.trace_buffer}")
     cfg = config_of(args)
     reason = fit_reason(cfg, args.device)
     if reason:
@@ -222,7 +258,8 @@ def main(argv=None) -> int:
     stats = engine.stats()
     step = engine.runner.decode_step
     print(f"served {len(done)} requests in {wall:.2f}s over "
-          f"{stats.decode_steps} AR steps [policy={args.policy}, device="
+          f"{stats.decode_steps} AR steps [policy={args.policy}"
+          f"{', overlap' if args.overlap else ''}, device="
           f"{engine.runner.device}, decode step "
           f"{'captured' if step.aux['captured'] else 'eager'}] "
           f"({stats.prefill_compiles} prefill buckets compiled: "
@@ -242,6 +279,21 @@ def main(argv=None) -> int:
                   f"depth p50 {stats.spec_path_depth_p50:.1f} p95 "
                   f"{stats.spec_path_depth_p95:.1f}, branch utilization "
                   f"{stats.spec_branch_utilization:.0%}")
+    util = stats.phase_util()
+    if util:
+        print("  util: " + " | ".join(
+            f"{ph} MFU {row['mfu']:.2%} MBU {row['mbu']:.2%} "
+            f"({row['time_s'] * 1e3:.0f}ms)"
+            for ph, row in util.items()))
+    tracer = engine.tracer
+    if tracer is not None:
+        n_ev = tracer.write(args.trace_out)
+        print(f"  trace: {n_ev} events -> {args.trace_out} "
+              f"({tracer.dropped} dropped; open at https://ui.perfetto.dev)")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(prometheus_text(stats.to_dict()))
+        print(f"  metrics: -> {args.metrics_out}")
     for r in sorted(done, key=lambda r: r.uid)[:3]:
         if isinstance(r, EncodeTask):
             e = np.asarray(r.embedding)

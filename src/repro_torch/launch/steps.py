@@ -12,6 +12,10 @@ caches donated.  Here:
                      buffers and replays the graph; on the CPU the same body
                      runs eagerly.  Its launches depend on the shapes alone
                      (`lm.forward_decode`), so one graph serves every step.
+                     `DecodeStep.dispatch` runs a step without waiting for
+                     it, its input chained on the previous step's outputs
+                     (one device-to-device copy) or loaded, its tokens
+                     fetched into a pinned buffer behind an event.
   make_prefill_step  one NAR pass of a (bucket, group) batch, eager (a VLM
                      config's patch rows in front of the bucket; an
                      encoder-decoder's frame rows, which its encoder
@@ -284,12 +288,41 @@ def _counts():
             for name, w in ops.launch_counters().items()}
 
 
+class TokenFetch:
+    """The next tokens of one dispatched decode step on their way to the
+    host: on a card, a copy into a pinned host buffer enqueued right behind
+    the step's replay and a CUDA event recorded behind the copy; on the
+    CPU, the tokens themselves.  `wait()` blocks on that event alone and
+    returns the tokens; it may be called once."""
+
+    def __init__(self, buf: torch.Tensor, event=None):
+        self.buf, self.event, self.done = buf, event, False
+
+    def wait(self) -> np.ndarray:
+        if self.done:
+            raise RuntimeError("a token fetch is waited on once")
+        if self.event is not None:
+            self.event.synchronize()
+        self.done = True
+        return self.buf.numpy().copy()
+
+
 class DecodeStep:
     """One AR step over static buffers.  The host inputs go to the device
     in one copy, into one int32 buffer whose views the step reads: token,
     pos, the lane's top_k, seed and temperature (fp32 bits) [B] each, and
     the block tables [B, MB].  The outputs are static too: next_token and
-    pos + 1, [B] int32 each, overwritten by the next call."""
+    pos + 1, [B] int32 each, overwritten by the next call.
+
+    `dispatch` runs a step without waiting for it (the serving runner's
+    overlapped loop).  Its input is either the host arrays (`load`) or,
+    chained, the previous step's outputs: `out` ([2, B]: next token, then
+    pos + 1) has the layout of the buffer's first 2B entries, so chaining
+    is one device-to-device copy and uploads nothing; the tables and the
+    lane stay as last loaded.  `chainable` says whether that is exact: a
+    dispatch sets it, a `run` (whose inputs the caller's host arrays set)
+    clears it, and so does the runner on every host write to a row's
+    token, pos, table or lane."""
 
     def __init__(self, cfg, params, caches, *, policy, layout, batch_size,
                  fused, device):
@@ -307,6 +340,15 @@ class DecodeStep:
                      "temperature": self.inp[4 * B:5 * B].view(torch.float32)}
         self.tables = self.inp[5 * B:].view(B, MB)
         self.out = torch.zeros((2, B), dtype=torch.int32, device=device)
+        # the token fetch's pinned host buffers, two alternating: step N + 1
+        # is dispatched (its copy enqueued) before step N's tokens are read
+        self._fetch_bufs = None
+        if self.inp.device.type == "cuda":
+            self._fetch_bufs = [torch.empty(B, dtype=torch.int32,
+                                            pin_memory=True)
+                                for _ in range(2)]
+        self._fetches = [None, None]
+        self.chainable = False
         self.graph = None
         self.launches = {}      # wrapper -> (launches, by template) a replay
         self.replays = 0
@@ -365,10 +407,10 @@ class DecodeStep:
                 w.launches_by[t] = m
         self.graph = graph
 
-    def run(self, token, pos, tables, lane):
-        """Load the inputs and run the step: replay the graph when there is
-        one (adding the launches recorded at capture), else the body."""
-        self.load(token, pos, tables, lane)
+    def replay(self):
+        """Run the step on the buffers as they stand: replay the graph when
+        there is one (adding the launches recorded at capture), else the
+        body."""
         if self.graph is None:
             self.body()
             return
@@ -379,6 +421,53 @@ class DecodeStep:
             counters[k].launches += n
             for t, m in by.items():
                 counters[k].launches_by[t] += m
+
+    def run(self, token, pos, tables, lane):
+        """Load the inputs and run the step."""
+        self.load(token, pos, tables, lane)
+        self.chainable = False
+        self.replay()
+
+    def chain(self):
+        """The next step's token and pos are this step's outputs: one
+        device-to-device copy, behind the step on the stream."""
+        if not self.chainable:
+            raise RuntimeError("the decode step's outputs are not its next "
+                               "inputs (a host write or a run intervened)")
+        self.inp[:2 * self.B].copy_(self.out.view(-1))
+
+    @torch.no_grad()
+    def dispatch(self, token, pos, tables, lane, *,
+                 chained: bool = False) -> TokenFetch:
+        """Run one step without waiting for it: chained (`chain`; the host
+        arrays are not read) or loaded from the host arrays, then the
+        next tokens' fetch enqueued behind the replay (`fetch`)."""
+        if chained:
+            self.chain()
+        else:
+            self.load(token, pos, tables, lane)
+        self.replay()
+        self.chainable = True
+        return self.fetch()
+
+    def fetch(self) -> TokenFetch:
+        """Copy the next tokens to the host behind the step: into the
+        pinned buffer whose last fetch was waited on, `non_blocking`, with
+        an event recorded after the copy on the same stream (a failed
+        event or copy raises).  On the CPU the step has run: its tokens."""
+        if self._fetch_bufs is None:
+            return TokenFetch(self.out[0].clone())
+        i = next((i for i, f in enumerate(self._fetches)
+                  if f is None or f.done), None)
+        if i is None:
+            raise RuntimeError("two decode steps' tokens are already in "
+                               "flight")
+        buf = self._fetch_bufs[i]
+        buf.copy_(self.out[0], non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self._fetches[i] = TokenFetch(buf, event)
+        return self._fetches[i]
 
     def __call__(self, token, pos, tables, lane):
         """-> (next_token [B], pos + 1 [B], caches): the static outputs."""

@@ -1,5 +1,5 @@
 """ModelRunner: policy-free model execution for the serving engine (port of
-the reference's serving/runner.py, synchronous path).
+the reference's serving/runner.py).
 
 Owns the device state — parameters, the paged KV pools, the per-slot ring
 caches of window layers and SSM state, the block allocator and block
@@ -12,6 +12,22 @@ slot: `begin_chunked`, or a prefix-cache hit's suffix: `admit_cached`),
 place when speculation is on) and `encode(group)` (one pooled, cache-free
 NAR pass for a batch of EncodeTasks; no slot, no block).  Scheduling
 decisions live in the engine's policy.
+
+`decode()` is `decode_commit(decode_dispatch())`: the overlapped engine
+loop splits them and runs host scheduling work, or the next dispatch,
+between a step's launch and its token fetch.  A dispatch advances the
+host pos mirror at once (the step returns pos + 1 for every row) and, when
+no host write to a row's token, pos, table or lane came between (the
+decode step's `chainable`: `_unchain` clears it), takes its token and pos
+from the previous step's outputs on the device instead of uploading them.
+The fetch lands in a pinned buffer behind a CUDA event (`steps.TokenFetch`);
+every pass runs on the current stream, so stream order keeps an admission
+prefill's pool writes behind an in-flight step's reads.
+
+`tracer=` (serving/trace.py) records the reference's spans and instants:
+preempt, warm_hit, cow_copy, first_token; prefill, prefill_chunk,
+decode_dispatch, decode_step, spec_draft, spec_verify and encode spans.
+Every hook sits behind one `if self.tracer:` branch and observes only.
 
 The steps come from `launch/steps.py`: the decode step is built (on a
 card: captured in one CUDA graph) at construction, before any slot is
@@ -63,6 +79,7 @@ reading.
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -82,10 +99,25 @@ from repro_torch.serving.sampling import (device_lane, set_lane,
                                           stack_lanes, zero_lane)
 from repro_torch.serving.spec import (DraftState, SpecConfig, accept_length,
                                       accept_tree_path, build_tree,
-                                      resolve_draft, spec_support_reason,
-                                      trim_emitted)
+                                      resolve_draft, round_annotation,
+                                      spec_support_reason, trim_emitted)
 from repro_torch.serving.stats import EngineStats
 from repro_torch.serving.tasks import EncodeTask, GenerateTask, Task
+
+
+@dataclass
+class DecodeHandle:
+    """One in-flight AR step: its tokens on their way to the host and the
+    host snapshot its commit needs.  `decode_dispatch` returns one,
+    `decode_commit` consumes it; the overlapped engine loop holds at most
+    one pending handle."""
+    fetch: steps_mod.TokenFetch                 # the step's next tokens
+    t0: float                                   # dispatch wall-clock
+    decoding: List[Tuple[int, GenerateTask]]    # slots this step decoded
+    live_tokens: int                            # post-step pos over decoding
+    blocks_used: int                            # allocator.num_used then
+    t_disp: float = 0.0                         # dispatch-return wall-clock
+    #                                             (set only when tracing)
 
 
 def _leaves(tree):
@@ -109,7 +141,7 @@ class ModelRunner:
                  kv_dtype: Optional[str] = None, prefix_cache: bool = False,
                  cache_blocks: Optional[int] = None,
                  spec: Optional[SpecConfig] = None, draft_params=None,
-                 device=None):
+                 device=None, tracer=None):
         if min_bucket < 1:
             raise ValueError(f"min_bucket must be >= 1: {min_bucket}")
         if weight_dtype not in ("bfloat16", "int8"):
@@ -124,6 +156,9 @@ class ModelRunner:
             raise ValueError(f"params live on {first.device}, the engine "
                              f"runs on {self.device}")
         self.cfg = cfg
+        # opt-in structured tracer (serving/trace.py): every hook below is
+        # behind one `if self.tracer:` branch and never feeds back
+        self.tracer = tracer
         # the dense GEMM weights are quantized once, here; every step then
         # reads the int8 tensors and their scales
         self.weight_dtype = weight_dtype
@@ -188,6 +223,9 @@ class ModelRunner:
         self._admit_seq = 0
         self.tokens = np.zeros((batch_size,), np.int32)
         self.pos = np.zeros((batch_size,), np.int32)
+        # the last decode commit's wall-clock: a pipelined step's elapsed
+        # time is floored at it, so overlapped steps never count twice
+        self._t_last_commit: Optional[float] = None
         self.lane = zero_lane(batch_size)
         self.slots: List[Optional[GenerateTask]] = [None] * batch_size
         # slots whose task is still chunk-prefilling: out of the decode
@@ -197,6 +235,9 @@ class ModelRunner:
         self.spec = spec
         self.draft_cfg = None
         self.tree_branches = 1
+        # the degrade ladder's first rung (DeadlinePolicy under pressure):
+        # token trees shrink to their chain while it is set
+        self._tree_chain_only = False
         self.draft_states: List[Optional[DraftState]] = [None] * batch_size
         self.draft_decode_step = self.draft_topk_step = None
         self.verify_step = self.tree_verify_step = None
@@ -343,6 +384,7 @@ class ModelRunner:
             self.allocator.free(self._slot_blocks[b])
         self._slot_blocks[b] = []
         self.block_tables[b, :] = -1
+        self._unchain()
         self.slots[b] = None
         self.prefilling[b] = False
         self.draft_states[b] = None
@@ -354,6 +396,9 @@ class ModelRunner:
         indexed, so the recompute is a warm admission while the pool keeps
         them)."""
         task = self.slots[b]
+        if self.tracer:
+            self.tracer.instant("preempt", time.perf_counter(), tid=task.uid,
+                                recompute_tokens=self.full_len(task))
         self.release_slot(b)      # indexes [0, prefilled / pos) first
         task.prefilled = 0
         return task
@@ -409,6 +454,9 @@ class ModelRunner:
         self.prefilling[b] = True
         task.prefilled = hit
         task.cached_prefix = hit
+        if self.tracer:
+            self.tracer.instant("warm_hit", time.perf_counter(),
+                                tid=task.uid, cached_prefix=hit, cow=partial)
         return True
 
     def _index_slot(self, b: int):
@@ -504,6 +552,7 @@ class ModelRunner:
                 if got is not None:
                     self.block_tables[b, len(self._slot_blocks[b])] = got[0]
                     self._slot_blocks[b].extend(got)
+                    self._unchain()
                     continue
                 cand = self.running()
                 if not cand:
@@ -527,8 +576,13 @@ class ModelRunner:
                                self.layout.segments)
                     self._slot_blocks[b][e] = got[0]
                     self.block_tables[b, e] = got[0]
+                    self._unchain()
                     self.allocator.free([blk])
                     self.cow_copies += 1
+                    if self.tracer:
+                        self.tracer.instant(
+                            "cow_copy", time.perf_counter(),
+                            tid=self.slots[b].uid, block=blk)
                     break
                 cand = self.running()
                 if not cand:
@@ -539,10 +593,17 @@ class ModelRunner:
                 stats.preemptions += 1
         return evicted
 
+    def _unchain(self):
+        """A host write to a row's token, pos, table or lane: the decode
+        step's next inputs are uploaded (`DecodeStep.load`), not chained on
+        its outputs."""
+        self.decode_step.fn.chainable = False
+
     def _seat(self, task: GenerateTask, b: int, blk: List[int]):
         task._seq = self._admit_seq
         self._admit_seq += 1
         self.lane = set_lane(self.lane, b, task.sampling)
+        self._unchain()
         self.slots[b] = task
         self.prefilling[b] = False
         self._slot_blocks[b] = list(blk)
@@ -588,6 +649,7 @@ class ModelRunner:
         tok_np = tok.cpu().numpy()                 # waits: honest timing
         self.tokens[slots] = tok_np
         self.pos[slots] = pos_g.cpu().numpy()
+        self._unchain()
         now = time.perf_counter()
         dt_ms = (now - t0) * 1e3
 
@@ -611,11 +673,20 @@ class ModelRunner:
                 stats.nar_tokens += task.prompt_len
                 stats.padded_nar_tokens += bucket
                 stats.add_ttft_ms(task.ttft_ms)
+                if self.tracer:
+                    self.tracer.instant("first_token", now, tid=task.uid,
+                                        ttft_ms=task.ttft_ms)
             else:
                 stats.recompute_tokens += len(fulls[j])
         stats.nar_time_s += (now - t0) * n_first / n
         stats.recompute_time_s += (now - t0) * (n - n_first) / n
         stats.prefill_batches += 1
+        if self.tracer:
+            self.tracer.step_span(
+                "prefill", t0, now, phase="prefill", bucket=bucket, group=n,
+                tokens=bucket * n, kv_positions=sum(len(f) for f in fulls),
+                passes=1, busy_ms=(now - t0) * 1e3,
+                uids=[t.uid for t in tasks])
         if self.spec is not None:
             self._draft_prefill(fulls, slots, stats)
         return fresh
@@ -716,6 +787,12 @@ class ModelRunner:
             stats.recompute_time_s += now - t0
         stats.prefill_chunks += 1
         stats.chunked_prefill_tokens += take
+        if self.tracer:
+            self.tracer.step_span(
+                "prefill_chunk", t0, now, phase="prefill", uid=task.uid,
+                tokens=C, true_tokens=take, kv_positions=take, passes=1,
+                busy_ms=(now - t0) * 1e3, pos0=start,
+                recompute=not first_admit)
         if task.prefilled < len(full):
             return None
         # the last piece: its token is the prompt's first output, and the
@@ -726,10 +803,14 @@ class ModelRunner:
         self.pos[b] = pos_np
         self.prefilling[b] = False
         self.block_tables[b] = row_table[0]
+        self._unchain()
         self._index_prompt_blocks(task, self._slot_blocks[b])
         if first_admit:
             task.ttft_ms = (now - task._t_submit) * 1e3
             stats.add_ttft_ms(task.ttft_ms)
+            if self.tracer:
+                self.tracer.instant("first_token", now, tid=task.uid,
+                                    ttft_ms=task.ttft_ms)
         if self.spec is not None:
             # the draft, being small, prefills whole even when the target
             # chunked (or a warm admission prefilled only its suffix)
@@ -738,34 +819,96 @@ class ModelRunner:
 
     # -- decode ----------------------------------------------------------
     @torch.no_grad()
-    def decode(self, stats: EngineStats) -> List[Tuple[GenerateTask, int]]:
-        """One lockstep AR step over every decoding slot (the captured step
-        runs every row; a parked or free row writes to the sink).  Returns
-        the (task, output index) token events."""
+    def decode_dispatch(self) -> DecodeHandle:
+        """Launch one lockstep AR step over every decoding slot (the
+        captured step runs every row; a parked or free row writes to the
+        sink) without waiting for its tokens.  The host pos mirror advances
+        at once (the step returns pos + 1 for every row); the inputs are
+        chained on the previous step's outputs when no host write came
+        between (`DecodeStep.chainable`), else uploaded."""
         t0 = time.perf_counter()
+        step = self.decode_step.fn
         decoding = [(b, self.slots[b]) for b in self.decoding_slots()]
         blocks_used = self.allocator.num_used
-        tok, _, _ = self.decode_step.fn(self.tokens, self.pos,
-                                        self.block_tables, self.lane)
-        toks = tok.cpu().numpy()                   # waits: honest timing
+        fetch = step.dispatch(self.tokens, self.pos, self.block_tables,
+                              self.lane, chained=step.chainable)
         self.pos += 1
+        live = sum(int(self.pos[b]) for b, _ in decoding)
+        handle = DecodeHandle(fetch, t0, decoding, live, blocks_used)
+        if self.tracer:
+            handle.t_disp = time.perf_counter()
+            self.tracer.step_span(
+                "decode_dispatch", t0, handle.t_disp, slots=len(decoding),
+                uids=[t.uid for _, t in decoding])
+        return handle
+
+    def decode_commit(self, handle: DecodeHandle, stats: EngineStats,
+                      ) -> List[Tuple[GenerateTask, int]]:
+        """Wait for a dispatched step's tokens (its fetch's event) and
+        commit them to the host mirrors, the tasks' outputs and the stats.
+        The step's elapsed time is floored at the previous commit, so
+        back-to-back pipelined steps do not count wall time twice.
+        Returns the (task, output index) token events."""
+        tr = self.tracer
+        t_fetch = time.perf_counter() if tr else 0.0
+        toks = handle.fetch.wait()                 # waits: honest timing
         now = time.perf_counter()
-        dt = now - t0
+        floor = self._t_last_commit
+        dt = now - (max(handle.t0, floor) if floor is not None
+                    else handle.t0)
+        self._t_last_commit = now
         fresh: List[Tuple[GenerateTask, int]] = []
-        for b, task in decoding:
+        for b, task in handle.decoding:
             t = int(toks[b])
-            self.tokens[b] = t
+            if self.slots[b] is task:
+                # the mirror catches up with the step's output: the chain
+                # stays valid
+                self.tokens[b] = t
             task.output.append(t)
             task.decode_ms += dt * 1e3
             fresh.append((task, len(task.output) - 1))
         stats.decode_steps += 1
-        stats.ar_tokens += len(decoding)
+        stats.ar_tokens += len(handle.decoding)
         stats.ar_time_s += dt
         stats.add_decode_step_ms(dt * 1e3)
-        stats.occupied_slot_steps += len(decoding)
-        stats.block_slot_steps += blocks_used
-        stats.token_slot_steps += sum(int(self.pos[b]) for b, _ in decoding)
+        stats.occupied_slot_steps += len(handle.decoding)
+        stats.block_slot_steps += handle.blocks_used
+        stats.token_slot_steps += handle.live_tokens
+        if tr:
+            ann = {}
+            if handle.t_disp:
+                # host wall between the dispatch's return and the fetch:
+                # scheduling work the device step hid
+                ann["overlap_lag_ms"] = max(
+                    0.0, (t_fetch - handle.t_disp) * 1e3)
+            tr.step_span(
+                "decode_step", handle.t0, now, phase="decode",
+                slots=len(handle.decoding), tokens=len(handle.decoding),
+                kv_positions=handle.live_tokens, passes=1, busy_ms=dt * 1e3,
+                uids=[t.uid for _, t in handle.decoding], **ann)
         return fresh
+
+    def decode(self, stats: EngineStats) -> List[Tuple[GenerateTask, int]]:
+        """One lockstep AR step over every decoding slot, synchronous:
+        dispatch, then commit at once.  Returns the (task, output index)
+        token events."""
+        return self.decode_commit(self.decode_dispatch(), stats)
+
+    def next_token_block_ready(self, b: int) -> bool:
+        """Whether decoding slot `b` can take one more decode step with no
+        allocator or copy-on-write work: it owns the block pos[b] writes
+        into, alone under prefix sharing.  The overlapped loop's
+        dispatch-ahead fast path needs it (it runs before
+        `ensure_decode_blocks` would)."""
+        bs = self.layout.block_size
+        need = int(self.pos[b]) // bs + 1
+        if len(self._slot_blocks[b]) < need:
+            return False
+        if self.prefix_cache is not None:
+            blk = self._slot_blocks[b][need - 1]
+            if self.allocator.refcount(blk) > 1:
+                return False
+        return True
 
     # -- speculative decode (propose -> verify -> commit) ----------------
     def spec_lookahead(self) -> np.ndarray:
@@ -789,11 +932,10 @@ class ModelRunner:
         (depth, width) lands in _round_depth / _round_width for the round
         that follows.
 
-        The reference also reads `task.degraded` (a request admitted
-        degraded proposes nothing) and `_tree_chain_only` (the tree forced
-        to its chain): both are rungs of DeadlinePolicy's degrade ladder,
-        which the port does not have yet, so no task is degraded and the
-        tree is never forced to a chain here."""
+        The degrade ladder's rungs (DeadlinePolicy under pressure): a
+        request admitted degraded proposes nothing (its rounds commit
+        exactly the pending token: plain decode at verify-pass cost, still
+        exact), and `_tree_chain_only` forces every row to its chain."""
         la = np.zeros((self.B,), np.int64)
         chain_la = np.zeros((self.B,), np.int64)
         cap_tokens = self.allocator.num_blocks * self.layout.block_size
@@ -803,11 +945,13 @@ class ModelRunner:
         for b in self.decoding_slots():
             p = int(self.pos[b])
             task = self.slots[b]
+            if task.degraded:
+                continue
             room = task.max_new_tokens - len(task.output)
             la_c = max(0, min(self.spec.k, self.max_seq - 1 - p,
                               cap_tokens - 1 - p, room - 1))
             chain_la[b] = la_c
-            if w > 1:
+            if w > 1 and not self._tree_chain_only:
                 la_t = min(la_c, (self.max_seq - 1 - p) // w,
                            (cap_tokens - 1 - p) // w)
                 if la_t >= 1:
@@ -884,6 +1028,10 @@ class ModelRunner:
         t_draft = time.perf_counter() - t0
         stats.spec_draft_time_s += t_draft
         stats.add_draft_time_ms(t_draft * 1e3)
+        if self.tracer:
+            self.tracer.step_span(
+                "spec_draft", t0, t0 + t_draft, phase="draft",
+                steps=n_steps, slots=len(active), busy_ms=t_draft * 1e3)
         return starts, n_steps, props
 
     def _commit(self, b: int, task: GenerateTask, cand: List[int],
@@ -903,6 +1051,7 @@ class ModelRunner:
         pos_new = pos0 + len(emitted)
         self.tokens[b] = emitted[-1]
         self.pos[b] = pos_new
+        self._unchain()
         task.decode_ms += dt * 1e3
         keep = self.allocator.blocks_for(pos_new)
         if len(self._slot_blocks[b]) > keep:
@@ -984,6 +1133,13 @@ class ModelRunner:
         stats.spec_accepted_tokens += accepted
         self._round_stats(stats, len(active), emitted, live_tokens,
                           int(chunk_len.sum()), dt)
+        if self.tracer:
+            self.tracer.step_span(
+                "spec_verify", t1, t1 + dt, phase="verify",
+                tokens=int(chunk_len.sum()), kv_positions=live_tokens,
+                passes=1, busy_ms=dt * 1e3, slots=len(active),
+                **round_annotation(proposed=proposed, accepted=accepted,
+                                   emitted=emitted))
         return fresh
 
     @torch.no_grad()
@@ -1036,6 +1192,7 @@ class ModelRunner:
         # -- commit + compact + rollback
         fresh: List[Tuple[GenerateTask, int]] = []
         live_tokens = emitted = proposed = accepted = nodes = hits = 0
+        depths = []
         bs = self.layout.block_size
         for b in active:
             task = self.slots[b]
@@ -1046,6 +1203,7 @@ class ModelRunner:
             accepted += len(path)
             nodes += n
             stats.add_spec_path_depth(len(path))
+            depths.append(len(path))
             if any(not tree.chain[i] for i in path):
                 hits += 1
             full = [0] + path
@@ -1084,6 +1242,14 @@ class ModelRunner:
         stats.spec_branch_hits += hits
         self._round_stats(stats, len(active), emitted, live_tokens,
                           int(chunk_len.sum()), dt)
+        if self.tracer:
+            self.tracer.step_span(
+                "spec_verify", t1, t1 + dt, phase="verify",
+                tokens=int(chunk_len.sum()), kv_positions=live_tokens,
+                passes=1, busy_ms=dt * 1e3, slots=len(active),
+                **round_annotation(proposed=proposed, accepted=accepted,
+                                   emitted=emitted, tree_nodes=nodes,
+                                   path_depths=depths, branch_hits=hits))
         return fresh
 
     @torch.no_grad()
@@ -1121,3 +1287,8 @@ class ModelRunner:
             stats.bucket_hits[bucket] = stats.bucket_hits.get(bucket, 0) + 1
         stats.encode_time_s += dt
         stats.encode_batches += 1
+        if self.tracer:
+            self.tracer.step_span(
+                "encode", t0, now, phase="encode", bucket=bucket, group=n,
+                tokens=bucket * n, kv_positions=0, passes=1,
+                busy_ms=dt * 1e3, uids=[t.uid for t in group])

@@ -1,18 +1,21 @@
-"""Serving telemetry (subset of the reference's serving/stats.py): the
-paper's NAR / AR split, the encode (EncodeTask) side, TTFT, decode-step,
-decode-stall and encode latency percentiles, length bucket hits, the
-chunked-prefill counters, preemptions and KV pool use (blocks and live
-tokens a decode step: `blocks_per_token`), the prefix cache's lookups,
+"""Serving telemetry (port of the reference's serving/stats.py): the
+paper's NAR / AR split, the encode (EncodeTask) side, TTFT, queue-wait,
+decode-step, decode-stall and encode latency percentiles, length bucket
+hits, the chunked-prefill counters, preemptions and KV pool use (blocks and
+live tokens a decode step: `blocks_per_token`), the prefix cache's lookups,
 hits, reused tokens and copy-on-write copies, the storage dtypes and
 resident bytes of the weights and KV caches (the `QUANT` part of the
 summary under int8), the speculative-decoding counters (rounds, proposals,
 acceptance, verify positions, draft time, token-tree nodes, accepted path
-depths and branch hits: the `SPEC` part), and the step builds.  The
-port's prefill and encode steps run eagerly
-(`launch/steps.py`); `prefill_compiles` / `encode_compiles` count the
-distinct step callables built, as the reference counts its compiled steps.
-The decode step is built once per runner, and on a card captured in one
-CUDA graph."""
+depths and branch hits: the `SPEC` part), the goodput counters (SLO
+attainment, shed and degraded requests, TTFT / deadline ratios: the `SLO`
+part), the overlapped loop's (`overlapped_steps`, `host_overlap_ratio`:
+the `OVERLAP` part) and the per-phase MFU / MBU attribution
+(`phase_util`, against the H100's peaks in `analysis/roofline.py`).  The
+port's prefill and encode steps run eagerly (`launch/steps.py`);
+`prefill_compiles` / `encode_compiles` count the distinct step callables
+built, as the reference counts its compiled steps.  The decode step is
+built once per runner, and on a card captured in one CUDA graph."""
 from __future__ import annotations
 
 import random
@@ -136,6 +139,25 @@ class EngineStats:
     kv_dtype: str = "bfloat16"      # paged-pool storage ("int8" = quantized)
     weight_bytes_per_device: int = 0  # resident parameter bytes
     kv_pool_bytes: int = 0            # resident decode-cache bytes
+    # -- goodput / SLO (serving/loadgen.py, DeadlinePolicy) ------------------
+    slo_requests: int = 0          # finished requests that carried an SLO
+    slo_met: int = 0               # of those, TTFT and TPOT budgets both met
+    requests_shed: int = 0         # dropped unserved (SLO provably missed)
+    requests_degraded: int = 0     # admitted under pressure: speculation
+    #                                off for them (tokens unchanged)
+    # TTFT / deadline a SLO'd request (< 1.0 = met)
+    ttft_slo_ratio: List[float] = field(default_factory=Reservoir)
+    # -- utilization attribution (serving/trace.py, analysis/roofline.py) ----
+    # per-token constants the engine stamps at construction, so that
+    # phase_util() turns phase (time, token) sums into MFU / MBU
+    model_flops_per_token: float = 0.0  # analytic forward FLOPs a position
+    kv_bytes_per_token: float = 0.0     # KV bytes read a attended position
+    # -- the overlapped host loop (engine overlap=True) ----------------------
+    overlapped_steps: int = 0      # decode steps whose token fetch was
+    #                                deferred past host scheduling work
+    overlap_host_s: float = 0.0    # host wall between dispatching a step
+    #                                and fetching its tokens: host work
+    #                                hidden under device time
 
     def add_ttft_ms(self, v: float) -> None:
         self.ttft_ms.add(v)
@@ -160,6 +182,34 @@ class EngineStats:
 
     def add_spec_path_depth(self, v: float) -> None:
         self.spec_path_depth.add(v)
+
+    def record_slo(self, task) -> None:
+        """Score a finished task against its SLOs at retirement: TTFT
+        against `deadline_ms` (an EncodeTask's latency: its only response
+        is its first) and mean TPOT against `slo_tpot_ms`.  No-op for a
+        task without SLO."""
+        dl = getattr(task, "deadline_ms", None)
+        tpot_budget = getattr(task, "slo_tpot_ms", None)
+        if dl is None and tpot_budget is None:
+            return
+        self.slo_requests += 1
+        met = True
+        if dl is not None:
+            ttft = getattr(task, "ttft_ms", 0.0) or task.latency_ms
+            self.ttft_slo_ratio.add(ttft / dl)
+            met = met and ttft <= dl
+        if tpot_budget is not None and len(getattr(task, "output", ())) > 1:
+            met = met and task.tpot_ms <= tpot_budget
+        if met:
+            self.slo_met += 1
+
+    def record_shed(self, task) -> None:
+        """Count a shed request, as a missed SLO (an SLO the engine
+        refused to attempt is an SLO missed)."""
+        self.requests_shed += 1
+        if (getattr(task, "deadline_ms", None) is not None
+                or getattr(task, "slo_tpot_ms", None) is not None):
+            self.slo_requests += 1
 
     @property
     def nar_tok_s(self) -> float:
@@ -200,6 +250,39 @@ class EngineStats:
         return percentile(self.ttft_ms, 95)
 
     @property
+    def ttft_p99_ms(self) -> float:
+        return percentile(self.ttft_ms, 99)
+
+    @property
+    def slo_attainment(self) -> float:
+        """Fraction of SLO-carrying requests that met every budget (shed
+        requests count as missed)."""
+        if not self.slo_requests:
+            return 0.0
+        return self.slo_met / self.slo_requests
+
+    @property
+    def host_overlap_ratio(self) -> float:
+        """Fraction of AR decode wall during which the host did scheduling
+        or admission work beside an in-flight device step (0.0 under the
+        synchronous loop)."""
+        if not self.ar_time_s:
+            return 0.0
+        return min(1.0, self.overlap_host_s / self.ar_time_s)
+
+    @property
+    def queue_wait_p50_ms(self) -> float:
+        return percentile(self.queue_wait_ms, 50)
+
+    @property
+    def queue_wait_p95_ms(self) -> float:
+        return percentile(self.queue_wait_ms, 95)
+
+    @property
+    def queue_wait_p99_ms(self) -> float:
+        return percentile(self.queue_wait_ms, 99)
+
+    @property
     def decode_step_p50_ms(self) -> float:
         return percentile(self.decode_step_ms, 50)
 
@@ -208,12 +291,20 @@ class EngineStats:
         return percentile(self.decode_step_ms, 95)
 
     @property
+    def decode_step_p99_ms(self) -> float:
+        return percentile(self.decode_step_ms, 99)
+
+    @property
     def decode_stall_p50_ms(self) -> float:
         return percentile(self.decode_stall_ms, 50)
 
     @property
     def decode_stall_p95_ms(self) -> float:
         return percentile(self.decode_stall_ms, 95)
+
+    @property
+    def decode_stall_p99_ms(self) -> float:
+        return percentile(self.decode_stall_ms, 99)
 
     @property
     def encode_latency_p50_ms(self) -> float:
@@ -299,7 +390,53 @@ class EngineStats:
         return (self.block_slot_steps * self.kv_block_size
                 / self.token_slot_steps)
 
+    def phase_util(self) -> Dict[str, Dict[str, float]]:
+        """Per-phase achieved MFU / MBU from the engine's own counters: each
+        phase's (busy time, token positions, weight passes, KV positions
+        attended) joined with the per-token constants the engine stamps at
+        construction (`analysis/roofline.py`): useful FLOPs =
+        flops_per_token * positions; HBM bytes = weight bytes * passes +
+        KV bytes a token * attended positions.  Phases: "prefill" (whole
+        prompts, chunks and recomputes), then "verify" under speculation
+        or "decode" otherwise, and "encode".  {} when the FLOP constant is
+        unknown (stats built outside an engine)."""
+        if not self.model_flops_per_token:
+            return {}
+        from repro_torch.analysis.roofline import utilization
+        wbytes = float(self.weight_bytes_per_device)
+
+        def row(time_s, tokens, passes, kv_positions):
+            flops = self.model_flops_per_token * tokens
+            hbm = wbytes * passes + self.kv_bytes_per_token * kv_positions
+            mfu, mbu = utilization(flops, hbm, time_s)
+            return {"time_s": time_s, "tokens": float(tokens),
+                    "passes": float(passes),
+                    "kv_positions": float(kv_positions),
+                    "flops": flops, "hbm_bytes": hbm,
+                    "mfu": mfu, "mbu": mbu}
+
+        out: Dict[str, Dict[str, float]] = {}
+        pre_t = self.nar_time_s + self.recompute_time_s
+        if pre_t > 0:
+            out["prefill"] = row(
+                pre_t, self.padded_nar_tokens + self.recompute_tokens,
+                self.prefill_batches + self.prefill_chunks,
+                self.nar_tokens + self.recompute_tokens)
+        if self.ar_time_s > 0:
+            if self.spec_rounds:
+                out["verify"] = row(self.ar_time_s, self.verify_positions,
+                                    self.spec_rounds, self.token_slot_steps)
+            else:
+                out["decode"] = row(self.ar_time_s, self.ar_tokens,
+                                    self.decode_steps, self.token_slot_steps)
+        if self.encode_time_s > 0:
+            out["encode"] = row(self.encode_time_s,
+                                self.padded_encode_tokens,
+                                self.encode_batches, 0)
+        return out
+
     def to_dict(self) -> dict:
+        """JSON-ready snapshot, in the reference's keys."""
         return {
             "batch_size": self.batch_size,
             "requests_submitted": self.requests_submitted,
@@ -308,8 +445,6 @@ class EngineStats:
             "padded_nar_tokens": self.padded_nar_tokens,
             "nar_time_s": self.nar_time_s,
             "nar_tok_s": self.nar_tok_s,
-            "prefill_batches": self.prefill_batches,
-            "prefill_compiles": self.prefill_compiles,
             "ar_tokens": self.ar_tokens,
             "ar_time_s": self.ar_time_s,
             "ar_tok_s": self.ar_tok_s,
@@ -325,6 +460,7 @@ class EngineStats:
             "encode_completed": self.encode_completed,
             **{f"encode_latency_{k}_ms": v
                for k, v in percentiles(self.encode_latency_ms).items()},
+            "prefill_batches": self.prefill_batches,
             "prefill_chunks": self.prefill_chunks,
             "chunked_prefill_tokens": self.chunked_prefill_tokens,
             "spec_rounds": self.spec_rounds,
@@ -343,16 +479,27 @@ class EngineStats:
             **{f"spec_path_depth_{k}": v
                for k, v in percentiles(self.spec_path_depth).items()},
             **{f"ttft_{k}_ms": v for k, v in percentiles(self.ttft_ms).items()},
+            "slo_requests": self.slo_requests,
+            "slo_met": self.slo_met,
+            "slo_attainment": self.slo_attainment,
+            "requests_shed": self.requests_shed,
+            "requests_degraded": self.requests_degraded,
+            **{f"ttft_slo_ratio_{k}": v
+               for k, v in percentiles(self.ttft_slo_ratio).items()},
+            **{f"tpot_{k}_ms": v
+               for k, v in percentiles(self.tpot_ms_samples).items()},
+            "overlapped_steps": self.overlapped_steps,
+            "overlap_host_s": self.overlap_host_s,
+            "host_overlap_ratio": self.host_overlap_ratio,
+            **{f"queue_wait_{k}_ms": v
+               for k, v in percentiles(self.queue_wait_ms).items()},
             **{f"decode_step_{k}_ms": v
                for k, v in percentiles(self.decode_step_ms).items()},
             **{f"decode_stall_{k}_ms": v
                for k, v in percentiles(self.decode_stall_ms).items()},
-            **{f"queue_wait_{k}_ms": v
-               for k, v in percentiles(self.queue_wait_ms).items()},
-            **{f"tpot_{k}_ms": v
-               for k, v in percentiles(self.tpot_ms_samples).items()},
             "bucket_hits": {str(k): v
                             for k, v in sorted(self.bucket_hits.items())},
+            "prefill_compiles": self.prefill_compiles,
             "kv_pool_blocks": self.kv_pool_blocks,
             "kv_block_size": self.kv_block_size,
             "peak_blocks_used": self.peak_blocks_used,
@@ -372,6 +519,9 @@ class EngineStats:
             "kv_dtype": self.kv_dtype,
             "weight_bytes_per_device": self.weight_bytes_per_device,
             "kv_pool_bytes": self.kv_pool_bytes,
+            "model_flops_per_token": self.model_flops_per_token,
+            "kv_bytes_per_token": self.kv_bytes_per_token,
+            "phase_util": self.phase_util(),
         }
 
     def summary(self) -> str:
@@ -407,6 +557,18 @@ class EngineStats:
             quant = (f" | QUANT w={self.weight_dtype} kv={self.kv_dtype}, "
                      f"params {self.weight_bytes_per_device / 2**20:.1f}MiB, "
                      f"pool {self.kv_pool_bytes / 2**20:.1f}MiB")
+        slo = ""
+        if self.slo_requests or self.requests_shed:
+            r = percentiles(self.ttft_slo_ratio)
+            slo = (f" | SLO {self.slo_attainment:.0%} met "
+                   f"({self.slo_met}/{self.slo_requests}, "
+                   f"ttft/deadline p50 {r['p50']:.2f} p99 {r['p99']:.2f}), "
+                   f"{self.requests_shed} shed, "
+                   f"{self.requests_degraded} degraded")
+        ovl = ""
+        if self.overlapped_steps:
+            ovl = (f" | OVERLAP {self.overlapped_steps} steps, "
+                   f"{self.host_overlap_ratio:.0%} host hidden")
         return (f"NAR {self.nar_tok_s:8.1f} tok/s ({self.nar_tokens} prompt "
                 f"tokens, {self.padding_overhead:.0%} pad) | "
                 f"AR {self.ar_tok_s:8.1f} tok/s ({self.ar_tokens} tokens, "
@@ -417,4 +579,4 @@ class EngineStats:
                 f"{self.kv_pool_blocks} x {self.kv_block_size}-token blocks, "
                 f"{self.blocks_per_token:.2f} positions a live token, "
                 f"{self.preemptions} preempt)" + enc + chunk + spec
-                + prefix + quant)
+                + prefix + quant + slo + ovl)

@@ -1,7 +1,10 @@
-"""Serving requests (copy of the reference's serving/tasks.py for generate
-and encode traffic): `GenerateTask` (alias `Request`) and `EncodeTask` are
-what a client wants, the scheduler decides when they run, the runner how.
-`validate_task` runs at construction and again at
+"""Serving requests (copy of the reference's serving/tasks.py): `GenerateTask`
+(alias `Request`) and `EncodeTask` are what a client wants, the scheduler
+decides when they run, the runner how.  Both carry `priority` and
+`deadline_ms` (a TTFT budget from submission: `DeadlinePolicy` orders
+admission by its slack and sheds a request that provably cannot meet it,
+attaching a typed `Rejection`); a GenerateTask also carries `slo_tpot_ms`,
+scored at retirement.  `validate_task` runs at construction and again at
 `InferenceEngine.submit`."""
 from __future__ import annotations
 
@@ -40,6 +43,15 @@ def validate_task(task: "Task") -> None:
         raise ValueError(f"pooling must be 'last' or 'mean': {pooling!r}")
 
 
+@dataclass(frozen=True)
+class Rejection:
+    """Why a request was shed instead of served: attached to
+    `task.rejection` (with done=True and no output) when the scheduler
+    proves its SLO unattainable."""
+    kind: str       # machine-readable, e.g. "slo_unattainable"
+    detail: str     # human-readable explanation
+
+
 def _require_keyword_prompt(task: "Task") -> None:
     if task.prompt is None:
         raise TypeError(f"{type(task).__name__} requires `prompt`; pass "
@@ -58,6 +70,9 @@ class Task:
     bucket: int = 0
     queue_wait_ms: float = 0.0
     done: bool = False
+    # set (with done=True) when the scheduler sheds this request; None for
+    # every served request
+    rejection: Optional[Rejection] = None
     _t_submit: float = field(default=0.0, repr=False)
     _seq: int = field(default=0, repr=False)   # admission order (preemption)
 
@@ -65,6 +80,13 @@ class Task:
         """Seconds since submission."""
         return max(0.0, (now if now is not None else time.perf_counter())
                    - self._t_submit)
+
+    def slack_ms(self, now: Optional[float] = None) -> float:
+        """Milliseconds of deadline budget left (negative: already missed);
+        +inf without a deadline."""
+        if self.deadline_ms is None:
+            return math.inf
+        return self.deadline_ms - self.age_s(now) * 1e3
 
 
 @dataclass
@@ -83,6 +105,9 @@ class GenerateTask(Task):
     ttft_ms: float = 0.0
     latency_ms: float = 0.0
     tpot_ms: float = 0.0
+    # True once served degraded (admitted under DeadlinePolicy pressure:
+    # no speculation for this request); tokens never change, only latency
+    degraded: bool = False
     # prompt tokens whose KV is in the cache (chunked prefill progress;
     # the full length once the first token is sampled)
     prefilled: int = 0
@@ -93,6 +118,9 @@ class GenerateTask(Task):
     def __post_init__(self):
         _require_keyword_prompt(self)
         validate_task(self)
+
+    def remaining_prefill(self) -> int:
+        return self.prompt_len + len(self.output) - self.prefilled
 
 
 @dataclass

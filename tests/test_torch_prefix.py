@@ -572,8 +572,9 @@ def test_make_policy_names():
     assert ch.effective_chunk_tokens(0) == 24
     assert make_policy("chunked").chunk_tokens == 32
     assert make_policy("fcfs").effective_chunk_tokens(0) is None
-    with pytest.raises(ValueError, match="not ported"):
-        make_policy("deadline")
+    dl = make_policy("deadline", chunk_tokens=24)
+    assert dl.name == "deadline" and dl.chunk_tokens == 24
+    assert dl.effective_chunk_tokens(1) == 12
     with pytest.raises(KeyError, match="unknown policy"):
         make_policy("lifo")
     with pytest.raises(ValueError):
