@@ -232,6 +232,31 @@ non-zero):
               deadline --deadline-ms --trace-out --metrics-out, its trace
               validated by `python -m repro_torch.serving.trace` in a child
               process and its Prometheus text parsed.
+13. train    training (`phase_train`): the kernels' autograd Functions
+              (row 1's fused GEMM at M = 2048 as q / k / v with the LN
+              prologue, w1 with LN + i-GELU, w2 with the residual and the
+              fp32 CE head; row 3's flash causal at B 4 x 512 x 16 x 128
+              and bidirectional at ViT-B's 197 x 12 x 64; row 8's
+              LayerNorm at [2048, 2048]): every input's gradient on the
+              card against torch.autograd through the plain version,
+              forward + backward times beside F.linear / SDPA /
+              F.layer_norm and the bound; a teacher gate at GPT3-XL width
+              cut to 4 layers (one step under kernel mode cuda and ref:
+              loss, grad norm and every leaf's gradient within max(5e-2, 2
+              x the bf16 floor), launches exact: 13 GEMMs a layer + 2,
+              flash 2 a layer, LayerNorm 1); GPT3-XL whole (40 layers, B 4
+              x 512, bf16) through make_train_step: 12 steps on a repeated
+              batch (the loss falling), step p50 / p95, tokens/s, MFU,
+              peak GB, one step profiled (hand kernels against cuBLAS;
+              the clip's and AdamW's device time by profiler range); the
+              train CLI: GPT3-XL whole for 3 steps in a child process with
+              one checkpoint (26.6 GB: the machine allows 45 GiB of writes
+              a call), restored here and stepped bit for bit as the
+              uninterrupted run, and the CLI's resume at --reduced size
+              (the uninterrupted run through its `main` here, the resume
+              in a child process);
+              ViT-B's vit_loss fused and unfused, launches exact, held to
+              plain bf16 by the teacher gate.
 Every driven path zeroes the launch counters just before it and reads them
 just after; a kernel of the path that never launched fails the run, and so
 does a GEMM that ran the fp32-weight template (fma32) or a flash launch
@@ -240,7 +265,8 @@ run every GEMM of the layers (the plain `pdot` products included) must run
 the wgmma template once a prefill pass and the stream template once a
 decode step, launch for launch.  The
 line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
+{"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json,
+each phase's seconds among them (`phase_seconds`, also printed).
 """
 from __future__ import annotations
 
@@ -5546,6 +5572,679 @@ def phase_goodput():
     return out
 
 
+# --------------------------------------------------------------------------
+# 13. train
+# --------------------------------------------------------------------------
+
+TRAIN_TAG = "train"             # every drive label of a train path
+# a Function's card gradients vs torch.autograd through its plain version on
+# the card: the explicit backward rounds its products' operands (dZ, the
+# normalized x, P) and its outputs to bf16 where the plain route keeps fp32
+# until the input's dtype
+TRAIN_GRAD_TOL = 2e-2
+TEACHER_LAYERS = 4              # the teacher gate's cut of GPT3-XL
+TEACHER_K = 2.0                 # gate: max(TEACHER_MIN, k x bf16 floor)
+TEACHER_MIN = 5e-2
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+TRAIN_LR = 3e-4                 # constant LR of the repeated-batch run
+TRAIN_LOSS_DROP = 0.5           # the loss must fall at least this much
+VIT_TRAIN_BATCH = 8
+TRAIN_CLI_CKPT = ROOT / "build" / "train_cli_ckpt"
+TRAIN_CLI_TIMEOUT = 420
+# kernel names of the hand-written sources (csrc/*.cu), for the step's
+# device-time split: hand kernels / cuBLAS / the rest
+HAND_KERNELS = GEMM_KERNELS + ("flash", "norm_kernel")
+LIB_GEMM = ("gemm", "Gemm", "cutlass", "xmma", "nvjet", "cublas")
+
+TRAIN_GEMM_CASES = (   # label, K, N, norm, activation, residual, fp32 out
+    ("LN q M=2048", 2048, 2048, "layernorm", "none", False, False),
+    ("LN+i_gelu up M=2048", 2048, 8192, "layernorm", "i_gelu", False, False),
+    ("+res down M=2048", 8192, 2048, "none", "none", True, False),
+    ("CE head fp32 M=2048", 2048, 50432, "none", "none", False, True))
+TRAIN_FLASH_CASES = (   # label, B, S, H, D, causal
+    ("B=4 S=512 H=16 D=128 causal", 4, 512, 16, 128, True),
+    ("ViT-B B=8 S=197 H=12 D=64", 8, 197, 12, 64, False))
+TRAIN_NORM_SHAPE = (2048, 2048)
+
+
+def _grad_gate(name, case, inputs, kernel, plain, library, lib_name, nbytes,
+               flops, rows, g):
+    """Forward + backward of `kernel` (the Function), `plain` (autograd
+    through the plain version) and `library` (one PyTorch autograd route),
+    each on the card from the same inputs and the same seeded dY: every
+    input's gradient, max|k - p| / max|p| (the worst input), gated at
+    TRAIN_GRAD_TOL; CUDA-event times of a forward + backward."""
+    with torch.no_grad():
+        y0 = kernel()
+    dy = torch.randn(y0.shape, generator=g, device=DEVICE).to(y0.dtype)
+    del y0
+
+    def fwd_bwd(f):
+        return lambda: torch.autograd.grad(f(), inputs, dy)
+
+    gk, gp = fwd_bwd(kernel)(), fwd_bwd(plain)()
+    err, rel = 0.0, 0.0
+    for a, b in zip(gk, gp):
+        e, r = rel_err(a, b)
+        err, rel = max(err, e), max(rel, r)
+    del gk, gp
+    ms = time_ms(fwd_bwd(kernel), iters=10)
+    plain_ms = time_ms(fwd_bwd(plain), iters=3, warmup=1)
+    lib_ms = time_ms(fwd_bwd(library), iters=10)
+    r = _row(case, err, rel, TRAIN_GRAD_TOL, ms, plain_ms, lib_ms, nbytes,
+             flops)
+    _report(name, r, lib_name)
+    rows.setdefault(name, []).append(r)
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def check_train_grads(rows):
+    """The three Functions of the train path at GPT3-XL's shapes, bf16
+    (`_grad_gate`): the fused GEMM (row 1) at M = 2048 as q / k / v (LN
+    prologue), w1 (LN + i-GELU), w2 (residual) and the CE head (fp32 out),
+    beside F.layer_norm / F.linear / F.gelu; flash (row 3) causal at B 4 x
+    512 and bidirectional at ViT-B's 197 x 12 x 64, beside SDPA; LayerNorm
+    (row 8) at [2048, 2048] beside F.layer_norm.  Bounds count each input
+    and dY read once and y and every gradient written once, and the
+    products a forward and a backward need (GEMM 6 M K N, attention six
+    S x S x D products, half of them causal)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.epilogue import LN_EPS, Epilogue, Prologue
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    g = torch.Generator(device=DEVICE).manual_seed(28)
+    log("train: the kernels' autograd Functions vs autograd through the "
+        "plain versions (bf16, on the card):")
+
+    def leaf(*shape, scale=1.0, shift=0.0):
+        t = torch.randn(shape, generator=g, device=DEVICE) * scale + shift
+        return t.to(bf).requires_grad_(True)
+
+    M = TRAIN_BATCH * TRAIN_SEQ
+    for label, K, N, norm, act, res, f32 in TRAIN_GEMM_CASES:
+        x, w = leaf(M, K), leaf(K, N, scale=0.02)
+        ln = norm == "layernorm"
+        gam = leaf(K, scale=0.1, shift=1.0) if ln else None
+        bet = leaf(K, scale=0.1) if ln else None
+        r = leaf(M, N) if res else None
+        od = torch.float32 if f32 else None
+        ins = [t for t in (x, w, gam, bet, r) if t is not None]
+        # the three routes run inside this iteration: closures suffice
+        def kernel():
+            pro = Prologue("layernorm", gam, bet, LN_EPS) if ln else None
+            return ops.fused_matmul(
+                x, w, prologue=pro,
+                epilogue=Epilogue(activation=act, residual=r, out_dtype=od),
+                compute_dtype=bf, dot_dtype=od or bf)
+
+        def plain():
+            return mm.matmul_plain(x, w, norm=norm, gamma=gam, nbeta=bet,
+                                   residual=r, activation=act, eps=LN_EPS,
+                                   out_dtype=od or bf)
+
+        def library():
+            h = F.layer_norm(x, (K,), gam, bet, LN_EPS) if ln else x
+            y = F.linear(h, w.t())
+            if act != "none":
+                y = F.gelu(y, approximate="tanh")
+            if r is not None:
+                y = r + y
+            return y.float() if f32 else y
+
+        out_bytes = M * N * (4 if f32 else 2)
+        nbytes = 2 * (_nbytes(*ins) + out_bytes)    # in + dY, y + grads
+        _grad_gate("fused_matmul_grad", label, ins, kernel, plain, library,
+                   "F.linear", nbytes, 6 * M * K * N, rows, g)
+        del x, w, gam, bet, r, ins
+    for label, B, S, H, D, causal in TRAIN_FLASH_CASES:
+        q, k, v = (leaf(B, S, H, D) for _ in range(3))
+        ins = [q, k, v]
+        kernel = lambda: ops.flash_attention(q, k, v, causal=causal)
+        plain = lambda: fa.flash_attention_plain(q, k, v, causal=causal)
+        library = lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal).transpose(1, 2)
+        flops = 6 * 2 * B * H * S * S * D * (0.5 if causal else 1.0)
+        nbytes = 2 * (_nbytes(*ins) + _nbytes(q))
+        _grad_gate("flash_attention_grad", label, ins, kernel, plain,
+                   library, "SDPA", nbytes, flops, rows, g)
+        del q, k, v, ins
+    T, D = TRAIN_NORM_SHAPE
+    x, gam, bet = leaf(T, D), leaf(D, scale=0.1, shift=1.0), leaf(D,
+                                                                 scale=0.1)
+    _grad_gate("layernorm_grad", f"[{T}, {D}]", [x, gam, bet],
+               lambda: ops.layernorm(x, gam, bet),
+               lambda: rn.layernorm_plain(x, gam, bet),
+               lambda: F.layer_norm(x, (D,), gam, bet, LN_EPS),
+               "F.layer_norm", 2 * (_nbytes(x, gam, bet) + _nbytes(x)),
+               12 * T * D, rows, g)
+
+
+def train_counts(cfg):
+    """Hand-kernel launches of one train step of `cfg` (fused chain, every
+    layer rematerialized, one CE chunk): per layer the six fused GEMMs (q /
+    k / v with the LN prologue, o and w2 with the residual, w1 with LN +
+    i-GELU) in the forward and again in the recompute, plus w1's
+    pre-activation in the backward (13); the CE head's GEMM in the forward
+    and the recompute (2); flash twice a layer; LayerNorm once (the final
+    norm, outside the checkpointed layers).  All GEMMs at M = B x S run
+    the wgmma template, every flash launch too."""
+    L = cfg.n_layers
+    return {"fused_matmul": 13 * L + 2, "flash_attention": 2 * L,
+            "layernorm": 1}
+
+
+def check_train_counts(path, launches, want, gemm_wgmma=None):
+    """Exact launches of a train path: `want` for its kernels, 0 for every
+    other, and `gemm_wgmma` GEMM launches (default: every one) and every
+    flash launch on the wgmma template (`drive` already fails an fma32
+    GEMM or a non-wgmma flash launch)."""
+    full = dict.fromkeys(launches, 0)
+    full.update(want)
+    by = TEMPLATE_LAUNCHES[path]
+    wg = {"fused_matmul": by["fused_matmul"]["wgmma"],
+          "flash_attention": by["flash_attention"]["wgmma"]}
+    want_wg = {"fused_matmul": want["fused_matmul"] if gemm_wgmma is None
+               else gemm_wgmma, "flash_attention": want["flash_attention"]}
+    if launches != full or wg != want_wg:
+        raise AssertionError(f"{path}: launches {launches} (wgmma {wg}), "
+                             f"expected {full} (wgmma {want_wg})")
+    log(f"  [{path}] exact launches: {want}, wgmma {want_wg}")
+
+
+def _teacher_gate(label, got, want, want32):
+    """max|g - w| / max|w| <= max(TEACHER_MIN, TEACHER_K x floor), the
+    floor the same gap between the plain bf16 and plain fp32 results."""
+    rel = rel_err(got, want)[1]
+    floor = rel_err(want, want32)[1]
+    tol = max(TEACHER_MIN, TEACHER_K * floor)
+    if not (bool(torch.isfinite(got).all()) and rel <= tol):
+        raise AssertionError(f"teacher gate {label}: rel {rel:.3e} > tol "
+                             f"{tol:.3e} (floor {floor:.3e})")
+    return {"rel": rel, "floor": floor, "tol": tol}
+
+
+def _scalar_gate(label, got, want, want32):
+    return _teacher_gate(label, torch.tensor([float(got)]),
+                         torch.tensor([float(want)]),
+                         torch.tensor([float(want32)]))
+
+
+def _gate_trees(label, got, want, want32):
+    """`_teacher_gate` on every leaf -> the worst leaf's numbers."""
+    from repro_torch.models.params import tree_flatten
+    worst = {"rel": 0.0, "floor": 0.0, "tol": 0.0, "leaf": None}
+    for i, (a, b, c) in enumerate(zip(tree_flatten(got)[0],
+                                      tree_flatten(want)[0],
+                                      tree_flatten(want32)[0])):
+        r = _teacher_gate(f"{label} leaf {i}", a, b, c)
+        if r["rel"] / r["tol"] > worst["rel"] / max(worst["tol"], 1e-30):
+            worst = dict(r, leaf=i)
+    return worst
+
+
+def train_teacher(cfg, *, seed):
+    """One train step of `cfg` (GPT3-XL at full width, cut in depth) from
+    one seeded fp32 state and batch under kernel mode `cuda` (the hand
+    kernels and their Functions), `ref` (the ref.py port, torch autograd)
+    in bf16 and `ref` in fp32: loss, grad norm and every leaf's gradient of
+    the kernel path held to plain bf16 at max(5e-2, 2 x the floor), the
+    floor plain bf16 against plain fp32; the step's launches exact
+    (`train_counts`)."""
+    from repro_torch.core.precision import BF16, FP32
+    from repro_torch.data import SyntheticStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import adamw_init
+    t0 = time.perf_counter()
+    master = lm.init_lm(cfg, dtype=torch.float32, device=DEVICE, seed=seed)
+    batch = SyntheticStream(cfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                            seed=seed, device=DEVICE).batch(0)
+    res = {}
+    for key, mode, pol in (("cuda", "cuda", BF16), ("ref", "ref", BF16),
+                           ("ref_fp32", "ref", FP32)):
+        b = make_train_step(cfg, policy=pol,
+                            lr_fn=lambda s: TRAIN_LR, device=DEVICE)
+        state = {"step": torch.zeros((), dtype=torch.int32, device=DEVICE),
+                 "params": tree_map(torch.clone, master)}
+        state["opt"] = adamw_init(state["params"])
+        with ops.kernel_mode(mode):
+            m, grads = b.aux["loss_and_grads"](state["params"], batch)
+            if key == "cuda":
+                path = f"{TRAIN_TAG} teacher {cfg.name} L{cfg.n_layers}"
+                (_, sm), launches = drive(
+                    path, lambda: b.fn(state, batch),
+                    ("fused_matmul", "flash_attention", "layernorm"))
+                check_train_counts(path, launches, train_counts(cfg))
+            else:
+                _, sm = b.fn(state, batch)
+        res[key] = {"loss": float(m["loss"]), "grads": grads,
+                    "step_loss": float(sm["loss"]),
+                    "grad_norm": float(sm["grad_norm"])}
+        del state
+    c, r, r32 = res["cuda"], res["ref"], res["ref_fp32"]
+    out = {"layers": cfg.n_layers}
+    for k in ("loss", "grad_norm"):
+        out[k] = dict(_scalar_gate(f"{cfg.name} {k}", c[k], r[k], r32[k]),
+                      cuda=c[k], ref=r[k], ref_fp32=r32[k])
+        log(f"  teacher {cfg.name} L{cfg.n_layers} {k}: cuda {c[k]:.6f} ref "
+            f"bf16 {r[k]:.6f} ref fp32 {r32[k]:.6f} (rel "
+            f"{out[k]['rel']:.2e}, tol {out[k]['tol']:.2e})")
+    if c["step_loss"] != c["loss"]:
+        raise AssertionError("the step's loss differs from loss_and_grads")
+    out["grads"] = _gate_trees(f"{cfg.name} grads", c["grads"], r["grads"],
+                               r32["grads"])
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  teacher {cfg.name} L{cfg.n_layers} grads: worst leaf "
+        f"{out['grads']['leaf']} rel {out['grads']['rel']:.2e} (floor "
+        f"{out['grads']['floor']:.2e}, tol {out['grads']['tol']:.2e}); "
+        f"{out['seconds']:.1f} s")
+    del res, master
+    torch.cuda.empty_cache()
+    return out
+
+
+def _step_profile(fn, ranges=()):
+    """One call of `fn` under torch.profiler (CPU + CUDA): (device busy ms,
+    {kernel: (ms, launches)}, wall ms of the profiled call, {range: (device
+    ms, kernel launches)} of each `torch.profiler.record_function` range
+    named in `ranges`: the kernels launched inside it and its children).
+    The ranges' own device-side annotations are not kernels and are left
+    out of the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = {ev.key: (getattr(ev, "self_device_time_total", 0.0) / 1e3,
+                    ev.count)
+           for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA
+           and ev.key not in ranges}
+
+    def kernels(ev):
+        ks = list(ev.kernels)
+        for ch in ev.cpu_children:
+            ks += kernels(ch)
+        return ks
+
+    parts = {}
+    for ev in prof.events():
+        if ev.name in ranges and \
+                ev.device_type == torch.autograd.DeviceType.CPU:
+            ks = kernels(ev)
+            ms, n = parts.get(ev.name, (0.0, 0))
+            parts[ev.name] = (ms + sum(k.duration for k in ks) / 1e3,
+                              n + len(ks))
+    return sum(t for t, _ in dev.values()), dev, wall, parts
+
+
+def train_whole(cfg, *, seed, card):
+    """GPT3-XL whole (all layers, B 4 x 512, bf16 policy, seeded fp32
+    master and SyntheticStream(seed=0)) through `make_train_step` at a
+    constant LR on one repeated batch: the first step driven with exact
+    launches, TRAIN_WARMUP steps, then TRAIN_TIMED timed steps (CUDA
+    events; host wall beside), the loss falling by TRAIN_LOSS_DROP; step
+    p50 / p95, tokens/s, MFU (analysis.roofline.model_flops over the step
+    over 989 TFLOP/s), peak allocated GB; one step profiled (busy share,
+    top kernels, hand kernels against cuBLAS, device ops a step) and the
+    device time and kernels of the clip and of AdamW (the ranges of
+    `steps.TRAIN_RANGES`); the rest of the busy time is the forward and
+    backward (whose backward kernels launch from autograd's device thread,
+    outside any range the step's thread opens)."""
+    import gc
+    from repro_torch.analysis.roofline import model_flops
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticStream
+    from repro_torch.launch.steps import TRAIN_RANGES, make_train_step
+    shape = ShapeConfig("chip_train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    b = make_train_step(cfg, lr_fn=lambda s: TRAIN_LR, device=DEVICE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    state = b.aux["init_state"](seed)
+    stream = SyntheticStream(cfg, global_batch=TRAIN_BATCH,
+                             seq_len=TRAIN_SEQ, seed=0, device=DEVICE)
+    batch = stream.batch(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    state_gb = torch.cuda.memory_allocated() / 1e9 - base_gb
+    log(f"train: {cfg.name} {cfg.n_layers} layers, {n_params:,} params, "
+        f"state {state_gb:.2f} GB (fp32 master, m, v), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    path = f"{TRAIN_TAG} {cfg.name}"
+    box = {}
+
+    def first():
+        box["state"], box["m"] = b.fn(state, batch)
+
+    _, launches = drive(path, first,
+                        ("fused_matmul", "flash_attention", "layernorm"))
+    check_train_counts(path, launches, train_counts(cfg))
+    state = box.pop("state")
+    losses = [float(box.pop("m")["loss"])]
+    for _ in range(TRAIN_WARMUP - 1):
+        state, m = b.fn(state, batch)
+        losses.append(float(m["loss"]))
+    dev_ms, host_ms_ = [], []
+    for _ in range(TRAIN_TIMED):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        e0.record()
+        state, m = b.fn(state, batch)
+        e1.record()
+        e1.synchronize()
+        host_ms_.append((time.perf_counter() - h0) * 1e3)
+        dev_ms.append(e0.elapsed_time(e1))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+    if not all(np.isfinite(losses)) or \
+            losses[-1] > losses[0] - TRAIN_LOSS_DROP:
+        raise AssertionError(f"{path}: the loss on a repeated batch did not "
+                             f"fall by {TRAIN_LOSS_DROP}: {losses}")
+    p50, p95 = (float(np.percentile(dev_ms, q)) for q in (50, 95))
+    flops = model_flops(cfg, shape)
+    toks = TRAIN_BATCH * TRAIN_SEQ
+    out = {"params": n_params, "state_gb": state_gb, "peak_gb": peak,
+           "losses": losses, "step_ms": dev_ms, "host_step_ms": host_ms_,
+           "step_ms_p50": p50, "step_ms_p95": p95,
+           "tokens_per_s": toks / p50 * 1e3, "model_flops": flops,
+           "mfu": flops / (p50 / 1e3) / PEAK_BF16, "launches": launches,
+           "base_gb": base_gb}
+    log(f"  {path}: step p50 {p50:.1f} ms p95 {p95:.1f} ms (CUDA events; "
+        f"host p50 {np.percentile(host_ms_, 50):.1f} ms), "
+        f"{out['tokens_per_s']:.0f} tokens/s, MFU {out['mfu']:.3f} "
+        f"({flops:.3e} model FLOPs a step), peak {peak:.2f} GB above the "
+        f"{base_gb:.2f} GB held before; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; {card}")
+    busy, dev, wall, parts = _step_profile(lambda: b.fn(state, batch),
+                                           TRAIN_RANGES)
+    if set(parts) != set(TRAIN_RANGES):
+        raise AssertionError(f"{path}: the profiled step has the ranges "
+                             f"{sorted(parts)}, not {TRAIN_RANGES}")
+    hand = sum(t for k, (t, _) in dev.items()
+               if any(h in k for h in HAND_KERNELS))
+    lib = sum(t for k, (t, _) in dev.items()
+              if not any(h in k for h in HAND_KERNELS)
+              and any(x in k for x in LIB_GEMM))
+    top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]
+    out["profile"] = {
+        "wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall,
+        "hand_kernels_ms": hand, "library_gemm_ms": lib,
+        "other_ms": busy - hand - lib,
+        "device_ops": sum(n for _, n in dev.values()),
+        "parts": {k: {"ms": t, "launches": n} for k, (t, n) in parts.items()},
+        "forward_backward_ms": busy - sum(t for t, _ in parts.values()),
+        "top": [{"kernel": k, "ms": t, "launches": n} for k, (t, n) in top]}
+    log(f"  {path} profiled step: wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms ({busy / wall:.1%}) in "
+        f"{out['profile']['device_ops']} device ops; hand kernels "
+        f"{hand:.1f} ms ({hand / busy:.1%}), cuBLAS matmul {lib:.1f} ms "
+        f"({lib / busy:.1%}), other {busy - hand - lib:.1f} ms; "
+        + ", ".join(f"{k.split('.')[-1]} {t:.1f} ms in {n} kernels"
+                    for k, (t, n) in parts.items())
+        + f", forward + backward the other "
+          f"{out['profile']['forward_backward_ms']:.1f} ms")
+    for k, (t, n) in top:
+        log(f"    device {t:9.3f} ms  x{n:<5d} {k[:80]}")
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cli(key, args, out):
+    """One `python -m repro_torch.launch.train` child process: its lines,
+    logged and kept in `out[key]`; a non-zero exit fails the run."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        *args], capture_output=True, text=True,
+                       timeout=TRAIN_CLI_TIMEOUT, env=env, cwd=ROOT)
+    secs = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    log(f"  train cli {key} (rc {r.returncode}, {secs:.1f} s):")
+    for line in lines:
+        log(f"    {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"train cli {key} failed:\n{r.stderr[-3000:]}")
+    out[key] = {"seconds": secs, "args": args, "lines": lines}
+    return lines
+
+
+def _cli_here(key, args, out):
+    """`repro_torch.launch.train.main(args)` in this process, its printed
+    lines captured, logged and kept in `out[key]`: the run a child process
+    is compared with, without a second process's start-up."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(args)
+    secs = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    log(f"  train main() {key} (rc {rc}, {secs:.1f} s, in this process):")
+    for line in lines:
+        log(f"    {line}")
+    if rc != 0:
+        raise AssertionError(f"train main() {key} returned {rc}")
+    out[key] = {"seconds": secs, "args": args, "lines": lines,
+                "in_process": True}
+    return lines
+
+
+def train_cli(cfg, *, card):
+    """The train CLI (`python -m repro_torch.launch.train`) in child
+    processes, and restart-exactness through its checkpoint.  The chip
+    machine allows 45 GiB of disk writes a call and GPT3-XL's train state
+    is 26.6 GB a checkpoint, so one full-size checkpoint is written:
+      * GPT3-XL whole, 3 steps, checkpointed at the end (`--steps 3
+        --checkpoint-dir`).  In this process, the same schedule from the
+        same seeds runs uninterrupted through step 4; the child's step-3
+        checkpoint restored into a fresh state and stepped once must give
+        step 4's loss and grad norm bit for bit (the card's step is
+        deterministic: `F.embedding`'s sorted backward, the kernels' fixed
+        split order, cuBLAS at fixed shapes), and the child's printed
+        losses are this process's.
+      * The CLI's resume at `--reduced` size on the card: 5 steps with a
+        checkpoint every 3 (the uninterrupted run, through the CLI's
+        `main` in this process: the CLI's cosine schedule spans --steps,
+        so a shorter first run would train another schedule), the step-5
+        checkpoint removed, then `--resume` in a child process: it
+        restores step 3, and its lines for steps 4 and 5 and its final
+        loss are the uninterrupted run's."""
+    import gc
+    import shutil
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import SyntheticStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import cosine_schedule
+    shutil.rmtree(TRAIN_CLI_CKPT, ignore_errors=True)
+    out = {}
+    k, lr = 3, 3e-4                    # the CLI's default --lr
+    full = _cli("gpt3-xl whole", [
+        "--arch", cfg.name, "--steps", str(k), "--global-batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--checkpoint-dir",
+        str(TRAIN_CLI_CKPT), "--log-every", "1"], out)
+    b = make_train_step(cfg, device=DEVICE, lr_fn=cosine_schedule(
+        lr, min(100, k // 10 + 1), k))
+    stream = SyntheticStream(cfg, global_batch=TRAIN_BATCH,
+                             seq_len=TRAIN_SEQ, seed=0, device=DEVICE)
+    t0 = time.perf_counter()
+    state = Checkpointer(str(TRAIN_CLI_CKPT)).restore(
+        b.aux["state_like"](), step=k, device=DEVICE)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if int(state["step"]) != k:
+        raise AssertionError(f"restored step {int(state['step'])}")
+    state, m = b.fn(state, stream.batch(k))
+    got = (m["loss"].item(), m["grad_norm"].item())
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = b.aux["init_state"](0)
+    losses = []
+    for step in range(k + 1):
+        state, m = b.fn(state, stream.batch(step))
+        losses.append(m["loss"].item())
+    want = (m["loss"].item(), m["grad_norm"].item())
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_gb = sum(p.stat().st_size for p in
+                  TRAIN_CLI_CKPT.rglob("*.npy")) / 1e9
+    out["restart"] = {"step": k + 1, "uninterrupted": want,
+                      "restored": got, "ckpt_gb": ckpt_gb,
+                      "restore_s": restore_s}
+    log(f"  {cfg.name} restart: step {k + 1} loss / grad norm {want} "
+        f"uninterrupted here, {got} from the CLI's step-{k} checkpoint "
+        f"({ckpt_gb:.1f} GB restored in {restore_s:.1f} s; {card})")
+    if want != got:
+        raise AssertionError(f"restart-exact: {want} vs {got}")
+    printed = [f"loss {x:.4f} " for x in losses[:k]]
+    if any(p not in line for p, line in zip(printed, full)):
+        raise AssertionError(f"this process's losses {losses[:k]} are not "
+                             f"the child's: {full}")
+    shutil.rmtree(TRAIN_CLI_CKPT, ignore_errors=True)
+    small = ["--arch", cfg.name, "--reduced", "--steps", "5",
+             "--global-batch", str(TRAIN_BATCH), "--seq", "64",
+             "--checkpoint-dir", str(TRAIN_CLI_CKPT), "--log-every", "1"]
+    uninterrupted = _cli_here("reduced uninterrupted",
+                              small + ["--checkpoint-every", "3"], out)
+    steps = sorted(p.name for p in TRAIN_CLI_CKPT.iterdir())
+    if steps != ["step_00000003", "step_00000005"]:
+        raise AssertionError(f"train cli: checkpoints {steps}")
+    shutil.rmtree(TRAIN_CLI_CKPT / "step_00000005")
+    res = _cli("reduced resumed", small + ["--resume"], out)
+    if res[0] != "resumed from step 3" or res[1:] != uninterrupted[3:]:
+        raise AssertionError(f"train cli: the resumed run's lines {res} are "
+                             f"not the uninterrupted run's "
+                             f"{uninterrupted[3:]}")
+    shutil.rmtree(TRAIN_CLI_CKPT, ignore_errors=True)
+    return out
+
+
+def vit_train_counts(cfg, fused):
+    """One vit_loss forward + backward (no rematerialization): flash once a
+    layer; the fused chain's GEMMs 6 a layer plus patchify and head, plus
+    w1's pre-activation in the backward (LayerNorm none: the final norm is
+    the head's prologue); the unfused chain's 6 a layer plus 2 (the
+    activation outside the GEMMs) and LayerNorm 2 a layer plus the final
+    norm.  The head (M = B) streams; every other GEMM runs wgmma."""
+    L = cfg.n_layers
+    if fused:
+        return {"fused_matmul": 7 * L + 2, "flash_attention": L}, 7 * L + 1
+    return ({"fused_matmul": 6 * L + 2, "flash_attention": L,
+             "layernorm": 2 * L + 1}, 6 * L + 1)
+
+
+def train_vit(cfg, *, seed):
+    """`vit_loss` forward and backward of `cfg` at full width and depth, a
+    batch of VIT_TRAIN_BATCH seeded images, seeded fp32 master params cast
+    to bf16 in the graph: the fused and unfused kernel paths (exact
+    launches) held to plain bf16 by the teacher gate (loss and every leaf's
+    gradient), the floor plain bf16 against plain fp32."""
+    from repro_torch.core.precision import BF16, FP32
+    from repro_torch.kernels import ops
+    from repro_torch.models import vit
+    from repro_torch.models.params import (tree_flatten, tree_map,
+                                           tree_unflatten)
+    B = VIT_TRAIN_BATCH
+    master = vit.init_vit(cfg, dtype=torch.float32, device=DEVICE, seed=seed)
+    rng = np.random.default_rng(seed)
+    patches = torch.tensor(rng.standard_normal(
+        (B, cfg.image_seq - 1, vit.PATCH_DIM)).astype(np.float32),
+        device=DEVICE)
+    labels = torch.tensor(rng.integers(0, cfg.n_classes, B), device=DEVICE)
+
+    def run(mode, pol, fused=True):
+        leaves, tdef = tree_flatten(master)
+        xs = [p.detach().requires_grad_(True) for p in leaves]
+        with ops.kernel_mode(mode):
+            loss, m = vit.vit_loss(
+                tree_map(lambda p: p.to(pol.param_dtype),
+                         tree_unflatten(tdef, xs)),
+                patches.to(pol.compute_dtype), labels, cfg=cfg, policy=pol,
+                fused=fused)
+            grads = torch.autograd.grad(loss, xs)
+        return float(loss.detach()), tree_unflatten(tdef, list(grads))
+
+    ref, ref32 = run("ref", BF16), run("ref", FP32)
+    out = {"batch": B}
+    for path_key, fused in (("fused", True), ("unfused", False)):
+        path = f"{TRAIN_TAG} {cfg.name} vit_loss {path_key}"
+        want, wg = vit_train_counts(cfg, fused)
+        (loss, grads), launches = drive(
+            path, lambda: run("cuda", BF16, fused),
+            tuple(want))
+        check_train_counts(path, launches, want, gemm_wgmma=wg)
+        by = TEMPLATE_LAUNCHES[path]["fused_matmul"]
+        if by["stream"] != 1:
+            raise AssertionError(f"{path}: GEMM templates {by}")
+        g_loss = _scalar_gate(f"{path} loss", loss, ref[0], ref32[0])
+        g_grads = _gate_trees(f"{path} grads", grads, ref[1], ref32[1])
+        out[path_key] = {"loss": loss, "loss_gate": g_loss,
+                         "grads": g_grads, "launches": launches}
+        log(f"  {path}: loss {loss:.6f} vs plain bf16 {ref[0]:.6f} (rel "
+            f"{g_loss['rel']:.2e}, tol {g_loss['tol']:.2e}); grads worst "
+            f"leaf {g_grads['leaf']} rel {g_grads['rel']:.2e} (floor "
+            f"{g_grads['floor']:.2e}, tol {g_grads['tol']:.2e})")
+    del master
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(rows, card):
+    """Training on the card: the Functions' gates (`check_train_grads`),
+    the teacher gate at GPT3-XL width cut to TEACHER_LAYERS layers, GPT3-XL
+    whole (`train_whole`: timed steps, profile), the train CLI with
+    restart-exactness through its checkpoint (`train_cli`), ViT-B's
+    `vit_loss` (`train_vit`)."""
+    import gc
+    from repro_torch.configs import GPT3_XL, VIT_B
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out, parts = {}, {}
+    for key, run in (
+            ("grads", lambda: check_train_grads(rows)),
+            ("teacher", lambda: train_teacher(
+                dense_cut(GPT3_XL, TEACHER_LAYERS), seed=5)),
+            ("whole", lambda: train_whole(GPT3_XL, seed=0, card=card)),
+            ("cli", lambda: train_cli(GPT3_XL, card=card)),
+            ("vit", lambda: train_vit(VIT_B, seed=8))):
+        t1 = time.perf_counter()
+        r = run()
+        parts[key] = time.perf_counter() - t1
+        if r is not None:
+            out[key] = r
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    log(f"train phase: {out['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5617,7 +6316,22 @@ KERNELS = {   # name -> (source, TPU kernel replaced, case in the line)
     "decode_attention_g16": (CSRC + "decode_attention.cu",
                              "src/repro/kernels/flash_decode.py:116",
                              DECODE_CASES[-1][0]),
+    # the gradient paths of the train slice: each kernel's autograd
+    # Function, its forward the hand kernel, its backward torch ops
+    "fused_matmul_grad": (CSRC + "fused_matmul.cu",
+                          "src/repro/kernels/matmul.py:161",
+                          "LN+i_gelu up M=2048"),
+    "flash_attention_grad": (CSRC + "flash_attention.cu",
+                             "src/repro/kernels/flash_attention.py:94",
+                             "B=4 S=512 H=16 D=128 causal"),
+    "layernorm_grad": (CSRC + "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:65",
+                       "[2048, 2048]"),
 }
+# the gradient entries count their wrapper's launches on the train paths
+# (forward, recompute and the backward's pre-activation GEMM)
+GRAD_OF = {"fused_matmul_grad": "fused_matmul",
+           "flash_attention_grad": "flash_attention",
+           "layernorm_grad": "layernorm"}
 # line entries whose kernels-phase rows sit under another name
 ROWS_OF = {"paged_decode_partials_g16": "paged_decode_partials",
            "paged_decode_attention_g16": "paged_decode_attention",
@@ -5656,6 +6370,9 @@ FORMS_OF = {
 
 
 def _launches(name, serve):
+    if name in GRAD_OF:
+        return sum(n[GRAD_OF[name]] for p, n in PATH_LAUNCHES.items()
+                   if p.startswith(TRAIN_TAG))
     if name in G16_OF:
         wrapper = G16_OF[name]
         return sum(n[wrapper] for p, n in PATH_LAUNCHES.items()
@@ -5670,36 +6387,51 @@ def _launches(name, serve):
 
 
 def main():
+    t_start = time.perf_counter()
+    seconds = {}                     # each phase's wall time, in order
+
+    def timed(key, fn, *args):
+        t0 = time.perf_counter()
+        r = fn(*args)
+        seconds[key] = time.perf_counter() - t0
+        return r
+
     info = phase_device()
-    report = {"device": info, "build": phase_build()}
+    report = {"device": info, "build": timed("build", phase_build)}
     rows = {}
-    log("kernels vs plain versions (bf16, on the card):")
-    check_gemm(rows)
-    check_swiglu(rows)
-    check_expert_swiglu(rows)
-    check_norms(rows)
-    check_residual_norms(rows)
-    check_ssd(rows)
-    check_flash(rows)
-    check_paged(rows)
-    check_decode_attention(rows)
-    check_gemm_int8(rows)
-    check_paged_int8(rows)
-    report["kernels"] = rows
-    report["sampling"] = phase_sampling()
-    report["serve"] = phase_serve()
-    report["serve_int8"] = phase_serve_int8(report["serve"])
-    report["serve_cli"] = phase_serve_cli()
-    report["chunk_prefix"] = phase_chunk_prefix()
-    report["spec"] = phase_spec()
-    report["vit"] = phase_vit(info["nvidia_smi"])
+
+    def kernels():
+        log("kernels vs plain versions (bf16, on the card):")
+        for check in (check_gemm, check_swiglu, check_expert_swiglu,
+                      check_norms, check_residual_norms, check_ssd,
+                      check_flash, check_paged, check_decode_attention,
+                      check_gemm_int8, check_paged_int8):
+            check(rows)
+        return rows
+
+    report["kernels"] = timed("kernels", kernels)
+    report["sampling"] = timed("sampling", phase_sampling)
+    report["serve"] = timed("serve", phase_serve)
+    report["serve_int8"] = timed("serve_int8", phase_serve_int8,
+                                 report["serve"])
+    report["serve_cli"] = timed("serve_cli", phase_serve_cli)
+    report["chunk_prefix"] = timed("chunk_prefix", phase_chunk_prefix)
+    report["spec"] = timed("spec", phase_spec)
+    report["vit"] = timed("vit", phase_vit, info["nvidia_smi"])
     from repro_torch.configs import GEMMA3_27B, MAMBA2_2_7B
-    report["witness"] = depth_witness(MAMBA2_2_7B, layers=8, seed=3)
-    report["ring_witness"] = ring_witness(GEMMA3_27B, seed=6)
-    report["moe"] = phase_moe()
-    report["dense"] = phase_dense()
-    report["whisper"] = phase_whisper()
-    report["goodput"] = phase_goodput()
+    report["witness"] = timed("witness", lambda: depth_witness(
+        MAMBA2_2_7B, layers=8, seed=3))
+    report["ring_witness"] = timed("ring_witness", lambda: ring_witness(
+        GEMMA3_27B, seed=6))
+    report["moe"] = timed("moe", phase_moe)
+    report["dense"] = timed("dense", phase_dense)
+    report["whisper"] = timed("whisper", phase_whisper)
+    report["goodput"] = timed("goodput", phase_goodput)
+    report["train"] = timed("train", phase_train, rows, info["nvidia_smi"])
+    seconds["total"] = time.perf_counter() - t_start
+    report["phase_seconds"] = seconds
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in seconds.items()))
     report["launches_total"] = dict(TOTAL_LAUNCHES)
     report["gemm_templates"] = dict(TEMPLATE_LAUNCHES)
     line = []
@@ -5713,6 +6445,9 @@ def main():
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      "shape": r["case"]})
+        if name in GRAD_OF:
+            line[-1].update(backward="torch ops (autograd.Function)",
+                            measures="forward + backward")
         if "device_ms" in r:
             line[-1].update(device_ms=r["device_ms"],
                             library_device_ms=r["library_device_ms"],

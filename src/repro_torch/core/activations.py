@@ -48,3 +48,34 @@ ACTIVATIONS = {
 
 def get_activation(name: str):
     return ACTIVATIONS[name]
+
+
+def activation_grad(name: str, z):
+    """d act(z) / dz in fp32 at the fp32 pre-activation `z`: the
+    derivative JAX's autodiff takes of the reference's activations.  For
+    i-GELU that is its conventions at the kinks: `sign` contributes 0, and
+    the clip min(|arg|, 1.769) contributes 1 below the clip, 1/2 at it
+    (`lax.min`'s tie rule) and 0 beyond it."""
+    z = z.float()
+    if name == "i_gelu":
+        inv = 1.0 / math.sqrt(2.0)
+        arg = z * inv
+        sgn = torch.sign(arg)
+        mag = arg.abs()
+        a = torch.clamp(mag, max=-_B)
+        erf_approx = sgn * (_A * (a + _B) ** 2 + 1.0)
+        dmin = torch.where(mag < -_B, 1.0, torch.where(mag == -_B, 0.5, 0.0))
+        derf = sgn * sgn * (2.0 * _A) * (a + _B) * dmin * inv
+        return 0.5 * (1.0 + erf_approx) + 0.5 * z * derf
+    if name == "gelu_exact":
+        cdf = 0.5 * (1.0 + torch.erf(z * (1.0 / math.sqrt(2.0))))
+        return cdf + z * torch.exp(-0.5 * z * z) * (1.0 / math.sqrt(2 * math.pi))
+    if name == "gelu":
+        c = math.sqrt(2.0 / math.pi)
+        t = torch.tanh(c * (z + 0.044715 * z ** 3))
+        return 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * c * (
+            1.0 + 3 * 0.044715 * z * z)
+    if name == "silu":
+        s = torch.sigmoid(z)
+        return s * (1.0 + z * (1.0 - s))
+    raise ValueError(f"no derivative for activation {name!r}")

@@ -11,13 +11,25 @@ over the padded vocabulary (`core/prng.py`), bit-equal uniforms — so one
 the batch slot.  `_lane_scores(noise=)` takes the noise from the caller
 instead.  `sample_topn` (the tree-speculation proposer) ranks the same
 score for the runners-up.
+
+`embed_sequence` takes its rows through `F.embedding`, whose backward on
+the card sums a repeated id's rows in a fixed order.  Training: `ce_loss`, the
+reference's chunked cross-entropy: the logits of a chunk of positions
+through `pdot` in fp32 (the hand GEMM on the card), padded vocabulary
+columns masked, log-sum-exp minus the label's logit, each chunk under
+`torch.utils.checkpoint` as the reference remats its scan body, so no
+chunk's logits survive to the backward pass (the recompute in the kernel
+mode of the forward).
 """
 from __future__ import annotations
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.core import prng
-from repro_torch.core.nn import act_dtype, fused_pdot
+from repro_torch.core.nn import act_dtype, fused_pdot, pdot
+from repro_torch.kernels import ops
 
 NEG_INF = -1e30
 TOP_K_CAP = 64
@@ -35,8 +47,45 @@ def init_embedding(generator, cfg, dtype, device):
 
 
 def embed_sequence(emb, ids, *, policy):
-    """ids: [B, S] -> [B, S, E] at the activation dtype."""
-    return emb[ids.long()].to(act_dtype(policy))
+    """ids: [B, S] -> [B, S, E] at the activation dtype, differentiable in
+    `emb` with a deterministic backward (`F.embedding`)."""
+    return torch.nn.functional.embedding(ids.long(), emb).to(
+        act_dtype(policy))
+
+
+def _pick_chunk(n: int, target: int) -> int:
+    c = min(target, n)
+    while n % c:
+        c -= 1
+    return max(c, 1)
+
+
+def ce_loss(x, unemb, labels, valid, *, cfg, policy, chunk: int = 2048):
+    """x: [B, T, E]; unemb: [E, Vp]; labels / valid: [B, T] -> (loss_sum,
+    token_count), both fp32 scalars: the sum over valid positions of
+    logsumexp(z) - z[label], z = x @ unemb in fp32 with the padded columns
+    at -1e30.  Positions go in chunks of `_pick_chunk(T, chunk)` (one
+    chunk for T <= 2048), each rematerialized in the backward pass."""
+    B, T, E = x.shape
+    real = torch.arange(unemb.shape[1], device=x.device) < cfg.vocab
+
+    def body(xc, w, lc, mc, mode):
+        with ops.kernel_mode(mode):
+            z = pdot(xc, w, policy, out_dtype=torch.float32)   # [B, tc, Vp]
+        z = z.masked_fill(~real, NEG_INF)
+        m = z.detach().amax(-1)           # stabilizer only
+        lse = m + torch.log(torch.exp(z - m[..., None]).sum(-1))
+        lab = torch.gather(z, -1, lc.long()[..., None])[..., 0]
+        return torch.where(mc, lse - lab, torch.zeros_like(lse)).sum()
+
+    tc = _pick_chunk(T, chunk)
+    mode = ops.get_mode()    # the chunks' recompute runs in this mode
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, T, tc):
+        sl = slice(c0, c0 + tc)
+        total = total + checkpoint(body, x[:, sl], unemb, labels[:, sl],
+                                   valid[:, sl], mode, use_reentrant=False)
+    return total, valid.sum().to(torch.float32)
 
 
 def embed_token(emb, ids, *, policy):

@@ -21,6 +21,13 @@ only.  `flash_emulate` repeats the wgmma template's arithmetic (its tile
 order and skipped tiles) for the tests.  `flash_attention` launches the
 kernel for CUDA tensors and takes the plain version for CPU tensors; it
 raises on operands no template takes.
+
+`FlashAttentionFn` is the kernel's gradient (row 3 under training): its
+forward is `flash_attention`, its backward `flash_attention_backward`, the
+gradient written out in fp32 torch ops from the saved q, k, v and o (the
+reference has no backward kernel: its gradients are XLA's autodiff of the
+forward).  Causal or bidirectional, MHA or GQA; a window or a query offset
+has no gradient yet.
 """
 from __future__ import annotations
 
@@ -198,3 +205,66 @@ def _run(template, q, k, v, *, causal, window, q_offset):
 
 flash_attention.launches = 0
 flash_attention.launches_by = dict.fromkeys(TEMPLATES, 0)
+
+
+# --------------------------------------------------------------------------
+# gradient
+# --------------------------------------------------------------------------
+
+BWD_SCORE_ELEMS = 1 << 27    # fp32 scores a backward chunk holds at once
+
+
+def flash_attention_backward(q, k, v, o, do, *, causal):
+    """(dq, dk, dv) of o = softmax(q k^T / sqrt(D)) v, in fp32 per (batch,
+    kv-head group): the scores recomputed, P, dV = P^T dO, dP = dO V^T,
+    D = rowsum(dO * O), dS = P * (dP - D), dQ = dS K / sqrt(D) and
+    dK = dS^T Q / sqrt(D); a GQA group's dK and dV summed over its query
+    heads.  Batches go in chunks of at most BWD_SCORE_ELEMS scores."""
+    B, Sq, H, D = q.shape
+    _, Skv, KV, _ = k.shape
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    mask = None
+    if causal:
+        mask = (torch.arange(Skv, device=q.device)[None, :]
+                <= torch.arange(Sq, device=q.device)[:, None])
+    step = max(1, BWD_SCORE_ELEMS // (H * Sq * Skv))
+    for b0 in range(0, B, step):
+        sl = slice(b0, b0 + step)
+        qf = q[sl].float().reshape(-1, Sq, KV, G, D)
+        kf, vf = k[sl].float(), v[sl].float()
+        dof = do[sl].float().reshape(qf.shape)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+        if mask is not None:
+            s = s.masked_fill(~mask, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        dv[sl] = torch.einsum("bkgqs,bqkgd->bskd", p, dof).to(v.dtype)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+        rows = (dof * o[sl].float().reshape(qf.shape)).sum(-1)
+        ds = p * (dp - rows.permute(0, 2, 3, 1)[..., None])
+        dq[sl] = (torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+                  ).reshape(-1, Sq, H, D).to(q.dtype)
+        dk[sl] = (torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+                  ).to(k.dtype)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """o = flash_attention(q, k, v) with its gradient (the module's
+    note)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o = flash_attention(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, o, do,
+                                          causal=ctx.causal), None)

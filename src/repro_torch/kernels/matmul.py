@@ -44,6 +44,19 @@ plain PyTorch for the tests.  `matmul_plain` differs from
 dtype before the dot — by bf16 rounding only.  The wrappers launch a kernel
 for CUDA tensors and take the plain version for CPU tensors; they never
 fall back from one to the other, and raise on operands no template takes.
+
+`FusedMatmulFn` is the fused GEMM's gradient (row 1 under training).  Its
+forward is `fused_matmul`; its backward is written out in torch ops, as
+the reference's gradients are XLA's autodiff of the forward with every
+backward product an XLA dot outside the Pallas kernel: the normalized
+operand recomputed in fp32 as the prologue makes it, the pre-activation z
+recomputed by the same hand GEMM without its epilogue (fp32 out; only
+when the epilogue has an activation), dZ = dY * act'(z) (JAX's derivative
+conventions, `core/activations.activation_grad`), dW = xn^T dZ and dxn =
+dZ W^T as `torch.matmul` at the weight's dtype (fp32 accumulation),
+dbias = sum dZ, dresidual = dY, then the norm's closed-form backward
+(`rmsnorm.norm_backward`).  Int8 weights have no gradient (the reference
+never trains them): `ops.fused_matmul` refuses them under grad.
 """
 from __future__ import annotations
 
@@ -54,9 +67,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.activations import get_activation
+from repro_torch.core.activations import activation_grad, get_activation
 from repro_torch.kernels import build
 from repro_torch.kernels.epilogue import RMS_EPS
+from repro_torch.kernels.rmsnorm import norm_backward, norm_stats
 
 _NORM = {"none": 0, "rmsnorm": 1, "layernorm": 2}
 _ACT = {"none": 0, "gelu": 1, "gelu_exact": 2, "i_gelu": 3, "silu": 4}
@@ -420,6 +434,62 @@ def fused_matmul(a, b, *, norm="none", gamma=None, nbeta=None, bias=None,
 
 fused_matmul.launches = 0
 fused_matmul.launches_by = dict.fromkeys(FORMS, 0)
+
+
+class FusedMatmulFn(torch.autograd.Function):
+    """y = act(norm(A) @ B + bias) + residual with its gradient (the
+    module's note).  A: [M, K] (at the compute dtype when un-normalized),
+    B: [K, N] bf16 or fp32."""
+
+    @staticmethod
+    def forward(ctx, a, b, gamma, nbeta, bias, residual, norm, activation,
+                eps, out_dtype):
+        ctx.save_for_backward(a, b, gamma, nbeta, bias)
+        ctx.cfg = (norm, activation, eps,
+                   None if residual is None else residual.dtype)
+        return fused_matmul(a, b, norm=norm, gamma=gamma, nbeta=nbeta,
+                            bias=bias, residual=residual,
+                            activation=activation, eps=eps,
+                            out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b, gamma, nbeta, bias = ctx.saved_tensors
+        norm, activation, eps, res_dtype = ctx.cfg
+        need = ctx.needs_input_grad
+        dz = dy.float()
+        if activation != "none":
+            z = fused_matmul(a, b, norm=norm, gamma=gamma, nbeta=nbeta,
+                             bias=bias, eps=eps, out_dtype=torch.float32)
+            dz = dz * activation_grad(activation, z)
+        cd = b.dtype
+        if norm == "none":
+            xhat = rstd = None
+            xn = a
+        else:
+            xhat, rstd = norm_stats(a, norm, eps)
+            xn = xhat * gamma.float()
+            if norm == "layernorm":
+                xn = xn + nbeta.float()
+        dzc = dz.to(cd)
+        da = db = dgamma = dbeta = dbias = dres = None
+        if need[1]:
+            db = torch.matmul(xn.to(cd).t(), dzc)
+        if need[0] or need[2] or need[3]:
+            dxn = torch.matmul(dzc, b.t())
+            if norm == "none":
+                da = dxn.to(a.dtype)
+            else:
+                dx, dgamma, dbeta = norm_backward(dxn, xhat, rstd, gamma,
+                                                  norm)
+                da = dx.to(a.dtype)
+                dgamma = dgamma.to(gamma.dtype)
+                dbeta = None if dbeta is None else dbeta.to(nbeta.dtype)
+        if need[4]:
+            dbias = dz.sum(0).to(bias.dtype)
+        if need[5]:
+            dres = dy.to(res_dtype)
+        return (da, db, dgamma, dbeta, dbias, dres, None, None, None, None)
 
 
 def matmul_swiglu_plain(a, b_gate, b_up, *, norm="none", gamma=None,

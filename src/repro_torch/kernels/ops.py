@@ -10,6 +10,14 @@ Every model-facing op of the port goes through this module.  Modes:
 
 Set with `set_mode` / `kernel_mode(...)`, or the environment variable
 `REPRO_TORCH_KERNEL_MODE` (validated when read: an unknown mode raises).
+
+Training: when grad is enabled and an operand requires it, `fused_matmul`
+(and `pdot` on the card, which runs it), `flash_attention` and `layernorm`
+route to their kernels' `torch.autograd.Function`s (`matmul.FusedMatmulFn`,
+`flash_attention.FlashAttentionFn`, `rmsnorm.LayerNormFn`): the hand kernel
+forward on the card (its plain version on the CPU), the gradient written
+out in torch ops.  Otherwise they are the serving path, call for call.
+`ref` mode differentiates the ref.py port with torch's autograd.
 """
 from __future__ import annotations
 
@@ -84,6 +92,13 @@ def _use_kernel(x) -> bool:
     return True
 
 
+def _needs_grad(*tensors) -> bool:
+    """True when autograd records and an operand requires grad: the
+    kernels' autograd Functions then replace the plain wrapper calls."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def launch_counters() -> dict:
     """The hand-written kernels' wrappers by name.  Each adds one to its
     `launches` (and to `launches_by[form]`, where it has several: the
@@ -116,6 +131,13 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """q: [B, Sq, H, D]; k, v: [B, Skv, KV, D] -> [B, Sq, H, D].  The port
     passes a static int `q_offset`, so the kernel always applies."""
     if _use_kernel(q):
+        if _needs_grad(q, k, v):
+            if window or q_offset:
+                arg = "window" if window else "q_offset"
+                raise NotImplementedError(
+                    f"flash_attention: {arg}={window or q_offset} has no "
+                    f"gradient in the port yet")
+            return _fa.FlashAttentionFn.apply(q, k, v, bool(causal))
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -298,6 +320,15 @@ def fused_matmul(x, w, *, prologue=None, epilogue=None, compute_dtype=None,
             x2 = x2.to(cd)
         res2 = (ep.residual.reshape(-1, N) if ep.residual is not None
                 else None)
+        if _needs_grad(x2, w, ep.bias, res2, pf["gamma"], pf["nbeta"]):
+            if w_scale is not None:
+                raise TypeError("fused_matmul: int8 weights have no "
+                                "gradient (the reference never trains "
+                                "them)")
+            out = _mm.FusedMatmulFn.apply(
+                x2, w.to(cd), pf["gamma"], pf["nbeta"], ep.bias, res2,
+                pf["norm"], ep.activation, pf["eps"], out_dtype)
+            return out.reshape(*lead, N)
         out = _mm.fused_matmul(x2, _wcast(w, w_scale, cd), bias=ep.bias,
                                residual=res2, activation=ep.activation,
                                out_dtype=out_dtype, b_scale=w_scale, **pf)
@@ -395,6 +426,8 @@ def rmsnorm(x, gamma, *, eps=RMS_EPS):
 
 def layernorm(x, gamma, beta, *, eps=LN_EPS):
     if _use_kernel(x):
+        if _needs_grad(x, gamma, beta):
+            return _norm.LayerNormFn.apply(x, gamma, beta, eps)
         return _norm.layernorm(x, gamma, beta, eps=eps)
     return _ref.layernorm_ref(x, gamma, beta, eps=eps)
 

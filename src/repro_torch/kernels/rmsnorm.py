@@ -19,6 +19,12 @@ the mean), fp32 normalize and scale, one cast to x's dtype.  The residual
 forms add in fp32, round r = x + y to x's dtype and normalize r as stored.
 The wrappers launch the kernel for CUDA tensors and take the plain version
 for CPU tensors.
+
+`LayerNormFn` is LayerNorm's gradient (row 8 under training): its forward
+is `layernorm` (the kernel on the card, the plain version on the CPU), its
+backward the closed form in fp32 (`norm_stats` / `norm_backward`, which the
+fused GEMM's LayerNorm / RMSNorm prologue shares).  The reference has no
+backward kernel: its gradients are XLA's autodiff of the forward.
 """
 from __future__ import annotations
 
@@ -156,3 +162,55 @@ rmsnorm.launches = 0
 layernorm.launches = 0
 residual_rmsnorm.launches = 0
 residual_layernorm.launches = 0
+
+
+# --------------------------------------------------------------------------
+# gradient
+# --------------------------------------------------------------------------
+
+def norm_stats(x, kind: str, eps: float):
+    """-> (xhat, rstd) in fp32 over the last dim: LayerNorm's (x - mean)
+    * rstd with the variance about the mean, or RMSNorm's x * rstd."""
+    xf = x.float()
+    if kind == "layernorm":
+        d = xf - xf.mean(-1, keepdim=True)
+        rstd = torch.rsqrt((d * d).mean(-1, keepdim=True) + eps)
+        return d * rstd, rstd
+    rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return xf * rstd, rstd
+
+
+def norm_backward(dn, xhat, rstd, gamma, kind: str):
+    """The closed-form backward of n = xhat * gamma (+ beta), all fp32:
+    -> (dx, dgamma, dbeta or None), the parameter grads summed over every
+    leading dim."""
+    D = xhat.shape[-1]
+    dn = dn.float()
+    dgamma = (dn * xhat).reshape(-1, D).sum(0)
+    dbeta = dn.reshape(-1, D).sum(0) if kind == "layernorm" else None
+    g = dn * gamma.float()
+    proj = (g * xhat).mean(-1, keepdim=True)
+    if kind == "layernorm":
+        dx = rstd * (g - g.mean(-1, keepdim=True) - xhat * proj)
+    else:
+        dx = rstd * (g - xhat * proj)
+    return dx, dgamma, dbeta
+
+
+class LayerNormFn(torch.autograd.Function):
+    """y = layernorm(x) with its gradient: forward the kernel (plain on the
+    CPU), backward the closed form with fp32 statistics."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps = eps
+        return layernorm(x, gamma, beta, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta = ctx.saved_tensors
+        xhat, rstd = norm_stats(x, "layernorm", ctx.eps)
+        dx, dgamma, dbeta = norm_backward(dy, xhat, rstd, gamma, "layernorm")
+        return (dx.to(x.dtype), dgamma.to(gamma.dtype),
+                dbeta.to(beta.dtype), None)

@@ -40,8 +40,9 @@ Observability: `--trace-out PATH` records a Chrome trace-event JSON of the
 run (`serving/trace.py`; `--trace-buffer` events at most, the oldest
 dropped), `--metrics-out PATH` writes a Prometheus text snapshot of the
 final stats; the summary adds a `util:` line of each phase's MFU / MBU
-against the H100's peaks.  The reference's `--draft-checkpoint` waits for
-the port's checkpointer: it does not exist here, and argparse refuses it.
+against the H100's peaks.  `--draft-checkpoint DIR` loads the draft's
+params from a checkpoint directory (`checkpoint/checkpointer.py`, either
+package's) instead of a seeded init; it needs `--spec-draft`.
 """
 from __future__ import annotations
 
@@ -131,6 +132,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--spec-k", type=int, default=4,
                     help="speculation length: draft tokens proposed per "
                          "verify step (--spec-draft)")
+    ap.add_argument("--draft-checkpoint", default="",
+                    help="checkpoint directory to load draft params from "
+                         "(default: seeded init; requires --spec-draft)")
     ap.add_argument("--spec-branches", type=int, default=1,
                     help="token-tree width: candidates proposed per "
                          "speculation depth (1 = single-chain rounds)")
@@ -221,6 +225,7 @@ def run(args):
         fuse_epilogues=not args.no_fuse, weight_dtype=args.weight_dtype,
         kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
         cache_blocks=args.cache_blocks or None, spec=spec,
+        draft_checkpoint=args.draft_checkpoint or None,
         device=args.device, overlap=args.overlap, tracer=tracer)
     if args.policy == "chunked" and not engine.runner.supports_chunked:
         print(f"note: {cfg.name} cannot chunk prefills "
@@ -251,6 +256,8 @@ def main(argv=None) -> int:
     reason = fit_reason(cfg, args.device)
     if reason:
         ap.error(reason)
+    if args.draft_checkpoint and not args.spec_draft:
+        ap.error("--draft-checkpoint requires --spec-draft")
     if args.spec_draft and spec_support_reason(cfg):
         ap.error(f"speculative decoding unsupported for {cfg.name}: "
                  f"{spec_support_reason(cfg)}")

@@ -43,6 +43,13 @@ cross caches of an encoder-decoder's decoder layers (the captured decode
 step reads them as static buffers).
 `make_dense_layout` gives the reference's `paged=None` layout, a linear
 cache of max_seq rows a slot for every full-context layer: a draft's.
+
+  make_train_step    one training step on one device: the loss and the
+                     gradients of the fp32 master params through the cast
+                     to the policy's param dtype (`lm.forward_train`: the
+                     hand kernels' autograd Functions on the card), global
+                     norm clipping, the LR schedule at the state's step,
+                     AdamW in place, step + 1.  Eager.
 """
 from __future__ import annotations
 
@@ -51,12 +58,19 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ATTN_KINDS, SSM_KINDS
 from repro_torch.core import blocks
 from repro_torch.core.nn import act_dtype
+from repro_torch.core.precision import BF16
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import lm
+from repro_torch.models.params import (meta_tree, tree_flatten, tree_map,
+                                       tree_unflatten)
+from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
+                               cosine_schedule)
 
 WARMUP_STEPS = 2    # eager decode steps before capture: builds the kernels,
                     # sets their shared-memory attributes, plans the GEMMs
@@ -671,3 +685,112 @@ def make_tree_verify_step(cfg, *, policy, layout: PagedLayout,
                           batch_size=batch_size, num_tokens=num_tokens,
                           tree=True, fuse_epilogues=fuse_epilogues,
                           device=device)
+
+
+# --------------------------------------------------------------------------
+# train step
+# --------------------------------------------------------------------------
+
+TRAIN_RANGES = ("train_step.clip", "train_step.adamw")
+
+
+def make_train_step(cfg, *, policy=None,
+                    lr_fn: Optional[Callable] = None,
+                    max_grad_norm: float = 1.0,
+                    grad_compression: Optional[str] = None,
+                    reduce_method: str = "ring",
+                    ssm_seq_parallel: bool = False,
+                    device=None) -> StepBundle:
+    """fn(state, batch) -> (state, metrics), the reference's
+    `make_train_step` on one device.  state: {"step" int32 scalar,
+    "params" fp32 master tree, "opt": {"m", "v"}}, updated in place (the
+    reference donates it) and returned with step + 1; batch: the data
+    pipeline's dict.  The loss casts the master to `policy.param_dtype`
+    (BF16 by default, the reference's train policy) inside the autograd
+    graph, so the weight gradients come back through the cast; then they
+    are clipped to `max_grad_norm` by global norm, the LR taken at the
+    state's step (`lr_fn`, default cosine 3e-4 over 100 / 10,000 steps)
+    and AdamW applied.  metrics: loss, ce, grad_norm, lr, tokens.  The
+    clip and AdamW run under the `torch.profiler.record_function` ranges
+    of `TRAIN_RANGES`, so a profiled step tells their device time apart
+    from the forward and backward's.
+
+    aux: "init_state"(seed) (random fp32 params, `lm.init_lm`, and zero
+    moments on the device), "loss_and_grads"(params, batch) (the step's
+    metrics and gradients alone), "state_from_numpy"(tree) (a reference
+    state as numpy leaves), "state_like"() ("meta" tensors of the state,
+    what `Checkpointer.restore` fills), "device".  The options of a mesh
+    raise: one device."""
+    if grad_compression:
+        raise ValueError(f"grad_compression={grad_compression!r} compresses "
+                         f"the cross-pod gradient reduction: it needs a pod "
+                         f"mesh, and the port trains on one device")
+    if reduce_method != "ring":
+        raise ValueError(f"reduce_method={reduce_method!r} picks a "
+                         f"collective schedule: the port trains on one "
+                         f"device, with no collective")
+    if ssm_seq_parallel:
+        raise ValueError("ssm_seq_parallel shards an SSM scan over a "
+                         "sequence mesh axis: the port trains on one device")
+    policy = policy or BF16
+    lr_fn = lr_fn or cosine_schedule(3e-4, 100, 10_000)
+    dev = resolve_device(device)
+
+    def loss_and_grads(params, batch):
+        """-> (metrics, grads): the loss's metrics and the gradients of the
+        fp32 `params` tree (a tree of the same structure)."""
+        flat, tdef = tree_flatten(params)
+        with torch.enable_grad():
+            xs = [p.detach().requires_grad_(True) for p in flat]
+            params_c = tree_unflatten(tdef, [
+                x.to(policy.param_dtype) if x.is_floating_point() else x
+                for x in xs])
+            loss, metrics = lm.forward_train(params_c, batch, cfg=cfg,
+                                             policy=policy)
+            grads = torch.autograd.grad(loss, xs)
+        return metrics, tree_unflatten(tdef, list(grads))
+
+    def fn(state, batch):
+        metrics, grads = loss_and_grads(state["params"], batch)
+        with torch.no_grad():
+            with record_function(TRAIN_RANGES[0]):
+                clipped, gnorm = clip_by_global_norm(grads, None,
+                                                     max_grad_norm)
+            del grads
+            with record_function(TRAIN_RANGES[1]):
+                lr = torch.as_tensor(lr_fn(state["step"]),
+                                     dtype=torch.float32, device=dev)
+                params, opt = adamw_update(state["params"], clipped,
+                                           state["opt"], step=state["step"],
+                                           lr=lr)
+        new_state = {"step": state["step"] + 1, "params": params, "opt": opt}
+        metrics = dict(metrics, grad_norm=gnorm, lr=lr)
+        return new_state, metrics
+
+    def init_state(seed: int = 0):
+        params = lm.init_lm(cfg, dtype=torch.float32, device=dev, seed=seed)
+        return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+                "params": params, "opt": adamw_init(params)}
+
+    def state_from_numpy(tree):
+        def conv(t):
+            return lm.params_from_numpy(t, cfg, dtype=torch.float32,
+                                        device=dev)
+        return {"step": torch.tensor(np.asarray(tree["step"]),
+                                     dtype=torch.int32, device=dev),
+                "params": conv(tree["params"]),
+                "opt": {"m": conv(tree["opt"]["m"]),
+                        "v": conv(tree["opt"]["v"])}}
+
+    def state_like():
+        p = meta_tree(lm.lm_param_shapes(cfg))
+        return {"step": torch.empty((), dtype=torch.int32, device="meta"),
+                "params": p,
+                "opt": {"m": tree_map(torch.empty_like, p),
+                        "v": tree_map(torch.empty_like, p)}}
+
+    return StepBundle(fn=fn, policy=policy, cfg=cfg,
+                      aux={"init_state": init_state,
+                           "loss_and_grads": loss_and_grads,
+                           "state_from_numpy": state_from_numpy,
+                           "state_like": state_like, "device": dev})

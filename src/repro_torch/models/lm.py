@@ -45,16 +45,19 @@ import functools
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import LOCAL_KINDS, MOE_KINDS, SSM_KINDS
 from repro_torch.core import blocks
-from repro_torch.core.embedding import (embed_sequence, embed_token,
-                                        embedding_param_shapes, greedy_token,
-                                        init_embedding, sample_token,
-                                        sample_topn)
+from repro_torch.core.embedding import (ce_loss, embed_sequence, embed_token,
+                                        embedding_param_shapes,
+                                        greedy_token, init_embedding,
+                                        sample_token, sample_topn)
 from repro_torch.core.nn import act_dtype
 from repro_torch.core.rope import sinusoidal_positions
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.params import layer, tree_from_numpy
+from repro_torch.models.params import layer, layers, tree_from_numpy
 
 
 # --------------------------------------------------------------------------
@@ -242,6 +245,28 @@ def _run_segments_prefill(params, x, *, cfg, policy, max_seq, fused=True,
     return x, (tuple(caches) if with_cache else None)
 
 
+def _train_layer(x, kind, p, cfg, policy, memory, mode):
+    with ops.kernel_mode(mode):
+        return blocks.block_full(kind, p, x, cfg=cfg, policy=policy,
+                                 memory=memory)[0]
+
+
+def _run_segments_train(params, x, *, cfg, policy, memory=None):
+    """Every layer of the schedule, each under `torch.utils.checkpoint`
+    (non-reentrant): its activations are recomputed in the backward pass,
+    kernel launches included, as the reference remats its scan body.  The
+    recompute runs in the kernel mode of the forward (it is an argument:
+    the mode is thread-local, and the backward of CUDA tensors runs on
+    autograd's device thread).  The layers' parameters are `unbind` views
+    of the stacked segments."""
+    mode = ops.get_mode()
+    for (kind, count), p_seg in zip(cfg.schedule, params["segments"]):
+        for p in layers(p_seg, count):
+            x = checkpoint(_train_layer, x, kind, p, cfg, policy, memory,
+                           mode, use_reentrant=False)
+    return x
+
+
 def _run_segments_decode(params, x, pos, caches, *, cfg, policy,
                          block_tables, fused=True, paged_segments=None):
     """Every layer's decode step; pool, ring-cache and SSM-state leaves are
@@ -371,6 +396,68 @@ def forward_prefill(params, tokens, *, cfg, policy, max_seq: int,
     tok = _choose(x_last, params, lane, pos, cfg=cfg, policy=policy,
                   norm=head_norm)
     return tok, caches, pos.to(torch.int32)
+
+
+def train_support_reason(cfg):
+    """Why `forward_train` refuses `cfg` (None: it trains it): a block kind
+    or a norm whose kernel has no gradient in the port yet."""
+    kinds = {k for k, _ in cfg.schedule + tuple(cfg.enc_schedule or ())}
+    if kinds & set(SSM_KINDS):
+        return "the SSD scan (rows 11-12) has no gradient in the port yet"
+    if kinds & set(MOE_KINDS):
+        return ("the SwiGLU GEMM's expert form (row 2) and the MoE aux "
+                "loss have no gradient in the port yet")
+    if cfg.mlp_act == "swiglu":
+        return "SwiGLU GEMM (row 2) has no gradient in the port yet"
+    if kinds & set(LOCAL_KINDS):
+        return ("flash attention with a window (row 3) has no gradient in "
+                "the port yet")
+    if cfg.norm == "rmsnorm":
+        return "RMSNorm (row 7) has no gradient in the port yet"
+    return None
+
+
+def forward_train(params, batch, *, cfg, policy):
+    """The train pass -> (loss_for_grad, {"ce", "tokens", "loss"}).
+
+    `batch`: "tokens" / "labels" [B, S] (int), optional "valid" [B, S]
+    bool, a VLM's "patches" and an encoder-decoder's "frames" as the data
+    pipeline emits them.  The mean cross-entropy over the valid positions
+    (patch positions never count) is both the loss to differentiate and
+    the metrics' "ce" and "loss" (one device: no share of a mesh; no MoE
+    aux loss for the kinds the port trains).  The fused chain, as the
+    reference's train plan fuses its epilogues.  Refuses a config whose
+    kernels have no gradient yet (`train_support_reason`), on both
+    devices."""
+    reason = train_support_reason(cfg)
+    if reason is not None:
+        raise NotImplementedError(f"forward_train: {cfg.name}: {reason}")
+    tokens = batch["tokens"]
+    patches = batch.get("patches")
+    n_p = _n_prefix(cfg, patches)
+    memory = _memory(params, batch.get("frames"), cfg=cfg, policy=policy,
+                     fused=True)
+    x = _embed_sequence(params, tokens, cfg=cfg, policy=policy,
+                        patches=patches)
+    labels = batch["labels"]
+    valid = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
+    if "valid" in batch:
+        valid = valid & batch["valid"].bool()
+    if n_p:
+        B = tokens.shape[0]
+        labels = torch.cat([torch.zeros((B, n_p), dtype=labels.dtype,
+                                        device=labels.device), labels], 1)
+        valid = torch.cat([torch.zeros((B, n_p), dtype=torch.bool,
+                                       device=valid.device), valid], 1)
+    x = _run_segments_train(params, x, cfg=cfg, policy=policy,
+                            memory=memory)
+    x = ops.norm(x, params["final_norm"], cfg.norm)
+    loss_sum, cnt = ce_loss(x, params["embedding"]["unemb"], labels, valid,
+                            cfg=cfg, policy=policy)
+    n = torch.clamp(cnt, min=1.0)
+    loss = loss_sum / n
+    ce = loss.detach()
+    return loss, {"ce": ce, "tokens": n, "loss": ce}
 
 
 def forward_encode(params, tokens, *, cfg, policy, prompt_len=None,

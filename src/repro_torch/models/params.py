@@ -1,6 +1,10 @@
 """Parameter-tree helpers shared by the port's model forwards: the numpy
-converter behind `lm.params_from_numpy` / `vit.vit_params_from_numpy`, and the
-per-layer view of a stacked segment."""
+converter behind `lm.params_from_numpy` / `vit.vit_params_from_numpy`, the
+per-layer view of a stacked segment, and the tree walk of the optimizer and
+the checkpointer (`tree_flatten` / `tree_unflatten`), whose leaf order is
+`jax.tree.flatten`'s: dict keys sorted, tuples and lists in order, None an
+empty subtree.  A checkpoint's leaf i is then the same leaf in both
+packages."""
 from __future__ import annotations
 
 import numpy as np
@@ -64,4 +68,103 @@ def layer(p_seg, i):
             for k, v in p_seg.items()}
 
 
-__all__ = ["tree_from_numpy", "layer"]
+def layers(p_seg, count: int):
+    """Every layer's parameter views of a stacked segment, one `unbind` a
+    leaf: under autograd the layers' gradients stack once into the
+    segment's (indexing layer by layer would add each into a zero tensor
+    of the whole stack)."""
+    def split(tree):
+        return {k: (split(v) if isinstance(v, dict) else torch.unbind(v))
+                for k, v in tree.items()}
+
+    def pick(tree, i):
+        return {k: (pick(v, i) if isinstance(v, dict) else v[i])
+                for k, v in tree.items()}
+
+    parts = split(p_seg)
+    return [pick(parts, i) for i in range(count)]
+
+
+def meta_tree(shapes, dtype=torch.float32):
+    """"meta" tensors (no storage) at `dtype` of a shape tree (dicts,
+    tuples of segment dicts, shape tuples): the like-tree a checkpoint
+    restores into."""
+    if isinstance(shapes, dict):
+        return {k: meta_tree(v, dtype) for k, v in shapes.items()}
+    if shapes and isinstance(shapes[0], dict):
+        return tuple(meta_tree(v, dtype) for v in shapes)
+    return torch.empty(shapes, dtype=dtype, device="meta")
+
+
+class TreeDef:
+    """The structure of a flattened tree; `str` gives `jax.tree`'s treedef
+    form (`PyTreeDef({'a': *, 'b': (*, *)})`), which checkpoint manifests
+    record."""
+
+    def __init__(self, node):
+        self.node = node
+
+    def __repr__(self):
+        def fmt(n):
+            kind, sub = n
+            if kind == "leaf":
+                return "*"
+            if kind == "none":
+                return "None"
+            if kind == "dict":
+                return "{" + ", ".join(f"{k!r}: {fmt(v)}"
+                                       for k, v in sub) + "}"
+            inner = ", ".join(fmt(v) for v in sub)
+            if kind == "tuple":
+                return f"({inner},)" if len(sub) == 1 else f"({inner})"
+            return f"[{inner}]"
+        return f"PyTreeDef({fmt(self.node)})"
+
+
+def tree_flatten(tree):
+    """-> (leaves, TreeDef) in `jax.tree.flatten`'s order."""
+    leaves = []
+
+    def walk(n):
+        if n is None:
+            return ("none", None)
+        if isinstance(n, dict):
+            return ("dict", [(k, walk(n[k])) for k in sorted(n)])
+        if isinstance(n, (tuple, list)):
+            kind = "tuple" if isinstance(n, tuple) else "list"
+            return (kind, [walk(v) for v in n])
+        leaves.append(n)
+        return ("leaf", None)
+
+    return leaves, TreeDef(walk(tree))
+
+
+def tree_unflatten(treedef: TreeDef, leaves):
+    """The tree of `treedef` with `leaves` in flatten order."""
+    it = iter(leaves)
+
+    def build(n):
+        kind, sub = n
+        if kind == "leaf":
+            return next(it)
+        if kind == "none":
+            return None
+        if kind == "dict":
+            return {k: build(v) for k, v in sub}
+        out = [build(v) for v in sub]
+        return tuple(out) if kind == "tuple" else out
+
+    out = build(treedef.node)
+    if next(it, None) is not None:
+        raise ValueError("tree_unflatten: more leaves than the tree holds")
+    return out
+
+
+def tree_map(fn, tree):
+    """`fn` over the leaves of `tree`, in a tree of the same structure."""
+    leaves, tdef = tree_flatten(tree)
+    return tree_unflatten(tdef, [fn(x) for x in leaves])
+
+
+__all__ = ["tree_from_numpy", "layer", "layers", "meta_tree", "TreeDef",
+           "tree_flatten", "tree_unflatten", "tree_map"]

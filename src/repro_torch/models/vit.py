@@ -11,6 +11,12 @@ classification (the paper's images/s metric).
 Parameters keep the reference's tree: `patch`, `cls`, `pos`, `head`,
 `head_b`, `final_norm/{scale, bias}` and one dict per schedule segment
 with the layer dim first, as in `models.lm`.
+
+`vit_loss` is the classifier's training loss (the reference's): the
+log-softmax cross-entropy of the fp32 logits (head bias included) and the
+accuracy.  Under autograd the forward's GEMMs, flash attention and
+LayerNorm run their kernels' autograd Functions (`kernels/ops.py`); the
+layers are not rematerialized, as the reference's are not.
 """
 from __future__ import annotations
 
@@ -97,5 +103,17 @@ def forward_vit(params, patches, *, cfg, policy, fused: bool = True):
     return logits + params["head_b"].to(torch.float32)
 
 
+def vit_loss(params, patches, labels, *, cfg, policy, fused: bool = True):
+    """patches: [B, n_patches, PATCH_DIM]; labels: [B] class ids ->
+    (loss, {"loss", "acc"}): the mean of -log_softmax(logits)[label] and
+    the share of rows whose argmax is the label."""
+    logits = forward_vit(params, patches, cfg=cfg, policy=policy,
+                         fused=fused)
+    logp = torch.log_softmax(logits, dim=-1)
+    loss = -torch.gather(logp, -1, labels.long()[:, None])[:, 0].mean()
+    acc = (logits.argmax(-1) == labels.long()).float().mean()
+    return loss, {"loss": loss.detach(), "acc": acc}
+
+
 __all__ = ["PATCH_DIM", "vit_param_shapes", "init_vit",
-           "vit_params_from_numpy", "forward_vit"]
+           "vit_params_from_numpy", "forward_vit", "vit_loss"]

@@ -28,9 +28,10 @@ the index may hold.  Both need a config whose every KV segment is paged
 decoding (`serving/spec.py`): a draft LM (`draft_params`, the target itself
 for draft="self", else a seeded init) proposes k tokens a round and one
 target verify pass commits 1 to k + 1 of them a slot, chain or token tree;
-`decode()` is replaced by `runner.spec_decode()`.  The reference's
-`draft_checkpoint=` (draft params from a checkpoint directory) waits for
-the port's checkpointer and is not an argument here.
+`decode()` is replaced by `runner.spec_decode()`.  `draft_checkpoint=`
+(needs `spec=`, exclusive with `draft_params=`) restores the draft's params
+from a `Checkpointer` directory, a tree of the resolved draft config at
+the target params' dtype, as the reference's `_restore_draft` does.
 
 `overlap=True` runs the overlapped host loop: the engine dispatches a
 decode step and runs host scheduling and admission (and, in the steady
@@ -70,12 +71,22 @@ class InferenceEngine:
                  kv_dtype: Optional[str] = None, prefix_cache: bool = False,
                  cache_blocks: Optional[int] = None,
                  spec: Optional[SpecConfig] = None, draft_params=None,
+                 draft_checkpoint: Optional[str] = None,
                  device=None, encode_batch: Optional[int] = None,
                  overlap: bool = False, tracer=None):
         # `policy` is the PRECISION policy (the reference's name); the
         # scheduling policy is `scheduler`
         if encode_batch is not None and encode_batch < 1:
             raise ValueError(f"encode_batch must be >= 1: {encode_batch}")
+        if draft_checkpoint is not None:
+            if spec is None:
+                raise ValueError(
+                    "draft_checkpoint requires a SpecConfig (`spec=`)")
+            if draft_params is not None:
+                raise ValueError(
+                    "pass draft_params OR draft_checkpoint, not both")
+            draft_params = self._restore_draft(cfg, params, spec,
+                                               draft_checkpoint, device)
         self.runner = ModelRunner(cfg, params, batch_size=batch_size,
                                   max_seq=max_seq, policy=policy,
                                   min_bucket=min_bucket,
@@ -107,6 +118,24 @@ class InferenceEngine:
         self._stats = self._fresh_stats()
         self._prefix_base = self._prefix_snapshot()
         self._t_last_decode: Optional[float] = None
+
+    @staticmethod
+    def _restore_draft(cfg, params, spec: SpecConfig, directory: str,
+                       device):
+        """The draft's params from a Checkpointer directory: the resolved
+        draft config's tree at the target params' dtype (leaf count and
+        shapes checked by restore: a mismatched checkpoint fails loudly),
+        on the engine's device."""
+        from repro_torch.checkpoint import Checkpointer
+        from repro_torch.device import resolve_device
+        from repro_torch.models import lm
+        from repro_torch.models.params import meta_tree, tree_flatten
+        from repro_torch.serving.spec import resolve_draft
+        dcfg = resolve_draft(spec, cfg)
+        pdtype = tree_flatten(params)[0][0].dtype
+        like = meta_tree(lm.lm_param_shapes(dcfg), pdtype)
+        return Checkpointer(directory).restore(like,
+                                               device=resolve_device(device))
 
     # -- delegated runner state ----------------------------------------
     @property

@@ -3,8 +3,8 @@ CPU at reduced GPT-J: generate traffic (greedy and sampled), int8 serving
 (`--weight-dtype int8 --kv-dtype int8`) and encode traffic run and print
 the summary; the served tokens and embeddings equal an engine built
 directly from the same seeds (the CLI's prefix cache is on by default);
-the unported `--draft-checkpoint` and malformed goodput / tracing values
-are refused.
+`--draft-checkpoint` without `--spec-draft` and malformed goodput /
+tracing values are refused.
 Sampling seeds are int32, as the reference's lanes: a seed outside
 [-2**31, 2**31) is refused instead of aliasing another."""
 import numpy as np
@@ -73,8 +73,8 @@ def test_serve_cli_runs_and_matches_a_direct_engine(case, capsys):
                                   ["--policy", "edf"],
                                   ["--trace-buffer", "0"]])
 def test_serve_cli_refuses_unported_flags(flag):
-    """The unported `--draft-checkpoint` and malformed values of the
-    goodput and tracing flags exit with argparse's code 2."""
+    """`--draft-checkpoint` without `--spec-draft` and malformed values of
+    the goodput and tracing flags exit with argparse's code 2."""
     with pytest.raises(SystemExit) as exc:
         serve.main(BASE + flag)
     assert exc.value.code == 2
